@@ -1,0 +1,182 @@
+"""ConvNeXt v1/v2 backbones, inference, NHWC.
+
+Counterpart of ``spine_vision_tpu/models/convnext.py``. Each block dispatches
+as the JAX model does with ``use_pallas=True``:
+
+- v1 blocks of width <= ``MAX_FUSED_DIM`` run the whole-block kernel
+  (``ops/convnext_block.py``);
+- wider blocks, and v2 (GRN) blocks, run the dwconv+LayerNorm kernel
+  (``ops/dwconv.py``) and then a plain MLP;
+- ``gelu="erf"`` (exact GELU parity) runs plain PyTorch ops throughout.
+
+The stem and downsample convolutions and the plain MLP's products are
+``F.conv2d`` / ``torch.matmul``, as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from spine_vision_torch.models.layers import Conv, LayerNorm, _lecun_normal, _param
+from spine_vision_torch.ops.convnext_block import convnext_block
+from spine_vision_torch.ops.dwconv import KERNEL_SIZE, PAD, dw_ln
+from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM
+
+
+@dataclass(frozen=True)
+class ConvNeXtConfig:
+    """Architecture hyperparameters for a ConvNeXt backbone."""
+
+    depths: tuple[int, ...]
+    dims: tuple[int, ...]
+    use_grn: bool = False  # v2
+    layer_scale_init: float = 1e-6  # v1 LayerScale (ignored when use_grn)
+
+    @property
+    def num_features(self) -> int:
+        return self.dims[-1]
+
+
+CONVNEXT_CONFIGS: dict[str, ConvNeXtConfig] = {
+    "convnext_tiny": ConvNeXtConfig((3, 3, 9, 3), (96, 192, 384, 768)),
+    "convnext_small": ConvNeXtConfig((3, 3, 27, 3), (96, 192, 384, 768)),
+    "convnext_base": ConvNeXtConfig((3, 3, 27, 3), (128, 256, 512, 1024)),
+    "convnext_large": ConvNeXtConfig((3, 3, 27, 3), (192, 384, 768, 1536)),
+    "convnext_xlarge": ConvNeXtConfig((3, 3, 27, 3), (256, 512, 1024, 2048)),
+    "convnextv2_tiny": ConvNeXtConfig((3, 3, 9, 3), (96, 192, 384, 768), use_grn=True),
+    "convnextv2_small": ConvNeXtConfig((3, 3, 27, 3), (96, 192, 384, 768), use_grn=True),
+    "convnextv2_base": ConvNeXtConfig((3, 3, 27, 3), (128, 256, 512, 1024), use_grn=True),
+    "convnextv2_large": ConvNeXtConfig((3, 3, 27, 3), (192, 384, 768, 1536), use_grn=True),
+    "convnextv2_huge": ConvNeXtConfig((3, 3, 27, 3), (352, 704, 1408, 2816), use_grn=True),
+}
+
+
+class GRN(nn.Module):
+    """Global Response Normalization (ConvNeXt-V2), in f32."""
+
+    def __init__(self, dim: int, device=None) -> None:
+        super().__init__()
+        self.gamma = _param(torch.zeros(dim), torch.float32, device)
+        self.beta = _param(torch.zeros(dim), torch.float32, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        gx = torch.sqrt((xf * xf).sum(dim=(1, 2), keepdim=True) + 1e-12)
+        nx = gx / (gx.mean(dim=-1, keepdim=True) + 1e-6)
+        return (self.gamma * (xf * nx) + self.beta + xf).to(x.dtype)
+
+
+class ConvNeXtBlock(nn.Module):
+    """Depthwise 7x7 -> LN -> pwconv(4x) -> GELU -> [GRN] -> pwconv + residual.
+
+    Weights live in the layouts the kernels read: ``dw_kernel [49, C]`` and
+    ``pw{1,2}_weight [out, in]`` in the compute dtype; biases, LayerNorm and
+    ``gamma`` in f32.
+    """
+
+    def __init__(
+        self, dim: int, use_grn: bool, layer_scale_init: float,
+        dtype=torch.float32, gelu: str = "tanh", device=None,
+        generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        self.dim, self.use_grn, self.gelu = dim, use_grn, gelu
+        self.use_kernels = gelu != "erf"
+        f32 = torch.float32
+        taps = KERNEL_SIZE * KERNEL_SIZE
+        self.dw_kernel = _param(_lecun_normal((taps, dim), taps, generator), dtype, device)
+        self.dw_bias = _param(torch.zeros(dim), f32, device)
+        self.norm_scale = _param(torch.ones(dim), f32, device)
+        self.norm_bias = _param(torch.zeros(dim), f32, device)
+        self.pw1_weight = _param(_lecun_normal((4 * dim, dim), dim, generator), dtype, device)
+        self.pw1_bias = _param(torch.zeros(4 * dim), f32, device)
+        self.pw2_weight = _param(_lecun_normal((dim, 4 * dim), 4 * dim, generator), dtype, device)
+        self.pw2_bias = _param(torch.zeros(dim), f32, device)
+        self.grn = GRN(4 * dim, device=device) if use_grn else None
+        has_gamma = not use_grn and layer_scale_init > 0
+        self.gamma = (
+            _param(torch.full((dim,), float(layer_scale_init)), f32, device)
+            if has_gamma else None
+        )
+        self.fused = self.use_kernels and not use_grn and dim <= MAX_FUSED_DIM
+        if self.fused and self.gamma is None:
+            # The whole-block kernel always applies a scale (ones here).
+            self.register_buffer("_ones", torch.ones(dim, dtype=f32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.pw1_weight.dtype
+        x = x.to(dtype).contiguous()
+        if self.fused:
+            gamma = self.gamma if self.gamma is not None else self._ones
+            return convnext_block(
+                x, self.dw_kernel, self.dw_bias, self.norm_scale, self.norm_bias,
+                self.pw1_weight, self.pw1_bias, self.pw2_weight, self.pw2_bias, gamma,
+            )
+        if self.use_kernels:
+            y = dw_ln(x, self.dw_kernel, self.dw_bias, self.norm_scale, self.norm_bias)
+        else:
+            weight = self.dw_kernel.t().reshape(self.dim, 1, KERNEL_SIZE, KERNEL_SIZE)
+            t = F.conv2d(
+                x.permute(0, 3, 1, 2), weight, self.dw_bias.to(dtype),
+                padding=PAD, groups=self.dim,
+            ).permute(0, 2, 3, 1)
+            y = F.layer_norm(
+                t.float(), (self.dim,), self.norm_scale, self.norm_bias, 1e-6
+            ).to(dtype)
+        # Plain MLP in the compute dtype, as flax.linen.Dense(dtype=...).
+        y = torch.matmul(y, self.pw1_weight.t()) + self.pw1_bias.to(dtype)
+        y = F.gelu(y, approximate="none" if self.gelu == "erf" else "tanh")
+        if self.grn is not None:
+            y = self.grn(y)
+        y = torch.matmul(y, self.pw2_weight.t()) + self.pw2_bias.to(dtype)
+        if self.gamma is not None:
+            y = y * self.gamma.to(dtype)
+        return x + y
+
+
+class ConvNeXt(nn.Module):
+    """ConvNeXt feature extractor: ``[B, H, W, 3]`` -> ``[B, C]`` f32 (global
+    mean pool, then ``head_norm``)."""
+
+    def __init__(
+        self, config: ConvNeXtConfig, dtype=torch.float32, gelu: str = "tanh",
+        device=None, generator: torch.Generator | None = None,
+    ) -> None:
+        super().__init__()
+        self.config, self.dtype = config, dtype
+        dims = config.dims
+        kw = {"dtype": dtype, "device": device, "generator": generator}
+        self.stem_conv = Conv(3, dims[0], 4, 4, padding="SAME", **kw)
+        self.stem_norm = LayerNorm(dims[0], device=device)
+        for s, (depth, dim) in enumerate(zip(config.depths, dims)):
+            if s > 0:
+                self.add_module(f"downsample{s}_norm", LayerNorm(dims[s - 1], device=device))
+                self.add_module(
+                    f"downsample{s}_conv", Conv(dims[s - 1], dim, 2, 2, padding="SAME", **kw)
+                )
+            for b in range(depth):
+                self.add_module(
+                    f"stage{s + 1}_block{b + 1}",
+                    ConvNeXtBlock(
+                        dim, config.use_grn, config.layer_scale_init, gelu=gelu, **kw,
+                    ),
+                )
+        self.head_norm = LayerNorm(dims[-1], device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        x = self.stem_conv(x.to(self.dtype))
+        x = self.stem_norm(x).to(self.dtype)
+        for s, depth in enumerate(cfg.depths):
+            if s > 0:
+                x = getattr(self, f"downsample{s}_norm")(x).to(self.dtype)
+                x = getattr(self, f"downsample{s}_conv")(x)
+            x = x.contiguous()
+            for b in range(depth):
+                x = getattr(self, f"stage{s + 1}_block{b + 1}")(x)
+        x = x.mean(dim=(1, 2))
+        return self.head_norm(x)
