@@ -2,7 +2,11 @@
 //   out = x + gamma * (W2 . gelu_tanh(W1 . LN(dwconv7x7(x) + b_dw) + b1) + b2)
 //
 // Replaces spine_vision_tpu/ops/convnext_block.py::_block_pallas
-// (_make_block_kernel, emit_conv=False). On the main path it runs 33 of
+// (_make_block_kernel) in both forms. With emit_conv (the hybrid training
+// block, ops/block_train.py) it also writes t = dwconv7x7(x) + b_dw rounded
+// to bf16, and its LayerNorm reads the rounded t, as the TPU kernel's
+// emit_conv form does; the inference form is compiled without it. On the
+// inference path it runs 33 of
 // ConvNeXt-base's 36 blocks (16 images; C = 128 at 128x128, 256 at 64x64,
 // 512 at 32x32). Each block does 4 * M * C * 4C flops in its two products
 // against 4 * M * C bytes of activation traffic: 500 to 2000 flops a byte, far
@@ -28,6 +32,7 @@
 // ldmatrix free of bank conflicts. Not yet here: wgmma, TMA, a persistent
 // schedule; at C = 512 one CTA fills an SM's shared memory.
 #include "dwconv_ln.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -51,64 +56,14 @@ struct Layout {
   static constexpr size_t BYTES = (size_t)END * sizeof(bf16);
 };
 
-// 16-byte global -> shared copy that bypasses the register file.
-__device__ __forceinline__ void cp_async16(bf16* smem, const bf16* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most one committed group is still in flight.
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
-
-// A fragment (16x16 at rows m0.., cols k0..) of a row-major [*, ld] array.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base,
-                                       int ld, int m0, int k0, int lane) {
-  ldsm_x4(a, base + (m0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
-}
-// B fragments of the two 16x8 tiles at n0 and n0 + 8 of an n-major [n][ld]
-// array: {b0, b1} of the first in r[0..1], of the second in r[2..3].
-__device__ __forceinline__ void load_b2(uint32_t (&b)[4], const bf16* base,
-                                        int ld, int n0, int k0, int lane) {
-  ldsm_x4(b, base + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
-                 ((lane >> 3) & 1) * 8);
-}
-__device__ __forceinline__ void load_b1(uint32_t (&b)[2], const bf16* base,
-                                        int ld, int n0, int k0, int lane) {
-  ldsm_x2(b, base + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// tanh-approximate GELU, as spine_vision_tpu/ops/fused_mlp.py::_tanh_gelu.
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float u = 0.7978845608028654f * (x + 0.044715f * x * x * x);
-  return 0.5f * x * (1.f + tanhf(u));
-}
+using svt::cp_async16;
+using svt::cp_async_commit;
+using svt::cp_async_wait_1;
+using svt::gelu_tanh;
+using svt::load_a;
+using svt::load_b1;
+using svt::load_b2;
+using svt::mma;
 
 // Warp grid of the second product and the epilogue: WM x WN warps, each
 // owning MT row tiles of 16 and NTW column tiles of 8 (64 x 64 at C = 512).
@@ -141,14 +96,15 @@ __device__ __forceinline__ void load_w2(bf16* sW2, const bf16* __restrict__ w2t,
   }
 }
 
-template <int C>
+template <int C, bool EMIT>
 __global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ k,
     const float* __restrict__ dw_bias, const float* __restrict__ ln_scale,
     const float* __restrict__ ln_bias, const bf16* __restrict__ w1t,
     const float* __restrict__ b1, const bf16* __restrict__ w2t,
     const float* __restrict__ b2, const float* __restrict__ gamma,
-    bf16* __restrict__ out, int B, int H, int W, float eps) {
+    bf16* __restrict__ out, bf16* __restrict__ t_out, int B, int H, int W,
+    float eps) {
   using L = Layout<C>;
   using G = Grid2<C>;
   constexpr int NP = svt::Lanes<C>::NP;
@@ -183,14 +139,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
     int b[TB], h[TB], w[TB];
     bool ok[TB];
     bf16* xrows[TB];
+    bf16* trows[TB];
 #pragma unroll
     for (int i = 0; i < TB; ++i) {
       svt::token_coords(tok0 + r0 + i, M, H, W, b[i], h[i], w[i], ok[i]);
       xrows[i] = sX + (r0 + i) * L::LDY;
+      trows[i] = EMIT ? t_out + (tok0 + r0 + i) * C : nullptr;
     }
     float y[TB][NP][2];
-    svt::dw_ln_tokens<bf16, C, TB, true>(x, k, dw_bias, ln_scale, ln_bias, b,
-                                         h, w, ok, H, W, eps, lane, y, xrows);
+    svt::dw_ln_tokens<bf16, C, TB, true, EMIT>(x, k, dw_bias, ln_scale, ln_bias,
+                                               b, h, w, ok, H, W, eps, lane, y,
+                                               xrows, trows);
 #pragma unroll
     for (int i = 0; i < TB; ++i) {
       bf16* yrow = sY + (r0 + i) * L::LDY;
@@ -321,40 +280,55 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
   }
 }
 
+template <int C, bool EMIT>
+int launch_form(const void* x, const void* k, const void* dw_bias,
+           const void* ln_scale, const void* ln_bias, const void* w1t,
+           const void* b1, const void* w2t, const void* b2, const void* gamma,
+           void* out, void* t, int B, int H, int W, float eps,
+           cudaStream_t stream) {
+  const size_t smem = Layout<C>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      block_kernel<C, EMIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long tokens = (long long)B * H * W;
+  const dim3 grid((unsigned)((tokens + TOK - 1) / TOK));
+  block_kernel<C, EMIT><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)x, (const bf16*)k, (const float*)dw_bias,
+      (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1t,
+      (const float*)b1, (const bf16*)w2t, (const float*)b2,
+      (const float*)gamma, (bf16*)out, (bf16*)t, B, H, W, eps);
+  return (int)cudaGetLastError();
+}
+
 template <int C>
 int launch(const void* x, const void* k, const void* dw_bias,
            const void* ln_scale, const void* ln_bias, const void* w1t,
            const void* b1, const void* w2t, const void* b2, const void* gamma,
-           void* out, int B, int H, int W, float eps, cudaStream_t stream) {
-  const size_t smem = Layout<C>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tokens = (long long)B * H * W;
-  const dim3 grid((unsigned)((tokens + TOK - 1) / TOK));
-  block_kernel<C><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)k, (const float*)dw_bias,
-      (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1t,
-      (const float*)b1, (const bf16*)w2t, (const float*)b2,
-      (const float*)gamma, (bf16*)out, B, H, W, eps);
-  return (int)cudaGetLastError();
+           void* out, void* t, int B, int H, int W, float eps,
+           cudaStream_t stream) {
+  if (t == nullptr)
+    return launch_form<C, false>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t,
+                                 b2, gamma, out, t, B, H, W, eps, stream);
+  return launch_form<C, true>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2,
+                              gamma, out, t, B, H, W, eps, stream);
 }
 
 }  // namespace
 
-// x, k [49, C], w1t [4C, C], w2t [C, 4C] and out are bf16; the rest f32.
+// x, k [49, C], w1t [4C, C], w2t [C, 4C], out and t are bf16; the rest f32.
+// t (the rounded conv output, [B, H, W, C]) may be null: the inference form.
 // Returns the cudaError_t of the launch.
 extern "C" int svt_convnext_block_forward(
     const void* x, const void* k, const void* dw_bias, const void* ln_scale,
     const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
-    const void* b2, const void* gamma, void* out, int B, int H, int W, int C,
-    float eps, void* stream) {
+    const void* b2, const void* gamma, void* out, void* t, int B, int H, int W,
+    int C, float eps, void* stream) {
   if (B * H * W == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
 #define SVT_BLOCK_CASE(CC)                                                    \
   case CC:                                                                    \
     return launch<CC>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2,     \
-                      gamma, out, B, H, W, eps, s);
+                      gamma, out, t, B, H, W, eps, s);
   switch (C) {
     SVT_BLOCK_CASE(96)
     SVT_BLOCK_CASE(128)

@@ -55,13 +55,16 @@ struct TokensPerWarp {
 // For TB tokens (b[i], h[i], w[i]) of one warp, with ok[i] false for a token
 // past the end: y[i] = LN(dwconv7x7(x)[b, h, w, :] + bias) * scale + beta.
 // With KEEP_CENTRE, x[b, h, w, :] (the residual) is copied to centre[i].
-template <typename T, int C, int TB, bool KEEP_CENTRE>
+// With EMIT_T, t = dwconv7x7(x) + bias is rounded to T, written to trow[i]
+// (for each token in range) and the LayerNorm reads the rounded t.
+template <typename T, int C, int TB, bool KEEP_CENTRE, bool EMIT_T = false>
 __device__ __forceinline__ void dw_ln_tokens(
     const T* __restrict__ x, const T* __restrict__ k,
     const float* __restrict__ bias, const float* __restrict__ scale,
     const float* __restrict__ beta, const int (&b)[TB], const int (&h)[TB],
     const int (&w)[TB], const bool (&ok)[TB], int H, int W, float eps,
-    int lane, float (&y)[TB][Lanes<C>::NP][2], T* const (&centre)[TB]) {
+    int lane, float (&y)[TB][Lanes<C>::NP][2], T* const (&centre)[TB],
+    T* const* trow = nullptr) {
   static_assert(!KEEP_CENTRE || sizeof(T) == 2, "the residual copy is for bf16");
   constexpr int NP = Lanes<C>::NP;
 #pragma unroll
@@ -110,6 +113,14 @@ __device__ __forceinline__ void dw_ln_tokens(
         const float2 bv = load2(bias + 2 * p);
         y[i][q][0] += bv.x;
         y[i][q][1] += bv.y;
+        if constexpr (EMIT_T) {
+          static_assert(!EMIT_T || sizeof(T) == 2, "t is emitted in bf16");
+          const __nv_bfloat162 tv = __floats2bfloat162_rn(y[i][q][0], y[i][q][1]);
+          if (ok[i]) *reinterpret_cast<__nv_bfloat162*>(trow[i] + 2 * p) = tv;
+          const float2 tf = __bfloat1622float2(tv);
+          y[i][q][0] = tf.x;
+          y[i][q][1] = tf.y;
+        }
         s += y[i][q][0] + y[i][q][1];
       }
     }

@@ -33,15 +33,26 @@ _NOT_PORTED = {
 
 
 def create_backbone(
-    name: str, dtype=torch.bfloat16, device=None, generator: torch.Generator | None = None
+    name: str, dtype=torch.bfloat16, device=None, generator: torch.Generator | None = None,
+    use_pallas: bool | str = True, param_dtype=None,
 ) -> tuple[nn.Module, int]:
-    """Build a backbone mapping ``[B, H, W, 3]`` images to ``[B, dim]`` features."""
+    """Build a backbone mapping ``[B, H, W, 3]`` images to ``[B, dim]`` features.
+
+    ``use_pallas`` picks the ConvNeXt kernels as in the JAX factory: ``True``
+    (inference kernels), ``"hybrid"`` (the training block) or ``False``
+    (plain ops); ResNets have none. ``param_dtype`` (ConvNeXt only) keeps the
+    weights in another dtype than the compute one, f32 masters for training.
+    """
     if name in RESNET_CONFIGS:
         cfg = RESNET_CONFIGS[name]
         return ResNet(cfg, dtype=dtype, device=device, generator=generator), cfg.num_features
     if name in CONVNEXT_CONFIGS:
         cn = CONVNEXT_CONFIGS[name]
-        return ConvNeXt(cn, dtype=dtype, device=device, generator=generator), cn.num_features
+        model = ConvNeXt(
+            cn, dtype=dtype, device=device, generator=generator,
+            use_pallas=use_pallas, param_dtype=param_dtype,
+        )
+        return model, cn.num_features
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {name!r} ({_NOT_PORTED[name]} family) is not ported yet: "

@@ -13,7 +13,9 @@ each layout once, at load time:
 
 :func:`random_flax_variables` builds such a tree from a seed with numpy, for
 a module's own shapes: a run without JAX can carry weights exactly as a
-checkpoint would.
+checkpoint would. :func:`export_flax_variables` is the inverse of the load:
+the port's variables (f32 master weights after training steps, say) back as a
+Flax-layout numpy tree.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ class _Entry:
     flax_shape: tuple[int, ...]
     target: torch.Tensor
     to_torch: Callable[[np.ndarray], np.ndarray]
+    to_flax: Callable[[np.ndarray], np.ndarray]
 
 
 def _same(a: np.ndarray) -> np.ndarray:
@@ -53,46 +56,64 @@ def _hwio_to_oihw(a: np.ndarray) -> np.ndarray:
     return a.transpose(3, 2, 0, 1)
 
 
+def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
+    return a.transpose(2, 3, 1, 0)
+
+
+def _taps_to_hwio(a: np.ndarray) -> np.ndarray:
+    return a.reshape(7, 7, 1, a.shape[-1])
+
+
+def _hwio_to_taps(a: np.ndarray) -> np.ndarray:
+    return a.reshape(49, a.shape[-1])
+
+
 def _entries_of(name: str, mod: nn.Module) -> Iterator[_Entry]:
     p = tuple(name.split(".")) if name else ()
     if isinstance(mod, Conv):
         o, i, kh, kw = mod.weight.shape
-        yield _Entry("params", p + ("kernel",), (kh, kw, i, o), mod.weight, _hwio_to_oihw)
+        yield _Entry(
+            "params", p + ("kernel",), (kh, kw, i, o), mod.weight, _hwio_to_oihw, _oihw_to_hwio
+        )
         if mod.bias is not None:
-            yield _Entry("params", p + ("bias",), (o,), mod.bias, _same)
+            yield _Entry("params", p + ("bias",), (o,), mod.bias, _same, _same)
     elif isinstance(mod, Dense):
         o, i = mod.weight.shape
-        yield _Entry("params", p + ("kernel",), (i, o), mod.weight, _transpose)
-        yield _Entry("params", p + ("bias",), (o,), mod.bias, _same)
+        yield _Entry("params", p + ("kernel",), (i, o), mod.weight, _transpose, _transpose)
+        yield _Entry("params", p + ("bias",), (o,), mod.bias, _same, _same)
     elif isinstance(mod, LayerNorm):
         c = mod.scale.shape[0]
-        yield _Entry("params", p + ("scale",), (c,), mod.scale, _same)
-        yield _Entry("params", p + ("bias",), (c,), mod.bias, _same)
+        yield _Entry("params", p + ("scale",), (c,), mod.scale, _same, _same)
+        yield _Entry("params", p + ("bias",), (c,), mod.bias, _same, _same)
     elif isinstance(mod, BatchNorm):
         c = mod.scale.shape[0]
-        yield _Entry("params", p + ("scale",), (c,), mod.scale, _same)
-        yield _Entry("params", p + ("bias",), (c,), mod.bias, _same)
-        yield _Entry("batch_stats", p + ("mean",), (c,), mod.mean, _same)
-        yield _Entry("batch_stats", p + ("var",), (c,), mod.var, _same)
+        yield _Entry("params", p + ("scale",), (c,), mod.scale, _same, _same)
+        yield _Entry("params", p + ("bias",), (c,), mod.bias, _same, _same)
+        yield _Entry("batch_stats", p + ("mean",), (c,), mod.mean, _same, _same)
+        yield _Entry("batch_stats", p + ("var",), (c,), mod.var, _same, _same)
     elif isinstance(mod, GRN):
         c = mod.gamma.shape[0]
-        yield _Entry("params", p + ("gamma",), (c,), mod.gamma, _same)
-        yield _Entry("params", p + ("beta",), (c,), mod.beta, _same)
+        yield _Entry("params", p + ("gamma",), (c,), mod.gamma, _same, _same)
+        yield _Entry("params", p + ("beta",), (c,), mod.beta, _same, _same)
     elif isinstance(mod, ConvNeXtBlock):
         c = mod.dim
         yield _Entry(
             "params", p + ("dwconv", "kernel"), (7, 7, 1, c), mod.dw_kernel,
-            lambda a: a.reshape(49, a.shape[-1]),
+            _hwio_to_taps, _taps_to_hwio,
         )
-        yield _Entry("params", p + ("dwconv", "bias"), (c,), mod.dw_bias, _same)
-        yield _Entry("params", p + ("norm", "scale"), (c,), mod.norm_scale, _same)
-        yield _Entry("params", p + ("norm", "bias"), (c,), mod.norm_bias, _same)
-        yield _Entry("params", p + ("pwconv1", "kernel"), (c, 4 * c), mod.pw1_weight, _transpose)
-        yield _Entry("params", p + ("pwconv1", "bias"), (4 * c,), mod.pw1_bias, _same)
-        yield _Entry("params", p + ("pwconv2", "kernel"), (4 * c, c), mod.pw2_weight, _transpose)
-        yield _Entry("params", p + ("pwconv2", "bias"), (c,), mod.pw2_bias, _same)
+        yield _Entry("params", p + ("dwconv", "bias"), (c,), mod.dw_bias, _same, _same)
+        yield _Entry("params", p + ("norm", "scale"), (c,), mod.norm_scale, _same, _same)
+        yield _Entry("params", p + ("norm", "bias"), (c,), mod.norm_bias, _same, _same)
+        yield _Entry(
+            "params", p + ("pwconv1", "kernel"), (c, 4 * c), mod.pw1_weight, _transpose, _transpose
+        )
+        yield _Entry("params", p + ("pwconv1", "bias"), (4 * c,), mod.pw1_bias, _same, _same)
+        yield _Entry(
+            "params", p + ("pwconv2", "kernel"), (4 * c, c), mod.pw2_weight, _transpose, _transpose
+        )
+        yield _Entry("params", p + ("pwconv2", "bias"), (c,), mod.pw2_bias, _same, _same)
         if mod.gamma is not None:
-            yield _Entry("params", p + ("gamma",), (c,), mod.gamma, _same)
+            yield _Entry("params", p + ("gamma",), (c,), mod.gamma, _same, _same)
 
 
 def _entries(module: nn.Module) -> list[_Entry]:
@@ -138,6 +159,24 @@ def load_flax_variables(
         if unused:
             raise KeyError(f"unused {collection} leaves: {['/'.join(p) for p in unused[:5]]}")
     return module
+
+
+def export_flax_variables(module: nn.Module, grads: bool = False) -> tuple[Tree, Tree]:
+    """The module's variables as f32 numpy ``(params, batch_stats)`` trees in
+    the Flax layout and names (the inverse of :func:`load_flax_variables`).
+    With ``grads``, the parameters' ``.grad`` instead (zeros where a
+    parameter has none), in the same layout."""
+    trees: dict[str, Tree] = {"params": {}, "batch_stats": {}}
+    for e in _entries(module):
+        node = trees[e.collection]
+        for key in e.path[:-1]:
+            node = node.setdefault(key, {})
+        source = e.target
+        if grads:
+            source = e.target.grad if e.target.grad is not None else torch.zeros_like(e.target)
+        value = source.detach().float().cpu().numpy()
+        node[e.path[-1]] = np.ascontiguousarray(e.to_flax(value))
+    return trees["params"], trees["batch_stats"]
 
 
 def _random_leaf(rng: np.random.Generator, e: _Entry) -> np.ndarray:

@@ -1,16 +1,24 @@
-"""ConvNeXt v1/v2 backbones, inference, NHWC.
+"""ConvNeXt v1/v2 backbones, NHWC, for inference and training.
 
 Counterpart of ``spine_vision_tpu/models/convnext.py``. Each block dispatches
-as the JAX model does with ``use_pallas=True``:
+as the JAX model does for its ``use_pallas`` setting:
 
-- v1 blocks of width <= ``MAX_FUSED_DIM`` run the whole-block kernel
-  (``ops/convnext_block.py``);
-- wider blocks, and v2 (GRN) blocks, run the dwconv+LayerNorm kernel
-  (``ops/dwconv.py``) and then a plain MLP;
-- ``gelu="erf"`` (exact GELU parity) runs plain PyTorch ops throughout.
+- ``use_pallas=True`` (inference): v1 blocks of width <= ``MAX_FUSED_DIM`` run
+  the whole-block kernel (``ops/convnext_block.py``); wider blocks, and v2
+  (GRN) blocks, run the dwconv+LayerNorm kernel (``ops/dwconv.py``) and then a
+  plain MLP;
+- ``use_pallas="hybrid"`` (training): v1 blocks of width <= ``MAX_FUSED_DIM``
+  with LayerScale run the hybrid block (``ops/block_train.py``: the block
+  kernel emitting ``t`` forward, the LN+MLP backward kernel); every other block
+  runs plain PyTorch ops (grouped ``F.conv2d``, f32 LayerNorm, Dense in the
+  compute dtype), which is the JAX package's own route for them;
+- ``use_pallas=False``, or ``gelu="erf"`` (exact GELU parity): plain PyTorch
+  ops throughout.
 
 The stem and downsample convolutions and the plain MLP's products are
 ``F.conv2d`` / ``torch.matmul``, as the JAX package leaves them to XLA.
+Weights live in ``param_dtype`` (f32 masters for training) and are cast to
+the compute dtype in ``forward``, as Flax does.
 """
 
 from __future__ import annotations
@@ -22,9 +30,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from spine_vision_torch.models.layers import Conv, LayerNorm, _lecun_normal, _param
+from spine_vision_torch.ops.block_train import convnext_block_hybrid
 from spine_vision_torch.ops.convnext_block import convnext_block
 from spine_vision_torch.ops.dwconv import KERNEL_SIZE, PAD, dw_ln
 from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM
+
+USE_PALLAS_MODES = (True, "hybrid", False)
 
 
 @dataclass(frozen=True)
@@ -74,27 +85,37 @@ class ConvNeXtBlock(nn.Module):
     """Depthwise 7x7 -> LN -> pwconv(4x) -> GELU -> [GRN] -> pwconv + residual.
 
     Weights live in the layouts the kernels read: ``dw_kernel [49, C]`` and
-    ``pw{1,2}_weight [out, in]`` in the compute dtype; biases, LayerNorm and
-    ``gamma`` in f32.
+    ``pw{1,2}_weight [out, in]`` in ``param_dtype`` (default: the compute
+    dtype); biases, LayerNorm and ``gamma`` in f32.
     """
 
     def __init__(
         self, dim: int, use_grn: bool, layer_scale_init: float,
         dtype=torch.float32, gelu: str = "tanh", device=None,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, use_pallas: bool | str = True,
+        param_dtype=None,
     ) -> None:
         super().__init__()
-        self.dim, self.use_grn, self.gelu = dim, use_grn, gelu
-        self.use_kernels = gelu != "erf"
+        if use_pallas not in USE_PALLAS_MODES:
+            raise NotImplementedError(
+                f"use_pallas={use_pallas!r} is not ported yet: ROADMAP.md, Queue 2 "
+                "(kernels #5-#7 and #10); the port takes True, 'hybrid' or False"
+            )
+        self.dim, self.use_grn, self.gelu, self.dtype = dim, use_grn, gelu, dtype
         f32 = torch.float32
+        param_dtype = param_dtype or dtype
         taps = KERNEL_SIZE * KERNEL_SIZE
-        self.dw_kernel = _param(_lecun_normal((taps, dim), taps, generator), dtype, device)
+        self.dw_kernel = _param(_lecun_normal((taps, dim), taps, generator), param_dtype, device)
         self.dw_bias = _param(torch.zeros(dim), f32, device)
         self.norm_scale = _param(torch.ones(dim), f32, device)
         self.norm_bias = _param(torch.zeros(dim), f32, device)
-        self.pw1_weight = _param(_lecun_normal((4 * dim, dim), dim, generator), dtype, device)
+        self.pw1_weight = _param(
+            _lecun_normal((4 * dim, dim), dim, generator), param_dtype, device
+        )
         self.pw1_bias = _param(torch.zeros(4 * dim), f32, device)
-        self.pw2_weight = _param(_lecun_normal((dim, 4 * dim), 4 * dim, generator), dtype, device)
+        self.pw2_weight = _param(
+            _lecun_normal((dim, 4 * dim), 4 * dim, generator), param_dtype, device
+        )
         self.pw2_bias = _param(torch.zeros(dim), f32, device)
         self.grn = GRN(4 * dim, device=device) if use_grn else None
         has_gamma = not use_grn and layer_scale_init > 0
@@ -102,24 +123,43 @@ class ConvNeXtBlock(nn.Module):
             _param(torch.full((dim,), float(layer_scale_init)), f32, device)
             if has_gamma else None
         )
-        self.fused = self.use_kernels and not use_grn and dim <= MAX_FUSED_DIM
+        kernels = use_pallas is not False and gelu != "erf"
+        fits = not use_grn and dim <= MAX_FUSED_DIM
+        self.hybrid = kernels and use_pallas == "hybrid" and fits
+        if self.hybrid and not has_gamma:
+            raise NotImplementedError(
+                "a hybrid-trained block without LayerScale runs the fused MLP kernel "
+                "(#5), not ported yet: ROADMAP.md, Queue 2"
+            )
+        self.fused = kernels and use_pallas is True and fits
+        self.use_dw_ln = kernels and use_pallas is True and not self.fused
         if self.fused and self.gamma is None:
             # The whole-block kernel always applies a scale (ones here).
             self.register_buffer("_ones", torch.ones(dim, dtype=f32, device=device))
 
+    def _weights(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        d = self.dtype
+        return self.dw_kernel.to(d), self.pw1_weight.to(d), self.pw2_weight.to(d)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = self.pw1_weight.dtype
+        dtype = self.dtype
         x = x.to(dtype).contiguous()
+        k49, w1t, w2t = self._weights()
+        if self.hybrid:
+            return convnext_block_hybrid(
+                x, k49, self.dw_bias, self.norm_scale, self.norm_bias,
+                w1t, self.pw1_bias, w2t, self.pw2_bias, self.gamma,
+            )
         if self.fused:
             gamma = self.gamma if self.gamma is not None else self._ones
             return convnext_block(
-                x, self.dw_kernel, self.dw_bias, self.norm_scale, self.norm_bias,
-                self.pw1_weight, self.pw1_bias, self.pw2_weight, self.pw2_bias, gamma,
+                x, k49, self.dw_bias, self.norm_scale, self.norm_bias,
+                w1t, self.pw1_bias, w2t, self.pw2_bias, gamma,
             )
-        if self.use_kernels:
-            y = dw_ln(x, self.dw_kernel, self.dw_bias, self.norm_scale, self.norm_bias)
+        if self.use_dw_ln:
+            y = dw_ln(x, k49, self.dw_bias, self.norm_scale, self.norm_bias)
         else:
-            weight = self.dw_kernel.t().reshape(self.dim, 1, KERNEL_SIZE, KERNEL_SIZE)
+            weight = k49.t().reshape(self.dim, 1, KERNEL_SIZE, KERNEL_SIZE)
             t = F.conv2d(
                 x.permute(0, 3, 1, 2), weight, self.dw_bias.to(dtype),
                 padding=PAD, groups=self.dim,
@@ -128,11 +168,11 @@ class ConvNeXtBlock(nn.Module):
                 t.float(), (self.dim,), self.norm_scale, self.norm_bias, 1e-6
             ).to(dtype)
         # Plain MLP in the compute dtype, as flax.linen.Dense(dtype=...).
-        y = torch.matmul(y, self.pw1_weight.t()) + self.pw1_bias.to(dtype)
+        y = torch.matmul(y, w1t.t()) + self.pw1_bias.to(dtype)
         y = F.gelu(y, approximate="none" if self.gelu == "erf" else "tanh")
         if self.grn is not None:
             y = self.grn(y)
-        y = torch.matmul(y, self.pw2_weight.t()) + self.pw2_bias.to(dtype)
+        y = torch.matmul(y, w2t.t()) + self.pw2_bias.to(dtype)
         if self.gamma is not None:
             y = y * self.gamma.to(dtype)
         return x + y
@@ -145,11 +185,13 @@ class ConvNeXt(nn.Module):
     def __init__(
         self, config: ConvNeXtConfig, dtype=torch.float32, gelu: str = "tanh",
         device=None, generator: torch.Generator | None = None,
+        use_pallas: bool | str = True, param_dtype=None,
     ) -> None:
         super().__init__()
         self.config, self.dtype = config, dtype
         dims = config.dims
-        kw = {"dtype": dtype, "device": device, "generator": generator}
+        kw = {"dtype": dtype, "device": device, "generator": generator,
+              "param_dtype": param_dtype}
         self.stem_conv = Conv(3, dims[0], 4, 4, padding="SAME", **kw)
         self.stem_norm = LayerNorm(dims[0], device=device)
         for s, (depth, dim) in enumerate(zip(config.depths, dims)):
@@ -162,7 +204,8 @@ class ConvNeXt(nn.Module):
                 self.add_module(
                     f"stage{s + 1}_block{b + 1}",
                     ConvNeXtBlock(
-                        dim, config.use_grn, config.layer_scale_init, gelu=gelu, **kw,
+                        dim, config.use_grn, config.layer_scale_init, gelu=gelu,
+                        use_pallas=use_pallas, **kw,
                     ),
                 )
         self.head_norm = LayerNorm(dims[-1], device=device)

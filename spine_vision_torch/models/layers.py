@@ -1,8 +1,11 @@
 """Small NHWC layers with the Flax modules' numerics and variable names.
 
 Activations stay NHWC (channels innermost) through the models, as in the JAX
-package. Each layer stores its weights in the layout its forward reads and in
-the dtype it computes in; ``models/convert.py`` fills them from Flax trees.
+package. Each layer stores its weights in the layout its forward reads, in
+``param_dtype`` (by default the dtype it computes in, as inference keeps them;
+f32 master weights for training, as Flax's ``param_dtype=float32``), and casts
+them to its compute ``dtype`` in ``forward`` (a no-op when the two agree).
+``models/convert.py`` fills them from Flax trees.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ def _lecun_normal(shape, fan_in: int, generator: torch.Generator | None) -> torc
 
 
 def _param(t: torch.Tensor, dtype, device) -> nn.Parameter:
-    return nn.Parameter(t.to(dtype=dtype, device=device), requires_grad=False)
+    return nn.Parameter(t.to(dtype=dtype, device=device))
 
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -30,7 +33,8 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 
 class Conv(nn.Module):
-    """NHWC convolution, weight ``[out, in/groups, kh, kw]`` in ``dtype``.
+    """NHWC convolution, weight ``[out, in/groups, kh, kw]`` in
+    ``param_dtype``, computed in ``dtype``.
 
     ``padding`` is an int (symmetric) or ``"SAME"`` (Flax's default)."""
 
@@ -38,18 +42,21 @@ class Conv(nn.Module):
         self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
         padding: int | str = 0, groups: int = 1, bias: bool = True,
         dtype=torch.float32, device=None, generator: torch.Generator | None = None,
+        param_dtype=None,
     ) -> None:
         super().__init__()
         self.stride, self.padding, self.groups, self.kernel = stride, padding, groups, kernel
+        self.dtype = dtype
+        param_dtype = param_dtype or dtype
         fan_in = in_ch // groups * kernel * kernel
         self.weight = _param(
             _lecun_normal((out_ch, in_ch // groups, kernel, kernel), fan_in, generator),
-            dtype, device,
+            param_dtype, device,
         )
-        self.bias = _param(torch.zeros(out_ch), dtype, device) if bias else None
+        self.bias = _param(torch.zeros(out_ch), param_dtype, device) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         pad = self.padding
         if pad == "SAME":
             ph = same_padding(x.shape[2], self.kernel, self.stride)
@@ -57,7 +64,8 @@ class Conv(nn.Module):
             if any(ph + pw):
                 x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             pad = 0
-        y = F.conv2d(x, self.weight, self.bias, self.stride, pad, groups=self.groups)
+        bias = self.bias.to(self.dtype) if self.bias is not None else None
+        y = F.conv2d(x, self.weight.to(self.dtype), bias, self.stride, pad, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -67,14 +75,20 @@ class Dense(nn.Module):
 
     def __init__(
         self, in_dim: int, out_dim: int, dtype=torch.float32, device=None,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, param_dtype=None,
     ) -> None:
         super().__init__()
-        self.weight = _param(_lecun_normal((out_dim, in_dim), in_dim, generator), dtype, device)
-        self.bias = _param(torch.zeros(out_dim), dtype, device)
+        self.dtype = dtype
+        param_dtype = param_dtype or dtype
+        self.weight = _param(
+            _lecun_normal((out_dim, in_dim), in_dim, generator), param_dtype, device
+        )
+        self.bias = _param(torch.zeros(out_dim), param_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.weight.dtype), self.weight.t()) + self.bias
+        return torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t()) + self.bias.to(
+            self.dtype
+        )
 
 
 class LayerNorm(nn.Module):

@@ -9,6 +9,10 @@ runs :func:`block_reference`, the plain PyTorch version with the kernel's
 rounding points (y and the GELU hidden rounded to x's dtype before each
 product, f32 accumulation and epilogue, the residual from x itself).
 
+With ``emit_conv=True`` (the hybrid training block's forward) both also return
+``t = dwconv7x7(x) + b_dw`` rounded to x's dtype, and the LayerNorm reads that
+rounded ``t``, as the TPU kernel's ``emit_conv`` form does.
+
 Weights come in the layouts ``models/convert.py`` makes once at load time:
 the filter tap-major ``[49, C]``, ``w1t`` ``[4C, C]`` and ``w2t`` ``[C, 4C]``
 (``[out, in]``).
@@ -39,14 +43,20 @@ def block_reference(
     b2: torch.Tensor,
     gamma: torch.Tensor,
     eps: float = 1e-6,
-) -> torch.Tensor:
-    """Plain PyTorch block forward with the kernel's rounding points."""
+    emit_conv: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch block forward with the kernel's rounding points; with
+    ``emit_conv``, ``(out, t)``."""
     t = depthwise_conv7x7_reference(x, k49) + dw_bias.float()
+    if emit_conv:
+        t_lp = t.to(x.dtype)
+        t = t_lp.float()
     y = layer_norm_f32(t, ln_scale, ln_bias, eps).to(x.dtype)
     hidden = torch.matmul(y.float(), w1t.float().t()) + b1.float()
     hidden = tanh_gelu(hidden).to(x.dtype)
     out = torch.matmul(hidden.float(), w2t.float().t()) + b2.float()
-    return (out * gamma.float() + x.float()).to(x.dtype)
+    out = (out * gamma.float() + x.float()).to(x.dtype)
+    return (out, t_lp) if emit_conv else out
 
 
 def _check(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma) -> None:
@@ -93,30 +103,38 @@ def convnext_block(
     b2: torch.Tensor,
     gamma: torch.Tensor,
     eps: float = 1e-6,
-) -> torch.Tensor:
-    """One fused ConvNeXt v1 block forward on NHWC ``x``.
+    emit_conv: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """One fused ConvNeXt v1 block forward on NHWC ``x``; with ``emit_conv``,
+    ``(out, t)``.
 
     CUDA tensors launch ``csrc/convnext_block.cu`` (bf16, C in
     ``KERNEL_WIDTHS``; anything else raises). CPU tensors take the plain
-    version. ``convnext_block.launches`` counts kernel launches.
+    version. ``convnext_block.launches`` counts kernel launches of either
+    form, ``convnext_block.emit_launches`` those of the ``emit_conv`` form.
     """
     args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
     if x.device.type == "cpu":
-        return block_reference(*args, eps=eps)
+        return block_reference(*args, eps=eps, emit_conv=emit_conv)
     _check(*args)
     b, h, w, c = x.shape
     out = torch.empty_like(x)
+    t = torch.empty_like(x) if emit_conv else None
     fn = cuda_build.load("convnext_block").svt_convnext_block_forward
     fn.restype = ctypes.c_int
     p = cuda_build.ptr
     err = fn(
-        *(p(t) for t in args), p(out),
+        *(p(a) for a in args), p(out), p(t) if emit_conv else ctypes.c_void_p(None),
         ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
         ctypes.c_float(eps), cuda_build.stream_ptr(x.device),
     )
     cuda_build.check(err, "convnext_block")
     convnext_block.launches += 1
+    if emit_conv:
+        convnext_block.emit_launches += 1
+        return out, t
     return out
 
 
 convnext_block.launches = 0
+convnext_block.emit_launches = 0
