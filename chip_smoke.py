@@ -14,7 +14,10 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    kernel, the plain version and a PyTorch yardstick timed with CUDA events
    beside the card's bound for the same work.
    The training kernels too, at the train step's shapes (32 images): the
-   block kernel's ``emit_conv`` form and the LN+MLP backward.
+   block kernel's ``emit_conv`` form and the LN+MLP backward (the hybrid
+   block), the MLP backward, the dwconv+LN backward and the plain depthwise
+   stencil (the all-kernel block), the backward kernels also run twice to
+   show that they agree bit for bit.
 4. The inference slice: ConvNeXt-base localization at 512^2 and ResNet-18
    grading at 256^2 in bf16, weights from seeded numpy Flax-layout trees
    carried by ``load_flax_variables``; ``StudyInferencePipeline.run`` on 8
@@ -29,6 +32,9 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    kernels' launch counts in every train step, and prints the step's p50;
    then one step's gradients on the card against the CPU (batch 2, 128^2),
    and an overfit run on one fixed batch.
+6. The same training run with ``use_pallas_dwconv=True``, the all-kernel
+   block (``train_step_dwconv``), with its own launch counts, p50 and peak
+   memory, and its own card-against-CPU gradient check.
 
 It prints a ``kernels`` JSON line and the card's name and power limit before
 its last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device and the
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import shutil
 import subprocess
@@ -52,6 +59,7 @@ H100_BYTES_S = 3.35e12  # HBM3
 
 BLOCK_SHAPES = ((128, 128, 3), (64, 256, 3), (32, 512, 27))  # (H=W, C, blocks)
 DW_LN_SHAPES = ((16, 1024, 3),)
+TRAIN_DW_SHAPES = BLOCK_SHAPES + DW_LN_SHAPES  # every block's dwconv+LN backward
 BATCH = 16  # 8 studies x (T1, T2)
 KERNEL_REL_TOL = 1e-2  # max |kernel - plain| <= 1e-2 * max |plain| (~2.5 bf16 steps)
 TRAIN_BATCH = 32  # the localization trainer's batch at 512^2
@@ -61,7 +69,15 @@ TRAIN_BATCH = 32  # the localization trainer's batch at 512^2
 BWD_REL_TOL = 2e-2
 RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_runs"
 INFERENCE_LAUNCHES = {"convnext_block": 33, "convnext_block_emit_conv": 0, "dw_ln": 3,
-                      "ln_mlp_bwd": 0}
+                      "ln_mlp_bwd": 0, "mlp_bwd": 0, "dw_ln_bwd": 0, "depthwise_conv7x7": 0}
+# Launches in one train step of each training mode.
+TRAIN_LAUNCHES = {
+    "train_step": {"convnext_block": 33, "convnext_block_emit_conv": 33, "dw_ln": 0,
+                   "ln_mlp_bwd": 33, "mlp_bwd": 0, "dw_ln_bwd": 0, "depthwise_conv7x7": 0},
+    "train_step_dwconv": {"convnext_block": 33, "convnext_block_emit_conv": 0, "dw_ln": 36,
+                          "ln_mlp_bwd": 0, "mlp_bwd": 33, "dw_ln_bwd": 36,
+                          "depthwise_conv7x7": 36},
+}
 # Card against CPU, one step's gradients at bf16: each parameter's relative
 # error (norm of the difference over the norm) stays under 2e-2, five bf16
 # rounding steps (2^-8) of relative error; the first card run read 7.9e-3.
@@ -102,6 +118,22 @@ def _bound_ms(nbytes: float, tensor_flops: float, f32_flops: float) -> tuple[flo
     t_bytes = nbytes / H100_BYTES_S * 1e3
     t_ops = max(tensor_flops / H100_BF16_FLOPS, f32_flops / H100_F32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timed_row(what: str, count: int, err: float, kernel, plain, library, nbytes: float,
+               tensor_flops: float, f32_flops: float, per: str, plain_iters: int = 3,
+               plain_warmup: int = 1) -> tuple:
+    """Time the kernel, its plain version and the PyTorch yardstick with CUDA
+    events, print them beside the bound, and return the report row ``(count,
+    err, ms, plain_ms, bound_ms, bound_by, library_ms)``. The caller restores
+    the kernel's launch count: these launches are not the main path's."""
+    ms = _time_ms(kernel)
+    plain_ms = _time_ms(plain, iters=plain_iters, warmup=plain_warmup)
+    library_ms = _time_ms(library)
+    bound, by = _bound_ms(nbytes, tensor_flops, f32_flops)
+    print(f"[kernel] {what}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={bound:.4f} ({by}) roofline_share={bound / ms:.3f} {per}={count}")
+    return count, err, ms, plain_ms, bound, by, library_ms
 
 
 def _rand(gen, shape, scale, device, dtype, shift=0.0):
@@ -161,17 +193,13 @@ def kernel_phase(device) -> dict:
             return F.linear(h, args[7], args[8].to(bf16)) * args[9].to(bf16) + x
 
         saved = cb.convnext_block.launches
-        ms = _time_ms(lambda: cb.convnext_block(*args))
-        cb.convnext_block.launches = saved  # timing launches are not the main path's
-        plain_ms = _time_ms(lambda: cb.block_reference(*args), iters=5)
-        library_ms = _time_ms(library)
         m = BATCH * hw * hw
-        nbytes = 2 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + (4 * c + 6 * c) * 4
-        bound, by = _bound_ms(nbytes, 2 * 2 * m * c * 4 * c, 2 * 49 * m * c)
-        print(f"[kernel] convnext_block C={c}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({by}) "
-              f"roofline_share={bound / ms:.3f} per_forward={count}")
-        rows.append((count, err, ms, plain_ms, bound, by, library_ms))
+        rows.append(_timed_row(
+            f"convnext_block C={c}", count, err, lambda: cb.convnext_block(*args),
+            lambda: cb.block_reference(*args), library,
+            2 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + (4 * c + 6 * c) * 4,
+            2 * 2 * m * c * 4 * c, 2 * 49 * m * c, "per_forward", plain_iters=5, plain_warmup=3))
+        cb.convnext_block.launches = saved
     report["convnext_block"] = rows
 
     # Kernel 2: dwconv + LayerNorm at C = 1024.
@@ -211,19 +239,35 @@ def kernel_phase(device) -> dict:
             return F.layer_norm(t.permute(0, 2, 3, 1), (c,), args[3].to(bf16), args[4].to(bf16), 1e-6)
 
         saved = dw.dw_ln.launches
-        ms = _time_ms(lambda: dw.dw_ln(*args))
-        dw.dw_ln.launches = saved
-        plain_ms = _time_ms(lambda: dw.dw_ln_reference(*args), iters=5)
-        library_ms = _time_ms(library)
         m = BATCH * hw * hw
-        nbytes = 2 * m * c * 2 + 49 * c * 2 + 3 * c * 4
-        bound, by = _bound_ms(nbytes, 0, 2 * 49 * m * c + 8 * m * c)
-        print(f"[kernel] dw_ln C={c}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({by}) "
-              f"roofline_share={bound / ms:.3f} per_forward={count}")
-        rows.append((count, err, ms, plain_ms, bound, by, library_ms))
+        rows.append(_timed_row(
+            f"dw_ln C={c}", count, err, lambda: dw.dw_ln(*args),
+            lambda: dw.dw_ln_reference(*args), library,
+            2 * m * c * 2 + 49 * c * 2 + 3 * c * 4, 0, 2 * 49 * m * c + 8 * m * c,
+            "per_forward", plain_iters=5, plain_warmup=3))
+        dw.dw_ln.launches = saved
     report["dw_ln"] = rows
     return report
+
+
+def _check_outputs(what: str, names, got, want, tol: float, again=None) -> list[float]:
+    """Each output within ``tol * max |plain|`` (and, given ``again``, equal
+    bit for bit to a second run); returns the max absolute errors."""
+    import torch
+
+    errs = []
+    for i, (name, a, b) in enumerate(zip(names, got, want)):
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        if not err <= tol * scale:
+            raise AssertionError(f"{what} {name} disagrees with its plain version: "
+                                 f"{err:.4g} > {tol} * {scale:.4g}")
+        if again is not None and not torch.equal(a, again[i]):
+            raise AssertionError(f"{what} {name} differs between two runs on the same inputs")
+        errs.append(err)
+    print(f"[kernel] {what}: max_abs_err " + " ".join(f"{n}={e:.3g}" for n, e in zip(names, errs))
+          + f" (tol {tol}*max|plain| each)" + (", two runs bitwise equal" if again else "") + " ok")
+    return errs
 
 
 def train_kernel_phase(device, report: dict) -> None:
@@ -281,16 +325,13 @@ def train_kernel_phase(device, report: dict) -> None:
             h = F.gelu(F.linear(y, args[5], args[6].to(bf16)), approximate="tanh")
             return F.linear(h, args[7], args[8].to(bf16)) * args[9].to(bf16) + x, tt
 
-        ms = _time_ms(lambda: cb.convnext_block(*args, emit_conv=True))
+        emit_rows.append(_timed_row(
+            f"convnext_block emit_conv C={c}", count, max(err_out, err_t),
+            lambda: cb.convnext_block(*args, emit_conv=True),
+            lambda: cb.block_reference(*args, emit_conv=True), library_fwd,
+            3 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + (4 * c + 6 * c) * 4,
+            2 * 2 * m * c * 4 * c, 2 * 49 * m * c, "per_train_step"))
         cb.convnext_block.launches, cb.convnext_block.emit_launches = saved
-        plain_ms = _time_ms(lambda: cb.block_reference(*args, emit_conv=True), iters=3, warmup=1)
-        library_ms = _time_ms(library_fwd)
-        nbytes = 3 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + (4 * c + 6 * c) * 4
-        bound, by = _bound_ms(nbytes, 2 * 2 * m * c * 4 * c, 2 * 49 * m * c)
-        print(f"[kernel] convnext_block emit_conv C={c}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({by}) "
-              f"roofline_share={bound / ms:.3f} per_train_step={count}")
-        emit_rows.append((count, max(err_out, err_t), ms, plain_ms, bound, by, library_ms))
 
         # 2. The LN+MLP backward from t and an output gradient g.
         g = _rand(gen, (TRAIN_BATCH, hw, hw, c), 1.0, device, bf16)
@@ -299,19 +340,9 @@ def train_kernel_phase(device, report: dict) -> None:
         got = fm.ln_mlp_bwd(*bargs)
         want = fm.ln_mlp_bwd_reference(*bargs)
         torch.cuda.synchronize()
-        errs = []
-        names = ("dt", "dls", "dlb", "dw1t", "db1", "dw2t", "db2", "dgamma")
-        for name, a, b in zip(names, got, want):
-            err = (a.float() - b.float()).abs().max().item()
-            scale = b.float().abs().max().item()
-            errs.append(err)
-            if not err <= BWD_REL_TOL * scale:
-                raise AssertionError(
-                    f"ln_mlp_bwd {name} disagrees with its plain version at C={c}: "
-                    f"{err:.4g} > {BWD_REL_TOL} * {scale:.4g}")
-        print(f"[kernel] ln_mlp_bwd B={TRAIN_BATCH} {hw}x{hw} C={c}: max_abs_err "
-              + " ".join(f"{n}={e:.3g}" for n, e in zip(names, errs))
-              + f" (tol {BWD_REL_TOL}*max|plain| each) ok")
+        errs = _check_outputs(f"ln_mlp_bwd B={TRAIN_BATCH} {hw}x{hw} C={c}",
+                              ("dt", "dls", "dlb", "dw1t", "db1", "dw2t", "db2", "dgamma"),
+                              got, want, BWD_REL_TOL)
         del got, want
         leaves = [a.detach().clone().to(bf16).requires_grad_(True)
                   for a in (args[3], args[4], args[5], args[6], args[7], args[8], args[9])]
@@ -324,20 +355,130 @@ def train_kernel_phase(device, report: dict) -> None:
             o = F.linear(h, w2t, b2) * gamma
             return torch.autograd.grad(o, [t_leaf, *leaves], g)
 
-        ms = _time_ms(lambda: fm.ln_mlp_bwd(*bargs))
+        bwd_rows.append(_timed_row(
+            f"ln_mlp_bwd C={c}", count, max(errs), lambda: fm.ln_mlp_bwd(*bargs),
+            lambda: fm.ln_mlp_bwd_reference(*bargs), library_bwd,
+            3 * m * c * 2 + 2 * 4 * c * c * 2 + 2 * 4 * c * c * 4 + 10 * c * 4 + 4 * c * 8,
+            5 * 2 * m * c * 4 * c, 15 * m * 4 * c + 20 * m * c, "per_train_step"))
         fm.ln_mlp_bwd.launches = saved
-        plain_ms = _time_ms(lambda: fm.ln_mlp_bwd_reference(*bargs), iters=3, warmup=1)
-        library_ms = _time_ms(library_bwd)
-        nbytes = 3 * m * c * 2 + 2 * 4 * c * c * 2 + 2 * 4 * c * c * 4 + 10 * c * 4 + 4 * c * 8
-        bound, by = _bound_ms(nbytes, 5 * 2 * m * c * 4 * c, 15 * m * 4 * c + 20 * m * c)
-        print(f"[kernel] ln_mlp_bwd C={c}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({by}) "
-              f"roofline_share={bound / ms:.3f} per_train_step={count}")
-        bwd_rows.append((count, max(errs), ms, plain_ms, bound, by, library_ms))
         del t, g, bargs, leaves, t_leaf, out
         torch.cuda.empty_cache()
     report["convnext_block_emit_conv"] = emit_rows
     report["ln_mlp_bwd"] = bwd_rows
+
+
+def dwconv_train_kernel_phase(device, report: dict) -> None:
+    """The all-kernel block's backward kernels at the train step's shapes:
+    the dwconv+LN backward (#4) and the depthwise stencil (#3, on #4's da with
+    the flipped filter, as the backward runs it) at every width, the MLP
+    backward (#6) at C <= 512. Each against its plain version, #4 and #6 also
+    against a second run bit for bit, timed beside the plain version, a
+    PyTorch yardstick and the bound. Rows go into ``report``."""
+    import torch
+    import torch.nn.functional as F
+
+    from spine_vision_torch.ops import dwconv as dw
+    from spine_vision_torch.ops import fused_mlp as fm
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=device).manual_seed(2)
+    rows = {"mlp_bwd": [], "dw_ln_bwd": [], "depthwise_conv7x7": []}
+    for hw, c, count in TRAIN_DW_SHAPES:
+        m = TRAIN_BATCH * hw * hw
+        x = _rand(gen, (TRAIN_BATCH, hw, hw, c), 1.0, device, bf16)
+        k49 = _rand(gen, (49, c), 0.1, device, bf16)
+        bias, beta = _rand(gen, (c,), 0.1, device, f32), _rand(gen, (c,), 0.1, device, f32)
+        scale = _rand(gen, (c,), 0.1, device, f32, 1.0)
+        g = _rand(gen, (TRAIN_BATCH, hw, hw, c), 1.0, device, bf16)
+        args = (x, k49, bias, scale, g)
+
+        # Kernel #4: da and the parameter sums.
+        saved = dw.dw_ln_bwd_sums.launches, dw.depthwise_conv7x7.launches
+        got = dw.dw_ln_bwd_sums(*args)
+        again = dw.dw_ln_bwd_sums(*args)
+        want = dw.dw_ln_bwd_sums_reference(*args)
+        torch.cuda.synchronize()
+        errs = _check_outputs(f"dw_ln_bwd B={TRAIN_BATCH} {hw}x{hw} C={c}",
+                              ("da", "dk", "dbias", "dscale", "dbeta"), got, want, BWD_REL_TOL,
+                              again)
+        da = got[0]
+        del again, want
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_(True)  # channels_last view
+        kl = k49.t().reshape(c, 1, 7, 7).contiguous().requires_grad_(True)
+        vl = [v.to(bf16).requires_grad_(True) for v in (bias, scale, beta)]
+
+        def library4():
+            t = F.conv2d(xl, kl, vl[0], padding=3, groups=c).permute(0, 2, 3, 1)
+            y = F.layer_norm(t, (c,), vl[1], vl[2], 1e-6)
+            return torch.autograd.grad(y, [xl, kl, *vl], g)
+
+        # x and g read, da written (bf16), filter and vectors in, 52 sums out;
+        # conv recompute 98, dk 98, LayerNorm statistics and backward 17 f32
+        # operations a channel of a token.
+        rows["dw_ln_bwd"].append(_timed_row(
+            f"dw_ln_bwd C={c}", count, max(errs), lambda: dw.dw_ln_bwd_sums(*args),
+            lambda: dw.dw_ln_bwd_sums_reference(*args), library4,
+            3 * m * c * 2 + 49 * c * 2 + 2 * c * 4 + 52 * c * 4, 0, 213 * m * c,
+            "per_train_step"))
+
+        # Kernel #3: dx = the stencil on da with the flipped filter.
+        kf = k49.flip(0).contiguous()
+        dx = dw.depthwise_conv7x7(da, kf)
+        want_dx = dw.depthwise_conv7x7_reference(da, kf)
+        torch.cuda.synchronize()
+        err = (dx.float() - want_dx).abs().max().item()
+        tol = KERNEL_REL_TOL * want_dx.abs().max().item()
+        print(f"[kernel] depthwise_conv7x7 B={TRAIN_BATCH} {hw}x{hw} C={c}: max_abs_err={err:.4g} "
+              f"tol={KERNEL_REL_TOL}*max|plain|={tol:.4g} {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            raise AssertionError(f"depthwise_conv7x7 disagrees with its plain version at C={c}")
+        kf_oihw = kf.t().reshape(c, 1, 7, 7).contiguous()
+        da_nchw = da.permute(0, 3, 1, 2)
+        rows["depthwise_conv7x7"].append(_timed_row(
+            f"depthwise_conv7x7 C={c}", count, err, lambda: dw.depthwise_conv7x7(da, kf),
+            lambda: dw.depthwise_conv7x7_reference(da, kf),
+            lambda: F.conv2d(da_nchw, kf_oihw, padding=3, groups=c),
+            2 * m * c * 2 + 49 * c * 2, 0, 98 * m * c, "per_train_step"))
+        dw.dw_ln_bwd_sums.launches, dw.depthwise_conv7x7.launches = saved
+        del got, da, dx, want_dx, xl, kl, vl
+
+        # Kernel #6: the MLP backward from the block's y, at C <= 512.
+        if c <= 512:
+            margs = (
+                _rand(gen, (TRAIN_BATCH, hw, hw, c), 1.0, device, bf16),
+                _rand(gen, (4 * c, c), c ** -0.5, device, bf16),
+                _rand(gen, (4 * c,), 0.1, device, f32),
+                _rand(gen, (c, 4 * c), (4 * c) ** -0.5, device, bf16),
+                _rand(gen, (c,), 0.1, device, f32),
+                _rand(gen, (c,), 0.1, device, f32, 1.0),
+                g,
+            )
+            saved = fm.mlp_bwd.launches
+            got = fm.mlp_bwd(*margs)
+            again = fm.mlp_bwd(*margs)
+            want = fm.mlp_bwd_reference(*margs)
+            torch.cuda.synchronize()
+            errs = _check_outputs(f"mlp_bwd B={TRAIN_BATCH} {hw}x{hw} C={c}",
+                                  ("dy", "dw1t", "db1", "dw2t", "db2", "dgamma"), got, want,
+                                  BWD_REL_TOL, again)
+            del got, again, want
+            leaves = [a.detach().clone().to(bf16).requires_grad_(True) for a in margs[:6]]
+
+            def library6():
+                y, w1t, b1, w2t, b2, gamma = leaves
+                h = F.gelu(F.linear(y, w1t, b1), approximate="tanh")
+                return torch.autograd.grad(F.linear(h, w2t, b2) * gamma, leaves, g)
+
+            rows["mlp_bwd"].append(_timed_row(
+                f"mlp_bwd C={c}", count, max(errs), lambda: fm.mlp_bwd(*margs),
+                lambda: fm.mlp_bwd_reference(*margs), library6,
+                3 * m * c * 2 + 2 * 4 * c * c * 2 + 2 * 4 * c * c * 4 + 7 * c * 4 + 4 * c * 8,
+                5 * 2 * m * c * 4 * c, 15 * m * 4 * c + 6 * m * c, "per_train_step"))
+            fm.mlp_bwd.launches = saved
+            del margs, leaves
+        del x, g, args
+        torch.cuda.empty_cache()
+    report.update(rows)
 
 
 def _studies(n: int, seed: int):
@@ -371,6 +512,34 @@ def _check_results(results, n: int, tasks) -> None:
             assert r.probabilities[t.name].shape == (5, t.num_classes)
 
 
+def _device_events(prof) -> list:
+    """Device-side events (kernels, copies) by name: operator rows would count
+    their kernels a second time, and so would a user annotation's range on
+    the device timeline (e.g. the optimizer step's)."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+# Kernel groups of a train step's profile: (label, name fragments).
+PROFILE_GROUPS = (
+    ("block forward #1", ("block_kernel",)),
+    ("dwconv+LN #2", ("dw_ln_kernel",)),
+    ("MLP backward per token #6, #8/#9", ("ln_mlp_bwd_tokens",)),
+    ("their weight-gradient products", ("token_gemm", "reduce_rows")),
+    ("dwconv+LN backward #4", ("dw_ln_stats", "dw_ln_bwd_tile")),
+    ("stencil #3", ("dw7_kernel",)),
+    ("column sums of #4, #6, #8/#9", ("colsum",)),
+    ("PyTorch depthwise-conv gradients", ("conv_depthwise2d",)),
+)
+
+
 def profile_run(pipe, studies, mode: str) -> float:
     """One traced run: device time by op and the device's busy share."""
     import torch
@@ -382,13 +551,8 @@ def profile_run(pipe, studies, mode: str) -> float:
         pipe.run(studies, fetch_crops=False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - start) * 1e6
-    # Device-side events only (kernels, copies): operator rows would count
-    # their kernels a second time.
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
+    events = _device_events(prof)
+    dev = _dev_us
     busy_us = sum(dev(e) for e in events)
     print(f"[profile] {mode}: traced wall {wall_us / 1e3:.3f} ms for {len(studies)} studies, "
           f"device busy {busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} of the traced wall)")
@@ -545,16 +709,17 @@ class _Images:
                 "series_type_idx": 0, "metadata": {"image_path": f"synthetic/{i}.png"}}
 
 
-def _regressor(device, seed: int, dropout: float):
+def _regressor(device, seed: int, dropout: float, use_pallas="hybrid"):
     """ConvNeXt-base CoordinateRegressor for training (bf16 on f32 masters,
-    the hybrid block), weights from a seeded Flax-layout tree."""
+    the hybrid or the all-kernel block), weights from a seeded Flax-layout
+    tree."""
     import torch
 
     from spine_vision_torch.models.classifier import CoordinateRegressor
     from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
 
     model = CoordinateRegressor("convnext_base", dtype=torch.bfloat16, device=device,
-                                dropout=dropout, use_pallas="hybrid", param_dtype=torch.float32)
+                                dropout=dropout, use_pallas=use_pallas, param_dtype=torch.float32)
     params, _ = random_flax_variables(model, seed)
     return load_flax_variables(model, params)
 
@@ -566,7 +731,9 @@ def _counts() -> dict:
 
     return {"convnext_block": cb.convnext_block.launches,
             "convnext_block_emit_conv": cb.convnext_block.emit_launches,
-            "dw_ln": dw.dw_ln.launches, "ln_mlp_bwd": fm.ln_mlp_bwd.launches}
+            "dw_ln": dw.dw_ln.launches, "ln_mlp_bwd": fm.ln_mlp_bwd.launches,
+            "mlp_bwd": fm.mlp_bwd.launches, "dw_ln_bwd": dw.dw_ln_bwd_sums.launches,
+            "depthwise_conv7x7": dw.depthwise_conv7x7.launches}
 
 
 def _zero_counts() -> None:
@@ -575,32 +742,41 @@ def _zero_counts() -> None:
     from spine_vision_torch.ops import fused_mlp as fm
 
     cb.convnext_block.launches = cb.convnext_block.emit_launches = 0
-    dw.dw_ln.launches = fm.ln_mlp_bwd.launches = 0
+    dw.dw_ln.launches = fm.ln_mlp_bwd.launches = fm.mlp_bwd.launches = 0
+    dw.dw_ln_bwd_sums.launches = dw.depthwise_conv7x7.launches = 0
 
 
-def train_phase(device, card: str, profile: bool = False) -> dict:
+def train_phase(device, card: str, path: str, profile: bool = False) -> dict:
     """LocalizationTrainer.train() at full width; return the launch counts of
-    one train step."""
+    one train step. ``path`` "train_step" trains the hybrid block (the model
+    from a seeded Flax-layout tree), "train_step_dwconv" the all-kernel block
+    that the trainer builds for ``use_pallas_dwconv=True``."""
     import math
 
     import numpy as np
     import torch
 
+    from spine_vision_torch.models.convnext import ConvNeXtBlock
     from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
 
+    dwconv = path == "train_step_dwconv"
+    tag = f"[{path}]"
     t0 = time.perf_counter()
-    model = _regressor(device, seed=0, dropout=0.2)
+    model = None if dwconv else _regressor(device, seed=0, dropout=0.2)
     train_set, val_set = _Images(96, 512, 10), _Images(32, 512, 11)
-    print(f"[train] model and data built in {time.perf_counter() - t0:.1f} s")
-    run = RUN_DIR / "train"
+    run = RUN_DIR / path
     shutil.rmtree(run, ignore_errors=True)
     cfg = LocalizationConfig(
         backbone="convnext_base", image_size=(512, 512), batch_size=TRAIN_BATCH, num_epochs=2,
         augment=True, dropout=0.2, mixed_precision=True, output_path=run, num_workers=8,
-        pretrained=False, profile_steps=True, seed=0,
+        pretrained=False, profile_steps=True, seed=0, use_pallas_dwconv=dwconv,
     )
     trainer = LocalizationTrainer(cfg, model=model, train_dataset=train_set,
                                   val_dataset=val_set, device=device)
+    blocks = [b for b in trainer.model.modules() if isinstance(b, ConvNeXtBlock)]
+    print(f"{tag} model and data built in {time.perf_counter() - t0:.1f} s; blocks: "
+          f"{sum(b.fused for b in blocks)} all-kernel, {sum(b.hybrid for b in blocks)} hybrid, "
+          f"{sum(b.use_dw_ln for b in blocks)} dwconv+LN, of {len(blocks)}")
     step_counts = []
     inner = trainer.train_step_fn
 
@@ -611,17 +787,20 @@ def train_phase(device, card: str, profile: bool = False) -> dict:
         return loss
 
     trainer.train_step_fn = counted_step
+    gc.collect()  # earlier phases' trainers sit in reference cycles
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = trainer.train()
     wall = time.perf_counter() - t0
-    want = {"convnext_block": 33, "convnext_block_emit_conv": 33, "dw_ln": 0, "ln_mlp_bwd": 33}
-    print(f"[train] {len(step_counts)} train steps, 2 epochs in {wall:.1f} s; launches in "
+    want = TRAIN_LAUNCHES[path]
+    print(f"{tag} {len(step_counts)} train steps, 2 epochs in {wall:.1f} s; launches in "
           f"the first step {step_counts[0]}")
     if len(step_counts) != 6:
         raise AssertionError(f"expected 6 train steps (2 epochs of 96 / 32), got {len(step_counts)}")
     for i, counts in enumerate(step_counts):
         if counts != want:
-            raise AssertionError(f"train step {i}: launches {counts}, expected {want}")
+            raise AssertionError(f"{path} {i}: launches {counts}, expected {want}")
     for name in ("best_model/state.pt", "best_model.meta.json", "config.yaml", "logs"):
         if not (run / name).exists():
             raise AssertionError(f"run dir lacks {name}")
@@ -629,22 +808,24 @@ def train_phase(device, card: str, profile: bool = False) -> dict:
         values = result.history[key]
         if len(values) != 2 or not all(math.isfinite(v) for v in values):
             raise AssertionError(f"history[{key!r}] = {values}")
-    print(f"[train] history: train_loss {result.history['train_loss']}, val_loss "
+    print(f"{tag} history: train_loss {result.history['train_loss']}, val_loss "
           f"{result.history['val_loss']}, med {result.history['med']}, lr {result.history['lr']}")
     steps = trainer.step_times[1:]  # the first step allocates and tunes
     p50 = float(np.percentile(steps, 50)) * 1e3
-    print(f"[train] train step p50 {p50:.3f} ms = {TRAIN_BATCH / p50 * 1e3:.2f} img/s "
+    print(f"{tag} train step p50 {p50:.3f} ms = {TRAIN_BATCH / p50 * 1e3:.2f} img/s "
           f"(ConvNeXt-base 512^2 b{TRAIN_BATCH} bf16; upload, augmentation and the optimizer "
           f"included, the loader's prefetch not; {len(steps)} steps after the first; steps ms "
           f"{[round(t * 1e3, 3) for t in trainer.step_times]}) on {card}")
-    print(f"[train] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{tag} peak device memory of the training run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of which "
+          f"{held / 2**30:.2f} GiB were held before it (the model, the kernel phases' leftovers)")
     if profile:
-        profile_train(trainer, train_set, p50)
+        profile_train(trainer, train_set, p50, path)
     shutil.rmtree(run, ignore_errors=True)
     return {"launches": step_counts[0], "p50_ms": p50}
 
 
-def profile_train(trainer, dataset, p50_ms: float) -> None:
+def profile_train(trainer, dataset, p50_ms: float, path: str) -> None:
     """Two traced train steps: device time by kernel and the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -660,24 +841,30 @@ def profile_train(trainer, dataset, p50_ms: float) -> None:
             trainer.train_step_fn(trainer.state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3 / 2
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
+    events = _device_events(prof)
+    dev = _dev_us
     busy_ms = sum(dev(e) for e in events) / 1e3 / 2
-    print(f"[profile] train step: traced wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    print(f"[profile] {path}: traced wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({busy_ms / wall_ms:.1%}); against the untraced p50 {p50_ms:.3f} ms the idle "
           f"share is {1 - busy_ms / p50_ms:.1%}")
-    for e in sorted(events, key=dev, reverse=True)[:16]:
-        print(f"[profile] train step: {dev(e) / 1e3 / 2:9.3f} ms/step x{e.count // 2:<5d} "
+    for e in sorted(events, key=dev, reverse=True)[:20]:
+        print(f"[profile] {path}: {dev(e) / 1e3 / 2:9.3f} ms/step x{e.count // 2:<5d} "
               f"{e.key[:90]}")
+    rest = list(events)
+    for label, parts in PROFILE_GROUPS:
+        group = [e for e in rest if any(p in e.key for p in parts)]
+        rest = [e for e in rest if e not in group]
+        print(f"[profile] {path} group: {sum(dev(e) for e in group) / 1e3 / 2:9.3f} ms/step "
+              f"x{sum(e.count for e in group) // 2:<5d} {label}")
+    print(f"[profile] {path} group: {sum(dev(e) for e in rest) / 1e3 / 2:9.3f} ms/step "
+          f"x{sum(e.count for e in rest) // 2:<5d} everything else (PyTorch's own kernels)")
 
 
-def grad_check(device) -> None:
+def grad_check(device, use_pallas) -> None:
     """One step's gradients, card against CPU: ConvNeXt-base at full width,
     batch 2 at 128^2 (stages 32^2 .. 4^2 reach all four widths), augmentation
-    and dropout off, the same weights and batch, the same entry point."""
+    and dropout off, the same weights and batch, the same entry point; the
+    hybrid block ("hybrid") or the all-kernel block (True)."""
     import numpy as np
     import torch
 
@@ -692,9 +879,10 @@ def grad_check(device) -> None:
         cfg = LocalizationConfig(
             backbone="convnext_base", image_size=(128, 128), batch_size=2, num_epochs=1,
             augment=False, dropout=0.0, output_path=run, num_workers=1, pretrained=False,
-            grad_clip=None, seed=0,
+            grad_clip=None, seed=0, use_pallas_dwconv=use_pallas is True,
         )
-        trainer = LocalizationTrainer(cfg, model=_regressor(dev, seed=3, dropout=0.0),
+        model = _regressor(dev, seed=3, dropout=0.0, use_pallas=use_pallas)
+        trainer = LocalizationTrainer(cfg, model=model,
                                       train_dataset=_Images(2, 128, 12),
                                       val_dataset=_Images(2, 128, 13), device=dev)
         t0 = time.perf_counter()
@@ -707,7 +895,7 @@ def grad_check(device) -> None:
                torch.linalg.vector_norm(cpu[n]).clamp_min(1e-30)).item() for n in cpu}
     worst = sorted(rel.items(), key=lambda kv: kv[1], reverse=True)[:4]
     tol = GRAD_REL_TOL
-    print(f"[grad] card vs CPU, one step of {len(rel)} parameters (CPU step "
+    print(f"[grad] use_pallas={use_pallas!r}: card vs CPU, one step of {len(rel)} parameters (CPU step "
           f"{grads['cpu'][2]:.1f} s): loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; "
           f"per-parameter ||g_card - g_cpu|| / ||g_cpu||: median {np.median(list(rel.values())):.4g}, "
           f"max {worst[0][1]:.4g} ({worst[0][0]}), tol {tol}")
@@ -787,12 +975,16 @@ def main() -> int:
 
     report = kernel_phase(device)
     train_kernel_phase(device, report)
-    paths = {"study_inference": None, "train_step": None}
+    dwconv_train_kernel_phase(device, report)
+    paths = {"study_inference": None, "train_step": None, "train_step_dwconv": None}
     if not opts.kernels_only:
         paths["study_inference"] = slice_phase(device, card, opts.profile)["launches"]
-        paths["train_step"] = train_phase(device, card, opts.profile)["launches"]
-        grad_check(device)
+        paths["train_step"] = train_phase(device, card, "train_step", opts.profile)["launches"]
+        grad_check(device, "hybrid")
         overfit_check(device)
+        paths["train_step_dwconv"] = train_phase(device, card, "train_step_dwconv",
+                                                 opts.profile)["launches"]
+        grad_check(device, True)
 
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",
@@ -803,6 +995,12 @@ def main() -> int:
                                      "spine_vision_tpu/ops/convnext_block.py:194", "train_step"),
         "ln_mlp_bwd": ("spine_vision_torch/csrc/ln_mlp_bwd.cu",
                        "spine_vision_tpu/ops/fused_mlp.py:930 and :1050", "train_step"),
+        "mlp_bwd": ("spine_vision_torch/csrc/ln_mlp_bwd.cu",
+                    "spine_vision_tpu/ops/fused_mlp.py:325", "train_step_dwconv"),
+        "dw_ln_bwd": ("spine_vision_torch/csrc/dwconv_bwd.cu",
+                      "spine_vision_tpu/ops/dwconv.py:366", "train_step_dwconv"),
+        "depthwise_conv7x7": ("spine_vision_torch/csrc/dwconv_bwd.cu",
+                              "spine_vision_tpu/ops/dwconv.py:119", "train_step_dwconv"),
     }
     kernels = []
     for name, rows in report.items():

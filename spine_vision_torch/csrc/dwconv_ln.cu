@@ -63,20 +63,7 @@ int launch(const void* x, const void* k, const void* bias, const void* scale,
         (const float*)beta, (T*)out, B, H, W, eps);                          \
     break;
   switch (C) {
-    SVT_DW_LN_CASE(96)
-    SVT_DW_LN_CASE(128)
-    SVT_DW_LN_CASE(192)
-    SVT_DW_LN_CASE(256)
-    SVT_DW_LN_CASE(352)
-    SVT_DW_LN_CASE(384)
-    SVT_DW_LN_CASE(512)
-    SVT_DW_LN_CASE(704)
-    SVT_DW_LN_CASE(768)
-    SVT_DW_LN_CASE(1024)
-    SVT_DW_LN_CASE(1408)
-    SVT_DW_LN_CASE(1536)
-    SVT_DW_LN_CASE(2048)
-    SVT_DW_LN_CASE(2816)
+    SVT_DW_WIDTHS(SVT_DW_LN_CASE)
     default:
       return (int)cudaErrorInvalidValue;
   }

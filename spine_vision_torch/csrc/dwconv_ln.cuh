@@ -1,6 +1,8 @@
 // Depthwise 7x7 conv + bias + channel LayerNorm of NHWC tokens, by one warp.
 //
-// Shared by dwconv_ln.cu (the whole op) and convnext_block.cu (its prologue).
+// Shared by dwconv_ln.cu (the whole op), convnext_block.cu (its prologue) and
+// dwconv_bwd.cu (the plain stencil, and the LayerNorm statistics of the
+// backward).
 // Lane `l` owns the channel pairs p = l + 32*q, so every tap is one coalesced
 // read of the token's channel row; the 7x7 halo comes through L1/L2. A warp
 // carries a few tokens at once so each filter row serves all of them. All
@@ -15,6 +17,12 @@ namespace svt {
 
 constexpr int KS = 7;
 constexpr int PAD = 3;
+
+// The widths the stencil kernels are built for (ops/dwconv.py::KERNEL_WIDTHS):
+// every ConvNeXt v1/v2 stage width. X(C) is expanded for each.
+#define SVT_DW_WIDTHS(X)                                                            \
+  X(96) X(128) X(192) X(256) X(352) X(384) X(512) X(704) X(768) X(1024) X(1408) \
+  X(1536) X(2048) X(2816)
 
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -53,18 +61,13 @@ struct TokensPerWarp {
 };
 
 // For TB tokens (b[i], h[i], w[i]) of one warp, with ok[i] false for a token
-// past the end: y[i] = LN(dwconv7x7(x)[b, h, w, :] + bias) * scale + beta.
+// past the end: y[i] = dwconv7x7(x)[b, h, w, :] in f32 (zeros past the end).
 // With KEEP_CENTRE, x[b, h, w, :] (the residual) is copied to centre[i].
-// With EMIT_T, t = dwconv7x7(x) + bias is rounded to T, written to trow[i]
-// (for each token in range) and the LayerNorm reads the rounded t.
-template <typename T, int C, int TB, bool KEEP_CENTRE, bool EMIT_T = false>
-__device__ __forceinline__ void dw_ln_tokens(
-    const T* __restrict__ x, const T* __restrict__ k,
-    const float* __restrict__ bias, const float* __restrict__ scale,
-    const float* __restrict__ beta, const int (&b)[TB], const int (&h)[TB],
-    const int (&w)[TB], const bool (&ok)[TB], int H, int W, float eps,
-    int lane, float (&y)[TB][Lanes<C>::NP][2], T* const (&centre)[TB],
-    T* const* trow = nullptr) {
+template <typename T, int C, int TB, bool KEEP_CENTRE>
+__device__ __forceinline__ void dw_tokens(
+    const T* __restrict__ x, const T* __restrict__ k, const int (&b)[TB],
+    const int (&h)[TB], const int (&w)[TB], const bool (&ok)[TB], int H, int W,
+    int lane, float (&y)[TB][Lanes<C>::NP][2], T* const (&centre)[TB]) {
   static_assert(!KEEP_CENTRE || sizeof(T) == 2, "the residual copy is for bf16");
   constexpr int NP = Lanes<C>::NP;
 #pragma unroll
@@ -102,10 +105,48 @@ __device__ __forceinline__ void dw_ln_tokens(
       }
     }
   }
+}
 
+// One token's channels v (lane-owned pairs) minus their mean mu over the C
+// channels, in place; returns rstd = 1 / sqrt(var + eps), var the mean of the
+// centred squares.
+template <int C>
+__device__ __forceinline__ float centre_rstd(float (&v)[Lanes<C>::NP][2], float eps,
+                                             int lane, float& mu) {
+  constexpr int NP = Lanes<C>::NP;
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+    if (Lanes<C>::valid(lane + 32 * q)) s += v[q][0] + v[q][1];
+  mu = warp_sum(s) * (1.f / C);
+  float s2 = 0.f;
+#pragma unroll
+  for (int q = 0; q < NP; ++q) {
+    if (Lanes<C>::valid(lane + 32 * q)) {
+      v[q][0] -= mu;
+      v[q][1] -= mu;
+      s2 += v[q][0] * v[q][0] + v[q][1] * v[q][1];
+    }
+  }
+  return rsqrtf(warp_sum(s2) * (1.f / C) + eps);
+}
+
+// For TB tokens of one warp (as dw_tokens):
+// y[i] = LN(dwconv7x7(x)[b, h, w, :] + bias) * scale + beta.
+// With EMIT_T, t = dwconv7x7(x) + bias is rounded to T, written to trow[i]
+// (for each token in range) and the LayerNorm reads the rounded t.
+template <typename T, int C, int TB, bool KEEP_CENTRE, bool EMIT_T = false>
+__device__ __forceinline__ void dw_ln_tokens(
+    const T* __restrict__ x, const T* __restrict__ k,
+    const float* __restrict__ bias, const float* __restrict__ scale,
+    const float* __restrict__ beta, const int (&b)[TB], const int (&h)[TB],
+    const int (&w)[TB], const bool (&ok)[TB], int H, int W, float eps,
+    int lane, float (&y)[TB][Lanes<C>::NP][2], T* const (&centre)[TB],
+    T* const* trow = nullptr) {
+  constexpr int NP = Lanes<C>::NP;
+  dw_tokens<T, C, TB, KEEP_CENTRE>(x, k, b, h, w, ok, H, W, lane, y, centre);
 #pragma unroll
   for (int i = 0; i < TB; ++i) {
-    float s = 0.f;
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       const int p = lane + 32 * q;
@@ -121,21 +162,10 @@ __device__ __forceinline__ void dw_ln_tokens(
           y[i][q][0] = tf.x;
           y[i][q][1] = tf.y;
         }
-        s += y[i][q][0] + y[i][q][1];
       }
     }
-    const float mu = warp_sum(s) * (1.f / C);
-    float s2 = 0.f;
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      const int p = lane + 32 * q;
-      if (Lanes<C>::valid(p)) {
-        y[i][q][0] -= mu;
-        y[i][q][1] -= mu;
-        s2 += y[i][q][0] * y[i][q][0] + y[i][q][1] * y[i][q][1];
-      }
-    }
-    const float rstd = rsqrtf(warp_sum(s2) * (1.f / C) + eps);
+    float mu;
+    const float rstd = centre_rstd<C>(y[i], eps, lane, mu);
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       const int p = lane + 32 * q;

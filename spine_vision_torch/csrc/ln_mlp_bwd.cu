@@ -35,8 +35,18 @@
 // Products are mma.sync m16n8k16 with ldmatrix loads (transposed for the
 // token-major operands of B); weight chunks stream in with cp.async. Not yet
 // here: wgmma, TMA, keeping h and g_hpre out of device memory.
+//
+// The same kernels without the LayerNorm (svt_mlp_bwd, the template flag LN =
+// false) are the backward of the MLP + LayerScale alone from its input y:
+// dy, dW1, db1, dW2, db2, dgamma. That replaces
+// spine_vision_tpu/ops/fused_mlp.py::_mlp_bwd_pallas, the MLP half of the
+// all-kernel block's backward (ops/convnext_block.py::convnext_block_fused):
+// the per-token kernel reads y directly and writes dy = g_y rounded to bf16,
+// and the weight-gradient products read y itself. Its bound is the same
+// 40 * M * C^2 flops.
 #include "dwconv_ln.cuh"
 #include "mma_bf16.cuh"
+#include "reduce.cuh"
 
 namespace {
 
@@ -127,7 +137,9 @@ __device__ __forceinline__ void warp_rows_to(float* red, const float (&v)[Lanes<
 }
 
 // part rows: [db1 (4C) | dln_scale | dln_bias | db2 | sum g], 8C floats.
-template <int C>
+// With LN false, t is the MLP input y itself, dt receives dy, ls, lb and y_out
+// are not read, and the dln_scale and dln_bias rows are zeros.
+template <int C, bool LN>
 __global__ void __launch_bounds__(NTHREADS, 1) ln_mlp_bwd_tokens(
     const bf16* __restrict__ t, const bf16* __restrict__ gout,
     const float* __restrict__ ls, const float* __restrict__ lb,
@@ -169,7 +181,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) ln_mlp_bwd_tokens(
   load_cols<C>(sW1T, w1, 0);
   svt::cp_async_commit();
 
-  // 1. y = LN(t) -> bf16; g * gamma -> bf16; per-channel db2 and sum g.
+  // 1. y = LN(t) (LN) or t -> bf16; g * gamma -> bf16; per-channel db2 and
+  // sum g.
   float cdb2[NP][2], cgs[NP][2];
 #pragma unroll
   for (int q = 0; q < NP; ++q) cdb2[q][0] = cdb2[q][1] = cgs[q][0] = cgs[q][1] = 0.f;
@@ -191,27 +204,35 @@ __global__ void __launch_bounds__(NTHREADS, 1) ln_mlp_bwd_tokens(
         s += a.x + a.y;
       }
     }
-    const float mu = svt::warp_sum(s) * (1.f / C);
-    float s2 = 0.f;
+    float mu = 0.f, rstd = 1.f;
+    if constexpr (LN) {
+      mu = svt::warp_sum(s) * (1.f / C);
+      float s2 = 0.f;
 #pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      const int p = lane + 32 * q;
-      if (Lanes<C>::valid(p)) {
-        const float d0 = tv[q][0] - mu, d1 = tv[q][1] - mu;
-        s2 += d0 * d0 + d1 * d1;
+      for (int q = 0; q < NP; ++q) {
+        const int p = lane + 32 * q;
+        if (Lanes<C>::valid(p)) {
+          const float d0 = tv[q][0] - mu, d1 = tv[q][1] - mu;
+          s2 += d0 * d0 + d1 * d1;
+        }
       }
+      rstd = rsqrtf(svt::warp_sum(s2) * (1.f / C) + LN_EPS);
     }
-    const float rstd = rsqrtf(svt::warp_sum(s2) * (1.f / C) + LN_EPS);
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       const int p = lane + 32 * q;
       if (!Lanes<C>::valid(p)) continue;
       float y0 = 0.f, y1 = 0.f;
       if (ok) {
-        const float2 sv = svt::load2(ls + 2 * p), bv = svt::load2(lb + 2 * p);
-        y0 = (tv[q][0] - mu) * rstd * sv.x + bv.x;
-        y1 = (tv[q][1] - mu) * rstd * sv.y + bv.y;
-        svt::store2(y_out + tok * C + 2 * p, y0, y1);
+        if constexpr (LN) {
+          const float2 sv = svt::load2(ls + 2 * p), bv = svt::load2(lb + 2 * p);
+          y0 = (tv[q][0] - mu) * rstd * sv.x + bv.x;
+          y1 = (tv[q][1] - mu) * rstd * sv.y + bv.y;
+          svt::store2(y_out + tok * C + 2 * p, y0, y1);
+        } else {
+          y0 = tv[q][0];
+          y1 = tv[q][1];
+        }
       }
       svt::store2(sY + r * LDY + 2 * p, y0, y1);
       const float2 gm = svt::load2(gamma + 2 * p);
@@ -220,7 +241,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) ln_mlp_bwd_tokens(
       cdb2[q][0] += m0; cdb2[q][1] += m1;
       cgs[q][0] += gv[q][0]; cgs[q][1] += gv[q][1];
     }
-    if (lane == 0) {
+    if (LN && lane == 0) {
       sMu[r] = mu;
       sRstd[r] = rstd;
     }
@@ -343,6 +364,22 @@ __global__ void __launch_bounds__(NTHREADS, 1) ln_mlp_bwd_tokens(
     svt::cp_async_commit();
   }
   svt::cp_async_wait_all();
+
+  if constexpr (!LN) {
+    // 3. dy = g_y, rounded to bf16, straight from the accumulators.
+#pragma unroll
+    for (int nj = 0; nj < G2::NTW; ++nj) {
+      const int col = (wn * G2::NTW + nj) * 8 + 2 * tq;
+#pragma unroll
+      for (int mi = 0; mi < G2::MT; ++mi) {
+        const long long r0 = tok0 + (wm * G2::MT + mi) * 16 + g;
+        if (r0 < M) svt::store2(dt + r0 * C + col, acc[mi][nj][0], acc[mi][nj][1]);
+        if (r0 + 8 < M) svt::store2(dt + (r0 + 8) * C + col, acc[mi][nj][2], acc[mi][nj][3]);
+      }
+    }
+    for (int c = threadIdx.x; c < 2 * C; c += NTHREADS) mypart[4 * C + c] = 0.f;
+    return;
+  }
 
   // 3. g_y to shared memory (f32, over y and g), then the LayerNorm backward
   // a row per warp step: dt = rstd * (dyh - mean(dyh) - yhat * mean(dyh *
@@ -502,35 +539,17 @@ __global__ void __launch_bounds__(256) reduce_rows(
   }
 }
 
-// out[c] = sum over p (in a fixed order) of in[p][c].
-__global__ void __launch_bounds__(1024) colsum(const float* __restrict__ in,
-                                               long long P, int N,
-                                               float* __restrict__ out) {
-  __shared__ float sm[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (c < N)
-    for (long long p = threadIdx.y; p < P; p += 32) s += in[p * N + c];
-  sm[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < N) {
-    float total = 0.f;
-    for (int y = 0; y < 32; ++y) total += sm[y][threadIdx.x];
-    out[c] = total;
-  }
-}
-
-template <int C>
+template <int C, bool LN>
 int launch_tokens(const void* t, const void* g, const void* ls, const void* lb,
                   const void* w1t, const void* w1, const void* b1, const void* w2,
                   const void* gamma, void* dt, void* y, void* h, void* gh,
                   void* part, long long M, cudaStream_t s) {
   const size_t smem = TLayout<C>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      ln_mlp_bwd_tokens<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ln_mlp_bwd_tokens<C, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = (unsigned)((M + TOK - 1) / TOK);
-  ln_mlp_bwd_tokens<C><<<grid, NTHREADS, smem, s>>>(
+  ln_mlp_bwd_tokens<C, LN><<<grid, NTHREADS, smem, s>>>(
       (const bf16*)t, (const bf16*)g, (const float*)ls, (const float*)lb,
       (const bf16*)w1t, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
       (const float*)gamma, (bf16*)dt, (bf16*)y, (bf16*)h, (bf16*)gh,
@@ -538,29 +557,15 @@ int launch_tokens(const void* t, const void* g, const void* ls, const void* lb,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// All activations [M, C] or [M, 4C] bf16, token-major. Weights bf16 in both
-// layouts: w1t [4C, C] and w1 [C, 4C], w2t [C, 4C] and w2 [4C, C]; ls, lb,
-// b1, b2, gamma f32. Outputs: dt [M, C] bf16; small f32 [8C] = db1 (4C),
-// dln_scale, dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C]
-// f32. Scratch from the caller: y, h, gh ([M, C], [M, 4C], [M, 4C] bf16),
-// part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C]. Returns the first
-// cudaError_t of its launches.
-extern "C" int svt_ln_mlp_bwd(
-    const void* t, const void* g, const void* ls, const void* lb,
-    const void* w1t, const void* w1, const void* b1, const void* w2t,
-    const void* w2, const void* b2, const void* gamma, void* dt, void* small,
-    void* dw1t, void* dw2t, void* dgamma, void* y, void* h, void* gh,
-    void* part, void* ws, long long M, int C, int splits, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err;
-#define SVT_LN_MLP_BWD_CASE(CC)                                                  \
-  case CC:                                                                       \
-    err = launch_tokens<CC>(t, g, ls, lb, w1t, w1, b1, w2, gamma, dt, y, h, gh,  \
-                            part, M, s);                                         \
-    break;
+template <bool LN>
+int launch_any(const void* t, const void* g, const void* ls, const void* lb,
+               const void* w1t, const void* w1, const void* b1, const void* w2,
+               const void* gamma, void* dt, void* y, void* h, void* gh,
+               void* part, long long M, int C, cudaStream_t s) {
+#define SVT_LN_MLP_BWD_CASE(CC)                                                      \
+  case CC:                                                                           \
+    return launch_tokens<CC, LN>(t, g, ls, lb, w1t, w1, b1, w2, gamma, dt, y, h, gh, \
+                                 part, M, s);
   switch (C) {
     SVT_LN_MLP_BWD_CASE(96)
     SVT_LN_MLP_BWD_CASE(128)
@@ -572,10 +577,18 @@ extern "C" int svt_ln_mlp_bwd(
       return (int)cudaErrorInvalidValue;
   }
 #undef SVT_LN_MLP_BWD_CASE
-  if (err) return err;
+}
+
+// B: the per-tile sums, then dW1 from y and the hidden gradient, dW2 and
+// dgamma from g and h; both forms.
+int weight_grads(const void* y, const void* g, const void* w2t, const void* b2,
+                 const void* gamma, void* small, void* dw1t, void* dw2t,
+                 void* dgamma, const void* h, const void* gh, const void* part,
+                 void* ws, long long M, int C, int splits, cudaStream_t s) {
+  int err;
   const long long tiles = (M + TOK - 1) / TOK;
   float* sm = (float*)small;
-  colsum<<<(unsigned)((8 * C + 31) / 32), dim3(32, 32), 0, s>>>(
+  svt::colsum<<<(unsigned)((8 * C + 31) / 32), dim3(32, 32), 0, s>>>(
       (const float*)part, tiles, 8 * C, sm);
   if ((err = (int)cudaGetLastError())) return err;
 
@@ -598,4 +611,46 @@ extern "C" int svt_ln_mlp_bwd(
                                 (const float*)gamma, (const bf16*)w2t, sm + 7 * C,
                                 (const float*)b2, (float*)dw2t, (float*)dgamma);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// All activations [M, C] or [M, 4C] bf16, token-major. Weights bf16 in both
+// layouts: w1t [4C, C] and w1 [C, 4C], w2t [C, 4C] and w2 [4C, C]; ls, lb,
+// b1, b2, gamma f32. Outputs: dt [M, C] bf16; small f32 [8C] = db1 (4C),
+// dln_scale, dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C]
+// f32. Scratch from the caller: y, h, gh ([M, C], [M, 4C], [M, 4C] bf16),
+// part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C]. Returns the first
+// cudaError_t of its launches.
+extern "C" int svt_ln_mlp_bwd(
+    const void* t, const void* g, const void* ls, const void* lb,
+    const void* w1t, const void* w1, const void* b1, const void* w2t,
+    const void* w2, const void* b2, const void* gamma, void* dt, void* small,
+    void* dw1t, void* dw2t, void* dgamma, void* y, void* h, void* gh,
+    void* part, void* ws, long long M, int C, int splits, void* stream) {
+  if (M == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_any<true>(t, g, ls, lb, w1t, w1, b1, w2, gamma, dt, y, h, gh,
+                                   part, M, C, s);
+  if (err) return err;
+  return weight_grads(y, g, w2t, b2, gamma, small, dw1t, dw2t, dgamma, h, gh, part,
+                      ws, M, C, splits, s);
+}
+
+// The MLP + LayerScale backward from its input y [M, C] bf16: dy [M, C] bf16
+// and, as svt_ln_mlp_bwd, small (db1, zeros, zeros, db2, sum g), dw1t, dw2t,
+// dgamma; the scratch without y. Returns the first cudaError_t of its
+// launches.
+extern "C" int svt_mlp_bwd(
+    const void* y, const void* g, const void* w1t, const void* w1, const void* b1,
+    const void* w2t, const void* w2, const void* b2, const void* gamma, void* dy,
+    void* small, void* dw1t, void* dw2t, void* dgamma, void* h, void* gh,
+    void* part, void* ws, long long M, int C, int splits, void* stream) {
+  if (M == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int err = launch_any<false>(y, g, nullptr, nullptr, w1t, w1, b1, w2, gamma, dy,
+                                    nullptr, h, gh, part, M, C, s);
+  if (err) return err;
+  return weight_grads(y, g, w2t, b2, gamma, small, dw1t, dw2t, dgamma, h, gh, part,
+                      ws, M, C, splits, s);
 }

@@ -3,10 +3,13 @@
 Counterpart of ``spine_vision_tpu/models/convnext.py``. Each block dispatches
 as the JAX model does for its ``use_pallas`` setting:
 
-- ``use_pallas=True`` (inference): v1 blocks of width <= ``MAX_FUSED_DIM`` run
-  the whole-block kernel (``ops/convnext_block.py``); wider blocks, and v2
-  (GRN) blocks, run the dwconv+LayerNorm kernel (``ops/dwconv.py``) and then a
-  plain MLP;
+- ``use_pallas=True`` (inference, and training with ``use_pallas_dwconv``):
+  v1 blocks of width <= ``MAX_FUSED_DIM`` run the whole-block kernel
+  (``ops/convnext_block.py::convnext_block_fused``, whose backward is the
+  dwconv+LN recompute, the MLP backward and the dwconv+LN backward kernels);
+  wider blocks, and v2 (GRN) blocks, run the dwconv+LayerNorm kernel
+  (``ops/dwconv.py::depthwise_conv7x7_ln``, forward and backward kernels) and
+  then a plain MLP;
 - ``use_pallas="hybrid"`` (training): v1 blocks of width <= ``MAX_FUSED_DIM``
   with LayerScale run the hybrid block (``ops/block_train.py``: the block
   kernel emitting ``t`` forward, the LN+MLP backward kernel); every other block
@@ -31,8 +34,8 @@ from torch import nn
 
 from spine_vision_torch.models.layers import Conv, LayerNorm, _lecun_normal, _param
 from spine_vision_torch.ops.block_train import convnext_block_hybrid
-from spine_vision_torch.ops.convnext_block import convnext_block
-from spine_vision_torch.ops.dwconv import KERNEL_SIZE, PAD, dw_ln
+from spine_vision_torch.ops.convnext_block import convnext_block_fused
+from spine_vision_torch.ops.dwconv import KERNEL_SIZE, PAD, depthwise_conv7x7_ln
 from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM
 
 USE_PALLAS_MODES = (True, "hybrid", False)
@@ -134,7 +137,8 @@ class ConvNeXtBlock(nn.Module):
         self.fused = kernels and use_pallas is True and fits
         self.use_dw_ln = kernels and use_pallas is True and not self.fused
         if self.fused and self.gamma is None:
-            # The whole-block kernel always applies a scale (ones here).
+            # The whole-block kernel always applies a scale (ones here, a
+            # buffer, so its gradient is dropped).
             self.register_buffer("_ones", torch.ones(dim, dtype=f32, device=device))
 
     def _weights(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -152,12 +156,12 @@ class ConvNeXtBlock(nn.Module):
             )
         if self.fused:
             gamma = self.gamma if self.gamma is not None else self._ones
-            return convnext_block(
+            return convnext_block_fused(
                 x, k49, self.dw_bias, self.norm_scale, self.norm_bias,
                 w1t, self.pw1_bias, w2t, self.pw2_bias, gamma,
             )
         if self.use_dw_ln:
-            y = dw_ln(x, k49, self.dw_bias, self.norm_scale, self.norm_bias)
+            y = depthwise_conv7x7_ln(x, k49, self.dw_bias, self.norm_scale, self.norm_bias)
         else:
             weight = k49.t().reshape(self.dim, 1, KERNEL_SIZE, KERNEL_SIZE)
             t = F.conv2d(

@@ -13,6 +13,12 @@ With ``emit_conv=True`` (the hybrid training block's forward) both also return
 ``t = dwconv7x7(x) + b_dw`` rounded to x's dtype, and the LayerNorm reads that
 rounded ``t``, as the TPU kernel's ``emit_conv`` form does.
 
+:func:`convnext_block_fused` is the trainable block, the counterpart of the
+JAX package's custom VJP ``_block_ad``: the kernel forward (inference form),
+and a backward that recomputes ``y = LN(dwconv7x7(x) + b_dw)`` with
+``dw_ln``, runs the MLP backward ``mlp_bwd`` and then the dwconv+LN backward
+``dw_ln_bwd`` (kernels on the card, plain versions on the CPU).
+
 Weights come in the layouts ``models/convert.py`` makes once at load time:
 the filter tap-major ``[49, C]``, ``w1t`` ``[4C, C]`` and ``w2t`` ``[C, 4C]``
 (``[out, in]``).
@@ -25,8 +31,13 @@ import ctypes
 import torch
 
 from spine_vision_torch.ops import cuda_build
-from spine_vision_torch.ops.dwconv import depthwise_conv7x7_reference, layer_norm_f32
-from spine_vision_torch.ops.fused_mlp import tanh_gelu
+from spine_vision_torch.ops.dwconv import (
+    depthwise_conv7x7_reference,
+    dw_ln,
+    dw_ln_bwd,
+    layer_norm_f32,
+)
+from spine_vision_torch.ops.fused_mlp import mlp_bwd, tanh_gelu
 
 KERNEL_WIDTHS = (96, 128, 192, 256, 384, 512)  # widths the CUDA kernel is built for
 
@@ -138,3 +149,55 @@ def convnext_block(
 
 convnext_block.launches = 0
 convnext_block.emit_launches = 0
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The block kernel forward; saves the primal inputs only."""
+
+    @staticmethod
+    def forward(ctx, x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps):
+        ctx.save_for_backward(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
+        ctx.eps = eps
+        return convnext_block(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma = ctx.saved_tensors
+        g = g.contiguous()
+        y = dw_ln(x, k49, dw_bias, ln_scale, ln_bias, ctx.eps)
+        dy, dw1t, db1, dw2t, db2, dgamma = mlp_bwd(y, w1t, b1, w2t, b2, gamma, g)
+        dx1, dk, dbias, dscale, dbeta = dw_ln_bwd(x, k49, dw_bias, ln_scale, dy, ctx.eps)
+        dx = (dx1.float() + g.float()).to(x.dtype)
+        return (
+            dx,
+            dk.to(k49.dtype),
+            dbias.to(dw_bias.dtype),
+            dscale.to(ln_scale.dtype),
+            dbeta.to(ln_bias.dtype),
+            dw1t.to(w1t.dtype),
+            db1.to(b1.dtype),
+            dw2t.to(w2t.dtype),
+            db2.to(b2.dtype),
+            dgamma.to(gamma.dtype),
+            None,
+        )
+
+
+def convnext_block_fused(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Trainable fused ConvNeXt v1 block on NHWC ``x``, arguments as
+    :func:`convnext_block`. Without grad it is :func:`convnext_block`; the
+    backward is described in the module docstring, with ``dx = dx_conv + g``
+    added in f32, and gradients come back in each argument's dtype."""
+    return _FusedBlock.apply(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps)

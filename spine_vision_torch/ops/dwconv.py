@@ -1,12 +1,22 @@
-"""Fused depthwise 7x7 conv + bias + channel LayerNorm (NHWC).
+"""Depthwise 7x7 conv, and the fused depthwise 7x7 conv + bias + channel
+LayerNorm with its backward (NHWC).
 
-Counterpart of ``spine_vision_tpu/ops/dwconv.py::depthwise_conv7x7_ln``. On a
-CUDA tensor :func:`dw_ln` launches the hand-written kernel
-``csrc/dwconv_ln.cu`` (a warp per few tokens, LayerNorm in registers; it replaces
-the TPU kernel ``_dw_ln_pallas``); on a CPU tensor it runs
-:func:`dw_ln_reference`, the plain PyTorch version of the same arithmetic.
-The kernel takes the tap-major filter ``[49, C]`` that
-``models/convert.py`` produces once at load time.
+Counterpart of ``spine_vision_tpu/ops/dwconv.py``. Each wrapper launches a
+hand-written kernel on a CUDA tensor and runs its plain PyTorch version
+(``*_reference``) on a CPU tensor:
+
+- :func:`dw_ln`, ``LayerNorm(dwconv7x7(x) + bias)``: ``csrc/dwconv_ln.cu`` (a
+  warp per few tokens, LayerNorm in registers; replaces ``_dw_ln_pallas``);
+- :func:`depthwise_conv7x7`, the plain stencil: ``csrc/dwconv_bwd.cu``
+  (replaces ``depthwise_conv7x7``);
+- :func:`dw_ln_bwd_sums`, the backward of :func:`dw_ln` but dx:
+  ``csrc/dwconv_bwd.cu`` (replaces ``_dw_ln_bwd_pallas``'s first kernel);
+  :func:`dw_ln_bwd` adds dx, :func:`depthwise_conv7x7` on the flipped filter.
+
+:func:`depthwise_conv7x7_ln` pairs the forward with that backward as a
+``torch.autograd.Function`` (the counterpart of ``_dw_ln_ad``). The kernels
+take the tap-major filter ``[49, C]`` that ``models/convert.py`` produces once
+at load time; in that layout the spatially flipped filter is ``k49.flip(0)``.
 """
 
 from __future__ import annotations
@@ -15,14 +25,19 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.nn.grad import conv2d_weight
 
 from spine_vision_torch.ops import cuda_build
 
 KERNEL_SIZE = 7
 PAD = KERNEL_SIZE // 2
-# Widths the CUDA kernel is built for: every ConvNeXt v1/v2 stage width.
+TAPS = KERNEL_SIZE * KERNEL_SIZE
+# Widths the CUDA kernels are built for: every ConvNeXt v1/v2 stage width.
 KERNEL_WIDTHS = (96, 128, 192, 256, 352, 384, 512, 704, 768, 1024, 1408, 1536, 2048, 2816)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_SUMS = TAPS + 3  # csrc/dwconv_bwd.cu, NSUM: dk, dbias, dscale, dbeta
+_CHANNELS_PER_CTA = 64  # csrc/dwconv_bwd.cu, CG
+_TARGET_CTAS = 2048  # of the backward's tile kernel: about 16 a multiprocessor
 
 
 def depthwise_conv7x7_reference(x: torch.Tensor, k49: torch.Tensor) -> torch.Tensor:
@@ -58,25 +73,87 @@ def dw_ln_reference(
     return layer_norm_f32(t, ln_scale, ln_bias, eps).to(x.dtype)
 
 
-def _check(x, k49, bias, ln_scale, ln_bias) -> None:
+def dw_ln_bwd_sums_reference(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """Plain backward of :func:`dw_ln_reference` up to ``dx``, for the output
+    gradient ``g``, with the TPU kernel's rounding points: the conv recomputed
+    from x in f32 plus bias, the LayerNorm statistics from the mean of centred
+    squares, ``da`` in f32, ``dbias = sum da`` and ``dk = sum x_halo * da``
+    from the unrounded ``da``, ``dscale = sum g * yhat``, ``dbeta = sum g``.
+    Returns ``(da, dk49, dbias, dscale, dbeta)``: ``da`` rounded to x's dtype,
+    the rest f32, ``dk49`` in the ``[49, C]`` layout."""
+    c = x.shape[-1]
+    a = depthwise_conv7x7_reference(x, k49) + bias.float()
+    mu = a.mean(dim=-1, keepdim=True)
+    centred = a - mu
+    rstd = torch.rsqrt((centred * centred).mean(dim=-1, keepdim=True) + eps)
+    yhat = centred * rstd
+    gf = g.float()
+    dyhat = gf * ln_scale.float()
+    da = rstd * (
+        dyhat
+        - dyhat.mean(dim=-1, keepdim=True)
+        - yhat * (dyhat * yhat).mean(dim=-1, keepdim=True)
+    )
+    dk = conv2d_weight(
+        x.float().permute(0, 3, 1, 2), (c, 1, KERNEL_SIZE, KERNEL_SIZE),
+        da.permute(0, 3, 1, 2), padding=PAD, groups=c,
+    ).reshape(c, TAPS).t()
+    sums = (0, 1, 2)
+    return (da.to(x.dtype), dk, da.sum(dim=sums), (gf * yhat).sum(dim=sums),
+            gf.sum(dim=sums))
+
+
+def dw_ln_bwd_reference(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """Plain backward of :func:`dw_ln_reference`: :func:`dw_ln_bwd_sums_reference`,
+    then ``dx``, the conv of the rounded ``da`` with the flipped filter, in
+    x's dtype. Returns ``(dx, dk49, dbias, dscale, dbeta)``."""
+    da, *sums = dw_ln_bwd_sums_reference(x, k49, bias, ln_scale, g, eps)
+    return (depthwise_conv7x7_reference(da, k49.flip(0)).to(x.dtype), *sums)
+
+
+def _check_args(name, x, k49, vectors=(), g=None) -> None:
+    """Raise on what ``name``'s kernel does not take: ``vectors`` are
+    ``(name, tensor)`` pairs of f32 ``[C]``, ``g`` an optional gradient."""
     if x.dim() != 4:
-        raise ValueError(f"dw_ln expects NHWC [B, H, W, C], got {tuple(x.shape)}")
+        raise ValueError(f"{name} expects NHWC [B, H, W, C], got {tuple(x.shape)}")
     c = x.shape[-1]
     if c not in KERNEL_WIDTHS:
-        raise ValueError(f"dw_ln kernel is built for C in {KERNEL_WIDTHS}, got {c}")
+        raise ValueError(f"{name} kernel is built for C in {KERNEL_WIDTHS}, got {c}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"dw_ln kernel takes bf16 or f32, got {x.dtype}")
-    if k49.shape != (KERNEL_SIZE * KERNEL_SIZE, c) or k49.dtype != x.dtype:
-        raise ValueError("dw_ln kernel wants the [49, C] filter in x's dtype")
-    for name, t in (("x", x), ("k49", k49), ("bias", bias),
-                    ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+        raise TypeError(f"{name} kernel takes bf16 or f32, got {x.dtype}")
+    if x.numel() == 0:
+        raise ValueError(f"{name} kernel takes a non-empty x")
+    if k49.shape != (TAPS, c) or k49.dtype != x.dtype:
+        raise ValueError(f"{name} kernel wants the [49, C] filter in x's dtype")
+    if g is not None and (g.shape != x.shape or g.dtype != x.dtype):
+        raise ValueError(f"{name}: g must have x's shape and dtype")
+    named = [("x", x), ("k49", k49)] + list(vectors) + ([("g", g)] if g is not None else [])
+    for vname, t in named:
         if not t.is_contiguous():
-            raise ValueError(f"dw_ln: {name} must be contiguous")
+            raise ValueError(f"{name}: {vname} must be contiguous")
         if t.device != x.device:
-            raise ValueError(f"dw_ln: {name} is on {t.device}, x on {x.device}")
-    for name, t in (("bias", bias), ("ln_scale", ln_scale), ("ln_bias", ln_bias)):
+            raise ValueError(f"{name}: {vname} is on {t.device}, x on {x.device}")
+    for vname, t in vectors:
         if t.shape != (c,) or t.dtype != torch.float32:
-            raise ValueError(f"dw_ln: {name} must be f32 [C]")
+            raise ValueError(f"{name}: {vname} must be f32 [C]")
+
+
+def _check(x, k49, bias, ln_scale, ln_bias) -> None:
+    _check_args("dw_ln", x, k49, (("bias", bias), ("ln_scale", ln_scale), ("ln_bias", ln_bias)))
 
 
 def dw_ln(
@@ -98,8 +175,7 @@ def dw_ln(
     _check(x, k49, bias, ln_scale, ln_bias)
     b, h, w, c = x.shape
     out = torch.empty_like(x)
-    lib = cuda_build.load("dwconv_ln")
-    fn = lib.svt_dw_ln_forward
+    fn = cuda_build.load("dwconv_ln").svt_dw_ln_forward
     fn.restype = ctypes.c_int
     p = cuda_build.ptr
     err = fn(
@@ -114,3 +190,132 @@ def dw_ln(
 
 
 dw_ln.launches = 0
+
+
+def depthwise_conv7x7(x: torch.Tensor, k49: torch.Tensor) -> torch.Tensor:
+    """SAME 7x7 depthwise conv of NHWC ``x`` with the ``[49, C]`` filter,
+    summed in f32 and returned in x's dtype.
+
+    CUDA tensors launch ``csrc/dwconv_bwd.cu``'s stencil (bf16 or f32, C in
+    ``KERNEL_WIDTHS``; anything else raises); CPU tensors take the plain
+    version. ``depthwise_conv7x7.launches`` counts kernel launches.
+    """
+    if x.device.type == "cpu":
+        return depthwise_conv7x7_reference(x, k49).to(x.dtype)
+    _check_args("depthwise_conv7x7", x, k49)
+    b, h, w, c = x.shape
+    out = torch.empty_like(x)
+    fn = cuda_build.load("dwconv_bwd").svt_dwconv7x7
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        p(x), p(k49), p(out), ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b),
+        ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c), cuda_build.stream_ptr(x.device),
+    )
+    cuda_build.check(err, "dwconv7x7")
+    depthwise_conv7x7.launches += 1
+    return out
+
+
+depthwise_conv7x7.launches = 0
+
+
+def rows_per_cta(rows: int, c: int) -> int:
+    """Image rows each CTA of the backward's tile kernel walks: about
+    ``_TARGET_CTAS`` CTAs over the channel groups and the ``B * H`` rows."""
+    groups = -(-c // _CHANNELS_PER_CTA)
+    return -(-rows // max(1, -(-_TARGET_CTAS // groups)))
+
+
+def dw_ln_bwd_sums(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """``(da, dk49, dbias, dscale, dbeta)`` as :func:`dw_ln_bwd_sums_reference`.
+
+    CUDA tensors launch ``csrc/dwconv_bwd.cu``'s backward (bf16 or f32, C in
+    ``KERNEL_WIDTHS``; anything else raises); ``dw_ln_bwd_sums.launches``
+    counts it. CPU tensors take the plain version.
+    """
+    if x.device.type == "cpu":
+        return dw_ln_bwd_sums_reference(x, k49, bias, ln_scale, g, eps)
+    _check_args("dw_ln_bwd", x, k49, (("bias", bias), ("ln_scale", ln_scale)), g)
+    b, h, w, c = x.shape
+    dev, f32 = x.device, torch.float32
+    rows = rows_per_cta(b * h, c)
+    da = torch.empty_like(x)
+    stats = torch.empty(b * h * w, 4, dtype=f32, device=dev)
+    part = torch.empty(-(-(b * h) // rows), _SUMS * c, dtype=f32, device=dev)
+    sums = torch.empty(_SUMS * c, dtype=f32, device=dev)
+    fn = cuda_build.load("dwconv_bwd").svt_dw_ln_bwd
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        p(x), p(k49), p(bias), p(ln_scale), p(g), p(stats), p(da), p(part), p(sums),
+        ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w),
+        ctypes.c_int(c), ctypes.c_int(rows), ctypes.c_float(eps), cuda_build.stream_ptr(dev),
+    )
+    cuda_build.check(err, "dw_ln_bwd")
+    dw_ln_bwd_sums.launches += 1
+    dk, dbias, dscale, dbeta = sums.split((TAPS * c, c, c, c))
+    return da, dk.view(TAPS, c), dbias, dscale, dbeta
+
+
+dw_ln_bwd_sums.launches = 0
+
+
+def dw_ln_bwd(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """Backward of :func:`dw_ln` for the output gradient ``g``:
+    ``(dx, dk49, dbias, dscale, dbeta)`` as :func:`dw_ln_bwd_reference`.
+
+    CUDA tensors run :func:`dw_ln_bwd_sums` (kernel #4) and then
+    :func:`depthwise_conv7x7` (kernel #3) on ``da`` with the flipped filter
+    for ``dx``; CPU tensors take the plain version.
+    """
+    if x.device.type == "cpu":
+        return dw_ln_bwd_reference(x, k49, bias, ln_scale, g, eps)
+    da, *sums = dw_ln_bwd_sums(x, k49, bias, ln_scale, g, eps)
+    return (depthwise_conv7x7(da, k49.flip(0).contiguous()), *sums)
+
+
+class _DwLn(torch.autograd.Function):
+    """:func:`dw_ln` forward, :func:`dw_ln_bwd` backward; saves the primal
+    inputs only (the conv is recomputed in the backward)."""
+
+    @staticmethod
+    def forward(ctx, x, k49, bias, ln_scale, ln_bias, eps):
+        ctx.save_for_backward(x, k49, bias, ln_scale, ln_bias)
+        ctx.eps = eps
+        return dw_ln(x, k49, bias, ln_scale, ln_bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k49, bias, ln_scale, ln_bias = ctx.saved_tensors
+        dx, dk, dbias, dscale, dbeta = dw_ln_bwd(x, k49, bias, ln_scale, g.contiguous(), ctx.eps)
+        return (dx, dk.to(k49.dtype), dbias.to(bias.dtype), dscale.to(ln_scale.dtype),
+                dbeta.to(ln_bias.dtype), None)
+
+
+def depthwise_conv7x7_ln(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Differentiable fused ``LayerNorm(dwconv7x7(x) + bias)``: :func:`dw_ln`
+    forward and :func:`dw_ln_bwd` backward, gradients in each argument's
+    dtype. Without grad it is :func:`dw_ln`."""
+    return _DwLn.apply(x, k49, bias, ln_scale, ln_bias, eps)

@@ -9,7 +9,10 @@ hand-written kernel ``csrc/ln_mlp_bwd.cu`` (it replaces the TPU kernels
 ``_ln_mlp_bwd_pallas_resident`` and ``_ln_mlp_bwd_pallas``, which compute the
 same function; see the source for its design and bound); on a CPU tensor it
 runs :func:`ln_mlp_bwd_reference`, the plain PyTorch version with the TPU
-kernels' rounding points. The forward MLP kernels are not ported yet
+kernels' rounding points. :func:`mlp_bwd` is the same backward without the
+LayerNorm, from the MLP's input ``y`` (the all-kernel block's MLP backward,
+``ops/convnext_block.py``; it replaces ``_mlp_bwd_pallas``), launching the
+LN-less form of the same kernels. The forward MLP kernels are not ported yet
 (ROADMAP, Queue 2).
 """
 
@@ -63,6 +66,39 @@ def ln_rows(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return centred * rstd, rstd
 
 
+def _mlp_bwd_core(
+    y_lp: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    gf: torch.Tensor,
+    lp: torch.dtype,
+) -> tuple[torch.Tensor, ...]:
+    """The MLP + LayerScale backward shared by both plain versions, from the
+    rounded MLP input ``y_lp`` and the gradient ``gf`` ([M, C] f32 each):
+    ``(g_y, dw1t, db1, dw2t, db2, dgamma)``, all f32, ``g_y`` unrounded.
+
+    ``h``, ``g * gamma``, the hidden gradient and ``g`` are rounded to ``lp``
+    before their products; ``db1`` sums the unrounded hidden gradient;
+    ``A = g^T h``, ``dw2t = A * gamma`` and ``dgamma = sum W2 * A + sum g *
+    b2``."""
+    hpre = y_lp @ w1t.float().t() + b1.float()
+    h, dgelu = gelu_and_grad(hpre)
+    h_lp = h.to(lp).float()
+    gamma_f = gamma.float()
+    g_mlp = (gf * gamma_f).to(lp).float()
+    g_hpre_f = (g_mlp @ w2t.float()) * dgelu
+    g_hpre = g_hpre_f.to(lp).float()
+    g_y = g_hpre @ w1t.float()
+    dw1t = g_hpre.t() @ y_lp
+    a_t = gf.to(lp).float().t() @ h_lp  # [C, 4C]
+    dw2t = a_t * gamma_f[:, None]
+    dgamma = (w2t.float() * a_t).sum(dim=1) + gf.sum(dim=0) * b2.float()
+    return g_y, dw1t, g_hpre_f.sum(dim=0), dw2t, (gf * gamma_f).sum(dim=0), dgamma
+
+
 def ln_mlp_bwd_reference(
     t: torch.Tensor,
     ln_scale: torch.Tensor,
@@ -90,18 +126,7 @@ def ln_mlp_bwd_reference(
     yhat, rstd = ln_rows(tf)
     ls = ln_scale.float()
     y_lp = (yhat * ls + ln_bias.float()).to(lp).float()
-    hpre = y_lp @ w1t.float().t() + b1.float()
-    h, dgelu = gelu_and_grad(hpre)
-    h_lp = h.to(lp).float()
-    gamma_f = gamma.float()
-    g_mlp = (gf * gamma_f).to(lp).float()
-    g_hpre_f = (g_mlp @ w2t.float()) * dgelu
-    g_hpre = g_hpre_f.to(lp).float()
-    g_y = g_hpre @ w1t.float()
-    dw1t = g_hpre.t() @ y_lp
-    a_t = gf.to(lp).float().t() @ h_lp  # [C, 4C]
-    dw2t = a_t * gamma_f[:, None]
-    dgamma = (w2t.float() * a_t).sum(dim=1) + gf.sum(dim=0) * b2.float()
+    g_y, dw1t, db1, dw2t, db2, dgamma = _mlp_bwd_core(y_lp, w1t, b1, w2t, b2, gamma, gf, lp)
     dyhat = g_y * ls
     dt = rstd * (
         dyhat
@@ -113,11 +138,32 @@ def ln_mlp_bwd_reference(
         (g_y * yhat).sum(dim=0),
         g_y.sum(dim=0),
         dw1t,
-        g_hpre_f.sum(dim=0),
+        db1,
         dw2t,
-        (gf * gamma_f).sum(dim=0),
+        db2,
         dgamma,
     )
+
+
+def mlp_bwd_reference(
+    y: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Plain MLP + LayerScale backward from the MLP input ``y``:
+    :func:`ln_mlp_bwd_reference` without the LayerNorm, with the rounding
+    points of the TPU kernel ``_mlp_bwd_pallas``. Returns ``(dy, dw1t, db1,
+    dw2t, db2, dgamma)``: ``dy`` (summed in f32) in ``y``'s dtype and shape,
+    the rest f32."""
+    c = y.shape[-1]
+    g_y, *grads = _mlp_bwd_core(
+        y.reshape(-1, c).float(), w1t, b1, w2t, b2, gamma, g.reshape(-1, c).float(), y.dtype
+    )
+    return (g_y.to(y.dtype).reshape(y.shape), *grads)
 
 
 def token_splits(m: int, c: int) -> int:
@@ -127,33 +173,54 @@ def token_splits(m: int, c: int) -> int:
     return max(1, min(-(-_TARGET_CTAS // tiles), -(-m // 32)))
 
 
-def _check(t, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g) -> None:
+def _check(name, t, g, vectors, w1t, w2t) -> None:
+    """Raise on what ``name``'s kernel does not take: bf16 activations ``t``
+    and ``g`` [..., C], bf16 weights, f32 ``vectors`` (``(name, tensor,
+    length)`` triples)."""
     c = t.shape[-1]
     if c not in KERNEL_WIDTHS:
-        raise ValueError(f"ln_mlp_bwd kernel is built for C in {KERNEL_WIDTHS}, got {c}")
+        raise ValueError(f"{name} kernel is built for C in {KERNEL_WIDTHS}, got {c}")
     if t.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
         raise TypeError(
-            f"ln_mlp_bwd kernel takes bf16 t and g on the card (its products run "
-            f"on bf16 tensor cores), got {t.dtype} and {g.dtype}"
+            f"{name} kernel takes bf16 activations and g on the card (its products "
+            f"run on bf16 tensor cores), got {t.dtype} and {g.dtype}"
         )
     shapes = {
         "g": (g, tuple(t.shape), torch.bfloat16),
         "w1t": (w1t, (4 * c, c), torch.bfloat16),
         "w2t": (w2t, (c, 4 * c), torch.bfloat16),
-        "ln_scale": (ln_scale, (c,), torch.float32),
-        "ln_bias": (ln_bias, (c,), torch.float32),
-        "b1": (b1, (4 * c,), torch.float32),
-        "b2": (b2, (c,), torch.float32),
-        "gamma": (gamma, (c,), torch.float32),
+        **{n: (v, (length,), torch.float32) for n, v, length in vectors},
     }
-    for name, (v, shape, dtype) in shapes.items():
+    for vname, (v, shape, dtype) in shapes.items():
         if tuple(v.shape) != shape or v.dtype != dtype:
-            raise ValueError(f"ln_mlp_bwd: {name} must be {dtype} {shape}")
-    for name, v in [("t", t)] + [(n, s[0]) for n, s in shapes.items()]:
+            raise ValueError(f"{name}: {vname} must be {dtype} {shape}")
+    for vname, v in [("input", t)] + [(n, s[0]) for n, s in shapes.items()]:
         if not v.is_contiguous() or v.data_ptr() % 16:
-            raise ValueError(f"ln_mlp_bwd: {name} must be contiguous and 16-byte aligned")
+            raise ValueError(f"{name}: {vname} must be contiguous and 16-byte aligned")
         if v.device != t.device:
-            raise ValueError(f"ln_mlp_bwd: {name} is on {v.device}, t on {t.device}")
+            raise ValueError(f"{name}: {vname} is on {v.device}, the input on {t.device}")
+
+
+def _buffers(t: torch.Tensor, ln: bool) -> dict[str, torch.Tensor]:
+    """Outputs and scratch of a ``csrc/ln_mlp_bwd.cu`` launch for the [..., C]
+    activations ``t``: the LN form also writes y."""
+    c = t.shape[-1]
+    m = t.numel() // c
+    dev, bf16, f32 = t.device, torch.bfloat16, torch.float32
+    out = {
+        "dt": torch.empty_like(t),
+        "small": torch.empty(8 * c, dtype=f32, device=dev),
+        "dw1t": torch.empty(4 * c, c, dtype=f32, device=dev),
+        "dw2t": torch.empty(c, 4 * c, dtype=f32, device=dev),
+        "dgamma": torch.empty(c, dtype=f32, device=dev),
+        "h": torch.empty(m, 4 * c, dtype=bf16, device=dev),
+        "gh": torch.empty(m, 4 * c, dtype=bf16, device=dev),
+        "part": torch.empty(-(-m // _TOKENS_PER_CTA), 8 * c, dtype=f32, device=dev),
+        "ws": torch.empty(token_splits(m, c), 4 * c, c, dtype=f32, device=dev),
+    }
+    if ln:
+        out["y"] = torch.empty(m, c, dtype=bf16, device=dev)
+    return out
 
 
 def ln_mlp_bwd(
@@ -178,40 +245,73 @@ def ln_mlp_bwd(
     args = (t, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
     if t.device.type == "cpu":
         return ln_mlp_bwd_reference(*args)
-    _check(*args)
     c = t.shape[-1]
+    _check("ln_mlp_bwd", t, g, (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c),
+                               ("b1", b1, 4 * c), ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
     m = t.numel() // c
-    dev = t.device
-    bf16, f32 = torch.bfloat16, torch.float32
-    splits = token_splits(m, c)
-    tiles = -(-m // _TOKENS_PER_CTA)
-    dt = torch.empty_like(t)
-    small = torch.empty(8 * c, dtype=f32, device=dev)
-    dw1t = torch.empty(4 * c, c, dtype=f32, device=dev)
-    dw2t = torch.empty(c, 4 * c, dtype=f32, device=dev)
-    dgamma = torch.empty(c, dtype=f32, device=dev)
-    # The kernel reads each weight in both layouts; scratch for the hidden.
+    o = _buffers(t, ln=True)
+    # The kernel reads each weight in both layouts.
     w1 = w1t.t().contiguous()
     w2 = w2t.t().contiguous()
-    y = torch.empty(m, c, dtype=bf16, device=dev)
-    h = torch.empty(m, 4 * c, dtype=bf16, device=dev)
-    gh = torch.empty(m, 4 * c, dtype=bf16, device=dev)
-    part = torch.empty(tiles, 8 * c, dtype=f32, device=dev)
-    ws = torch.empty(splits, 4 * c, c, dtype=f32, device=dev)
     fn = cuda_build.load("ln_mlp_bwd").svt_ln_mlp_bwd
     fn.restype = ctypes.c_int
     p = cuda_build.ptr
     err = fn(
         p(t), p(g), p(ln_scale), p(ln_bias), p(w1t), p(w1), p(b1), p(w2t), p(w2),
-        p(b2), p(gamma), p(dt), p(small), p(dw1t), p(dw2t), p(dgamma),
-        p(y), p(h), p(gh), p(part), p(ws),
-        ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_int(splits),
-        cuda_build.stream_ptr(dev),
+        p(b2), p(gamma), p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]),
+        p(o["dgamma"]), p(o["y"]), p(o["h"]), p(o["gh"]), p(o["part"]), p(o["ws"]),
+        ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_int(o["ws"].shape[0]),
+        cuda_build.stream_ptr(t.device),
     )
     cuda_build.check(err, "ln_mlp_bwd")
     ln_mlp_bwd.launches += 1
-    db1, dls, dlb, db2 = small[: 4 * c], small[4 * c: 5 * c], small[5 * c: 6 * c], small[6 * c: 7 * c]
-    return dt, dls, dlb, dw1t, db1, dw2t, db2, dgamma
+    small = o["small"]
+    return (o["dt"], small[4 * c: 5 * c], small[5 * c: 6 * c], o["dw1t"], small[: 4 * c],
+            o["dw2t"], small[6 * c: 7 * c], o["dgamma"])
 
 
 ln_mlp_bwd.launches = 0
+
+
+def mlp_bwd(
+    y: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """Backward of the block's MLP + LayerScale from its input ``y`` and ``g``.
+
+    Returns ``(dy, dw1t, db1, dw2t, db2, dgamma)`` as :func:`mlp_bwd_reference`.
+    CUDA tensors launch the LN-less form of ``csrc/ln_mlp_bwd.cu`` (bf16 ``y``
+    and ``g``, C in ``KERNEL_WIDTHS``; anything else raises); CPU tensors take
+    the plain version. ``mlp_bwd.launches`` counts calls that launched it.
+    """
+    args = (y, w1t, b1, w2t, b2, gamma, g)
+    if y.device.type == "cpu":
+        return mlp_bwd_reference(*args)
+    c = y.shape[-1]
+    _check("mlp_bwd", y, g, (("b1", b1, 4 * c), ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
+    m = y.numel() // c
+    o = _buffers(y, ln=False)
+    w1 = w1t.t().contiguous()
+    w2 = w2t.t().contiguous()
+    fn = cuda_build.load("ln_mlp_bwd").svt_mlp_bwd
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        p(y), p(g), p(w1t), p(w1), p(b1), p(w2t), p(w2), p(b2), p(gamma),
+        p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]),
+        p(o["h"]), p(o["gh"]), p(o["part"]), p(o["ws"]),
+        ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_int(o["ws"].shape[0]),
+        cuda_build.stream_ptr(y.device),
+    )
+    cuda_build.check(err, "mlp_bwd")
+    mlp_bwd.launches += 1
+    small = o["small"]
+    return (o["dt"], o["dw1t"], small[: 4 * c], o["dw2t"], small[6 * c: 7 * c], o["dgamma"])
+
+
+mlp_bwd.launches = 0

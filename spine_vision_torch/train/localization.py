@@ -9,8 +9,9 @@ coordinate-aware augmentation on the device. The datasets are injected
 
 The model trains in bf16 on f32 master weights with the hybrid ConvNeXt
 block (``use_pallas="hybrid"``), the JAX package's training default on its
-accelerator; on the CPU the same function runs through the kernels' plain
-versions.
+accelerator, or with ``use_pallas_dwconv=True`` the all-kernel block
+(``use_pallas=True``); on the CPU the same function runs through the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -60,6 +61,10 @@ class LocalizationConfig(TrainingConfig):
     versions on the CPU). False: plain ops. True (the LN-fused MLP mode)
     is not ported."""
     use_pallas_dwconv: bool = False
+    """With ``use_pallas_mlp`` None or True: the all-kernel block
+    (``use_pallas=True``: the block kernel forward, the MLP and dwconv+LN
+    backward kernels; the dwconv+LN kernels for C > 512). With
+    ``use_pallas_mlp=False``: plain ops."""
 
     pck_thresholds: list[float] = field(default_factory=lambda: [0.02, 0.05, 0.10])
     visualize_predictions: bool = False
@@ -69,13 +74,14 @@ class LocalizationConfig(TrainingConfig):
 
 
 def resolve_use_pallas(use_pallas_mlp: bool | None, use_pallas_dwconv: bool) -> bool | str:
-    """The model's ``use_pallas`` for the training flags."""
+    """The model's ``use_pallas`` for the training flags, as the JAX package's
+    ``_resolve_use_pallas`` on its accelerator."""
     if use_pallas_dwconv:
-        raise _not_ported("use_pallas_dwconv (kernel #4, the dwconv+LN backward)", "Queue 2")
+        return use_pallas_mlp is not False
     if use_pallas_mlp is None:
         return "hybrid"
     if use_pallas_mlp:
-        raise _not_ported("use_pallas_mlp=True (kernels #5-#7, the 'mlp' mode)", "Queue 2")
+        raise _not_ported("use_pallas_mlp=True (kernel #7, the 'mlp' mode)", "Queue 2")
     return False
 
 

@@ -173,6 +173,116 @@ def test_ln_mlp_bwd_weight_grads_are_f32_sums(cuda, c):
         assert err <= 5e-3 * want.abs().max().item()
 
 
+def _dw_bwd_args(rng, b, h, w, c, dtype, device):
+    f32 = torch.float32
+    return (
+        _t(rng, (b, h, w, c), 1.0, dtype, device),       # x
+        _t(rng, (49, c), 0.1, dtype, device),            # k49
+        _t(rng, (c,), 0.1, f32, device),                 # bias
+        _t(rng, (c,), 0.1, f32, device, 1.0),            # ln_scale
+        _t(rng, (b, h, w, c), 1.0, dtype, device),       # g
+    )
+
+
+RAGGED = [(3, 9, 11), (1, 1, 5)]  # a ragged last block of tokens; a single row
+
+
+@pytest.mark.parametrize("c", dw.KERNEL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w", RAGGED)
+def test_depthwise_conv7x7_kernel_matches_plain(cuda, c, dtype, b, h, w):
+    x, k49 = _dw_bwd_args(np.random.default_rng(c + h), b, h, w, c, dtype, cuda)[:2]
+    before = dw.depthwise_conv7x7.launches
+    got = dw.depthwise_conv7x7(x, k49)
+    want = dw.depthwise_conv7x7_reference(x, k49)
+    torch.cuda.synchronize()
+    assert dw.depthwise_conv7x7.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    # f32: the same sum in another order; bf16: one rounding of it, at most
+    # half a bf16 step: 1e-2 * max |plain|.
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    err = (got.float() - want).abs().max().item()
+    assert err <= tol * max(want.abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize("c", dw.KERNEL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w", RAGGED)
+def test_dw_ln_bwd_kernel_matches_plain(cuda, c, dtype, b, h, w):
+    args = _dw_bwd_args(np.random.default_rng(c + w), b, h, w, c, dtype, cuda)
+    before = dw.dw_ln_bwd_sums.launches, dw.depthwise_conv7x7.launches
+    got = dw.dw_ln_bwd(*args)
+    again = dw.dw_ln_bwd(*args)
+    want = dw.dw_ln_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert (dw.dw_ln_bwd_sums.launches, dw.depthwise_conv7x7.launches) == (before[0] + 2, before[1] + 2)
+    for name, a, b_, ref in zip(["dx", "dk", "dbias", "dscale", "dbeta"], got, again, want):
+        assert a.dtype == ref.dtype and a.shape == ref.shape, name
+        # Every cross-CTA sum has a fixed order: two runs agree bit for bit.
+        assert torch.equal(a, b_), name
+        # f32: sums in another order, 1e-4 of max |plain|. bf16: da rounds
+        # at the same point on both sides, but a value on a rounding boundary
+        # can round apart and dx sums 49 of them: 2e-2 (three bf16 steps).
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        err = (a.float() - ref.float()).abs().max().item()
+        assert err <= tol * max(ref.float().abs().max().item(), 1e-6), (name, err)
+
+
+def _mlp_args(rng, b, h, w, c, device):
+    f32, bf16 = torch.float32, torch.bfloat16
+    return (
+        _t(rng, (b, h, w, c), 1.0, bf16, device),            # y
+        _t(rng, (4 * c, c), c ** -0.5, bf16, device),        # w1t
+        _t(rng, (4 * c,), 0.1, f32, device),                 # b1
+        _t(rng, (c, 4 * c), (4 * c) ** -0.5, bf16, device),  # w2t
+        _t(rng, (c,), 0.1, f32, device),                     # b2
+        _t(rng, (c,), 0.1, f32, device, 0.5),                # gamma
+        _t(rng, (b, h, w, c), 1.0, bf16, device),            # g
+    )
+
+
+@pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
+@pytest.mark.parametrize("b,h,w", [(2, 8, 8)] + RAGGED)
+def test_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w):
+    args = _mlp_args(np.random.default_rng(c + 3 * h), b, h, w, c, cuda)
+    before = fm.mlp_bwd.launches, fm.ln_mlp_bwd.launches
+    got = fm.mlp_bwd(*args)
+    again = fm.mlp_bwd(*args)
+    want = fm.mlp_bwd_reference(*args)
+    torch.cuda.synchronize()
+    assert (fm.mlp_bwd.launches, fm.ln_mlp_bwd.launches) == (before[0] + 2, before[1])
+    for name, a, b_, ref in zip(["dy", "dw1t", "db1", "dw2t", "db2", "dgamma"], got, again, want):
+        assert a.dtype == ref.dtype and a.shape == ref.shape, name
+        assert torch.equal(a, b_), name
+        # As the LN+MLP backward: 2e-2 of max |plain| (about three bf16 steps).
+        err = (a.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * max(ref.float().abs().max().item(), 1e-6), (name, err)
+
+
+def test_all_kernel_convnext_gives_block_gradients_on_the_card(cuda):
+    """A use_pallas=True ConvNeXt on the card in bf16 is differentiable: every
+    block parameter (fused blocks at C = 96, 192, 384, dwconv+LN blocks at
+    768) gets a finite gradient that is not all zeros."""
+    from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXt
+
+    torch.manual_seed(0)
+    model = ConvNeXt(CONVNEXT_CONFIGS["convnext_tiny"], dtype=torch.bfloat16, device=cuda,
+                     use_pallas=True)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    proj = torch.randn(2, 768, device=cuda)
+    counts = cb.convnext_block.launches, fm.mlp_bwd.launches, dw.dw_ln_bwd_sums.launches
+    (model(x).float() * proj).sum().backward()
+    torch.cuda.synchronize()
+    assert (cb.convnext_block.launches - counts[0], fm.mlp_bwd.launches - counts[1],
+            dw.dw_ln_bwd_sums.launches - counts[2]) == (15, 15, 18)
+    blocks = [(n, p) for n, p in model.named_parameters() if "_block" in n]
+    assert len(blocks) == 18 * 9
+    for name, p in blocks:
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max().item() > 0, name
+
+
 def test_kernels_reject_cpu_layouts_on_the_card(cuda):
     x = torch.zeros(1, 4, 4, 640, dtype=torch.bfloat16, device=cuda)
     k = torch.zeros(49, 640, dtype=torch.bfloat16, device=cuda)
@@ -187,3 +297,14 @@ def test_kernels_reject_cpu_layouts_on_the_card(cuda):
     args[0] = args[0].float()
     with pytest.raises(TypeError):
         fm.ln_mlp_bwd(*args)
+    margs = list(_mlp_args(np.random.default_rng(1), 1, 4, 4, 128, cuda))
+    margs[0] = margs[0].float()
+    with pytest.raises(TypeError):
+        fm.mlp_bwd(*margs)
+    with pytest.raises(ValueError):
+        dw.depthwise_conv7x7(x[..., :100].contiguous(), k[:, :100].contiguous())
+    bargs = list(_dw_bwd_args(np.random.default_rng(2), 1, 4, 4, 128, torch.bfloat16, cuda))
+    with pytest.raises(ValueError):  # g in another dtype than x
+        dw.dw_ln_bwd(*bargs[:4], bargs[4].float())
+    with pytest.raises(ValueError):  # a channels-first (non-contiguous) g
+        dw.dw_ln_bwd(*bargs[:4], bargs[4].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))

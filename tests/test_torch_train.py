@@ -195,14 +195,14 @@ def _batch(rng, n, hw):
     }
 
 
-def test_one_train_step_matches_jax():
+def check_one_train_step_against_jax(use_pallas):
     """convnext_tiny CoordinateRegressor, f32, 32^2, dropout 0, no
-    augmentation, ``use_pallas="hybrid"`` on both sides, the same weights
+    augmentation, the given ``use_pallas`` on both sides, the same weights
     and batch: the loss, every clipped gradient, and every parameter after
     one clipped AdamW step."""
     lr, wd, clip = 1e-3, 1e-5, 1.0
     port = TRegressor("convnext_tiny", dtype=torch.float32, device="cpu", dropout=0.0,
-                      use_pallas="hybrid", param_dtype=torch.float32)
+                      use_pallas=use_pallas, param_dtype=torch.float32)
     params, _ = random_flax_variables(port, seed=11)
     from spine_vision_torch.models.convert import load_flax_variables
 
@@ -210,7 +210,7 @@ def test_one_train_step_matches_jax():
     batch = _batch(np.random.default_rng(12), 2, 32)
 
     ref = CoordinateRegressor(backbone_name="convnext_tiny", dtype=jnp.float32,
-                              use_pallas="hybrid", dropout=0.0)
+                              use_pallas=use_pallas, dropout=0.0)
     coord_loss = make_coordinate_loss_fn("smooth_l1")
 
     def j_pre(b, key, train):
@@ -264,6 +264,11 @@ def test_one_train_step_matches_jax():
         # The first Adam update is about lr * g / |g|: it amplifies the
         # relative error of a gradient element near 0. A tenth of lr.
         np.testing.assert_allclose(got[path], w, atol=0.1 * lr, err_msg=str(path))
+
+
+def test_one_train_step_matches_jax():
+    """The hybrid block (``use_pallas="hybrid"``) on both sides."""
+    check_one_train_step_against_jax("hybrid")
 
 
 class _Set:
