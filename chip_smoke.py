@@ -35,6 +35,18 @@ Phases, each of which raises (and so exits non-zero) on any fault:
 6. The same training run with ``use_pallas_dwconv=True``, the all-kernel
    block (``train_step_dwconv``), with its own launch counts, p50 and peak
    memory, and its own card-against-CPU gradient check.
+7. The same again in the LN-fused MLP mode of ``use_pallas_mlp=True``
+   (``train_step_mlp``: the LN+MLP forward #7 and backward #8/#9) and with a
+   ``use_pallas="block"`` model handed to the trainer (``train_step_block``:
+   the block kernel forward and the whole-block backward #10 with the stencil
+   for dx), each with its launch counts, p50, peak memory and gradient check;
+   then the gradient check of ConvNeXt-base without LayerScale in the "mlp"
+   mode, whose blocks run the fused MLP (#5 forward, #6 backward).
+   The kernel phases check and time #7, #5 (both forms) and #10 at the train
+   step's shapes, #10 also bit for bit over two runs, and #5 again at the
+   shapes of its path, that gradient check's.
+
+Each phase prints its wall time.
 
 It prints a ``kernels`` JSON line and the card's name and power limit before
 its last line, ``{"ok": true, "device": {...}}``. Needs a CUDA device and the
@@ -51,6 +63,7 @@ import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16 peak
@@ -63,25 +76,59 @@ TRAIN_DW_SHAPES = BLOCK_SHAPES + DW_LN_SHAPES  # every block's dwconv+LN backwar
 BATCH = 16  # 8 studies x (T1, T2)
 KERNEL_REL_TOL = 1e-2  # max |kernel - plain| <= 1e-2 * max |plain| (~2.5 bf16 steps)
 TRAIN_BATCH = 32  # the localization trainer's batch at 512^2
+# The gradient checks' step: batch 2 at 128^2, so the blocks of C <= 512 see
+# 32^2, 16^2 and 8^2 (the path of the MLP forward #5).
+GRAD_BATCH = 2
+GRAD_BLOCK_SHAPES = ((32, 128, 3), (16, 256, 3), (8, 512, 27))
 # The LN+MLP backward: the same rounding points as its plain version, but a
 # value on a rounding boundary can round apart and the weight gradients sum
 # 32K-512K such products in another order: 2e-2 * max |plain| per output.
 BWD_REL_TOL = 2e-2
 RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_runs"
-INFERENCE_LAUNCHES = {"convnext_block": 33, "convnext_block_emit_conv": 0, "dw_ln": 3,
-                      "ln_mlp_bwd": 0, "mlp_bwd": 0, "dw_ln_bwd": 0, "depthwise_conv7x7": 0}
-# Launches in one train step of each training mode.
+# Every kernel wrapper's launch counter, by the name the report gives it.
+KERNEL_COUNTERS = ("convnext_block", "convnext_block_emit_conv", "dw_ln", "ln_mlp", "mlp_fwd",
+                   "ln_mlp_bwd", "mlp_bwd", "dw_ln_bwd", "depthwise_conv7x7", "block_train_bwd")
+
+
+def _launches(**nonzero: int) -> dict:
+    return {name: nonzero.get(name, 0) for name in KERNEL_COUNTERS}
+
+
+INFERENCE_LAUNCHES = _launches(convnext_block=33, dw_ln=3)
+# Launches in one train step of each training mode (the 3 blocks of C = 1024
+# run plain ops in the "mlp" and "block" modes).
 TRAIN_LAUNCHES = {
-    "train_step": {"convnext_block": 33, "convnext_block_emit_conv": 33, "dw_ln": 0,
-                   "ln_mlp_bwd": 33, "mlp_bwd": 0, "dw_ln_bwd": 0, "depthwise_conv7x7": 0},
-    "train_step_dwconv": {"convnext_block": 33, "convnext_block_emit_conv": 0, "dw_ln": 36,
-                          "ln_mlp_bwd": 0, "mlp_bwd": 33, "dw_ln_bwd": 36,
-                          "depthwise_conv7x7": 36},
+    "train_step": _launches(convnext_block=33, convnext_block_emit_conv=33, ln_mlp_bwd=33),
+    "train_step_dwconv": _launches(convnext_block=33, dw_ln=36, mlp_bwd=33, dw_ln_bwd=36,
+                                   depthwise_conv7x7=36),
+    "train_step_mlp": _launches(ln_mlp=33, ln_mlp_bwd=33),
+    "train_step_block": _launches(convnext_block=33, block_train_bwd=33, depthwise_conv7x7=33),
+}
+# One gradient-check step on the card: ConvNeXt-base without LayerScale in the
+# "mlp" mode runs the fused MLP (#5 forward, #6 backward) on its 33 blocks of
+# C <= 512; its path is that check.
+GRAD_LAUNCHES = {
+    "hybrid": TRAIN_LAUNCHES["train_step"],
+    True: TRAIN_LAUNCHES["train_step_dwconv"],
+    "mlp": TRAIN_LAUNCHES["train_step_mlp"],
+    "block": TRAIN_LAUNCHES["train_step_block"],
+    "mlp_no_layer_scale": _launches(mlp_fwd=33, mlp_bwd=33),
 }
 # Card against CPU, one step's gradients at bf16: each parameter's relative
 # error (norm of the difference over the norm) stays under 2e-2, five bf16
 # rounding steps (2^-8) of relative error; the first card run read 7.9e-3.
 GRAD_REL_TOL = 2e-2
+# ConvNeXt-base without LayerScale: the residual stream is undamped through
+# its 36 blocks, and bf16 rounding flips grow on their way, so PyTorch's own
+# ops on that model (use_pallas=False, no kernel of this package) can differ
+# card against CPU by more than GRAD_REL_TOL. Its check runs each seed of
+# NO_LAYER_SCALE_SEEDS (weights and batch) twice, through the kernels and
+# through PyTorch's own ops, and holds the kernels' worst parameter within
+# GRAD_REL_TOL, or within PLAIN_MARGIN times the plain ops' worst on the same
+# seed where that is larger: the kernels may add no more than a quarter to
+# the gap that the card's own arithmetic leaves.
+NO_LAYER_SCALE_SEEDS = (3, 5, 7)
+PLAIN_MARGIN = 1.25
 # Overfit one batch of 8 shaded 512^2 images. Predicting the batch's mean
 # coordinates brings the loss to about 0.6 of its first value (an earlier run
 # on unshaded images, whose pooled bf16 features barely differ, stalled at
@@ -481,6 +528,152 @@ def dwconv_train_kernel_phase(device, report: dict) -> None:
     report.update(rows)
 
 
+def _mlp_args(gen, hw: int, c: int, device, batch: int = TRAIN_BATCH) -> dict:
+    """Inputs of the MLP forwards at a block's shape (bf16 rows)."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    shape = (batch, hw, hw, c)
+    return {
+        "x": _rand(gen, shape, 1.0, device, bf16),
+        "ln_scale": _rand(gen, (c,), 0.1, device, f32, 1.0),
+        "ln_bias": _rand(gen, (c,), 0.1, device, f32),
+        "w1t": _rand(gen, (4 * c, c), c ** -0.5, device, bf16),
+        "b1": _rand(gen, (4 * c,), 0.1, device, f32),
+        "w2t": _rand(gen, (c, 4 * c), (4 * c) ** -0.5, device, bf16),
+        "b2": _rand(gen, (c,), 0.1, device, f32),
+        "gamma": _rand(gen, (c,), 0.1, device, f32, 1.0),
+        "residual": _rand(gen, shape, 1.0, device, bf16),
+    }
+
+
+def mlp_kernel_phase(device, report: dict) -> None:
+    """The MLP forwards: the LN+MLP forward (#7) at the train step's shapes
+    and the MLP forward (#5) in both forms at those shapes and at the shapes
+    of its path, the gradient check without LayerScale (B = 2 at 128^2). Each
+    against its plain version, timed beside the plain version, a PyTorch
+    yardstick and the bound (#5 in its tail form, the one the ConvNeXt block
+    runs). #7's train-step rows and #5's grad-check rows go into ``report``."""
+    import torch
+    import torch.nn.functional as F
+
+    from spine_vision_torch.ops import fused_mlp as fm
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=device).manual_seed(3)
+    rows = {"ln_mlp": [], "mlp_fwd": []}
+    shapes = [(TRAIN_BATCH, hw, c, count, "per_train_step") for hw, c, count in BLOCK_SHAPES]
+    shapes += [(GRAD_BATCH, hw, c, count, "per_grad_check_step")
+               for hw, c, count in GRAD_BLOCK_SHAPES]
+    for batch, hw, c, count, per in shapes:
+        m = batch * hw * hw
+        a = _mlp_args(gen, hw, c, device, batch)
+        largs = tuple(a[k] for k in ("x", "ln_scale", "ln_bias", "w1t", "b1", "w2t", "b2",
+                                     "gamma", "residual"))
+        margs = tuple(a[k] for k in ("x", "w1t", "b1", "w2t", "b2"))
+        tail = {"gamma": a["gamma"], "residual": a["residual"]}
+        saved = fm.ln_mlp.launches, fm.mlp_fwd.launches
+        shape = f"B={batch} {hw}x{hw} C={c}"
+        train = batch == TRAIN_BATCH
+        if train:
+            (err7,) = _check_outputs(f"ln_mlp {shape}", ("out",), (fm.ln_mlp(*largs),),
+                                     (fm.ln_mlp_reference(*largs),), KERNEL_REL_TOL)
+        err5, err5n = _check_outputs(
+            f"mlp_fwd {shape}", ("tail", "no_tail"),
+            (fm.mlp_fwd(*margs, **tail), fm.mlp_fwd(*margs)),
+            (fm.mlp_reference(*margs, **tail), fm.mlp_reference(*margs)), KERNEL_REL_TOL)
+        vec = {k: a[k].to(bf16) for k in ("ln_scale", "ln_bias", "b1", "b2", "gamma")}
+
+        def mlp_lib(y):
+            h = F.gelu(F.linear(y, a["w1t"], vec["b1"]), approximate="tanh")
+            return F.linear(h, a["w2t"], vec["b2"]) * vec["gamma"] + a["residual"]
+
+        def library7():
+            return mlp_lib(F.layer_norm(a["x"].float(), (c,), a["ln_scale"], a["ln_bias"],
+                                        1e-6).to(bf16))
+
+        # x and the residual read, the output written, the weights read once;
+        # 16 M C^2 tensor flops; GELU and bias 15 f32 operations a hidden
+        # value, the LayerNorm and the tail about 10 a channel.
+        nbytes = 3 * m * c * 2 + 2 * 4 * c * c * 2 + (4 * c + 5 * c) * 4
+        if train:
+            rows["ln_mlp"].append(_timed_row(
+                f"ln_mlp {shape}", count, err7, lambda: fm.ln_mlp(*largs),
+                lambda: fm.ln_mlp_reference(*largs), library7, nbytes, 16 * m * c * c,
+                15 * m * 4 * c + 10 * m * c, per))
+        row5 = _timed_row(
+            f"mlp_fwd {shape}", count, max(err5, err5n), lambda: fm.mlp_fwd(*margs, **tail),
+            lambda: fm.mlp_reference(*margs, **tail), lambda: mlp_lib(a["x"]), nbytes,
+            16 * m * c * c, 15 * m * 4 * c + 4 * m * c,
+            per if not train else "blocks_of_this_shape")
+        if not train:
+            rows["mlp_fwd"].append(row5)
+        no_tail_ms = _time_ms(lambda: fm.mlp_fwd(*margs))
+        print(f"[kernel] mlp_fwd no tail {shape}: ms={no_tail_ms:.4f}")
+        fm.ln_mlp.launches, fm.mlp_fwd.launches = saved
+        del a, largs, margs, tail, vec
+        torch.cuda.empty_cache()
+    report.update(rows)
+
+
+def block_train_kernel_phase(device, report: dict) -> None:
+    """The whole-block backward (#10) at the train step's shapes: every output
+    against its plain version, and against a second run bit for bit, timed
+    beside the plain version, a PyTorch yardstick and the bound. The row goes
+    into ``report``."""
+    import torch
+    import torch.nn.functional as F
+
+    from spine_vision_torch.ops import block_train as bt
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows = []
+    for hw, c, count in BLOCK_SHAPES:
+        m = TRAIN_BATCH * hw * hw
+        a = _mlp_args(gen, hw, c, device)
+        args = (a["x"], _rand(gen, (49, c), 0.1, device, bf16), _rand(gen, (c,), 0.1, device, f32),
+                a["ln_scale"], a["ln_bias"], a["w1t"], a["b1"], a["w2t"], a["b2"], a["gamma"])
+        g = a["residual"]
+        saved = bt.block_train_bwd.launches
+        got = bt.block_train_bwd(*args, g)
+        again = bt.block_train_bwd(*args, g)
+        want = bt.block_train_bwd_reference(*args, g)
+        torch.cuda.synchronize()
+        errs = _check_outputs(
+            f"block_train_bwd B={TRAIN_BATCH} {hw}x{hw} C={c}",
+            ("g_u", "dk", "ddwb", "dls", "dlb", "dw1t", "db1", "dw2t", "db2", "dgamma"),
+            got, want, BWD_REL_TOL, again)
+        del got, again, want
+        xl = a["x"].permute(0, 3, 1, 2).detach().requires_grad_(True)  # channels_last view
+        kl = args[1].t().reshape(c, 1, 7, 7).contiguous().requires_grad_(True)
+        leaves = [v.detach().clone().to(bf16).requires_grad_(True) for v in args[2:]]
+
+        def library10():
+            bias, ls, lb, w1t, b1, w2t, b2, gamma = leaves
+            t = F.conv2d(xl, kl, bias, padding=3, groups=c).permute(0, 2, 3, 1)
+            y = F.layer_norm(t, (c,), ls, lb, 1e-6)
+            h = F.gelu(F.linear(y, w1t, b1), approximate="tanh")
+            out = F.linear(h, w2t, b2) * gamma + xl.permute(0, 2, 3, 1)
+            return torch.autograd.grad(out, [xl, kl, *leaves], g)
+
+        # x and g read, g_u written (bf16), the weights read once and their f32
+        # gradients written; five products, 40 M C^2 tensor flops; the
+        # stencil recompute and the tap sums 98 f32 operations each a channel
+        # of a token, GELU and its derivative about 20 a hidden value, the
+        # LayerNorm and its backward about 20 a channel.
+        rows.append(_timed_row(
+            f"block_train_bwd C={c}", count, max(errs), lambda: bt.block_train_bwd(*args, g),
+            lambda: bt.block_train_bwd_reference(*args, g), library10,
+            3 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + 2 * 4 * c * c * 4
+            + (49 * c + 14 * c) * 4, 40 * m * c * c, 216 * m * c + 20 * m * 4 * c,
+            "per_train_step"))
+        bt.block_train_bwd.launches = saved
+        del a, args, g, xl, kl, leaves
+        torch.cuda.empty_cache()
+    report["block_train_bwd"] = rows
+
+
 def _studies(n: int, seed: int):
     import numpy as np
 
@@ -530,13 +723,17 @@ def _dev_us(e) -> float:
 # Kernel groups of a train step's profile: (label, name fragments).
 PROFILE_GROUPS = (
     ("block forward #1", ("block_kernel",)),
+    ("LN+MLP and MLP forwards #7, #5", ("row_mlp_kernel",)),
     ("dwconv+LN #2", ("dw_ln_kernel",)),
-    ("MLP backward per token #6, #8/#9", ("ln_mlp_bwd_tokens",)),
+    ("MLP backward per token #6, #8/#9, #10", ("ln_mlp_bwd_tokens",)),
     ("their weight-gradient products", ("token_gemm", "reduce_rows")),
+    ("#10's conv recompute and tap sums", ("conv_bias_f32", "tap_sums")),
     ("dwconv+LN backward #4", ("dw_ln_stats", "dw_ln_bwd_tile")),
     ("stencil #3", ("dw7_kernel",)),
-    ("column sums of #4, #6, #8/#9", ("colsum",)),
+    ("column sums of #4, #6, #8/#9, #10", ("colsum",)),
     ("PyTorch depthwise-conv gradients", ("conv_depthwise2d",)),
+    ("cuDNN depthwise conv, its data and weight gradients",
+     ("conv2d_c1_k1", "dgrad2d_c1_k1", "wgrad2d_c1_k1")),
 )
 
 
@@ -709,48 +906,72 @@ class _Images:
                 "series_type_idx": 0, "metadata": {"image_path": f"synthetic/{i}.png"}}
 
 
-def _regressor(device, seed: int, dropout: float, use_pallas="hybrid"):
+def _regressor(device, seed: int, dropout: float, use_pallas="hybrid",
+               layer_scale_init: float | None = None):
     """ConvNeXt-base CoordinateRegressor for training (bf16 on f32 masters,
-    the hybrid or the all-kernel block), weights from a seeded Flax-layout
-    tree."""
+    the given kernel mode), weights from a seeded Flax-layout tree. With
+    ``layer_scale_init``, the backbone is ConvNeXt-base's depths and widths
+    with that LayerScale (0: none)."""
     import torch
 
     from spine_vision_torch.models.classifier import CoordinateRegressor
     from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+    from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXt, ConvNeXtConfig
 
-    model = CoordinateRegressor("convnext_base", dtype=torch.bfloat16, device=device,
-                                dropout=dropout, use_pallas=use_pallas, param_dtype=torch.float32)
+    kw = {"dtype": torch.bfloat16, "device": device, "use_pallas": use_pallas,
+          "param_dtype": torch.float32}
+    model = CoordinateRegressor("convnext_base", dropout=dropout, **kw)
+    if layer_scale_init is not None:
+        base = CONVNEXT_CONFIGS["convnext_base"]
+        model.backbone = ConvNeXt(
+            ConvNeXtConfig(base.depths, base.dims, layer_scale_init=layer_scale_init), **kw)
     params, _ = random_flax_variables(model, seed)
     return load_flax_variables(model, params)
 
 
-def _counts() -> dict:
+def _counters() -> dict:
+    """Each kernel's wrapper and the attribute of its launch counter."""
+    from spine_vision_torch.ops import block_train as bt
     from spine_vision_torch.ops import convnext_block as cb
     from spine_vision_torch.ops import dwconv as dw
     from spine_vision_torch.ops import fused_mlp as fm
 
-    return {"convnext_block": cb.convnext_block.launches,
-            "convnext_block_emit_conv": cb.convnext_block.emit_launches,
-            "dw_ln": dw.dw_ln.launches, "ln_mlp_bwd": fm.ln_mlp_bwd.launches,
-            "mlp_bwd": fm.mlp_bwd.launches, "dw_ln_bwd": dw.dw_ln_bwd_sums.launches,
-            "depthwise_conv7x7": dw.depthwise_conv7x7.launches}
+    return {"convnext_block": (cb.convnext_block, "launches"),
+            "convnext_block_emit_conv": (cb.convnext_block, "emit_launches"),
+            "dw_ln": (dw.dw_ln, "launches"), "ln_mlp": (fm.ln_mlp, "launches"),
+            "mlp_fwd": (fm.mlp_fwd, "launches"), "ln_mlp_bwd": (fm.ln_mlp_bwd, "launches"),
+            "mlp_bwd": (fm.mlp_bwd, "launches"), "dw_ln_bwd": (dw.dw_ln_bwd_sums, "launches"),
+            "depthwise_conv7x7": (dw.depthwise_conv7x7, "launches"),
+            "block_train_bwd": (bt.block_train_bwd, "launches")}
+
+
+def _counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def _zero_counts() -> None:
-    from spine_vision_torch.ops import convnext_block as cb
-    from spine_vision_torch.ops import dwconv as dw
-    from spine_vision_torch.ops import fused_mlp as fm
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
-    cb.convnext_block.launches = cb.convnext_block.emit_launches = 0
-    dw.dw_ln.launches = fm.ln_mlp_bwd.launches = fm.mlp_bwd.launches = 0
-    dw.dw_ln_bwd_sums.launches = dw.depthwise_conv7x7.launches = 0
+
+# The training paths: (trainer flags, the model's use_pallas when the script
+# builds the model from a seeded Flax-layout tree, None when the trainer
+# builds it from its seed).
+TRAIN_PATHS = {
+    "train_step": ({}, "hybrid"),
+    "train_step_dwconv": ({"use_pallas_dwconv": True}, None),
+    "train_step_mlp": ({"use_pallas_mlp": True, "use_pallas_dwconv": False}, None),
+    "train_step_block": ({}, "block"),
+}
 
 
 def train_phase(device, card: str, path: str, profile: bool = False) -> dict:
     """LocalizationTrainer.train() at full width; return the launch counts of
-    one train step. ``path`` "train_step" trains the hybrid block (the model
-    from a seeded Flax-layout tree), "train_step_dwconv" the all-kernel block
-    that the trainer builds for ``use_pallas_dwconv=True``."""
+    one train step. ``path`` (``TRAIN_PATHS``): "train_step" trains the hybrid
+    block, "train_step_dwconv" the all-kernel block of ``use_pallas_dwconv=True``,
+    "train_step_mlp" the LN-fused MLP mode of ``use_pallas_mlp=True``,
+    "train_step_block" the whole-block training kernel (a ``use_pallas="block"``
+    model handed to the trainer)."""
     import math
 
     import numpy as np
@@ -759,24 +980,25 @@ def train_phase(device, card: str, path: str, profile: bool = False) -> dict:
     from spine_vision_torch.models.convnext import ConvNeXtBlock
     from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
 
-    dwconv = path == "train_step_dwconv"
+    flags, use_pallas = TRAIN_PATHS[path]
     tag = f"[{path}]"
     t0 = time.perf_counter()
-    model = None if dwconv else _regressor(device, seed=0, dropout=0.2)
+    model = None if use_pallas is None else _regressor(device, seed=0, dropout=0.2,
+                                                       use_pallas=use_pallas)
     train_set, val_set = _Images(96, 512, 10), _Images(32, 512, 11)
     run = RUN_DIR / path
     shutil.rmtree(run, ignore_errors=True)
     cfg = LocalizationConfig(
         backbone="convnext_base", image_size=(512, 512), batch_size=TRAIN_BATCH, num_epochs=2,
         augment=True, dropout=0.2, mixed_precision=True, output_path=run, num_workers=8,
-        pretrained=False, profile_steps=True, seed=0, use_pallas_dwconv=dwconv,
+        pretrained=False, profile_steps=True, seed=0, **flags,
     )
     trainer = LocalizationTrainer(cfg, model=model, train_dataset=train_set,
                                   val_dataset=val_set, device=device)
     blocks = [b for b in trainer.model.modules() if isinstance(b, ConvNeXtBlock)]
-    print(f"{tag} model and data built in {time.perf_counter() - t0:.1f} s; blocks: "
-          f"{sum(b.fused for b in blocks)} all-kernel, {sum(b.hybrid for b in blocks)} hybrid, "
-          f"{sum(b.use_dw_ln for b in blocks)} dwconv+LN, of {len(blocks)}")
+    routes = dict(Counter(b.route for b in blocks))
+    print(f"{tag} model and data built in {time.perf_counter() - t0:.1f} s; blocks by route "
+          f"{routes}, of {len(blocks)}")
     step_counts = []
     inner = trainer.train_step_fn
 
@@ -860,48 +1082,83 @@ def profile_train(trainer, dataset, p50_ms: float, path: str) -> None:
           f"x{sum(e.count for e in rest) // 2:<5d} everything else (PyTorch's own kernels)")
 
 
-def grad_check(device, use_pallas) -> None:
-    """One step's gradients, card against CPU: ConvNeXt-base at full width,
-    batch 2 at 128^2 (stages 32^2 .. 4^2 reach all four widths), augmentation
-    and dropout off, the same weights and batch, the same entry point; the
-    hybrid block ("hybrid") or the all-kernel block (True)."""
-    import numpy as np
+def _step_grads(dev, use_pallas, layer_scale, batch, seed: int = 3) -> tuple:
+    """One train step of the gradient check's model (weights from ``seed``)
+    on ``dev``: ``(grads by parameter name, loss, seconds, launch counts)``."""
+    from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
+
+    run = RUN_DIR / f"grad_{dev.type}"
+    shutil.rmtree(run, ignore_errors=True)
+    cfg = LocalizationConfig(
+        backbone="convnext_base", image_size=(128, 128), batch_size=GRAD_BATCH, num_epochs=1,
+        augment=False, dropout=0.0, output_path=run, num_workers=1, pretrained=False,
+        grad_clip=None, seed=0, use_pallas_dwconv=use_pallas is True,
+    )
+    model = _regressor(dev, seed=seed, dropout=0.0, use_pallas=use_pallas,
+                       layer_scale_init=layer_scale)
+    trainer = LocalizationTrainer(cfg, model=model, train_dataset=_Images(GRAD_BATCH, 128, 12),
+                                  val_dataset=_Images(GRAD_BATCH, 128, 13), device=dev)
+    t0 = time.perf_counter()
+    _zero_counts()
+    loss = float(trainer.train_step_fn(trainer.state, batch))
+    out = ({n: p.grad.detach().float().cpu() for n, p in trainer.model.named_parameters()},
+           loss, time.perf_counter() - t0, _counts())
+    shutil.rmtree(run, ignore_errors=True)
+    return out
+
+
+def _card_vs_cpu(device, use_pallas, layer_scale, seed: int) -> tuple:
+    """One step on the card and on the CPU from the same weights and batch:
+    ``(per-parameter ||g_card - g_cpu|| / ||g_cpu||, card step, CPU step)``."""
     import torch
 
     from spine_vision_torch.data.loader import collate_localization
-    from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
 
-    batch = collate_localization([_Images(2, 128, 12)[i] for i in range(2)])
-    grads = {}
-    for dev in (device, torch.device("cpu")):
-        run = RUN_DIR / f"grad_{dev.type}"
-        shutil.rmtree(run, ignore_errors=True)
-        cfg = LocalizationConfig(
-            backbone="convnext_base", image_size=(128, 128), batch_size=2, num_epochs=1,
-            augment=False, dropout=0.0, output_path=run, num_workers=1, pretrained=False,
-            grad_clip=None, seed=0, use_pallas_dwconv=use_pallas is True,
-        )
-        model = _regressor(dev, seed=3, dropout=0.0, use_pallas=use_pallas)
-        trainer = LocalizationTrainer(cfg, model=model,
-                                      train_dataset=_Images(2, 128, 12),
-                                      val_dataset=_Images(2, 128, 13), device=dev)
-        t0 = time.perf_counter()
-        loss = float(trainer.train_step_fn(trainer.state, batch))
-        grads[dev.type] = ({n: p.grad.detach().float().cpu() for n, p in
-                            trainer.model.named_parameters()}, loss, time.perf_counter() - t0)
-        shutil.rmtree(run, ignore_errors=True)
-    card, cpu = grads["cuda"][0], grads["cpu"][0]
-    rel = {n: (torch.linalg.vector_norm(card[n] - cpu[n]) /
-               torch.linalg.vector_norm(cpu[n]).clamp_min(1e-30)).item() for n in cpu}
-    worst = sorted(rel.items(), key=lambda kv: kv[1], reverse=True)[:4]
-    tol = GRAD_REL_TOL
-    print(f"[grad] use_pallas={use_pallas!r}: card vs CPU, one step of {len(rel)} parameters (CPU step "
-          f"{grads['cpu'][2]:.1f} s): loss {grads['cuda'][1]:.6f} vs {grads['cpu'][1]:.6f}; "
-          f"per-parameter ||g_card - g_cpu|| / ||g_cpu||: median {np.median(list(rel.values())):.4g}, "
-          f"max {worst[0][1]:.4g} ({worst[0][0]}), tol {tol}")
-    print(f"[grad] largest: {[(n, round(v, 5)) for n, v in worst]}")
-    if worst[0][1] > tol:
-        raise AssertionError(f"card and CPU gradients differ beyond {tol}: {worst}")
+    data = _Images(GRAD_BATCH, 128, 9 + seed)
+    batch = collate_localization([data[i] for i in range(GRAD_BATCH)])
+    card = _step_grads(device, use_pallas, layer_scale, batch, seed)
+    cpu = _step_grads(torch.device("cpu"), use_pallas, layer_scale, batch, seed)
+    rel = {n: (torch.linalg.vector_norm(card[0][n] - cpu[0][n]) /
+               torch.linalg.vector_norm(cpu[0][n]).clamp_min(1e-30)).item() for n in cpu[0]}
+    return rel, card, cpu
+
+
+def grad_check(device, mode) -> dict:
+    """One step's gradients, card against CPU: ConvNeXt-base at full width,
+    batch 2 at 128^2 (stages 32^2 .. 4^2 reach all four widths), augmentation
+    and dropout off, the same weights and batch, the same entry point; the
+    hybrid block ("hybrid"), the all-kernel block (True), the LN-fused MLP
+    mode ("mlp"), the whole-block training kernel ("block"), or the "mlp" mode
+    on ConvNeXt-base without LayerScale, whose blocks run the fused MLP
+    ("mlp_no_layer_scale": every seed of NO_LAYER_SCALE_SEEDS, each beside
+    PyTorch's own ops on the same model). Returns the launch counts of the
+    card's step."""
+    import numpy as np
+
+    no_ls = mode == "mlp_no_layer_scale"
+    use_pallas, layer_scale = ("mlp", 0.0) if no_ls else (mode, None)
+    for seed in NO_LAYER_SCALE_SEEDS if no_ls else (3,):
+        rel, card, cpu = _card_vs_cpu(device, use_pallas, layer_scale, seed)
+        counts = card[3]
+        if counts != GRAD_LAUNCHES[mode]:
+            raise AssertionError(f"grad check {mode!r}: launches {counts}, expected "
+                                 f"{GRAD_LAUNCHES[mode]}")
+        worst = sorted(rel.items(), key=lambda kv: kv[1], reverse=True)[:4]
+        tol, yardstick = GRAD_REL_TOL, ""
+        if no_ls:
+            plain = _card_vs_cpu(device, False, layer_scale, seed)[0]
+            tol = max(GRAD_REL_TOL, PLAIN_MARGIN * max(plain.values()))
+            yardstick = (f"; PyTorch's own ops on the same model (use_pallas=False): median "
+                         f"{np.median(list(plain.values())):.4g}, max {max(plain.values()):.4g}")
+        print(f"[grad] {mode!r} seed {seed}: card vs CPU, one step of {len(rel)} parameters "
+              f"(CPU step {cpu[2]:.1f} s): loss {card[1]:.6f} vs {cpu[1]:.6f}; per-parameter "
+              f"||g_card - g_cpu|| / ||g_cpu||: median {np.median(list(rel.values())):.4g}, "
+              f"max {worst[0][1]:.4g} ({worst[0][0]}), tol {tol:.4g}{yardstick}; card "
+              f"launches {counts}")
+        print(f"[grad] largest: {[(n, round(v, 5)) for n, v in worst]}")
+        if worst[0][1] > tol:
+            raise AssertionError(f"card and CPU gradients differ beyond {tol}: {worst}")
+    return counts
 
 
 def overfit_check(device) -> None:
@@ -973,18 +1230,31 @@ def main() -> int:
         print(f"[build] {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
               f"spill stores {spills} bytes")
 
-    report = kernel_phase(device)
-    train_kernel_phase(device, report)
-    dwconv_train_kernel_phase(device, report)
-    paths = {"study_inference": None, "train_step": None, "train_step_dwconv": None}
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    report = phase("inference kernels", kernel_phase, device)
+    phase("hybrid training kernels", train_kernel_phase, device, report)
+    phase("all-kernel training kernels", dwconv_train_kernel_phase, device, report)
+    phase("mlp-mode kernels", mlp_kernel_phase, device, report)
+    phase("whole-block backward kernel", block_train_kernel_phase, device, report)
+    paths = {"study_inference": None, **{p: None for p in TRAIN_PATHS},
+             "grad_check_mlp_no_layer_scale": None}
     if not opts.kernels_only:
-        paths["study_inference"] = slice_phase(device, card, opts.profile)["launches"]
-        paths["train_step"] = train_phase(device, card, "train_step", opts.profile)["launches"]
-        grad_check(device, "hybrid")
-        overfit_check(device)
-        paths["train_step_dwconv"] = train_phase(device, card, "train_step_dwconv",
-                                                 opts.profile)["launches"]
-        grad_check(device, True)
+        paths["study_inference"] = phase("study_inference", slice_phase, device, card,
+                                         opts.profile)["launches"]
+        for path, grad_mode in (("train_step", "hybrid"), ("train_step_dwconv", True),
+                                ("train_step_mlp", "mlp"), ("train_step_block", "block")):
+            paths[path] = phase(path, train_phase, device, card, path,
+                                opts.profile)["launches"]
+            phase(f"grad check {grad_mode!r}", grad_check, device, grad_mode)
+            if path == "train_step":
+                phase("overfit", overfit_check, device)
+        paths["grad_check_mlp_no_layer_scale"] = phase(
+            "grad check 'mlp_no_layer_scale'", grad_check, device, "mlp_no_layer_scale")
 
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",
@@ -1001,6 +1271,12 @@ def main() -> int:
                       "spine_vision_tpu/ops/dwconv.py:366", "train_step_dwconv"),
         "depthwise_conv7x7": ("spine_vision_torch/csrc/dwconv_bwd.cu",
                               "spine_vision_tpu/ops/dwconv.py:119", "train_step_dwconv"),
+        "ln_mlp": ("spine_vision_torch/csrc/convnext_block.cu",
+                   "spine_vision_tpu/ops/fused_mlp.py:586", "train_step_mlp"),
+        "mlp_fwd": ("spine_vision_torch/csrc/convnext_block.cu",
+                    "spine_vision_tpu/ops/fused_mlp.py:147", "grad_check_mlp_no_layer_scale"),
+        "block_train_bwd": ("spine_vision_torch/csrc/block_train_bwd.cu",
+                            "spine_vision_tpu/ops/block_train.py:313", "train_step_block"),
     }
     kernels = []
     for name, rows in report.items():

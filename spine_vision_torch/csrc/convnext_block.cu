@@ -31,6 +31,19 @@
 // reduction axis. Shared memory rows carry 8 bf16 of padding, which keeps
 // ldmatrix free of bank conflicts. Not yet here: wgmma, TMA, a persistent
 // schedule; at C = 512 one CTA fills an SM's shared memory.
+//
+// The same MLP body (mlp_tail) behind two other prologues, row_mlp_kernel,
+// replaces the TPU's token-tiled MLP kernels of
+// spine_vision_tpu/ops/fused_mlp.py:
+//   LN (svt_ln_mlp_forward): _ln_mlp_pallas (_ln_mlp_tail_kernel), out =
+//     res + gamma * (W2 . gelu_tanh(W1 . LN(t) + b1) + b2); a warp takes a
+//     token row of t, LayerNorms it in f32 and rounds y to bf16;
+//   copy (svt_mlp_forward): _pallas_mlp (_mlp_tail_kernel, _mlp_kernel), the
+//     MLP of the y row as it is, with the tail (gamma, res) or without it
+//     (acc + b2, rounded once).
+// The rows (and the residual) arrive by cp.async ahead of the first weight
+// chunks. Both do the block's 16 * M * C^2 flops against 6 * M * C bytes, so
+// the tensor cores bound them as they bound the block.
 #include "dwconv_ln.cuh"
 #include "mma_bf16.cuh"
 
@@ -96,79 +109,32 @@ __device__ __forceinline__ void load_w2(bf16* sW2, const bf16* __restrict__ w2t,
   }
 }
 
-template <int C, bool EMIT>
-__global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ k,
-    const float* __restrict__ dw_bias, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, const bf16* __restrict__ w1t,
-    const float* __restrict__ b1, const bf16* __restrict__ w2t,
-    const float* __restrict__ b2, const float* __restrict__ gamma,
-    bf16* __restrict__ out, bf16* __restrict__ t_out, int B, int H, int W,
-    float eps) {
+// 2. MLP over hidden chunks, 3. the epilogue: out = (acc + b2) * gamma + sX
+// (the residual rows) with TAIL, acc + b2 without, rounded once. The first W1
+// and W2 chunks were committed as the last two cp.async groups, and sY holds
+// the 64 MLP input rows (zeros past the last token) once every thread has
+// reached the first __syncthreads. The W1 chunk for the next step loads
+// during this step's second product, the W2 chunk during the next first
+// product.
+template <int C, bool TAIL>
+__device__ __forceinline__ void mlp_tail(
+    bf16* smem, const bf16* __restrict__ w1t, const float* __restrict__ b1,
+    const bf16* __restrict__ w2t, const float* __restrict__ b2,
+    const float* __restrict__ gamma, bf16* __restrict__ out, long long tok0,
+    long long M) {
   using L = Layout<C>;
   using G = Grid2<C>;
-  constexpr int NP = svt::Lanes<C>::NP;
   constexpr int NCHUNK = 4 * C / HC;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
   bf16* sY = smem + L::Y;
   bf16* sX = smem + L::X;
   bf16* sW1 = smem + L::W1;
   bf16* sW2 = smem + L::W2;
   bf16* sH = smem + L::HID;
-
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const long long M = (long long)B * H * W;
-  const long long tok0 = (long long)blockIdx.x * TOK;
 
-  // The first weight chunk streams in while the stencil runs.
-  load_w1<C>(sW1, w1t, 0);
-  cp_async_commit();
-  load_w2<C>(sW2, w2t, 0);
-  cp_async_commit();
-
-  // 1. dwconv + bias + LayerNorm -> sY (bf16), centre tap -> sX. A warp
-  // takes its TOK / NWARPS tokens TB at a time.
-  constexpr int TB = svt::TokensPerWarp<C>::value;
-  static_assert((TOK / NWARPS) % TB == 0, "tokens per warp");
-  for (int i0 = 0; i0 < TOK / NWARPS; i0 += TB) {
-    const int r0 = warp * (TOK / NWARPS) + i0;
-    int b[TB], h[TB], w[TB];
-    bool ok[TB];
-    bf16* xrows[TB];
-    bf16* trows[TB];
-#pragma unroll
-    for (int i = 0; i < TB; ++i) {
-      svt::token_coords(tok0 + r0 + i, M, H, W, b[i], h[i], w[i], ok[i]);
-      xrows[i] = sX + (r0 + i) * L::LDY;
-      trows[i] = EMIT ? t_out + (tok0 + r0 + i) * C : nullptr;
-    }
-    float y[TB][NP][2];
-    svt::dw_ln_tokens<bf16, C, TB, true, EMIT>(x, k, dw_bias, ln_scale, ln_bias,
-                                               b, h, w, ok, H, W, eps, lane, y,
-                                               xrows, trows);
-#pragma unroll
-    for (int i = 0; i < TB; ++i) {
-      bf16* yrow = sY + (r0 + i) * L::LDY;
-#pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        const int p = lane + 32 * q;
-        if (!svt::Lanes<C>::valid(p)) continue;
-        if (ok[i]) {
-          svt::store2(yrow + 2 * p, y[i][q][0], y[i][q][1]);
-        } else {  // past the last token: zeros, never stored
-          svt::store2(yrow + 2 * p, 0.f, 0.f);
-          svt::store2(xrows[i] + 2 * p, 0.f, 0.f);
-        }
-      }
-    }
-  }
-
-  // 2. MLP over hidden chunks. The W1 chunk for the next step loads during
-  // this step's second product, the W2 chunk during the next first product.
   const int m1 = (warp & 3) * 16;   // first product: 16 rows x 16 hidden
   const int n1 = (warp >> 2) * 16;
   const int wm = warp / G::WN;      // second product: MT x NTW tiles
@@ -256,16 +222,26 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
   for (int nj = 0; nj < G::NTW; ++nj) {
     const int col = (wn * G::NTW + nj) * 8 + 2 * t;
     const float bb0 = b2[col], bb1 = b2[col + 1];
-    const float g0 = gamma[col], g1 = gamma[col + 1];
+    if constexpr (TAIL) {
+      const float g0 = gamma[col], g1 = gamma[col + 1];
 #pragma unroll
-    for (int mi = 0; mi < G::MT; ++mi) {
-      const int r0 = (wm * G::MT + mi) * 16 + g;
-      const float2 x0 = svt::load2(sX + r0 * L::LDY + col);
-      const float2 x1 = svt::load2(sX + (r0 + 8) * L::LDY + col);
-      svt::store2(sY + r0 * L::LDY + col, (acc[mi][nj][0] + bb0) * g0 + x0.x,
-                  (acc[mi][nj][1] + bb1) * g1 + x0.y);
-      svt::store2(sY + (r0 + 8) * L::LDY + col, (acc[mi][nj][2] + bb0) * g0 + x1.x,
-                  (acc[mi][nj][3] + bb1) * g1 + x1.y);
+      for (int mi = 0; mi < G::MT; ++mi) {
+        const int r0 = (wm * G::MT + mi) * 16 + g;
+        const float2 x0 = svt::load2(sX + r0 * L::LDY + col);
+        const float2 x1 = svt::load2(sX + (r0 + 8) * L::LDY + col);
+        svt::store2(sY + r0 * L::LDY + col, (acc[mi][nj][0] + bb0) * g0 + x0.x,
+                    (acc[mi][nj][1] + bb1) * g1 + x0.y);
+        svt::store2(sY + (r0 + 8) * L::LDY + col, (acc[mi][nj][2] + bb0) * g0 + x1.x,
+                    (acc[mi][nj][3] + bb1) * g1 + x1.y);
+      }
+    } else {
+#pragma unroll
+      for (int mi = 0; mi < G::MT; ++mi) {
+        const int r0 = (wm * G::MT + mi) * 16 + g;
+        svt::store2(sY + r0 * L::LDY + col, acc[mi][nj][0] + bb0, acc[mi][nj][1] + bb1);
+        svt::store2(sY + (r0 + 8) * L::LDY + col, acc[mi][nj][2] + bb0,
+                    acc[mi][nj][3] + bb1);
+      }
     }
   }
   __syncthreads();
@@ -278,6 +254,150 @@ __global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
       *reinterpret_cast<uint4*>(out + tok * C + kk) =
           *reinterpret_cast<const uint4*>(sY + r * L::LDY + kk);
   }
+}
+
+template <int C, bool EMIT>
+__global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ k,
+    const float* __restrict__ dw_bias, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, const bf16* __restrict__ w1t,
+    const float* __restrict__ b1, const bf16* __restrict__ w2t,
+    const float* __restrict__ b2, const float* __restrict__ gamma,
+    bf16* __restrict__ out, bf16* __restrict__ t_out, int B, int H, int W,
+    float eps) {
+  using L = Layout<C>;
+  constexpr int NP = svt::Lanes<C>::NP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sY = smem + L::Y;
+  bf16* sX = smem + L::X;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long M = (long long)B * H * W;
+  const long long tok0 = (long long)blockIdx.x * TOK;
+
+  // The first weight chunk streams in while the stencil runs.
+  load_w1<C>(smem + L::W1, w1t, 0);
+  cp_async_commit();
+  load_w2<C>(smem + L::W2, w2t, 0);
+  cp_async_commit();
+
+  // 1. dwconv + bias + LayerNorm -> sY (bf16), centre tap -> sX. A warp
+  // takes its TOK / NWARPS tokens TB at a time.
+  constexpr int TB = svt::TokensPerWarp<C>::value;
+  static_assert((TOK / NWARPS) % TB == 0, "tokens per warp");
+  for (int i0 = 0; i0 < TOK / NWARPS; i0 += TB) {
+    const int r0 = warp * (TOK / NWARPS) + i0;
+    int b[TB], h[TB], w[TB];
+    bool ok[TB];
+    bf16* xrows[TB];
+    bf16* trows[TB];
+#pragma unroll
+    for (int i = 0; i < TB; ++i) {
+      svt::token_coords(tok0 + r0 + i, M, H, W, b[i], h[i], w[i], ok[i]);
+      xrows[i] = sX + (r0 + i) * L::LDY;
+      trows[i] = EMIT ? t_out + (tok0 + r0 + i) * C : nullptr;
+    }
+    float y[TB][NP][2];
+    svt::dw_ln_tokens<bf16, C, TB, true, EMIT>(x, k, dw_bias, ln_scale, ln_bias,
+                                               b, h, w, ok, H, W, eps, lane, y,
+                                               xrows, trows);
+#pragma unroll
+    for (int i = 0; i < TB; ++i) {
+      bf16* yrow = sY + (r0 + i) * L::LDY;
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const int p = lane + 32 * q;
+        if (!svt::Lanes<C>::valid(p)) continue;
+        if (ok[i]) {
+          svt::store2(yrow + 2 * p, y[i][q][0], y[i][q][1]);
+        } else {  // past the last token: zeros, never stored
+          svt::store2(yrow + 2 * p, 0.f, 0.f);
+          svt::store2(xrows[i] + 2 * p, 0.f, 0.f);
+        }
+      }
+    }
+  }
+
+  mlp_tail<C, true>(smem, w1t, b1, w2t, b2, gamma, out, tok0, M);
+}
+
+// The MLP of token rows without the stencil. LN: y = LN(x row) * ln_scale +
+// ln_bias in f32 (mean, then the mean of centred squares), rounded to bf16;
+// otherwise the x row is y. TAIL: the res rows are the residual.
+template <int C, bool LN, bool TAIL>
+__global__ void __launch_bounds__(NTHREADS, 1) row_mlp_kernel(
+    const bf16* __restrict__ x, const bf16* __restrict__ res,
+    const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+    const bf16* __restrict__ w1t, const float* __restrict__ b1,
+    const bf16* __restrict__ w2t, const float* __restrict__ b2,
+    const float* __restrict__ gamma, bf16* __restrict__ out, long long M, float eps) {
+  static_assert(TAIL || !LN, "the LN form always has its tail");
+  using L = Layout<C>;
+  constexpr int NP = svt::Lanes<C>::NP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sY = smem + L::Y;
+  bf16* sX = smem + L::X;
+  const long long tok0 = (long long)blockIdx.x * TOK;
+
+  // The residual rows and, without LN, the y rows: one cp.async group ahead
+  // of the first weight chunks (zeros past the last token).
+  constexpr int ROW = C / 8;
+  for (int v = threadIdx.x; v < TOK * ROW; v += NTHREADS) {
+    const int r = v / ROW, kk = (v % ROW) * 8;
+    const long long tok = tok0 + r;
+    if (tok < M) {
+      if (TAIL) cp_async16(sX + r * L::LDY + kk, res + tok * C + kk);
+      if (!LN) cp_async16(sY + r * L::LDY + kk, x + tok * C + kk);
+    } else {
+      if (TAIL) *reinterpret_cast<uint4*>(sX + r * L::LDY + kk) = make_uint4(0, 0, 0, 0);
+      if (!LN) *reinterpret_cast<uint4*>(sY + r * L::LDY + kk) = make_uint4(0, 0, 0, 0);
+    }
+  }
+  cp_async_commit();
+  load_w1<C>(smem + L::W1, w1t, 0);
+  cp_async_commit();
+  load_w2<C>(smem + L::W2, w2t, 0);
+  cp_async_commit();
+
+  if constexpr (LN) {
+    // A warp LayerNorms its TOK / NWARPS rows, one at a time.
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    for (int i = 0; i < TOK / NWARPS; ++i) {
+      const int r = warp * (TOK / NWARPS) + i;
+      const long long tok = tok0 + r;
+      bf16* yrow = sY + r * L::LDY;
+      float v[NP][2];
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const int p = lane + 32 * q;
+        v[q][0] = v[q][1] = 0.f;
+        if (tok < M && svt::Lanes<C>::valid(p)) {
+          const float2 a = svt::load2(x + tok * C + 2 * p);
+          v[q][0] = a.x;
+          v[q][1] = a.y;
+        }
+      }
+      float mu;
+      const float rstd = svt::centre_rstd<C>(v, eps, lane, mu);
+#pragma unroll
+      for (int q = 0; q < NP; ++q) {
+        const int p = lane + 32 * q;
+        if (!svt::Lanes<C>::valid(p)) continue;
+        if (tok < M) {  // uniform over the warp
+          const float2 sv = svt::load2(ln_scale + 2 * p);
+          const float2 bv = svt::load2(ln_bias + 2 * p);
+          svt::store2(yrow + 2 * p, v[q][0] * rstd * sv.x + bv.x, v[q][1] * rstd * sv.y + bv.y);
+        } else {
+          svt::store2(yrow + 2 * p, 0.f, 0.f);
+        }
+      }
+    }
+  }
+  mlp_tail<C, TAIL>(smem, w1t, b1, w2t, b2, gamma, out, tok0, M);
 }
 
 template <int C, bool EMIT>
@@ -313,6 +433,62 @@ int launch(const void* x, const void* k, const void* dw_bias,
                               gamma, out, t, B, H, W, eps, stream);
 }
 
+template <int C, bool LN, bool TAIL>
+int launch_rows(const void* x, const void* res, const void* ln_scale,
+                const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
+                const void* b2, const void* gamma, void* out, long long M, float eps,
+                cudaStream_t stream) {
+  const size_t smem = Layout<C>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      row_mlp_kernel<C, LN, TAIL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((M + TOK - 1) / TOK));
+  row_mlp_kernel<C, LN, TAIL><<<grid, NTHREADS, smem, stream>>>(
+      (const bf16*)x, (const bf16*)res, (const float*)ln_scale, (const float*)ln_bias,
+      (const bf16*)w1t, (const float*)b1, (const bf16*)w2t, (const float*)b2,
+      (const float*)gamma, (bf16*)out, M, eps);
+  return (int)cudaGetLastError();
+}
+
+// The three row forms: 0 = LN with tail (#7), 1 = tail (#5), 2 = no tail (#5).
+template <int C>
+int launch_row_form(int form, const void* x, const void* res, const void* ln_scale,
+                    const void* ln_bias, const void* w1t, const void* b1,
+                    const void* w2t, const void* b2, const void* gamma, void* out,
+                    long long M, float eps, cudaStream_t s) {
+  if (form == 0)
+    return launch_rows<C, true, true>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
+                                      out, M, eps, s);
+  if (form == 1)
+    return launch_rows<C, false, true>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
+                                       out, M, eps, s);
+  return launch_rows<C, false, false>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
+                                      out, M, eps, s);
+}
+
+int row_forward(int form, const void* x, const void* res, const void* ln_scale,
+                const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
+                const void* b2, const void* gamma, void* out, long long M, int C,
+                float eps, void* stream) {
+  if (M == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define SVT_ROW_CASE(CC)                                                              \
+  case CC:                                                                            \
+    return launch_row_form<CC>(form, x, res, ln_scale, ln_bias, w1t, b1, w2t, b2,     \
+                               gamma, out, M, eps, s);
+  switch (C) {
+    SVT_ROW_CASE(96)
+    SVT_ROW_CASE(128)
+    SVT_ROW_CASE(192)
+    SVT_ROW_CASE(256)
+    SVT_ROW_CASE(384)
+    SVT_ROW_CASE(512)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SVT_ROW_CASE
+}
+
 }  // namespace
 
 // x, k [49, C], w1t [4C, C], w2t [C, 4C], out and t are bf16; the rest f32.
@@ -340,4 +516,26 @@ extern "C" int svt_convnext_block_forward(
       return (int)cudaErrorInvalidValue;
   }
 #undef SVT_BLOCK_CASE
+}
+
+// out = res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2) over M token rows
+// of width C: x, res, w1t [4C, C], w2t [C, 4C] and out bf16, the rest f32.
+// Returns the cudaError_t of the launch.
+extern "C" int svt_ln_mlp_forward(const void* x, const void* res, const void* ln_scale,
+                                  const void* ln_bias, const void* w1t, const void* b1,
+                                  const void* w2t, const void* b2, const void* gamma,
+                                  void* out, long long M, int C, float eps, void* stream) {
+  return row_forward(0, x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, M, C, eps,
+                     stream);
+}
+
+// out = res + gamma * (W2 . gelu_tanh(W1 . x + b1) + b2), or with res null
+// W2 . gelu_tanh(W1 . x + b1) + b2 (gamma not read), over M token rows of
+// width C; dtypes as svt_ln_mlp_forward. Returns the cudaError_t of the launch.
+extern "C" int svt_mlp_forward(const void* x, const void* res, const void* w1t,
+                               const void* b1, const void* w2t, const void* b2,
+                               const void* gamma, void* out, long long M, int C,
+                               void* stream) {
+  return row_forward(res ? 1 : 2, x, res, nullptr, nullptr, w1t, b1, w2t, b2, gamma, out, M,
+                     C, 0.f, stream);
 }

@@ -39,8 +39,10 @@ def create_backbone(
     """Build a backbone mapping ``[B, H, W, 3]`` images to ``[B, dim]`` features.
 
     ``use_pallas`` picks the ConvNeXt kernels as in the JAX factory: ``True``
-    (inference kernels), ``"hybrid"`` (the training block) or ``False``
-    (plain ops); ResNets have none. ``param_dtype`` (ConvNeXt only) keeps the
+    (the inference kernels, trainable: the all-kernel block), ``"mlp"`` (the
+    LN-fused MLP kernels), ``"hybrid"`` (the hybrid training block),
+    ``"block"`` (the whole-block training kernel) or ``False`` (plain ops);
+    ResNets have none. ``param_dtype`` (ConvNeXt only) keeps the
     weights in another dtype than the compute one, f32 masters for training.
     """
     if name in RESNET_CONFIGS:

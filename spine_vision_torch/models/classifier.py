@@ -62,10 +62,11 @@ class CoordinateRegressor(nn.Module):
     Dropout(p/2) -> Dense(L*2) -> sigmoid, giving ``[B, num_levels,
     num_outputs]`` normalised coordinates.
 
-    ``use_pallas`` and ``param_dtype`` go to the backbone factory:
-    ``use_pallas="hybrid"`` with ``param_dtype=torch.float32`` is the training
-    configuration. It is built in eval mode, as inference callers expect;
-    the trainer switches it with ``train()``."""
+    ``use_pallas`` and ``param_dtype`` go to the backbone factory: with
+    ``param_dtype=torch.float32``, ``use_pallas="hybrid"`` is the training
+    default, ``True``, ``"mlp"`` and ``"block"`` the JAX package's other
+    kernel modes. It is built in eval mode, as inference callers expect; the
+    trainer switches it with ``train()``."""
 
     def __init__(
         self, backbone_name: str = "convnext_base", num_outputs: int = 2,

@@ -1,22 +1,33 @@
 """ConvNeXt v1/v2 backbones, NHWC, for inference and training.
 
-Counterpart of ``spine_vision_tpu/models/convnext.py``. Each block dispatches
-as the JAX model does for its ``use_pallas`` setting:
+Counterpart of ``spine_vision_tpu/models/convnext.py``. Each block picks one
+route (``ConvNeXtBlock.route``, named in brackets) as the JAX model does for
+its ``use_pallas`` setting, the first that applies in the JAX order:
 
-- ``use_pallas=True`` (inference, and training with ``use_pallas_dwconv``):
-  v1 blocks of width <= ``MAX_FUSED_DIM`` run the whole-block kernel
-  (``ops/convnext_block.py::convnext_block_fused``, whose backward is the
-  dwconv+LN recompute, the MLP backward and the dwconv+LN backward kernels);
-  wider blocks, and v2 (GRN) blocks, run the dwconv+LayerNorm kernel
-  (``ops/dwconv.py::depthwise_conv7x7_ln``, forward and backward kernels) and
-  then a plain MLP;
-- ``use_pallas="hybrid"`` (training): v1 blocks of width <= ``MAX_FUSED_DIM``
-  with LayerScale run the hybrid block (``ops/block_train.py``: the block
-  kernel emitting ``t`` forward, the LN+MLP backward kernel); every other block
-  runs plain PyTorch ops (grouped ``F.conv2d``, f32 LayerNorm, Dense in the
-  compute dtype), which is the JAX package's own route for them;
-- ``use_pallas=False``, or ``gelu="erf"`` (exact GELU parity): plain PyTorch
-  ops throughout.
+1. [``"hybrid"``, ``"block"``] ``use_pallas="hybrid"`` or ``"block"``
+   (training), v1 blocks of width <= ``MAX_FUSED_DIM`` with LayerScale: the
+   hybrid block (the block kernel emitting ``t`` forward, the LN+MLP backward
+   kernel) or the whole-block training block (the block kernel forward, the
+   whole-block backward kernel); both in ``ops/block_train.py``;
+2. [``"fused"``] ``use_pallas=True`` (inference, and training with
+   ``use_pallas_dwconv``), v1 blocks of width <= ``MAX_FUSED_DIM``: the
+   whole-block kernel (``ops/convnext_block.py::convnext_block_fused``, whose
+   backward is the dwconv+LN recompute, the MLP backward and the dwconv+LN
+   backward kernels);
+3. [``"dw_ln"``] ``use_pallas=True``, wider blocks and v2 (GRN) blocks: the
+   dwconv+LayerNorm kernel (``ops/dwconv.py::depthwise_conv7x7_ln``, forward
+   and backward kernels), then the plain MLP;
+4. [``"ln_mlp"``] ``use_pallas="mlp"`` or ``"hybrid"`` otherwise, v1 blocks
+   of width <= ``MAX_FUSED_DIM`` with LayerScale: a plain depthwise conv,
+   then the LN-fused MLP (``ops/fused_mlp.py::fused_ln_mlp``: forward kernel
+   #7, backward #8/#9; the ``"mlp"`` mode);
+5. [``"mlp"``] the same blocks without LayerScale: a plain depthwise conv and
+   LayerNorm, then the fused MLP with the residual (``fused_mlp``: forward
+   kernel #5, backward #6);
+6. [``"plain"``] every other block, ``use_pallas=False`` and ``gelu="erf"``
+   (exact GELU parity): plain PyTorch ops (grouped ``F.conv2d``, f32
+   LayerNorm, Dense in the compute dtype), the JAX package's own route for
+   them.
 
 The stem and downsample convolutions and the plain MLP's products are
 ``F.conv2d`` / ``torch.matmul``, as the JAX package leaves them to XLA.
@@ -33,12 +44,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from spine_vision_torch.models.layers import Conv, LayerNorm, _lecun_normal, _param
-from spine_vision_torch.ops.block_train import convnext_block_hybrid
+from spine_vision_torch.ops.block_train import convnext_block_hybrid, convnext_block_train
 from spine_vision_torch.ops.convnext_block import convnext_block_fused
 from spine_vision_torch.ops.dwconv import KERNEL_SIZE, PAD, depthwise_conv7x7_ln
-from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM
+from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM, fused_ln_mlp, fused_mlp
 
-USE_PALLAS_MODES = (True, "hybrid", False)
+USE_PALLAS_MODES = (True, "mlp", "hybrid", "block", False)
 
 
 @dataclass(frozen=True)
@@ -100,10 +111,7 @@ class ConvNeXtBlock(nn.Module):
     ) -> None:
         super().__init__()
         if use_pallas not in USE_PALLAS_MODES:
-            raise NotImplementedError(
-                f"use_pallas={use_pallas!r} is not ported yet: ROADMAP.md, Queue 2 "
-                "(kernels #5-#7 and #10); the port takes True, 'hybrid' or False"
-            )
+            raise ValueError(f"use_pallas={use_pallas!r}: the modes are {USE_PALLAS_MODES}")
         self.dim, self.use_grn, self.gelu, self.dtype = dim, use_grn, gelu, dtype
         f32 = torch.float32
         param_dtype = param_dtype or dtype
@@ -126,17 +134,19 @@ class ConvNeXtBlock(nn.Module):
             _param(torch.full((dim,), float(layer_scale_init)), f32, device)
             if has_gamma else None
         )
-        kernels = use_pallas is not False and gelu != "erf"
         fits = not use_grn and dim <= MAX_FUSED_DIM
-        self.hybrid = kernels and use_pallas == "hybrid" and fits
-        if self.hybrid and not has_gamma:
-            raise NotImplementedError(
-                "a hybrid-trained block without LayerScale runs the fused MLP kernel "
-                "(#5), not ported yet: ROADMAP.md, Queue 2"
-            )
-        self.fused = kernels and use_pallas is True and fits
-        self.use_dw_ln = kernels and use_pallas is True and not self.fused
-        if self.fused and self.gamma is None:
+        # The route of the module docstring: the first of its list that applies.
+        if use_pallas is False or gelu == "erf":
+            self.route = "plain"
+        elif use_pallas in ("hybrid", "block") and fits and has_gamma:
+            self.route = use_pallas
+        elif use_pallas is True:
+            self.route = "fused" if fits else "dw_ln"
+        elif use_pallas in ("mlp", "hybrid") and fits:
+            self.route = "ln_mlp" if has_gamma else "mlp"
+        else:
+            self.route = "plain"
+        if self.route == "fused" and self.gamma is None:
             # The whole-block kernel always applies a scale (ones here, a
             # buffer, so its gradient is dropped).
             self.register_buffer("_ones", torch.ones(dim, dtype=f32, device=device))
@@ -149,18 +159,20 @@ class ConvNeXtBlock(nn.Module):
         dtype = self.dtype
         x = x.to(dtype).contiguous()
         k49, w1t, w2t = self._weights()
-        if self.hybrid:
-            return convnext_block_hybrid(
+        route = self.route
+        if route in ("hybrid", "block"):
+            block = convnext_block_hybrid if route == "hybrid" else convnext_block_train
+            return block(
                 x, k49, self.dw_bias, self.norm_scale, self.norm_bias,
                 w1t, self.pw1_bias, w2t, self.pw2_bias, self.gamma,
             )
-        if self.fused:
+        if route == "fused":
             gamma = self.gamma if self.gamma is not None else self._ones
             return convnext_block_fused(
                 x, k49, self.dw_bias, self.norm_scale, self.norm_bias,
                 w1t, self.pw1_bias, w2t, self.pw2_bias, gamma,
             )
-        if self.use_dw_ln:
+        if route == "dw_ln":
             y = depthwise_conv7x7_ln(x, k49, self.dw_bias, self.norm_scale, self.norm_bias)
         else:
             weight = k49.t().reshape(self.dim, 1, KERNEL_SIZE, KERNEL_SIZE)
@@ -168,9 +180,16 @@ class ConvNeXtBlock(nn.Module):
                 x.permute(0, 3, 1, 2), weight, self.dw_bias.to(dtype),
                 padding=PAD, groups=self.dim,
             ).permute(0, 2, 3, 1)
+            if route == "ln_mlp":
+                return fused_ln_mlp(
+                    t.contiguous(), self.norm_scale, self.norm_bias, w1t, self.pw1_bias,
+                    w2t, self.pw2_bias, self.gamma, x,
+                )
             y = F.layer_norm(
                 t.float(), (self.dim,), self.norm_scale, self.norm_bias, 1e-6
             ).to(dtype)
+        if route == "mlp":
+            return fused_mlp(y.contiguous(), w1t, self.pw1_bias, w2t, self.pw2_bias, residual=x)
         # Plain MLP in the compute dtype, as flax.linen.Dense(dtype=...).
         y = torch.matmul(y, w1t.t()) + self.pw1_bias.to(dtype)
         y = F.gelu(y, approximate="none" if self.gelu == "erf" else "tanh")

@@ -1,31 +1,53 @@
-"""Trainable ConvNeXt v1 block, hybrid strategy (NHWC, C <= 512).
+"""Trainable ConvNeXt v1 blocks for the two training strategies that run the
+whole-block kernel forward (NHWC, C <= 512).
 
-Counterpart of ``spine_vision_tpu/ops/block_train.py::convnext_block_hybrid``:
 ``x + gamma * mlp(LayerNorm(dwconv7x7(x) + bias))`` as a
-``torch.autograd.Function``.
+``torch.autograd.Function``, in two forms, counterparts of
+``spine_vision_tpu/ops/block_train.py``:
 
-- Forward: the whole-block kernel in its ``emit_conv`` form
-  (``ops/convnext_block.py``), which also returns ``t = dwconv7x7(x) + bias``
-  rounded to x's dtype; ``x``, ``t`` and the parameters are saved.
-- Backward: the LN+MLP backward from ``t`` (``ops/fused_mlp.py::ln_mlp_bwd``,
-  a hand-written kernel on the card), then the depthwise conv's data and
-  weight gradients from ``dt`` (grouped-convolution gradients, which the JAX
-  package leaves to XLA outside any kernel), ``dbias = sum dt`` in f32 and
-  ``dx = dx_conv + g`` in f32, cast to x's dtype.
+- :func:`convnext_block_hybrid` (``use_pallas="hybrid"``). Forward: the
+  whole-block kernel in its ``emit_conv`` form (``ops/convnext_block.py``),
+  which also returns ``t = dwconv7x7(x) + bias`` rounded to x's dtype; ``x``,
+  ``t`` and the parameters are saved. Backward: the LN+MLP backward from
+  ``t`` (``ops/fused_mlp.py::ln_mlp_bwd``, a hand-written kernel on the card),
+  then the depthwise conv's data and weight gradients from ``dt``
+  (grouped-convolution gradients, which the JAX package leaves to XLA outside
+  any kernel), ``dbias = sum dt`` in f32 and ``dx = dx_conv + g`` in f32, cast
+  to x's dtype.
+- :func:`convnext_block_train` (``use_pallas="block"``). Forward: the
+  whole-block kernel's inference form; only the primal inputs are saved.
+  Backward: :func:`block_train_bwd`, one hand-written CUDA backward
+  (``csrc/block_train_bwd.cu``, replacing ``_block_train_bwd_pallas``) that
+  recomputes the conv and the LayerNorm and gives ``g_u`` (the conv output's
+  gradient) and every parameter gradient; then ``dx = g + dwconv7x7(g_u,
+  flipped filter)`` in f32, cast to x's dtype, with the port's stencil kernel
+  (``ops/dwconv.py::depthwise_conv7x7``) where the JAX package runs an XLA
+  grouped conv.
 
 Gradients come back in each argument's dtype; the f32 master weights behind a
 bf16 argument receive theirs through the cast's backward, as in Flax. On CPU
-tensors both kernels' plain versions run, so the CPU path computes the same
+tensors the kernels' plain versions run, so the CPU path computes the same
 function with the same rounding points.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch.nn.grad import conv2d_input, conv2d_weight
 
+from spine_vision_torch.ops import cuda_build
+from spine_vision_torch.ops import fused_mlp as fm
 from spine_vision_torch.ops.convnext_block import convnext_block
-from spine_vision_torch.ops.dwconv import KERNEL_SIZE, PAD
+from spine_vision_torch.ops.dwconv import (
+    KERNEL_SIZE,
+    PAD,
+    TAPS,
+    depthwise_conv7x7,
+    depthwise_conv7x7_reference,
+    rows_per_cta,
+)
 from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM, ln_mlp_bwd
 
 
@@ -105,3 +127,167 @@ def convnext_block_hybrid(
             "train on plain ops"
         )
     return _HybridBlock.apply(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps)
+
+
+def block_train_bwd_reference(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """Plain whole-block backward with the TPU kernel's rounding points:
+    ``u = dwconv7x7(x) + bias`` in f32, not rounded, with the LayerNorm
+    statistics from the mean of centred squares; ``y``, ``h``, ``g * gamma``,
+    the hidden gradient and ``g`` rounded to x's dtype before their products;
+    ``db1`` from the f32 hidden gradient; the LayerNorm backward from the f32
+    ``g_y``; ``g_u`` written in x's dtype, but ``dk = sum x_halo * g_u`` and
+    ``ddwb = sum g_u`` from the unrounded f32 ``g_u``.
+
+    Returns ``(g_u, dk49, ddwb, dls, dlb, dw1t, db1, dw2t, db2, dgamma)``:
+    ``g_u`` in x's dtype and shape, the rest f32, ``dk49`` ``[49, C]``, the
+    weight gradients in the layouts of ``w1t`` and ``w2t``."""
+    c = x.shape[-1]
+    u = depthwise_conv7x7_reference(x, k49) + dw_bias.float()
+    g_u, *grads = fm.ln_mlp_bwd_core(
+        u.reshape(-1, c), ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
+        g.reshape(-1, c).float(), x.dtype, eps,
+    )
+    g_u = g_u.reshape(x.shape)
+    dk = conv2d_weight(
+        x.float().permute(0, 3, 1, 2), (c, 1, KERNEL_SIZE, KERNEL_SIZE),
+        g_u.permute(0, 3, 1, 2), padding=PAD, groups=c,
+    ).reshape(c, TAPS).t()
+    return (g_u.to(x.dtype), dk, g_u.sum(dim=(0, 1, 2)), *grads)
+
+
+def block_train_bwd(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, ...]:
+    """The whole-block backward from NHWC ``x`` and the output gradient ``g``:
+    ``(g_u, dk49, ddwb, dls, dlb, dw1t, db1, dw2t, db2, dgamma)`` as
+    :func:`block_train_bwd_reference`.
+
+    CUDA tensors launch ``csrc/block_train_bwd.cu`` (bf16 ``x``, ``k49`` and
+    ``g``, C in ``fused_mlp.KERNEL_WIDTHS``; anything else raises); CPU
+    tensors take the plain version. ``block_train_bwd.launches`` counts calls
+    that launched it.
+    """
+    args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
+    if x.device.type == "cpu":
+        return block_train_bwd_reference(*args, eps=eps)
+    if x.dim() != 4:
+        raise ValueError(f"block_train_bwd expects NHWC [B, H, W, C], got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    fm._check("block_train_bwd", x, g, (("dw_bias", dw_bias, c), ("ln_scale", ln_scale, c),
+                                        ("ln_bias", ln_bias, c), ("b1", b1, 4 * c),
+                                        ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
+    if (tuple(k49.shape) != (TAPS, c) or k49.dtype != torch.bfloat16
+            or not k49.is_contiguous() or k49.device != x.device):
+        raise ValueError("block_train_bwd wants the contiguous bf16 [49, C] filter on x's device")
+    m = b * h * w
+    rows = rows_per_cta(b * h, c)
+    dev, f32 = x.device, torch.float32
+    o = fm._buffers(x, ln=True)
+    u = torch.empty(m, c, dtype=f32, device=dev)
+    gu32 = torch.empty(m, c, dtype=f32, device=dev)
+    tpart = torch.empty(-(-(b * h) // rows), (TAPS + 1) * c, dtype=f32, device=dev)
+    taps = torch.empty((TAPS + 1) * c, dtype=f32, device=dev)
+    w1 = w1t.t().contiguous()
+    w2 = w2t.t().contiguous()
+    fn = cuda_build.load("block_train_bwd").svt_block_train_bwd
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        p(x), p(k49), p(dw_bias), p(ln_scale), p(ln_bias), p(w1t), p(w1), p(b1), p(w2t), p(w2),
+        p(b2), p(gamma), p(g), p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]),
+        p(o["dgamma"]), p(taps), p(u), p(gu32), p(o["y"]), p(o["h"]), p(o["gh"]), p(o["part"]),
+        p(o["ws"]), p(tpart), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
+        ctypes.c_int(o["ws"].shape[0]), ctypes.c_int(rows), ctypes.c_float(eps),
+        cuda_build.stream_ptr(dev),
+    )
+    cuda_build.check(err, "block_train_bwd")
+    block_train_bwd.launches += 1
+    small = o["small"]
+    return (o["dt"], taps[: TAPS * c].view(TAPS, c), taps[TAPS * c:], small[4 * c: 5 * c],
+            small[5 * c: 6 * c], o["dw1t"], small[: 4 * c], o["dw2t"], small[6 * c: 7 * c],
+            o["dgamma"])
+
+
+block_train_bwd.launches = 0
+
+
+class _TrainBlock(torch.autograd.Function):
+    """The block kernel's inference form forward; :func:`block_train_bwd` and
+    the stencil for dx backward. Saves the primal inputs only."""
+
+    @staticmethod
+    def forward(ctx, x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps):
+        ctx.save_for_backward(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
+        ctx.eps = eps
+        return convnext_block(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma = ctx.saved_tensors
+        g = g.contiguous()
+        g_u, dk, ddwb, dls, dlb, dw1t, db1, dw2t, db2, dgamma = block_train_bwd(
+            x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g, ctx.eps
+        )
+        dx_conv = depthwise_conv7x7(g_u, k49.flip(0).contiguous())
+        dx = (g.float() + dx_conv.float()).to(x.dtype)
+        return (
+            dx,
+            dk.to(k49.dtype),
+            ddwb.to(dw_bias.dtype),
+            dls.to(ln_scale.dtype),
+            dlb.to(ln_bias.dtype),
+            dw1t.to(w1t.dtype),
+            db1.to(b1.dtype),
+            dw2t.to(w2t.dtype),
+            db2.to(b2.dtype),
+            dgamma.to(gamma.dtype),
+            None,
+        )
+
+
+def convnext_block_train(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Trainable whole-block ConvNeXt block on NHWC ``x`` (the JAX package's
+    ``use_pallas="block"``), arguments as :func:`convnext_block_hybrid`.
+    Without grad it is the block kernel's inference form."""
+    if x.shape[-1] > MAX_FUSED_DIM:
+        raise ValueError(
+            f"C={x.shape[-1]} exceeds MAX_FUSED_DIM={MAX_FUSED_DIM}; such blocks "
+            "train on plain ops"
+        )
+    return _TrainBlock.apply(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps)

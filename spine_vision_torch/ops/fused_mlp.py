@@ -1,19 +1,30 @@
-"""ConvNeXt block MLP pieces: the tanh-GELU, its derivative, and the backward
-of the block's LayerNorm + MLP + LayerScale.
+"""ConvNeXt block MLP pieces: the tanh-GELU, the MLP and LN+MLP forwards and
+their backwards, and their trainable forms.
 
-Counterpart of ``spine_vision_tpu/ops/fused_mlp.py``. :func:`ln_mlp_bwd` is
-the backward of ``out = x + gamma * (W2 . gelu_tanh(W1 . LN(t) + b1) + b2)``
-with respect to ``t`` and the parameters, the hybrid training block's
-backward (``ops/block_train.py``). On a CUDA tensor it launches the
-hand-written kernel ``csrc/ln_mlp_bwd.cu`` (it replaces the TPU kernels
-``_ln_mlp_bwd_pallas_resident`` and ``_ln_mlp_bwd_pallas``, which compute the
-same function; see the source for its design and bound); on a CPU tensor it
-runs :func:`ln_mlp_bwd_reference`, the plain PyTorch version with the TPU
-kernels' rounding points. :func:`mlp_bwd` is the same backward without the
-LayerNorm, from the MLP's input ``y`` (the all-kernel block's MLP backward,
-``ops/convnext_block.py``; it replaces ``_mlp_bwd_pallas``), launching the
-LN-less form of the same kernels. The forward MLP kernels are not ported yet
-(ROADMAP, Queue 2).
+Counterpart of ``spine_vision_tpu/ops/fused_mlp.py``. Each wrapper launches a
+hand-written kernel on a CUDA tensor and runs its plain PyTorch version
+(``*_reference``, with the TPU kernels' rounding points) on a CPU tensor:
+
+- :func:`ln_mlp`, ``res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)``:
+  the LN form of ``csrc/convnext_block.cu``'s row kernel (replaces
+  ``_ln_mlp_pallas``);
+- :func:`mlp_fwd`, the same without the LayerNorm, with the tail (gamma and
+  the residual) or without it: the copy form of that row kernel (replaces
+  ``_pallas_mlp``);
+- :func:`ln_mlp_bwd`, the backward of :func:`ln_mlp` with respect to ``x``
+  and the parameters: ``csrc/ln_mlp_bwd.cu`` (replaces
+  ``_ln_mlp_bwd_pallas_resident`` and ``_ln_mlp_bwd_pallas``); it is also the
+  hybrid training block's backward from ``t`` (``ops/block_train.py``);
+- :func:`mlp_bwd`, the backward of :func:`mlp_fwd` from its input ``y``: the
+  LN-less form of the same kernels (replaces ``_mlp_bwd_pallas``; the
+  all-kernel block's MLP backward, ``ops/convnext_block.py``).
+
+:func:`fused_ln_mlp` and :func:`fused_mlp` pair them as
+``torch.autograd.Function``s that save only the primal inputs (the
+counterparts of ``_fused_ln_mlp_ad`` and ``_fused_mlp_ad``). Above
+``MAX_FUSED_DIM`` (dispatching on C, the last axis) both run the plain
+composition on a CPU tensor, as the JAX functions do, and raise on a CUDA
+tensor, which has no kernel there.
 """
 
 from __future__ import annotations
@@ -57,13 +68,53 @@ def gelu_and_grad(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return x * half_1pt, half_1pt + 0.5 * x * (1.0 - t * t) * du
 
 
-def ln_rows(xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def ln_rows(xf: torch.Tensor, eps: float = LN_EPS) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row LayerNorm statistics over the last axis: ``(yhat, rstd)``."""
     mu = xf.mean(dim=-1, keepdim=True)
     centred = xf - mu
     var = (centred * centred).mean(dim=-1, keepdim=True)
-    rstd = torch.rsqrt(var + LN_EPS)
+    rstd = torch.rsqrt(var + eps)
     return centred * rstd, rstd
+
+
+def mlp_reference(
+    x: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain ``[residual +] [gamma *] (W2 . gelu_tanh(W1 . x + b1) + b2)`` on
+    ``[..., C]``: products and the tail in f32, the hidden rounded to x's
+    dtype, the output rounded once (``fused_mlp.py::mlp_reference``)."""
+    lp = x.dtype
+    hidden = tanh_gelu(x.float() @ w1t.float().t() + b1.float()).to(lp)
+    out = hidden.float() @ w2t.float().t() + b2.float()
+    if gamma is not None:
+        out = out * gamma.float()
+    if residual is not None:
+        out = out + residual.float()
+    return out.to(lp)
+
+
+def ln_mlp_reference(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    residual: torch.Tensor,
+) -> torch.Tensor:
+    """Plain ``residual + gamma * mlp(LN(x))``: the LayerNorm in f32 from x,
+    y rounded to x's dtype, then :func:`mlp_reference`."""
+    yhat, _ = ln_rows(x.float())
+    y = yhat * ln_scale.float() + ln_bias.float()
+    return mlp_reference(y.to(x.dtype), w1t, b1, w2t, b2, gamma, residual)
 
 
 def _mlp_bwd_core(
@@ -119,11 +170,33 @@ def ln_mlp_bwd_reference(
     rest f32, weight gradients in the layouts of ``w1t`` ``[4C, C]`` and
     ``w2t`` ``[C, 4C]``.
     """
-    lp = t.dtype
     c = t.shape[-1]
-    tf = t.reshape(-1, c).float()
-    gf = g.reshape(-1, c).float()
-    yhat, rstd = ln_rows(tf)
+    dt, *grads = ln_mlp_bwd_core(
+        t.reshape(-1, c).float(), ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
+        g.reshape(-1, c).float(), t.dtype,
+    )
+    return (dt.to(t.dtype).reshape(t.shape), *grads)
+
+
+def ln_mlp_bwd_core(
+    tf: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    gf: torch.Tensor,
+    lp: torch.dtype,
+    eps: float = LN_EPS,
+) -> tuple[torch.Tensor, ...]:
+    """The LN+MLP backward from the LayerNorm's f32 input ``tf`` and the f32
+    gradient ``gf`` ([M, C] each), rounding to ``lp`` as
+    :func:`ln_mlp_bwd_reference`: ``(dt, dls, dlb, dw1t, db1, dw2t, db2,
+    dgamma)``, all f32, ``dt`` unrounded (the whole-block backward sums it
+    unrounded)."""
+    yhat, rstd = ln_rows(tf, eps)
     ls = ln_scale.float()
     y_lp = (yhat * ls + ln_bias.float()).to(lp).float()
     g_y, dw1t, db1, dw2t, db2, dgamma = _mlp_bwd_core(y_lp, w1t, b1, w2t, b2, gamma, gf, lp)
@@ -133,16 +206,7 @@ def ln_mlp_bwd_reference(
         - dyhat.mean(dim=-1, keepdim=True)
         - yhat * (dyhat * yhat).mean(dim=-1, keepdim=True)
     )
-    return (
-        dt.to(lp).reshape(t.shape),
-        (g_y * yhat).sum(dim=0),
-        g_y.sum(dim=0),
-        dw1t,
-        db1,
-        dw2t,
-        db2,
-        dgamma,
-    )
+    return dt, (g_y * yhat).sum(dim=0), g_y.sum(dim=0), dw1t, db1, dw2t, db2, dgamma
 
 
 def mlp_bwd_reference(
@@ -173,20 +237,21 @@ def token_splits(m: int, c: int) -> int:
     return max(1, min(-(-_TARGET_CTAS // tiles), -(-m // 32)))
 
 
-def _check(name, t, g, vectors, w1t, w2t) -> None:
+def _check(name, t, g, vectors, w1t, w2t, g_name="g") -> None:
     """Raise on what ``name``'s kernel does not take: bf16 activations ``t``
-    and ``g`` [..., C], bf16 weights, f32 ``vectors`` (``(name, tensor,
-    length)`` triples)."""
+    and ``g`` [..., C] (``g`` may be None), bf16 weights, f32 ``vectors``
+    (``(name, tensor, length)`` triples)."""
     c = t.shape[-1]
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"{name} kernel is built for C in {KERNEL_WIDTHS}, got {c}")
-    if t.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+    acts = [t] if g is None else [t, g]
+    if any(a.dtype != torch.bfloat16 for a in acts):
         raise TypeError(
-            f"{name} kernel takes bf16 activations and g on the card (its products "
-            f"run on bf16 tensor cores), got {t.dtype} and {g.dtype}"
+            f"{name} kernel takes bf16 activations on the card (its products run on "
+            f"bf16 tensor cores), got {[a.dtype for a in acts]}"
         )
     shapes = {
-        "g": (g, tuple(t.shape), torch.bfloat16),
+        **({} if g is None else {g_name: (g, tuple(t.shape), torch.bfloat16)}),
         "w1t": (w1t, (4 * c, c), torch.bfloat16),
         "w2t": (w2t, (c, 4 * c), torch.bfloat16),
         **{n: (v, (length,), torch.float32) for n, v, length in vectors},
@@ -315,3 +380,192 @@ def mlp_bwd(
 
 
 mlp_bwd.launches = 0
+
+
+def ln_mlp(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    residual: torch.Tensor,
+) -> torch.Tensor:
+    """``residual + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)`` on
+    ``[..., C]`` (NHWC or flat), as :func:`ln_mlp_reference`.
+
+    CUDA tensors launch the LN form of ``csrc/convnext_block.cu``'s row kernel
+    (bf16 ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else
+    raises); CPU tensors take the plain version. ``ln_mlp.launches`` counts
+    calls that launched the kernel.
+    """
+    args = (x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual)
+    if x.device.type == "cpu":
+        return ln_mlp_reference(*args)
+    c = x.shape[-1]
+    _check("ln_mlp", x, residual, (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c),
+                                   ("b1", b1, 4 * c), ("b2", b2, c), ("gamma", gamma, c)),
+           w1t, w2t, g_name="residual")
+    m = x.numel() // c
+    out = torch.empty_like(x)
+    fn = cuda_build.load("convnext_block").svt_ln_mlp_forward
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        p(x), p(residual), p(ln_scale), p(ln_bias), p(w1t), p(b1), p(w2t), p(b2), p(gamma),
+        p(out), ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_float(LN_EPS),
+        cuda_build.stream_ptr(x.device),
+    )
+    cuda_build.check(err, "ln_mlp")
+    ln_mlp.launches += 1
+    return out
+
+
+ln_mlp.launches = 0
+
+
+def mlp_fwd(
+    x: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The block MLP on ``[..., C]``: with ``gamma`` or ``residual`` the tail
+    form ``residual + gamma * mlp(x)`` (gamma defaults to ones, the residual
+    to zeros), without both ``mlp(x)`` alone; as :func:`mlp_reference`.
+
+    CUDA tensors launch the copy form of ``csrc/convnext_block.cu``'s row
+    kernel (bf16 ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else
+    raises); CPU tensors take the plain version. ``mlp_fwd.launches`` counts
+    calls that launched the kernel.
+    """
+    c = x.shape[-1]
+    tail = gamma is not None or residual is not None
+    if tail:
+        if gamma is None:
+            gamma = torch.ones(c, dtype=torch.float32, device=x.device)
+        if residual is None:
+            residual = torch.zeros_like(x)
+    if x.device.type == "cpu":
+        return mlp_reference(x, w1t, b1, w2t, b2, gamma, residual)
+    vectors = (("b1", b1, 4 * c), ("b2", b2, c)) + ((("gamma", gamma, c),) if tail else ())
+    _check("mlp_fwd", x, residual, vectors, w1t, w2t, g_name="residual")
+    m = x.numel() // c
+    out = torch.empty_like(x)
+    fn = cuda_build.load("convnext_block").svt_mlp_forward
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    none = ctypes.c_void_p(None)
+    err = fn(
+        p(x), p(residual) if tail else none, p(w1t), p(b1), p(w2t), p(b2),
+        p(gamma) if tail else none, p(out), ctypes.c_longlong(m), ctypes.c_int(c),
+        cuda_build.stream_ptr(x.device),
+    )
+    cuda_build.check(err, "mlp_fwd")
+    mlp_fwd.launches += 1
+    return out
+
+
+mlp_fwd.launches = 0
+
+
+def _wider_than_kernels(name: str, x: torch.Tensor) -> bool:
+    """True where ``x``'s C exceeds ``MAX_FUSED_DIM`` on the CPU, where the
+    caller runs its plain composition; raises for such a CUDA tensor."""
+    if x.shape[-1] <= MAX_FUSED_DIM:
+        return False
+    if x.device.type != "cpu":
+        raise ValueError(
+            f"{name}: C={x.shape[-1]} exceeds MAX_FUSED_DIM={MAX_FUSED_DIM}; such "
+            "blocks run a plain MLP"
+        )
+    return True
+
+
+class _FusedLnMlp(torch.autograd.Function):
+    """:func:`ln_mlp` forward, :func:`ln_mlp_bwd` from ``x`` backward; the
+    residual's gradient is ``g``. Saves the primal inputs only."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual):
+        ctx.save_for_backward(x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
+        ctx.residual_dtype = residual.dtype
+        return ln_mlp(x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma = ctx.saved_tensors
+        g = g.contiguous()
+        dx, dls, dlb, dw1t, db1, dw2t, db2, dgamma = ln_mlp_bwd(
+            x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g
+        )
+        return (dx, dls.to(ln_scale.dtype), dlb.to(ln_bias.dtype), dw1t.to(w1t.dtype),
+                db1.to(b1.dtype), dw2t.to(w2t.dtype), db2.to(b2.dtype), dgamma.to(gamma.dtype),
+                g.to(ctx.residual_dtype))
+
+
+def fused_ln_mlp(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    residual: torch.Tensor,
+) -> torch.Tensor:
+    """Trainable ``residual + gamma * mlp(LN(x))`` on ``[..., C]``: kernel #7
+    forward, the LN+MLP backward kernel (#8/#9) from ``x`` backward,
+    gradients in each argument's dtype. Above ``MAX_FUSED_DIM`` the plain
+    composition (differentiated by autograd) on a CPU tensor; a CUDA tensor
+    raises."""
+    if _wider_than_kernels("fused_ln_mlp", x):
+        return ln_mlp_reference(x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual)
+    return _FusedLnMlp.apply(x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual)
+
+
+class _FusedMlp(torch.autograd.Function):
+    """:func:`mlp_fwd` forward, :func:`mlp_bwd` backward (with ones for a
+    missing ``gamma``, whose gradient is then dropped); the residual's
+    gradient is ``g``. Saves the primal inputs only."""
+
+    @staticmethod
+    def forward(ctx, x, w1t, b1, w2t, b2, gamma, residual):
+        ctx.save_for_backward(x, w1t, b1, w2t, b2, gamma)
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return mlp_fwd(x, w1t, b1, w2t, b2, gamma, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1t, b1, w2t, b2, gamma = ctx.saved_tensors
+        g = g.contiguous()
+        scale = gamma if gamma is not None else torch.ones(
+            x.shape[-1], dtype=torch.float32, device=x.device)
+        dx, dw1t, db1, dw2t, db2, dgamma = mlp_bwd(x, w1t, b1, w2t, b2, scale, g)
+        return (dx, dw1t.to(w1t.dtype), db1.to(b1.dtype), dw2t.to(w2t.dtype), db2.to(b2.dtype),
+                None if gamma is None else dgamma.to(gamma.dtype),
+                None if ctx.residual_dtype is None else g.to(ctx.residual_dtype))
+
+
+def fused_mlp(
+    x: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Trainable block MLP on ``[..., C]``, forms as :func:`mlp_fwd`: kernel
+    #5 forward, the MLP backward kernel (#6) backward, gradients in each
+    argument's dtype. Above ``MAX_FUSED_DIM`` the plain composition
+    (differentiated by autograd) on a CPU tensor; a CUDA tensor raises."""
+    if _wider_than_kernels("fused_mlp", x):
+        return mlp_reference(x, w1t, b1, w2t, b2, gamma, residual)
+    return _FusedMlp.apply(x, w1t, b1, w2t, b2, gamma, residual)

@@ -9,9 +9,11 @@ coordinate-aware augmentation on the device. The datasets are injected
 
 The model trains in bf16 on f32 master weights with the hybrid ConvNeXt
 block (``use_pallas="hybrid"``), the JAX package's training default on its
-accelerator, or with ``use_pallas_dwconv=True`` the all-kernel block
-(``use_pallas=True``); on the CPU the same function runs through the
-kernels' plain versions.
+accelerator, with ``use_pallas_dwconv=True`` the all-kernel block
+(``use_pallas=True``), or with ``use_pallas_mlp=True`` alone the LN-fused MLP
+mode (``use_pallas="mlp"``); a model built with ``use_pallas="block"`` and
+handed to the trainer trains the whole-block training kernel. On the CPU the
+same function runs through the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -58,8 +60,8 @@ class LocalizationConfig(TrainingConfig):
 
     use_pallas_mlp: bool | None = None
     """None: the hybrid training block (the kernels on the card, their plain
-    versions on the CPU). False: plain ops. True (the LN-fused MLP mode)
-    is not ported."""
+    versions on the CPU). False: plain ops. True: the LN-fused MLP mode
+    (``use_pallas="mlp"``: a plain depthwise conv, then the LN+MLP kernels)."""
     use_pallas_dwconv: bool = False
     """With ``use_pallas_mlp`` None or True: the all-kernel block
     (``use_pallas=True``: the block kernel forward, the MLP and dwconv+LN
@@ -80,9 +82,7 @@ def resolve_use_pallas(use_pallas_mlp: bool | None, use_pallas_dwconv: bool) -> 
         return use_pallas_mlp is not False
     if use_pallas_mlp is None:
         return "hybrid"
-    if use_pallas_mlp:
-        raise _not_ported("use_pallas_mlp=True (kernel #7, the 'mlp' mode)", "Queue 2")
-    return False
+    return "mlp" if use_pallas_mlp else False
 
 
 class LocalizationTrainer(BaseTrainer[LocalizationConfig]):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from spine_vision_torch.ops import block_train as bt
 from spine_vision_torch.ops import convnext_block as cb
 from spine_vision_torch.ops import dwconv as dw
 from spine_vision_torch.ops import fused_mlp as fm
@@ -283,6 +284,107 @@ def test_all_kernel_convnext_gives_block_gradients_on_the_card(cuda):
         assert p.grad.abs().max().item() > 0, name
 
 
+ROW_SHAPES = [(2, 8, 8), (3, 9, 11), (1, 1, 5)]  # whole, ragged and single-row token tiles
+
+
+@pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
+@pytest.mark.parametrize("b,h,w", ROW_SHAPES)
+def test_ln_mlp_kernel_matches_plain(cuda, c, b, h, w):
+    x, ls, lb, w1t, b1, w2t, b2, gamma, res = _bwd_args(np.random.default_rng(c + 5 * h), b, h,
+                                                         w, c, cuda)
+    args = (x, ls, lb, w1t, b1, w2t, b2, gamma, res)
+    before = fm.ln_mlp.launches
+    got = fm.ln_mlp(*args)
+    want = fm.ln_mlp_reference(*args)
+    torch.cuda.synchronize()
+    assert fm.ln_mlp.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    # y and the hidden round to bf16 in both; a flipped rounding moves the
+    # output by about one bf16 step of its magnitude: 1e-2 * max |plain|.
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
+    # Flat [M, C] rows are the same rows.
+    flat = fm.ln_mlp(x.reshape(-1, c), ls, lb, w1t, b1, w2t, b2, gamma, res.reshape(-1, c))
+    assert torch.equal(flat.reshape(x.shape), got)
+
+
+@pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
+@pytest.mark.parametrize("b,h,w", ROW_SHAPES)
+@pytest.mark.parametrize("tail", [True, False])
+def test_mlp_fwd_kernel_matches_plain(cuda, c, b, h, w, tail):
+    y, w1t, b1, w2t, b2, gamma, res = _mlp_args(np.random.default_rng(c + 11 * h), b, h, w, c,
+                                                cuda)
+    kw = {"gamma": gamma, "residual": res} if tail else {}
+    before = fm.mlp_fwd.launches
+    got = fm.mlp_fwd(y, w1t, b1, w2t, b2, **kw)
+    want = fm.mlp_reference(y, w1t, b1, w2t, b2, **kw)
+    torch.cuda.synchronize()
+    assert fm.mlp_fwd.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == y.shape
+    # As the LN form: 1e-2 * max |plain|.
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
+@pytest.mark.parametrize("b,h,w", [(2, 8, 8)] + RAGGED)
+def test_block_train_bwd_kernel_matches_plain(cuda, c, b, h, w):
+    args = _block_args(np.random.default_rng(c + 13 * h), b, h, w, c, cuda)
+    g = _t(np.random.default_rng(c), (b, h, w, c), 1.0, torch.bfloat16, cuda)
+    before = bt.block_train_bwd.launches
+    got = bt.block_train_bwd(*args, g)
+    again = bt.block_train_bwd(*args, g)
+    want = bt.block_train_bwd_reference(*args, g)
+    torch.cuda.synchronize()
+    assert bt.block_train_bwd.launches == before + 2
+    names = ["g_u", "dk", "ddwb", "dls", "dlb", "dw1t", "db1", "dw2t", "db2", "dgamma"]
+    for name, a, b_, ref in zip(names, got, again, want):
+        assert a.dtype == ref.dtype and a.shape == ref.shape, name
+        # Every cross-CTA sum has a fixed order: two runs agree bit for bit.
+        assert torch.equal(a, b_), name
+        # As the LN+MLP backward: 2e-2 of max |plain| (about three bf16 steps).
+        err = (a.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * max(ref.float().abs().max().item(), 1e-6), (name, err)
+
+
+@pytest.mark.parametrize("mode,layer_scale,launches", [
+    ("block", 1e-6, {"convnext_block": 15, "block_train_bwd": 15, "depthwise_conv7x7": 15}),
+    ("mlp", 1e-6, {"ln_mlp": 15, "ln_mlp_bwd": 15}),
+    ("mlp", 0.0, {"mlp_fwd": 15, "mlp_bwd": 15}),
+])
+def test_training_modes_give_block_gradients_on_the_card(cuda, mode, layer_scale, launches):
+    """A bf16 convnext_tiny ConvNeXt on the card in the "block" and "mlp"
+    modes (and "mlp" without LayerScale, the fused MLP route) launches its
+    kernels once a block of C <= 512 in each direction, and every block
+    parameter gets a finite gradient that is not all zeros."""
+    from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXt, ConvNeXtConfig
+
+    cfg = CONVNEXT_CONFIGS["convnext_tiny"]
+    cfg = ConvNeXtConfig(cfg.depths, cfg.dims, layer_scale_init=layer_scale)
+    torch.manual_seed(0)
+    model = ConvNeXt(cfg, dtype=torch.bfloat16, device=cuda, use_pallas=mode)
+    if layer_scale:  # LayerScale large enough for the MLP's gradients to show
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                torch.nn.init.constant_(p, 0.5)
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    proj = torch.randn(2, 768, device=cuda)
+    counters = {"convnext_block": cb.convnext_block, "block_train_bwd": bt.block_train_bwd,
+                "depthwise_conv7x7": dw.depthwise_conv7x7, "ln_mlp": fm.ln_mlp,
+                "ln_mlp_bwd": fm.ln_mlp_bwd, "mlp_fwd": fm.mlp_fwd, "mlp_bwd": fm.mlp_bwd}
+    before = {k: f.launches for k, f in counters.items()}
+    (model(x).float() * proj).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in counters.items()} == {
+        k: launches.get(k, 0) for k in counters}
+    blocks = [(n, p) for n, p in model.named_parameters() if "_block" in n]
+    assert len(blocks) == 18 * (9 if layer_scale else 8)
+    for name, p in blocks:
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max().item() > 0, name
+
+
 def test_kernels_reject_cpu_layouts_on_the_card(cuda):
     x = torch.zeros(1, 4, 4, 640, dtype=torch.bfloat16, device=cuda)
     k = torch.zeros(49, 640, dtype=torch.bfloat16, device=cuda)
@@ -308,3 +410,22 @@ def test_kernels_reject_cpu_layouts_on_the_card(cuda):
         dw.dw_ln_bwd(*bargs[:4], bargs[4].float())
     with pytest.raises(ValueError):  # a channels-first (non-contiguous) g
         dw.dw_ln_bwd(*bargs[:4], bargs[4].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
+    largs = list(_bwd_args(np.random.default_rng(3), 1, 4, 4, 128, cuda))
+    with pytest.raises(TypeError):  # an f32 residual
+        fm.ln_mlp(*largs[:8], largs[8].float())
+    with pytest.raises(ValueError):  # C = 640 has no kernel
+        fm.mlp_fwd(x, torch.zeros(2560, 640, dtype=torch.bfloat16, device=cuda),
+                   torch.zeros(2560, device=cuda),
+                   torch.zeros(640, 2560, dtype=torch.bfloat16, device=cuda), v)
+    targs = _block_args(np.random.default_rng(4), 1, 4, 4, 128, cuda)
+    with pytest.raises(ValueError):  # an f32 filter
+        bt.block_train_bwd(targs[0], targs[1].float(), *targs[2:], targs[0])
+    w1t = torch.zeros(2560, 640, dtype=torch.bfloat16, device=cuda)
+    w2t = torch.zeros(640, 2560, dtype=torch.bfloat16, device=cuda)
+    b1 = torch.zeros(2560, device=cuda)
+    with pytest.raises(ValueError):  # above MAX_FUSED_DIM: no kernel, no plain fallback
+        fm.fused_ln_mlp(x, v, v, w1t, b1, w2t, v, v, x)
+    with pytest.raises(ValueError):
+        fm.fused_mlp(x, w1t, b1, w2t, v, v, x)
+    with pytest.raises(ValueError):
+        fm.fused_mlp(x, w1t, b1, w2t, v)

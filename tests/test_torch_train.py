@@ -326,7 +326,7 @@ def test_cpu_trainer_epoch_layout_reload_and_resume(tmp_path):
 @pytest.mark.parametrize(
     "overrides",
     [{"freeze_backbone_epochs": 1}, {"visualize_predictions": True},
-     {"use_pallas_mlp": True}, {"sample_cache_dir": "cache"}, {"backbone": "resnet18"}],
+     {"profile_trace": True}, {"sample_cache_dir": "cache"}, {"backbone": "resnet18"}],
 )
 def test_unported_options_name_the_roadmap(tmp_path, overrides):
     kw = {"backbone": "convnext_tiny", **overrides}

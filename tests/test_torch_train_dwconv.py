@@ -38,8 +38,9 @@ def test_resolve_use_pallas_maps_the_flags(mlp, dwconv, want):
 
 
 def test_use_pallas_mlp_alone_names_kernel_7():
-    with pytest.raises(NotImplementedError, match="#7"):
-        resolve_use_pallas(True, False)
+    """``use_pallas_mlp=True`` alone is the mode of kernel #7, the LN-fused MLP
+    (``"mlp"``), as the JAX package's ``_resolve_use_pallas``."""
+    assert resolve_use_pallas(True, False) == "mlp"
 
 
 def test_cpu_trainer_epoch_with_use_pallas_dwconv_and_reload(tmp_path):
@@ -51,9 +52,8 @@ def test_cpu_trainer_epoch_with_use_pallas_dwconv_and_reload(tmp_path):
                                   val_dataset=_Set(5, 32, 1), device="cpu")
     blocks = [m for m in trainer.model.modules() if isinstance(m, ConvNeXtBlock)]
     assert len(blocks) == 18
-    assert [b.dim for b in blocks if b.fused] == [96] * 3 + [192] * 3 + [384] * 9
-    assert [b.dim for b in blocks if b.use_dw_ln] == [768] * 3
-    assert not any(b.hybrid for b in blocks)
+    assert [b.dim for b in blocks if b.route == "fused"] == [96] * 3 + [192] * 3 + [384] * 9
+    assert [b.dim for b in blocks if b.route == "dw_ln"] == [768] * 3
     result = trainer.train()
     for key in ("train_loss", "val_loss", "lr", "med"):
         values = result.history[key]
