@@ -45,6 +45,15 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    The kernel phases check and time #7, #5 (both forms) and #10 at the train
    step's shapes, #10 also bit for bit over two runs, and #5 again at the
    shapes of its path, that gradient check's.
+8. The measurement probes (#11, ``spine_vision_torch/probes``), after the
+   kernel phases and with ``--kernels-only`` too: their entry point
+   (``probes.run("all")``, as ``python -m spine_vision_torch.probes all``)
+   at the JAX scripts' shapes prints every table (ms, GB/s or TFLOP/s, share
+   of the card's peak); then each probe kernel's every variant against its
+   plain version (copies, the read-only token, the write-only broadcast and
+   the GELU pass's copy bit for bit, the GELU bodies each element within one
+   bf16 ulp, the MLP ablation within 2e-2 * max |plain|), with the plain
+   version timed.
 
 Each phase prints its wall time.
 
@@ -87,7 +96,26 @@ BWD_REL_TOL = 2e-2
 RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_runs"
 # Every kernel wrapper's launch counter, by the name the report gives it.
 KERNEL_COUNTERS = ("convnext_block", "convnext_block_emit_conv", "dw_ln", "ln_mlp", "mlp_fwd",
-                   "ln_mlp_bwd", "mlp_bwd", "dw_ln_bwd", "depthwise_conv7x7", "block_train_bwd")
+                   "ln_mlp_bwd", "mlp_bwd", "dw_ln_bwd", "depthwise_conv7x7", "block_train_bwd",
+                   "copy_tiled", "copy_staged", "copy_bulk", "read_only", "write_only",
+                   "inc_copy", "gelu_map", "mlp_ablate")
+# The probe kernels (#11): each replaces the pallas_calls of the scripts named.
+PROBE_SOURCES = {
+    "copy_tiled": ("spine_vision_torch/csrc/probe_copy.cu",
+                   "scripts/probe_copy_bw.py:36, scripts/probe_copy_bw2.py:52, "
+                   "scripts/probe_copy_bw3.py:40"),
+    "copy_staged": ("spine_vision_torch/csrc/probe_copy.cu",
+                    "scripts/probe_copy_bw2.py:100, scripts/probe_copy_bw4.py:84, "
+                    "scripts/probe_copy_bw5.py:255"),
+    "copy_bulk": ("spine_vision_torch/csrc/probe_copy.cu",
+                  "scripts/probe_copy_bw2.py:122, scripts/probe_copy_bw4.py:124, "
+                  "scripts/probe_copy_bw5.py:140 and :232"),
+    "read_only": ("spine_vision_torch/csrc/probe_copy.cu", "scripts/probe_copy_bw5.py:85"),
+    "write_only": ("spine_vision_torch/csrc/probe_copy.cu", "scripts/probe_copy_bw5.py:187"),
+    "inc_copy": ("spine_vision_torch/csrc/probe_copy.cu", "scripts/probe_copy_bw6.py:66"),
+    "gelu_map": ("spine_vision_torch/csrc/probe_gelu.cu", "scripts/probe_gelu_cost.py:45"),
+    "mlp_ablate": ("spine_vision_torch/csrc/probe_mlp.cu", "scripts/ablate_mlp_kernel.py:96"),
+}
 
 
 def _launches(**nonzero: int) -> dict:
@@ -674,6 +702,50 @@ def block_train_kernel_phase(device, report: dict) -> None:
     report["block_train_bwd"] = rows
 
 
+def probe_phase(device, batch: int = 32) -> tuple[dict, dict]:
+    """The measurement probes' entry point at the scripts' shapes, with every
+    counter at 0 before it and read after it (each probe kernel must have
+    launched); then every variant of every probe kernel against its plain
+    version, the plain version timed (3 launches after 1). Returns the
+    counts and, by kernel, ``(row, max_abs_err, plain_ms)`` triples, the rows
+    rid of their inputs."""
+    import torch
+
+    from spine_vision_torch import probes
+
+    _zero_counts()
+    tables = probes.run("all", device=device, batch=batch)
+    counts = _counts()
+    print(f"[probes] launches in the probe run {({k: v for k, v in counts.items() if v})}")
+    idle = [k for k in PROBE_SOURCES if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"the probe run launched no {idle}")
+    checked: dict = {}
+    for rows in tables.values():
+        for row in rows:
+            if row.kernel == "torch":
+                continue
+            what = f"{row.probe} {row.variant} ({row.kernel})"
+            try:
+                err = probes.max_error(row.call(), row.plain(), row.tol)
+            except AssertionError as exc:
+                raise AssertionError(f"probe {what}: {exc}") from None
+            torch.cuda.synchronize()
+            plain_ms = _time_ms(row.plain, iters=3, warmup=1)
+            checked.setdefault(row.kernel, []).append((row, err, plain_ms))
+            tol = {None: "bit for bit", "ulp": "within 1 bf16 ulp"}.get(
+                row.tol, f"within {row.tol}*max|plain|")
+            print(f"[probes] check {what}: max_abs_err={err:.4g} ({tol}) plain_ms={plain_ms:.4f}")
+    _set_counts(counts)
+    for rows in tables.values():  # the later phases get the card's memory back
+        for row in rows:
+            row.call = row.plain = row.library = None
+    del tables, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, checked
+
+
 def _studies(n: int, seed: int):
     import numpy as np
 
@@ -935,14 +1007,19 @@ def _counters() -> dict:
     from spine_vision_torch.ops import convnext_block as cb
     from spine_vision_torch.ops import dwconv as dw
     from spine_vision_torch.ops import fused_mlp as fm
+    from spine_vision_torch.probes import ablate_mlp, copy_bw, gelu_cost
 
+    probes = {name: (getattr(copy_bw, name), "launches") for name in
+              ("copy_tiled", "copy_staged", "copy_bulk", "read_only", "write_only", "inc_copy")}
+    probes["gelu_map"] = (gelu_cost.gelu_map, "launches")
+    probes["mlp_ablate"] = (ablate_mlp.mlp_ablate, "launches")
     return {"convnext_block": (cb.convnext_block, "launches"),
             "convnext_block_emit_conv": (cb.convnext_block, "emit_launches"),
             "dw_ln": (dw.dw_ln, "launches"), "ln_mlp": (fm.ln_mlp, "launches"),
             "mlp_fwd": (fm.mlp_fwd, "launches"), "ln_mlp_bwd": (fm.ln_mlp_bwd, "launches"),
             "mlp_bwd": (fm.mlp_bwd, "launches"), "dw_ln_bwd": (dw.dw_ln_bwd_sums, "launches"),
             "depthwise_conv7x7": (dw.depthwise_conv7x7, "launches"),
-            "block_train_bwd": (bt.block_train_bwd, "launches")}
+            "block_train_bwd": (bt.block_train_bwd, "launches"), **probes}
 
 
 def _counts() -> dict:
@@ -950,8 +1027,12 @@ def _counts() -> dict:
 
 
 def _zero_counts() -> None:
-    for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+    _set_counts(dict.fromkeys(KERNEL_COUNTERS, 0))
+
+
+def _set_counts(counts: dict) -> None:
+    for name, (fn, attr) in _counters().items():
+        setattr(fn, attr, counts[name])
 
 
 # The training paths: (trainer flags, the model's use_pallas when the script
@@ -1241,8 +1322,9 @@ def main() -> int:
     phase("all-kernel training kernels", dwconv_train_kernel_phase, device, report)
     phase("mlp-mode kernels", mlp_kernel_phase, device, report)
     phase("whole-block backward kernel", block_train_kernel_phase, device, report)
+    probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, **{p: None for p in TRAIN_PATHS},
-             "grad_check_mlp_no_layer_scale": None}
+             "grad_check_mlp_no_layer_scale": None, "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
@@ -1290,6 +1372,26 @@ def main() -> int:
             "max_abs_err": max(r[1] for r in rows), "ms": total(2), "plain_ms": total(3),
             "bound_ms": total(4), "bound_by": max(rows, key=lambda r: r[0] * r[4])[5],
             "library_ms": total(6),
+        })
+    for name, checked in probe_rows.items():
+        if name not in PROBE_SOURCES:  # #5's anchor rows: its entry is above
+            continue
+        # The times are the worst variant's: the farthest from its bound.
+        worst, _, worst_plain = max(checked, key=lambda t: t[0].ms / t[0].bound_ms)
+        kernels.append({
+            "name": name, "route": "cuda", "source": PROBE_SOURCES[name][0],
+            "replaces": PROBE_SOURCES[name][1], "path": "probes",
+            "launches": probe_counts[name],
+            "launches_by_path": {p: (c or {}).get(name) for p, c in paths.items()},
+            "max_abs_err": max(e for _, e, _ in checked), "worst_variant": worst.variant,
+            "ms": worst.ms, "plain_ms": worst_plain, "bound_ms": worst.bound_ms,
+            "bound_by": worst.bound_by, "library_ms": worst.library_ms,
+            "variants": [{"probe": r.probe, "variant": r.variant, "config": r.config,
+                          "ms": r.ms, "host_ms": r.host_ms,
+                          "rate": f"{r.achieved(r.ms):.1f} {r.rate}",
+                          "share": r.share, "bound_ms": r.bound_ms, "plain_ms": p,
+                          "library_ms": r.library_ms, "max_abs_err": e}
+                         for r, e, p in checked],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "spine_vision_torch"
-SOURCES = ("convnext_block", "dwconv_ln", "dwconv_bwd", "ln_mlp_bwd", "block_train_bwd")
+SOURCES = ("convnext_block", "dwconv_ln", "dwconv_bwd", "ln_mlp_bwd", "block_train_bwd",
+           "probe_copy", "probe_gelu", "probe_mlp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -429,3 +429,121 @@ def test_kernels_reject_cpu_layouts_on_the_card(cuda):
         fm.fused_mlp(x, w1t, b1, w2t, v, v, x)
     with pytest.raises(ValueError):
         fm.fused_mlp(x, w1t, b1, w2t, v)
+
+
+# --- the measurement probes (spine_vision_torch/probes) ---------------------
+
+
+@pytest.mark.parametrize("dtype,shape,vector", [
+    (torch.bfloat16, (1000, 128), True), (torch.bfloat16, (1000, 128), False),
+    (torch.float32, (300, 512), True), (torch.float32, (300, 512), False),
+    (torch.int8, (1024, 256), True), (torch.int8, (1024, 256), False)])
+def test_probe_copy_tiled_copies(cuda, dtype, shape, vector):
+    from spine_vision_torch.probes import copy_bw as cp
+
+    x = (torch.randn(shape, device=cuda) * 50).clamp(-120, 120).to(dtype)
+    before = cp.copy_tiled.launches
+    got = cp.copy_tiled(x, 256, vector)  # a ragged last tile at 1000 and 300 rows
+    torch.cuda.synchronize()
+    assert cp.copy_tiled.launches == before + 1
+    assert torch.equal(got, cp.copy_reference(x))
+
+
+@pytest.mark.parametrize("slots", [2, 3, 4, 8, 12])
+def test_probe_copy_staged_copies(cuda, slots):
+    from spine_vision_torch.probes import copy_bw as cp
+
+    x = torch.randn(20000, 128, device=cuda).to(torch.bfloat16)  # many tiles a CTA, ragged
+    got = cp.copy_staged(x, slots, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("slots,slot_rows", [(2, 384), (4, 128), (8, 64), (16, 32)])
+def test_probe_copy_bulk_copies(cuda, slots, slot_rows):
+    from spine_vision_torch.probes import copy_bw as cp
+
+    x = torch.randn(50001, 128, device=cuda).to(torch.bfloat16)
+    before = cp.copy_bulk.launches
+    got = cp.copy_bulk(x, slots, slot_rows)
+    split = cp.copy_bulk_split(x, slots, slot_rows)
+    torch.cuda.synchronize()
+    assert cp.copy_bulk.launches == before + 3
+    assert torch.equal(got, x) and torch.equal(split, x)
+
+
+@pytest.mark.parametrize("ctas", [None, 1, 3])
+def test_probe_read_only_token_is_the_ordered_sum(cuda, ctas):
+    from spine_vision_torch.probes import copy_bw as cp
+
+    x = torch.randn(4096, 128, device=cuda).to(torch.bfloat16)
+    n = cp.read_only_ctas(x, 32, 8) if ctas is None else ctas
+    assert n >= 1
+    got = cp.read_only(x, 32, 8, n)
+    torch.cuda.synchronize()
+    # Each CTA's in-order f32 sums, added in order: the plain version repeats
+    # every addition, so the token agrees bit for bit.
+    assert torch.equal(got, cp.read_only_reference(x, 32, n))
+    folded = x.view(-1, 8, 128).float().sum(0)  # every row r into token row r mod 8
+    torch.testing.assert_close(got, folded, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("bulk", [True, False])
+def test_probe_write_only_broadcasts_the_seed_row(cuda, bulk):
+    from spine_vision_torch.probes import copy_bw as cp
+
+    seed = torch.randn(8, 128, device=cuda).to(torch.bfloat16)
+    got = cp.write_only(seed, 1000, bulk)  # the last bulk tile is ragged
+    torch.cuda.synchronize()
+    assert torch.equal(got, cp.write_only_reference(seed, 1000))
+
+
+def test_probe_inc_copy_forms_add_one(cuda):
+    from spine_vision_torch.probes import copy_bw as cp
+
+    a = torch.randn(3000, 128, device=cuda).to(torch.bfloat16)
+    b = torch.randn(3000, 128, device=cuda).to(torch.bfloat16)
+    before = cp.inc_copy.launches
+    outs = [cp.inc_copy(a, b), cp.inc_two_streams(a, b), cp.inc_interleaved(a, b)]
+    torch.cuda.synchronize()
+    assert cp.inc_copy.launches == before + 5
+    for ya, yb in outs:  # f32 sum rounded once, as PyTorch's bf16 x + 1
+        assert torch.equal(ya, a + 1) and torch.equal(yb, b + 1)
+
+
+@pytest.mark.parametrize("body", ["copy", "gelu", "gelu+grad", "tanh_gelu"])
+def test_probe_gelu_map_matches_plain(cuda, body):
+    from spine_vision_torch import probes
+    from spine_vision_torch.probes import gelu_cost as gc
+
+    x = (torch.randn(257, 512, device=cuda) * 3).to(torch.bfloat16)
+    before = gc.gelu_map.launches
+    got = gc.gelu_map(x, body)
+    want = gc.gelu_reference(x, body)
+    torch.cuda.synchronize()
+    assert gc.gelu_map.launches == before + 1
+    # The copy bit for bit; a body in f32 on both sides, rounded once: a last
+    # f32 bit apart can carry a bf16 rounding one step, no more.
+    probes.max_error(got, want, None if body == "copy" else "ulp")
+
+
+@pytest.mark.parametrize("c", [128, 256, 512])
+@pytest.mark.parametrize("m", [128, 100])
+@pytest.mark.parametrize("variant", ["gelu_tanh", "full", "relu", "gelu_bf16", "matmul_only",
+                                     "copy"])
+def test_probe_mlp_ablate_matches_plain(cuda, c, m, variant):
+    from spine_vision_torch.probes import ablate_mlp as am
+
+    a = am.inputs(c, 1, cuda)
+    args = [a[k] for k in ("x", "w1t", "b1", "w2t", "b2", "gamma", "res")]
+    args[0], args[-1] = args[0][:m].contiguous(), args[-1][:m].contiguous()
+    before = am.mlp_ablate.launches
+    got = am.mlp_ablate(variant, *args)
+    want = am.mlp_ablate_reference(variant, *args)
+    torch.cuda.synchronize()
+    assert am.mlp_ablate.launches == before + 1
+    # As #5: the hidden rounds to bf16 on both sides; 2e-2 * max |plain|.
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item()
+    if variant == "gelu_tanh":  # the production activation: #5's own result
+        assert torch.equal(got, am.fm.mlp_fwd(args[0], *args[1:6], args[6]))
