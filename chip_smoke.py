@@ -17,7 +17,8 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    block kernel's ``emit_conv`` form and the LN+MLP backward (the hybrid
    block), the MLP backward, the dwconv+LN backward and the plain depthwise
    stencil (the all-kernel block), the backward kernels also run twice to
-   show that they agree bit for bit.
+   show that they agree bit for bit. The MLP backward's stages (#6, #8/#9,
+   #10) are timed one by one from a profile, each beside its own bound.
 4. The inference slice: ConvNeXt-base localization at 512^2 and ResNet-18
    grading at 256^2 in bf16, weights from seeded numpy Flax-layout trees
    carried by ``load_flax_variables``; ``StudyInferencePipeline.run`` on 8
@@ -345,6 +346,57 @@ def _check_outputs(what: str, names, got, want, tol: float, again=None) -> list[
     return errs
 
 
+# The MLP backward's stages (csrc/ln_mlp_bwd.cuh) by kernel name, as the
+# profiler gives it without spaces; #10 adds its f32 conv and tap sums.
+BWD_STAGE_KERNELS = (
+    ("A rows", ("bwd_rows<",)),
+    ("B hidden", ("wg_gemm<2,2,false",)),
+    ("C g_y", ("wg_gemm<1,1,false", "wg_gemm<1,2,false")),
+    ("L LayerNorm", ("ln_rows_bwd<",)),
+    ("D weight grads", ("wg_gemm<1,1,true", "reduce_rows", "colsum")),
+    ("#10 conv, taps", ("conv_bias_f32", "tap_sums")),
+)
+
+
+def _bwd_stage_bounds(m: int, c: int, ln: bool, u32: bool = False) -> dict:
+    """Each stage's bound (ms, what bounds it): the bytes it must move
+    (inputs read once, outputs written once) against its bf16 products."""
+    t_bytes = 4 if u32 else 2
+    return {
+        "A rows": _bound_ms(m * c * ((t_bytes + 2 + 2 + 2 + 8 / c) if ln else 6), 0, 0),
+        "B hidden": _bound_ms(4 * m * c + 16 * m * c + 16 * c * c, 16 * m * c * c, 0),
+        "C g_y": _bound_ms(8 * m * c + 8 * c * c + (4 if ln else 2) * m * c, 8 * m * c * c, 0),
+        "L LayerNorm": _bound_ms(m * c * (4 + t_bytes + 2 + (4 if u32 else 0)) + 8 * m, 0, 0),
+        "D weight grads": _bound_ms(20 * m * c + 32 * c * c, 16 * m * c * c, 0),
+    }
+
+
+def _stage_times(what: str, call, bounds: dict, calls: int = 5) -> None:
+    """Device time a call of each stage of the MLP backward, from a profile
+    of ``calls`` calls, beside its bound; prints one line a stage."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    events = _device_events(prof)
+    total = sum(_dev_us(e) for e in events) / calls / 1e3
+    for label, parts in BWD_STAGE_KERNELS:
+        group = [e for e in events if any(p in e.key.replace(" ", "") for p in parts)]
+        if not group:
+            continue
+        ms = sum(_dev_us(e) for e in group) / calls / 1e3
+        line = f"[stage] {what} {label}: ms={ms:.4f} ({ms / total:.1%} of the call's device time)"
+        if label in bounds:
+            bound, by = bounds[label]
+            line += f" bound_ms={bound:.4f} ({by}) roofline_share={bound / ms:.3f}"
+        print(line)
+
+
 def train_kernel_phase(device, report: dict) -> None:
     """The hybrid training block's kernels at the train step's shapes: the
     block kernel's emit_conv form and the LN+MLP backward, each against its
@@ -435,6 +487,8 @@ def train_kernel_phase(device, report: dict) -> None:
             lambda: fm.ln_mlp_bwd_reference(*bargs), library_bwd,
             3 * m * c * 2 + 2 * 4 * c * c * 2 + 2 * 4 * c * c * 4 + 10 * c * 4 + 4 * c * 8,
             5 * 2 * m * c * 4 * c, 15 * m * 4 * c + 20 * m * c, "per_train_step"))
+        _stage_times(f"ln_mlp_bwd C={c}", lambda: fm.ln_mlp_bwd(*bargs),
+                     _bwd_stage_bounds(m, c, ln=True))
         fm.ln_mlp_bwd.launches = saved
         del t, g, bargs, leaves, t_leaf, out
         torch.cuda.empty_cache()
@@ -549,6 +603,8 @@ def dwconv_train_kernel_phase(device, report: dict) -> None:
                 lambda: fm.mlp_bwd_reference(*margs), library6,
                 3 * m * c * 2 + 2 * 4 * c * c * 2 + 2 * 4 * c * c * 4 + 7 * c * 4 + 4 * c * 8,
                 5 * 2 * m * c * 4 * c, 15 * m * 4 * c + 6 * m * c, "per_train_step"))
+            _stage_times(f"mlp_bwd C={c}", lambda: fm.mlp_bwd(*margs),
+                         _bwd_stage_bounds(m, c, ln=False))
             fm.mlp_bwd.launches = saved
             del margs, leaves
         del x, g, args
@@ -696,6 +752,8 @@ def block_train_kernel_phase(device, report: dict) -> None:
             3 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + 2 * 4 * c * c * 4
             + (49 * c + 14 * c) * 4, 40 * m * c * c, 216 * m * c + 20 * m * 4 * c,
             "per_train_step"))
+        _stage_times(f"block_train_bwd C={c}", lambda: bt.block_train_bwd(*args, g),
+                     _bwd_stage_bounds(m, c, ln=True, u32=True))
         bt.block_train_bwd.launches = saved
         del a, args, g, xl, kl, leaves
         torch.cuda.empty_cache()
@@ -797,8 +855,9 @@ PROFILE_GROUPS = (
     ("block forward #1", ("block_kernel",)),
     ("LN+MLP and MLP forwards #7, #5", ("row_mlp_kernel",)),
     ("dwconv+LN #2", ("dw_ln_kernel",)),
-    ("MLP backward per token #6, #8/#9, #10", ("ln_mlp_bwd_tokens",)),
-    ("their weight-gradient products", ("token_gemm", "reduce_rows")),
+    ("MLP backward per token #6, #8/#9, #10",
+     ("bwd_rows<", "ln_rows_bwd<", "wg_gemm<2,2,false", "wg_gemm<1,1,false", "wg_gemm<1,2,false")),
+    ("their weight-gradient products", ("wg_gemm<1,1,true", "reduce_rows")),
     ("#10's conv recompute and tap sums", ("conv_bias_f32", "tap_sums")),
     ("dwconv+LN backward #4", ("dw_ln_stats", "dw_ln_bwd_tile")),
     ("stencil #3", ("dw7_kernel",)),
@@ -1155,7 +1214,7 @@ def profile_train(trainer, dataset, p50_ms: float, path: str) -> None:
               f"{e.key[:90]}")
     rest = list(events)
     for label, parts in PROFILE_GROUPS:
-        group = [e for e in rest if any(p in e.key for p in parts)]
+        group = [e for e in rest if any(p in e.key.replace(" ", "") for p in parts)]
         rest = [e for e in rest if e not in group]
         print(f"[profile] {path} group: {sum(dev(e) for e in group) / 1e3 / 2:9.3f} ms/step "
               f"x{sum(e.count for e in group) // 2:<5d} {label}")

@@ -18,19 +18,19 @@
 // fifth of that time at C = 128 and less above), so the tensor cores bound it.
 //
 // Design. The TPU kernel keeps a halo tile of x, the f32 LayerNorm state and
-// every parameter gradient resident in VMEM and walks tiles in grid order. A
-// CTA here has 227 KB of shared memory, which the LN+MLP backward's per-token
-// kernel already fills at C = 512 (about 194 KB), so the f32 u and g_u go
-// through device memory instead (4 * M * C bytes each way, about a tenth of
-// the products' time at C = 128):
+// every parameter gradient resident in VMEM and walks tiles in grid order.
+// Here the MLP backward's stages (ln_mlp_bwd.cuh) already stream their
+// operands through shared memory, so the f32 u and g_u go through device
+// memory (4 * M * C bytes each way, about a tenth of the products' time at
+// C = 128):
 //   1. conv_bias_f32: u = dwconv7x7(x) + b_dw in f32 (dwconv_ln.cuh's
 //      stencil, a warp per few tokens).
-//   2. ln_mlp_bwd_tokens<C, true, true> (ln_mlp_bwd.cuh): the LN+MLP
-//      backward's per-64-token kernel reading the f32 u; it writes g_u in
-//      bf16 and in f32, y, h and the hidden gradient, and per-tile sums.
-//   3. weight_grads (ln_mlp_bwd.cuh): dW1, dW2, dgamma and the column sums of
-//      the per-tile rows (db1, dln_scale, dln_bias, db2).
-//   4. tap_sums: dk and ddwb, a CTA per 64 channels and a run of image rows;
+//   2. mlp_bwd<true, true> (ln_mlp_bwd.cuh): the LN+MLP backward's stages
+//      reading the f32 u: y and g * gamma, the wgmma products for the hidden,
+//      g_y and the weight gradients, and the LayerNorm backward, which writes
+//      g_u in bf16 and in f32; the column sums of the per-tile rows (db1,
+//      dln_scale, dln_bias, db2).
+//   3. tap_sums: dk and ddwb, a CTA per 64 channels and a run of image rows;
 //      warp dy owns filter row dy, each lane a channel pair, and for 7 tokens
 //      along W at a time a thread loads the 13 x values of its row once for
 //      its 7 taps. Per-CTA partials go to a workspace row, and colsum
@@ -180,27 +180,30 @@ int launch_conv(const void* x, const void* k, const void* bias, void* u, int B, 
 // [4C, C] and w1 [C, 4C], w2t [C, 4C] and w2 [4C, C]); bias, ls, lb, b1, b2,
 // gamma f32. Outputs: gu (bf16); small f32 [8C] = db1 (4C), dln_scale,
 // dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C] and taps
-// [50 * C] = dk (49 taps of C), ddwb, f32. Scratch from the caller: u and
-// gu32 (f32 [M, C]), y, h, gh ([M, C], [M, 4C], [M, 4C] bf16), part f32
-// [ceil(M / 64), 8C], ws f32 [splits, 4C, C], tpart f32 [ceil(B * H /
-// rows_per_cta), 50 * C]. Returns the first cudaError_t of its launches.
+// [50 * C] = dk (49 taps of C), ddwb, f32. Scratch from the caller: u, gu32
+// and gy (f32 [M, C]), y and gg ([M, C] bf16), stats (f32 [M, 2]), h, gh
+// ([M, 4C] bf16), part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C] (ks
+// tokens a split), tpart f32 [ceil(B * H / rows_per_cta), 50 * C]. Returns the
+// first cudaError_t of its launches.
 extern "C" int svt_block_train_bwd(
     const void* x, const void* k, const void* bias, const void* ls, const void* lb,
     const void* w1t, const void* w1, const void* b1, const void* w2t, const void* w2,
     const void* b2, const void* gamma, const void* g, void* gu, void* small, void* dw1t,
-    void* dw2t, void* dgamma, void* taps, void* u, void* gu32, void* y, void* h, void* gh,
-    void* part, void* ws, void* tpart, int B, int H, int W, int C, int splits,
-    int rows_per_cta, float eps, void* stream) {
+    void* dw2t, void* dgamma, void* taps, void* u, void* gu32, void* y, void* gg, void* stats,
+    void* h, void* gh, void* gy, void* part, void* ws, void* tpart, int B, int H, int W, int C,
+    int splits, long long ks, int rows_per_cta, float eps, void* stream) {
   const long long M = (long long)B * H * W;
   if (M == 0 || rows_per_cta <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int err = launch_conv(x, k, bias, u, B, H, W, C, s);
   if (err) return err;
-  err = launch_any<true, true>(u, g, ls, lb, w1t, w1, b1, w2, gamma, gu, y, h, gh, part, M,
-                               C, s, gu32, eps);
-  if (err) return err;
-  err = weight_grads(y, g, w2t, b2, gamma, small, dw1t, dw2t, dgamma, h, gh, part, ws, M, C,
-                     splits, s);
+  const MlpBwd a{u, (const bf16*)g, (const bf16*)w1t, (const bf16*)w1, (const bf16*)w2t,
+                 (const bf16*)w2, (const float*)ls, (const float*)lb, (const float*)b1,
+                 (const float*)b2, (const float*)gamma, (bf16*)gu, (float*)gu32, (float*)small,
+                 (float*)dw1t, (float*)dw2t, (float*)dgamma, (bf16*)y, (bf16*)gg, (bf16*)h,
+                 (bf16*)gh, (float*)stats, (float*)gy, (float*)part, (float*)ws, M, ks, C,
+                 splits, eps};
+  err = mlp_bwd<true, true>(a, s);
   if (err) return err;
   const long long P = ((long long)B * H + rows_per_cta - 1) / rows_per_cta;
   tap_sums<<<dim3((unsigned)((C + CG - 1) / CG), (unsigned)P), KS * 32, 0, s>>>(

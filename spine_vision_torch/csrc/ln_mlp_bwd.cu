@@ -10,39 +10,44 @@
 // function, laid out differently in the TPU's VMEM. The rounding points are
 // the TPU kernels': y, h, g * gamma, the hidden gradient and g enter the
 // products in bf16; db1 sums the unrounded f32 hidden gradient; the GELU
-// derivative and the LayerNorm backward run in f32; dt is written in bf16 and
-// every parameter gradient is f32.
+// derivative and the LayerNorm backward run in f32 (g_y reaches it in f32);
+// dt is written in bf16 and every parameter gradient is f32.
 //
 // It runs five bf16 products per token (y . W1 again, (g * gamma) . W2^T,
-// g_hpre . W1^T, y^T . g_hpre, h^T . g): 40 * M * C^2 flops against about
+// g_hpre . W1^T, y^T . g_hpre, g^T . h): 40 * M * C^2 flops against about
 // 6 * M * C bytes of activations, so the tensor cores bound it.
 //
-// Design. The TPU adds every token tile's weight gradients into one resident
-// output block, in grid order. A CUDA grid runs in parallel, and per CTA the
-// [4C, C] f32 weight gradients do not fit, so the work is split in two:
-//   A. ln_mlp_bwd_tokens, one CTA per 64 tokens: LayerNorm again, then over
-//      hidden chunks of HC the two products with K = C give the hidden
-//      pre-activation and its gradient; h and the rounded hidden gradient go
-//      to device memory (bf16), and g_y += g_hpre . W1c^T accumulates in
-//      registers, so a token's whole hidden is summed inside one CTA before
-//      the LayerNorm backward writes dt. Per-channel sums (db1, dln_scale,
-//      dln_bias, db2, sum g) go to a per-tile row of a workspace.
-//   B. token_gemm computes y^T . g_hpre and g^T . h with K = tokens, split
-//      over tokens into an f32 workspace; reduce_rows adds the splits in a
-//      fixed order (and applies gamma, and forms dgamma); colsum adds the
-//      per-tile rows in a fixed order. Every sum has one order, so the result
-//      is the same from run to run.
-// Products are mma.sync m16n8k16 with ldmatrix loads (transposed for the
-// token-major operands of B); weight chunks stream in with cp.async. Not yet
-// here: wgmma, TMA, keeping h and g_hpre out of device memory.
+// Design (ln_mlp_bwd.cuh). The TPU adds every token tile's weight gradients
+// into one resident output block, in grid order, and keeps h and the hidden
+// gradient in VMEM. Here every product is a warpgroup product (wgmma) whose
+// operands TMA streams in K slices of 64 through a ring of shared-memory
+// stages guarded by mbarriers (hopper.cuh): a producer warp keeps the ring
+// full while two consumer warpgroups each take 64 rows of a 128-row tile, and
+// a persistent CTA an SM walks the tiles, so one tile's epilogue overlaps the
+// next one's loads. The work goes in stages, each its own kernel:
+//   A. bwd_rows: y = LN(t) (bf16, with each token's mean and rstd) and
+//      g * gamma (bf16); per-64-token rows of db2 and sum g.
+//   B. wg_gemm<2, 2>: h_pre = y . W1 and g_h = (g * gamma) . W2^T into two
+//      accumulators of one 128 x 128 tile (K = C); the epilogue adds b1,
+//      forms h and g_hpre = g_h * gelu'(h_pre) in f32, stores both in bf16
+//      and writes db1's per-64-token row from the unrounded g_hpre.
+//   C. wg_gemm<1, NB>: g_y = g_hpre . W1^T (K = 4C), tiles of 128 x 128 NB;
+//      without the LayerNorm it stores dy in bf16, with it g_y in f32.
+//   L. ln_rows_bwd: the LayerNorm backward a token a warp step, dt in bf16,
+//      per-64-token rows of dln_scale and dln_bias.
+//   D. colsum adds the per-tile rows in a fixed order; wg_gemm<1, 1, MN>
+//      computes dW1^T = g_hpre^T . y and A^T = g^T . h (K = tokens, both
+//      operands token-major: MN-major descriptors), the tokens cut into
+//      splits so that the output tiles fill the card; reduce_rows adds the
+//      splits in order (and forms dW2 = gamma * A^T and dgamma).
+// No atomics: every cross-CTA sum has one order, so two runs agree bit for
+// bit. h and g_hpre still go through device memory (about 20 * M * C bytes).
 //
-// The same kernels without the LayerNorm (svt_mlp_bwd, the template flag LN =
-// false) are the backward of the MLP + LayerScale alone from its input y:
-// dy, dW1, db1, dW2, db2, dgamma. That replaces
-// spine_vision_tpu/ops/fused_mlp.py::_mlp_bwd_pallas, the MLP half of the
-// all-kernel block's backward (ops/convnext_block.py::convnext_block_fused):
-// the per-token kernel reads y directly and writes dy = g_y rounded to bf16,
-// and the weight-gradient products read y itself. Its bound is the same
+// The same kernels without the LayerNorm (svt_mlp_bwd, LN = false) are the
+// backward of the MLP + LayerScale alone from its input y: dy, dW1, db1, dW2,
+// db2, dgamma. That replaces spine_vision_tpu/ops/fused_mlp.py::
+// _mlp_bwd_pallas, the MLP half of the all-kernel block's backward
+// (ops/convnext_block.py::convnext_block_fused). Its bound is the same
 // 40 * M * C^2 flops.
 #include "ln_mlp_bwd.cuh"
 
@@ -50,38 +55,38 @@
 // layouts: w1t [4C, C] and w1 [C, 4C], w2t [C, 4C] and w2 [4C, C]; ls, lb,
 // b1, b2, gamma f32. Outputs: dt [M, C] bf16; small f32 [8C] = db1 (4C),
 // dln_scale, dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C]
-// f32. Scratch from the caller: y, h, gh ([M, C], [M, 4C], [M, 4C] bf16),
-// part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C]. Returns the first
-// cudaError_t of its launches.
+// f32. Scratch from the caller: y, gg ([M, C] bf16), stats (f32 [M, 2]), h,
+// gh ([M, 4C] bf16), gy (f32 [M, C]), part f32 [ceil(M / 64), 8C], ws f32
+// [splits, 4C, C]; stage D's token splits hold ks tokens each (a multiple of
+// 64). Returns the first cudaError_t of its launches.
 extern "C" int svt_ln_mlp_bwd(
-    const void* t, const void* g, const void* ls, const void* lb,
-    const void* w1t, const void* w1, const void* b1, const void* w2t,
-    const void* w2, const void* b2, const void* gamma, void* dt, void* small,
-    void* dw1t, void* dw2t, void* dgamma, void* y, void* h, void* gh,
-    void* part, void* ws, long long M, int C, int splits, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int err = launch_any<true>(t, g, ls, lb, w1t, w1, b1, w2, gamma, dt, y, h, gh,
-                                   part, M, C, s);
-  if (err) return err;
-  return weight_grads(y, g, w2t, b2, gamma, small, dw1t, dw2t, dgamma, h, gh, part,
-                      ws, M, C, splits, s);
+    const void* t, const void* g, const void* ls, const void* lb, const void* w1t,
+    const void* w1, const void* b1, const void* w2t, const void* w2, const void* b2,
+    const void* gamma, void* dt, void* small, void* dw1t, void* dw2t, void* dgamma, void* y,
+    void* gg, void* stats, void* h, void* gh, void* gy, void* part, void* ws, long long M, int C,
+    int splits, long long ks, void* stream) {
+  const MlpBwd a{t, (const bf16*)g, (const bf16*)w1t, (const bf16*)w1, (const bf16*)w2t,
+                 (const bf16*)w2, (const float*)ls, (const float*)lb, (const float*)b1,
+                 (const float*)b2, (const float*)gamma, (bf16*)dt, nullptr, (float*)small,
+                 (float*)dw1t, (float*)dw2t, (float*)dgamma, (bf16*)y, (bf16*)gg, (bf16*)h,
+                 (bf16*)gh, (float*)stats, (float*)gy, (float*)part, (float*)ws, M, ks, C,
+                 splits, LN_EPS};
+  return mlp_bwd<true>(a, (cudaStream_t)stream);
 }
 
 // The MLP + LayerScale backward from its input y [M, C] bf16: dy [M, C] bf16
 // and, as svt_ln_mlp_bwd, small (db1, zeros, zeros, db2, sum g), dw1t, dw2t,
-// dgamma; the scratch without y. Returns the first cudaError_t of its
-// launches.
+// dgamma; the scratch without y, stats and gy. Returns the first cudaError_t
+// of its launches.
 extern "C" int svt_mlp_bwd(
     const void* y, const void* g, const void* w1t, const void* w1, const void* b1,
-    const void* w2t, const void* w2, const void* b2, const void* gamma, void* dy,
-    void* small, void* dw1t, void* dw2t, void* dgamma, void* h, void* gh,
-    void* part, void* ws, long long M, int C, int splits, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int err = launch_any<false>(y, g, nullptr, nullptr, w1t, w1, b1, w2, gamma, dy,
-                                    nullptr, h, gh, part, M, C, s);
-  if (err) return err;
-  return weight_grads(y, g, w2t, b2, gamma, small, dw1t, dw2t, dgamma, h, gh, part,
-                      ws, M, C, splits, s);
+    const void* w2t, const void* w2, const void* b2, const void* gamma, void* dy, void* small,
+    void* dw1t, void* dw2t, void* dgamma, void* gg, void* h, void* gh, void* part, void* ws,
+    long long M, int C, int splits, long long ks, void* stream) {
+  const MlpBwd a{y, (const bf16*)g, (const bf16*)w1t, (const bf16*)w1, (const bf16*)w2t,
+                 (const bf16*)w2, nullptr, nullptr, (const float*)b1, (const float*)b2,
+                 (const float*)gamma, (bf16*)dy, nullptr, (float*)small, (float*)dw1t,
+                 (float*)dw2t, (float*)dgamma, nullptr, (bf16*)gg, (bf16*)h, (bf16*)gh, nullptr,
+                 nullptr, (float*)part, (float*)ws, M, ks, C, splits, LN_EPS};
+  return mlp_bwd<false>(a, (cudaStream_t)stream);
 }

@@ -1,7 +1,7 @@
-// Tensor-core and copy helpers shared by the block forward (convnext_block.cu)
-// and the LN+MLP backward (ln_mlp_bwd.cu): mma.sync m16n8k16 bf16 -> f32,
-// ldmatrix operand loads (plain and transposed), cp.async streaming, and the
-// tanh-GELU with its derivative.
+// Tensor-core and copy helpers shared by the block forward (convnext_block.cu,
+// mlp_body.cuh) and the probes (probe_*.cu): mma.sync m16n8k16 bf16 -> f32,
+// ldmatrix operand loads (plain and transposed) and cp.async streaming; the
+// tanh-GELU comes from gelu.cuh.
 //
 // Fragment conventions of mma.sync.m16n8k16.row.col (g = lane / 4,
 // t = lane % 4): A (16 x 16) a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..],
@@ -13,6 +13,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gelu.cuh"
 
 namespace svt {
 
@@ -91,29 +93,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr float GELU_C = 0.7978845608028654f;  // sqrt(2 / pi)
-constexpr float GELU_A = 0.044715f;
-
-// tanh-approximate GELU, as spine_vision_tpu/ops/fused_mlp.py::_tanh_gelu.
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float u = GELU_C * (x + GELU_A * x * x * x);
-  return 0.5f * x * (1.f + tanhf(u));
-}
-
-// (gelu(x), gelu'(x)) from one tanh, as fused_mlp.py::_gelu_and_grad.
-__device__ __forceinline__ void gelu_and_grad(float x, float& h, float& dh) {
-  const float x2 = x * x;
-  const float th = tanhf(GELU_C * (x + GELU_A * x * x2));
-  const float half_1pt = 0.5f * (1.f + th);
-  const float du = GELU_C * (1.f + 3.f * GELU_A * x2);
-  h = x * half_1pt;
-  dh = half_1pt + 0.5f * x * (1.f - th * th) * du;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
 }
 
 }  // namespace svt

@@ -1,14 +1,26 @@
 // Activations of the GELU-cost and MLP-ablation probes (probe_gelu.cu,
-// probe_mlp.cu), beside the production tanh-GELU of mma_bf16.cuh. Each takes
-// the f32 pre-activation and returns the value the kernel rounds to bf16.
+// probe_mlp.cu), beside the production tanh-GELU of gelu.cuh, and the tanh
+// form of the GELU with its derivative. Each takes the f32 pre-activation.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "mma_bf16.cuh"
+#include "gelu.cuh"
 
 namespace svt {
+
+// (gelu(x), gelu'(x)) from one tanhf, as fused_mlp.py::_gelu_and_grad writes
+// it: the form the TPU kernels and the first CUDA MLP backward computed (the
+// Hopper backward takes them from one exponential, gelu.cuh).
+__device__ __forceinline__ void gelu_and_grad_tanh(float x, float& h, float& dh) {
+  const float x2 = x * x;
+  const float th = tanhf(GELU_C * (x + GELU_A * x * x2));
+  const float half_1pt = 0.5f * (1.f + th);
+  const float du = GELU_C * (1.f + 3.f * GELU_A * x2);
+  h = x * half_1pt;
+  dh = half_1pt + 0.5f * x * (1.f - th * th) * du;
+}
 
 // GELU through the Abramowitz & Stegun 7.1.26 erf (|error| < 1.5e-7), in f32,
 // as scripts/ablate_mlp_kernel.py::_erf_gelu: the TPU kernels' erf-GELU

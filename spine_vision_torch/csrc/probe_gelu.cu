@@ -2,15 +2,16 @@
 // hidden, M = 32 * 128 * 128, N = 512, at batch 32) with four bodies:
 //   0 copy           y = x
 //   1 erf-GELU f32   the A&S erf-GELU of probe_act.cuh
-//   2 gelu+grad      h + dh from svt::gelu_and_grad (one tanhf for both)
+//   2 gelu+grad      h + dh from svt::gelu_and_grad_tanh (one tanhf for both)
 //   3 tanh-GELU      svt::gelu_tanh
 // each in f32 on the bf16 input, rounded once to bf16.
 //
 // Replaces scripts/probe_gelu_cost.py::make (its pallas_call at :45), which
-// timed the same bodies on the TPU's vector unit. The bodies here are the
-// production kernels' own device functions (mma_bf16.cuh, called by the MLP
-// body and the MLP backward), so the time beyond the copy is what their
-// activation costs per element on this card. The pass moves 4 bytes an element
+// timed the same bodies on the TPU's vector unit. The tanh-GELU is the
+// production kernels' own (gelu.cuh, the MLP body's), and gelu+grad the tanh
+// form that the JAX function and the first CUDA MLP backward compute
+// (probe_act.cuh), so the time beyond the copy is what each activation costs
+// per element on this card. The pass moves 4 bytes an element
 // and does 10-30 f32 operations on it: bound by device memory on an H100 (the
 // f32 rate needs 67e12 / 3.35e12 = 20 operations a byte), so the bodies' cost
 // shows only where it exceeds the copy's time. A thread takes 16 bytes (8
@@ -33,7 +34,7 @@ __device__ __forceinline__ float body(float x) {
     return svt::erf_gelu(x);
   } else if constexpr (OP == 2) {
     float h, dh;
-    svt::gelu_and_grad(x, h, dh);
+    svt::gelu_and_grad_tanh(x, h, dh);
     return h + dh;
   } else {
     return svt::gelu_tanh(x);

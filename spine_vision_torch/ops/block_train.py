@@ -206,7 +206,8 @@ def block_train_bwd(
     m = b * h * w
     rows = rows_per_cta(b * h, c)
     dev, f32 = x.device, torch.float32
-    o = fm._buffers(x, ln=True)
+    geo = fm.bwd_geometry(m, c)
+    o = fm._buffers(x, True, geo)
     u = torch.empty(m, c, dtype=f32, device=dev)
     gu32 = torch.empty(m, c, dtype=f32, device=dev)
     tpart = torch.empty(-(-(b * h) // rows), (TAPS + 1) * c, dtype=f32, device=dev)
@@ -219,9 +220,10 @@ def block_train_bwd(
     err = fn(
         p(x), p(k49), p(dw_bias), p(ln_scale), p(ln_bias), p(w1t), p(w1), p(b1), p(w2t), p(w2),
         p(b2), p(gamma), p(g), p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]),
-        p(o["dgamma"]), p(taps), p(u), p(gu32), p(o["y"]), p(o["h"]), p(o["gh"]), p(o["part"]),
-        p(o["ws"]), p(tpart), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
-        ctypes.c_int(o["ws"].shape[0]), ctypes.c_int(rows), ctypes.c_float(eps),
+        p(o["dgamma"]), p(taps), p(u), p(gu32), p(o["y"]), p(o["gg"]), p(o["stats"]), p(o["h"]),
+        p(o["gh"]), p(o["gy"]), p(o["part"]), p(o["ws"]), p(tpart), ctypes.c_int(b),
+        ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c), ctypes.c_int(geo["splits"]),
+        ctypes.c_longlong(geo["ks"]), ctypes.c_int(rows), ctypes.c_float(eps),
         cuda_build.stream_ptr(dev),
     )
     cuda_build.check(err, "block_train_bwd")

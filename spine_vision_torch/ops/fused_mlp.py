@@ -19,6 +19,13 @@ hand-written kernel on a CUDA tensor and runs its plain PyTorch version
   LN-less form of the same kernels (replaces ``_mlp_bwd_pallas``; the
   all-kernel block's MLP backward, ``ops/convnext_block.py``).
 
+Both backwards run in stages, one kernel each: the row prologue, the hidden
+products, the g_y product, the LayerNorm backward and the weight-gradient
+products. Each stage has its plain version (``bwd_*_reference``), and the
+plain backwards are their composition; :func:`bwd_launch` runs them on the
+card and returns every intermediate, and :func:`bwd_geometry` gives their
+launch geometry.
+
 :func:`fused_ln_mlp` and :func:`fused_mlp` pair them as
 ``torch.autograd.Function``s that save only the primal inputs (the
 counterparts of ``_fused_ln_mlp_ad`` and ``_fused_mlp_ad``). Above
@@ -44,8 +51,10 @@ LN_EPS = 1e-6  # the LayerNorm epsilon of the fused kernels
 
 _GELU_C = math.sqrt(2.0 / math.pi)
 _GELU_A = 0.044715
-_TOKENS_PER_CTA = 64  # csrc/ln_mlp_bwd.cu, TOK
-_TARGET_CTAS = 528  # 4 a streaming multiprocessor on an H100
+_TOKENS_PER_CTA = 64  # csrc/ln_mlp_bwd.cuh, TOK: a per-tile sums row a 64 tokens
+_TILE = 128  # csrc/ln_mlp_bwd.cuh, BM and BN: a product tile's rows, a wgmma's columns
+_BK = 64  # csrc/ln_mlp_bwd.cuh, BK: a ring stage's K, and a box's columns
+_SMS = 132  # streaming multiprocessors of an H100, one persistent product CTA each
 
 
 def tanh_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -117,8 +126,90 @@ def ln_mlp_reference(
     return mlp_reference(y.to(x.dtype), w1t, b1, w2t, b2, gamma, residual)
 
 
-def _mlp_bwd_core(
-    y_lp: torch.Tensor,
+def bwd_rows_reference(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    gf: torch.Tensor,
+    lp: torch.dtype,
+    ln_scale: torch.Tensor | None = None,
+    ln_bias: torch.Tensor | None = None,
+    eps: float = LN_EPS,
+) -> dict[str, torch.Tensor]:
+    """Stage A, the row prologue, from the [M, C] f32 input ``x`` and
+    gradient ``gf``: ``y`` (``LN(x)`` rounded to ``lp``, or ``x`` itself
+    without ``ln_scale``), ``gg`` (``g * gamma`` rounded to ``lp``), ``db2``
+    (the unrounded ``g * gamma`` summed) and ``gsum``; with the LayerNorm also
+    ``yhat`` and ``rstd``. Values are f32."""
+    out = {}
+    if ln_scale is None:
+        out["y"] = x
+    else:
+        yhat, rstd = ln_rows(x, eps)
+        y = (yhat * ln_scale.float() + ln_bias.float()).to(lp).float()
+        out.update(y=y, yhat=yhat, rstd=rstd)
+    g_gamma = gf * gamma.float()
+    out.update(gg=g_gamma.to(lp).float(), db2=g_gamma.sum(dim=0), gsum=gf.sum(dim=0))
+    return out
+
+
+def bwd_hidden_reference(
+    y: torch.Tensor,
+    gg: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    lp: torch.dtype,
+) -> dict[str, torch.Tensor]:
+    """Stage B, the hidden products: ``h = gelu(y . W1 + b1)`` and the hidden
+    gradient ``gh = (gg . W2^T) * gelu'`` from f32 products, both rounded to
+    ``lp``, and ``db1``, the unrounded hidden gradient summed."""
+    h, dgelu = gelu_and_grad(y @ w1t.float().t() + b1.float())
+    g_hpre = (gg @ w2t.float()) * dgelu
+    return {"h": h.to(lp).float(), "gh": g_hpre.to(lp).float(), "db1": g_hpre.sum(dim=0)}
+
+
+def bwd_gy_reference(gh: torch.Tensor, w1t: torch.Tensor) -> torch.Tensor:
+    """Stage C: the MLP input's gradient ``g_y = gh . W1^T``, f32."""
+    return gh @ w1t.float()
+
+
+def bwd_ln_reference(
+    g_y: torch.Tensor, yhat: torch.Tensor, rstd: torch.Tensor, ln_scale: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage L, the LayerNorm backward from the f32 ``g_y``: ``(dt, dls,
+    dlb)``, ``dt`` unrounded."""
+    dyhat = g_y * ln_scale.float()
+    dt = rstd * (
+        dyhat
+        - dyhat.mean(dim=-1, keepdim=True)
+        - yhat * (dyhat * yhat).mean(dim=-1, keepdim=True)
+    )
+    return dt, (g_y * yhat).sum(dim=0), g_y.sum(dim=0)
+
+
+def bwd_grads_reference(
+    y: torch.Tensor,
+    gh: torch.Tensor,
+    gf: torch.Tensor,
+    h: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    gsum: torch.Tensor,
+    lp: torch.dtype,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stage D, the weight gradients summed over tokens: ``(dw1t, dw2t,
+    dgamma)`` with ``dw1t = gh^T . y``, ``A = g^T . h`` (``g`` rounded to
+    ``lp``), ``dw2t = A * gamma`` and ``dgamma = sum W2 * A + gsum * b2``."""
+    dw1t = gh.t() @ y
+    a_t = gf.to(lp).float().t() @ h  # [C, 4C]
+    dw2t = a_t * gamma.float()[:, None]
+    dgamma = (w2t.float() * a_t).sum(dim=1) + gsum * b2.float()
+    return dw1t, dw2t, dgamma
+
+
+def _mlp_stages(
+    rows: dict[str, torch.Tensor],
     w1t: torch.Tensor,
     b1: torch.Tensor,
     w2t: torch.Tensor,
@@ -127,27 +218,13 @@ def _mlp_bwd_core(
     gf: torch.Tensor,
     lp: torch.dtype,
 ) -> tuple[torch.Tensor, ...]:
-    """The MLP + LayerScale backward shared by both plain versions, from the
-    rounded MLP input ``y_lp`` and the gradient ``gf`` ([M, C] f32 each):
-    ``(g_y, dw1t, db1, dw2t, db2, dgamma)``, all f32, ``g_y`` unrounded.
-
-    ``h``, ``g * gamma``, the hidden gradient and ``g`` are rounded to ``lp``
-    before their products; ``db1`` sums the unrounded hidden gradient;
-    ``A = g^T h``, ``dw2t = A * gamma`` and ``dgamma = sum W2 * A + sum g *
-    b2``."""
-    hpre = y_lp @ w1t.float().t() + b1.float()
-    h, dgelu = gelu_and_grad(hpre)
-    h_lp = h.to(lp).float()
-    gamma_f = gamma.float()
-    g_mlp = (gf * gamma_f).to(lp).float()
-    g_hpre_f = (g_mlp @ w2t.float()) * dgelu
-    g_hpre = g_hpre_f.to(lp).float()
-    g_y = g_hpre @ w1t.float()
-    dw1t = g_hpre.t() @ y_lp
-    a_t = gf.to(lp).float().t() @ h_lp  # [C, 4C]
-    dw2t = a_t * gamma_f[:, None]
-    dgamma = (w2t.float() * a_t).sum(dim=1) + gf.sum(dim=0) * b2.float()
-    return g_y, dw1t, g_hpre_f.sum(dim=0), dw2t, (gf * gamma_f).sum(dim=0), dgamma
+    """Stages B, C and D after stage A's ``rows``: ``(g_y, dw1t, db1, dw2t,
+    dgamma)``, all f32, ``g_y`` unrounded."""
+    hid = bwd_hidden_reference(rows["y"], rows["gg"], w1t, b1, w2t, lp)
+    g_y = bwd_gy_reference(hid["gh"], w1t)
+    dw1t, dw2t, dgamma = bwd_grads_reference(rows["y"], hid["gh"], gf, hid["h"], w2t, b2, gamma,
+                                             rows["gsum"], lp)
+    return g_y, dw1t, hid["db1"], dw2t, dgamma
 
 
 def ln_mlp_bwd_reference(
@@ -195,18 +272,11 @@ def ln_mlp_bwd_core(
     gradient ``gf`` ([M, C] each), rounding to ``lp`` as
     :func:`ln_mlp_bwd_reference`: ``(dt, dls, dlb, dw1t, db1, dw2t, db2,
     dgamma)``, all f32, ``dt`` unrounded (the whole-block backward sums it
-    unrounded)."""
-    yhat, rstd = ln_rows(tf, eps)
-    ls = ln_scale.float()
-    y_lp = (yhat * ls + ln_bias.float()).to(lp).float()
-    g_y, dw1t, db1, dw2t, db2, dgamma = _mlp_bwd_core(y_lp, w1t, b1, w2t, b2, gamma, gf, lp)
-    dyhat = g_y * ls
-    dt = rstd * (
-        dyhat
-        - dyhat.mean(dim=-1, keepdim=True)
-        - yhat * (dyhat * yhat).mean(dim=-1, keepdim=True)
-    )
-    return dt, (g_y * yhat).sum(dim=0), g_y.sum(dim=0), dw1t, db1, dw2t, db2, dgamma
+    unrounded). The composition of the stages A, B, C, L and D."""
+    rows = bwd_rows_reference(tf, gamma, gf, lp, ln_scale, ln_bias, eps)
+    g_y, dw1t, db1, dw2t, dgamma = _mlp_stages(rows, w1t, b1, w2t, b2, gamma, gf, lp)
+    dt, dls, dlb = bwd_ln_reference(g_y, rows["yhat"], rows["rstd"], ln_scale)
+    return dt, dls, dlb, dw1t, db1, dw2t, rows["db2"], dgamma
 
 
 def mlp_bwd_reference(
@@ -219,22 +289,73 @@ def mlp_bwd_reference(
     g: torch.Tensor,
 ) -> tuple[torch.Tensor, ...]:
     """Plain MLP + LayerScale backward from the MLP input ``y``:
-    :func:`ln_mlp_bwd_reference` without the LayerNorm, with the rounding
-    points of the TPU kernel ``_mlp_bwd_pallas``. Returns ``(dy, dw1t, db1,
-    dw2t, db2, dgamma)``: ``dy`` (summed in f32) in ``y``'s dtype and shape,
-    the rest f32."""
+    :func:`ln_mlp_bwd_reference` without the LayerNorm (stages A, B, C, D),
+    with the rounding points of the TPU kernel ``_mlp_bwd_pallas``. Returns
+    ``(dy, dw1t, db1, dw2t, db2, dgamma)``: ``dy`` (summed in f32) in ``y``'s
+    dtype and shape, the rest f32."""
     c = y.shape[-1]
-    g_y, *grads = _mlp_bwd_core(
-        y.reshape(-1, c).float(), w1t, b1, w2t, b2, gamma, g.reshape(-1, c).float(), y.dtype
-    )
-    return (g_y.to(y.dtype).reshape(y.shape), *grads)
+    gf = g.reshape(-1, c).float()
+    rows = bwd_rows_reference(y.reshape(-1, c).float(), gamma, gf, y.dtype)
+    g_y, dw1t, db1, dw2t, dgamma = _mlp_stages(rows, w1t, b1, w2t, b2, gamma, gf, y.dtype)
+    return (g_y.to(y.dtype).reshape(y.shape), dw1t, db1, dw2t, rows["db2"], dgamma)
 
 
 def token_splits(m: int, c: int) -> int:
-    """Token splits of the kernel's weight-gradient products: enough CTAs to
-    fill the card, at least 32 tokens a split."""
-    tiles = -(-4 * c // 64) * -(-c // 64)
-    return max(1, min(-(-_TARGET_CTAS // tiles), -(-m // 32)))
+    """Token splits of the weight-gradient products (stage D): the fewest
+    whose waves of (output tile, split) units over the card's multiprocessors
+    end within 5% of the soonest any split count allows, up to four waves
+    and at least 64 tokens (a ring stage) a split."""
+    tiles = (4 * c // _TILE) * -(-c // _TILE)
+    cap = max(1, min(4 * _SMS // tiles, -(-m // _BK)))
+    span = {s: -(-tiles * s // _SMS) / s for s in range(1, cap + 1)}  # waves x tokens a unit
+    soonest = min(span.values())
+    return min(s for s, v in span.items() if v <= 1.05 * soonest)
+
+
+def bwd_geometry(m: int, c: int) -> dict:
+    """The launch geometry of ``csrc/ln_mlp_bwd.cuh`` for ``m`` tokens of
+    width ``c``: the row stages' 64-token tiles (``part``'s rows), each
+    product's (token or output) x column tiles, stage D's ``splits`` of
+    ``ks`` tokens (a multiple of 64, every split non-empty), the workspace
+    shapes, and every TMA map as ``(rows, cols, box_rows, box_cols,
+    pitch_bytes)`` by operand and stage. Raises on what the kernels do not
+    take, before anything is launched."""
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"ln_mlp_bwd kernels are built for C in {KERNEL_WIDTHS}, got {c}")
+    if not 0 < m < 2 ** 31:
+        raise ValueError(f"ln_mlp_bwd kernels take 1 to 2^31 - 1 tokens (TMA coordinates are "
+                         f"32-bit), got {m}")
+    h4 = 4 * c
+    nb = 2 if c % (2 * _TILE) == 0 else 1  # stage C's wgmma tiles a CTA tile
+    per = -(-m // token_splits(m, c))
+    ks = -(-per // _BK) * _BK
+    splits = -(-m // ks)
+    tiles_m = -(-m // _TILE)
+    row_tiles = -(-m // _TOKENS_PER_CTA)
+
+    def k_major(rows, cols):
+        return (rows, cols, _TILE, _BK, 2 * cols)
+
+    def mn_major(rows, cols):
+        return (rows, cols, _BK, _BK, 2 * cols)
+
+    return {
+        "row_tiles": row_tiles,
+        "hidden_tiles": (tiles_m, h4 // _TILE),
+        "gy_tiles": (tiles_m, -(-c // (nb * _TILE))),
+        "grad_tiles": (h4 // _TILE, -(-c // _TILE)),
+        "splits": splits,
+        "ks": ks,
+        "part": (row_tiles, 8 * c),
+        "ws": (splits, h4, c),
+        "maps": {
+            "hidden": {"y": k_major(m, c), "gg": k_major(m, c), "w1t": k_major(h4, c),
+                       "w2": k_major(h4, c)},
+            "gy": {"gh": k_major(m, h4), "w1": k_major(c, h4)},
+            "grads": {"gh": mn_major(m, h4), "y": mn_major(m, c), "g": mn_major(m, c),
+                      "h": mn_major(m, h4)},
+        },
+    }
 
 
 def _check(name, t, g, vectors, w1t, w2t, g_name="g") -> None:
@@ -266,9 +387,10 @@ def _check(name, t, g, vectors, w1t, w2t, g_name="g") -> None:
             raise ValueError(f"{name}: {vname} is on {v.device}, the input on {t.device}")
 
 
-def _buffers(t: torch.Tensor, ln: bool) -> dict[str, torch.Tensor]:
-    """Outputs and scratch of a ``csrc/ln_mlp_bwd.cu`` launch for the [..., C]
-    activations ``t``: the LN form also writes y."""
+def _buffers(t: torch.Tensor, ln: bool, geo: dict) -> dict[str, torch.Tensor]:
+    """Outputs and scratch of a ``csrc/ln_mlp_bwd.cuh`` call for the [..., C]
+    activations ``t`` with the geometry ``geo``: the LN form also writes y,
+    each token's mean and rstd, and the f32 g_y."""
     c = t.shape[-1]
     m = t.numel() // c
     dev, bf16, f32 = t.device, torch.bfloat16, torch.float32
@@ -278,14 +400,68 @@ def _buffers(t: torch.Tensor, ln: bool) -> dict[str, torch.Tensor]:
         "dw1t": torch.empty(4 * c, c, dtype=f32, device=dev),
         "dw2t": torch.empty(c, 4 * c, dtype=f32, device=dev),
         "dgamma": torch.empty(c, dtype=f32, device=dev),
+        "gg": torch.empty(m, c, dtype=bf16, device=dev),
         "h": torch.empty(m, 4 * c, dtype=bf16, device=dev),
         "gh": torch.empty(m, 4 * c, dtype=bf16, device=dev),
-        "part": torch.empty(-(-m // _TOKENS_PER_CTA), 8 * c, dtype=f32, device=dev),
-        "ws": torch.empty(token_splits(m, c), 4 * c, c, dtype=f32, device=dev),
+        "part": torch.empty(geo["part"], dtype=f32, device=dev),
+        "ws": torch.empty(geo["ws"], dtype=f32, device=dev),
     }
     if ln:
         out["y"] = torch.empty(m, c, dtype=bf16, device=dev)
+        out["stats"] = torch.empty(m, 2, dtype=f32, device=dev)
+        out["gy"] = torch.empty(m, c, dtype=f32, device=dev)
     return out
+
+
+def bwd_launch(
+    t: torch.Tensor,
+    g: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    ln_scale: torch.Tensor | None = None,
+    ln_bias: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """Launch ``csrc/ln_mlp_bwd.cu``'s stages on CUDA tensors and return its
+    buffers by name: the outputs and every intermediate (``gg``, ``h``,
+    ``gh``, ``part``, ``ws``; with the LayerNorm ``y``, ``stats``, ``gy``),
+    which the stage tests read. With ``ln_scale`` and ``ln_bias`` it is
+    :func:`ln_mlp_bwd`'s kernel and ``t`` the LayerNorm's input, without them
+    :func:`mlp_bwd`'s and ``t`` the MLP input. The launch counters are the
+    wrappers'; this counts nothing."""
+    c = t.shape[-1]
+    ln = ln_scale is not None
+    vectors = (("b1", b1, 4 * c), ("b2", b2, c), ("gamma", gamma, c))
+    if ln:
+        vectors = (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c)) + vectors
+    name = "ln_mlp_bwd" if ln else "mlp_bwd"
+    _check(name, t, g, vectors, w1t, w2t)
+    m = t.numel() // c
+    geo = bwd_geometry(m, c)
+    o = _buffers(t, ln, geo)
+    # The kernels read each weight in both layouts.
+    o["w1"] = w1t.t().contiguous()
+    o["w2"] = w2t.t().contiguous()
+    p = cuda_build.ptr
+    lib = cuda_build.load("ln_mlp_bwd")
+    tail = (ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_int(geo["splits"]),
+            ctypes.c_longlong(geo["ks"]), cuda_build.stream_ptr(t.device))
+    if ln:
+        fn = lib.svt_ln_mlp_bwd
+        args = (p(t), p(g), p(ln_scale), p(ln_bias), p(w1t), p(o["w1"]), p(b1), p(w2t),
+                p(o["w2"]), p(b2), p(gamma), p(o["dt"]), p(o["small"]), p(o["dw1t"]),
+                p(o["dw2t"]), p(o["dgamma"]), p(o["y"]), p(o["gg"]), p(o["stats"]), p(o["h"]),
+                p(o["gh"]), p(o["gy"]), p(o["part"]), p(o["ws"]))
+    else:
+        fn = lib.svt_mlp_bwd
+        args = (p(t), p(g), p(w1t), p(o["w1"]), p(b1), p(w2t), p(o["w2"]), p(b2), p(gamma),
+                p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]),
+                p(o["gg"]), p(o["h"]), p(o["gh"]), p(o["part"]), p(o["ws"]))
+    fn.restype = ctypes.c_int
+    cuda_build.check(fn(*args, *tail), name)
+    return o
 
 
 def ln_mlp_bwd(
@@ -305,30 +481,12 @@ def ln_mlp_bwd(
     :func:`ln_mlp_bwd_reference`. CUDA tensors launch ``csrc/ln_mlp_bwd.cu``
     (bf16 ``t`` and ``g``, C in ``KERNEL_WIDTHS``; anything else raises); CPU
     tensors take the plain version. ``ln_mlp_bwd.launches`` counts calls that
-    launched the kernel.
+    launched the kernels.
     """
-    args = (t, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
     if t.device.type == "cpu":
-        return ln_mlp_bwd_reference(*args)
+        return ln_mlp_bwd_reference(t, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
     c = t.shape[-1]
-    _check("ln_mlp_bwd", t, g, (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c),
-                               ("b1", b1, 4 * c), ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
-    m = t.numel() // c
-    o = _buffers(t, ln=True)
-    # The kernel reads each weight in both layouts.
-    w1 = w1t.t().contiguous()
-    w2 = w2t.t().contiguous()
-    fn = cuda_build.load("ln_mlp_bwd").svt_ln_mlp_bwd
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    err = fn(
-        p(t), p(g), p(ln_scale), p(ln_bias), p(w1t), p(w1), p(b1), p(w2t), p(w2),
-        p(b2), p(gamma), p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]),
-        p(o["dgamma"]), p(o["y"]), p(o["h"]), p(o["gh"]), p(o["part"]), p(o["ws"]),
-        ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_int(o["ws"].shape[0]),
-        cuda_build.stream_ptr(t.device),
-    )
-    cuda_build.check(err, "ln_mlp_bwd")
+    o = bwd_launch(t, g, w1t, b1, w2t, b2, gamma, ln_scale, ln_bias)
     ln_mlp_bwd.launches += 1
     small = o["small"]
     return (o["dt"], small[4 * c: 5 * c], small[5 * c: 6 * c], o["dw1t"], small[: 4 * c],
@@ -354,26 +512,10 @@ def mlp_bwd(
     and ``g``, C in ``KERNEL_WIDTHS``; anything else raises); CPU tensors take
     the plain version. ``mlp_bwd.launches`` counts calls that launched it.
     """
-    args = (y, w1t, b1, w2t, b2, gamma, g)
     if y.device.type == "cpu":
-        return mlp_bwd_reference(*args)
+        return mlp_bwd_reference(y, w1t, b1, w2t, b2, gamma, g)
     c = y.shape[-1]
-    _check("mlp_bwd", y, g, (("b1", b1, 4 * c), ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
-    m = y.numel() // c
-    o = _buffers(y, ln=False)
-    w1 = w1t.t().contiguous()
-    w2 = w2t.t().contiguous()
-    fn = cuda_build.load("ln_mlp_bwd").svt_mlp_bwd
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    err = fn(
-        p(y), p(g), p(w1t), p(w1), p(b1), p(w2t), p(w2), p(b2), p(gamma),
-        p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]),
-        p(o["h"]), p(o["gh"]), p(o["part"]), p(o["ws"]),
-        ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_int(o["ws"].shape[0]),
-        cuda_build.stream_ptr(y.device),
-    )
-    cuda_build.check(err, "mlp_bwd")
+    o = bwd_launch(y, g, w1t, b1, w2t, b2, gamma)
     mlp_bwd.launches += 1
     small = o["small"]
     return (o["dt"], o["dw1t"], small[: 4 * c], o["dw2t"], small[6 * c: 7 * c], o["dgamma"])

@@ -6,6 +6,16 @@ time of #5 (``svt_mlp_forward``) at the shapes of its path, #7
 each build in turn.
 
     python -m spine_vision_torch.probes.build_diff --parent DIR
+    python -m spine_vision_torch.probes.build_diff --parent DIR --case ln_mlp_bwd
+
+The ``ln_mlp_bwd`` case builds both trees' ``csrc/ln_mlp_bwd.cu`` and
+``csrc/block_train_bwd.cu`` (which includes its header) instead: each build's
+kernels with their registers, stack and spills, then #8/#9
+(``svt_ln_mlp_bwd``), #6 (``svt_mlp_bwd``) and #10 (``svt_block_train_bwd``)
+at the train step's shapes, each build called through its own C interface
+with its own scratch (the parent's, the mma.sync form's, is written down at
+``PARENT_BWD``), device time a call in the order parent, tree, tree, parent,
+and the two builds' outputs held within 2e-2 of max |parent| of each other.
 
 ``DIR`` is a checkout of another commit (``git archive``). Both sources are
 compiled by nvcc with the package's flags, and ``cuobjdump`` lists their
@@ -47,10 +57,10 @@ _ANON = re.compile(r"\(anonymous namespace\)::")
 _ENCODING = re.compile(r"/\* (0x[0-9a-f]{16}) \*/")
 
 
-def _build(csrc: Path, out: Path) -> subprocess.Popen:
+def _build(csrc: Path, out: Path, source: str = SOURCE) -> subprocess.Popen:
     out.parent.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
-                             str(csrc / f"{SOURCE}.cu")], stdout=subprocess.PIPE,
+                             str(csrc / f"{source}.cu")], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
@@ -199,15 +209,158 @@ def _device_ms(launch, launches: int) -> float:
     return best
 
 
+# The parent's (the mma.sync form's) C interfaces of csrc/ln_mlp_bwd.cu and
+# csrc/block_train_bwd.cu:
+#   int svt_ln_mlp_bwd(t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small,
+#                      dw1t, dw2t, dgamma, y, h, gh, part, ws, long long M, int C,
+#                      int splits, void* stream)
+#   int svt_mlp_bwd(y, g, w1t, w1, b1, w2t, w2, b2, gamma, dy, small, dw1t, dw2t,
+#                   dgamma, h, gh, part, ws, long long M, int C, int splits,
+#                   void* stream)
+#   int svt_block_train_bwd(x, k, bias, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma,
+#                           g, gu, small, dw1t, dw2t, dgamma, taps, u, gu32, y,
+#                           h, gh, part, ws, tpart, int B, int H, int W, int C,
+#                           int splits, int rows_per_cta, float eps, void* stream)
+# with their own scratch: y [M, C], h and gh [M, 4C] bf16, part f32
+# [ceil(M / 64), 8C], ws f32 [splits, 4C, C] with splits from PARENT_BWD's
+# rule; #10's u and gu32 f32 [M, C] and tpart as the tree's.
+PARENT_BWD = {"tokens_a_tile": 64, "target_ctas": 528, "tokens_a_split": 32}
+BWD_SOURCES = {"ln_mlp_bwd": "ln_mlp_bwd", "mlp_bwd": "ln_mlp_bwd",
+               "block_train_bwd": "block_train_bwd"}
+
+
+def _parent_splits(m: int, c: int) -> int:
+    """The parent's weight-gradient splits: 528 CTAs of 64 x 64 tiles, at
+    least 32 tokens a split."""
+    tiles = -(-4 * c // 64) * -(-c // 64)
+    return max(1, min(-(-PARENT_BWD["target_ctas"] // tiles),
+                      -(-m // PARENT_BWD["tokens_a_split"])))
+
+
+def _spills(log: str) -> int:
+    return sum(int(line.split()[4]) for line in log.splitlines() if "spill stores" in line)
+
+
+def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
+    """One call of the ``tag`` build's ``kernel`` (ln_mlp_bwd, mlp_bwd or
+    block_train_bwd) on ``a``, into fresh outputs and scratch: ``(launch,
+    outputs)``."""
+    from spine_vision_torch.ops import dwconv
+    from spine_vision_torch.ops import fused_mlp as fm
+
+    t, g = a["x"], a["res"]
+    b, h, w, c = t.shape
+    m = b * h * w
+    ln = kernel != "mlp_bwd"
+    dev, bf16, f32 = t.device, torch.bfloat16, torch.float32
+    p = cuda_build.ptr
+    o = {"dt": torch.empty_like(t), "small": torch.empty(8 * c, dtype=f32, device=dev),
+         "dw1t": torch.empty(4 * c, c, dtype=f32, device=dev),
+         "dw2t": torch.empty(c, 4 * c, dtype=f32, device=dev),
+         "dgamma": torch.empty(c, dtype=f32, device=dev)}
+    w1, w2 = a["w1t"].t().contiguous(), a["w2t"].t().contiguous()
+    weights = (p(a["w1t"]), p(w1), p(a["b1"]), p(a["w2t"]), p(w2), p(a["b2"]), p(a["gamma"]))
+    if tag == "parent":
+        splits = _parent_splits(m, c)
+        k = {"y": torch.empty(m, c, dtype=bf16, device=dev),
+             "h": torch.empty(m, 4 * c, dtype=bf16, device=dev),
+             "gh": torch.empty(m, 4 * c, dtype=bf16, device=dev),
+             "part": torch.empty(-(-m // PARENT_BWD["tokens_a_tile"]), 8 * c, dtype=f32,
+                                 device=dev),
+             "ws": torch.empty(splits, 4 * c, c, dtype=f32, device=dev)}
+        mid = ((p(k["y"]),) if ln else ()) + (p(k["h"]), p(k["gh"]))
+        split = (ctypes.c_int(splits),)
+    else:
+        geo = fm.bwd_geometry(m, c)
+        k = fm._buffers(t, ln, geo)
+        mid = ((p(k["y"]),) if ln else ()) + (p(k["gg"]),) + ((p(k["stats"]),) if ln else ()) + (
+            p(k["h"]), p(k["gh"])) + ((p(k["gy"]),) if ln else ())
+        split = (ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]))
+    outs = (p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]))
+    tail = (p(k["part"]), p(k["ws"]))
+    if kernel == "block_train_bwd":
+        rows = dwconv.rows_per_cta(b * h, c)
+        o["taps"] = torch.empty(50 * c, dtype=f32, device=dev)
+        k["u"] = torch.empty(m, c, dtype=f32, device=dev)
+        k["gu32"] = torch.empty(m, c, dtype=f32, device=dev)
+        k["tpart"] = torch.empty(-(-(b * h) // rows), 50 * c, dtype=f32, device=dev)
+        fn = lib.svt_block_train_bwd
+        args = (p(t), p(a["k49"]), p(a["dw_bias"]), p(a["ln_scale"]), p(a["ln_bias"]), *weights,
+                p(g), *outs, p(o["taps"]), p(k["u"]), p(k["gu32"]), *mid, *tail, p(k["tpart"]),
+                *(ctypes.c_int(v) for v in (b, h, w, c)), *split, ctypes.c_int(rows),
+                ctypes.c_float(1e-6))
+    elif ln:
+        fn = lib.svt_ln_mlp_bwd
+        args = (p(t), p(g), p(a["ln_scale"]), p(a["ln_bias"]), *weights, *outs, *mid, *tail,
+                ctypes.c_longlong(m), ctypes.c_int(c), *split)
+    else:
+        fn = lib.svt_mlp_bwd
+        args = (p(t), p(g), *weights, *outs, *mid, *tail, ctypes.c_longlong(m),
+                ctypes.c_int(c), *split)
+    fn.restype = ctypes.c_int
+    keep = (k, w1, w2)
+
+    def launch():
+        cuda_build.check(fn(*args, cuda_build.stream_ptr(dev)), f"{tag} {kernel}")
+        return keep
+
+    return launch, o
+
+
+def _bwd_case(parent: Path, dev) -> None:
+    """The ``ln_mlp_bwd`` case: both builds of csrc/ln_mlp_bwd.cu and of
+    csrc/block_train_bwd.cu, which includes its header."""
+    libs, jobs = {}, {}
+    for source in sorted(set(BWD_SOURCES.values())):
+        for tag, csrc in (("parent", parent / "spine_vision_torch" / "csrc"),
+                          ("tree", cuda_build.CSRC)):
+            libs[source, tag] = cuda_build.BUILD_DIR / "build_diff" / f"lib{source}-{tag}.so"
+            jobs[source, tag] = _build(csrc, libs[source, tag], source)
+    for (source, tag), job in jobs.items():
+        log, _ = job.communicate()
+        if job.returncode:
+            raise RuntimeError(f"nvcc failed for the {tag}'s {source}.cu:\n{log}")
+        res = _resources(libs[source, tag])
+        print(f"[build_diff] {source} {tag}: {len(res)} kernels, spill stores {_spills(log)} "
+              f"bytes; registers / stack bytes: " + "; ".join(
+                  f"{name} {r} / {st}" for name, (r, st) in sorted(res.items())))
+    loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
+    for kernel, source in BWD_SOURCES.items():
+        for hw, c in TRAIN_STAGES:
+            a = _inputs(32, hw, c, dev)
+            runs = {tag: _bwd_launcher(tag, loaded[source, tag], kernel, a)
+                    for tag in ("parent", "tree")}
+            rows = [(tag, _device_ms(runs[tag][0], 10)) for tag in
+                    ("parent", "tree", "tree", "parent")]
+            torch.cuda.synchronize()
+            errs = {}
+            for name, want in runs["parent"][1].items():
+                got = runs["tree"][1][name]
+                errs[name] = ((got.float() - want.float()).abs().max()
+                              / want.float().abs().max().clamp_min(1e-6)).item()
+            print(f"[build_diff] {kernel} B=32 {hw}x{hw} C={c}: " + "; ".join(
+                f"{tag} device {d:.4f}" for tag, d in rows) + " ms a call; tree against parent, "
+                "max |diff| / max |parent|: " + " ".join(f"{n}={e:.3g}" for n, e in errs.items()))
+            if max(errs.values()) > 2e-2:
+                raise AssertionError(f"the two builds' {kernel} outputs differ at C={c}: {errs}")
+            del a, runs
+            torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", required=True, type=Path,
                         help="checkout of the commit to compare with")
+    parser.add_argument("--case", choices=("convnext_block", "ln_mlp_bwd"),
+                        default="convnext_block", help="the source to build from both trees")
     args = parser.parse_args(argv)
     from spine_vision_torch.device import resolve_device
     from spine_vision_torch.ops import fused_mlp as fm
 
     dev = resolve_device("cuda")
+    if args.case == "ln_mlp_bwd":
+        _bwd_case(args.parent, dev)
+        return 0
     libs = {"parent": cuda_build.BUILD_DIR / "build_diff" / f"lib{SOURCE}-parent.so",
             "tree": cuda_build.BUILD_DIR / "build_diff" / f"lib{SOURCE}-tree.so"}
     jobs = {"parent": _build(args.parent / "spine_vision_torch" / "csrc", libs["parent"]),

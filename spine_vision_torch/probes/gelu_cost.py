@@ -7,10 +7,11 @@ which chose the tanh-GELU of the TPU kernels
 stage-1 hidden, [B*128*128, 512] bf16, with four bodies in f32 on the bf16
 input, rounded once: ``copy``, ``gelu`` (the Abramowitz & Stegun erf-GELU of
 ``scripts/ablate_mlp_kernel.py:42``; the script imports an ``_erf_gelu`` that
-``fused_mlp.py`` no longer defines), ``gelu+grad`` (``h + dh`` of the
-production ``svt::gelu_and_grad``) and ``tanh_gelu`` (``svt::gelu_tanh``).
-The bodies are the production kernels' own device functions; the time beyond
-``copy`` is what each costs per pass. Yardstick: ``F.gelu(x.float(),
+``fused_mlp.py`` no longer defines), ``gelu+grad`` (``h + dh`` of
+``svt::gelu_and_grad_tanh``, the tanh form of ``fused_mlp.py::_gelu_and_grad``
+that the first CUDA MLP backward computed) and ``tanh_gelu``
+(``svt::gelu_tanh``, the production MLP body's). The time beyond ``copy`` is
+what each costs per pass. Yardstick: ``F.gelu(x.float(),
 approximate="tanh")``.
 """
 

@@ -130,8 +130,13 @@ def _bwd_args(rng, b, h, w, c, device):
     )
 
 
+# The MLP backward's shapes: one whole token tile, then M = 507 (a multiple of
+# no product tile, ring stage or token split), 297 and a single row.
+MLP_BWD_SHAPES = [(2, 8, 8), (3, 13, 13), (3, 9, 11), (1, 1, 5)]
+
+
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
-@pytest.mark.parametrize("b,h,w", [(2, 8, 8), (3, 9, 11), (1, 1, 5)])
+@pytest.mark.parametrize("b,h,w", MLP_BWD_SHAPES)
 def test_ln_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w):
     args = _bwd_args(np.random.default_rng(c + h), b, h, w, c, cuda)
     before = fm.ln_mlp_bwd.launches
@@ -243,7 +248,7 @@ def _mlp_args(rng, b, h, w, c, device):
 
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
-@pytest.mark.parametrize("b,h,w", [(2, 8, 8)] + RAGGED)
+@pytest.mark.parametrize("b,h,w", MLP_BWD_SHAPES)
 def test_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w):
     args = _mlp_args(np.random.default_rng(c + 3 * h), b, h, w, c, cuda)
     before = fm.mlp_bwd.launches, fm.ln_mlp_bwd.launches
@@ -327,7 +332,7 @@ def test_mlp_fwd_kernel_matches_plain(cuda, c, b, h, w, tail):
 
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
-@pytest.mark.parametrize("b,h,w", [(2, 8, 8)] + RAGGED)
+@pytest.mark.parametrize("b,h,w", MLP_BWD_SHAPES)
 def test_block_train_bwd_kernel_matches_plain(cuda, c, b, h, w):
     args = _block_args(np.random.default_rng(c + 13 * h), b, h, w, c, cuda)
     g = _t(np.random.default_rng(c), (b, h, w, c), 1.0, torch.bfloat16, cuda)
@@ -383,6 +388,66 @@ def test_training_modes_give_block_gradients_on_the_card(cuda, mode, layer_scale
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all(), name
         assert p.grad.abs().max().item() > 0, name
+
+
+TRAIN_SHAPES = [(32, 128, 128), (32, 64, 256), (32, 32, 512)]  # (B, H = W, C) of the train step
+
+
+def _close(name, got, want, tol=2e-2):
+    """Within ``tol * max |plain|``: the kernel's f32 sums run in another order
+    than the plain stage's, and a value on a bf16 rounding boundary can round
+    apart (2e-2 is about three bf16 steps)."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(want.float().abs().max().item(), 1e-6), (name, err)
+
+
+@pytest.mark.parametrize("stage,ln", [(s, ln) for s in ("rows", "hidden", "gy", "ln", "grads")
+                                      for ln in (True, False)
+                                      if s != "ln" or ln])  # L is the LN form's stage only
+@pytest.mark.parametrize("b,hw,c", TRAIN_SHAPES)
+def test_mlp_bwd_stage_kernels_match_plain_stages(cuda, stage, ln, b, hw, c):
+    """Each stage kernel of csrc/ln_mlp_bwd.cuh against its plain stage
+    (ops/fused_mlp.py::bwd_*_reference) fed the kernel's own inputs to that
+    stage, at the train step's shapes, with and without the LayerNorm."""
+    rng = np.random.default_rng(c + 17 * ln)
+    if ln:
+        t, ls, lb, w1t, b1, w2t, b2, gamma, g = _bwd_args(rng, b, hw, hw, c, cuda)
+    else:
+        t, w1t, b1, w2t, b2, gamma, g = _mlp_args(rng, b, hw, hw, c, cuda)
+        ls = lb = None
+    o = fm.bwd_launch(t, g, w1t, b1, w2t, b2, gamma, ls, lb)
+    torch.cuda.synchronize()
+    lp = torch.bfloat16
+    gf = g.reshape(-1, c).float()
+    small = o["small"]
+    rows = fm.bwd_rows_reference(t.reshape(-1, c).float(), gamma, gf, lp, ls, lb)
+    y = (o["y"] if ln else t.reshape(-1, c)).float()
+    if stage == "rows":
+        if ln:
+            _close("y", o["y"], rows["y"])
+            _close("rstd", o["stats"][:, 1], rows["rstd"][:, 0])
+        _close("gg", o["gg"], rows["gg"])
+        _close("db2", small[6 * c: 7 * c], rows["db2"])
+        _close("gsum", small[7 * c:], rows["gsum"])
+    elif stage == "hidden":
+        hid = fm.bwd_hidden_reference(y, o["gg"].float(), w1t, b1, w2t, lp)
+        _close("h", o["h"], hid["h"])
+        _close("gh", o["gh"], hid["gh"])
+        _close("db1", small[: 4 * c], hid["db1"])
+    elif stage == "gy":
+        g_y = fm.bwd_gy_reference(o["gh"].float(), w1t)
+        _close("g_y", o["gy"] if ln else o["dt"].reshape(-1, c), g_y)
+    elif stage == "ln":
+        dt, dls, dlb = fm.bwd_ln_reference(o["gy"], rows["yhat"], rows["rstd"], ls)
+        _close("dt", o["dt"].reshape(-1, c), dt)
+        _close("dls", small[4 * c: 5 * c], dls)
+        _close("dlb", small[5 * c: 6 * c], dlb)
+    else:
+        dw1t, dw2t, dgamma = fm.bwd_grads_reference(y, o["gh"].float(), gf, o["h"].float(), w2t,
+                                                    b2, gamma, small[7 * c:], lp)
+        _close("dw1t", o["dw1t"], dw1t)
+        _close("dw2t", o["dw2t"], dw2t)
+        _close("dgamma", o["dgamma"], dgamma)
 
 
 def test_kernels_reject_cpu_layouts_on_the_card(cuda):
