@@ -18,7 +18,9 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    block), the MLP backward, the dwconv+LN backward and the plain depthwise
    stencil (the all-kernel block), the backward kernels also run twice to
    show that they agree bit for bit. The MLP backward's stages (#6, #8/#9,
-   #10) are timed one by one from a profile, each beside its own bound.
+   #10) and the block forward's three launches (#1: the stencil+LayerNorm
+   prologue P, the products F1 and F2) are timed one by one from a profile,
+   each beside its own bound.
 4. The inference slice: ConvNeXt-base localization at 512^2 and ResNet-18
    grading at 256^2 in bf16, weights from seeded numpy Flax-layout trees
    carried by ``load_flax_variables``; ``StudyInferencePipeline.run`` on 8
@@ -275,6 +277,8 @@ def kernel_phase(device) -> dict:
             lambda: cb.block_reference(*args), library,
             2 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + (4 * c + 6 * c) * 4,
             2 * 2 * m * c * 4 * c, 2 * 49 * m * c, "per_forward", plain_iters=5, plain_warmup=3))
+        _stage_times(f"convnext_block C={c}", lambda: cb.convnext_block(*args),
+                     _fwd_stage_bounds(m, c, emit=False), FWD_STAGE_KERNELS)
         cb.convnext_block.launches = saved
     report["convnext_block"] = rows
 
@@ -346,15 +350,28 @@ def _check_outputs(what: str, names, got, want, tol: float, again=None) -> list[
     return errs
 
 
-# The MLP backward's stages (csrc/ln_mlp_bwd.cuh) by kernel name, as the
-# profiler gives it without spaces; #10 adds its f32 conv and tap sums.
+# The products of csrc/wg_gemm.cuh by epilogue, as the profiler names them
+# without spaces: wg_gemm<NA,NB,MN,EPI> with EPI the number of its EPI_* (the
+# MLP backward's 0-3, the block forward's 4 and 5).
+def _gemm(na_nb: tuple, mn: str, epi: int) -> tuple:
+    return tuple(f"wg_gemm<{na},{nb},{mn},{epi}>" for na, nb in na_nb)
+
+
+# The MLP backward's stages (csrc/ln_mlp_bwd.cuh) by kernel name; #10 adds
+# its f32 conv and tap sums.
 BWD_STAGE_KERNELS = (
     ("A rows", ("bwd_rows<",)),
-    ("B hidden", ("wg_gemm<2,2,false",)),
-    ("C g_y", ("wg_gemm<1,1,false", "wg_gemm<1,2,false")),
+    ("B hidden", _gemm(((2, 2),), "false", 0)),
+    ("C g_y", _gemm(((1, 1), (1, 2)), "false", 1) + _gemm(((1, 1), (1, 2)), "false", 2)),
     ("L LayerNorm", ("ln_rows_bwd<",)),
-    ("D weight grads", ("wg_gemm<1,1,true", "reduce_rows", "colsum")),
+    ("D weight grads", _gemm(((1, 1),), "true", 3) + ("reduce_rows", "colsum")),
     ("#10 conv, taps", ("conv_bias_f32", "tap_sums")),
+)
+# The block forward #1's launches (csrc/convnext_block.cu).
+FWD_STAGE_KERNELS = (
+    ("P stencil+LN", ("block_prologue<",)),
+    ("F1 hidden", _gemm(((1, 1), (1, 2)), "false", 4)),
+    ("F2 out", _gemm(((1, 1), (1, 2)), "false", 5)),
 )
 
 
@@ -363,7 +380,8 @@ def _bwd_stage_bounds(m: int, c: int, ln: bool, u32: bool = False) -> dict:
     (inputs read once, outputs written once) against its bf16 products."""
     t_bytes = 4 if u32 else 2
     return {
-        "A rows": _bound_ms(m * c * ((t_bytes + 2 + 2 + 2 + 8 / c) if ln else 6), 0, 0),
+        # Without the LayerNorm stage A reads g and writes g * gamma only.
+        "A rows": _bound_ms(m * c * ((t_bytes + 2 + 2 + 2 + 8 / c) if ln else 4), 0, 0),
         "B hidden": _bound_ms(4 * m * c + 16 * m * c + 16 * c * c, 16 * m * c * c, 0),
         "C g_y": _bound_ms(8 * m * c + 8 * c * c + (4 if ln else 2) * m * c, 8 * m * c * c, 0),
         "L LayerNorm": _bound_ms(m * c * (4 + t_bytes + 2 + (4 if u32 else 0)) + 8 * m, 0, 0),
@@ -371,9 +389,23 @@ def _bwd_stage_bounds(m: int, c: int, ln: bool, u32: bool = False) -> dict:
     }
 
 
-def _stage_times(what: str, call, bounds: dict, calls: int = 5) -> None:
-    """Device time a call of each stage of the MLP backward, from a profile
-    of ``calls`` calls, beside its bound; prints one line a stage."""
+def _fwd_stage_bounds(m: int, c: int, emit: bool) -> dict:
+    """Each launch of #1 beside its bound (ms, what bounds it): P the bytes it
+    must move (x read, y and, emitting, t written) against its 98 f32
+    operations a channel of a token; F1 and F2 their bytes against their
+    bf16 products."""
+    return {
+        "P stencil+LN": _bound_ms(m * c * (6 if emit else 4) + 98 * c + 12 * c, 0, 98 * m * c),
+        "F1 hidden": _bound_ms(10 * m * c + 8 * c * c + 16 * c, 8 * m * c * c, 0),
+        "F2 out": _bound_ms(12 * m * c + 8 * c * c + 8 * c, 8 * m * c * c, 0),
+    }
+
+
+def _stage_times(what: str, call, bounds: dict, table=BWD_STAGE_KERNELS,
+                 calls: int = 5) -> None:
+    """Device time a call of each stage in ``table`` (the MLP backward's by
+    default), from a profile of ``calls`` calls, beside its bound; prints one
+    line a stage."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -385,7 +417,7 @@ def _stage_times(what: str, call, bounds: dict, calls: int = 5) -> None:
         torch.cuda.synchronize()
     events = _device_events(prof)
     total = sum(_dev_us(e) for e in events) / calls / 1e3
-    for label, parts in BWD_STAGE_KERNELS:
+    for label, parts in table:
         group = [e for e in events if any(p in e.key.replace(" ", "") for p in parts)]
         if not group:
             continue
@@ -458,6 +490,9 @@ def train_kernel_phase(device, report: dict) -> None:
             lambda: cb.block_reference(*args, emit_conv=True), library_fwd,
             3 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + (4 * c + 6 * c) * 4,
             2 * 2 * m * c * 4 * c, 2 * 49 * m * c, "per_train_step"))
+        _stage_times(f"convnext_block emit_conv C={c}",
+                     lambda: cb.convnext_block(*args, emit_conv=True),
+                     _fwd_stage_bounds(m, c, emit=True), FWD_STAGE_KERNELS)
         cb.convnext_block.launches, cb.convnext_block.emit_launches = saved
 
         # 2. The LN+MLP backward from t and an output gradient g.
@@ -852,12 +887,13 @@ def _dev_us(e) -> float:
 
 # Kernel groups of a train step's profile: (label, name fragments).
 PROFILE_GROUPS = (
-    ("block forward #1", ("block_kernel",)),
+    ("block forward #1", sum((parts for _, parts in FWD_STAGE_KERNELS), ())),
     ("LN+MLP and MLP forwards #7, #5", ("row_mlp_kernel",)),
     ("dwconv+LN #2", ("dw_ln_kernel",)),
     ("MLP backward per token #6, #8/#9, #10",
-     ("bwd_rows<", "ln_rows_bwd<", "wg_gemm<2,2,false", "wg_gemm<1,1,false", "wg_gemm<1,2,false")),
-    ("their weight-gradient products", ("wg_gemm<1,1,true", "reduce_rows")),
+     sum((dict(BWD_STAGE_KERNELS)[s] for s in ("A rows", "B hidden", "C g_y", "L LayerNorm")),
+         ())),
+    ("their weight-gradient products", _gemm(((1, 1),), "true", 3) + ("reduce_rows",)),
     ("#10's conv recompute and tap sums", ("conv_bias_f32", "tap_sums")),
     ("dwconv+LN backward #4", ("dw_ln_stats", "dw_ln_bwd_tile")),
     ("stencil #3", ("dw7_kernel",)),
@@ -1412,9 +1448,9 @@ def main() -> int:
                       "spine_vision_tpu/ops/dwconv.py:366", "train_step_dwconv"),
         "depthwise_conv7x7": ("spine_vision_torch/csrc/dwconv_bwd.cu",
                               "spine_vision_tpu/ops/dwconv.py:119", "train_step_dwconv"),
-        "ln_mlp": ("spine_vision_torch/csrc/convnext_block.cu",
+        "ln_mlp": ("spine_vision_torch/csrc/row_mlp.cu",
                    "spine_vision_tpu/ops/fused_mlp.py:586", "train_step_mlp"),
-        "mlp_fwd": ("spine_vision_torch/csrc/convnext_block.cu",
+        "mlp_fwd": ("spine_vision_torch/csrc/row_mlp.cu",
                     "spine_vision_tpu/ops/fused_mlp.py:147", "grad_check_mlp_no_layer_scale"),
         "block_train_bwd": ("spine_vision_torch/csrc/block_train_bwd.cu",
                             "spine_vision_tpu/ops/block_train.py:313", "train_step_block"),

@@ -1,208 +1,284 @@
-// Whole ConvNeXt v1 block forward in one launch, NHWC bf16, for Hopper:
+// The ConvNeXt v1 block forward, NHWC bf16, for Hopper, in three launches:
 //   out = x + gamma * (W2 . gelu_tanh(W1 . LN(dwconv7x7(x) + b_dw) + b1) + b2)
 //
 // Replaces spine_vision_tpu/ops/convnext_block.py::_block_pallas
 // (_make_block_kernel) in both forms. With emit_conv (the hybrid training
 // block, ops/block_train.py) it also writes t = dwconv7x7(x) + b_dw rounded
 // to bf16, and its LayerNorm reads the rounded t, as the TPU kernel's
-// emit_conv form does; the inference form is compiled without it. On the
-// inference path it runs 33 of
-// ConvNeXt-base's 36 blocks (16 images; C = 128 at 128x128, 256 at 64x64,
-// 512 at 32x32). Each block does 4 * M * C * 4C flops in its two products
-// against 4 * M * C bytes of activation traffic: 500 to 2000 flops a byte, far
-// above the H100's ~295, so it is bound by the tensor cores, not by memory.
+// emit_conv form does; the inference form's LayerNorm reads the f32 t. On the
+// inference path it runs 33 of ConvNeXt-base's 36 blocks (16 images; C = 128
+// at 128x128, 256 at 64x64, 512 at 32x32). Its two products do 16 * M * C^2
+// flops against about 24 * M * C bytes of device-memory traffic once y and
+// the hidden cross device memory (x read twice, y and h written and read,
+// out written): 0.67 * C flops a byte, under the H100's ~295 at C <= 256
+// (bytes bound it there) and above it at C = 512 (the products do).
 //
-// Design: a CTA takes TOK = 64 consecutive tokens.
-//   1. Eight warps compute dwconv + bias + LayerNorm per token in f32
-//      (dwconv_ln.cuh), round y to bf16 into shared memory, and keep the
-//      token's own input row (the conv window's centre tap) in shared memory
-//      as the residual: x is read from device memory once.
-//   2. The 4C hidden is walked in chunks of HC = 32: h = gelu_tanh(y . W1c +
-//      b1) is rounded to bf16 into shared memory, and acc[64, C] += h . W2c
-//      accumulates in f32 registers (a 64 x 64 tile a warp at C = 512). Both
-//      products are mma.sync m16n8k16 bf16 -> f32 with ldmatrix operand
-//      loads. The hidden never reaches device memory.
-//   3. Epilogue (acc + b2) * gamma + x in f32, rounded to bf16, staged through
-//      shared memory so the single write of the output is coalesced.
-// Weight chunks stream in with cp.async, each overlapping the other product:
-// the next W1 chunk loads during h . W2c, the next W2 chunk during y . W1c
-// (the first pair during the stencil). Weights are read in the layout
-// nn.Linear keeps ([out, in]), so each staged row is contiguous along the
-// reduction axis. Shared memory rows carry 8 bf16 of padding, which keeps
-// ldmatrix free of bank conflicts. Not yet here: wgmma, TMA, a persistent
-// schedule; at C = 512 one CTA fills an SM's shared memory.
-//
-// The same MLP body (mlp_tail) behind two other prologues, row_mlp_kernel,
-// both in mlp_body.cuh, replaces the TPU's token-tiled MLP kernels of
-// spine_vision_tpu/ops/fused_mlp.py:
-//   LN (svt_ln_mlp_forward): _ln_mlp_pallas (_ln_mlp_tail_kernel), out =
-//     res + gamma * (W2 . gelu_tanh(W1 . LN(t) + b1) + b2); a warp takes a
-//     token row of t, LayerNorms it in f32 and rounds y to bf16;
-//   copy (svt_mlp_forward): _pallas_mlp (_mlp_tail_kernel, _mlp_kernel), the
-//     MLP of the y row as it is, with the tail (gamma, res) or without it
-//     (acc + b2, rounded once).
-// The rows (and the residual) arrive by cp.async ahead of the first weight
-// chunks. Both do the block's 16 * M * C^2 flops against 6 * M * C bytes, so
-// the tensor cores bound them as they bound the block.
-#include "mlp_body.cuh"
+// The TPU kernel keeps a token tile's hidden in VMEM. Here the work is split
+// where Hopper's tools fit it:
+//   P  block_prologue: a CTA takes a PH x 8 tile of one image at full C. The
+//      x halo ((PH + 6) x 14 positions) streams through shared memory in
+//      chunks of 64 channels, two chunks in flight (cp.async, zeros outside
+//      the image), so each x element comes from L2 once a tile instead of 49
+//      times. A warp takes a tile column and a lane a channel pair: each halo
+//      element read serves up to 7 outputs of the column, in f32. t = conv +
+//      b_dw goes to a shared f32 tile ([PH * 8, C]); then a warp a token
+//      LayerNorms it (mean, then the mean of centred squares, in f32) and
+//      writes y in bf16, [M, C] (and, with emit_conv, t in bf16).
+//   F1 wg_gemm<1, NB, false, EPI_GELU> (wg_gemm.cuh): h = gelu_tanh(y . W1^T
+//      + b1), stored in bf16, [M, 4C].
+//   F2 wg_gemm<1, NB, false, EPI_OUT>: out = (h . W2^T + b2) * gamma + x in
+//      f32, rounded once to bf16; the residual x is read in the epilogue.
+// The products are the MLP backward's (ln_mlp_bwd.cu): a persistent CTA an
+// SM, operands fed by TMA through an mbarrier ring, two consumer warpgroups
+// on wgmma. Weights are read in the layout nn.Linear keeps ([out, in]): K
+// contiguous. The caller allocates y and h. No atomics: every output element
+// has one writer, so two runs agree bit for bit.
+#include "mma_bf16.cuh"
+#include "wg_gemm.cuh"
 
 namespace {
 
+// P's tile: PH rows by PW columns of one image; PCC channels a halo chunk.
+constexpr int PW = 8;
+constexpr int PCC = 64;
+constexpr int P_THREADS = 256;
+static_assert(P_THREADS / 32 == PW, "a warp a tile column");
+
+template <int C>
+struct PTile {
+  static constexpr int PH = C <= 192 ? 8 : 4;       // (ops/convnext_block.py, _tile_rows)
+  static constexpr int TOKS = PH * PW;
+  static constexpr int HR = PH + 2 * svt::PAD;      // halo rows
+  static constexpr int HW = PW + 2 * svt::PAD;      // halo columns
+  static constexpr int NCH = (C + PCC - 1) / PCC;   // channel chunks
+  static constexpr int HALO = HR * HW * PCC;        // bf16 a ring slot
+  static constexpr size_t T_BYTES = (size_t)TOKS * C * sizeof(float);
+  static constexpr size_t BYTES = T_BYTES + 2 * HALO * sizeof(bf16);
+};
+
+// 16 bytes global -> shared, or 16 zeros with `bytes` 0 (src is not read).
+__device__ __forceinline__ void cp_async16_zfill(bf16* dst, const bf16* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Channels [c0, c0 + PCC) of the tile's halo into a ring slot [HR][HW][PCC]:
+// zeros outside the image and past C.
+template <int C>
+__device__ __forceinline__ void load_halo(bf16* slot, const bf16* __restrict__ x, int b, int h0,
+                                          int w0, int c0, int H, int W) {
+  using P = PTile<C>;
+  constexpr int V = PCC / 8;  // 16-byte vectors a position
+  for (int v = threadIdx.x; v < P::HR * P::HW * V; v += P_THREADS) {
+    const int pos = v / V, cv = c0 + (v % V) * 8;
+    const int hh = h0 + pos / P::HW - svt::PAD, ww = w0 + pos % P::HW - svt::PAD;
+    const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W && cv < C;
+    const bf16* src = in ? x + (((size_t)b * H + hh) * W + ww) * C + cv : x;
+    cp_async16_zfill(slot + pos * PCC + (v % V) * 8, src, in ? 16 : 0);
+  }
+}
+
+// P: t = dwconv7x7(x) + dw_bias over a PH x PW tile, then y = LN(t) (EMIT:
+// t rounded to bf16 first, written to t_out, and the LayerNorm reads the
+// rounded t). Tokens outside the image are computed on zeros and never stored.
 template <int C, bool EMIT>
-__global__ void __launch_bounds__(NTHREADS, 1) block_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ k,
-    const float* __restrict__ dw_bias, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, const bf16* __restrict__ w1t,
-    const float* __restrict__ b1, const bf16* __restrict__ w2t,
-    const float* __restrict__ b2, const float* __restrict__ gamma,
-    bf16* __restrict__ out, bf16* __restrict__ t_out, int B, int H, int W,
-    float eps) {
-  using L = Layout<C>;
+__global__ void __launch_bounds__(P_THREADS, 2) block_prologue(
+    const bf16* __restrict__ x, const bf16* __restrict__ k, const float* __restrict__ dw_bias,
+    const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+    bf16* __restrict__ y_out, bf16* __restrict__ t_out, int H, int W, int tiles_h,
+    int tiles_w, float eps) {
+  using P = PTile<C>;
   constexpr int NP = svt::Lanes<C>::NP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sY = smem + L::Y;
-  bf16* sX = smem + L::X;
+  float* sT = reinterpret_cast<float*>(smem_raw);
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw + P::T_BYTES);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long M = (long long)B * H * W;
-  const long long tok0 = (long long)blockIdx.x * TOK;
+  const int tw = blockIdx.x % tiles_w;
+  const int th = (blockIdx.x / tiles_w) % tiles_h;
+  const int b = blockIdx.x / (tiles_w * tiles_h);
+  const int h0 = th * P::PH, w0 = tw * PW;
+  const int wcol = w0 + warp;  // this warp's image column in the stencil
 
-  // The first weight chunk streams in while the stencil runs.
-  load_w1<C>(smem + L::W1, w1t, 0);
-  cp_async_commit();
-  load_w2<C>(smem + L::W2, w2t, 0);
-  cp_async_commit();
-
-  // 1. dwconv + bias + LayerNorm -> sY (bf16), centre tap -> sX. A warp
-  // takes its TOK / NWARPS tokens TB at a time.
-  constexpr int TB = svt::TokensPerWarp<C>::value;
-  static_assert((TOK / NWARPS) % TB == 0, "tokens per warp");
-  for (int i0 = 0; i0 < TOK / NWARPS; i0 += TB) {
-    const int r0 = warp * (TOK / NWARPS) + i0;
-    int b[TB], h[TB], w[TB];
-    bool ok[TB];
-    bf16* xrows[TB];
-    bf16* trows[TB];
+  load_halo<C>(ring, x, b, h0, w0, 0, H, W);
+  svt::cp_async_commit();
+  for (int ch = 0; ch < P::NCH; ++ch) {
+    if (ch + 1 < P::NCH) load_halo<C>(ring + ((ch + 1) & 1) * P::HALO, x, b, h0, w0,
+                                      (ch + 1) * PCC, H, W);
+    svt::cp_async_commit();
+    svt::cp_async_wait_1();  // this chunk has landed (the next may be in flight)
+    __syncthreads();
+    const bf16* slot = ring + (ch & 1) * P::HALO;
+    const int c = ch * PCC + 2 * lane;  // this lane's channel pair
+    if (c < C) {  // C = 96: the second chunk's upper lanes idle
+      float2 acc[P::PH];
 #pragma unroll
-    for (int i = 0; i < TB; ++i) {
-      svt::token_coords(tok0 + r0 + i, M, H, W, b[i], h[i], w[i], ok[i]);
-      xrows[i] = sX + (r0 + i) * L::LDY;
-      trows[i] = EMIT ? t_out + (tok0 + r0 + i) * C : nullptr;
-    }
-    float y[TB][NP][2];
-    svt::dw_ln_tokens<bf16, C, TB, true, EMIT>(x, k, dw_bias, ln_scale, ln_bias,
-                                               b, h, w, ok, H, W, eps, lane, y,
-                                               xrows, trows);
+      for (int r = 0; r < P::PH; ++r) acc[r] = make_float2(0.f, 0.f);
 #pragma unroll
-    for (int i = 0; i < TB; ++i) {
-      bf16* yrow = sY + (r0 + i) * L::LDY;
+      for (int dx = 0; dx < svt::KS; ++dx) {
+        float2 kv[svt::KS];
 #pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        const int p = lane + 32 * q;
-        if (!svt::Lanes<C>::valid(p)) continue;
-        if (ok[i]) {
-          svt::store2(yrow + 2 * p, y[i][q][0], y[i][q][1]);
-        } else {  // past the last token: zeros, never stored
-          svt::store2(yrow + 2 * p, 0.f, 0.f);
-          svt::store2(xrows[i] + 2 * p, 0.f, 0.f);
+        for (int dy = 0; dy < svt::KS; ++dy) kv[dy] = svt::load2(k + (dy * svt::KS + dx) * C + c);
+#pragma unroll
+        for (int ih = 0; ih < P::HR; ++ih) {
+          const float2 xv = svt::load2(slot + (ih * P::HW + warp + dx) * PCC + 2 * lane);
+#pragma unroll
+          for (int r = 0; r < P::PH; ++r) {
+            const int dy = ih - r;
+            if (dy < 0 || dy >= svt::KS) continue;
+            acc[r].x = fmaf(xv.x, kv[dy].x, acc[r].x);
+            acc[r].y = fmaf(xv.y, kv[dy].y, acc[r].y);
+          }
         }
       }
+      const float2 bv = svt::load2(dw_bias + c);
+#pragma unroll
+      for (int r = 0; r < P::PH; ++r) {
+        float t0 = acc[r].x + bv.x, t1 = acc[r].y + bv.y;
+        if constexpr (EMIT) {
+          const __nv_bfloat162 tv = __floats2bfloat162_rn(t0, t1);
+          if (h0 + r < H && wcol < W)
+            *reinterpret_cast<__nv_bfloat162*>(
+                t_out + (((size_t)b * H + h0 + r) * W + wcol) * C + c) = tv;
+          const float2 tf = __bfloat1622float2(tv);
+          t0 = tf.x;
+          t1 = tf.y;
+        }
+        svt::store2(sT + (r * PW + warp) * C + c, t0, t1);
+      }
+    }
+    __syncthreads();  // the slot is free for chunk ch + 2; after the last, sT is whole
+  }
+
+  // y = LN(t) * ln_scale + ln_bias, a warp a token (the tile column `warp`).
+  for (int r = 0; r < P::PH; ++r) {
+    const int hh = h0 + r;
+    if (hh >= H || wcol >= W) continue;  // uniform over the warp
+    const float* trow = sT + (r * PW + warp) * C;
+    float v[NP][2];
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int p = lane + 32 * q;
+      v[q][0] = v[q][1] = 0.f;
+      if (svt::Lanes<C>::valid(p)) {
+        const float2 a = svt::load2(trow + 2 * p);
+        v[q][0] = a.x;
+        v[q][1] = a.y;
+      }
+    }
+    float mu;
+    const float rstd = svt::centre_rstd<C>(v, eps, lane, mu);
+    bf16* yrow = y_out + (((size_t)b * H + hh) * W + wcol) * C;
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      const int p = lane + 32 * q;
+      if (!svt::Lanes<C>::valid(p)) continue;
+      const float2 sv = svt::load2(ln_scale + 2 * p);
+      const float2 bv = svt::load2(ln_bias + 2 * p);
+      svt::store2(yrow + 2 * p, v[q][0] * rstd * sv.x + bv.x, v[q][1] * rstd * sv.y + bv.y);
     }
   }
-
-  mlp_tail<C, true>(smem, w1t, b1, w2t, b2, gamma, out, tok0, M);
 }
+
+// Everything a forward call reads and writes; y [M, C] and h [M, 4C] are the
+// caller's scratch, t is null in the inference form.
+struct BlockFwd {
+  const bf16 *x, *k;
+  const float *dw_bias, *ln_scale, *ln_bias;
+  const bf16* w1t;
+  const float* b1;
+  const bf16* w2t;
+  const float *b2, *gamma;
+  bf16 *out, *t, *y, *h;
+  int B, H, W;
+  float eps;
+};
 
 template <int C, bool EMIT>
-int launch_form(const void* x, const void* k, const void* dw_bias,
-           const void* ln_scale, const void* ln_bias, const void* w1t,
-           const void* b1, const void* w2t, const void* b2, const void* gamma,
-           void* out, void* t, int B, int H, int W, float eps,
-           cudaStream_t stream) {
-  const size_t smem = Layout<C>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_kernel<C, EMIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long tokens = (long long)B * H * W;
-  const dim3 grid((unsigned)((tokens + TOK - 1) / TOK));
-  block_kernel<C, EMIT><<<grid, NTHREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)k, (const float*)dw_bias,
-      (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1t,
-      (const float*)b1, (const bf16*)w2t, (const float*)b2,
-      (const float*)gamma, (bf16*)out, (bf16*)t, B, H, W, eps);
-  return (int)cudaGetLastError();
-}
-
-template <int C>
-int launch(const void* x, const void* k, const void* dw_bias,
-           const void* ln_scale, const void* ln_bias, const void* w1t,
-           const void* b1, const void* w2t, const void* b2, const void* gamma,
-           void* out, void* t, int B, int H, int W, float eps,
-           cudaStream_t stream) {
-  if (t == nullptr)
-    return launch_form<C, false>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t,
-                                 b2, gamma, out, t, B, H, W, eps, stream);
-  return launch_form<C, true>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2,
-                              gamma, out, t, B, H, W, eps, stream);
-}
-
-// The three row forms: 0 = LN with tail (#7), 1 = tail (#5), 2 = no tail (#5).
-template <int C>
-int launch_row_form(int form, const void* x, const void* res, const void* ln_scale,
-                    const void* ln_bias, const void* w1t, const void* b1,
-                    const void* w2t, const void* b2, const void* gamma, void* out,
-                    long long M, float eps, cudaStream_t s) {
-  if (form == 0)
-    return launch_rows<C, true, true>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
-                                      out, M, eps, s);
-  if (form == 1)
-    return launch_rows<C, false, true>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
-                                       out, M, eps, s);
-  return launch_rows<C, false, false>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
-                                      out, M, eps, s);
-}
-
-int row_forward(int form, const void* x, const void* res, const void* ln_scale,
-                const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
-                const void* b2, const void* gamma, void* out, long long M, int C,
-                float eps, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-#define SVT_ROW_CASE(CC)                                                              \
-  case CC:                                                                            \
-    return launch_row_form<CC>(form, x, res, ln_scale, ln_bias, w1t, b1, w2t, b2,     \
-                               gamma, out, M, eps, s);
-  switch (C) {
-    SVT_ROW_CASE(96)
-    SVT_ROW_CASE(128)
-    SVT_ROW_CASE(192)
-    SVT_ROW_CASE(256)
-    SVT_ROW_CASE(384)
-    SVT_ROW_CASE(512)
-    default:
-      return (int)cudaErrorInvalidValue;
+int block_forward_c(const BlockFwd& a, cudaStream_t s) {
+  using P = PTile<C>;
+  const long long M = (long long)a.B * a.H * a.W;
+  const int H4 = 4 * C;
+  int err;
+  {  // P
+    const int tiles_h = (a.H + P::PH - 1) / P::PH, tiles_w = (a.W + PW - 1) / PW;
+    const long long ctas = (long long)a.B * tiles_h * tiles_w;
+    if ((err = (int)cudaFuncSetAttribute(block_prologue<C, EMIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)P::BYTES)))
+      return err;
+    block_prologue<C, EMIT><<<(unsigned)ctas, P_THREADS, P::BYTES, s>>>(
+        a.x, a.k, a.dw_bias, a.ln_scale, a.ln_bias, a.y, a.t, a.H, a.W, tiles_h, tiles_w,
+        a.eps);
+    if ((err = (int)cudaGetLastError())) return err;
   }
-#undef SVT_ROW_CASE
+  const int tiles_m = (int)((M + BM - 1) / BM);
+  {  // F1: h = gelu_tanh(y . W1^T + b1); K = C (96 is zero-filled to 128)
+    constexpr int NB = H4 % (2 * BN) == 0 ? 2 : 1;
+    CUtensorMap m[4];
+    if ((err = hop::make_map(&m[0], a.y, M, C, C, BM)) ||
+        (err = hop::make_map(&m[2], a.w1t, H4, C, C, BN)))
+      return err;
+    m[1] = m[0];
+    m[3] = m[2];
+    const Gemm g{M, C, C, H4, tiles_m, H4 / (NB * BN), 1};
+    Epi e{};
+    e.b1 = a.b1;
+    e.h = a.h;
+    e.C = C;
+    if ((err = launch_gemm<1, NB, false, EPI_GELU>(m, g, e, s))) return err;
+  }
+  {  // F2: out = (h . W2^T + b2) * gamma + x; K = 4C
+    constexpr int NB = C % (2 * BN) == 0 ? 2 : 1;
+    CUtensorMap m[4];
+    if ((err = hop::make_map(&m[0], a.h, M, H4, H4, BM)) ||
+        (err = hop::make_map(&m[2], a.w2t, C, H4, H4, BN)))
+      return err;
+    m[1] = m[0];
+    m[3] = m[2];
+    const Gemm g{M, H4, H4, C, tiles_m, (C + NB * BN - 1) / (NB * BN), 1};
+    Epi e{};
+    e.C = C;
+    e.b2 = a.b2;
+    e.gamma = a.gamma;
+    e.x = a.x;
+    e.out = a.out;
+    if ((err = launch_gemm<1, NB, false, EPI_OUT>(m, g, e, s))) return err;
+  }
+  return 0;
+}
+
+template <int C>
+int block_forward(const BlockFwd& a, cudaStream_t s) {
+  return a.t ? block_forward_c<C, true>(a, s) : block_forward_c<C, false>(a, s);
 }
 
 }  // namespace
 
-// x, k [49, C], w1t [4C, C], w2t [C, 4C], out and t are bf16; the rest f32.
+
+// x, k [49, C], w1t [4C, C], w2t [C, 4C], out, t, y and h bf16; the rest f32.
 // t (the rounded conv output, [B, H, W, C]) may be null: the inference form.
-// Returns the cudaError_t of the launch.
+// y [B * H * W, C] and h [B * H * W, 4C] are scratch. Returns the first
+// cudaError_t of the three launches.
 extern "C" int svt_convnext_block_forward(
     const void* x, const void* k, const void* dw_bias, const void* ln_scale,
     const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
-    const void* b2, const void* gamma, void* out, void* t, int B, int H, int W,
-    int C, float eps, void* stream) {
-  if (B * H * W == 0) return 0;
+    const void* b2, const void* gamma, void* out, void* t, void* y, void* h, int B, int H,
+    int W, int C, float eps, void* stream) {
+  const long long M = (long long)B * H * W;
+  if (M == 0) return 0;
+  if (B < 0 || H < 0 || W < 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const BlockFwd a{(const bf16*)x, (const bf16*)k, (const float*)dw_bias,
+                   (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1t,
+                   (const float*)b1, (const bf16*)w2t, (const float*)b2, (const float*)gamma,
+                   (bf16*)out, (bf16*)t, (bf16*)y, (bf16*)h, B, H, W, eps};
   cudaStream_t s = (cudaStream_t)stream;
-#define SVT_BLOCK_CASE(CC)                                                    \
-  case CC:                                                                    \
-    return launch<CC>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2,     \
-                      gamma, out, t, B, H, W, eps, s);
+#define SVT_BLOCK_CASE(CC) \
+  case CC:                 \
+    return block_forward<CC>(a, s);
   switch (C) {
     SVT_BLOCK_CASE(96)
     SVT_BLOCK_CASE(128)
@@ -214,26 +290,4 @@ extern "C" int svt_convnext_block_forward(
       return (int)cudaErrorInvalidValue;
   }
 #undef SVT_BLOCK_CASE
-}
-
-// out = res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2) over M token rows
-// of width C: x, res, w1t [4C, C], w2t [C, 4C] and out bf16, the rest f32.
-// Returns the cudaError_t of the launch.
-extern "C" int svt_ln_mlp_forward(const void* x, const void* res, const void* ln_scale,
-                                  const void* ln_bias, const void* w1t, const void* b1,
-                                  const void* w2t, const void* b2, const void* gamma,
-                                  void* out, long long M, int C, float eps, void* stream) {
-  return row_forward(0, x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, M, C, eps,
-                     stream);
-}
-
-// out = res + gamma * (W2 . gelu_tanh(W1 . x + b1) + b2), or with res null
-// W2 . gelu_tanh(W1 . x + b1) + b2 (gamma not read), over M token rows of
-// width C; dtypes as svt_ln_mlp_forward. Returns the cudaError_t of the launch.
-extern "C" int svt_mlp_forward(const void* x, const void* res, const void* w1t,
-                               const void* b1, const void* w2t, const void* b2,
-                               const void* gamma, void* out, long long M, int C,
-                               void* stream) {
-  return row_forward(res ? 1 : 2, x, res, nullptr, nullptr, w1t, b1, w2t, b2, gamma, out, M,
-                     C, 0.f, stream);
 }

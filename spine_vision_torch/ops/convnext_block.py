@@ -1,17 +1,28 @@
-"""Whole ConvNeXt v1 block forward in one kernel (NHWC, C <= 512).
+"""Whole ConvNeXt v1 block forward (NHWC, C <= 512).
 
 ``x + gamma * (W2 . gelu_tanh(W1 . LN(dwconv7x7(x) + b_dw) + b1) + b2)``:
 counterpart of ``spine_vision_tpu/ops/convnext_block.py::convnext_block_fused``
 (forward only). On a CUDA tensor :func:`convnext_block` launches the
-hand-written kernel ``csrc/convnext_block.cu`` (replaces the TPU kernel
-``_block_pallas``; see the source for its design and bound); on a CPU tensor it
-runs :func:`block_reference`, the plain PyTorch version with the kernel's
-rounding points (y and the GELU hidden rounded to x's dtype before each
-product, f32 accumulation and epilogue, the residual from x itself).
+hand-written kernels of ``csrc/convnext_block.cu`` (they replace the TPU
+kernel ``_block_pallas``; see the source for their design and bound), three
+a call:
+
+- P, the stencil + bias + LayerNorm prologue: ``y = LN(dwconv7x7(x) + b_dw)``
+  in bf16 (:func:`prologue_reference`);
+- F1, the hidden product: ``h = gelu_tanh(y . W1 + b1)`` in bf16
+  (:func:`hidden_reference`);
+- F2, the output product: ``out = (h . W2 + b2) * gamma + x``
+  (:func:`out_reference`).
+
+On a CPU tensor it runs :func:`block_reference`, the plain PyTorch version of
+the whole call with the kernels' rounding points (y and the GELU hidden
+rounded to x's dtype before each product, f32 accumulation and epilogue, the
+residual from x itself); the three stage versions compose to it bit for bit.
 
 With ``emit_conv=True`` (the hybrid training block's forward) both also return
 ``t = dwconv7x7(x) + b_dw`` rounded to x's dtype, and the LayerNorm reads that
-rounded ``t``, as the TPU kernel's ``emit_conv`` form does.
+rounded ``t``, as the TPU kernel's ``emit_conv`` form does; without it the
+LayerNorm reads the f32 ``t``.
 
 :func:`convnext_block_fused` is the trainable block, the counterpart of the
 JAX package's custom VJP ``_block_ad``: the kernel forward (inference form),
@@ -39,7 +50,7 @@ from spine_vision_torch.ops.dwconv import (
 )
 from spine_vision_torch.ops.fused_mlp import mlp_bwd, tanh_gelu
 
-KERNEL_WIDTHS = (96, 128, 192, 256, 384, 512)  # widths the CUDA kernel is built for
+KERNEL_WIDTHS = (96, 128, 192, 256, 384, 512)  # widths the CUDA kernels are built for
 
 
 def block_reference(
@@ -68,6 +79,91 @@ def block_reference(
     out = torch.matmul(hidden.float(), w2t.float().t()) + b2.float()
     out = (out * gamma.float() + x.float()).to(x.dtype)
     return (out, t_lp) if emit_conv else out
+
+
+def prologue_reference(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    eps: float = 1e-6,
+    emit_conv: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The plain P: ``(y, t)``, y = LN(dwconv7x7(x) + b_dw) in x's dtype and
+    shape; with ``emit_conv`` t rounded to x's dtype, which the LayerNorm
+    reads, else ``None`` and the LayerNorm reads the f32 t."""
+    t = depthwise_conv7x7_reference(x, k49) + dw_bias.float()
+    t_lp = None
+    if emit_conv:
+        t_lp = t.to(x.dtype)
+        t = t_lp.float()
+    return layer_norm_f32(t, ln_scale, ln_bias, eps).to(x.dtype), t_lp
+
+
+def hidden_reference(y: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """The plain F1 on ``[..., C]``: ``gelu_tanh(y . W1 + b1)`` in f32,
+    rounded to y's dtype."""
+    hidden = torch.matmul(y.float(), w1t.float().t()) + b1.float()
+    return tanh_gelu(hidden).to(y.dtype)
+
+
+def out_reference(
+    h: torch.Tensor, w2t: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """The plain F2 on ``[..., 4C]``: ``(h . W2 + b2) * gamma + x`` in f32,
+    rounded once to x's dtype, in x's shape (the kernel's [M, 4C] h or P's
+    NHWC one)."""
+    out = torch.matmul(h.float(), w2t.float().t()) + b2.float()
+    return (out * gamma.float() + x.float().reshape(out.shape)).to(x.dtype).reshape(x.shape)
+
+
+# csrc/convnext_block.cu's launch geometry. P: a CTA takes _TILE_COLS
+# columns by _tile_rows(C) rows of one image and walks C in halo chunks of
+# _CHUNK channels. F1 and F2: csrc/wg_gemm.cuh's 128-row tiles of NB x 128
+# columns, one persistent CTA a multiprocessor.
+_TILE_COLS = 8  # PW
+_CHUNK = 64  # PCC
+_HALO = 3  # the 7x7 stencil's reach
+_TILE = 128  # BM, BN
+
+
+def _tile_rows(c: int) -> int:
+    """P's tile rows (PTile::PH): 64 tokens at C <= 192, else 32, so that the
+    f32 t tile and two halo chunks leave room for two CTAs a multiprocessor."""
+    return 8 if c <= 192 else 4
+
+
+def forward_geometry(b: int, h: int, w: int, c: int) -> dict:
+    """The launch geometry of ``csrc/convnext_block.cu`` for a [b, h, w, c]
+    input: P's tile (rows, cols), its tiles a side, CTAs, halo chunks and
+    shared memory; F1's and F2's (row, column) tiles and wgmma tiles a CTA
+    tile (``nb``). Raises on what the kernels do not take, before anything
+    is launched."""
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"convnext_block kernel is built for C in {KERNEL_WIDTHS}, got {c}")
+    m = b * h * w
+    if not 0 < m < 2 ** 31:
+        raise ValueError(f"convnext_block kernels take 1 to 2^31 - 1 tokens (TMA coordinates "
+                         f"are 32-bit), got {m}")
+    rows = _tile_rows(c)
+    tiles = (-(-h // rows), -(-w // _TILE_COLS))
+    halo = (rows + 2 * _HALO) * (_TILE_COLS + 2 * _HALO) * _CHUNK * 2
+    h4 = 4 * c
+    nb1 = 2 if h4 % (2 * _TILE) == 0 else 1
+    nb2 = 2 if c % (2 * _TILE) == 0 else 1
+    tiles_m = -(-m // _TILE)
+    return {
+        "tile": (rows, _TILE_COLS),
+        "tiles": tiles,
+        "ctas": b * tiles[0] * tiles[1],
+        "chunks": -(-c // _CHUNK),
+        "prologue_smem": rows * _TILE_COLS * c * 4 + 2 * halo,
+        "hidden_nb": nb1,
+        "hidden_tiles": (tiles_m, h4 // (nb1 * _TILE)),
+        "out_nb": nb2,
+        "out_tiles": (tiles_m, -(-c // (nb2 * _TILE))),
+    }
 
 
 def _check(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma) -> None:
@@ -102,6 +198,46 @@ def _check(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma) -> None:
             raise ValueError(f"convnext_block: {name} is on {t.device}, x on {x.device}")
 
 
+def fwd_launch(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    eps: float = 1e-6,
+    emit_conv: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Launch ``csrc/convnext_block.cu``'s P, F1 and F2 on CUDA tensors and
+    return its buffers by name: ``out``, ``t`` (with ``emit_conv``) and the
+    scratch ``y`` [M, C] and ``h`` [M, 4C], which the stage tests read. The
+    launch counters are :func:`convnext_block`'s; this counts nothing."""
+    args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
+    _check(*args)
+    b, h, w, c = x.shape
+    forward_geometry(b, h, w, c)
+    m = b * h * w
+    o = {"out": torch.empty_like(x),
+         "y": torch.empty(m, c, dtype=x.dtype, device=x.device),
+         "h": torch.empty(m, 4 * c, dtype=x.dtype, device=x.device)}
+    if emit_conv:
+        o["t"] = torch.empty_like(x)
+    fn = cuda_build.load("convnext_block").svt_convnext_block_forward
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        *(p(a) for a in args), p(o["out"]), p(o["t"]) if emit_conv else ctypes.c_void_p(None),
+        p(o["y"]), p(o["h"]), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
+        ctypes.c_float(eps), cuda_build.stream_ptr(x.device),
+    )
+    cuda_build.check(err, "convnext_block")
+    return o
+
+
 def convnext_block(
     x: torch.Tensor,
     k49: torch.Tensor,
@@ -121,30 +257,19 @@ def convnext_block(
 
     CUDA tensors launch ``csrc/convnext_block.cu`` (bf16, C in
     ``KERNEL_WIDTHS``; anything else raises). CPU tensors take the plain
-    version. ``convnext_block.launches`` counts kernel launches of either
-    form, ``convnext_block.emit_launches`` those of the ``emit_conv`` form.
+    version. ``convnext_block.launches`` counts calls that launched the
+    kernels, of either form, ``convnext_block.emit_launches`` those of the
+    ``emit_conv`` form.
     """
     args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
     if x.device.type == "cpu":
         return block_reference(*args, eps=eps, emit_conv=emit_conv)
-    _check(*args)
-    b, h, w, c = x.shape
-    out = torch.empty_like(x)
-    t = torch.empty_like(x) if emit_conv else None
-    fn = cuda_build.load("convnext_block").svt_convnext_block_forward
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    err = fn(
-        *(p(a) for a in args), p(out), p(t) if emit_conv else ctypes.c_void_p(None),
-        ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
-        ctypes.c_float(eps), cuda_build.stream_ptr(x.device),
-    )
-    cuda_build.check(err, "convnext_block")
+    o = fwd_launch(*args, eps=eps, emit_conv=emit_conv)
     convnext_block.launches += 1
     if emit_conv:
         convnext_block.emit_launches += 1
-        return out, t
-    return out
+        return o["out"], o["t"]
+    return o["out"]
 
 
 convnext_block.launches = 0

@@ -6,7 +6,7 @@ hand-written kernel on a CUDA tensor and runs its plain PyTorch version
 (``*_reference``, with the TPU kernels' rounding points) on a CPU tensor:
 
 - :func:`ln_mlp`, ``res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)``:
-  the LN form of ``csrc/convnext_block.cu``'s row kernel (replaces
+  the LN form of ``csrc/row_mlp.cu``'s row kernel (replaces
   ``_ln_mlp_pallas``);
 - :func:`mlp_fwd`, the same without the LayerNorm, with the tail (gamma and
   the residual) or without it: the copy form of that row kernel (replaces
@@ -538,7 +538,7 @@ def ln_mlp(
     """``residual + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)`` on
     ``[..., C]`` (NHWC or flat), as :func:`ln_mlp_reference`.
 
-    CUDA tensors launch the LN form of ``csrc/convnext_block.cu``'s row kernel
+    CUDA tensors launch the LN form of ``csrc/row_mlp.cu``'s row kernel
     (bf16 ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else
     raises); CPU tensors take the plain version. ``ln_mlp.launches`` counts
     calls that launched the kernel.
@@ -552,7 +552,7 @@ def ln_mlp(
            w1t, w2t, g_name="residual")
     m = x.numel() // c
     out = torch.empty_like(x)
-    fn = cuda_build.load("convnext_block").svt_ln_mlp_forward
+    fn = cuda_build.load("row_mlp").svt_ln_mlp_forward
     fn.restype = ctypes.c_int
     p = cuda_build.ptr
     err = fn(
@@ -581,7 +581,7 @@ def mlp_fwd(
     form ``residual + gamma * mlp(x)`` (gamma defaults to ones, the residual
     to zeros), without both ``mlp(x)`` alone; as :func:`mlp_reference`.
 
-    CUDA tensors launch the copy form of ``csrc/convnext_block.cu``'s row
+    CUDA tensors launch the copy form of ``csrc/row_mlp.cu``'s row
     kernel (bf16 ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else
     raises); CPU tensors take the plain version. ``mlp_fwd.launches`` counts
     calls that launched the kernel.
@@ -599,7 +599,7 @@ def mlp_fwd(
     _check("mlp_fwd", x, residual, vectors, w1t, w2t, g_name="residual")
     m = x.numel() // c
     out = torch.empty_like(x)
-    fn = cuda_build.load("convnext_block").svt_mlp_forward
+    fn = cuda_build.load("row_mlp").svt_mlp_forward
     fn.restype = ctypes.c_int
     p = cuda_build.ptr
     none = ctypes.c_void_p(None)

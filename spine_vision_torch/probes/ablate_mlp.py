@@ -20,7 +20,7 @@ At C = 128, 256 and 512 with M = B*H*W tokens of that stage (B = 32 in the
 script). The script also swept the TPU's token tile (1024-4096 rows a grid
 step); the port's body has one tile, 64 tokens a CTA, so only C is swept. The
 anchor row is #5 itself (``ops/fused_mlp.py::mlp_fwd``, built from
-``csrc/convnext_block.cu``) at the same shape. Rates are the script's:
+``csrc/row_mlp.cu``) at the same shape. Rates are the script's:
 ``4 * M * C * 4C`` flops over the time, beside the share of 989 TFLOP/s.
 The inputs follow the script's scales, but gamma is ``1 + 0.1 * N(0, 1)``
 instead of ``0.01 * N(0, 1)``, so that the check against the plain version

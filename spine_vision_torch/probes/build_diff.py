@@ -1,23 +1,27 @@
-"""Hold this tree's build of ``csrc/convnext_block.cu`` against another
-tree's: the SASS of every kernel, each kernel's registers and stack, and the
-time of #5 (``svt_mlp_forward``) at the shapes of its path, #7
-(``svt_ln_mlp_forward``) and #1 in its training form
-(``svt_convnext_block_forward`` with t) at the train step's, launched from
-each build in turn.
+"""Hold this tree's builds of ``csrc/convnext_block.cu`` and
+``csrc/row_mlp.cu`` against another tree's builds of whichever of the two it
+has (the row forms #5 and #7 lived in ``convnext_block.cu`` before #1's
+``wgmma`` form): the SASS of every kernel the two builds share, each kernel's
+registers and stack, the kernels only one of them has, and the time of #5
+(``svt_mlp_forward``) at the shapes of its path, #7 (``svt_ln_mlp_forward``)
+and #1 in its training form (``svt_convnext_block_forward`` with t) at the
+train step's, launched from each build in turn. #1 is called through each
+build's own C interface (the parent's, the mma.sync form's, is written down
+above ``FWD_SCRATCH``).
 
     python -m spine_vision_torch.probes.build_diff --parent DIR
     python -m spine_vision_torch.probes.build_diff --parent DIR --case ln_mlp_bwd
 
 The ``ln_mlp_bwd`` case builds both trees' ``csrc/ln_mlp_bwd.cu`` and
 ``csrc/block_train_bwd.cu`` (which includes its header) instead: each build's
-kernels with their registers, stack and spills, then #8/#9
-(``svt_ln_mlp_bwd``), #6 (``svt_mlp_bwd``) and #10 (``svt_block_train_bwd``)
-at the train step's shapes, each build called through its own C interface
-with its own scratch (the parent's, the mma.sync form's, is written down at
-``PARENT_BWD``), device time a call in the order parent, tree, tree, parent,
-and the two builds' outputs held within 2e-2 of max |parent| of each other.
+kernels with their registers, stack and spills, the SASS of every kernel the
+builds share, then #8/#9 (``svt_ln_mlp_bwd``), #6 (``svt_mlp_bwd``) and #10
+(``svt_block_train_bwd``) at the train step's shapes, both builds called
+through this tree's C interface (the Hopper form's) with their
+own scratch, device time a call in the order parent, tree, tree, parent, and
+the two builds' outputs held within 2e-2 of max |parent| of each other.
 
-``DIR`` is a checkout of another commit (``git archive``). Both sources are
+``DIR`` is a checkout of another commit (``git archive``). The sources are
 compiled by nvcc with the package's flags, and ``cuobjdump`` lists their
 SASS; kernels are matched by name, the default activation of
 ``csrc/mlp_body.cuh`` (``GeluTanh``) left out. Where two kernels' SASS
@@ -28,7 +32,9 @@ time a launch (a CUDA graph of back-to-back launches), its time a launch
 enqueued from the host back to back and the host's time a launch (both by
 :func:`~spine_vision_torch.probes.time_ms`), in the order parent, tree, tree,
 parent; then #5's own wrapper (``ops/fused_mlp.py::mlp_fwd``), 20 calls back
-to back as ``chip_smoke.py`` times it. Runs on the card.
+to back as ``chip_smoke.py`` times it. #5's and #7's outputs must agree bit
+for bit between the builds; #1's within 1e-2 of max |parent| (its products
+sum in another order). Runs on the card.
 """
 
 from __future__ import annotations
@@ -46,7 +52,12 @@ import torch
 from spine_vision_torch.ops import cuda_build
 from spine_vision_torch.probes import SEED, normal, time_ms
 
-SOURCE = "convnext_block"
+# The sources of #1, #5 and #7: the row forms (#5, #7) moved from
+# convnext_block.cu to row_mlp.cu when #1 moved to wgmma products; each tree
+# builds whichever of the two it has.
+SOURCES = ("convnext_block", "row_mlp")
+ENTRY = {"mlp_fwd": "svt_mlp_forward", "ln_mlp": "svt_ln_mlp_forward",
+         "convnext_block_emit_conv": "svt_convnext_block_forward"}
 STAGES = ((32, 128), (16, 256), (8, 512))  # #5's path: B2 at 128^2, H = W of each C
 TRAIN_STAGES = ((128, 128), (64, 256), (32, 512))  # the train step: B32 at 512^2
 # (kernel, batch, stages, launches a timed run): #5 at its path's shapes; #7
@@ -57,7 +68,7 @@ _ANON = re.compile(r"\(anonymous namespace\)::")
 _ENCODING = re.compile(r"/\* (0x[0-9a-f]{16}) \*/")
 
 
-def _build(csrc: Path, out: Path, source: str = SOURCE) -> subprocess.Popen:
+def _build(csrc: Path, out: Path, source: str) -> subprocess.Popen:
     out.parent.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
                              str(csrc / f"{source}.cu")], stdout=subprocess.PIPE,
@@ -159,8 +170,18 @@ def _inputs(b: int, hw: int, c: int, device) -> dict:
     }
 
 
-def _launcher(kernel: str, lib: ctypes.CDLL, a: dict, outs: tuple[torch.Tensor, ...]):
-    """One launch of ``kernel`` from ``lib`` on ``a``, into ``outs``."""
+# The parent's (the mma.sync form's) C interface of #1, one launch with no
+# scratch:
+#   int svt_convnext_block_forward(x, k, dw_bias, ln_scale, ln_bias, w1t, b1,
+#                                  w2t, b2, gamma, out, t, int B, int H, int W,
+#                                  int C, float eps, void* stream)
+# The tree's adds the scratch y [M, C] and h [M, 4C] (bf16) after t.
+FWD_SCRATCH = {"parent": (), "tree": ("y", "h")}
+
+
+def _launcher(tag: str, kernel: str, lib: ctypes.CDLL, a: dict, outs: tuple[torch.Tensor, ...]):
+    """One launch of the ``tag`` build's ``kernel`` from ``lib`` on ``a``,
+    into ``outs``."""
     p = cuda_build.ptr
     b, h, w, c = a["x"].shape
     m = ctypes.c_longlong(b * h * w)
@@ -175,14 +196,27 @@ def _launcher(kernel: str, lib: ctypes.CDLL, a: dict, outs: tuple[torch.Tensor, 
                 ctypes.c_int(c), eps)
     else:
         fn = lib.svt_convnext_block_forward
+        widths = {"y": c, "h": 4 * c}
+        scratch = [torch.empty(b * h * w, widths[n], dtype=torch.bfloat16, device=a["x"].device)
+                   for n in FWD_SCRATCH[tag]]
         args = (p(a["x"]), p(a["k49"]), p(a["dw_bias"]), p(a["ln_scale"]), p(a["ln_bias"]), *mlp,
-                p(outs[0]), p(outs[1]), *(ctypes.c_int(v) for v in (b, h, w, c)), eps)
+                p(outs[0]), p(outs[1]), *(p(v) for v in scratch),
+                *(ctypes.c_int(v) for v in (b, h, w, c)), eps)
+        outs = (*outs, *scratch)  # kept alive with the launch
     fn.restype = ctypes.c_int
 
     def launch():
-        cuda_build.check(fn(*args, cuda_build.stream_ptr(outs[0].device)), kernel)
+        cuda_build.check(fn(*args, cuda_build.stream_ptr(outs[0].device)), f"{tag} {kernel}")
 
     return launch
+
+
+def _holding(loaded: dict, tag: str, entry: str) -> ctypes.CDLL:
+    """The ``tag`` build's library that exports ``entry``."""
+    for (t, _), lib in loaded.items():
+        if t == tag and hasattr(lib, entry):
+            return lib
+    raise RuntimeError(f"no library of the {tag}'s build exports {entry}")
 
 
 def _device_ms(launch, launches: int) -> float:
@@ -209,32 +243,8 @@ def _device_ms(launch, launches: int) -> float:
     return best
 
 
-# The parent's (the mma.sync form's) C interfaces of csrc/ln_mlp_bwd.cu and
-# csrc/block_train_bwd.cu:
-#   int svt_ln_mlp_bwd(t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small,
-#                      dw1t, dw2t, dgamma, y, h, gh, part, ws, long long M, int C,
-#                      int splits, void* stream)
-#   int svt_mlp_bwd(y, g, w1t, w1, b1, w2t, w2, b2, gamma, dy, small, dw1t, dw2t,
-#                   dgamma, h, gh, part, ws, long long M, int C, int splits,
-#                   void* stream)
-#   int svt_block_train_bwd(x, k, bias, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma,
-#                           g, gu, small, dw1t, dw2t, dgamma, taps, u, gu32, y,
-#                           h, gh, part, ws, tpart, int B, int H, int W, int C,
-#                           int splits, int rows_per_cta, float eps, void* stream)
-# with their own scratch: y [M, C], h and gh [M, 4C] bf16, part f32
-# [ceil(M / 64), 8C], ws f32 [splits, 4C, C] with splits from PARENT_BWD's
-# rule; #10's u and gu32 f32 [M, C] and tpart as the tree's.
-PARENT_BWD = {"tokens_a_tile": 64, "target_ctas": 528, "tokens_a_split": 32}
 BWD_SOURCES = {"ln_mlp_bwd": "ln_mlp_bwd", "mlp_bwd": "ln_mlp_bwd",
                "block_train_bwd": "block_train_bwd"}
-
-
-def _parent_splits(m: int, c: int) -> int:
-    """The parent's weight-gradient splits: 528 CTAs of 64 x 64 tiles, at
-    least 32 tokens a split."""
-    tiles = -(-4 * c // 64) * -(-c // 64)
-    return max(1, min(-(-PARENT_BWD["target_ctas"] // tiles),
-                      -(-m // PARENT_BWD["tokens_a_split"])))
 
 
 def _spills(log: str) -> int:
@@ -244,7 +254,7 @@ def _spills(log: str) -> int:
 def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
     """One call of the ``tag`` build's ``kernel`` (ln_mlp_bwd, mlp_bwd or
     block_train_bwd) on ``a``, into fresh outputs and scratch: ``(launch,
-    outputs)``."""
+    outputs)``. Both builds take this tree's C interface."""
     from spine_vision_torch.ops import dwconv
     from spine_vision_torch.ops import fused_mlp as fm
 
@@ -252,7 +262,7 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
     b, h, w, c = t.shape
     m = b * h * w
     ln = kernel != "mlp_bwd"
-    dev, bf16, f32 = t.device, torch.bfloat16, torch.float32
+    dev, f32 = t.device, torch.float32
     p = cuda_build.ptr
     o = {"dt": torch.empty_like(t), "small": torch.empty(8 * c, dtype=f32, device=dev),
          "dw1t": torch.empty(4 * c, c, dtype=f32, device=dev),
@@ -260,22 +270,11 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
          "dgamma": torch.empty(c, dtype=f32, device=dev)}
     w1, w2 = a["w1t"].t().contiguous(), a["w2t"].t().contiguous()
     weights = (p(a["w1t"]), p(w1), p(a["b1"]), p(a["w2t"]), p(w2), p(a["b2"]), p(a["gamma"]))
-    if tag == "parent":
-        splits = _parent_splits(m, c)
-        k = {"y": torch.empty(m, c, dtype=bf16, device=dev),
-             "h": torch.empty(m, 4 * c, dtype=bf16, device=dev),
-             "gh": torch.empty(m, 4 * c, dtype=bf16, device=dev),
-             "part": torch.empty(-(-m // PARENT_BWD["tokens_a_tile"]), 8 * c, dtype=f32,
-                                 device=dev),
-             "ws": torch.empty(splits, 4 * c, c, dtype=f32, device=dev)}
-        mid = ((p(k["y"]),) if ln else ()) + (p(k["h"]), p(k["gh"]))
-        split = (ctypes.c_int(splits),)
-    else:
-        geo = fm.bwd_geometry(m, c)
-        k = fm._buffers(t, ln, geo)
-        mid = ((p(k["y"]),) if ln else ()) + (p(k["gg"]),) + ((p(k["stats"]),) if ln else ()) + (
-            p(k["h"]), p(k["gh"])) + ((p(k["gy"]),) if ln else ())
-        split = (ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]))
+    geo = fm.bwd_geometry(m, c)
+    k = fm._buffers(t, ln, geo)
+    mid = ((p(k["y"]),) if ln else ()) + (p(k["gg"]),) + ((p(k["stats"]),) if ln else ()) + (
+        p(k["h"]), p(k["gh"])) + ((p(k["gy"]),) if ln else ())
+    split = (ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]))
     outs = (p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]))
     tail = (p(k["part"]), p(k["ws"]))
     if kernel == "block_train_bwd":
@@ -324,6 +323,15 @@ def _bwd_case(parent: Path, dev) -> None:
         print(f"[build_diff] {source} {tag}: {len(res)} kernels, spill stores {_spills(log)} "
               f"bytes; registers / stack bytes: " + "; ".join(
                   f"{name} {r} / {st}" for name, (r, st) in sorted(res.items())))
+    for source in sorted(set(BWD_SOURCES.values())):
+        sass = {tag: _sass(libs[source, tag]) for tag in ("parent", "tree")}
+        shared = sorted(set(sass["parent"]) & set(sass["tree"]))
+        verdicts = {k: _compare(sass["parent"][k], sass["tree"][k]) for k in shared}
+        same = [k for k, v in verdicts.items() if v.startswith("SASS identical")]
+        print(f"[build_diff] {source}: {len(shared)} kernels in both builds, {len(same)} with "
+              f"identical SASS (parent / tree); only in one build: "
+              f"{sorted(set(sass['parent']) ^ set(sass['tree'])) or 'none'}" + "".join(
+                  f"; {k}: {v}" for k, v in verdicts.items() if k not in same))
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     for kernel, source in BWD_SOURCES.items():
         for hw, c in TRAIN_STAGES:
@@ -361,45 +369,64 @@ def main(argv: list[str] | None = None) -> int:
     if args.case == "ln_mlp_bwd":
         _bwd_case(args.parent, dev)
         return 0
-    libs = {"parent": cuda_build.BUILD_DIR / "build_diff" / f"lib{SOURCE}-parent.so",
-            "tree": cuda_build.BUILD_DIR / "build_diff" / f"lib{SOURCE}-tree.so"}
-    jobs = {"parent": _build(args.parent / "spine_vision_torch" / "csrc", libs["parent"]),
-            "tree": _build(cuda_build.CSRC, libs["tree"])}
-    for tag, job in jobs.items():
+    trees = {"parent": args.parent / "spine_vision_torch" / "csrc", "tree": cuda_build.CSRC}
+    libs, jobs = {}, {}
+    for tag, csrc in trees.items():
+        for source in SOURCES:
+            if (csrc / f"{source}.cu").exists():
+                libs[tag, source] = cuda_build.BUILD_DIR / "build_diff" / f"lib{source}-{tag}.so"
+                jobs[tag, source] = _build(csrc, libs[tag, source], source)
+    for (tag, source), job in jobs.items():
         log, _ = job.communicate()
         if job.returncode:
-            raise RuntimeError(f"nvcc failed for the {tag}'s {SOURCE}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for the {tag}'s {source}.cu:\n{log}")
 
-    sass = {tag: _sass(lib) for tag, lib in libs.items()}
-    res = {tag: _resources(lib) for tag, lib in libs.items()}
-    if set(sass["parent"]) != set(sass["tree"]):
-        raise AssertionError(f"kernels differ: parent only {set(sass['parent']) - set(sass['tree'])}"
-                             f", tree only {set(sass['tree']) - set(sass['parent'])}")
+    sass = {tag: {} for tag in trees}
+    res = {tag: {} for tag in trees}
+    for (tag, _), lib in libs.items():
+        sass[tag].update(_sass(lib))
+        res[tag].update(_resources(lib))
+    for tag, other in (("parent", "tree"), ("tree", "parent")):
+        only = sorted(set(sass[tag]) - set(sass[other]))
+        print(f"[build_diff] {len(only)} kernels only in the {tag}'s build" +
+              "".join(f"; {k} (registers {res[tag][k][0]}, stack {res[tag][k][1]} bytes)"
+                      for k in only))
+    shared = sorted(set(sass["parent"]) & set(sass["tree"]))
     identical = 0
-    for kernel in sorted(sass["tree"]):
+    for kernel in shared:
         verdict = _compare(sass["parent"][kernel], sass["tree"][kernel])
         identical += verdict.startswith("SASS identical")
         (rp, sp), (rt, st) = res["parent"][kernel], res["tree"][kernel]
         print(f"[build_diff] {kernel}: registers {rp} / {rt}, stack {sp} / {st} bytes, {verdict}")
-    print(f"[build_diff] {SOURCE}: {len(sass['tree'])} kernels, {identical} with identical SASS "
+    print(f"[build_diff] {len(shared)} kernels in both builds, {identical} with identical SASS "
           "(parent / tree)")
 
-    loaded = {tag: ctypes.CDLL(str(lib)) for tag, lib in libs.items()}
+    loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     for kernel, batch, stages, launches in CASES:
         for hw, c in stages:
             a = _inputs(batch, hw, c, dev)
             n_out = 2 if kernel == "convnext_block_emit_conv" else 1
-            outs = {tag: tuple(torch.empty_like(a["x"]) for _ in range(n_out)) for tag in loaded}
-            launch = {tag: _launcher(kernel, lib, a, outs[tag]) for tag, lib in loaded.items()}
+            outs = {tag: tuple(torch.empty_like(a["x"]) for _ in range(n_out)) for tag in trees}
+            launch = {tag: _launcher(tag, kernel, _holding(loaded, tag, ENTRY[kernel]), a,
+                                     outs[tag]) for tag in trees}
             rows = []
             for tag in ("parent", "tree", "tree", "parent"):
                 rows.append((tag, _device_ms(launch[tag], launches),
                              *time_ms(launch[tag], iters=launches)))
             torch.cuda.synchronize()
-            equal = all(torch.equal(x, y) for x, y in zip(outs["parent"], outs["tree"]))
+            pairs = list(zip(outs["parent"], outs["tree"]))
+            if kernel == "convnext_block_emit_conv":  # out and t within 1e-2 of max |parent|
+                errs = [((y.float() - x.float()).abs().max() / x.float().abs().max()).item()
+                        for x, y in pairs]
+                equal = max(errs) <= 1e-2
+                verdict = ("within" if equal else "NOT within") + " 1e-2 of max |parent| (" + \
+                    ", ".join(f"{n} {e:.3g}" for n, e in zip(("out", "t"), errs)) + ")"
+            else:
+                equal = all(torch.equal(x, y) for x, y in pairs)
+                verdict = "equal" if equal else "DIFFER"
             line = (f"[build_diff] {kernel} B={batch} {hw}x{hw} C={c}: " + "; ".join(
                 f"{tag} device {d:.4f} enqueued {e:.4f} host {h:.4f}" for tag, d, e, h in rows)
-                + f" ms a launch; outputs {'equal' if equal else 'DIFFER'}")
+                + f" ms a launch; outputs {verdict}")
             if kernel == "mlp_fwd":
                 x2 = a["x"].view(-1, c)
                 wrapped = time_ms(lambda: fm.mlp_fwd(x2, a["w1t"], a["b1"], a["w2t"], a["b2"],

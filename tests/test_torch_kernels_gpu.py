@@ -450,6 +450,39 @@ def test_mlp_bwd_stage_kernels_match_plain_stages(cuda, stage, ln, b, hw, c):
         _close("dgamma", o["dgamma"], dgamma)
 
 
+# The block forward's stages: every built width at 507 tokens (ragged P tiles
+# at the image's right and bottom edges, a ragged last product tile, C = 96
+# and 192 ending inside a column tile), and the train step's shapes.
+BLOCK_STAGE_SHAPES = [(3, 13, 13, c) for c in cb.KERNEL_WIDTHS] + [
+    (b, hw, hw, c) for b, hw, c in TRAIN_SHAPES]
+
+
+@pytest.mark.parametrize("stage", ["prologue", "hidden", "out"])
+@pytest.mark.parametrize("emit_conv", [False, True])
+@pytest.mark.parametrize("b,h,w,c", BLOCK_STAGE_SHAPES)
+def test_block_stage_kernels_match_plain_stages(cuda, stage, emit_conv, b, h, w, c):
+    """Each launch of csrc/convnext_block.cu (P, F1, F2) against its plain
+    stage (ops/convnext_block.py) fed the kernel's own input to that stage, in
+    both forms; a second call agrees bit for bit."""
+    args = _block_args(np.random.default_rng(c + 3 * h + emit_conv), b, h, w, c, cuda)
+    o = cb.fwd_launch(*args, emit_conv=emit_conv)
+    again = cb.fwd_launch(*args, emit_conv=emit_conv)
+    torch.cuda.synchronize()
+    for name in o:
+        assert torch.equal(o[name], again[name]), name
+    if stage == "prologue":
+        y, t = cb.prologue_reference(*args[:5], emit_conv=emit_conv)
+        _close("y", o["y"], y.reshape(-1, c), 1e-2)
+        if emit_conv:
+            _close("t", o["t"], t, 1e-2)
+        else:
+            assert "t" not in o
+    elif stage == "hidden":
+        _close("h", o["h"], cb.hidden_reference(o["y"], args[5], args[6]), 1e-2)
+    else:
+        _close("out", o["out"], cb.out_reference(o["h"], args[7], args[8], args[9], args[0]), 1e-2)
+
+
 def test_kernels_reject_cpu_layouts_on_the_card(cuda):
     x = torch.zeros(1, 4, 4, 640, dtype=torch.bfloat16, device=cuda)
     k = torch.zeros(49, 640, dtype=torch.bfloat16, device=cuda)
