@@ -18,9 +18,10 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    block), the MLP backward, the dwconv+LN backward and the plain depthwise
    stencil (the all-kernel block), the backward kernels also run twice to
    show that they agree bit for bit. The MLP backward's stages (#6, #8/#9,
-   #10) and the block forward's three launches (#1: the stencil+LayerNorm
-   prologue P, the products F1 and F2) are timed one by one from a profile,
-   each beside its own bound.
+   #10), the block forward's three launches (#1: the stencil+LayerNorm
+   prologue P, the products F1 and F2) and the row forms' (#7: the LayerNorm
+   rows L, F1 and F2; #5: F1 and F2) are timed one by one from a profile,
+   each beside its own bound, with the call's device time.
 4. The inference slice: ConvNeXt-base localization at 512^2 and ResNet-18
    grading at 256^2 in bf16, weights from seeded numpy Flax-layout trees
    carried by ``load_flax_variables``; ``StudyInferencePipeline.run`` on 8
@@ -373,6 +374,13 @@ FWD_STAGE_KERNELS = (
     ("F1 hidden", _gemm(((1, 1), (1, 2)), "false", 4)),
     ("F2 out", _gemm(((1, 1), (1, 2)), "false", 5)),
 )
+# The row forms' launches (csrc/row_mlp.cu): #7's LayerNorm rows, then #1's
+# products; #5's F2 without its tail is EPI_BIAS (6).
+ROW_STAGE_KERNELS = (
+    ("L LN rows", ("mlp_ln_rows<",)),
+    FWD_STAGE_KERNELS[1],
+    ("F2 out", FWD_STAGE_KERNELS[2][1] + _gemm(((1, 1), (1, 2)), "false", 6)),
+)
 
 
 def _bwd_stage_bounds(m: int, c: int, ln: bool, u32: bool = False) -> dict:
@@ -401,6 +409,19 @@ def _fwd_stage_bounds(m: int, c: int, emit: bool) -> dict:
     }
 
 
+def _row_stage_bounds(m: int, c: int, tail: bool = True) -> dict:
+    """Each launch of the row forms beside its bound (ms, what bounds it): L
+    the bytes it must move (x read, y written); F1 and F2 as #1's, F2 without
+    the tail reading no residual."""
+    fwd = _fwd_stage_bounds(m, c, emit=False)
+    return {
+        "L LN rows": _bound_ms(4 * m * c + 8 * c, 0, 0),
+        "F1 hidden": fwd["F1 hidden"],
+        "F2 out": fwd["F2 out"] if tail else _bound_ms(10 * m * c + 8 * c * c + 4 * c,
+                                                       8 * m * c * c, 0),
+    }
+
+
 def _stage_times(what: str, call, bounds: dict, table=BWD_STAGE_KERNELS,
                  calls: int = 5) -> None:
     """Device time a call of each stage in ``table`` (the MLP backward's by
@@ -417,6 +438,7 @@ def _stage_times(what: str, call, bounds: dict, table=BWD_STAGE_KERNELS,
         torch.cuda.synchronize()
     events = _device_events(prof)
     total = sum(_dev_us(e) for e in events) / calls / 1e3
+    print(f"[stage] {what}: device ms a call {total:.4f}")
     for label, parts in table:
         group = [e for e in events if any(p in e.key.replace(" ", "") for p in parts)]
         if not group:
@@ -720,6 +742,8 @@ def mlp_kernel_phase(device, report: dict) -> None:
                 f"ln_mlp {shape}", count, err7, lambda: fm.ln_mlp(*largs),
                 lambda: fm.ln_mlp_reference(*largs), library7, nbytes, 16 * m * c * c,
                 15 * m * 4 * c + 10 * m * c, per))
+            _stage_times(f"ln_mlp {shape}", lambda: fm.ln_mlp(*largs), _row_stage_bounds(m, c),
+                         ROW_STAGE_KERNELS)
         row5 = _timed_row(
             f"mlp_fwd {shape}", count, max(err5, err5n), lambda: fm.mlp_fwd(*margs, **tail),
             lambda: fm.mlp_reference(*margs, **tail), lambda: mlp_lib(a["x"]), nbytes,
@@ -727,8 +751,12 @@ def mlp_kernel_phase(device, report: dict) -> None:
             per if not train else "blocks_of_this_shape")
         if not train:
             rows["mlp_fwd"].append(row5)
+        _stage_times(f"mlp_fwd {shape}", lambda: fm.mlp_fwd(*margs, **tail),
+                     _row_stage_bounds(m, c), ROW_STAGE_KERNELS)
         no_tail_ms = _time_ms(lambda: fm.mlp_fwd(*margs))
         print(f"[kernel] mlp_fwd no tail {shape}: ms={no_tail_ms:.4f}")
+        _stage_times(f"mlp_fwd no tail {shape}", lambda: fm.mlp_fwd(*margs),
+                     _row_stage_bounds(m, c, tail=False), ROW_STAGE_KERNELS)
         fm.ln_mlp.launches, fm.mlp_fwd.launches = saved
         del a, largs, margs, tail, vec
         torch.cuda.empty_cache()
@@ -885,10 +913,24 @@ def _dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-# Kernel groups of a train step's profile: (label, name fragments).
+def _profile_groups(launches: dict) -> tuple:
+    """Kernel groups of a train step's profile, (label, name fragments), for
+    a step with these launch counts. #1 and the row forms #7 and #5 launch
+    the same products (F1, F2) under the same names; no training mode runs
+    both (the routes of models/convnext.py), so the step's counters say whose
+    they are."""
+    products = sum((parts for _, parts in ROW_STAGE_KERNELS[1:]), ())
+    rows = launches["ln_mlp"] + launches["mlp_fwd"]
+    if rows and launches["convnext_block"]:
+        raise AssertionError("a step runs #1 and the row forms, whose products share names")
+    return (("block forward #1 (P, F1, F2)", ("block_prologue<",) + (() if rows else products)),
+            ("LN+MLP and MLP forwards #7, #5 (L, F1, F2)",
+             ("mlp_ln_rows<",) + (products if rows else ())),
+            *PROFILE_GROUPS)
+
+
+# The other kernel groups of a train step's profile: (label, name fragments).
 PROFILE_GROUPS = (
-    ("block forward #1", sum((parts for _, parts in FWD_STAGE_KERNELS), ())),
-    ("LN+MLP and MLP forwards #7, #5", ("row_mlp_kernel",)),
     ("dwconv+LN #2", ("dw_ln_kernel",)),
     ("MLP backward per token #6, #8/#9, #10",
      sum((dict(BWD_STAGE_KERNELS)[s] for s in ("A rows", "B hidden", "C g_y", "L LayerNorm")),
@@ -1249,7 +1291,7 @@ def profile_train(trainer, dataset, p50_ms: float, path: str) -> None:
         print(f"[profile] {path}: {dev(e) / 1e3 / 2:9.3f} ms/step x{e.count // 2:<5d} "
               f"{e.key[:90]}")
     rest = list(events)
-    for label, parts in PROFILE_GROUPS:
+    for label, parts in _profile_groups(TRAIN_LAUNCHES[path]):
         group = [e for e in rest if any(p in e.key.replace(" ", "") for p in parts)]
         rest = [e for e in rest if e not in group]
         print(f"[profile] {path} group: {sum(dev(e) for e in group) / 1e3 / 2:9.3f} ms/step "

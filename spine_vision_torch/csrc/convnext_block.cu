@@ -201,7 +201,6 @@ template <int C, bool EMIT>
 int block_forward_c(const BlockFwd& a, cudaStream_t s) {
   using P = PTile<C>;
   const long long M = (long long)a.B * a.H * a.W;
-  const int H4 = 4 * C;
   int err;
   {  // P
     const int tiles_h = (a.H + P::PH - 1) / P::PH, tiles_w = (a.W + PW - 1) / PW;
@@ -215,40 +214,13 @@ int block_forward_c(const BlockFwd& a, cudaStream_t s) {
         a.eps);
     if ((err = (int)cudaGetLastError())) return err;
   }
-  const int tiles_m = (int)((M + BM - 1) / BM);
-  {  // F1: h = gelu_tanh(y . W1^T + b1); K = C (96 is zero-filled to 128)
-    constexpr int NB = H4 % (2 * BN) == 0 ? 2 : 1;
-    CUtensorMap m[4];
-    if ((err = hop::make_map(&m[0], a.y, M, C, C, BM)) ||
-        (err = hop::make_map(&m[2], a.w1t, H4, C, C, BN)))
-      return err;
-    m[1] = m[0];
-    m[3] = m[2];
-    const Gemm g{M, C, C, H4, tiles_m, H4 / (NB * BN), 1};
-    Epi e{};
-    e.b1 = a.b1;
-    e.h = a.h;
-    e.C = C;
-    if ((err = launch_gemm<1, NB, false, EPI_GELU>(m, g, e, s))) return err;
-  }
-  {  // F2: out = (h . W2^T + b2) * gamma + x; K = 4C
-    constexpr int NB = C % (2 * BN) == 0 ? 2 : 1;
-    CUtensorMap m[4];
-    if ((err = hop::make_map(&m[0], a.h, M, H4, H4, BM)) ||
-        (err = hop::make_map(&m[2], a.w2t, C, H4, H4, BN)))
-      return err;
-    m[1] = m[0];
-    m[3] = m[2];
-    const Gemm g{M, H4, H4, C, tiles_m, (C + NB * BN - 1) / (NB * BN), 1};
-    Epi e{};
-    e.C = C;
-    e.b2 = a.b2;
-    e.gamma = a.gamma;
-    e.x = a.x;
-    e.out = a.out;
-    if ((err = launch_gemm<1, NB, false, EPI_OUT>(m, g, e, s))) return err;
-  }
-  return 0;
+  // F1 and F2: h = gelu_tanh(y . W1^T + b1), out = (h . W2^T + b2) * gamma + x.
+  Epi e{};
+  e.b2 = a.b2;
+  e.gamma = a.gamma;
+  e.x = a.x;
+  e.out = a.out;
+  return mlp_products<C, EPI_OUT>(a.y, a.w1t, a.b1, a.w2t, a.h, M, e, s);
 }
 
 template <int C>

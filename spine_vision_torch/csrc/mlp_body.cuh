@@ -1,12 +1,14 @@
-// The ConvNeXt block's MLP body on 64-token tiles, shared by the block forward
-// and the row MLP forwards (convnext_block.cu) and the MLP ablation probe
-// (probe_mlp.cu): mlp_tail, the row prologue (row_mlp_kernel) and its launch.
+// The ConvNeXt block's MLP body on 64-token tiles, on mma.sync: mlp_tail, the
+// row prologue (row_mlp_kernel) and its launch. The row MLP forwards #5 and #7
+// ran it before their wgmma form (row_mlp.cu, wg_gemm.cuh's mlp_products);
+// no path of the package runs it now. It stays as the recorded old body of
+// the MLP ablation probe (probe_mlp.cu), whose anchor row times it beside #5.
 //
 // The hidden activation is a template parameter, Act, applied to each pair of
 // pre-activations h = y . W1c + b1 before they are rounded to bf16 into shared
-// memory. GeluTanh, the default, is what the production kernels compile to;
-// the ablation probe instantiates the others (probe_act.cuh). Each library
-// that includes this gets its own copy.
+// memory. GeluTanh, the default, is what the row forms compiled to; the
+// ablation probe instantiates the others (probe_act.cuh). Each library that
+// includes this gets its own copy.
 #pragma once
 
 #include "dwconv_ln.cuh"

@@ -1,8 +1,10 @@
 // MLP-body ablation probe: the block MLP with its tail,
 //   out = res + gamma * (W2 . act(W1 . x + b1) + b2),
-// through the production row kernel (mlp_body.cuh's row_mlp_kernel in its
-// copy form with TAIL) with the hidden activation swapped:
-//   0 GeluTanh  tanh-GELU in f32, what #1, #5 and #7 compile to
+// through the old mma.sync row kernel (mlp_body.cuh's row_mlp_kernel in its
+// copy form with TAIL, what #5 ran before its wgmma form of row_mlp.cu) with
+// the hidden activation swapped; so it measures that recorded body, not the
+// kernels of #5 and #7 now:
+//   0 GeluTanh  tanh-GELU in f32, the old body's own activation
 //   1 ErfF32    A&S erf-GELU in f32 (the script's "full")
 //   2 Relu
 //   3 ErfBf16   erf-GELU in bf16 arithmetic (the script's "gelu_bf16")

@@ -2,8 +2,10 @@
 // ring (hopper.cuh), with the epilogue of each product that uses it:
 //   the MLP backward (ln_mlp_bwd.cuh): stage B's hidden epilogue, stage C's
 //     dy or g_y, stage D's split workspace;
-//   the block forward (convnext_block.cu): F1's h = gelu_tanh(y . W1 + b1)
-//     and F2's out = (h . W2 + b2) * gamma + x.
+//   the MLP forwards (mlp_products, below: the block forward of
+//     convnext_block.cu and the row forms of row_mlp.cu): F1's h =
+//     gelu_tanh(y . W1 + b1) and F2's out = (h . W2 + b2) * gamma + x, or
+//     without gamma and x, h . W2 + b2 (the row form #5 without its tail).
 // Each epilogue is its own instantiation (`if constexpr`), so adding one
 // leaves the others' code as it was. Each library that includes this gets its
 // own copy.
@@ -43,9 +45,10 @@ struct Gemm {
 // What the epilogues read and write. The backward: stage B h and g_hpre
 // (bf16, [M, 4C]) and db1's per-tile row of part; stage C dy (bf16) or g_y
 // (f32), [M, C]; stage D the f32 split workspace ws [splits, rows, cols]. The
-// block forward: F1 h (bf16 [M, 4C]) from b1; F2 out (bf16 [M, C]) from b2,
-// gamma and the residual x (bf16 [M, C]). The forward's fields come last, so
-// the backward's kernels read their parameters where they did.
+// MLP forwards: F1 h (bf16 [M, 4C]) from b1; F2 out (bf16 [M, C]) from b2
+// and, in EPI_OUT, gamma and the residual x (bf16 [M, C]). The forward's
+// fields come last, so the backward's kernels read their parameters where
+// they did.
 struct Epi {
   const float* b1;
   bf16* h;
@@ -60,7 +63,7 @@ struct Epi {
   const bf16* x;
   bf16* out;
 };
-enum { EPI_HIDDEN, EPI_DY, EPI_GY, EPI_WS, EPI_GELU, EPI_OUT };
+enum { EPI_HIDDEN, EPI_DY, EPI_GY, EPI_WS, EPI_GELU, EPI_OUT, EPI_BIAS };
 
 struct Unit {
   int tm, tn, nk;
@@ -354,13 +357,14 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) wg_gemm(
           }
         }
       }
-    } else if constexpr (EPI == EPI_OUT) {
-      // F2: out = (acc + b2) * gamma + x in f32, rounded once to bf16. x and
-      // out move as 16-byte groups: lane tq loads group 4 jq + tq of its row,
-      // the quad transpose (its own inverse) hands each lane its column pairs,
-      // and the results go back the same way. Groups past cols (C = 96 and
-      // 192 end inside a tile; cols is a multiple of 8) and rows past the
-      // last token are neither read nor stored.
+    } else if constexpr (EPI == EPI_OUT || EPI == EPI_BIAS) {
+      // F2: out = (acc + b2) * gamma + x (EPI_OUT) or acc + b2 (EPI_BIAS) in
+      // f32, rounded once to bf16. x and out move as 16-byte groups: lane tq
+      // loads group 4 jq + tq of its row, the quad transpose (its own
+      // inverse) hands each lane its column pairs, and the results go back
+      // the same way. Groups past cols (C = 96 and 192 end inside a tile;
+      // cols is a multiple of 8) and rows past the last token are neither
+      // read nor stored.
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
         const int n0 = t.tn * TILE_N + i * BN;
@@ -368,29 +372,39 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1) wg_gemm(
         for (int jq = 0; jq < BN / 32; ++jq) {
           const int c8 = n0 + 8 * (4 * jq + tq);
           uint32_t xv[2][4];  // [row r, r + 8][group]
+          if constexpr (EPI == EPI_OUT) {
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const long long row = r + 8 * half;
-            if (row < g.rows && c8 < g.cols)
-              load16(xv[half], e.x + row * g.cols + c8);
-            else
-              xv[half][0] = xv[half][1] = xv[half][2] = xv[half][3] = 0u;
-            quad_transpose(xv[half], tq);
+            for (int half = 0; half < 2; ++half) {
+              const long long row = r + 8 * half;
+              if (row < g.rows && c8 < g.cols)
+                load16(xv[half], e.x + row * g.cols + c8);
+              else
+                xv[half][0] = xv[half][1] = xv[half][2] = xv[half][3] = 0u;
+              quad_transpose(xv[half], tq);
+            }
           }
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int c = n0 + 8 * (4 * jq + q) + 2 * tq;
-            float2 bb = make_float2(0.f, 0.f), gm = make_float2(0.f, 0.f);
-            if (c < g.cols) {
-              bb = svt::load2(e.b2 + c);
-              gm = svt::load2(e.gamma + c);
-            }
             const int j = 4 * jq + q;
+            if constexpr (EPI == EPI_OUT) {
+              float2 bb = make_float2(0.f, 0.f), gm = make_float2(0.f, 0.f);
+              if (c < g.cols) {
+                bb = svt::load2(e.b2 + c);
+                gm = svt::load2(e.gamma + c);
+              }
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const float2 xf = unpack_bf16(xv[half][q]);
-              xv[half][q] = pack_bf16((acc[i][4 * j + 2 * half] + bb.x) * gm.x + xf.x,
-                                      (acc[i][4 * j + 2 * half + 1] + bb.y) * gm.y + xf.y);
+              for (int half = 0; half < 2; ++half) {
+                const float2 xf = unpack_bf16(xv[half][q]);
+                xv[half][q] = pack_bf16((acc[i][4 * j + 2 * half] + bb.x) * gm.x + xf.x,
+                                        (acc[i][4 * j + 2 * half + 1] + bb.y) * gm.y + xf.y);
+              }
+            } else {
+              const float2 bb = c < g.cols ? svt::load2(e.b2 + c) : make_float2(0.f, 0.f);
+#pragma unroll
+              for (int half = 0; half < 2; ++half)
+                xv[half][q] = pack_bf16(acc[i][4 * j + 2 * half] + bb.x,
+                                        acc[i][4 * j + 2 * half + 1] + bb.y);
             }
           }
 #pragma unroll
@@ -449,6 +463,51 @@ int launch_gemm(const CUtensorMap (&m)[4], const Gemm& g, const Epi& e, cudaStre
   const unsigned grid = (unsigned)(units < sm_count() ? units : sm_count());
   wg_gemm<NA, NB, MN, EPI><<<grid, GEMM_THREADS, smem, s>>>(m[0], m[1], m[2], m[3], g, e);
   return (int)cudaGetLastError();
+}
+
+// The MLP forward's two products over M token rows of width C, as the block
+// forward and the row forms launch them:
+//   F1 wg_gemm<1, NB, false, EPI_GELU>: h = gelu_tanh(y . W1^T + b1) into the
+//      caller's h [M, 4C]; K = C (96 is zero-filled to 128 by TMA);
+//   F2 wg_gemm<1, NB, false, EPI2>: out from h . W2^T and e2 (EPI_OUT: b2,
+//      gamma, the residual e2.x and out; EPI_BIAS: b2 and out); K = 4C.
+// y, w1t [4C, C], w2t [C, 4C] and h are bf16 and 16-byte aligned. Returns the
+// first cudaError_t.
+template <int C, int EPI2>
+int mlp_products(const bf16* y, const bf16* w1t, const float* b1, const bf16* w2t, bf16* h,
+                 long long M, Epi e2, cudaStream_t s) {
+  static_assert(EPI2 == EPI_OUT || EPI2 == EPI_BIAS, "F2 writes the MLP's output");
+  constexpr int H4 = 4 * C;
+  const int tiles_m = (int)((M + BM - 1) / BM);
+  int err;
+  {  // F1
+    constexpr int NB = H4 % (2 * BN) == 0 ? 2 : 1;
+    CUtensorMap m[4];
+    if ((err = hop::make_map(&m[0], y, M, C, C, BM)) ||
+        (err = hop::make_map(&m[2], w1t, H4, C, C, BN)))
+      return err;
+    m[1] = m[0];
+    m[3] = m[2];
+    const Gemm g{M, C, C, H4, tiles_m, H4 / (NB * BN), 1};
+    Epi e{};
+    e.b1 = b1;
+    e.h = h;
+    e.C = C;
+    if ((err = launch_gemm<1, NB, false, EPI_GELU>(m, g, e, s))) return err;
+  }
+  {  // F2
+    constexpr int NB = C % (2 * BN) == 0 ? 2 : 1;
+    CUtensorMap m[4];
+    if ((err = hop::make_map(&m[0], h, M, H4, H4, BM)) ||
+        (err = hop::make_map(&m[2], w2t, C, H4, H4, BN)))
+      return err;
+    m[1] = m[0];
+    m[3] = m[2];
+    const Gemm g{M, H4, H4, C, tiles_m, (C + NB * BN - 1) / (NB * BN), 1};
+    e2.C = C;
+    if ((err = launch_gemm<1, NB, false, EPI2>(m, g, e2, s))) return err;
+  }
+  return 0;
 }
 
 }  // namespace

@@ -14,6 +14,9 @@ a call:
 - F2, the output product: ``out = (h . W2 + b2) * gamma + x``
   (:func:`out_reference`).
 
+F1 and F2, and their plain versions, are shared with the row MLP forms
+(``ops/fused_mlp.py``), which launch the same products.
+
 On a CPU tensor it runs :func:`block_reference`, the plain PyTorch version of
 the whole call with the kernels' rounding points (y and the GELU hidden
 rounded to x's dtype before each product, f32 accumulation and epilogue, the
@@ -48,7 +51,13 @@ from spine_vision_torch.ops.dwconv import (
     dw_ln_bwd,
     layer_norm_f32,
 )
-from spine_vision_torch.ops.fused_mlp import mlp_bwd, tanh_gelu
+from spine_vision_torch.ops.fused_mlp import (  # noqa: F401  (F1's and F2's plain versions)
+    hidden_reference,
+    mlp_bwd,
+    out_reference,
+    product_geometry,
+    tanh_gelu,
+)
 
 KERNEL_WIDTHS = (96, 128, 192, 256, 384, 512)  # widths the CUDA kernels are built for
 
@@ -101,31 +110,13 @@ def prologue_reference(
     return layer_norm_f32(t, ln_scale, ln_bias, eps).to(x.dtype), t_lp
 
 
-def hidden_reference(y: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
-    """The plain F1 on ``[..., C]``: ``gelu_tanh(y . W1 + b1)`` in f32,
-    rounded to y's dtype."""
-    hidden = torch.matmul(y.float(), w1t.float().t()) + b1.float()
-    return tanh_gelu(hidden).to(y.dtype)
-
-
-def out_reference(
-    h: torch.Tensor, w2t: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor, x: torch.Tensor
-) -> torch.Tensor:
-    """The plain F2 on ``[..., 4C]``: ``(h . W2 + b2) * gamma + x`` in f32,
-    rounded once to x's dtype, in x's shape (the kernel's [M, 4C] h or P's
-    NHWC one)."""
-    out = torch.matmul(h.float(), w2t.float().t()) + b2.float()
-    return (out * gamma.float() + x.float().reshape(out.shape)).to(x.dtype).reshape(x.shape)
-
-
 # csrc/convnext_block.cu's launch geometry. P: a CTA takes _TILE_COLS
 # columns by _tile_rows(C) rows of one image and walks C in halo chunks of
-# _CHUNK channels. F1 and F2: csrc/wg_gemm.cuh's 128-row tiles of NB x 128
-# columns, one persistent CTA a multiprocessor.
+# _CHUNK channels. F1 and F2: csrc/wg_gemm.cuh's mlp_products
+# (fused_mlp.product_geometry).
 _TILE_COLS = 8  # PW
 _CHUNK = 64  # PCC
 _HALO = 3  # the 7x7 stencil's reach
-_TILE = 128  # BM, BN
 
 
 def _tile_rows(c: int) -> int:
@@ -149,20 +140,13 @@ def forward_geometry(b: int, h: int, w: int, c: int) -> dict:
     rows = _tile_rows(c)
     tiles = (-(-h // rows), -(-w // _TILE_COLS))
     halo = (rows + 2 * _HALO) * (_TILE_COLS + 2 * _HALO) * _CHUNK * 2
-    h4 = 4 * c
-    nb1 = 2 if h4 % (2 * _TILE) == 0 else 1
-    nb2 = 2 if c % (2 * _TILE) == 0 else 1
-    tiles_m = -(-m // _TILE)
     return {
         "tile": (rows, _TILE_COLS),
         "tiles": tiles,
         "ctas": b * tiles[0] * tiles[1],
         "chunks": -(-c // _CHUNK),
         "prologue_smem": rows * _TILE_COLS * c * 4 + 2 * halo,
-        "hidden_nb": nb1,
-        "hidden_tiles": (tiles_m, h4 // (nb1 * _TILE)),
-        "out_nb": nb2,
-        "out_tiles": (tiles_m, -(-c // (nb2 * _TILE))),
+        **product_geometry(m, c),
     }
 
 

@@ -90,6 +90,11 @@ def build_all(names: tuple[str, ...] = SOURCES) -> None:
             raise RuntimeError("\n".join(errors))
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu`` of these sources is (or will be) built."""
+    return _target(name)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     lib = _libs.get(name)

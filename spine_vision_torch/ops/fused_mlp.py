@@ -6,10 +6,14 @@ hand-written kernel on a CUDA tensor and runs its plain PyTorch version
 (``*_reference``, with the TPU kernels' rounding points) on a CPU tensor:
 
 - :func:`ln_mlp`, ``res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)``:
-  the LN form of ``csrc/row_mlp.cu``'s row kernel (replaces
-  ``_ln_mlp_pallas``);
+  the LN form of ``csrc/row_mlp.cu`` (replaces ``_ln_mlp_pallas``), three
+  launches: L the LayerNorm rows, ``y = LN(x)`` in bf16
+  (:func:`ln_rows_reference`); F1 the hidden product, ``h = gelu_tanh(y .
+  W1 + b1)`` (:func:`hidden_reference`); F2 the output product, ``(h . W2 +
+  b2) * gamma + res`` (:func:`out_reference`);
 - :func:`mlp_fwd`, the same without the LayerNorm, with the tail (gamma and
-  the residual) or without it: the copy form of that row kernel (replaces
+  the residual) or without it (F2 :func:`bias_out_reference`): the copy form
+  of ``csrc/row_mlp.cu``, F1 and F2 on the input rows (replaces
   ``_pallas_mlp``);
 - :func:`ln_mlp_bwd`, the backward of :func:`ln_mlp` with respect to ``x``
   and the parameters: ``csrc/ln_mlp_bwd.cu`` (replaces
@@ -18,6 +22,11 @@ hand-written kernel on a CUDA tensor and runs its plain PyTorch version
 - :func:`mlp_bwd`, the backward of :func:`mlp_fwd` from its input ``y``: the
   LN-less form of the same kernels (replaces ``_mlp_bwd_pallas``; the
   all-kernel block's MLP backward, ``ops/convnext_block.py``).
+
+F1 and F2 are the block forward's products (``csrc/wg_gemm.cuh``'s
+``mlp_products``, ``ops/convnext_block.py``); :func:`row_launch` runs the row
+forms on the card and returns their intermediates, and :func:`row_geometry`
+gives their launch geometry.
 
 Both backwards run in stages, one kernel each: the row prologue, the hidden
 products, the g_y product, the LayerNorm backward and the weight-gradient
@@ -55,6 +64,7 @@ _TOKENS_PER_CTA = 64  # csrc/ln_mlp_bwd.cuh, TOK: a per-tile sums row a 64 token
 _TILE = 128  # csrc/ln_mlp_bwd.cuh, BM and BN: a product tile's rows, a wgmma's columns
 _BK = 64  # csrc/ln_mlp_bwd.cuh, BK: a ring stage's K, and a box's columns
 _SMS = 132  # streaming multiprocessors of an H100, one persistent product CTA each
+_LN_THREADS = 256  # csrc/row_mlp.cu, LN_THREADS: L's CTA, a token row a warp at a time
 
 
 def tanh_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +116,38 @@ def mlp_reference(
     if residual is not None:
         out = out + residual.float()
     return out.to(lp)
+
+
+def ln_rows_reference(
+    x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor, eps: float = LN_EPS
+) -> torch.Tensor:
+    """The plain L on ``[..., C]``: ``LN(x) * ln_scale + ln_bias`` in f32,
+    rounded to x's dtype."""
+    yhat, _ = ln_rows(x.float(), eps)
+    return (yhat * ln_scale.float() + ln_bias.float()).to(x.dtype)
+
+
+def hidden_reference(y: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """The plain F1 on ``[..., C]``: ``gelu_tanh(y . W1 + b1)`` in f32,
+    rounded to y's dtype."""
+    hidden = torch.matmul(y.float(), w1t.float().t()) + b1.float()
+    return tanh_gelu(hidden).to(y.dtype)
+
+
+def out_reference(
+    h: torch.Tensor, w2t: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """The plain F2 on ``[..., 4C]``: ``(h . W2 + b2) * gamma + x`` in f32,
+    rounded once to x's dtype, in x's shape (the kernel's [M, 4C] h or an
+    NHWC one)."""
+    out = torch.matmul(h.float(), w2t.float().t()) + b2.float()
+    return (out * gamma.float() + x.float().reshape(out.shape)).to(x.dtype).reshape(x.shape)
+
+
+def bias_out_reference(h: torch.Tensor, w2t: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The plain F2 without the tail on ``[..., 4C]``: ``h . W2 + b2`` in
+    f32, rounded once to h's dtype."""
+    return (torch.matmul(h.float(), w2t.float().t()) + b2.float()).to(h.dtype)
 
 
 def ln_mlp_reference(
@@ -358,6 +400,39 @@ def bwd_geometry(m: int, c: int) -> dict:
     }
 
 
+def product_geometry(m: int, c: int) -> dict:
+    """The launch geometry of ``csrc/wg_gemm.cuh``'s ``mlp_products`` (F1 and
+    F2 of the block forward and of the row forms) for ``m`` tokens of width
+    ``c``: each product's (row, column) tiles of 128 rows by ``nb`` x 128
+    columns, and its persistent CTAs (one a multiprocessor at most)."""
+    h4 = 4 * c
+    nb1 = 2 if h4 % (2 * _TILE) == 0 else 1
+    nb2 = 2 if c % (2 * _TILE) == 0 else 1
+    tiles_m = -(-m // _TILE)
+    hidden = (tiles_m, h4 // (nb1 * _TILE))
+    out = (tiles_m, -(-c // (nb2 * _TILE)))
+    return {"hidden_nb": nb1, "hidden_tiles": hidden,
+            "hidden_ctas": min(_SMS, hidden[0] * hidden[1]),
+            "out_nb": nb2, "out_tiles": out, "out_ctas": min(_SMS, out[0] * out[1])}
+
+
+def row_geometry(m: int, c: int, ln: bool = True) -> dict:
+    """The launch geometry of ``csrc/row_mlp.cu`` for ``m`` tokens of width
+    ``c``: L's tokens a warp (``ln_tpw``, consecutive) and a CTA, and its
+    CTAs (0 without the LayerNorm), then F1's and F2's
+    (:func:`product_geometry`). Raises on what the kernels do not take,
+    before anything is launched."""
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"row MLP kernels are built for C in {KERNEL_WIDTHS}, got {c}")
+    if not 0 <= m < 2 ** 31:
+        raise ValueError(f"row MLP kernels take up to 2^31 - 1 tokens (TMA coordinates are "
+                         f"32-bit), got {m}")
+    tpw = 4 if c <= 256 else 2
+    tokens = _LN_THREADS // 32 * tpw
+    return {"ln_tpw": tpw, "ln_tokens": tokens, "ln_ctas": -(-m // tokens) if ln else 0,
+            **product_geometry(m, c)}
+
+
 def _check(name, t, g, vectors, w1t, w2t, g_name="g") -> None:
     """Raise on what ``name``'s kernel does not take: bf16 activations ``t``
     and ``g`` [..., C] (``g`` may be None), bf16 weights, f32 ``vectors``
@@ -524,6 +599,56 @@ def mlp_bwd(
 mlp_bwd.launches = 0
 
 
+def row_launch(
+    x: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor | None = None,
+    residual: torch.Tensor | None = None,
+    ln_scale: torch.Tensor | None = None,
+    ln_bias: torch.Tensor | None = None,
+) -> dict[str, torch.Tensor]:
+    """Launch ``csrc/row_mlp.cu`` on CUDA tensors and return its buffers by
+    name: ``out``, the scratch ``h`` [M, 4C] and, with the LayerNorm, ``y``
+    [M, C], which the stage tests read. With ``ln_scale`` and ``ln_bias`` it
+    is :func:`ln_mlp`'s L, F1 and F2 (``gamma`` and ``residual`` given);
+    without them :func:`mlp_fwd`'s F1 and F2 on ``x``, with the tail where
+    ``residual`` is given (then ``gamma`` too). The launch counters are the
+    wrappers'; this counts nothing."""
+    c = x.shape[-1]
+    ln = ln_scale is not None
+    tail = residual is not None
+    name = "ln_mlp" if ln else "mlp_fwd"
+    vectors = (("b1", b1, 4 * c), ("b2", b2, c)) + ((("gamma", gamma, c),) if tail else ())
+    if ln:
+        vectors = (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c)) + vectors
+    _check(name, x, residual, vectors, w1t, w2t, g_name="residual")
+    m = x.numel() // c
+    row_geometry(m, c, ln)
+    dev, bf16 = x.device, torch.bfloat16
+    o = {"out": torch.empty_like(x), "h": torch.empty(m, 4 * c, dtype=bf16, device=dev)}
+    if ln:
+        o["y"] = torch.empty(m, c, dtype=bf16, device=dev)
+    lib = cuda_build.load("row_mlp")
+    p = cuda_build.ptr
+    none = ctypes.c_void_p(None)
+    weights = (p(w1t), p(b1), p(w2t), p(b2), p(gamma) if tail else none)
+    rows = (p(residual) if tail else none,)
+    if ln:
+        fn = lib.svt_ln_mlp_forward
+        args = (p(x), *rows, p(ln_scale), p(ln_bias), *weights, p(o["out"]), p(o["y"]),
+                p(o["h"]), ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_float(LN_EPS))
+    else:
+        fn = lib.svt_mlp_forward
+        args = (p(x), *rows, *weights, p(o["out"]), p(o["h"]), ctypes.c_longlong(m),
+                ctypes.c_int(c))
+    fn.restype = ctypes.c_int
+    cuda_build.check(fn(*args, cuda_build.stream_ptr(dev)), name)
+    return o
+
+
 def ln_mlp(
     x: torch.Tensor,
     ln_scale: torch.Tensor,
@@ -538,29 +663,14 @@ def ln_mlp(
     """``residual + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)`` on
     ``[..., C]`` (NHWC or flat), as :func:`ln_mlp_reference`.
 
-    CUDA tensors launch the LN form of ``csrc/row_mlp.cu``'s row kernel
-    (bf16 ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else
-    raises); CPU tensors take the plain version. ``ln_mlp.launches`` counts
-    calls that launched the kernel.
+    CUDA tensors launch the LN form of ``csrc/row_mlp.cu`` (L, F1, F2; bf16
+    ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else raises);
+    CPU tensors take the plain version. ``ln_mlp.launches`` counts calls that
+    launched the kernels.
     """
-    args = (x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual)
     if x.device.type == "cpu":
-        return ln_mlp_reference(*args)
-    c = x.shape[-1]
-    _check("ln_mlp", x, residual, (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c),
-                                   ("b1", b1, 4 * c), ("b2", b2, c), ("gamma", gamma, c)),
-           w1t, w2t, g_name="residual")
-    m = x.numel() // c
-    out = torch.empty_like(x)
-    fn = cuda_build.load("row_mlp").svt_ln_mlp_forward
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    err = fn(
-        p(x), p(residual), p(ln_scale), p(ln_bias), p(w1t), p(b1), p(w2t), p(b2), p(gamma),
-        p(out), ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_float(LN_EPS),
-        cuda_build.stream_ptr(x.device),
-    )
-    cuda_build.check(err, "ln_mlp")
+        return ln_mlp_reference(x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual)
+    out = row_launch(x, w1t, b1, w2t, b2, gamma, residual, ln_scale, ln_bias)["out"]
     ln_mlp.launches += 1
     return out
 
@@ -581,34 +691,20 @@ def mlp_fwd(
     form ``residual + gamma * mlp(x)`` (gamma defaults to ones, the residual
     to zeros), without both ``mlp(x)`` alone; as :func:`mlp_reference`.
 
-    CUDA tensors launch the copy form of ``csrc/row_mlp.cu``'s row
-    kernel (bf16 ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else
-    raises); CPU tensors take the plain version. ``mlp_fwd.launches`` counts
-    calls that launched the kernel.
+    CUDA tensors launch the copy form of ``csrc/row_mlp.cu`` (F1, F2; bf16
+    ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else raises);
+    CPU tensors take the plain version. ``mlp_fwd.launches`` counts calls
+    that launched the kernels.
     """
     c = x.shape[-1]
-    tail = gamma is not None or residual is not None
-    if tail:
+    if gamma is not None or residual is not None:
         if gamma is None:
             gamma = torch.ones(c, dtype=torch.float32, device=x.device)
         if residual is None:
             residual = torch.zeros_like(x)
     if x.device.type == "cpu":
         return mlp_reference(x, w1t, b1, w2t, b2, gamma, residual)
-    vectors = (("b1", b1, 4 * c), ("b2", b2, c)) + ((("gamma", gamma, c),) if tail else ())
-    _check("mlp_fwd", x, residual, vectors, w1t, w2t, g_name="residual")
-    m = x.numel() // c
-    out = torch.empty_like(x)
-    fn = cuda_build.load("row_mlp").svt_mlp_forward
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    none = ctypes.c_void_p(None)
-    err = fn(
-        p(x), p(residual) if tail else none, p(w1t), p(b1), p(w2t), p(b2),
-        p(gamma) if tail else none, p(out), ctypes.c_longlong(m), ctypes.c_int(c),
-        cuda_build.stream_ptr(x.device),
-    )
-    cuda_build.check(err, "mlp_fwd")
+    out = row_launch(x, w1t, b1, w2t, b2, gamma, residual)["out"]
     mlp_fwd.launches += 1
     return out
 

@@ -2,12 +2,13 @@
 (``csrc/probe_mlp.cu``).
 
 Counterpart of ``scripts/ablate_mlp_kernel.py`` (its ``pallas_call`` at :96,
-the body ``make_kernel`` at :55). The production row kernel
+the body ``make_kernel`` at :55). The old ``mma.sync`` row kernel
 (``csrc/mlp_body.cuh``'s ``row_mlp_kernel`` in its copy form with the tail,
-what #5 runs) computes ``out = res + gamma * (W2 . act(W1 . x + b1) + b2)``
-with the hidden activation swapped:
+what #5 ran before its ``wgmma`` form) computes ``out = res + gamma * (W2 .
+act(W1 . x + b1) + b2)`` with the hidden activation swapped; the probe
+measures that recorded body, not the kernels #5 and #7 run now:
 
-- ``gelu_tanh``: tanh-GELU in f32, what #1, #5 and #7 compile to;
+- ``gelu_tanh``: tanh-GELU in f32, the old body's own activation;
 - ``full``: the A&S erf-GELU in f32 (the script's "full");
 - ``relu``;
 - ``gelu_bf16``: the erf-GELU in bf16 arithmetic on the bf16-rounded
@@ -18,9 +19,10 @@ with the hidden activation swapped:
 
 At C = 128, 256 and 512 with M = B*H*W tokens of that stage (B = 32 in the
 script). The script also swept the TPU's token tile (1024-4096 rows a grid
-step); the port's body has one tile, 64 tokens a CTA, so only C is swept. The
-anchor row is #5 itself (``ops/fused_mlp.py::mlp_fwd``, built from
-``csrc/row_mlp.cu``) at the same shape. Rates are the script's:
+step); the old body has one tile, 64 tokens a CTA, so only C is swept. The
+anchor row is #5 itself (``ops/fused_mlp.py::mlp_fwd``, the ``wgmma``
+products of ``csrc/row_mlp.cu``) at the same shape: the old body against the
+new on the same inputs. Rates are the script's:
 ``4 * M * C * 4C`` flops over the time, beside the share of 989 TFLOP/s.
 The inputs follow the script's scales, but gamma is ``1 + 0.1 * N(0, 1)``
 instead of ``0.01 * N(0, 1)``, so that the check against the plain version

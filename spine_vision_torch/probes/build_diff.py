@@ -5,9 +5,9 @@ has (the row forms #5 and #7 lived in ``convnext_block.cu`` before #1's
 registers and stack, the kernels only one of them has, and the time of #5
 (``svt_mlp_forward``) at the shapes of its path, #7 (``svt_ln_mlp_forward``)
 and #1 in its training form (``svt_convnext_block_forward`` with t) at the
-train step's, launched from each build in turn. #1 is called through each
-build's own C interface (the parent's, the mma.sync form's, is written down
-above ``FWD_SCRATCH``).
+train step's, launched from each build in turn. Each entry point is called
+through its own build's C interface: the mma.sync forms take no scratch, the
+wgmma forms take their y and h (``_scratch``).
 
     python -m spine_vision_torch.probes.build_diff --parent DIR
     python -m spine_vision_torch.probes.build_diff --parent DIR --case ln_mlp_bwd
@@ -32,9 +32,10 @@ time a launch (a CUDA graph of back-to-back launches), its time a launch
 enqueued from the host back to back and the host's time a launch (both by
 :func:`~spine_vision_torch.probes.time_ms`), in the order parent, tree, tree,
 parent; then #5's own wrapper (``ops/fused_mlp.py::mlp_fwd``), 20 calls back
-to back as ``chip_smoke.py`` times it. #5's and #7's outputs must agree bit
-for bit between the builds; #1's within 1e-2 of max |parent| (its products
-sum in another order). Runs on the card.
+to back as ``chip_smoke.py`` times it. The outputs of #5, #7 and #1 must
+agree within 1e-2 of max |parent| between the builds (a kernel whose form
+changed sums its products in another order); the line says where they agree
+bit for bit. Runs on the card.
 """
 
 from __future__ import annotations
@@ -116,6 +117,11 @@ def _sass(lib: Path) -> dict[str, list[tuple[str, str]]]:
     return {names[k]: [tuple(i) for i in v] for k, v in bodies.items()}
 
 
+def kernel_names(lib: Path) -> set[str]:
+    """The kernels of a built library, as ``kernel<args>``."""
+    return set(_sass(lib))
+
+
 def _opcode(inst: str) -> str:
     words = inst.split()
     return words[1] if words and words[0].startswith("@") else (words[0] if words else "")
@@ -170,39 +176,48 @@ def _inputs(b: int, hw: int, c: int, device) -> dict:
     }
 
 
-# The parent's (the mma.sync form's) C interface of #1, one launch with no
-# scratch:
-#   int svt_convnext_block_forward(x, k, dw_bias, ln_scale, ln_bias, w1t, b1,
-#                                  w2t, b2, gamma, out, t, int B, int H, int W,
-#                                  int C, float eps, void* stream)
-# The tree's adds the scratch y [M, C] and h [M, 4C] (bf16) after t.
-FWD_SCRATCH = {"parent": (), "tree": ("y", "h")}
+def _scratch(csrc: Path) -> dict[str, tuple[str, ...]]:
+    """The scratch each entry point of the tree at ``csrc`` takes after its
+    outputs, by its kernels: #1's wgmma form (``block_prologue``) y [M, C]
+    and h [M, 4C]; the row forms' (``mlp_ln_rows``) #7 y and h, #5 h. The
+    mma.sync forms take none, e.g.
+      int svt_convnext_block_forward(x, k, dw_bias, ln_scale, ln_bias, w1t, b1,
+                                     w2t, b2, gamma, out, t, int B, int H,
+                                     int W, int C, float eps, void* stream)"""
+    def has(source: str, kernel: str) -> bool:
+        path = csrc / f"{source}.cu"
+        return path.exists() and kernel in path.read_text()
+
+    rows = has("row_mlp", "mlp_ln_rows")
+    return {"convnext_block_emit_conv": ("y", "h") if has("convnext_block", "block_prologue")
+            else (), "ln_mlp": ("y", "h") if rows else (), "mlp_fwd": ("h",) if rows else ()}
 
 
-def _launcher(tag: str, kernel: str, lib: ctypes.CDLL, a: dict, outs: tuple[torch.Tensor, ...]):
+def _launcher(tag: str, kernel: str, lib: ctypes.CDLL, scratch_names: tuple[str, ...], a: dict,
+              outs: tuple[torch.Tensor, ...]):
     """One launch of the ``tag`` build's ``kernel`` from ``lib`` on ``a``,
-    into ``outs``."""
+    into ``outs``, with the scratch its interface takes."""
     p = cuda_build.ptr
     b, h, w, c = a["x"].shape
     m = ctypes.c_longlong(b * h * w)
     eps = ctypes.c_float(1e-6)
     mlp = (p(a["w1t"]), p(a["b1"]), p(a["w2t"]), p(a["b2"]), p(a["gamma"]))
+    widths = {"y": c, "h": 4 * c}
+    scratch = [torch.empty(b * h * w, widths[n], dtype=torch.bfloat16, device=a["x"].device)
+               for n in scratch_names]
+    mid = tuple(p(v) for v in scratch)
     if kernel == "mlp_fwd":
         fn = lib.svt_mlp_forward
-        args = (p(a["x"]), p(a["res"]), *mlp, p(outs[0]), m, ctypes.c_int(c))
+        args = (p(a["x"]), p(a["res"]), *mlp, p(outs[0]), *mid, m, ctypes.c_int(c))
     elif kernel == "ln_mlp":
         fn = lib.svt_ln_mlp_forward
-        args = (p(a["x"]), p(a["res"]), p(a["ln_scale"]), p(a["ln_bias"]), *mlp, p(outs[0]), m,
-                ctypes.c_int(c), eps)
+        args = (p(a["x"]), p(a["res"]), p(a["ln_scale"]), p(a["ln_bias"]), *mlp, p(outs[0]),
+                *mid, m, ctypes.c_int(c), eps)
     else:
         fn = lib.svt_convnext_block_forward
-        widths = {"y": c, "h": 4 * c}
-        scratch = [torch.empty(b * h * w, widths[n], dtype=torch.bfloat16, device=a["x"].device)
-                   for n in FWD_SCRATCH[tag]]
         args = (p(a["x"]), p(a["k49"]), p(a["dw_bias"]), p(a["ln_scale"]), p(a["ln_bias"]), *mlp,
-                p(outs[0]), p(outs[1]), *(p(v) for v in scratch),
-                *(ctypes.c_int(v) for v in (b, h, w, c)), eps)
-        outs = (*outs, *scratch)  # kept alive with the launch
+                p(outs[0]), p(outs[1]), *mid, *(ctypes.c_int(v) for v in (b, h, w, c)), eps)
+    outs = (*outs, *scratch)  # kept alive with the launch
     fn.restype = ctypes.c_int
 
     def launch():
@@ -402,28 +417,26 @@ def main(argv: list[str] | None = None) -> int:
           "(parent / tree)")
 
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
+    scratch = {tag: _scratch(csrc) for tag, csrc in trees.items()}
     for kernel, batch, stages, launches in CASES:
         for hw, c in stages:
             a = _inputs(batch, hw, c, dev)
             n_out = 2 if kernel == "convnext_block_emit_conv" else 1
             outs = {tag: tuple(torch.empty_like(a["x"]) for _ in range(n_out)) for tag in trees}
-            launch = {tag: _launcher(tag, kernel, _holding(loaded, tag, ENTRY[kernel]), a,
-                                     outs[tag]) for tag in trees}
+            launch = {tag: _launcher(tag, kernel, _holding(loaded, tag, ENTRY[kernel]),
+                                     scratch[tag][kernel], a, outs[tag]) for tag in trees}
             rows = []
             for tag in ("parent", "tree", "tree", "parent"):
                 rows.append((tag, _device_ms(launch[tag], launches),
                              *time_ms(launch[tag], iters=launches)))
             torch.cuda.synchronize()
             pairs = list(zip(outs["parent"], outs["tree"]))
-            if kernel == "convnext_block_emit_conv":  # out and t within 1e-2 of max |parent|
-                errs = [((y.float() - x.float()).abs().max() / x.float().abs().max()).item()
-                        for x, y in pairs]
-                equal = max(errs) <= 1e-2
-                verdict = ("within" if equal else "NOT within") + " 1e-2 of max |parent| (" + \
-                    ", ".join(f"{n} {e:.3g}" for n, e in zip(("out", "t"), errs)) + ")"
-            else:
-                equal = all(torch.equal(x, y) for x, y in pairs)
-                verdict = "equal" if equal else "DIFFER"
+            errs = [((y.float() - x.float()).abs().max() / x.float().abs().max()).item()
+                    for x, y in pairs]
+            equal = max(errs) <= 1e-2
+            verdict = ("within" if equal else "NOT within") + " 1e-2 of max |parent| (" + \
+                ", ".join(f"{n} {e:.3g}" for n, e in zip(("out", "t"), errs)) + ")" + (
+                    ", bit for bit" if all(torch.equal(x, y) for x, y in pairs) else "")
             line = (f"[build_diff] {kernel} B={batch} {hw}x{hw} C={c}: " + "; ".join(
                 f"{tag} device {d:.4f} enqueued {e:.4f} host {h:.4f}" for tag, d, e, h in rows)
                 + f" ms a launch; outputs {verdict}")

@@ -289,7 +289,9 @@ def test_all_kernel_convnext_gives_block_gradients_on_the_card(cuda):
         assert p.grad.abs().max().item() > 0, name
 
 
-ROW_SHAPES = [(2, 8, 8), (3, 9, 11), (1, 1, 5)]  # whole, ragged and single-row token tiles
+# Whole, ragged and single-row token tiles, and token counts on both sides of
+# the products' 128-row tile.
+ROW_SHAPES = [(2, 8, 8), (3, 9, 11), (1, 1, 5), (1, 1, 127), (1, 1, 129), (1, 1, 257)]
 
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
@@ -329,6 +331,21 @@ def test_mlp_fwd_kernel_matches_plain(cuda, c, b, h, w, tail):
     # As the LN form: 1e-2 * max |plain|.
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item()
+
+
+def test_row_mlp_library_holds_only_the_hopper_launches(cuda):
+    """No path falls back to the mma.sync row body: csrc/row_mlp.cu's library
+    holds L and the wgmma products of every form at every width, and no
+    row_mlp_kernel."""
+    from spine_vision_torch.ops import cuda_build
+    from spine_vision_torch.probes import build_diff
+
+    cuda_build.load("row_mlp")
+    names = build_diff.kernel_names(cuda_build.library_path("row_mlp"))
+    assert not [n for n in names if n.startswith("row_mlp_kernel")], names
+    assert {f"mlp_ln_rows<{c}>" for c in fm.KERNEL_WIDTHS} <= names
+    for epi in (4, 5, 6):  # F1 (EPI_GELU), F2 with the tail (EPI_OUT) and without (EPI_BIAS)
+        assert {f"wg_gemm<1, {nb}, false, {epi}>" for nb in (1, 2)} <= names, epi
 
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
@@ -481,6 +498,43 @@ def test_block_stage_kernels_match_plain_stages(cuda, stage, emit_conv, b, h, w,
         _close("h", o["h"], cb.hidden_reference(o["y"], args[5], args[6]), 1e-2)
     else:
         _close("out", o["out"], cb.out_reference(o["h"], args[7], args[8], args[9], args[0]), 1e-2)
+
+
+# The row forms' launches: every built width at 127, 129 and 507 tokens
+# (ragged product tiles; C = 96 and 192 end inside a column tile), and the
+# train step's shapes.
+ROW_STAGE_SHAPES = [(m, c) for c in fm.KERNEL_WIDTHS for m in (127, 129, 507)] + [
+    (b * hw * hw, c) for b, hw, c in TRAIN_SHAPES]
+
+
+@pytest.mark.parametrize("stage,form", [(s, f) for s in ("ln", "hidden", "out")
+                                        for f in ("ln", "tail", "no_tail")
+                                        if s != "ln" or f == "ln"])  # L is the LN form's only
+@pytest.mark.parametrize("m,c", ROW_STAGE_SHAPES)
+def test_row_stage_kernels_match_plain_stages(cuda, stage, form, m, c):
+    """Each launch of csrc/row_mlp.cu (L, F1, F2) against its plain stage
+    (ops/fused_mlp.py) fed the kernel's own input to that stage, in the LN
+    form (#7) and the copy form with and without the tail (#5); a second
+    call agrees bit for bit."""
+    x, ls, lb, w1t, b1, w2t, b2, gamma, res = _bwd_args(
+        np.random.default_rng(c + m + len(form)), 1, 1, m, c, cuda)
+    x, res = x.reshape(m, c), res.reshape(m, c)
+    kw = {"ln": dict(gamma=gamma, residual=res, ln_scale=ls, ln_bias=lb),
+          "tail": dict(gamma=gamma, residual=res), "no_tail": {}}[form]
+    o = fm.row_launch(x, w1t, b1, w2t, b2, **kw)
+    again = fm.row_launch(x, w1t, b1, w2t, b2, **kw)
+    torch.cuda.synchronize()
+    assert set(o) == ({"out", "h", "y"} if form == "ln" else {"out", "h"})
+    for name in o:
+        assert torch.equal(o[name], again[name]), name
+    if stage == "ln":
+        _close("y", o["y"], fm.ln_rows_reference(x, ls, lb), 1e-2)
+    elif stage == "hidden":
+        _close("h", o["h"], fm.hidden_reference(o["y"] if form == "ln" else x, w1t, b1), 1e-2)
+    elif form == "no_tail":
+        _close("out", o["out"], fm.bias_out_reference(o["h"], w2t, b2), 1e-2)
+    else:
+        _close("out", o["out"], fm.out_reference(o["h"], w2t, b2, gamma, res), 1e-2)
 
 
 def test_kernels_reject_cpu_layouts_on_the_card(cuda):
@@ -643,5 +697,7 @@ def test_probe_mlp_ablate_matches_plain(cuda, c, m, variant):
     # As #5: the hidden rounds to bf16 on both sides; 2e-2 * max |plain|.
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2e-2 * want.float().abs().max().item()
-    if variant == "gelu_tanh":  # the production activation: #5's own result
-        assert torch.equal(got, am.fm.mlp_fwd(args[0], *args[1:6], args[6]))
+    if variant == "gelu_tanh":  # #5's function in the old body, whose sums run in
+        five = am.fm.mlp_fwd(args[0], *args[1:6], args[6])  # another order than #5's
+        err5 = (got.float() - five.float()).abs().max().item()
+        assert err5 <= 2e-2 * five.float().abs().max().item()
