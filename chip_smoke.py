@@ -19,9 +19,11 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    stencil (the all-kernel block), the backward kernels also run twice to
    show that they agree bit for bit. The MLP backward's stages (#6, #8/#9,
    #10), the block forward's three launches (#1: the stencil+LayerNorm
-   prologue P, the products F1 and F2) and the row forms' (#7: the LayerNorm
-   rows L, F1 and F2; #5: F1 and F2) are timed one by one from a profile,
-   each beside its own bound, with the call's device time.
+   prologue P, the products F1 and F2), the row forms' (#7: the LayerNorm
+   rows L, F1 and F2; #5: F1 and F2), the dwconv+LN backward's (#4: the
+   statistics S, the tile T, the column sums) and the stencil #3 are timed
+   one by one from a profile, each beside its own bound, with the call's
+   device time.
 4. The inference slice: ConvNeXt-base localization at 512^2 and ResNet-18
    grading at 256^2 in bf16, weights from seeded numpy Flax-layout trees
    carried by ``load_flax_variables``; ``StudyInferencePipeline.run`` on 8
@@ -383,6 +385,37 @@ ROW_STAGE_KERNELS = (
 )
 
 
+# The dwconv+LN backward #4's launches (csrc/dwconv_bwd.cu): the statistics
+# S, the tile T and the column sums; and the stencil #3's one launch.
+DW_BWD_STAGE_KERNELS = (
+    ("S statistics", ("dw_bwd_stats<",)),
+    ("T tile", ("dw_bwd_tile<",)),
+    ("colsum", ("colsum",)),
+)
+DW_STENCIL_STAGE_KERNELS = (("stencil", ("dw_stencil<",)),)
+
+
+def _dw_bwd_stage_bounds(m: int, c: int, parts: int) -> dict:
+    """Each launch of #4 (bf16) beside its bound (ms, what bounds it): S reads
+    x and g and writes 16 bytes a token against the conv's 98 and the
+    LayerNorm statistics' 8 f32 operations a channel of a token; T reads x, g
+    and the statistics and writes da and its ``parts`` workspace rows against
+    the conv's and dk's 98 each and the LayerNorm backward's 10; colsum reads
+    the workspace and writes the 52 sums a channel."""
+    ws = parts * 52 * c * 4
+    return {
+        "S statistics": _bound_ms(4 * m * c + 16 * m + 98 * c * 2 + 8 * c, 0, 106 * m * c),
+        "T tile": _bound_ms(6 * m * c + 16 * m + 98 * c * 2 + 8 * c + ws, 0, 206 * m * c),
+        "colsum": _bound_ms(ws + 52 * c * 4, 0, parts * 52 * c),
+    }
+
+
+def _dw_stencil_bounds(m: int, c: int) -> dict:
+    """The stencil #3 (bf16) beside its bound: x read, out written, the
+    filter read, against 98 f32 operations a channel of a token."""
+    return {"stencil": _bound_ms(4 * m * c + 98 * c, 0, 98 * m * c)}
+
+
 def _bwd_stage_bounds(m: int, c: int, ln: bool, u32: bool = False) -> dict:
     """Each stage's bound (ms, what bounds it): the bytes it must move
     (inputs read once, outputs written once) against its bf16 products."""
@@ -559,7 +592,8 @@ def dwconv_train_kernel_phase(device, report: dict) -> None:
     the flipped filter, as the backward runs it) at every width, the MLP
     backward (#6) at C <= 512. Each against its plain version, #4 and #6 also
     against a second run bit for bit, timed beside the plain version, a
-    PyTorch yardstick and the bound. Rows go into ``report``."""
+    PyTorch yardstick and the bound, and each launch of #4, #3 and #6 from a
+    profile (``[stage]`` lines). Rows go into ``report``."""
     import torch
     import torch.nn.functional as F
 
@@ -606,6 +640,9 @@ def dwconv_train_kernel_phase(device, report: dict) -> None:
             lambda: dw.dw_ln_bwd_sums_reference(*args), library4,
             3 * m * c * 2 + 49 * c * 2 + 2 * c * 4 + 52 * c * 4, 0, 213 * m * c,
             "per_train_step"))
+        parts = dw.bwd_geometry(TRAIN_BATCH, hw, hw, c, bf16)["parts"]
+        _stage_times(f"dw_ln_bwd C={c}", lambda: dw.dw_ln_bwd_sums(*args),
+                     _dw_bwd_stage_bounds(m, c, parts), DW_BWD_STAGE_KERNELS)
 
         # Kernel #3: dx = the stencil on da with the flipped filter.
         kf = k49.flip(0).contiguous()
@@ -625,6 +662,8 @@ def dwconv_train_kernel_phase(device, report: dict) -> None:
             lambda: dw.depthwise_conv7x7_reference(da, kf),
             lambda: F.conv2d(da_nchw, kf_oihw, padding=3, groups=c),
             2 * m * c * 2 + 49 * c * 2, 0, 98 * m * c, "per_train_step"))
+        _stage_times(f"depthwise_conv7x7 C={c}", lambda: dw.depthwise_conv7x7(da, kf),
+                     _dw_stencil_bounds(m, c), DW_STENCIL_STAGE_KERNELS)
         dw.dw_ln_bwd_sums.launches, dw.depthwise_conv7x7.launches = saved
         del got, da, dx, want_dx, xl, kl, vl
 
@@ -937,8 +976,8 @@ PROFILE_GROUPS = (
          ())),
     ("their weight-gradient products", _gemm(((1, 1),), "true", 3) + ("reduce_rows",)),
     ("#10's conv recompute and tap sums", ("conv_bias_f32", "tap_sums")),
-    ("dwconv+LN backward #4", ("dw_ln_stats", "dw_ln_bwd_tile")),
-    ("stencil #3", ("dw7_kernel",)),
+    ("dwconv+LN backward #4", DW_BWD_STAGE_KERNELS[0][1] + DW_BWD_STAGE_KERNELS[1][1]),
+    ("stencil #3", DW_STENCIL_STAGE_KERNELS[0][1]),
     ("column sums of #4, #6, #8/#9, #10", ("colsum",)),
     ("PyTorch depthwise-conv gradients", ("conv_depthwise2d",)),
     ("cuDNN depthwise conv, its data and weight gradients",

@@ -12,156 +12,272 @@
 // the stencil on da with the spatially flipped filter; the caller launches it
 // (svt_dwconv7x7).
 //
-// Bound: the conv recompute and dk each do 2 * 49 f32 flops a channel of a
-// token, the LayerNorm statistics and backward about 17 more (213 * M * C),
-// against 6 * M * C bytes in bf16 (x and g read, da written), so on an H100
-// (67 TFLOP/s f32, 3.35 TB/s) f32 operations bound it; the stencil alone
-// (98 * M * C flops, 4 * M * C bytes) too.
+// Bound. The stencil does 98 f32 operations a channel of a token against 4
+// bytes (bf16 x read, out written); the backward recomputes the conv twice
+// (98 each), sums dk (98) and does the LayerNorm's statistics and backward
+// (about 18) against 6 bytes. On an H100 (67 TFLOP/s f32, 3.35 TB/s) f32
+// operations bound all of them, so each x element must come from shared
+// memory, not from L1/L2 once for each of its 49 taps, and each value read
+// must serve several products.
 //
-// Design. The TPU adds every tile's parameter gradients into one resident
-// output block in grid order; a CUDA grid runs in parallel, so:
-//   1. dw_ln_stats, a warp per few tokens with dwconv_ln.cuh's stencil and
-//      shuffle LayerNorm over whole channel rows: per token mu, rstd,
-//      mean(g*scale) and mean(g*scale*yhat), 16 bytes.
-//   2. dw_ln_bwd_tile, a CTA per 64 channels and a run of image rows: warp dy
-//      owns filter row dy, each lane a channel pair. For 7 tokens along W at a
-//      time a thread loads the 13 x values of its filter row once and uses
-//      them twice: for its row's share of the conv (the 7 shares are added
-//      through shared memory in a fixed order) and, once da is known, for its
-//      7 taps of dk. Warp j finalises token j: da from the statistics, written
-//      in x's dtype. Every sum runs in one thread's registers in token order,
-//      and the CTA writes its partials (49 taps, dbias, dscale, dbeta) to its
-//      own row of a workspace.
-//   3. colsum (reduce.cuh) adds the rows in a fixed order, so two runs agree
-//      bit for bit; there are no float atomics.
-// The conv is recomputed twice (step 1 needs whole channel rows, step 2
-// channel tiles): about 1.5 times the bound's flops. The channel count is a
-// runtime argument of step 2; step 1 and the stencil take the widths
-// dwconv_ln.cu is built for.
+// Design. Every kernel stages x through shared memory with cp.async, zeros
+// outside the image and past C (dw_stage.cuh):
+//   dw_stencil (#3): a unit is a TH x 8 tile of one image on a 64-channel
+//     slab; persistent CTAs walk contiguous runs of units, slab-major, with a
+//     two-slot halo ring, so the next unit's halo lands while this one
+//     computes. A warp takes a tile column, a lane a channel pair; each halo
+//     value read serves up to 7 outputs of the column (sliding accumulators
+//     down the rows). The slab's filter sits in shared memory in f32, loaded
+//     when a CTA's run enters a slab.
+//   dw_bwd_stats (S): a PH x 8 tile of one image at full C. The halo streams
+//     through two slots in 64-channel chunks; the f32 conv plus bias goes to
+//     a shared tile [PH * 8, C]; then a warp a token takes mu and rstd (the
+//     mean, then the mean of the centred squares), reads its g row and
+//     writes (mu, rstd, mean(g*scale), mean(g*scale*yhat)), 16 bytes.
+//   dw_bwd_tile (T): a CTA takes a 64-channel slab over a run of rows of one
+//     image in a strip of SW columns; warp dy owns filter row dy. The x rows
+//     it needs sit in a ring of 9: each output row brings in one new row,
+//     fetched a row ahead. A row: each warp adds its filter row's share of
+//     the conv of every strip token (a sliding window along the row, from
+//     shared memory) into a shared [7][SW] tile; the CTA synchronises; warps
+//     take the row's tokens in turn, add the 7 shares in a fixed order, form
+//     da from the statistics and g (loaded before the row's first pass, so
+//     that their latency hides behind it), write da once in x's dtype and
+//     keep it in f32 for dk; the CTA synchronises; each warp adds x * da
+//     into its 7 taps. Two barriers a row. dk, dbias, dscale and dbeta are summed in
+//     registers in token order, and the CTA writes its own workspace row.
+//   colsum (reduce.cuh) adds the rows in a fixed order, so two runs agree
+//     bit for bit; there are no float atomics.
+// C is a runtime argument of the stencil and of T (a ragged last slab is
+// masked); S takes the widths of SVT_DW_WIDTHS.
+#include "dw_stage.cuh"
 #include "dwconv_ln.cuh"
 #include "reduce.cuh"
 
 namespace {
 
+using dws::CS;
 using svt::KS;
 using svt::PAD;
 
 constexpr int NSUM = KS * KS + 3;  // a workspace row: dk (49 taps), dbias, dscale, dbeta
-constexpr int CG = 64;             // channels a tile CTA: a pair a lane
-constexpr int TG = 7;              // tokens along W a step: one a warp at the finalise
-constexpr int NXR = TG + KS - 1;   // x values of a filter row for TG tokens
 
-// The plain stencil: out = dwconv7x7(x), summed in f32, rounded to T.
-template <typename T, int C>
-__global__ void __launch_bounds__(256) dw7_kernel(const T* __restrict__ x,
-                                                  const T* __restrict__ k,
-                                                  T* __restrict__ out, int B, int H,
-                                                  int W) {
-  constexpr int NP = svt::Lanes<C>::NP;
-  constexpr int TB = svt::TokensPerWarp<C>::value;
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// The stencil: out = dwconv7x7(x), summed in f32, rounded once to T. Unit u
+// is (slab, image, tile row, tile column), slab-major; CTA i takes units
+// [i * units / grid, (i + 1) * units / grid).
+template <typename T>
+__global__ void __launch_bounds__(dws::Stencil<T>::NT, sizeof(T) == 2 ? 2 : 1)
+    dw_stencil(const T* __restrict__ x, const T* __restrict__ k, T* __restrict__ out, int B,
+               int H, int W, int C, int tiles_h, int tiles_w, long long units) {
+  using G = dws::Stencil<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* sK = reinterpret_cast<float*>(smem_raw + 2 * G::HALO * sizeof(T));
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long M = (long long)B * H * W;
-  const long long tok0 = ((long long)blockIdx.x * 8 + warp) * TB;
-  if (tok0 >= M) return;
-  int b[TB], h[TB], w[TB];
-  bool ok[TB];
-  T* none[TB];
-#pragma unroll
-  for (int i = 0; i < TB; ++i) {
-    svt::token_coords(tok0 + i, M, H, W, b[i], h[i], w[i], ok[i]);
-    none[i] = nullptr;
+  const long long u0 = (long long)blockIdx.x * units / gridDim.x;
+  const long long u1 = (long long)(blockIdx.x + 1) * units / gridDim.x;
+  const long long per_slab = (long long)B * tiles_h * tiles_w;
+  auto coords = [&](long long u, int& s, int& b, int& h0, int& w0) {
+    s = (int)(u / per_slab);
+    const long long r = u % per_slab;
+    w0 = (int)(r % tiles_w) * G::TW;
+    h0 = (int)((r / tiles_w) % tiles_h) * G::TH;
+    b = (int)(r / ((long long)tiles_w * tiles_h));
+  };
+
+  int s, b, h0, w0;
+  if (u0 < u1) {
+    coords(u0, s, b, h0, w0);
+    dws::load_box<T, G::HR, G::HW, G::NT>(ring, x, b, h0 - PAD, w0 - PAD, s * CS, H, W, C);
   }
-  float y[TB][NP][2];
-  svt::dw_tokens<T, C, TB, false>(x, k, b, h, w, ok, H, W, lane, y, none);
-#pragma unroll
-  for (int i = 0; i < TB; ++i) {
-    if (!ok[i]) continue;
-    T* op = out + (tok0 + i) * C;
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      const int p = lane + 32 * q;
-      if (svt::Lanes<C>::valid(p)) svt::store2(op + 2 * p, y[i][q][0], y[i][q][1]);
+  dws::commit();
+  int kslab = -1;
+  for (long long u = u0; u < u1; ++u) {
+    const int slot = (int)((u - u0) & 1);
+    coords(u, s, b, h0, w0);
+    if (u + 1 < u1) {
+      int s1, b1, h1, w1;
+      coords(u + 1, s1, b1, h1, w1);
+      dws::load_box<T, G::HR, G::HW, G::NT>(ring + (slot ^ 1) * G::HALO, x, b1, h1 - PAD,
+                                            w1 - PAD, s1 * CS, H, W, C);
     }
+    dws::commit();
+    dws::wait<1>();  // this unit's halo has landed (the next may be in flight)
+    __syncthreads();
+    if (s != kslab) {  // uniform over the CTA; the last unit's reads are done
+      for (int i = threadIdx.x; i < KS * KS * CS; i += G::NT) {
+        const int c = s * CS + i % CS;
+        sK[i] = c < C ? to_f32(k[(size_t)(i / CS) * C + c]) : 0.f;
+      }
+      kslab = s;
+      __syncthreads();
+    }
+    const int c = s * CS + 2 * lane;  // this lane's channel pair
+    if (c < C) {
+      const T* sl = ring + slot * G::HALO;
+      float2 acc[G::TH];
+#pragma unroll
+      for (int r = 0; r < G::TH; ++r) acc[r] = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int dx = 0; dx < KS; ++dx) {
+        float2 kv[KS];
+#pragma unroll
+        for (int dy = 0; dy < KS; ++dy) kv[dy] = svt::load2(sK + (dy * KS + dx) * CS + 2 * lane);
+#pragma unroll
+        for (int ih = 0; ih < G::HR; ++ih) {
+          const float2 xv = svt::load2(sl + (ih * G::HW + warp + dx) * CS + 2 * lane);
+#pragma unroll
+          for (int r = 0; r < G::TH; ++r) {
+            const int dy = ih - r;
+            if (dy < 0 || dy >= KS) continue;
+            acc[r].x = fmaf(xv.x, kv[dy].x, acc[r].x);
+            acc[r].y = fmaf(xv.y, kv[dy].y, acc[r].y);
+          }
+        }
+      }
+      const int w = w0 + warp;
+      if (w < W) {
+#pragma unroll
+        for (int r = 0; r < G::TH; ++r)
+          if (h0 + r < H)
+            svt::store2(out + (((size_t)b * H + h0 + r) * W + w) * C + c, acc[r].x, acc[r].y);
+      }
+    }
+    __syncthreads();  // the slot is free for the unit after next
   }
 }
 
-// Step 1: per token (mu, rstd, mean(g*scale), mean(g*scale*yhat)).
+// S: per token (mu, rstd, mean(g*scale), mean(g*scale*yhat)) over a PH x 8
+// tile of one image. Tokens outside the image are computed on zeros and
+// never stored.
 template <typename T, int C>
-__global__ void __launch_bounds__(256) dw_ln_stats(
+__global__ void __launch_bounds__(dws::Stats<T, C>::NT, 2) dw_bwd_stats(
     const T* __restrict__ x, const T* __restrict__ k, const float* __restrict__ bias,
-    const float* __restrict__ scale, const T* __restrict__ g,
-    float4* __restrict__ stats, int B, int H, int W, float eps) {
+    const float* __restrict__ scale, const T* __restrict__ g, float4* __restrict__ stats,
+    int H, int W, int tiles_h, int tiles_w, float eps) {
+  using G = dws::Stats<T, C>;
   constexpr int NP = svt::Lanes<C>::NP;
-  constexpr int TB = svt::TokensPerWarp<C>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sT = reinterpret_cast<float*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw + G::T_BYTES);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long M = (long long)B * H * W;
-  const long long tok0 = ((long long)blockIdx.x * 8 + warp) * TB;
-  if (tok0 >= M) return;
-  int b[TB], h[TB], w[TB];
-  bool ok[TB];
-  T* none[TB];
+  const int tw = blockIdx.x % tiles_w;
+  const int th = (blockIdx.x / tiles_w) % tiles_h;
+  const int b = blockIdx.x / (tiles_w * tiles_h);
+  const int h0 = th * G::PH, w0 = tw * G::TW;
+  const int wcol = w0 + warp;  // this warp's image column
+
+  dws::load_box<T, G::HR, G::HW, G::NT>(ring, x, b, h0 - PAD, w0 - PAD, 0, H, W, C);
+  dws::commit();
+  for (int ch = 0; ch < G::NCH; ++ch) {
+    if (ch + 1 < G::NCH)
+      dws::load_box<T, G::HR, G::HW, G::NT>(ring + ((ch + 1) & 1) * G::HALO, x, b, h0 - PAD,
+                                            w0 - PAD, (ch + 1) * CS, H, W, C);
+    dws::commit();
+    dws::wait<1>();  // this chunk has landed (the next may be in flight)
+    __syncthreads();
+    const T* slot = ring + (ch & 1) * G::HALO;
+    const int c = ch * CS + 2 * lane;  // this lane's channel pair
+    if (c < C) {
+      float2 acc[G::PH];
 #pragma unroll
-  for (int i = 0; i < TB; ++i) {
-    svt::token_coords(tok0 + i, M, H, W, b[i], h[i], w[i], ok[i]);
-    none[i] = nullptr;
+      for (int r = 0; r < G::PH; ++r) acc[r] = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int dx = 0; dx < KS; ++dx) {
+        float2 kv[KS];
+#pragma unroll
+        for (int dy = 0; dy < KS; ++dy) kv[dy] = svt::load2(k + (dy * KS + dx) * C + c);
+#pragma unroll
+        for (int ih = 0; ih < G::HR; ++ih) {
+          const float2 xv = svt::load2(slot + (ih * G::HW + warp + dx) * CS + 2 * lane);
+#pragma unroll
+          for (int r = 0; r < G::PH; ++r) {
+            const int dy = ih - r;
+            if (dy < 0 || dy >= KS) continue;
+            acc[r].x = fmaf(xv.x, kv[dy].x, acc[r].x);
+            acc[r].y = fmaf(xv.y, kv[dy].y, acc[r].y);
+          }
+        }
+      }
+      const float2 bv = svt::load2(bias + c);
+#pragma unroll
+      for (int r = 0; r < G::PH; ++r)
+        svt::store2(sT + (r * G::TW + warp) * C + c, acc[r].x + bv.x, acc[r].y + bv.y);
+    }
+    __syncthreads();  // the slot is free for chunk ch + 2; after the last, sT is whole
   }
-  float a[TB][NP][2];
-  svt::dw_tokens<T, C, TB, false>(x, k, b, h, w, ok, H, W, lane, a, none);
-#pragma unroll
-  for (int i = 0; i < TB; ++i) {
+
+  // A warp a token (the tile column `warp`): the statistics of a's row.
+  for (int r = 0; r < G::PH; ++r) {
+    const int hh = h0 + r;
+    if (hh >= H || wcol >= W) continue;  // uniform over the warp
+    const float* arow = sT + (r * G::TW + warp) * C;
+    float v[NP][2];
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       const int p = lane + 32 * q;
+      v[q][0] = v[q][1] = 0.f;
       if (svt::Lanes<C>::valid(p)) {
-        const float2 bv = svt::load2(bias + 2 * p);
-        a[i][q][0] += bv.x;
-        a[i][q][1] += bv.y;
+        const float2 a = svt::load2(arow + 2 * p);
+        v[q][0] = a.x;
+        v[q][1] = a.y;
       }
     }
     float mu;
-    const float rstd = svt::centre_rstd<C>(a[i], eps, lane, mu);
+    const float rstd = svt::centre_rstd<C>(v, eps, lane, mu);  // v now a - mu
+    const size_t tok = ((size_t)b * H + hh) * W + wcol;
+    const T* gp = g + tok * C;
     float s1 = 0.f, s2 = 0.f;
-    if (ok[i]) {  // uniform over the warp
-      const T* gp = g + (tok0 + i) * C;
 #pragma unroll
-      for (int q = 0; q < NP; ++q) {
-        const int p = lane + 32 * q;
-        if (!svt::Lanes<C>::valid(p)) continue;
-        const float2 gv = svt::load2(gp + 2 * p);
-        const float2 sv = svt::load2(scale + 2 * p);
-        const float d0 = gv.x * sv.x, d1 = gv.y * sv.y;
-        s1 += d0 + d1;
-        s2 += d0 * (a[i][q][0] * rstd) + d1 * (a[i][q][1] * rstd);
-      }
+    for (int q = 0; q < NP; ++q) {
+      const int p = lane + 32 * q;
+      if (!svt::Lanes<C>::valid(p)) continue;
+      const float2 gv = svt::load2(gp + 2 * p);
+      const float2 sv = svt::load2(scale + 2 * p);
+      const float d0 = gv.x * sv.x, d1 = gv.y * sv.y;
+      s1 += d0 + d1;
+      s2 += d0 * (v[q][0] * rstd) + d1 * (v[q][1] * rstd);
     }
     s1 = svt::warp_sum(s1);
     s2 = svt::warp_sum(s2);
-    if (ok[i] && lane == 0)
-      stats[tok0 + i] = make_float4(mu, rstd, s1 * (1.f / C), s2 * (1.f / C));
+    if (lane == 0) stats[tok] = make_float4(mu, rstd, s1 * (1.f / C), s2 * (1.f / C));
   }
 }
 
-// Step 2: da and this CTA's partial parameter sums over rows [r0, r1) of the
-// B * H image rows and channels [64 * blockIdx.x, + 64).
-template <typename T>
-__global__ void __launch_bounds__(KS * 32) dw_ln_bwd_tile(
+// T: da and this CTA's partial parameter sums over rows [h0, h1) of image b,
+// columns [w0, w0 + SW) and channels [64 * slab, + 64). blockIdx.x is
+// part * slabs + slab, part = (b * runs + run) * strips + strip: the
+// workspace row the CTA writes.
+template <typename T, int SW>
+__global__ void __launch_bounds__(dws::Tile<T, SW>::NT, 2) dw_bwd_tile(
     const T* __restrict__ x, const T* __restrict__ k, const float* __restrict__ bias,
     const float* __restrict__ scale, const T* __restrict__ g,
-    const float4* __restrict__ stats, T* __restrict__ da, float* __restrict__ part,
-    int B, int H, int W, int C, int rows_per_cta) {
-  static_assert(TG == KS, "warp j finalises token j");
-  __shared__ float2 s_conv[KS][TG][32];  // [filter row][token][pair]
-  __shared__ float2 s_da[TG][32];
-  __shared__ float2 s_sum[KS][3][32];    // [warp][dbias, dscale, dbeta][pair]
+    const float4* __restrict__ stats, T* __restrict__ da, float* __restrict__ part, int H,
+    int W, int C, int rows_per_run, int runs, int strips, int slabs) {
+  using G = dws::Tile<T, SW>;
+  constexpr int CH = 16;               // tokens a step of the sliding window
+  constexpr int NX = CH + KS - 1;      // x values of a filter row for CH tokens
+  static_assert(SW % CH == 0, "the strip is whole steps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* sP = reinterpret_cast<float*>(smem_raw + G::RING_BYTES);  // [KS][SW][CS]
+  float* sDa = sP + KS * SW * CS;                                   // [SW][CS]
   const int dy = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * CG + 2 * lane;
+  const int slab = blockIdx.x % slabs;
+  const int p = blockIdx.x / slabs;
+  const int strip = p % strips;
+  const int run = (p / strips) % runs;
+  const int b = p / (strips * runs);
+  const int w0 = strip * SW, h0 = run * rows_per_run;
+  const int h1 = H < h0 + rows_per_run ? H : h0 + rows_per_run;
+  const int c = slab * CS + 2 * lane;
   const bool cok = c < C;  // C is even: c + 1 < C too
-  const long long rows = (long long)B * H;
-  const long long r0 = (long long)blockIdx.y * rows_per_cta;
-  const long long r1 = rows < r0 + rows_per_cta ? rows : r0 + rows_per_cta;
 
   const float2 zero = make_float2(0.f, 0.f);
   float2 kr[KS];
@@ -174,45 +290,81 @@ __global__ void __launch_bounds__(KS * 32) dw_ln_bwd_tile(
   for (int dx = 0; dx < KS; ++dx) dk[dx][0] = dk[dx][1] = 0.f;
   float2 sb = zero, ss = zero, sg = zero;
 
-  for (long long r = r0; r < r1; ++r) {
-    const int h = (int)(r % H);
-    const int hh = h + dy - PAD;
-    const bool rok = cok && hh >= 0 && hh < H;
-    const T* xrow = x + ((rok ? r - h + hh : 0) * W) * (long long)C + c;  // image row hh
-    for (int w0 = 0; w0 < W; w0 += TG) {
-      float2 xr[NXR];
+  // Ring slot j % RING holds x row h0 - PAD + j. Rows h0 - 3 .. h0 + 3, then
+  // row h0 + 4 in a group of its own.
+#pragma unroll 1
+  for (int j = 0; j < KS; ++j)
+    dws::load_box<T, 1, G::RW, G::NT>(ring + j * G::ROW, x, b, h0 - PAD + j, w0 - PAD,
+                                      slab * CS, H, W, C);
+  dws::commit();
+  dws::load_box<T, 1, G::RW, G::NT>(ring + KS * G::ROW, x, b, h0 + KS - PAD, w0 - PAD,
+                                    slab * CS, H, W, C);
+  dws::commit();
+  dws::wait<1>();
+  __syncthreads();
+
+  constexpr int NF = (SW + KS - 1) / KS;  // tokens a warp finalises a row
+  for (int h = h0; h < h1; ++h) {
+    const int j0 = h - h0;  // x row h + dy - PAD is in slot (j0 + dy) % RING
+    // g and the statistics of the tokens this warp finalises, loaded before
+    // pass 1 so that their latency hides behind it.
+    float2 gq[NF];
+    float4 sq[NF];
 #pragma unroll
-      for (int i = 0; i < NXR; ++i) {
-        const int ww = w0 - PAD + i;
-        xr[i] = (rok && ww >= 0 && ww < W) ? svt::load2(xrow + (long long)ww * C) : zero;
+    for (int i = 0; i < NF; ++i) {
+      const int wt = w0 + dy + KS * i;
+      gq[i] = zero;
+      sq[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (cok && dy + KS * i < SW && wt < W) {
+        const size_t tok = ((size_t)b * H + h) * W + wt;
+        sq[i] = stats[tok];
+        gq[i] = svt::load2(g + tok * C + c);
       }
-      // This filter row's share of the conv, for each of the TG tokens.
+    }
+    const T* xrow = ring + ((j0 + dy) % G::RING) * G::ROW + 2 * lane;
+    // 1. This filter row's share of the conv of every strip token.
 #pragma unroll
-      for (int j = 0; j < TG; ++j) {
-        float2 p = zero;
+    for (int s0 = 0; s0 < SW; s0 += CH) {
+      float2 xv[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xv[i] = svt::load2(xrow + (s0 + i) * CS);
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        float2 acc = zero;
 #pragma unroll
         for (int dx = 0; dx < KS; ++dx) {
-          p.x = fmaf(xr[j + dx].x, kr[dx].x, p.x);
-          p.y = fmaf(xr[j + dx].y, kr[dx].y, p.y);
+          acc.x = fmaf(xv[j + dx].x, kr[dx].x, acc.x);
+          acc.y = fmaf(xv[j + dx].y, kr[dx].y, acc.y);
         }
-        s_conv[dy][j][lane] = p;
+        svt::store2(sP + (dy * SW + s0 + j) * CS + 2 * lane, acc.x, acc.y);
       }
-      __syncthreads();
-      // Warp dy finalises token w0 + dy.
+    }
+    __syncthreads();
+    // Fetch x row h + 5 into the slot of row h - 4, which row h - 1 read last.
+    if (h + KS - PAD + 1 < h1 + PAD)
+      dws::load_box<T, 1, G::RW, G::NT>(ring + ((j0 + KS + 1) % G::RING) * G::ROW, x, b,
+                                        h + KS - PAD + 1, w0 - PAD, slab * CS, H, W, C);
+    dws::commit();
+    // 2. Warp dy finalises tokens dy, dy + 7, ...: da from the statistics.
+#pragma unroll
+    for (int i = 0; i < NF; ++i) {
+      const int w = dy + KS * i;
+      if (w >= SW) break;
+      const int wt = w0 + w;
       float2 d = zero;
-      const int wt = w0 + dy;
       if (cok && wt < W) {
-        const long long tok = r * W + wt;
-        const float4 st = stats[tok];  // mu, rstd, mean(g*scale), mean(g*scale*yhat)
         float2 a = zero;
 #pragma unroll
-        for (int rr = 0; rr < KS; ++rr) {
-          a.x += s_conv[rr][dy][lane].x;
-          a.y += s_conv[rr][dy][lane].y;
+        for (int r = 0; r < KS; ++r) {
+          const float2 pr = svt::load2(sP + (r * SW + w) * CS + 2 * lane);
+          a.x += pr.x;
+          a.y += pr.y;
         }
         a.x += bv.x;
         a.y += bv.y;
-        const float2 gv = svt::load2(g + tok * C + c);
+        const size_t tok = ((size_t)b * H + h) * W + wt;
+        const float4 st = sq[i];  // mu, rstd, mean(g*scale), mean(g*scale*yhat)
+        const float2 gv = gq[i];
         const float y0 = (a.x - st.x) * st.y, y1 = (a.y - st.x) * st.y;
         d.x = st.y * (gv.x * sv.x - st.z - y0 * st.w);
         d.y = st.y * (gv.y * sv.y - st.z - y1 * st.w);
@@ -224,73 +376,115 @@ __global__ void __launch_bounds__(KS * 32) dw_ln_bwd_tile(
         sg.x += gv.x;
         sg.y += gv.y;
       }
-      s_da[dy][lane] = d;
-      __syncthreads();
-      // dk[dy][dx] += x[h + dy - 3][w + dx - 3] * da[h][w] for the TG tokens.
+      svt::store2(sDa + w * CS + 2 * lane, d.x, d.y);
+    }
+    dws::wait<1>();  // row h + 4 has landed (row h + 5 may be in flight)
+    __syncthreads();
+    // 3. dk[dy][dx] += x[h + dy - 3][w + dx - 3] * da[h][w] over the strip.
 #pragma unroll
-      for (int j = 0; j < TG; ++j) {
-        const float2 dj = s_da[j][lane];
+    for (int s0 = 0; s0 < SW; s0 += CH) {
+      float2 xv[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) xv[i] = svt::load2(xrow + (s0 + i) * CS);
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const float2 dj = svt::load2(sDa + (s0 + j) * CS + 2 * lane);
 #pragma unroll
         for (int dx = 0; dx < KS; ++dx) {
-          dk[dx][0] = fmaf(xr[j + dx].x, dj.x, dk[dx][0]);
-          dk[dx][1] = fmaf(xr[j + dx].y, dj.y, dk[dx][1]);
+          dk[dx][0] = fmaf(xv[j + dx].x, dj.x, dk[dx][0]);
+          dk[dx][1] = fmaf(xv[j + dx].y, dj.y, dk[dx][1]);
         }
       }
     }
   }
 
-  float* out = part + (size_t)blockIdx.y * NSUM * C;
+  float* out = part + (size_t)p * NSUM * C;
   if (cok) {
 #pragma unroll
     for (int dx = 0; dx < KS; ++dx)
       svt::store2(out + (size_t)(dy * KS + dx) * C + c, dk[dx][0], dk[dx][1]);
   }
-  s_sum[dy][0][lane] = sb;
-  s_sum[dy][1][lane] = ss;
-  s_sum[dy][2][lane] = sg;
+  __syncthreads();  // sP is free: the warps' sums go there, [KS][3][CS]
+  svt::store2(sP + (dy * 3 + 0) * CS + 2 * lane, sb.x, sb.y);
+  svt::store2(sP + (dy * 3 + 1) * CS + 2 * lane, ss.x, ss.y);
+  svt::store2(sP + (dy * 3 + 2) * CS + 2 * lane, sg.x, sg.y);
   __syncthreads();
   if (dy < 3 && cok) {
     float2 tot = zero;
 #pragma unroll
-    for (int rr = 0; rr < KS; ++rr) {
-      tot.x += s_sum[rr][dy][lane].x;
-      tot.y += s_sum[rr][dy][lane].y;
+    for (int r = 0; r < KS; ++r) {
+      const float2 v = svt::load2(sP + (r * 3 + dy) * CS + 2 * lane);
+      tot.x += v.x;
+      tot.y += v.y;
     }
     svt::store2(out + (size_t)(KS * KS + dy) * C + c, tot.x, tot.y);
   }
 }
 
+template <typename K>
+int smem_attr(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)bytes);
+}
+
 template <typename T>
-int launch_dw7(const void* x, const void* k, void* out, int B, int H, int W, int C,
-               cudaStream_t s) {
-  const long long tokens = (long long)B * H * W;
-#define SVT_DW7_CASE(CC)                                                            \
-  case CC:                                                                          \
-    dw7_kernel<T, CC><<<(unsigned)((tokens + 8 * svt::TokensPerWarp<CC>::value - 1) / \
-                                   (8 * svt::TokensPerWarp<CC>::value)),            \
-                        256, 0, s>>>((const T*)x, (const T*)k, (T*)out, B, H, W);   \
-    break;
-  switch (C) {
-    SVT_DW_WIDTHS(SVT_DW7_CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SVT_DW7_CASE
+int launch_stencil(const void* x, const void* k, void* out, int B, int H, int W, int C,
+                   cudaStream_t s) {
+  using G = dws::Stencil<T>;
+  int err, dev, sms, per_sm;
+  if ((err = smem_attr(dw_stencil<T>, G::BYTES))) return err;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dw_stencil<T>, G::NT,
+                                                                G::BYTES)))
+    return err;
+  const int tiles_h = (H + G::TH - 1) / G::TH, tiles_w = (W + G::TW - 1) / G::TW;
+  const long long units = (long long)((C + CS - 1) / CS) * B * tiles_h * tiles_w;
+  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const unsigned grid = (unsigned)(units < most ? units : most);
+  dw_stencil<T><<<grid, G::NT, G::BYTES, s>>>((const T*)x, (const T*)k, (T*)out, B, H, W, C,
+                                              tiles_h, tiles_w, units);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+int launch_stats(const void* x, const void* k, const void* bias, const void* scale,
+                 const void* g, void* stats, int B, int H, int W, float eps, cudaStream_t s) {
+  using G = dws::Stats<T, C>;
+  int err;
+  if ((err = smem_attr(dw_bwd_stats<T, C>, G::BYTES))) return err;
+  const int tiles_h = (H + G::PH - 1) / G::PH, tiles_w = (W + G::TW - 1) / G::TW;
+  dw_bwd_stats<T, C><<<(unsigned)((long long)B * tiles_h * tiles_w), G::NT, G::BYTES, s>>>(
+      (const T*)x, (const T*)k, (const float*)bias, (const float*)scale, (const T*)g,
+      (float4*)stats, H, W, tiles_h, tiles_w, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int SW>
+int launch_tile(const void* x, const void* k, const void* bias, const void* scale,
+                const void* g, const void* stats, void* da, void* part, int B, int H, int W,
+                int C, int rows_per_run, cudaStream_t s) {
+  using G = dws::Tile<T, SW>;
+  int err;
+  if ((err = smem_attr(dw_bwd_tile<T, SW>, G::BYTES))) return err;
+  const int runs = (H + rows_per_run - 1) / rows_per_run;
+  const int strips = (W + SW - 1) / SW;
+  const int slabs = (C + CS - 1) / CS;
+  const long long ctas = (long long)B * runs * strips * slabs;
+  dw_bwd_tile<T, SW><<<(unsigned)ctas, G::NT, G::BYTES, s>>>(
+      (const T*)x, (const T*)k, (const float*)bias, (const float*)scale, (const T*)g,
+      (const float4*)stats, (T*)da, (float*)part, H, W, C, rows_per_run, runs, strips, slabs);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_bwd(const void* x, const void* k, const void* bias, const void* scale,
-               const void* g, void* stats, void* da, void* part, void* sums, int B,
-               int H, int W, int C, int rows_per_cta, float eps, cudaStream_t s) {
-  const long long tokens = (long long)B * H * W;
-#define SVT_STATS_CASE(CC)                                                           \
-  case CC:                                                                           \
-    dw_ln_stats<T, CC><<<(unsigned)((tokens + 8 * svt::TokensPerWarp<CC>::value - 1) / \
-                                    (8 * svt::TokensPerWarp<CC>::value)),            \
-                         256, 0, s>>>((const T*)x, (const T*)k, (const float*)bias,  \
-                                      (const float*)scale, (const T*)g,              \
-                                      (float4*)stats, B, H, W, eps);                 \
+               const void* g, void* stats, void* da, void* part, void* sums, int B, int H,
+               int W, int C, int rows_per_run, float eps, cudaStream_t s) {
+  int err;
+#define SVT_STATS_CASE(CC)                                                               \
+  case CC:                                                                               \
+    err = launch_stats<T, CC>(x, k, bias, scale, g, stats, B, H, W, eps, s);             \
     break;
   switch (C) {
     SVT_DW_WIDTHS(SVT_STATS_CASE)
@@ -298,13 +492,15 @@ int launch_bwd(const void* x, const void* k, const void* bias, const void* scale
       return (int)cudaErrorInvalidValue;
   }
 #undef SVT_STATS_CASE
-  int err = (int)cudaGetLastError();
   if (err) return err;
-  const long long P = ((long long)B * H + rows_per_cta - 1) / rows_per_cta;
-  dw_ln_bwd_tile<T><<<dim3((unsigned)((C + CG - 1) / CG), (unsigned)P), KS * 32, 0, s>>>(
-      (const T*)x, (const T*)k, (const float*)bias, (const float*)scale, (const T*)g,
-      (const float4*)stats, (T*)da, (float*)part, B, H, W, C, rows_per_cta);
-  if ((err = (int)cudaGetLastError())) return err;
+  err = dws::strip_width(W) == 16
+            ? launch_tile<T, 16>(x, k, bias, scale, g, stats, da, part, B, H, W, C,
+                                 rows_per_run, s)
+            : launch_tile<T, 32>(x, k, bias, scale, g, stats, da, part, B, H, W, C,
+                                 rows_per_run, s);
+  if (err) return err;
+  const long long P = (long long)B * ((H + rows_per_run - 1) / rows_per_run) *
+                      ((W + dws::strip_width(W) - 1) / dws::strip_width(W));
   svt::colsum<<<(unsigned)((NSUM * C + 31) / 32), dim3(32, 32), 0, s>>>(
       (const float*)part, P, NSUM * C, (float*)sums);
   return (int)cudaGetLastError();
@@ -313,34 +509,37 @@ int launch_bwd(const void* x, const void* k, const void* bias, const void* scale
 }  // namespace
 
 // The stencil: out = dwconv7x7(x) with the tap-major [49, C] filter k.
-// dtype: 0 = bf16, 1 = f32 (x, k and out share it). Returns the cudaError_t
-// of the launch.
-extern "C" int svt_dwconv7x7(const void* x, const void* k, void* out, int dtype, int B,
-                             int H, int W, int C, void* stream) {
+// dtype: 0 = bf16, 1 = f32 (x, k and out share it); C even. Returns the
+// cudaError_t of the launch.
+extern "C" int svt_dwconv7x7(const void* x, const void* k, void* out, int dtype, int B, int H,
+                             int W, int C, void* stream) {
   if ((long long)B * H * W == 0) return 0;
+  if (B < 0 || H < 0 || W < 0 || C <= 0 || C % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dw7<__nv_bfloat16>(x, k, out, B, H, W, C, s);
-  if (dtype == 1) return launch_dw7<float>(x, k, out, B, H, W, C, s);
+  if (dtype == 0) return launch_stencil<__nv_bfloat16>(x, k, out, B, H, W, C, s);
+  if (dtype == 1) return launch_stencil<float>(x, k, out, B, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The backward of dwconv + bias + LayerNorm but dx: x, k [49, C], g and da in
-// the dtype (0 = bf16, 1 = f32); bias and scale f32 [C]. Scratch from the
-// caller: stats f32 [B * H * W, 4], part f32 [ceil(B * H / rows_per_cta),
-// 52 * C]. sums (f32 [52 * C]) receives dk [49, C], dbias, dscale, dbeta.
-// Returns the first cudaError_t of its launches.
+// the dtype (0 = bf16, 1 = f32); bias and scale f32 [C]. T's CTAs walk runs
+// of rows_per_run image rows in strips of 16 columns (W <= 16) or 32.
+// Scratch from the caller: stats f32 [B * H * W, 4], part f32 [B * runs *
+// strips, 52 * C] (runs = ceil(H / rows_per_run), strips = ceil(W / strip)).
+// sums (f32 [52 * C]) receives dk [49, C], dbias, dscale, dbeta. Returns the
+// first cudaError_t of its launches.
 extern "C" int svt_dw_ln_bwd(const void* x, const void* k, const void* bias,
                              const void* scale, const void* g, void* stats, void* da,
-                             void* part, void* sums, int dtype, int B, int H, int W,
-                             int C, int rows_per_cta, float eps, void* stream) {
-  if ((long long)B * H * W == 0 || rows_per_cta <= 0 || C % 2)
+                             void* part, void* sums, int dtype, int B, int H, int W, int C,
+                             int rows_per_run, float eps, void* stream) {
+  if ((long long)B * H * W == 0 || B < 0 || H < 0 || W < 0 || rows_per_run <= 0 || C % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_bwd<__nv_bfloat16>(x, k, bias, scale, g, stats, da, part, sums, B, H,
-                                     W, C, rows_per_cta, eps, s);
+    return launch_bwd<__nv_bfloat16>(x, k, bias, scale, g, stats, da, part, sums, B, H, W, C,
+                                     rows_per_run, eps, s);
   if (dtype == 1)
     return launch_bwd<float>(x, k, bias, scale, g, stats, da, part, sums, B, H, W, C,
-                             rows_per_cta, eps, s);
+                             rows_per_run, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -46,9 +46,18 @@ from spine_vision_torch.ops.dwconv import (
     TAPS,
     depthwise_conv7x7,
     depthwise_conv7x7_reference,
-    rows_per_cta,
 )
 from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM, ln_mlp_bwd
+
+_TAP_CHANNELS = 64  # csrc/block_train_bwd.cu, CG: a tap_sums CTA's channels
+_TAP_CTAS = 2048  # tap_sums CTAs a call to aim at: about 16 a multiprocessor
+
+
+def rows_per_cta(rows: int, c: int) -> int:
+    """Image rows each CTA of #10's tap sums (``tap_sums``) walks: about
+    ``_TAP_CTAS`` CTAs over the channel groups and the ``B * H`` rows."""
+    groups = -(-c // _TAP_CHANNELS)
+    return -(-rows // max(1, -(-_TAP_CTAS // groups)))
 
 
 def depthwise_conv_grads(

@@ -7,10 +7,15 @@ hand-written kernel on a CUDA tensor and runs its plain PyTorch version
 
 - :func:`dw_ln`, ``LayerNorm(dwconv7x7(x) + bias)``: ``csrc/dwconv_ln.cu`` (a
   warp per few tokens, LayerNorm in registers; replaces ``_dw_ln_pallas``);
-- :func:`depthwise_conv7x7`, the plain stencil: ``csrc/dwconv_bwd.cu``
-  (replaces ``depthwise_conv7x7``);
+- :func:`depthwise_conv7x7`, the plain stencil: ``csrc/dwconv_bwd.cu``'s
+  ``dw_stencil``, persistent CTAs on halo tiles staged in shared memory
+  (replaces ``depthwise_conv7x7``; launch geometry :func:`stencil_geometry`);
 - :func:`dw_ln_bwd_sums`, the backward of :func:`dw_ln` but dx:
-  ``csrc/dwconv_bwd.cu`` (replaces ``_dw_ln_bwd_pallas``'s first kernel);
+  ``csrc/dwconv_bwd.cu`` (replaces ``_dw_ln_bwd_pallas``'s first kernel) in
+  three launches, :func:`bwd_launch`: S ``dw_bwd_stats`` (the LayerNorm
+  statistics of each token, :func:`bwd_stats_reference`), T ``dw_bwd_tile``
+  (da and each CTA's parameter sums, :func:`bwd_tile_reference`) and the
+  fixed-order column sums (geometry :func:`bwd_geometry`);
   :func:`dw_ln_bwd` adds dx, :func:`depthwise_conv7x7` on the flipped filter.
 
 :func:`depthwise_conv7x7_ln` pairs the forward with that backward as a
@@ -36,8 +41,7 @@ TAPS = KERNEL_SIZE * KERNEL_SIZE
 KERNEL_WIDTHS = (96, 128, 192, 256, 352, 384, 512, 704, 768, 1024, 1408, 1536, 2048, 2816)
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 _SUMS = TAPS + 3  # csrc/dwconv_bwd.cu, NSUM: dk, dbias, dscale, dbeta
-_CHANNELS_PER_CTA = 64  # csrc/dwconv_bwd.cu, CG
-_TARGET_CTAS = 2048  # of the backward's tile kernel: about 16 a multiprocessor
+_ITEM = {torch.bfloat16: 2, torch.float32: 4}  # bytes an element
 
 
 def depthwise_conv7x7_reference(x: torch.Tensor, k49: torch.Tensor) -> torch.Tensor:
@@ -73,6 +77,57 @@ def dw_ln_reference(
     return layer_norm_f32(t, ln_scale, ln_bias, eps).to(x.dtype)
 
 
+def bwd_stats_reference(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The plain S: each token's ``(mu, rstd, mean(g * scale), mean(g * scale
+    * yhat))`` over the channels, f32 ``[B, H, W, 4]``, with a = the conv
+    recomputed from x in f32 plus bias, rstd from the mean of the centred
+    squares and yhat = (a - mu) * rstd."""
+    a = depthwise_conv7x7_reference(x, k49) + bias.float()
+    mu = a.mean(dim=-1, keepdim=True)
+    centred = a - mu
+    rstd = torch.rsqrt((centred * centred).mean(dim=-1, keepdim=True) + eps)
+    dyhat = g.float() * ln_scale.float()
+    return torch.cat((mu, rstd, dyhat.mean(dim=-1, keepdim=True),
+                      (dyhat * (centred * rstd)).mean(dim=-1, keepdim=True)), dim=-1)
+
+
+def bwd_tile_reference(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    g: torch.Tensor,
+    stats: torch.Tensor,
+) -> tuple[torch.Tensor, ...]:
+    """The plain T and column sums, from S's ``stats`` (any shape of ``[M,
+    4]``): the conv recomputed in f32 plus bias, ``da = rstd * (g * scale -
+    mean(g * scale) - yhat * mean(g * scale * yhat))`` in f32, ``dbias = sum
+    da`` and ``dk = sum x_halo * da`` from the unrounded ``da``, ``dscale =
+    sum g * yhat``, ``dbeta = sum g``. Returns ``(da, dk49, dbias, dscale,
+    dbeta)``: ``da`` rounded to x's dtype, the rest f32, ``dk49`` ``[49, C]``."""
+    c = x.shape[-1]
+    a = depthwise_conv7x7_reference(x, k49) + bias.float()
+    st = stats.reshape(*x.shape[:3], 4)
+    mu, rstd, mean_d, mean_dy = (st[..., i: i + 1] for i in range(4))
+    yhat = (a - mu) * rstd
+    gf = g.float()
+    da = rstd * (gf * ln_scale.float() - mean_d - yhat * mean_dy)
+    dk = conv2d_weight(
+        x.float().permute(0, 3, 1, 2), (c, 1, KERNEL_SIZE, KERNEL_SIZE),
+        da.permute(0, 3, 1, 2), padding=PAD, groups=c,
+    ).reshape(c, TAPS).t()
+    sums = (0, 1, 2)
+    return (da.to(x.dtype), dk, da.sum(dim=sums), (gf * yhat).sum(dim=sums),
+            gf.sum(dim=sums))
+
+
 def dw_ln_bwd_sums_reference(
     x: torch.Tensor,
     k49: torch.Tensor,
@@ -82,32 +137,12 @@ def dw_ln_bwd_sums_reference(
     eps: float = 1e-6,
 ) -> tuple[torch.Tensor, ...]:
     """Plain backward of :func:`dw_ln_reference` up to ``dx``, for the output
-    gradient ``g``, with the TPU kernel's rounding points: the conv recomputed
-    from x in f32 plus bias, the LayerNorm statistics from the mean of centred
-    squares, ``da`` in f32, ``dbias = sum da`` and ``dk = sum x_halo * da``
-    from the unrounded ``da``, ``dscale = sum g * yhat``, ``dbeta = sum g``.
-    Returns ``(da, dk49, dbias, dscale, dbeta)``: ``da`` rounded to x's dtype,
-    the rest f32, ``dk49`` in the ``[49, C]`` layout."""
-    c = x.shape[-1]
-    a = depthwise_conv7x7_reference(x, k49) + bias.float()
-    mu = a.mean(dim=-1, keepdim=True)
-    centred = a - mu
-    rstd = torch.rsqrt((centred * centred).mean(dim=-1, keepdim=True) + eps)
-    yhat = centred * rstd
-    gf = g.float()
-    dyhat = gf * ln_scale.float()
-    da = rstd * (
-        dyhat
-        - dyhat.mean(dim=-1, keepdim=True)
-        - yhat * (dyhat * yhat).mean(dim=-1, keepdim=True)
-    )
-    dk = conv2d_weight(
-        x.float().permute(0, 3, 1, 2), (c, 1, KERNEL_SIZE, KERNEL_SIZE),
-        da.permute(0, 3, 1, 2), padding=PAD, groups=c,
-    ).reshape(c, TAPS).t()
-    sums = (0, 1, 2)
-    return (da.to(x.dtype), dk, da.sum(dim=sums), (gf * yhat).sum(dim=sums),
-            gf.sum(dim=sums))
+    gradient ``g``, with the TPU kernel's rounding points: :func:`bwd_stats_reference`
+    then :func:`bwd_tile_reference`, the kernel's two steps. Returns ``(da,
+    dk49, dbias, dscale, dbeta)``: ``da`` rounded to x's dtype, the rest f32,
+    ``dk49`` in the ``[49, C]`` layout."""
+    stats = bwd_stats_reference(x, k49, bias, ln_scale, g, eps)
+    return bwd_tile_reference(x, k49, bias, ln_scale, g, stats)
 
 
 def dw_ln_bwd_reference(
@@ -192,6 +227,80 @@ def dw_ln(
 dw_ln.launches = 0
 
 
+# csrc/dw_stage.cuh's geometry. The stencil and T take 64-channel slabs; S
+# a PH x 8 tile at full C. SMEM_* are an H100 multiprocessor's shared memory,
+# what one CTA may take and what each resident CTA holds back.
+_SLAB = 64
+_HALO = KERNEL_SIZE // 2
+SMEM_A_SM = 233472
+SMEM_A_CTA = 232448
+SMEM_RESERVED = 1024
+_H100_SMS = 132
+_MIN_RUN_ROWS = 64  # T's runs at least (or the image): its first 6 x rows spread over them
+_TILE_CTAS = 1024  # T's runs grow where runs of 64 rows would start more CTAs than this
+
+
+def _ctas_an_sm(smem: int) -> int:
+    """Resident CTAs a multiprocessor for ``smem`` bytes of dynamic shared
+    memory, at most 2 (the kernels' launch bounds)."""
+    return min(2, SMEM_A_SM // (smem + SMEM_RESERVED))
+
+
+def stencil_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype,
+                     sms: int = _H100_SMS) -> dict:
+    """The launch geometry of ``csrc/dwconv_bwd.cu``'s ``dw_stencil`` on a
+    card of ``sms`` multiprocessors: its tile (rows, cols), tiles a side,
+    slabs, units (slab-major tiles), shared memory a CTA and persistent CTAs;
+    CTA ``i`` walks units ``[i * units // ctas, (i + 1) * units // ctas)``."""
+    item = _ITEM[dtype]
+    rows, cols = (16 if item == 2 else 8), 8
+    tiles = (-(-h // rows), -(-w // cols))
+    slabs = -(-c // _SLAB)
+    units = slabs * b * tiles[0] * tiles[1]
+    smem = 2 * (rows + 2 * _HALO) * (cols + 2 * _HALO) * _SLAB * item + TAPS * _SLAB * 4
+    per_sm = _ctas_an_sm(smem) if item == 2 else 1  # f32: its registers allow one
+    return {"tile": (rows, cols), "tiles": tiles, "slabs": slabs, "units": units,
+            "smem": smem, "ctas": min(units, per_sm * sms)}
+
+
+def _stats_bytes(ph: int, c: int, item: int) -> int:
+    return ph * 8 * c * 4 + 2 * (ph + 2 * _HALO) * (8 + 2 * _HALO) * _SLAB * item
+
+
+def bwd_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of ``csrc/dwconv_bwd.cu``'s backward for a [b, h,
+    w, c] input: S's tile (PH, 8) (PH the largest of 8, 4, 2, 1 that leaves
+    room for two CTAs a multiprocessor, else for one), tiles a side, CTAs and
+    shared memory; T's strip width, strips, slabs, rows a run, runs an image,
+    CTAs and shared memory; ``parts``, the workspace rows colsum adds (one a
+    T CTA of each slab). Raises on what the kernels do not take."""
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"dw_ln_bwd kernel is built for C in {KERNEL_WIDTHS}, got {c}")
+    if not 0 < b * h * w < 2 ** 31:
+        raise ValueError(f"dw_ln_bwd kernels take 1 to 2^31 - 1 tokens, got {b * h * w}")
+    item = _ITEM[dtype]
+    fits = [ph for ph in (8, 4, 2, 1) if 2 * (_stats_bytes(ph, c, item) + SMEM_RESERVED)
+            <= SMEM_A_SM] or [ph for ph in (8, 4, 2, 1) if _stats_bytes(ph, c, item) <= SMEM_A_CTA]
+    ph = fits[0]
+    stats_tiles = (-(-h // ph), -(-w // 8))
+    strip = 16 if w <= 16 else 32  # dws::strip_width
+    strips, slabs = -(-w // strip), -(-c // _SLAB)
+    wanted = max(1, -(-_TILE_CTAS // (b * strips * slabs)))
+    rows = max(min(h, _MIN_RUN_ROWS), -(-h // wanted))
+    runs = -(-h // rows)
+    parts = b * runs * strips
+    return {
+        "stats_tile": (ph, 8), "stats_tiles": stats_tiles,
+        "stats_ctas": b * stats_tiles[0] * stats_tiles[1],
+        "stats_smem": _stats_bytes(ph, c, item),
+        "strip": strip, "strips": strips, "slabs": slabs, "rows_per_run": rows, "runs": runs,
+        "tile_ctas": parts * slabs,
+        "tile_smem": ((KERNEL_SIZE + 2) * (strip + 2 * _HALO) * _SLAB * item
+                      + KERNEL_SIZE * strip * _SLAB * 4 + strip * _SLAB * 4),
+        "parts": parts,
+    }
+
+
 def depthwise_conv7x7(x: torch.Tensor, k49: torch.Tensor) -> torch.Tensor:
     """SAME 7x7 depthwise conv of NHWC ``x`` with the ``[49, C]`` filter,
     summed in f32 and returned in x's dtype.
@@ -220,11 +329,37 @@ def depthwise_conv7x7(x: torch.Tensor, k49: torch.Tensor) -> torch.Tensor:
 depthwise_conv7x7.launches = 0
 
 
-def rows_per_cta(rows: int, c: int) -> int:
-    """Image rows each CTA of the backward's tile kernel walks: about
-    ``_TARGET_CTAS`` CTAs over the channel groups and the ``B * H`` rows."""
-    groups = -(-c // _CHANNELS_PER_CTA)
-    return -(-rows // max(1, -(-_TARGET_CTAS // groups)))
+def bwd_launch(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> dict[str, torch.Tensor]:
+    """Launch ``csrc/dwconv_bwd.cu``'s backward (S, T, colsum) on CUDA tensors
+    and return its buffers by name: ``da``, ``stats`` ``[B, H, W, 4]``, the
+    workspace ``part`` ``[parts, 52 * C]`` and ``sums`` (dk, dbias, dscale,
+    dbeta), which the stage tests read. The launch counter is
+    :func:`dw_ln_bwd_sums`'s; this counts nothing."""
+    _check_args("dw_ln_bwd", x, k49, (("bias", bias), ("ln_scale", ln_scale)), g)
+    b, h, w, c = x.shape
+    geo = bwd_geometry(b, h, w, c, x.dtype)
+    dev, f32 = x.device, torch.float32
+    o = {"da": torch.empty_like(x), "stats": torch.empty(b, h, w, 4, dtype=f32, device=dev),
+         "part": torch.empty(geo["parts"], _SUMS * c, dtype=f32, device=dev),
+         "sums": torch.empty(_SUMS * c, dtype=f32, device=dev)}
+    fn = cuda_build.load("dwconv_bwd").svt_dw_ln_bwd
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        p(x), p(k49), p(bias), p(ln_scale), p(g), p(o["stats"]), p(o["da"]), p(o["part"]),
+        p(o["sums"]), ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h),
+        ctypes.c_int(w), ctypes.c_int(c), ctypes.c_int(geo["rows_per_run"]),
+        ctypes.c_float(eps), cuda_build.stream_ptr(dev),
+    )
+    cuda_build.check(err, "dw_ln_bwd")
+    return o
 
 
 def dw_ln_bwd_sums(
@@ -243,26 +378,11 @@ def dw_ln_bwd_sums(
     """
     if x.device.type == "cpu":
         return dw_ln_bwd_sums_reference(x, k49, bias, ln_scale, g, eps)
-    _check_args("dw_ln_bwd", x, k49, (("bias", bias), ("ln_scale", ln_scale)), g)
-    b, h, w, c = x.shape
-    dev, f32 = x.device, torch.float32
-    rows = rows_per_cta(b * h, c)
-    da = torch.empty_like(x)
-    stats = torch.empty(b * h * w, 4, dtype=f32, device=dev)
-    part = torch.empty(-(-(b * h) // rows), _SUMS * c, dtype=f32, device=dev)
-    sums = torch.empty(_SUMS * c, dtype=f32, device=dev)
-    fn = cuda_build.load("dwconv_bwd").svt_dw_ln_bwd
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    err = fn(
-        p(x), p(k49), p(bias), p(ln_scale), p(g), p(stats), p(da), p(part), p(sums),
-        ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w),
-        ctypes.c_int(c), ctypes.c_int(rows), ctypes.c_float(eps), cuda_build.stream_ptr(dev),
-    )
-    cuda_build.check(err, "dw_ln_bwd")
+    o = bwd_launch(x, k49, bias, ln_scale, g, eps)
     dw_ln_bwd_sums.launches += 1
-    dk, dbias, dscale, dbeta = sums.split((TAPS * c, c, c, c))
-    return da, dk.view(TAPS, c), dbias, dscale, dbeta
+    c = x.shape[-1]
+    dk, dbias, dscale, dbeta = o["sums"].split((TAPS * c, c, c, c))
+    return o["da"], dk.view(TAPS, c), dbias, dscale, dbeta
 
 
 dw_ln_bwd_sums.launches = 0

@@ -11,6 +11,7 @@ wgmma forms take their y and h (``_scratch``).
 
     python -m spine_vision_torch.probes.build_diff --parent DIR
     python -m spine_vision_torch.probes.build_diff --parent DIR --case ln_mlp_bwd
+    python -m spine_vision_torch.probes.build_diff --parent DIR --case dwconv_bwd
 
 The ``ln_mlp_bwd`` case builds both trees' ``csrc/ln_mlp_bwd.cu`` and
 ``csrc/block_train_bwd.cu`` (which includes its header) instead: each build's
@@ -20,6 +21,16 @@ builds share, then #8/#9 (``svt_ln_mlp_bwd``), #6 (``svt_mlp_bwd``) and #10
 through this tree's C interface (the Hopper form's) with their
 own scratch, device time a call in the order parent, tree, tree, parent, and
 the two builds' outputs held within 2e-2 of max |parent| of each other.
+
+The ``dwconv_bwd`` case builds both trees' ``csrc/dwconv_bwd.cu`` (#4 and
+#3) and the sources that share its headers, ``dwconv_ln.cu``,
+``convnext_block.cu`` and ``block_train_bwd.cu``, whose SASS must match the
+parent's kernel for kernel (it raises otherwise); then #4 (``svt_dw_ln_bwd``)
+and #3 (``svt_dwconv7x7``, on x with the flipped filter) at the all-kernel
+step's four shapes, each build through its own C interface with its own
+workspace, device time a call in the order parent, tree, tree, parent, the
+outputs within the card tests' tolerances of max |parent| (2e-2 for #4,
+1e-2 for #3), and each build's call split into its kernels (a profile).
 
 ``DIR`` is a checkout of another commit (``git archive``). The sources are
 compiled by nvcc with the package's flags, and ``cuobjdump`` lists their
@@ -270,7 +281,7 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
     """One call of the ``tag`` build's ``kernel`` (ln_mlp_bwd, mlp_bwd or
     block_train_bwd) on ``a``, into fresh outputs and scratch: ``(launch,
     outputs)``. Both builds take this tree's C interface."""
-    from spine_vision_torch.ops import dwconv
+    from spine_vision_torch.ops import block_train as bt
     from spine_vision_torch.ops import fused_mlp as fm
 
     t, g = a["x"], a["res"]
@@ -293,7 +304,7 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
     outs = (p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]))
     tail = (p(k["part"]), p(k["ws"]))
     if kernel == "block_train_bwd":
-        rows = dwconv.rows_per_cta(b * h, c)
+        rows = bt.rows_per_cta(b * h, c)
         o["taps"] = torch.empty(50 * c, dtype=f32, device=dev)
         k["u"] = torch.empty(m, c, dtype=f32, device=dev)
         k["gu32"] = torch.empty(m, c, dtype=f32, device=dev)
@@ -321,11 +332,13 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
     return launch, o
 
 
-def _bwd_case(parent: Path, dev) -> None:
-    """The ``ln_mlp_bwd`` case: both builds of csrc/ln_mlp_bwd.cu and of
-    csrc/block_train_bwd.cu, which includes its header."""
+def _build_pair(parent: Path, sources) -> tuple[dict, dict]:
+    """Both trees' builds of each of ``sources``: each build's kernels with
+    their registers, stack and spills, then each source's SASS compared,
+    printed. Returns the libraries by (source, tag) and, by source, the
+    kernels whose SASS differs or that only one build has."""
     libs, jobs = {}, {}
-    for source in sorted(set(BWD_SOURCES.values())):
+    for source in sources:
         for tag, csrc in (("parent", parent / "spine_vision_torch" / "csrc"),
                           ("tree", cuda_build.CSRC)):
             libs[source, tag] = cuda_build.BUILD_DIR / "build_diff" / f"lib{source}-{tag}.so"
@@ -338,15 +351,26 @@ def _bwd_case(parent: Path, dev) -> None:
         print(f"[build_diff] {source} {tag}: {len(res)} kernels, spill stores {_spills(log)} "
               f"bytes; registers / stack bytes: " + "; ".join(
                   f"{name} {r} / {st}" for name, (r, st) in sorted(res.items())))
-    for source in sorted(set(BWD_SOURCES.values())):
+    moved = {}
+    for source in sources:
         sass = {tag: _sass(libs[source, tag]) for tag in ("parent", "tree")}
         shared = sorted(set(sass["parent"]) & set(sass["tree"]))
         verdicts = {k: _compare(sass["parent"][k], sass["tree"][k]) for k in shared}
         same = [k for k, v in verdicts.items() if v.startswith("SASS identical")]
+        only = {tag: sorted(set(sass[tag]) - set(sass[other])) for tag, other in
+                (("parent", "tree"), ("tree", "parent"))}
         print(f"[build_diff] {source}: {len(shared)} kernels in both builds, {len(same)} with "
-              f"identical SASS (parent / tree); only in one build: "
-              f"{sorted(set(sass['parent']) ^ set(sass['tree'])) or 'none'}" + "".join(
+              f"identical SASS (parent / tree); only in the parent's: {only['parent'] or 'none'}"
+              f"; only in the tree's: {only['tree'] or 'none'}" + "".join(
                   f"; {k}: {v}" for k, v in verdicts.items() if k not in same))
+        moved[source] = sorted(set(verdicts) - set(same)) + only["parent"] + only["tree"]
+    return libs, moved
+
+
+def _bwd_case(parent: Path, dev) -> None:
+    """The ``ln_mlp_bwd`` case: both builds of csrc/ln_mlp_bwd.cu and of
+    csrc/block_train_bwd.cu, which includes its header."""
+    libs, _ = _build_pair(parent, sorted(set(BWD_SOURCES.values())))
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     for kernel, source in BWD_SOURCES.items():
         for hw, c in TRAIN_STAGES:
@@ -370,11 +394,118 @@ def _bwd_case(parent: Path, dev) -> None:
             torch.cuda.empty_cache()
 
 
+# The dwconv_bwd case: #4 and #3's source, and the sources whose SASS must not
+# move with it (they share its headers dwconv_ln.cuh and reduce.cuh).
+DW_SOURCES = ("dwconv_bwd", "dwconv_ln", "convnext_block", "block_train_bwd")
+DW_KEPT = DW_SOURCES[1:]
+DW_STAGES = TRAIN_STAGES + ((16, 1024),)  # the all-kernel step's four widths
+
+
+def _dw_launchers(tag: str, lib: ctypes.CDLL, legacy: bool, a: dict) -> dict:
+    """#4 (``svt_dw_ln_bwd``) and #3 (``svt_dwconv7x7`` on x with the flipped
+    filter) of the ``tag`` build on ``a``, each ``(launch, outputs)``. Both
+    builds' C interfaces take the same arguments; the workspace differs: the
+    warp-per-token form (``legacy``) walks ``block_train.rows_per_cta`` rows of
+    the B * H rows a CTA, the Hopper form ``dwconv.bwd_geometry``'s runs."""
+    from spine_vision_torch.ops import block_train as bt
+    from spine_vision_torch.ops import dwconv as dw
+
+    x, g = a["x"], a["res"]
+    b, h, w, c = x.shape
+    dev, f32 = x.device, torch.float32
+    if legacy:
+        rows = bt.rows_per_cta(b * h, c)
+        parts = -(-(b * h) // rows)
+    else:
+        geo = dw.bwd_geometry(b, h, w, c, x.dtype)
+        rows, parts = geo["rows_per_run"], geo["parts"]
+    o = {"da": torch.empty_like(x), "sums": torch.empty(52 * c, dtype=f32, device=dev)}
+    scratch = (torch.empty(b * h * w, 4, dtype=f32, device=dev),
+               torch.empty(parts, 52 * c, dtype=f32, device=dev))
+    kf = a["k49"].flip(0).contiguous()
+    dx = {"dx": torch.empty_like(x)}
+    p = cuda_build.ptr
+    bwd, sten = lib.svt_dw_ln_bwd, lib.svt_dwconv7x7
+    bwd.restype = sten.restype = ctypes.c_int
+    shape = tuple(ctypes.c_int(v) for v in (b, h, w, c))
+    bwd_args = (p(x), p(a["k49"]), p(a["dw_bias"]), p(a["ln_scale"]), p(g), p(scratch[0]),
+                p(o["da"]), p(scratch[1]), p(o["sums"]), ctypes.c_int(0), *shape,
+                ctypes.c_int(rows), ctypes.c_float(1e-6))
+    sten_args = (p(x), p(kf), p(dx["dx"]), ctypes.c_int(0), *shape)
+
+    def launch_bwd():
+        cuda_build.check(bwd(*bwd_args, cuda_build.stream_ptr(dev)), f"{tag} dw_ln_bwd")
+        return scratch
+
+    def launch_sten():
+        cuda_build.check(sten(*sten_args, cuda_build.stream_ptr(dev)), f"{tag} dwconv7x7")
+        return kf
+
+    return {"dw_ln_bwd": (launch_bwd, o), "depthwise_conv7x7": (launch_sten, dx)}
+
+
+def _launch_split(launch, calls: int = 5) -> str:
+    """Device ms a call of each kernel that ``launch`` runs, by name, from a
+    profile of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    launch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            launch()
+        torch.cuda.synchronize()
+    ms: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = _ANON.sub("", e.key).removeprefix("void ").split("(")[0].split("<")[0]
+        us = getattr(e, "self_device_time_total", 0) or e.self_cuda_time_total
+        ms[name.split("::")[-1]] = ms.get(name.split("::")[-1], 0.0) + us / calls / 1e3
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(ms.items()))
+
+
+def _dw_case(parent: Path, dev) -> None:
+    """The ``dwconv_bwd`` case: both trees' builds of #4 and #3's source and
+    of the sources that share its headers, whose SASS must be the parent's;
+    #4 and #3 at the all-kernel step's shapes from both builds."""
+    libs, moved = _build_pair(parent, DW_SOURCES)
+    for source in DW_KEPT:
+        if moved[source]:
+            raise AssertionError(f"{source}.cu's kernels moved with dwconv_bwd.cu: "
+                                 f"{moved[source]}")
+    legacy = "dw_ln_bwd_tile" in (parent / "spine_vision_torch" / "csrc" /
+                                  "dwconv_bwd.cu").read_text()
+    for hw, c in DW_STAGES:
+        a = _inputs(32, hw, c, dev)
+        runs = {tag: _dw_launchers(tag, ctypes.CDLL(str(libs["dwconv_bwd", tag])),
+                                   legacy and tag == "parent", a) for tag in ("parent", "tree")}
+        for kernel, tol in (("dw_ln_bwd", 2e-2), ("depthwise_conv7x7", 1e-2)):
+            rows = [(tag, _device_ms(runs[tag][kernel][0], 10)) for tag in
+                    ("parent", "tree", "tree", "parent")]
+            torch.cuda.synchronize()
+            errs = {}
+            for name, want in runs["parent"][kernel][1].items():
+                got = runs["tree"][kernel][1][name]
+                errs[name] = ((got.float() - want.float()).abs().max()
+                              / want.float().abs().max().clamp_min(1e-6)).item()
+            print(f"[build_diff] {kernel} B=32 {hw}x{hw} C={c}: " + "; ".join(
+                f"{tag} device {d:.4f}" for tag, d in rows) + " ms a call; tree against "
+                "parent, max |diff| / max |parent|: " + " ".join(
+                    f"{n}={e:.3g}" for n, e in errs.items()) + f" (tol {tol}); launches, "
+                "device ms a call: " + "; ".join(
+                    f"{tag} {_launch_split(runs[tag][kernel][0])}" for tag in ("parent", "tree")))
+            if max(errs.values()) > tol:
+                raise AssertionError(f"the two builds' {kernel} outputs differ at C={c}: {errs}")
+        del a, runs
+        torch.cuda.empty_cache()
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", required=True, type=Path,
                         help="checkout of the commit to compare with")
-    parser.add_argument("--case", choices=("convnext_block", "ln_mlp_bwd"),
+    parser.add_argument("--case", choices=("convnext_block", "ln_mlp_bwd", "dwconv_bwd"),
                         default="convnext_block", help="the source to build from both trees")
     args = parser.parse_args(argv)
     from spine_vision_torch.device import resolve_device
@@ -383,6 +514,9 @@ def main(argv: list[str] | None = None) -> int:
     dev = resolve_device("cuda")
     if args.case == "ln_mlp_bwd":
         _bwd_case(args.parent, dev)
+        return 0
+    if args.case == "dwconv_bwd":
+        _dw_case(args.parent, dev)
         return 0
     trees = {"parent": args.parent / "spine_vision_torch" / "csrc", "tree": cuda_build.CSRC}
     libs, jobs = {}, {}

@@ -234,6 +234,56 @@ def test_dw_ln_bwd_kernel_matches_plain(cuda, c, dtype, b, h, w):
         assert err <= tol * max(ref.float().abs().max().item(), 1e-6), (name, err)
 
 
+# The dwconv backward's and the stencil's launches: ragged shapes (a strip
+# of 16 columns, a ragged 32-column strip with runs of rows that end early,
+# ragged slabs at C = 96, 352 and 2816) in both dtypes, and the train step's
+# four shapes in bf16.
+DW_STAGE_SHAPES = [(b, h, w, c, dt) for b, h, w, c in ((3, 13, 11, 96), (2, 70, 37, 128),
+                                                       (1, 9, 19, 352), (1, 40, 9, 2816))
+                   for dt in (torch.bfloat16, torch.float32)] + [
+    (32, hw, hw, c, torch.bfloat16) for hw, c in ((128, 128), (64, 256), (32, 512), (16, 1024))]
+
+
+@pytest.mark.parametrize("stage", ["stats", "tile", "stencil"])
+@pytest.mark.parametrize("b,h,w,c,dtype", DW_STAGE_SHAPES)
+def test_dw_stage_kernels_match_plain_stages(cuda, stage, b, h, w, c, dtype):
+    """Each launch of csrc/dwconv_bwd.cu against its plain stage
+    (ops/dwconv.py) fed the kernel's own input to that stage: S's statistics,
+    T's da and its workspace rows through colsum, the stencil #3; a second
+    call agrees bit for bit."""
+    args = _dw_bwd_args(np.random.default_rng(c + h + w), b, h, w, c, dtype, cuda)
+    f32 = dtype == torch.float32
+    if stage == "stencil":
+        got = dw.depthwise_conv7x7(args[0], args[1])
+        again = dw.depthwise_conv7x7(args[0], args[1])
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _close("out", got, dw.depthwise_conv7x7_reference(args[0], args[1]),
+               1e-5 if f32 else 1e-2)
+        return
+    o = dw.bwd_launch(*args)
+    again = dw.bwd_launch(*args)
+    torch.cuda.synchronize()
+    for name in o:
+        assert torch.equal(o[name], again[name]), name
+    geo = dw.bwd_geometry(b, h, w, c, dtype)
+    assert o["part"].shape == (geo["parts"], 52 * c)
+    if stage == "stats":
+        # f32 sums of the same f32 values in another order.
+        _close("stats", o["stats"], dw.bwd_stats_reference(*args), 1e-4)
+        return
+    da, dk, dbias, dscale, dbeta = dw.bwd_tile_reference(*args, o["stats"])
+    _close("da", o["da"], da, 1e-4 if f32 else 1e-2)
+    sums = o["sums"]
+    for name, got, want in (("dk", sums[: 49 * c].view(49, c), dk),
+                            ("dbias", sums[49 * c: 50 * c], dbias),
+                            ("dscale", sums[50 * c: 51 * c], dscale),
+                            ("dbeta", sums[51 * c:], dbeta)):
+        _close(name, got, want, 1e-4)
+    # colsum: the workspace's rows added in a fixed order.
+    _close("colsum", sums, o["part"].double().sum(0), 1e-5)
+
+
 def _mlp_args(rng, b, h, w, c, device):
     f32, bf16 = torch.float32, torch.bfloat16
     return (
