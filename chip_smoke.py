@@ -17,13 +17,16 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    block kernel's ``emit_conv`` form and the LN+MLP backward (the hybrid
    block), the MLP backward, the dwconv+LN backward and the plain depthwise
    stencil (the all-kernel block), the backward kernels also run twice to
-   show that they agree bit for bit. The MLP backward's stages (#6, #8/#9,
-   #10), the block forward's three launches (#1: the stencil+LayerNorm
-   prologue P, the products F1 and F2), the row forms' (#7: the LayerNorm
-   rows L, F1 and F2; #5: F1 and F2), the dwconv+LN backward's (#4: the
-   statistics S, the tile T, the column sums) and the stencil #3 are timed
-   one by one from a profile, each beside its own bound, with the call's
-   device time.
+   show that they agree bit for bit; the dwconv+LN forward #2 at every
+   shape of the all-kernel train step too, in bf16 and f32. The MLP
+   backward's stages (#6, #8/#9, #10, with #10's two ends, the conv
+   recompute and the tap sums, each also alone beside its plain stage and a
+   PyTorch call of the same function), the block forward's three launches
+   (#1: the stencil+LayerNorm prologue P, the products F1 and F2), the row
+   forms' (#7: the LayerNorm rows L, F1 and F2; #5: F1 and F2), the
+   dwconv+LN backward's (#4: the statistics S, the tile T, the column sums),
+   the stencil #3 and #2 are timed one by one from a profile, each beside
+   its own bound, with the call's device time.
 4. The inference slice: ConvNeXt-base localization at 512^2 and ResNet-18
    grading at 256^2 in bf16, weights from seeded numpy Flax-layout trees
    carried by ``load_flax_variables``; ``StudyInferencePipeline.run`` on 8
@@ -285,10 +288,28 @@ def kernel_phase(device) -> dict:
         cb.convnext_block.launches = saved
     report["convnext_block"] = rows
 
-    # Kernel 2: dwconv + LayerNorm at C = 1024.
+    # Kernel 2: dwconv + LayerNorm, at inference's C = 1024 and at every
+    # shape of the all-kernel train step.
+    report["dw_ln"] = _dw_ln_rows(gen, device, BATCH, DW_LN_SHAPES, "per_forward")
+    report["dw_ln@train_step_dwconv"] = _dw_ln_rows(gen, device, TRAIN_BATCH, TRAIN_DW_SHAPES,
+                                                    "per_train_step")
+    return report
+
+
+def _dw_ln_rows(gen, device, batch: int, shapes, per: str) -> list:
+    """#2 at each of ``shapes`` on ``batch`` images: bf16 against its plain
+    version within KERNEL_REL_TOL * max |plain| and f32 within 1e-4, timed
+    beside the plain version, ``F.conv2d`` + ``F.layer_norm`` and the bound,
+    and its launch from a profile (``[stage]`` line). Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from spine_vision_torch.ops import dwconv as dw
+
+    bf16, f32 = torch.bfloat16, torch.float32
     rows = []
-    for hw, c, count in DW_LN_SHAPES:
-        x = _rand(gen, (BATCH, hw, hw, c), 1.0, device, bf16)
+    for hw, c, count in shapes:
+        x = _rand(gen, (batch, hw, hw, c), 1.0, device, bf16)
         args = (
             x,
             _rand(gen, (49, c), 0.1, device, bf16),
@@ -296,23 +317,27 @@ def kernel_phase(device) -> dict:
             _rand(gen, (c,), 0.1, device, f32, 1.0),
             _rand(gen, (c,), 0.1, device, f32),
         )
+        saved = dw.dw_ln.launches
         got = dw.dw_ln(*args)
         want = dw.dw_ln_reference(*args)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         ok = err <= KERNEL_REL_TOL * scale
-        print(f"[kernel] dw_ln B={BATCH} {hw}x{hw} C={c}: max_abs_err={err:.4g} "
+        shape = f"B={batch} {hw}x{hw} C={c}"
+        print(f"[kernel] dw_ln {shape}: max_abs_err={err:.4g} "
               f"max_rel_err={err / scale:.4g} tol={KERNEL_REL_TOL}*max|plain|={KERNEL_REL_TOL * scale:.4g}"
               f" {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"dw_ln disagrees with its plain version at C={c}")
+            raise AssertionError(f"dw_ln disagrees with its plain version at {shape}")
+        del got, want
         # f32 inputs too (the kernel is templated on the data type).
         args32 = (x.float(), args[1].float(), *args[2:])
         err32 = (dw.dw_ln(*args32) - dw.dw_ln_reference(*args32)).abs().max().item()
-        print(f"[kernel] dw_ln f32 C={c}: max_abs_err={err32:.4g} tol=1e-4")
+        print(f"[kernel] dw_ln f32 {shape}: max_abs_err={err32:.4g} tol=1e-4")
         if not err32 <= 1e-4:
-            raise AssertionError("dw_ln (f32) disagrees with its plain version")
+            raise AssertionError(f"dw_ln (f32) disagrees with its plain version at {shape}")
+        del args32
 
         k_oihw = args[1].t().reshape(c, 1, 7, 7).contiguous()
         x_nchw = x.permute(0, 3, 1, 2)
@@ -321,16 +346,20 @@ def kernel_phase(device) -> dict:
             t = F.conv2d(x_nchw, k_oihw, args[2].to(bf16), padding=3, groups=c)
             return F.layer_norm(t.permute(0, 2, 3, 1), (c,), args[3].to(bf16), args[4].to(bf16), 1e-6)
 
-        saved = dw.dw_ln.launches
-        m = BATCH * hw * hw
+        m = batch * hw * hw
+        # x read, y written, the filter and three vectors read; the conv's 98
+        # and the LayerNorm's about 8 f32 operations a channel of a token.
+        nbytes, ops = 2 * m * c * 2 + 49 * c * 2 + 3 * c * 4, 2 * 49 * m * c + 8 * m * c
         rows.append(_timed_row(
-            f"dw_ln C={c}", count, err, lambda: dw.dw_ln(*args),
-            lambda: dw.dw_ln_reference(*args), library,
-            2 * m * c * 2 + 49 * c * 2 + 3 * c * 4, 0, 2 * 49 * m * c + 8 * m * c,
-            "per_forward", plain_iters=5, plain_warmup=3))
+            f"dw_ln {shape}", count, max(err, err32), lambda: dw.dw_ln(*args),
+            lambda: dw.dw_ln_reference(*args), library, nbytes, 0, ops, per,
+            plain_iters=5, plain_warmup=3))
+        _stage_times(f"dw_ln {shape}", lambda: dw.dw_ln(*args),
+                     {"#2 tile": _bound_ms(nbytes, 0, ops)}, DW_LN_STAGE_KERNELS)
         dw.dw_ln.launches = saved
-    report["dw_ln"] = rows
-    return report
+        del x, args, x_nchw, k_oihw
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _check_outputs(what: str, names, got, want, tol: float, again=None) -> list[float]:
@@ -361,14 +390,16 @@ def _gemm(na_nb: tuple, mn: str, epi: int) -> tuple:
 
 
 # The MLP backward's stages (csrc/ln_mlp_bwd.cuh) by kernel name; #10 adds
-# its f32 conv and tap sums.
+# its two ends: the conv recompute (the stencil #3's f32-and-bias epilogue)
+# and the tap sums.
 BWD_STAGE_KERNELS = (
     ("A rows", ("bwd_rows<",)),
     ("B hidden", _gemm(((2, 2),), "false", 0)),
     ("C g_y", _gemm(((1, 1), (1, 2)), "false", 1) + _gemm(((1, 1), (1, 2)), "false", 2)),
     ("L LayerNorm", ("ln_rows_bwd<",)),
     ("D weight grads", _gemm(((1, 1),), "true", 3) + ("reduce_rows", "colsum")),
-    ("#10 conv, taps", ("conv_bias_f32", "tap_sums")),
+    ("#10 conv", ("dw_stencil<__nv_bfloat16,float,true>",)),
+    ("#10 taps", ("tap_sums<",)),
 )
 # The block forward #1's launches (csrc/convnext_block.cu).
 FWD_STAGE_KERNELS = (
@@ -392,7 +423,11 @@ DW_BWD_STAGE_KERNELS = (
     ("T tile", ("dw_bwd_tile<",)),
     ("colsum", ("colsum",)),
 )
-DW_STENCIL_STAGE_KERNELS = (("stencil", ("dw_stencil<",)),)
+DW_STENCIL_STAGE_KERNELS = (
+    ("stencil", ("dw_stencil<__nv_bfloat16,__nv_bfloat16,false>",
+                 "dw_stencil<float,float,false>")),)
+# #2's one launch (csrc/dwconv_ln.cu).
+DW_LN_STAGE_KERNELS = (("#2 tile", ("dw_ln_tile<",)),)
 
 
 def _dw_bwd_stage_bounds(m: int, c: int, parts: int) -> dict:
@@ -418,9 +453,17 @@ def _dw_stencil_bounds(m: int, c: int) -> dict:
 
 def _bwd_stage_bounds(m: int, c: int, ln: bool, u32: bool = False) -> dict:
     """Each stage's bound (ms, what bounds it): the bytes it must move
-    (inputs read once, outputs written once) against its bf16 products."""
+    (inputs read once, outputs written once) against its bf16 products; with
+    ``u32`` (#10) its two ends: the conv recompute reads bf16 x and writes
+    the f32 u, the tap sums read bf16 x and the f32 g_u and write dk and
+    ddwb, each against 98 f32 operations a channel of a token."""
     t_bytes = 4 if u32 else 2
+    ends = {
+        "#10 conv": _bound_ms(6 * m * c + 98 * c + 4 * c, 0, 98 * m * c),
+        "#10 taps": _bound_ms(6 * m * c + 50 * c * 4, 0, 99 * m * c),
+    } if u32 else {}
     return {
+        **ends,
         # Without the LayerNorm stage A reads g and writes g * gamma only.
         "A rows": _bound_ms(m * c * ((t_bytes + 2 + 2 + 2 + 8 / c) if ln else 4), 0, 0),
         "B hidden": _bound_ms(4 * m * c + 16 * m * c + 16 * c * c, 16 * m * c * c, 0),
@@ -456,10 +499,10 @@ def _row_stage_bounds(m: int, c: int, tail: bool = True) -> dict:
 
 
 def _stage_times(what: str, call, bounds: dict, table=BWD_STAGE_KERNELS,
-                 calls: int = 5) -> None:
+                 calls: int = 5) -> dict:
     """Device time a call of each stage in ``table`` (the MLP backward's by
     default), from a profile of ``calls`` calls, beside its bound; prints one
-    line a stage."""
+    line a stage and returns the times (ms) by stage."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -472,16 +515,19 @@ def _stage_times(what: str, call, bounds: dict, table=BWD_STAGE_KERNELS,
     events = _device_events(prof)
     total = sum(_dev_us(e) for e in events) / calls / 1e3
     print(f"[stage] {what}: device ms a call {total:.4f}")
+    times = {}
     for label, parts in table:
         group = [e for e in events if any(p in e.key.replace(" ", "") for p in parts)]
         if not group:
             continue
         ms = sum(_dev_us(e) for e in group) / calls / 1e3
+        times[label] = ms
         line = f"[stage] {what} {label}: ms={ms:.4f} ({ms / total:.1%} of the call's device time)"
         if label in bounds:
             bound, by = bounds[label]
             line += f" bound_ms={bound:.4f} ({by}) roofline_share={bound / ms:.3f}"
         print(line)
+    return times
 
 
 def train_kernel_phase(device, report: dict) -> None:
@@ -805,8 +851,9 @@ def mlp_kernel_phase(device, report: dict) -> None:
 def block_train_kernel_phase(device, report: dict) -> None:
     """The whole-block backward (#10) at the train step's shapes: every output
     against its plain version, and against a second run bit for bit, timed
-    beside the plain version, a PyTorch yardstick and the bound. The row goes
-    into ``report``."""
+    beside the plain version, a PyTorch yardstick and the bound; then its two
+    ends alone (:func:`_block_end_rows`). The rows go into ``report``, the
+    ends' under ``block_train_bwd#conv`` and ``#taps``."""
     import torch
     import torch.nn.functional as F
 
@@ -814,7 +861,7 @@ def block_train_kernel_phase(device, report: dict) -> None:
 
     bf16, f32 = torch.bfloat16, torch.float32
     gen = torch.Generator(device=device).manual_seed(4)
-    rows = []
+    rows, end_rows = [], {"#10 conv": [], "#10 taps": []}
     for hw, c, count in BLOCK_SHAPES:
         m = TRAIN_BATCH * hw * hw
         a = _mlp_args(gen, hw, c, device)
@@ -854,12 +901,71 @@ def block_train_kernel_phase(device, report: dict) -> None:
             3 * m * c * 2 + 2 * 4 * c * c * 2 + 49 * c * 2 + 2 * 4 * c * c * 4
             + (49 * c + 14 * c) * 4, 40 * m * c * c, 216 * m * c + 20 * m * 4 * c,
             "per_train_step"))
-        _stage_times(f"block_train_bwd C={c}", lambda: bt.block_train_bwd(*args, g),
-                     _bwd_stage_bounds(m, c, ln=True, u32=True))
+        bounds = _bwd_stage_bounds(m, c, ln=True, u32=True)
+        times = _stage_times(f"block_train_bwd C={c}", lambda: bt.block_train_bwd(*args, g),
+                             bounds)
         bt.block_train_bwd.launches = saved
-        del a, args, g, xl, kl, leaves
+        del xl, kl, leaves
+        _block_end_rows(args, g, count, times, bounds, end_rows)
+        del a, args, g
         torch.cuda.empty_cache()
     report["block_train_bwd"] = rows
+    report["block_train_bwd#conv"] = end_rows["#10 conv"]
+    report["block_train_bwd#taps"] = end_rows["#10 taps"]
+
+
+def _block_end_rows(args, g, count: int, times: dict, bounds: dict, end_rows: dict) -> None:
+    """#10's two ends alone, from one call's buffers (``bt.bwd_launch``): the
+    conv recompute u against its plain stage within 1e-5 * max |plain| (f32
+    sums in another order), the tap sums of the call's own f32 g_u within
+    1e-4; each beside its plain stage, one PyTorch call of the same function
+    (the grouped ``F.conv2d`` with bias; ``conv2d_weight`` on f32 x and g_u
+    and ``g_u.sum``) and its bound, its device time from the profile
+    (``times``). Appends a row to each of ``end_rows``."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_weight
+
+    from spine_vision_torch.ops import block_train as bt
+
+    x, k49, bias = args[0], args[1], args[2]
+    c = x.shape[-1]
+    o = bt.bwd_launch(*args, g)
+    u, gu = o["u"].view(x.shape), o["gu32"].view(x.shape)
+    want_u = bt.conv_bias_reference(x, k49, bias)
+    want_taps = bt.tap_sums_reference(x, gu)
+    torch.cuda.synchronize()
+    err_u = (u - want_u).abs().max().item()
+    taps = (o["taps"][: 49 * c].view(49, c), o["taps"][49 * c:])
+    err_t = [(a - b).abs().max().item() for a, b in zip(taps, want_taps)]
+    scale_u = want_u.abs().max().item()
+    scale_t = [b.abs().max().item() for b in want_taps]
+    print(f"[stage] block_train_bwd C={c} ends: u max_abs_err={err_u:.4g} (tol 1e-5*max|plain|="
+          f"{1e-5 * scale_u:.4g}), dk {err_t[0]:.4g} (tol {1e-4 * scale_t[0]:.4g}), ddwb "
+          f"{err_t[1]:.4g} (tol {1e-4 * scale_t[1]:.4g})")
+    if err_u > 1e-5 * scale_u or any(e > 1e-4 * s for e, s in zip(err_t, scale_t)):
+        raise AssertionError(f"#10's ends disagree with their plain stages at C={c}")
+    del o, want_u, want_taps, taps
+    x_nchw = x.permute(0, 3, 1, 2)  # channels_last views
+    k_oihw = k49.t().reshape(c, 1, 7, 7).contiguous()
+    x32, gu_nchw = x.float().permute(0, 3, 1, 2), gu.permute(0, 3, 1, 2)
+    bias16 = bias.to(torch.bfloat16)
+    calls = {
+        "#10 conv": (err_u, lambda: bt.conv_bias_reference(x, k49, bias),
+                     lambda: F.conv2d(x_nchw, k_oihw, bias16, padding=3, groups=c)),
+        "#10 taps": (max(err_t), lambda: bt.tap_sums_reference(x, gu),
+                     lambda: (conv2d_weight(x32, (c, 1, 7, 7), gu_nchw, padding=3, groups=c),
+                              gu.sum(dim=(0, 1, 2)))),
+    }
+    for stage, (err, plain, library) in calls.items():
+        plain_ms = _time_ms(plain, iters=3, warmup=1)
+        library_ms = _time_ms(library)
+        bound, by = bounds[stage]
+        ms = times[stage]
+        print(f"[stage] block_train_bwd C={c} {stage}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound:.4f} ({by}) "
+              f"roofline_share={bound / ms:.3f} per_train_step={count}")
+        end_rows[stage].append((count, err, ms, plain_ms, bound, by, library_ms))
 
 
 def probe_phase(device, batch: int = 32) -> tuple[dict, dict]:
@@ -970,12 +1076,13 @@ def _profile_groups(launches: dict) -> tuple:
 
 # The other kernel groups of a train step's profile: (label, name fragments).
 PROFILE_GROUPS = (
-    ("dwconv+LN #2", ("dw_ln_kernel",)),
+    ("dwconv+LN #2", DW_LN_STAGE_KERNELS[0][1]),
     ("MLP backward per token #6, #8/#9, #10",
      sum((dict(BWD_STAGE_KERNELS)[s] for s in ("A rows", "B hidden", "C g_y", "L LayerNorm")),
          ())),
     ("their weight-gradient products", _gemm(((1, 1),), "true", 3) + ("reduce_rows",)),
-    ("#10's conv recompute and tap sums", ("conv_bias_f32", "tap_sums")),
+    ("#10's conv recompute (#3's stencil, f32+bias epilogue)", dict(BWD_STAGE_KERNELS)["#10 conv"]),
+    ("#10's tap sums", dict(BWD_STAGE_KERNELS)["#10 taps"]),
     ("dwconv+LN backward #4", DW_BWD_STAGE_KERNELS[0][1] + DW_BWD_STAGE_KERNELS[1][1]),
     ("stencil #3", DW_STENCIL_STAGE_KERNELS[0][1]),
     ("column sums of #4, #6, #8/#9, #10", ("colsum",)),
@@ -1536,19 +1643,30 @@ def main() -> int:
         "block_train_bwd": ("spine_vision_torch/csrc/block_train_bwd.cu",
                             "spine_vision_tpu/ops/block_train.py:313", "train_step_block"),
     }
+    def totals(rows: list) -> dict:
+        """Per-path totals: each shape's time times its launches on the path."""
+        total = lambda i: sum(r[0] * r[i] for r in rows)  # noqa: E731
+        return {"max_abs_err": max(r[1] for r in rows), "ms": total(2), "plain_ms": total(3),
+                "bound_ms": total(4), "bound_by": max(rows, key=lambda r: r[0] * r[4])[5],
+                "library_ms": total(6)}
+
     kernels = []
     for name, rows in report.items():
-        # Per-path totals: each shape's time times its launches on the path.
-        total = lambda i: sum(r[0] * r[i] for r in rows)  # noqa: E731
+        if "@" in name or "#" in name:  # another path's rows, a stage's: below
+            continue
         source, replaces, path = sources[name]
         by_path = {p: (c or {}).get(name) for p, c in paths.items()}
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "path": path, "launches": by_path[path], "launches_by_path": by_path,
-            "max_abs_err": max(r[1] for r in rows), "ms": total(2), "plain_ms": total(3),
-            "bound_ms": total(4), "bound_by": max(rows, key=lambda r: r[0] * r[4])[5],
-            "library_ms": total(6),
-        })
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "path": path, "launches": by_path[path], "launches_by_path": by_path,
+                 **totals(rows)}
+        for key, more in report.items():
+            base, sep, rest = key.partition("@") if "@" in key else key.partition("#")
+            if base == name and sep == "@":  # the kernel on another path
+                entry.setdefault("on_other_paths", {})[rest] = {
+                    "launches": by_path[rest], **totals(more)}
+            elif base == name and sep == "#":  # one launch of the call
+                entry.setdefault("stages", {})[rest] = totals(more)
+        kernels.append(entry)
     for name, checked in probe_rows.items():
         if name not in PROBE_SOURCES:  # #5's anchor rows: its entry is above
             continue

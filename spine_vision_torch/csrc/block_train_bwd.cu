@@ -13,164 +13,153 @@
 // backward runs in f32; g_u is written in bf16, and dk = sum x_halo * g_u and
 // ddwb = sum g_u take the unrounded f32 g_u.
 //
-// Bound: the five bf16 products of the MLP backward, 40 * M * C^2 flops (the
-// stencil recompute and the tap sums add 196 * M * C f32 operations, a
-// fifth of that time at C = 128 and less above), so the tensor cores bound it.
+// Bound: the five bf16 products of the MLP backward, 40 * M * C^2 flops, so
+// the tensor cores bound the whole. Its two ends each move 6 bytes a channel
+// of a token (bf16 x; f32 u written or g_u read) against 98 f32 operations,
+// so bytes bound each of them (at 3.35 TB/s and 67 TFLOP/s f32).
 //
 // Design. The TPU kernel keeps a halo tile of x, the f32 LayerNorm state and
 // every parameter gradient resident in VMEM and walks tiles in grid order.
 // Here the MLP backward's stages (ln_mlp_bwd.cuh) already stream their
 // operands through shared memory, so the f32 u and g_u go through device
-// memory (4 * M * C bytes each way, about a tenth of the products' time at
-// C = 128):
-//   1. conv_bias_f32: u = dwconv7x7(x) + b_dw in f32 (dwconv_ln.cuh's
-//      stencil, a warp per few tokens).
+// memory (4 * M * C bytes each way). Both ends stage x in shared memory
+// (dw_stage.cuh):
+//   1. u = dwconv7x7(x) + b_dw in f32: the stencil #3 (dws::dw_stencil,
+//      persistent CTAs on 16 x 8 halo tiles of a 64-channel slab) with its
+//      f32-and-bias epilogue.
 //   2. mlp_bwd<true, true> (ln_mlp_bwd.cuh): the LN+MLP backward's stages
 //      reading the f32 u: y and g * gamma, the wgmma products for the hidden,
 //      g_y and the weight gradients, and the LayerNorm backward, which writes
 //      g_u in bf16 and in f32; the column sums of the per-tile rows (db1,
 //      dln_scale, dln_bias, db2).
-//   3. tap_sums: dk and ddwb, a CTA per 64 channels and a run of image rows;
-//      warp dy owns filter row dy, each lane a channel pair, and for 7 tokens
-//      along W at a time a thread loads the 13 x values of its row once for
-//      its 7 taps. Per-CTA partials go to a workspace row, and colsum
-//      (reduce.cuh) adds the rows in a fixed order.
+//   3. tap_sums: dk and ddwb, #4's tile T without its conv pass and
+//      LayerNorm. A CTA takes a 64-channel slab over a run of rows of one
+//      image in a strip of SW columns; the x rows it needs sit in a ring of 9
+//      and the f32 g_u rows in a ring of 3, each filled with cp.async two rows
+//      ahead, so each g_u value crosses device memory once and each x row once
+//      a run. Warp dy owns filter row dy and, for each output row, adds x *
+//      g_u into its 7 taps over the strip's tokens in order (a sliding window
+//      along the row, from shared memory); warp 0 also sums ddwb. One barrier
+//      a row. Each CTA writes its own workspace row, and colsum (reduce.cuh)
+//      adds the rows in a fixed order.
 // Every sum has one order, so two runs agree bit for bit.
+#include "dw_stage.cuh"
 #include "ln_mlp_bwd.cuh"
 
 namespace {
 
+using dws::CS;
 using svt::KS;
 using svt::PAD;
 
 constexpr int NTAP = KS * KS + 1;  // a tap_sums workspace row: dk (49 taps), ddwb
-constexpr int CG = 64;             // channels a tap_sums CTA: a pair a lane
-constexpr int TG = 7;              // tokens along W a tap_sums step
-constexpr int NXR = TG + KS - 1;   // x values of a filter row for TG tokens
-
-// u = dwconv7x7(x) + bias, in f32.
-template <int C>
-__global__ void __launch_bounds__(256) conv_bias_f32(const bf16* __restrict__ x,
-                                                     const bf16* __restrict__ k,
-                                                     const float* __restrict__ bias,
-                                                     float* __restrict__ u, int B, int H,
-                                                     int W) {
-  constexpr int NP = Lanes<C>::NP;
-  constexpr int TB = svt::TokensPerWarp<C>::value;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long M = (long long)B * H * W;
-  const long long tok0 = ((long long)blockIdx.x * 8 + warp) * TB;
-  if (tok0 >= M) return;
-  int b[TB], h[TB], w[TB];
-  bool ok[TB];
-  bf16* none[TB];
-#pragma unroll
-  for (int i = 0; i < TB; ++i) {
-    svt::token_coords(tok0 + i, M, H, W, b[i], h[i], w[i], ok[i]);
-    none[i] = nullptr;
-  }
-  float y[TB][NP][2];
-  svt::dw_tokens<bf16, C, TB, false>(x, k, b, h, w, ok, H, W, lane, y, none);
-#pragma unroll
-  for (int i = 0; i < TB; ++i) {
-    if (!ok[i]) continue;
-    float* up = u + (tok0 + i) * C;
-#pragma unroll
-    for (int q = 0; q < NP; ++q) {
-      const int p = lane + 32 * q;
-      if (!Lanes<C>::valid(p)) continue;
-      const float2 bv = svt::load2(bias + 2 * p);
-      svt::store2(up + 2 * p, y[i][q][0] + bv.x, y[i][q][1] + bv.y);
-    }
-  }
-}
 
 // dk[dy * 7 + dx][c] = sum over tokens (h, w) of x[h + dy - 3][w + dx - 3][c]
-// * gu[h][w][c] and ddwb[c] = sum gu[h][w][c], over rows [r0, r1) of the
-// B * H image rows and channels [64 * blockIdx.x, + 64): this CTA's row of
-// part.
-__global__ void __launch_bounds__(KS * 32) tap_sums(const bf16* __restrict__ x,
-                                                    const float* __restrict__ gu,
-                                                    float* __restrict__ part, int B, int H,
-                                                    int W, int C, int rows_per_cta) {
+// * gu[h][w][c] and ddwb[c] = sum gu[h][w][c], over rows [h0, h1) of image b,
+// columns [w0, w0 + SW) and channels [64 * slab, + 64). blockIdx.x is
+// part * slabs + slab, part = (b * runs + run) * strips + strip: the
+// workspace row the CTA writes.
+template <int SW>
+__global__ void __launch_bounds__(dws::Taps<SW>::NT, 3) tap_sums(
+    const bf16* __restrict__ x, const float* __restrict__ gu, float* __restrict__ part, int H,
+    int W, int C, int rows_per_run, int runs, int strips, int slabs) {
+  using G = dws::Taps<SW>;
+  using X = typename G::X;
+  constexpr int CH = 16;           // tokens a step of the sliding window
+  constexpr int NX = CH + KS - 1;  // x values of a filter row for CH tokens
+  static_assert(SW % CH == 0, "the strip is whole steps");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  float* sG = reinterpret_cast<float*>(smem_raw + X::RING_BYTES);  // [GSLOTS][SW][CS]
   const int dy = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * CG + 2 * lane;
-  const bool cok = c < C;  // C is even: c + 1 < C too
-  const long long rows = (long long)B * H;
-  const long long r0 = (long long)blockIdx.y * rows_per_cta;
-  const long long r1 = rows < r0 + rows_per_cta ? rows : r0 + rows_per_cta;
-  const float2 zero = make_float2(0.f, 0.f);
+  const int slab = blockIdx.x % slabs;
+  const int p = blockIdx.x / slabs;
+  const int strip = p % strips;
+  const int run = (p / strips) % runs;
+  const int b = p / (strips * runs);
+  const int w0 = strip * SW, h0 = run * rows_per_run, c0 = slab * CS;
+  const int h1 = H < h0 + rows_per_run ? H : h0 + rows_per_run;
+  const int c = c0 + 2 * lane;
+
   float dk[KS][2];
 #pragma unroll
   for (int dx = 0; dx < KS; ++dx) dk[dx][0] = dk[dx][1] = 0.f;
-  float2 sb = zero;
+  float2 sb = make_float2(0.f, 0.f);
 
-  for (long long r = r0; r < r1; ++r) {
-    const int h = (int)(r % H);
-    const int hh = h + dy - PAD;
-    const bool rok = cok && hh >= 0 && hh < H;
-    const bf16* xrow = x + ((rok ? r - h + hh : 0) * W) * (long long)C + c;  // image row hh
-    const float* grow = gu + r * W * (long long)C + c;
-    for (int w0 = 0; w0 < W; w0 += TG) {
-      float2 gv[TG];
+  // x ring slot j % RING holds x row h0 - PAD + j, g_u slot j % GSLOTS g_u
+  // row h0 + j. The group of output row h brings x row h + 3 and g_u row h:
+  // row h0's brings x rows h0 - 3 .. h0 + 3.
+#pragma unroll 1
+  for (int j = 0; j < KS; ++j)
+    dws::load_box<bf16, 1, X::RW, G::NT>(ring + j * X::ROW, x, b, h0 - PAD + j, w0 - PAD, c0, H,
+                                         W, C);
+  dws::load_box<float, 1, SW, G::NT>(sG, gu, b, h0, w0, c0, H, W, C);
+  dws::commit();
+  if (h0 + 1 < h1) {
+    dws::load_box<bf16, 1, X::RW, G::NT>(ring + KS * X::ROW, x, b, h0 + 1 + PAD, w0 - PAD, c0,
+                                         H, W, C);
+    dws::load_box<float, 1, SW, G::NT>(sG + G::GROW, gu, b, h0 + 1, w0, c0, H, W, C);
+  }
+  dws::commit();
+
+  for (int h = h0; h < h1; ++h) {
+    const int j0 = h - h0;
+    dws::wait<1>();   // row h's group has landed (row h + 1's may be in flight)
+    __syncthreads();  // and every warp is done with row h - 1
+    // Row h + 2's group, into the slots of x row h - 4 and g_u row h - 1,
+    // which row h - 1 read last.
+    if (h + 2 < h1) {
+      dws::load_box<bf16, 1, X::RW, G::NT>(ring + ((j0 + KS + 1) % X::RING) * X::ROW, x, b,
+                                           h + 2 + PAD, w0 - PAD, c0, H, W, C);
+      dws::load_box<float, 1, SW, G::NT>(sG + ((j0 + 2) % G::GSLOTS) * G::GROW, gu, b, h + 2,
+                                         w0, c0, H, W, C);
+    }
+    dws::commit();
+    // dk[dy][dx] += x[h + dy - 3][w + dx - 3] * gu[h][w] over the strip.
+    const bf16* xrow = ring + ((j0 + dy) % X::RING) * X::ROW + 2 * lane;
+    const float* grow = sG + (j0 % G::GSLOTS) * G::GROW + 2 * lane;
 #pragma unroll
-      for (int j = 0; j < TG; ++j)
-        gv[j] = (cok && w0 + j < W) ? svt::load2(grow + (long long)(w0 + j) * C) : zero;
-      if (dy == 0) {  // one warp sums ddwb
+    for (int s0 = 0; s0 < SW; s0 += CH) {
+      float2 xv[NX];
 #pragma unroll
-        for (int j = 0; j < TG; ++j) {
-          sb.x += gv[j].x;
-          sb.y += gv[j].y;
+      for (int i = 0; i < NX; ++i) xv[i] = svt::load2(xrow + (s0 + i) * CS);
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const float2 gj = svt::load2(grow + (s0 + j) * CS);
+        if (dy == 0) {
+          sb.x += gj.x;
+          sb.y += gj.y;
         }
-      }
-      if (!rok) continue;  // filter row dy falls outside the image
-      float2 xr[NXR];
-#pragma unroll
-      for (int i = 0; i < NXR; ++i) {
-        const int ww = w0 - PAD + i;
-        xr[i] = (ww >= 0 && ww < W) ? svt::load2(xrow + (long long)ww * C) : zero;
-      }
-#pragma unroll
-      for (int j = 0; j < TG; ++j) {
 #pragma unroll
         for (int dx = 0; dx < KS; ++dx) {
-          dk[dx][0] = fmaf(xr[j + dx].x, gv[j].x, dk[dx][0]);
-          dk[dx][1] = fmaf(xr[j + dx].y, gv[j].y, dk[dx][1]);
+          dk[dx][0] = fmaf(xv[j + dx].x, gj.x, dk[dx][0]);
+          dk[dx][1] = fmaf(xv[j + dx].y, gj.y, dk[dx][1]);
         }
       }
     }
   }
-  if (!cok) return;
-  float* out = part + (size_t)blockIdx.y * NTAP * C;
+  if (c >= C) return;  // C is even: c + 1 < C too
+  float* out = part + (size_t)p * NTAP * C;
 #pragma unroll
   for (int dx = 0; dx < KS; ++dx)
     svt::store2(out + (size_t)(dy * KS + dx) * C + c, dk[dx][0], dk[dx][1]);
   if (dy == 0) svt::store2(out + (size_t)(KS * KS) * C + c, sb.x, sb.y);
 }
 
-int launch_conv(const void* x, const void* k, const void* bias, void* u, int B, int H,
-                int W, int C, cudaStream_t s) {
-  const long long tokens = (long long)B * H * W;
-#define SVT_CONV_CASE(CC)                                                                \
-  case CC:                                                                               \
-    conv_bias_f32<CC><<<(unsigned)((tokens + 8 * svt::TokensPerWarp<CC>::value - 1) /    \
-                                   (8 * svt::TokensPerWarp<CC>::value)),                 \
-                        256, 0, s>>>((const bf16*)x, (const bf16*)k, (const float*)bias, \
-                                     (float*)u, B, H, W);                                \
-    break;
-  switch (C) {
-    SVT_CONV_CASE(96)
-    SVT_CONV_CASE(128)
-    SVT_CONV_CASE(192)
-    SVT_CONV_CASE(256)
-    SVT_CONV_CASE(384)
-    SVT_CONV_CASE(512)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SVT_CONV_CASE
+template <int SW>
+int launch_taps(const void* x, const void* gu, void* part, int B, int H, int W, int C,
+                int rows_per_run, cudaStream_t s) {
+  using G = dws::Taps<SW>;
+  int err;
+  if ((err = dws::smem_attr(tap_sums<SW>, G::BYTES))) return err;
+  const int runs = (H + rows_per_run - 1) / rows_per_run;
+  const int strips = (W + SW - 1) / SW;
+  const int slabs = (C + CS - 1) / CS;
+  const long long ctas = (long long)B * runs * strips * slabs;
+  tap_sums<SW><<<(unsigned)ctas, G::NT, G::BYTES, s>>>((const bf16*)x, (const float*)gu,
+                                                       (float*)part, H, W, C, rows_per_run,
+                                                       runs, strips, slabs);
   return (int)cudaGetLastError();
 }
 
@@ -183,19 +172,27 @@ int launch_conv(const void* x, const void* k, const void* bias, void* u, int B, 
 // [50 * C] = dk (49 taps of C), ddwb, f32. Scratch from the caller: u, gu32
 // and gy (f32 [M, C]), y and gg ([M, C] bf16), stats (f32 [M, 2]), h, gh
 // ([M, 4C] bf16), part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C] (ks
-// tokens a split), tpart f32 [ceil(B * H / rows_per_cta), 50 * C]. Returns the
-// first cudaError_t of its launches.
+// tokens a split), tpart f32 [B * runs * strips, 50 * C]: the tap sums walk
+// runs of rows_per_run image rows (runs = ceil(H / rows_per_run)) in strips
+// of 16 columns (W <= 16) or 32 (strips = ceil(W / strip)). C is one of 96,
+// 128, 192, 256, 384, 512. Returns the first cudaError_t of its launches.
 extern "C" int svt_block_train_bwd(
     const void* x, const void* k, const void* bias, const void* ls, const void* lb,
     const void* w1t, const void* w1, const void* b1, const void* w2t, const void* w2,
     const void* b2, const void* gamma, const void* g, void* gu, void* small, void* dw1t,
     void* dw2t, void* dgamma, void* taps, void* u, void* gu32, void* y, void* gg, void* stats,
     void* h, void* gh, void* gy, void* part, void* ws, void* tpart, int B, int H, int W, int C,
-    int splits, long long ks, int rows_per_cta, float eps, void* stream) {
+    int splits, long long ks, int rows_per_run, float eps, void* stream) {
   const long long M = (long long)B * H * W;
-  if (M == 0 || rows_per_cta <= 0) return (int)cudaErrorInvalidValue;
+  if (M == 0 || B < 0 || H < 0 || W < 0 || rows_per_run <= 0) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 96: case 128: case 192: case 256: case 384: case 512:
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_conv(x, k, bias, u, B, H, W, C, s);
+  int err = dws::launch_stencil<bf16, float, true>(x, k, bias, u, B, H, W, C, s);
   if (err) return err;
   const MlpBwd a{u, (const bf16*)g, (const bf16*)w1t, (const bf16*)w1, (const bf16*)w2t,
                  (const bf16*)w2, (const float*)ls, (const float*)lb, (const float*)b1,
@@ -205,10 +202,11 @@ extern "C" int svt_block_train_bwd(
                  splits, eps};
   err = mlp_bwd<true, true>(a, s);
   if (err) return err;
-  const long long P = ((long long)B * H + rows_per_cta - 1) / rows_per_cta;
-  tap_sums<<<dim3((unsigned)((C + CG - 1) / CG), (unsigned)P), KS * 32, 0, s>>>(
-      (const bf16*)x, (const float*)gu32, (float*)tpart, B, H, W, C, rows_per_cta);
-  if ((err = (int)cudaGetLastError())) return err;
+  const int sw = dws::strip_width(W);
+  err = sw == 16 ? launch_taps<16>(x, gu32, tpart, B, H, W, C, rows_per_run, s)
+                 : launch_taps<32>(x, gu32, tpart, B, H, W, C, rows_per_run, s);
+  if (err) return err;
+  const long long P = (long long)B * ((H + rows_per_run - 1) / rows_per_run) * ((W + sw - 1) / sw);
   svt::colsum<<<(unsigned)((NTAP * C + 31) / 32), dim3(32, 32), 0, s>>>(
       (const float*)tpart, P, NTAP * C, (float*)taps);
   return (int)cudaGetLastError();

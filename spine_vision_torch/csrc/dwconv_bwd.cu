@@ -22,7 +22,8 @@
 //
 // Design. Every kernel stages x through shared memory with cp.async, zeros
 // outside the image and past C (dw_stage.cuh):
-//   dw_stencil (#3): a unit is a TH x 8 tile of one image on a 64-channel
+//   dw_stencil (#3, in dw_stage.cuh, which #10's conv recompute shares
+//     through an f32-and-bias epilogue): a unit is a TH x 8 tile of one image on a 64-channel
 //     slab; persistent CTAs walk contiguous runs of units, slab-major, with a
 //     two-slot halo ring, so the next unit's halo lands while this one
 //     computes. A warp takes a tile column, a lane a channel pair; each halo
@@ -31,7 +32,8 @@
 //     when a CTA's run enters a slab.
 //   dw_bwd_stats (S): a PH x 8 tile of one image at full C. The halo streams
 //     through two slots in 64-channel chunks; the f32 conv plus bias goes to
-//     a shared tile [PH * 8, C]; then a warp a token takes mu and rstd (the
+//     a shared tile [PH * 8, C] (dw_stage.cuh's conv_tile, which #2 shares
+//     with a y epilogue); then a warp a token takes mu and rstd (the
 //     mean, then the mean of the centred squares), reads its g row and
 //     writes (mu, rstd, mean(g*scale), mean(g*scale*yhat)), 16 bytes.
 //   dw_bwd_tile (T): a CTA takes a 64-channel slab over a run of rows of one
@@ -62,95 +64,6 @@ using svt::PAD;
 
 constexpr int NSUM = KS * KS + 3;  // a workspace row: dk (49 taps), dbias, dscale, dbeta
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// The stencil: out = dwconv7x7(x), summed in f32, rounded once to T. Unit u
-// is (slab, image, tile row, tile column), slab-major; CTA i takes units
-// [i * units / grid, (i + 1) * units / grid).
-template <typename T>
-__global__ void __launch_bounds__(dws::Stencil<T>::NT, sizeof(T) == 2 ? 2 : 1)
-    dw_stencil(const T* __restrict__ x, const T* __restrict__ k, T* __restrict__ out, int B,
-               int H, int W, int C, int tiles_h, int tiles_w, long long units) {
-  using G = dws::Stencil<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);
-  float* sK = reinterpret_cast<float*>(smem_raw + 2 * G::HALO * sizeof(T));
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long u0 = (long long)blockIdx.x * units / gridDim.x;
-  const long long u1 = (long long)(blockIdx.x + 1) * units / gridDim.x;
-  const long long per_slab = (long long)B * tiles_h * tiles_w;
-  auto coords = [&](long long u, int& s, int& b, int& h0, int& w0) {
-    s = (int)(u / per_slab);
-    const long long r = u % per_slab;
-    w0 = (int)(r % tiles_w) * G::TW;
-    h0 = (int)((r / tiles_w) % tiles_h) * G::TH;
-    b = (int)(r / ((long long)tiles_w * tiles_h));
-  };
-
-  int s, b, h0, w0;
-  if (u0 < u1) {
-    coords(u0, s, b, h0, w0);
-    dws::load_box<T, G::HR, G::HW, G::NT>(ring, x, b, h0 - PAD, w0 - PAD, s * CS, H, W, C);
-  }
-  dws::commit();
-  int kslab = -1;
-  for (long long u = u0; u < u1; ++u) {
-    const int slot = (int)((u - u0) & 1);
-    coords(u, s, b, h0, w0);
-    if (u + 1 < u1) {
-      int s1, b1, h1, w1;
-      coords(u + 1, s1, b1, h1, w1);
-      dws::load_box<T, G::HR, G::HW, G::NT>(ring + (slot ^ 1) * G::HALO, x, b1, h1 - PAD,
-                                            w1 - PAD, s1 * CS, H, W, C);
-    }
-    dws::commit();
-    dws::wait<1>();  // this unit's halo has landed (the next may be in flight)
-    __syncthreads();
-    if (s != kslab) {  // uniform over the CTA; the last unit's reads are done
-      for (int i = threadIdx.x; i < KS * KS * CS; i += G::NT) {
-        const int c = s * CS + i % CS;
-        sK[i] = c < C ? to_f32(k[(size_t)(i / CS) * C + c]) : 0.f;
-      }
-      kslab = s;
-      __syncthreads();
-    }
-    const int c = s * CS + 2 * lane;  // this lane's channel pair
-    if (c < C) {
-      const T* sl = ring + slot * G::HALO;
-      float2 acc[G::TH];
-#pragma unroll
-      for (int r = 0; r < G::TH; ++r) acc[r] = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int dx = 0; dx < KS; ++dx) {
-        float2 kv[KS];
-#pragma unroll
-        for (int dy = 0; dy < KS; ++dy) kv[dy] = svt::load2(sK + (dy * KS + dx) * CS + 2 * lane);
-#pragma unroll
-        for (int ih = 0; ih < G::HR; ++ih) {
-          const float2 xv = svt::load2(sl + (ih * G::HW + warp + dx) * CS + 2 * lane);
-#pragma unroll
-          for (int r = 0; r < G::TH; ++r) {
-            const int dy = ih - r;
-            if (dy < 0 || dy >= KS) continue;
-            acc[r].x = fmaf(xv.x, kv[dy].x, acc[r].x);
-            acc[r].y = fmaf(xv.y, kv[dy].y, acc[r].y);
-          }
-        }
-      }
-      const int w = w0 + warp;
-      if (w < W) {
-#pragma unroll
-        for (int r = 0; r < G::TH; ++r)
-          if (h0 + r < H)
-            svt::store2(out + (((size_t)b * H + h0 + r) * W + w) * C + c, acc[r].x, acc[r].y);
-      }
-    }
-    __syncthreads();  // the slot is free for the unit after next
-  }
-}
-
 // S: per token (mu, rstd, mean(g*scale), mean(g*scale*yhat)) over a PH x 8
 // tile of one image. Tokens outside the image are computed on zeros and
 // never stored.
@@ -172,45 +85,7 @@ __global__ void __launch_bounds__(dws::Stats<T, C>::NT, 2) dw_bwd_stats(
   const int h0 = th * G::PH, w0 = tw * G::TW;
   const int wcol = w0 + warp;  // this warp's image column
 
-  dws::load_box<T, G::HR, G::HW, G::NT>(ring, x, b, h0 - PAD, w0 - PAD, 0, H, W, C);
-  dws::commit();
-  for (int ch = 0; ch < G::NCH; ++ch) {
-    if (ch + 1 < G::NCH)
-      dws::load_box<T, G::HR, G::HW, G::NT>(ring + ((ch + 1) & 1) * G::HALO, x, b, h0 - PAD,
-                                            w0 - PAD, (ch + 1) * CS, H, W, C);
-    dws::commit();
-    dws::wait<1>();  // this chunk has landed (the next may be in flight)
-    __syncthreads();
-    const T* slot = ring + (ch & 1) * G::HALO;
-    const int c = ch * CS + 2 * lane;  // this lane's channel pair
-    if (c < C) {
-      float2 acc[G::PH];
-#pragma unroll
-      for (int r = 0; r < G::PH; ++r) acc[r] = make_float2(0.f, 0.f);
-#pragma unroll
-      for (int dx = 0; dx < KS; ++dx) {
-        float2 kv[KS];
-#pragma unroll
-        for (int dy = 0; dy < KS; ++dy) kv[dy] = svt::load2(k + (dy * KS + dx) * C + c);
-#pragma unroll
-        for (int ih = 0; ih < G::HR; ++ih) {
-          const float2 xv = svt::load2(slot + (ih * G::HW + warp + dx) * CS + 2 * lane);
-#pragma unroll
-          for (int r = 0; r < G::PH; ++r) {
-            const int dy = ih - r;
-            if (dy < 0 || dy >= KS) continue;
-            acc[r].x = fmaf(xv.x, kv[dy].x, acc[r].x);
-            acc[r].y = fmaf(xv.y, kv[dy].y, acc[r].y);
-          }
-        }
-      }
-      const float2 bv = svt::load2(bias + c);
-#pragma unroll
-      for (int r = 0; r < G::PH; ++r)
-        svt::store2(sT + (r * G::TW + warp) * C + c, acc[r].x + bv.x, acc[r].y + bv.y);
-    }
-    __syncthreads();  // the slot is free for chunk ch + 2; after the last, sT is whole
-  }
+  dws::conv_tile<T, C>(sT, ring, x, k, bias, b, h0, w0, H, W);
 
   // A warp a token (the tile column `warp`): the statistics of a's row.
   for (int r = 0; r < G::PH; ++r) {
@@ -421,31 +296,7 @@ __global__ void __launch_bounds__(dws::Tile<T, SW>::NT, 2) dw_bwd_tile(
   }
 }
 
-template <typename K>
-int smem_attr(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)bytes);
-}
-
-template <typename T>
-int launch_stencil(const void* x, const void* k, void* out, int B, int H, int W, int C,
-                   cudaStream_t s) {
-  using G = dws::Stencil<T>;
-  int err, dev, sms, per_sm;
-  if ((err = smem_attr(dw_stencil<T>, G::BYTES))) return err;
-  if ((err = (int)cudaGetDevice(&dev))) return err;
-  if ((err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return err;
-  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dw_stencil<T>, G::NT,
-                                                                G::BYTES)))
-    return err;
-  const int tiles_h = (H + G::TH - 1) / G::TH, tiles_w = (W + G::TW - 1) / G::TW;
-  const long long units = (long long)((C + CS - 1) / CS) * B * tiles_h * tiles_w;
-  const long long most = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  const unsigned grid = (unsigned)(units < most ? units : most);
-  dw_stencil<T><<<grid, G::NT, G::BYTES, s>>>((const T*)x, (const T*)k, (T*)out, B, H, W, C,
-                                              tiles_h, tiles_w, units);
-  return (int)cudaGetLastError();
-}
+using dws::smem_attr;
 
 template <typename T, int C>
 int launch_stats(const void* x, const void* k, const void* bias, const void* scale,
@@ -516,8 +367,11 @@ extern "C" int svt_dwconv7x7(const void* x, const void* k, void* out, int dtype,
   if ((long long)B * H * W == 0) return 0;
   if (B < 0 || H < 0 || W < 0 || C <= 0 || C % 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_stencil<__nv_bfloat16>(x, k, out, B, H, W, C, s);
-  if (dtype == 1) return launch_stencil<float>(x, k, out, B, H, W, C, s);
+  if (dtype == 0)
+    return dws::launch_stencil<__nv_bfloat16, __nv_bfloat16, false>(x, k, nullptr, out, B, H, W,
+                                                                    C, s);
+  if (dtype == 1)
+    return dws::launch_stencil<float, float, false>(x, k, nullptr, out, B, H, W, C, s);
   return (int)cudaErrorInvalidValue;
 }
 

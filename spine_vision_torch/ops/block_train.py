@@ -19,7 +19,12 @@ whole-block kernel forward (NHWC, C <= 512).
   Backward: :func:`block_train_bwd`, one hand-written CUDA backward
   (``csrc/block_train_bwd.cu``, replacing ``_block_train_bwd_pallas``) that
   recomputes the conv and the LayerNorm and gives ``g_u`` (the conv output's
-  gradient) and every parameter gradient; then ``dx = g + dwconv7x7(g_u,
+  gradient) and every parameter gradient, in three stages with plain versions
+  beside them: the conv recompute ``u`` (:func:`conv_bias_reference`; the
+  stencil #3 with an f32-and-bias epilogue, on
+  ``ops/dwconv.py::stencil_geometry``'s tiles), the LN+MLP backward
+  (``fused_mlp.ln_mlp_bwd_core``) and the tap sums (:func:`tap_sums_reference`,
+  launch geometry :func:`tap_geometry`); then ``dx = g + dwconv7x7(g_u,
   flipped filter)`` in f32, cast to x's dtype, with the port's stencil kernel
   (``ops/dwconv.py::depthwise_conv7x7``) where the JAX package runs an XLA
   grouped conv.
@@ -49,15 +54,39 @@ from spine_vision_torch.ops.dwconv import (
 )
 from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM, ln_mlp_bwd
 
-_TAP_CHANNELS = 64  # csrc/block_train_bwd.cu, CG: a tap_sums CTA's channels
-_TAP_CTAS = 2048  # tap_sums CTAs a call to aim at: about 16 a multiprocessor
+# #10's tap sums (csrc/block_train_bwd.cu, tap_sums; dws::Taps): 64-channel
+# slabs, x rows in a ring of 9 (bf16) and g_u rows in a ring of 3 (f32), in
+# strips of 16 or 32 columns, at three CTAs a multiprocessor.
+_SLAB = 64
+_TAP_RING, _TAP_GSLOTS = KERNEL_SIZE + 2, 3
+TAP_CTAS_AN_SM = 3
+_TAP_MIN_RUN_ROWS = 16  # the tap sums' runs at least (or the image): a run reads 6 halo rows
+_TAP_CTAS = 1024  # CTAs a call aims at, runs shortening toward it down to that minimum
 
 
-def rows_per_cta(rows: int, c: int) -> int:
-    """Image rows each CTA of #10's tap sums (``tap_sums``) walks: about
-    ``_TAP_CTAS`` CTAs over the channel groups and the ``B * H`` rows."""
-    groups = -(-c // _TAP_CHANNELS)
-    return -(-rows // max(1, -(-_TAP_CTAS // groups)))
+def tap_geometry(b: int, h: int, w: int, c: int) -> dict:
+    """The launch geometry of #10's tap sums (``csrc/block_train_bwd.cu``'s
+    ``tap_sums``) for a [b, h, w, c] input: the strip width (16 columns at
+    W <= 16, else 32), strips, slabs, rows a run (at least
+    ``_TAP_MIN_RUN_ROWS`` or the image, fewer runs where more would start
+    over ``_TAP_CTAS`` CTAs), runs an image, CTAs (blockIdx ``part * slabs +
+    slab``, part ``(image * runs + run) * strips + strip``), shared memory a
+    CTA and ``parts``, the workspace rows colsum adds. Raises on what the
+    kernel does not take."""
+    if c not in fm.KERNEL_WIDTHS:
+        raise ValueError(f"block_train_bwd kernel is built for C in {fm.KERNEL_WIDTHS}, got {c}")
+    if not 0 < b * h * w < 2 ** 31:
+        raise ValueError(f"block_train_bwd takes 1 to 2^31 - 1 tokens, got {b * h * w}")
+    strip = 16 if w <= 16 else 32
+    strips, slabs = -(-w // strip), -(-c // _SLAB)
+    wanted = max(1, -(-_TAP_CTAS // (b * strips * slabs)))
+    rows = max(min(h, _TAP_MIN_RUN_ROWS), -(-h // wanted))
+    runs = -(-h // rows)
+    parts = b * runs * strips
+    smem = (_TAP_RING * (strip + 2 * PAD) * _SLAB * 2  # the x ring, bf16
+            + _TAP_GSLOTS * strip * _SLAB * 4)  # the g_u ring, f32
+    return {"strip": strip, "strips": strips, "slabs": slabs, "rows_per_run": rows,
+            "runs": runs, "ctas": parts * slabs, "smem": smem, "parts": parts}
 
 
 def depthwise_conv_grads(
@@ -138,6 +167,25 @@ def convnext_block_hybrid(
     return _HybridBlock.apply(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, eps)
 
 
+def conv_bias_reference(x: torch.Tensor, k49: torch.Tensor, dw_bias: torch.Tensor) -> torch.Tensor:
+    """The plain conv recompute: ``u = dwconv7x7(x) + bias`` in f32, not
+    rounded."""
+    return depthwise_conv7x7_reference(x, k49) + dw_bias.float()
+
+
+def tap_sums_reference(x: torch.Tensor, g_u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain tap sums from the f32 ``g_u`` (any shape of ``[B * H * W,
+    C]``): ``dk = sum x_halo * g_u`` as ``[49, C]`` and ``ddwb = sum g_u``,
+    f32."""
+    c = x.shape[-1]
+    g_u = g_u.reshape(x.shape)
+    dk = conv2d_weight(
+        x.float().permute(0, 3, 1, 2), (c, 1, KERNEL_SIZE, KERNEL_SIZE),
+        g_u.permute(0, 3, 1, 2), padding=PAD, groups=c,
+    ).reshape(c, TAPS).t()
+    return dk, g_u.sum(dim=(0, 1, 2))
+
+
 def block_train_bwd_reference(
     x: torch.Tensor,
     k49: torch.Tensor,
@@ -158,23 +206,79 @@ def block_train_bwd_reference(
     the hidden gradient and ``g`` rounded to x's dtype before their products;
     ``db1`` from the f32 hidden gradient; the LayerNorm backward from the f32
     ``g_y``; ``g_u`` written in x's dtype, but ``dk = sum x_halo * g_u`` and
-    ``ddwb = sum g_u`` from the unrounded f32 ``g_u``.
+    ``ddwb = sum g_u`` from the unrounded f32 ``g_u``. The kernel's three
+    stages: :func:`conv_bias_reference`, ``fused_mlp.ln_mlp_bwd_core`` and
+    :func:`tap_sums_reference`.
 
     Returns ``(g_u, dk49, ddwb, dls, dlb, dw1t, db1, dw2t, db2, dgamma)``:
     ``g_u`` in x's dtype and shape, the rest f32, ``dk49`` ``[49, C]``, the
     weight gradients in the layouts of ``w1t`` and ``w2t``."""
     c = x.shape[-1]
-    u = depthwise_conv7x7_reference(x, k49) + dw_bias.float()
+    u = conv_bias_reference(x, k49, dw_bias)
     g_u, *grads = fm.ln_mlp_bwd_core(
         u.reshape(-1, c), ln_scale, ln_bias, w1t, b1, w2t, b2, gamma,
         g.reshape(-1, c).float(), x.dtype, eps,
     )
     g_u = g_u.reshape(x.shape)
-    dk = conv2d_weight(
-        x.float().permute(0, 3, 1, 2), (c, 1, KERNEL_SIZE, KERNEL_SIZE),
-        g_u.permute(0, 3, 1, 2), padding=PAD, groups=c,
-    ).reshape(c, TAPS).t()
-    return (g_u.to(x.dtype), dk, g_u.sum(dim=(0, 1, 2)), *grads)
+    dk, ddwb = tap_sums_reference(x, g_u)
+    return (g_u.to(x.dtype), dk, ddwb, *grads)
+
+
+def bwd_launch(
+    x: torch.Tensor,
+    k49: torch.Tensor,
+    dw_bias: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1t: torch.Tensor,
+    b1: torch.Tensor,
+    w2t: torch.Tensor,
+    b2: torch.Tensor,
+    gamma: torch.Tensor,
+    g: torch.Tensor,
+    eps: float = 1e-6,
+) -> dict[str, torch.Tensor]:
+    """Launch ``csrc/block_train_bwd.cu`` on CUDA tensors and return its
+    buffers by name: the LN+MLP backward's (``fused_mlp._buffers``; ``dt`` is
+    g_u in bf16), ``u`` and ``gu32`` (f32 ``[M, C]``), the tap sums'
+    workspace ``tpart`` ``[parts, 50 * C]`` and ``taps`` (dk, ddwb), which the
+    stage tests read. The launch counter is :func:`block_train_bwd`'s; this
+    counts nothing. Raises on what the kernel does not take (bf16 ``x``,
+    ``k49`` and ``g``, C in ``fused_mlp.KERNEL_WIDTHS``)."""
+    if x.dim() != 4:
+        raise ValueError(f"block_train_bwd expects NHWC [B, H, W, C], got {tuple(x.shape)}")
+    b, h, w, c = x.shape
+    fm._check("block_train_bwd", x, g, (("dw_bias", dw_bias, c), ("ln_scale", ln_scale, c),
+                                        ("ln_bias", ln_bias, c), ("b1", b1, 4 * c),
+                                        ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
+    if (tuple(k49.shape) != (TAPS, c) or k49.dtype != torch.bfloat16
+            or not k49.is_contiguous() or k49.device != x.device):
+        raise ValueError("block_train_bwd wants the contiguous bf16 [49, C] filter on x's device")
+    m = b * h * w
+    taps = tap_geometry(b, h, w, c)
+    dev, f32 = x.device, torch.float32
+    geo = fm.bwd_geometry(m, c)
+    o = fm._buffers(x, True, geo)
+    o["u"] = torch.empty(m, c, dtype=f32, device=dev)
+    o["gu32"] = torch.empty(m, c, dtype=f32, device=dev)
+    o["tpart"] = torch.empty(taps["parts"], (TAPS + 1) * c, dtype=f32, device=dev)
+    o["taps"] = torch.empty((TAPS + 1) * c, dtype=f32, device=dev)
+    w1 = w1t.t().contiguous()
+    w2 = w2t.t().contiguous()
+    fn = cuda_build.load("block_train_bwd").svt_block_train_bwd
+    fn.restype = ctypes.c_int
+    p = cuda_build.ptr
+    err = fn(
+        p(x), p(k49), p(dw_bias), p(ln_scale), p(ln_bias), p(w1t), p(w1), p(b1), p(w2t), p(w2),
+        p(b2), p(gamma), p(g), p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]),
+        p(o["dgamma"]), p(o["taps"]), p(o["u"]), p(o["gu32"]), p(o["y"]), p(o["gg"]),
+        p(o["stats"]), p(o["h"]), p(o["gh"]), p(o["gy"]), p(o["part"]), p(o["ws"]),
+        p(o["tpart"]), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
+        ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]),
+        ctypes.c_int(taps["rows_per_run"]), ctypes.c_float(eps), cuda_build.stream_ptr(dev),
+    )
+    cuda_build.check(err, "block_train_bwd")
+    return o
 
 
 def block_train_bwd(
@@ -195,49 +299,18 @@ def block_train_bwd(
     ``(g_u, dk49, ddwb, dls, dlb, dw1t, db1, dw2t, db2, dgamma)`` as
     :func:`block_train_bwd_reference`.
 
-    CUDA tensors launch ``csrc/block_train_bwd.cu`` (bf16 ``x``, ``k49`` and
-    ``g``, C in ``fused_mlp.KERNEL_WIDTHS``; anything else raises); CPU
-    tensors take the plain version. ``block_train_bwd.launches`` counts calls
-    that launched it.
+    CUDA tensors launch ``csrc/block_train_bwd.cu`` (:func:`bwd_launch`: bf16
+    ``x``, ``k49`` and ``g``, C in ``fused_mlp.KERNEL_WIDTHS``; anything else
+    raises); CPU tensors take the plain version. ``block_train_bwd.launches``
+    counts calls that launched it.
     """
     args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
     if x.device.type == "cpu":
         return block_train_bwd_reference(*args, eps=eps)
-    if x.dim() != 4:
-        raise ValueError(f"block_train_bwd expects NHWC [B, H, W, C], got {tuple(x.shape)}")
-    b, h, w, c = x.shape
-    fm._check("block_train_bwd", x, g, (("dw_bias", dw_bias, c), ("ln_scale", ln_scale, c),
-                                        ("ln_bias", ln_bias, c), ("b1", b1, 4 * c),
-                                        ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
-    if (tuple(k49.shape) != (TAPS, c) or k49.dtype != torch.bfloat16
-            or not k49.is_contiguous() or k49.device != x.device):
-        raise ValueError("block_train_bwd wants the contiguous bf16 [49, C] filter on x's device")
-    m = b * h * w
-    rows = rows_per_cta(b * h, c)
-    dev, f32 = x.device, torch.float32
-    geo = fm.bwd_geometry(m, c)
-    o = fm._buffers(x, True, geo)
-    u = torch.empty(m, c, dtype=f32, device=dev)
-    gu32 = torch.empty(m, c, dtype=f32, device=dev)
-    tpart = torch.empty(-(-(b * h) // rows), (TAPS + 1) * c, dtype=f32, device=dev)
-    taps = torch.empty((TAPS + 1) * c, dtype=f32, device=dev)
-    w1 = w1t.t().contiguous()
-    w2 = w2t.t().contiguous()
-    fn = cuda_build.load("block_train_bwd").svt_block_train_bwd
-    fn.restype = ctypes.c_int
-    p = cuda_build.ptr
-    err = fn(
-        p(x), p(k49), p(dw_bias), p(ln_scale), p(ln_bias), p(w1t), p(w1), p(b1), p(w2t), p(w2),
-        p(b2), p(gamma), p(g), p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]),
-        p(o["dgamma"]), p(taps), p(u), p(gu32), p(o["y"]), p(o["gg"]), p(o["stats"]), p(o["h"]),
-        p(o["gh"]), p(o["gy"]), p(o["part"]), p(o["ws"]), p(tpart), ctypes.c_int(b),
-        ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c), ctypes.c_int(geo["splits"]),
-        ctypes.c_longlong(geo["ks"]), ctypes.c_int(rows), ctypes.c_float(eps),
-        cuda_build.stream_ptr(dev),
-    )
-    cuda_build.check(err, "block_train_bwd")
+    o = bwd_launch(*args, eps=eps)
     block_train_bwd.launches += 1
-    small = o["small"]
+    c = x.shape[-1]
+    small, taps = o["small"], o["taps"]
     return (o["dt"], taps[: TAPS * c].view(TAPS, c), taps[TAPS * c:], small[4 * c: 5 * c],
             small[5 * c: 6 * c], o["dw1t"], small[: 4 * c], o["dw2t"], small[6 * c: 7 * c],
             o["dgamma"])

@@ -5,8 +5,10 @@ Counterpart of ``spine_vision_tpu/ops/dwconv.py``. Each wrapper launches a
 hand-written kernel on a CUDA tensor and runs its plain PyTorch version
 (``*_reference``) on a CPU tensor:
 
-- :func:`dw_ln`, ``LayerNorm(dwconv7x7(x) + bias)``: ``csrc/dwconv_ln.cu`` (a
-  warp per few tokens, LayerNorm in registers; replaces ``_dw_ln_pallas``);
+- :func:`dw_ln`, ``LayerNorm(dwconv7x7(x) + bias)``: ``csrc/dwconv_ln.cu``'s
+  ``dw_ln_tile``, the conv of a full-C tile from halos staged in shared
+  memory, then a warp-a-token LayerNorm (replaces ``_dw_ln_pallas``; launch
+  geometry :func:`stats_geometry`, the backward's S's);
 - :func:`depthwise_conv7x7`, the plain stencil: ``csrc/dwconv_bwd.cu``'s
   ``dw_stencil``, persistent CTAs on halo tiles staged in shared memory
   (replaces ``depthwise_conv7x7``; launch geometry :func:`stencil_geometry`);
@@ -202,13 +204,15 @@ def dw_ln(
     """Fused ``LayerNorm(dwconv7x7(x) + bias)`` on NHWC ``x``.
 
     CUDA tensors launch ``csrc/dwconv_ln.cu`` (bf16 or f32, C in
-    ``KERNEL_WIDTHS``; anything else raises). CPU tensors take the plain
-    version. ``dw_ln.launches`` counts kernel launches.
+    ``KERNEL_WIDTHS``, on :func:`stats_geometry`'s tiles; anything else
+    raises). CPU tensors take the plain version. ``dw_ln.launches`` counts
+    kernel launches.
     """
     if x.device.type == "cpu":
         return dw_ln_reference(x, k49, bias, ln_scale, ln_bias, eps)
     _check(x, k49, bias, ln_scale, ln_bias)
     b, h, w, c = x.shape
+    stats_geometry(b, h, w, c, x.dtype)
     out = torch.empty_like(x)
     fn = cuda_build.load("dwconv_ln").svt_dw_ln_forward
     fn.restype = ctypes.c_int
@@ -228,7 +232,7 @@ dw_ln.launches = 0
 
 
 # csrc/dw_stage.cuh's geometry. The stencil and T take 64-channel slabs; S
-# a PH x 8 tile at full C. SMEM_* are an H100 multiprocessor's shared memory,
+# and #2 a PH x 8 tile at full C. SMEM_* are an H100 multiprocessor's shared memory,
 # what one CTA may take and what each resident CTA holds back.
 _SLAB = 64
 _HALO = KERNEL_SIZE // 2
@@ -267,22 +271,34 @@ def _stats_bytes(ph: int, c: int, item: int) -> int:
     return ph * 8 * c * 4 + 2 * (ph + 2 * _HALO) * (8 + 2 * _HALO) * _SLAB * item
 
 
-def bwd_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> dict:
-    """The launch geometry of ``csrc/dwconv_bwd.cu``'s backward for a [b, h,
-    w, c] input: S's tile (PH, 8) (PH the largest of 8, 4, 2, 1 that leaves
-    room for two CTAs a multiprocessor, else for one), tiles a side, CTAs and
-    shared memory; T's strip width, strips, slabs, rows a run, runs an image,
-    CTAs and shared memory; ``parts``, the workspace rows colsum adds (one a
-    T CTA of each slab). Raises on what the kernels do not take."""
+def stats_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of a PH x 8 tile at full C, that of #4's S
+    (``csrc/dwconv_bwd.cu``'s ``dw_bwd_stats``) and of #2
+    (``csrc/dwconv_ln.cu``'s ``dw_ln_tile``), for a [b, h, w, c] input: the
+    tile (PH, 8), PH the largest of 8, 4, 2, 1 that leaves room for two CTAs
+    a multiprocessor, else for one; tiles a side, CTAs (one a tile) and
+    shared memory. Raises on what the kernels do not take."""
     if c not in KERNEL_WIDTHS:
-        raise ValueError(f"dw_ln_bwd kernel is built for C in {KERNEL_WIDTHS}, got {c}")
+        raise ValueError(f"the full-C tile kernels are built for C in {KERNEL_WIDTHS}, got {c}")
     if not 0 < b * h * w < 2 ** 31:
-        raise ValueError(f"dw_ln_bwd kernels take 1 to 2^31 - 1 tokens, got {b * h * w}")
+        raise ValueError(f"the full-C tile kernels take 1 to 2^31 - 1 tokens, got {b * h * w}")
     item = _ITEM[dtype]
     fits = [ph for ph in (8, 4, 2, 1) if 2 * (_stats_bytes(ph, c, item) + SMEM_RESERVED)
             <= SMEM_A_SM] or [ph for ph in (8, 4, 2, 1) if _stats_bytes(ph, c, item) <= SMEM_A_CTA]
     ph = fits[0]
-    stats_tiles = (-(-h // ph), -(-w // 8))
+    tiles = (-(-h // ph), -(-w // 8))
+    return {"tile": (ph, 8), "tiles": tiles, "ctas": b * tiles[0] * tiles[1],
+            "smem": _stats_bytes(ph, c, item)}
+
+
+def bwd_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> dict:
+    """The launch geometry of ``csrc/dwconv_bwd.cu``'s backward for a [b, h,
+    w, c] input: S's tile, tiles a side, CTAs and shared memory
+    (:func:`stats_geometry`); T's strip width, strips, slabs, rows a run, runs
+    an image, CTAs and shared memory; ``parts``, the workspace rows colsum
+    adds (one a T CTA of each slab). Raises on what the kernels do not take."""
+    stats = stats_geometry(b, h, w, c, dtype)
+    item = _ITEM[dtype]
     strip = 16 if w <= 16 else 32  # dws::strip_width
     strips, slabs = -(-w // strip), -(-c // _SLAB)
     wanted = max(1, -(-_TILE_CTAS // (b * strips * slabs)))
@@ -290,9 +306,8 @@ def bwd_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype) -> dict:
     runs = -(-h // rows)
     parts = b * runs * strips
     return {
-        "stats_tile": (ph, 8), "stats_tiles": stats_tiles,
-        "stats_ctas": b * stats_tiles[0] * stats_tiles[1],
-        "stats_smem": _stats_bytes(ph, c, item),
+        "stats_tile": stats["tile"], "stats_tiles": stats["tiles"],
+        "stats_ctas": stats["ctas"], "stats_smem": stats["smem"],
         "strip": strip, "strips": strips, "slabs": slabs, "rows_per_run": rows, "runs": runs,
         "tile_ctas": parts * slabs,
         "tile_smem": ((KERNEL_SIZE + 2) * (strip + 2 * _HALO) * _SLAB * item

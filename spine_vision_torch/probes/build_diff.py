@@ -12,6 +12,7 @@ wgmma forms take their y and h (``_scratch``).
     python -m spine_vision_torch.probes.build_diff --parent DIR
     python -m spine_vision_torch.probes.build_diff --parent DIR --case ln_mlp_bwd
     python -m spine_vision_torch.probes.build_diff --parent DIR --case dwconv_bwd
+    python -m spine_vision_torch.probes.build_diff --parent DIR --case dw_fwd
 
 The ``ln_mlp_bwd`` case builds both trees' ``csrc/ln_mlp_bwd.cu`` and
 ``csrc/block_train_bwd.cu`` (which includes its header) instead: each build's
@@ -31,6 +32,17 @@ step's four shapes, each build through its own C interface with its own
 workspace, device time a call in the order parent, tree, tree, parent, the
 outputs within the card tests' tolerances of max |parent| (2e-2 for #4,
 1e-2 for #3), and each build's call split into its kernels (a profile).
+
+The ``dw_fwd`` case is for a change to ``csrc/dw_stage.cuh`` or
+``dwconv_ln.cuh``: it builds both trees' ``dwconv_ln.cu`` (#2),
+``block_train_bwd.cu`` (#10), ``dwconv_bwd.cu`` (#3, #4) and the wgmma
+libraries ``convnext_block.cu``, ``row_mlp.cu`` and ``ln_mlp_bwd.cu``, whose
+SASS must match the parent's kernel for kernel (it raises otherwise); then
+#10 at the train step's shapes (a parent with #10's first tap-sum form gets
+that form's workspace), #2 at the all-kernel step's four shapes and
+inference's B16 16x16 C = 1024, and #4 and #3 as the ``dwconv_bwd`` case
+times them, each through its own build's C interface, parent, tree, tree,
+parent, each build's call split into its kernels (a profile).
 
 ``DIR`` is a checkout of another commit (``git archive``). The sources are
 compiled by nvcc with the package's flags, and ``cuobjdump`` lists their
@@ -277,11 +289,33 @@ def _spills(log: str) -> int:
     return sum(int(line.split()[4]) for line in log.splitlines() if "spill stores" in line)
 
 
-def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
+def _legacy_rows_per_cta(rows: int, c: int) -> int:
+    """Image rows each CTA of #10's first tap-sum form (``tap_sums`` on a
+    channel group and a run of the B * H rows) walked: about 2048 CTAs over
+    the 64-channel groups and the rows. Its workspace has ceil(B * H / rows)
+    rows."""
+    groups = -(-c // 64)
+    return -(-rows // max(1, -(-2048 // groups)))
+
+
+def _tap_rows(b: int, h: int, w: int, c: int, legacy: bool) -> tuple[int, int]:
+    """#10's int argument and its tap workspace's rows: the first form's
+    rows a CTA of the B * H rows, or ``block_train.tap_geometry``'s rows a
+    run and parts."""
+    from spine_vision_torch.ops import block_train as bt
+
+    if legacy:
+        rows = _legacy_rows_per_cta(b * h, c)
+        return rows, -(-(b * h) // rows)
+    geo = bt.tap_geometry(b, h, w, c)
+    return geo["rows_per_run"], geo["parts"]
+
+
+def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict, legacy: bool = False):
     """One call of the ``tag`` build's ``kernel`` (ln_mlp_bwd, mlp_bwd or
     block_train_bwd) on ``a``, into fresh outputs and scratch: ``(launch,
-    outputs)``. Both builds take this tree's C interface."""
-    from spine_vision_torch.ops import block_train as bt
+    outputs)``. Both builds take this tree's C interface; with ``legacy``,
+    #10's tap sums are the first form's (:func:`_tap_rows`)."""
     from spine_vision_torch.ops import fused_mlp as fm
 
     t, g = a["x"], a["res"]
@@ -304,11 +338,11 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict):
     outs = (p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]))
     tail = (p(k["part"]), p(k["ws"]))
     if kernel == "block_train_bwd":
-        rows = bt.rows_per_cta(b * h, c)
+        rows, parts = _tap_rows(b, h, w, c, legacy)
         o["taps"] = torch.empty(50 * c, dtype=f32, device=dev)
         k["u"] = torch.empty(m, c, dtype=f32, device=dev)
         k["gu32"] = torch.empty(m, c, dtype=f32, device=dev)
-        k["tpart"] = torch.empty(-(-(b * h) // rows), 50 * c, dtype=f32, device=dev)
+        k["tpart"] = torch.empty(parts, 50 * c, dtype=f32, device=dev)
         fn = lib.svt_block_train_bwd
         args = (p(t), p(a["k49"]), p(a["dw_bias"]), p(a["ln_scale"]), p(a["ln_bias"]), *weights,
                 p(g), *outs, p(o["taps"]), p(k["u"]), p(k["gu32"]), *mid, *tail, p(k["tpart"]),
@@ -367,16 +401,23 @@ def _build_pair(parent: Path, sources) -> tuple[dict, dict]:
     return libs, moved
 
 
+def _legacy_taps(parent: Path) -> bool:
+    """Whether the tree at ``parent`` has #10's first tap-sum form."""
+    src = parent / "spine_vision_torch" / "csrc" / "block_train_bwd.cu"
+    return "conv_bias_f32" in src.read_text()
+
+
 def _bwd_case(parent: Path, dev) -> None:
     """The ``ln_mlp_bwd`` case: both builds of csrc/ln_mlp_bwd.cu and of
     csrc/block_train_bwd.cu, which includes its header."""
     libs, _ = _build_pair(parent, sorted(set(BWD_SOURCES.values())))
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
+    legacy = _legacy_taps(parent)
     for kernel, source in BWD_SOURCES.items():
         for hw, c in TRAIN_STAGES:
             a = _inputs(32, hw, c, dev)
-            runs = {tag: _bwd_launcher(tag, loaded[source, tag], kernel, a)
-                    for tag in ("parent", "tree")}
+            runs = {tag: _bwd_launcher(tag, loaded[source, tag], kernel, a,
+                                       legacy and tag == "parent") for tag in ("parent", "tree")}
             rows = [(tag, _device_ms(runs[tag][0], 10)) for tag in
                     ("parent", "tree", "tree", "parent")]
             torch.cuda.synchronize()
@@ -395,7 +436,8 @@ def _bwd_case(parent: Path, dev) -> None:
 
 
 # The dwconv_bwd case: #4 and #3's source, and the sources whose SASS must not
-# move with it (they share its headers dwconv_ln.cuh and reduce.cuh).
+# move with it alone (they share its headers; a change to dw_stage.cuh moves
+# dwconv_ln.cu and block_train_bwd.cu too: the dw_fwd case).
 DW_SOURCES = ("dwconv_bwd", "dwconv_ln", "convnext_block", "block_train_bwd")
 DW_KEPT = DW_SOURCES[1:]
 DW_STAGES = TRAIN_STAGES + ((16, 1024),)  # the all-kernel step's four widths
@@ -405,16 +447,15 @@ def _dw_launchers(tag: str, lib: ctypes.CDLL, legacy: bool, a: dict) -> dict:
     """#4 (``svt_dw_ln_bwd``) and #3 (``svt_dwconv7x7`` on x with the flipped
     filter) of the ``tag`` build on ``a``, each ``(launch, outputs)``. Both
     builds' C interfaces take the same arguments; the workspace differs: the
-    warp-per-token form (``legacy``) walks ``block_train.rows_per_cta`` rows of
-    the B * H rows a CTA, the Hopper form ``dwconv.bwd_geometry``'s runs."""
-    from spine_vision_torch.ops import block_train as bt
+    warp-per-token form (``legacy``) walks :func:`_legacy_rows_per_cta` rows
+    of the B * H rows a CTA, the Hopper form ``dwconv.bwd_geometry``'s runs."""
     from spine_vision_torch.ops import dwconv as dw
 
     x, g = a["x"], a["res"]
     b, h, w, c = x.shape
     dev, f32 = x.device, torch.float32
     if legacy:
-        rows = bt.rows_per_cta(b * h, c)
+        rows = _legacy_rows_per_cta(b * h, c)
         parts = -(-(b * h) // rows)
     else:
         geo = dw.bwd_geometry(b, h, w, c, x.dtype)
@@ -476,36 +517,105 @@ def _dw_case(parent: Path, dev) -> None:
                                  f"{moved[source]}")
     legacy = "dw_ln_bwd_tile" in (parent / "spine_vision_torch" / "csrc" /
                                   "dwconv_bwd.cu").read_text()
+    _dw_bwd_times(libs, legacy, dev)
+
+
+def _compare_runs(kernel: str, shape: str, runs: dict, tol: float) -> None:
+    """Time ``runs[tag] = (launch, outputs)`` of both builds in the order
+    parent, tree, tree, parent (device ms a call), hold the tree's outputs
+    within ``tol`` of max |parent| and print the line, with each build's call
+    split into its kernels."""
+    rows = [(tag, _device_ms(runs[tag][0], 10)) for tag in ("parent", "tree", "tree", "parent")]
+    torch.cuda.synchronize()
+    errs = {}
+    for name, want in runs["parent"][1].items():
+        got = runs["tree"][1][name]
+        errs[name] = ((got.float() - want.float()).abs().max()
+                      / want.float().abs().max().clamp_min(1e-6)).item()
+    print(f"[build_diff] {kernel} {shape}: " + "; ".join(
+        f"{tag} device {d:.4f}" for tag, d in rows) + " ms a call; tree against parent, "
+        "max |diff| / max |parent|: " + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
+        + f" (tol {tol}); launches, device ms a call: " + "; ".join(
+            f"{tag} {_launch_split(runs[tag][0])}" for tag in ("parent", "tree")))
+    if max(errs.values()) > tol:
+        raise AssertionError(f"the two builds' {kernel} outputs differ at {shape}: {errs}")
+
+
+def _dw_bwd_times(libs: dict, legacy: bool, dev) -> None:
+    """#4 and #3 at the all-kernel step's four shapes from both builds of
+    dwconv_bwd.cu (:func:`_compare_runs`)."""
     for hw, c in DW_STAGES:
         a = _inputs(32, hw, c, dev)
         runs = {tag: _dw_launchers(tag, ctypes.CDLL(str(libs["dwconv_bwd", tag])),
                                    legacy and tag == "parent", a) for tag in ("parent", "tree")}
         for kernel, tol in (("dw_ln_bwd", 2e-2), ("depthwise_conv7x7", 1e-2)):
-            rows = [(tag, _device_ms(runs[tag][kernel][0], 10)) for tag in
-                    ("parent", "tree", "tree", "parent")]
-            torch.cuda.synchronize()
-            errs = {}
-            for name, want in runs["parent"][kernel][1].items():
-                got = runs["tree"][kernel][1][name]
-                errs[name] = ((got.float() - want.float()).abs().max()
-                              / want.float().abs().max().clamp_min(1e-6)).item()
-            print(f"[build_diff] {kernel} B=32 {hw}x{hw} C={c}: " + "; ".join(
-                f"{tag} device {d:.4f}" for tag, d in rows) + " ms a call; tree against "
-                "parent, max |diff| / max |parent|: " + " ".join(
-                    f"{n}={e:.3g}" for n, e in errs.items()) + f" (tol {tol}); launches, "
-                "device ms a call: " + "; ".join(
-                    f"{tag} {_launch_split(runs[tag][kernel][0])}" for tag in ("parent", "tree")))
-            if max(errs.values()) > tol:
-                raise AssertionError(f"the two builds' {kernel} outputs differ at C={c}: {errs}")
+            _compare_runs(kernel, f"B=32 {hw}x{hw} C={c}",
+                          {tag: runs[tag][kernel] for tag in runs}, tol)
         del a, runs
         torch.cuda.empty_cache()
+
+
+# The dw_fwd case: #2's and #10's sources, #3 and #4's (whose stencil and S
+# gained epilogues), and the wgmma libraries, whose SASS must not move (they
+# include dwconv_ln.cuh through wg_gemm.cuh).
+FWD_SOURCES = ("dwconv_ln", "block_train_bwd", "dwconv_bwd", "convnext_block", "row_mlp",
+               "ln_mlp_bwd")
+FWD_KEPT = ("convnext_block", "row_mlp", "ln_mlp_bwd")
+DW_LN_STAGES = tuple((32, hw, c) for hw, c in DW_STAGES) + ((16, 16, 1024),)
+
+
+def _dw_ln_launcher(tag: str, lib: ctypes.CDLL, a: dict):
+    """#2 (``svt_dw_ln_forward``, bf16) of the ``tag`` build on ``a``:
+    ``(launch, outputs)``."""
+    x = a["x"]
+    b, h, w, c = x.shape
+    o = {"y": torch.empty_like(x)}
+    p = cuda_build.ptr
+    fn = lib.svt_dw_ln_forward
+    fn.restype = ctypes.c_int
+    args = (p(x), p(a["k49"]), p(a["dw_bias"]), p(a["ln_scale"]), p(a["ln_bias"]), p(o["y"]),
+            ctypes.c_int(0), *(ctypes.c_int(v) for v in (b, h, w, c)), ctypes.c_float(1e-6))
+
+    def launch():
+        cuda_build.check(fn(*args, cuda_build.stream_ptr(x.device)), f"{tag} dw_ln")
+
+    return launch, o
+
+
+def _fwd_case(parent: Path, dev) -> None:
+    """The ``dw_fwd`` case: both trees' builds of #2's, #10's and #3/#4's
+    sources and of the wgmma libraries, whose SASS must be the parent's; #10
+    and #3/#4 at the train step's shapes and #2 at those and inference's,
+    from both builds."""
+    libs, moved = _build_pair(parent, FWD_SOURCES)
+    for source in FWD_KEPT:
+        if moved[source]:
+            raise AssertionError(f"{source}.cu's kernels moved: {moved[source]}")
+    loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
+    legacy = _legacy_taps(parent)
+    for hw, c in TRAIN_STAGES:
+        a = _inputs(32, hw, c, dev)
+        runs = {tag: _bwd_launcher(tag, loaded["block_train_bwd", tag], "block_train_bwd", a,
+                                   legacy and tag == "parent") for tag in ("parent", "tree")}
+        _compare_runs("block_train_bwd", f"B=32 {hw}x{hw} C={c}", runs, 2e-2)
+        del a, runs
+        torch.cuda.empty_cache()
+    for b, hw, c in DW_LN_STAGES:
+        a = _inputs(b, hw, c, dev)
+        runs = {tag: _dw_ln_launcher(tag, loaded["dwconv_ln", tag], a)
+                for tag in ("parent", "tree")}
+        _compare_runs("dw_ln", f"B={b} {hw}x{hw} C={c}", runs, 1e-2)
+        del a, runs
+        torch.cuda.empty_cache()
+    _dw_bwd_times(libs, False, dev)
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", required=True, type=Path,
                         help="checkout of the commit to compare with")
-    parser.add_argument("--case", choices=("convnext_block", "ln_mlp_bwd", "dwconv_bwd"),
+    parser.add_argument("--case", choices=("convnext_block", "ln_mlp_bwd", "dwconv_bwd",
+                                           "dw_fwd"),
                         default="convnext_block", help="the source to build from both trees")
     args = parser.parse_args(argv)
     from spine_vision_torch.device import resolve_device
@@ -517,6 +627,9 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     if args.case == "dwconv_bwd":
         _dw_case(args.parent, dev)
+        return 0
+    if args.case == "dw_fwd":
+        _fwd_case(args.parent, dev)
         return 0
     trees = {"parent": args.parent / "spine_vision_torch" / "csrc", "tree": cuda_build.CSRC}
     libs, jobs = {}, {}

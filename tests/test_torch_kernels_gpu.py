@@ -284,6 +284,78 @@ def test_dw_stage_kernels_match_plain_stages(cuda, stage, b, h, w, c, dtype):
     _close("colsum", sums, o["part"].double().sum(0), 1e-5)
 
 
+# #2 and #10's two ends: ragged images (12 x 8 and 7 x 9 with B = 1, a
+# ragged last tile and strip, runs that end early, one row), and the train
+# step's shapes (#2 also inference's B16 16^2 at C = 1024).
+DW_FWD_RAGGED = [(1, 12, 8), (1, 7, 9), (3, 13, 11), (2, 70, 37), (1, 1, 5)]
+DW_LN_SHAPES = [(b, h, w, c, dt) for (b, h, w), c in zip(DW_FWD_RAGGED, (96, 352, 1024, 128, 2816))
+                for dt in (torch.bfloat16, torch.float32)] + [
+    (b, hw, hw, c, dt) for b, hw, c in ((32, 128, 128), (32, 64, 256), (32, 32, 512),
+                                         (32, 16, 1024), (16, 16, 1024))
+    for dt in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("b,h,w,c,dtype", DW_LN_SHAPES)
+def test_dw_ln_tile_matches_plain(cuda, b, h, w, c, dtype):
+    """#2 (csrc/dwconv_ln.cu's dw_ln_tile) against its plain version; a
+    second call agrees bit for bit."""
+    rng = np.random.default_rng(c + h + w)
+    f32 = torch.float32
+    args = (_t(rng, (b, h, w, c), 1.0, dtype, cuda), _t(rng, (49, c), 0.1, dtype, cuda),
+            _t(rng, (c,), 0.1, f32, cuda), _t(rng, (c,), 0.1, f32, cuda, 1.0),
+            _t(rng, (c,), 0.1, f32, cuda))
+    before = dw.dw_ln.launches
+    got = dw.dw_ln(*args)
+    again = dw.dw_ln(*args)
+    want = dw.dw_ln_reference(*args)
+    torch.cuda.synchronize()
+    assert dw.dw_ln.launches == before + 2
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert torch.equal(got, again)
+    # f32: sums in another order, 1e-4; bf16: y rounds once at the same point
+    # on both sides, KERNEL_REL_TOL (1e-2) of max |plain|.
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == f32:
+        assert err <= 1e-4, err
+    else:
+        assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+BLOCK_END_SHAPES = [(b, h, w, c) for (b, h, w), c in zip(DW_FWD_RAGGED, (128, 96, 192, 384, 512))
+                    ] + [(32, 128, 128, 128), (32, 64, 64, 256), (32, 32, 32, 512)]
+
+
+@pytest.mark.parametrize("stage", ["conv", "taps"])
+@pytest.mark.parametrize("b,h,w,c", BLOCK_END_SHAPES)
+def test_block_train_bwd_end_kernels_match_plain_stages(cuda, stage, b, h, w, c):
+    """#10's two ends against their plain stages (ops/block_train.py), each
+    fed the kernel's own input: the conv recompute u, and the tap sums of the
+    kernel's f32 g_u through the workspace and colsum; a second call agrees
+    bit for bit."""
+    rng = np.random.default_rng(c + 7 * h + w)
+    args = _block_args(rng, b, h, w, c, cuda)
+    g = _t(rng, (b, h, w, c), 1.0, torch.bfloat16, cuda)
+    o = bt.bwd_launch(*args, g)
+    again = bt.bwd_launch(*args, g)
+    torch.cuda.synchronize()
+    for name in o:
+        assert torch.equal(o[name], again[name]), name
+    x = args[0]
+    if stage == "conv":
+        # f32 sums of the same 49 f32 products and the bias in another order.
+        u = bt.conv_bias_reference(x, args[1], args[2])
+        _close("u", o["u"].view(x.shape), u, 1e-5)
+        return
+    geo = bt.tap_geometry(b, h, w, c)
+    assert o["tpart"].shape == (geo["parts"], 50 * c)
+    dk, ddwb = bt.tap_sums_reference(x, o["gu32"])
+    # f32 sums over every token in another order: 1e-4 of max |plain|.
+    _close("dk", o["taps"][: 49 * c].view(49, c), dk, 1e-4)
+    _close("ddwb", o["taps"][49 * c:], ddwb, 1e-4)
+    # colsum: the workspace's rows added in a fixed order.
+    _close("colsum", o["taps"], o["tpart"].double().sum(0), 1e-5)
+
+
 def _mlp_args(rng, b, h, w, c, device):
     f32, bf16 = torch.float32, torch.bfloat16
     return (
