@@ -63,6 +63,22 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    the GELU pass's copy bit for bit, the GELU bodies each element within one
    bf16 ulp, the MLP ablation within 2e-2 * max |plain|), with the plain
    version timed.
+9. Classification training (``cls_train``): ``ClassificationTrainer.train()``
+   for 2 epochs of ResNet-18 at 256^2, batch 256, all 8 tasks, bf16 on f32
+   master weights, training BatchNorm, augmentation, dropout 0.3 and
+   weighted sampling over a seeded in-memory set (3 batches of train images,
+   1 of validation, a task of which holds one class), then ``evaluate`` on a
+   seeded test set. It checks the run dir, a finite history, the metric keys
+   (an AUC present and finite exactly where both classes occur), that every
+   BatchNorm's running statistics moved, and prints the step's p50, its
+   spread and peak memory (with ``--profile``, the step's device busy time,
+   idle share and groups: cuDNN convolutions, BatchNorm passes, losses,
+   AdamW, the rest). Then one step card against CPU (batch 8 at 64^2, the
+   same seeded weights, dropout 0: f32 gradients, bf16 gradients, loss and
+   running statistics, see ``CLS_F32_WORST`` and ``CLS_BF16_MARGIN``), an
+   overfit of one fixed batch of 16, and a ConvNeXt-base ``Classifier``
+   (``use_pallas="hybrid"``) through the same trainer, whose every step must
+   launch #1's ``emit_conv`` form and #8/#9.
 
 Each phase prints its wall time.
 
@@ -1553,6 +1569,408 @@ def overfit_check(device) -> None:
         raise AssertionError("the loss did not fall on a fixed batch")
 
 
+# The classification phase (cls_train): ResNet-18 at 256^2, batch 256, all
+# 8 tasks, bf16 on f32 masters, as bench.py:152-221 and the JAX trainer's
+# defaults; 3 batches of train images a epoch, 1 of validation, 1 of test.
+CLS_BATCH = 256
+CLS_HW = 256
+# Card against CPU, one classification step (batch 8 at 64^2), the CPU's f32
+# run the reference. The card's f32 run: every parameter's gradient within
+# CLS_F32_WORST of its norm, the median over the parameters within
+# CLS_F32_MEDIAN (a ReLU input within f32 rounding of 0 can take the other
+# side and move what is upstream of it by a few per cent: 2.6e-2 in the CPU
+# tests against JAX). The card's bf16 run (on f32 masters, the trainer's
+# default): with training BatchNorm at this batch, bf16 rounding moves the
+# gradients by a third of their norm (median) in the CPU's own bf16 run and
+# in the JAX package's alike; so the card's bf16 gradients, loss and running
+# statistics are held within CLS_BF16_MARGIN times that run's distance from
+# the reference, median and worst, or within GRAD_REL_TOL where larger: two
+# bf16 implementations that round independently may each sit that far.
+CLS_F32_WORST = 5e-2
+CLS_F32_MEDIAN = 1e-2
+CLS_GRAD_BATCH = 8
+CLS_GRAD_HW = 64
+CLS_BF16_MARGIN = 2.0
+# Overfit one fixed batch of 16 at 256^2 (dropout and augmentation off):
+# with label smoothing 0.1 the multi-task loss cannot fall below about 0.9
+# (the two multiclass tasks' smoothed targets), from about 7 at the start;
+# below CLS_OVERFIT_FRACTION of the first loss the model must fit each image.
+CLS_OVERFIT_STEPS = 40
+CLS_OVERFIT_LR = 1e-3
+CLS_OVERFIT_FRACTION = 0.35
+# The kernel route through the classifier: a ConvNeXt-base Classifier with
+# use_pallas="hybrid" trains through ClassificationTrainer (batch 8 at
+# 256^2, 3 steps); each step launches #1's emit_conv form and #8/#9 on its
+# 33 blocks of C <= 512, as the localization hybrid step does.
+CLS_CONVNEXT_STEPS = 3
+CLS_CONVNEXT_LAUNCHES = TRAIN_LAUNCHES["train_step"]
+
+
+class _Grades:
+    """In-memory classification samples from a seed: uint8 images, a label
+    per task for each (uniform over the task's classes), a level index. The
+    tasks in ``one_class`` get label 0 throughout (their AUC is undefined)."""
+
+    def __init__(self, n: int, hw: int, seed: int, one_class: tuple = ()) -> None:
+        import numpy as np
+
+        from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, get_task
+
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+        self.targets = {}
+        for name in AVAILABLE_TASK_NAMES:
+            task = get_task(name)
+            k = task.num_classes if task.is_multiclass else 2
+            self.targets[name] = np.zeros(n, np.int64) if name in one_class else \
+                rng.integers(0, k, n)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, i: int) -> dict:
+        return {"image": self.images[i], "targets": {k: v[i] for k, v in self.targets.items()},
+                "level_idx": i % 5, "metadata": {"image_path": f"synthetic/{i}.png"}}
+
+    def sample_label_values(self, label: str) -> list:
+        return list(self.targets[label])
+
+
+def _cls_config(name: str, **kw):
+    from spine_vision_torch.train.classification import ClassificationConfig
+
+    base = dict(backbone="resnet18", output_size=(CLS_HW, CLS_HW), batch_size=CLS_BATCH,
+                num_epochs=2, output_path=RUN_DIR / name, num_workers=8, pretrained=False,
+                seed=0)
+    shutil.rmtree(RUN_DIR / name, ignore_errors=True)
+    return ClassificationConfig(**{**base, **kw})
+
+
+def _bn_stats(model) -> dict:
+    from spine_vision_torch.ops.batchnorm import BatchNorm
+
+    return {n: (m.mean.detach().clone(), m.var.detach().clone())
+            for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+
+
+def cls_train_phase(device, card: str, profile: bool = False) -> dict:
+    """ClassificationTrainer.train() for 2 epochs of ResNet-18 at 256^2, batch
+    256, all 8 tasks, bf16 on f32 masters, augmentation, dropout 0.3 and
+    weighted sampling, then evaluate() on a seeded test set. Returns the
+    launch counts of one train step (ResNet-18 runs no kernel of this
+    package: all zero)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, get_task
+    from spine_vision_torch.train.classification import ClassificationTrainer
+
+    tag = "[cls_train]"
+    t0 = time.perf_counter()
+    train_set = _Grades(3 * CLS_BATCH, CLS_HW, 20)
+    val_set = _Grades(CLS_BATCH, CLS_HW, 21, one_class=("spondy",))
+    test_set = _Grades(CLS_BATCH, CLS_HW, 22)
+    cfg = _cls_config("cls_train", augment=True, dropout=0.3, use_weighted_sampling=True,
+                      mixed_precision=True, profile_steps=True)
+    trainer = ClassificationTrainer(cfg, train_dataset=train_set, val_dataset=val_set,
+                                    device=device)
+    stats0 = _bn_stats(trainer.model)
+    print(f"{tag} model and data built in {time.perf_counter() - t0:.1f} s; "
+          f"{trainer.count_parameters():,} parameters, weighted sampling on 'pfirrmann'")
+    step_counts = []
+    inner = trainer.train_step_fn
+
+    def counted_step(state, batch):
+        _zero_counts()
+        loss = inner(state, batch)
+        step_counts.append(_counts())
+        return loss
+
+    trainer.train_step_fn = counted_step
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = trainer.train()
+    wall = time.perf_counter() - t0
+    if len(step_counts) != 6:
+        raise AssertionError(f"expected 6 train steps (2 epochs of 3 batches), got "
+                             f"{len(step_counts)}")
+    if any(c != _launches() for c in step_counts):
+        raise AssertionError(f"a ResNet-18 step launched a kernel of the package: {step_counts}")
+    for name in ("best_model/state.pt", "best_model.meta.json", "config.yaml", "logs"):
+        if not (RUN_DIR / "cls_train" / name).exists():
+            raise AssertionError(f"run dir lacks {name}")
+    history = result.history
+    for key in ("train_loss", "val_loss", "lr", "macro_f1", "overall_accuracy", "macro_auc"):
+        if len(history[key]) != 2 or not all(math.isfinite(v) for v in history[key]):
+            raise AssertionError(f"history[{key!r}] = {history.get(key)}")
+    moved = [n for n, (m, v) in _bn_stats(trainer.model).items()
+             if not (torch.equal(m, stats0[n][0]) or torch.equal(v, stats0[n][1]))]
+    if len(moved) != len(stats0):
+        raise AssertionError(f"BatchNorm running statistics moved in {len(moved)} of "
+                             f"{len(stats0)} layers")
+    print(f"{tag} {len(step_counts)} train steps, 2 epochs in {wall:.1f} s; history: "
+          f"train_loss {history['train_loss']}, val_loss {history['val_loss']}, macro_f1 "
+          f"{history['macro_f1']}, macro_auc {history['macro_auc']}, lr {history['lr']}; "
+          f"running statistics moved in all {len(moved)} BatchNorms")
+
+    def check_metrics(metrics: dict, data: _Grades, what: str) -> None:
+        for name in AVAILABLE_TASK_NAMES:
+            key = f"{name}_auc"
+            defined = len(np.unique(data.targets[name])) > 1
+            if get_task(name).task_type not in ("binary", "multiclass"):
+                continue
+            if defined != (key in metrics) or (defined and not math.isfinite(metrics[key])):
+                raise AssertionError(f"{what}: {key} = {metrics.get(key)}, defined {defined}")
+            if f"{name}_accuracy" not in metrics:
+                raise AssertionError(f"{what}: no {name}_accuracy")
+        if not math.isfinite(metrics.get("macro_f1", float("nan"))):
+            raise AssertionError(f"{what}: macro_f1 = {metrics.get('macro_f1')}")
+
+    val_metrics = {k: v[-1] for k, v in history.items() if k not in ("train_loss", "lr")}
+    check_metrics(val_metrics, val_set, "validation (spondy single-class: no AUC)")
+    test_metrics = trainer.evaluate(test_dataset=test_set)
+    check_metrics(test_metrics, test_set, "test")
+    print(f"{tag} evaluate: macro_f1 {test_metrics['macro_f1']:.4f}, macro_auc "
+          f"{test_metrics['macro_auc']:.4f}, overall_accuracy "
+          f"{test_metrics['overall_accuracy']:.4f} on {len(test_set)} seeded images (random "
+          f"labels: chance level expected)")
+    steps = np.asarray(trainer.step_times[1:]) * 1e3  # the first step allocates and tunes
+    p50 = float(np.percentile(steps, 50))
+    print(f"{tag} train step p50 {p50:.3f} ms = {CLS_BATCH / p50 * 1e3:.2f} img/s (ResNet-18 "
+          f"256^2 b{CLS_BATCH} bf16, 8 tasks; upload, augmentation and AdamW included); spread "
+          f"over {len(steps)} steps after the first: min {steps.min():.3f}, max "
+          f"{steps.max():.3f} ms ({(steps.max() - steps.min()) / p50:.1%} of the p50); all "
+          f"steps ms {[round(t * 1e3, 3) for t in trainer.step_times]} on {card}")
+    print(f"{tag} peak device memory of the training run "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of which {held / 2**30:.2f} "
+          f"GiB were held before it")
+    if profile:
+        profile_cls(trainer, train_set, p50)
+    shutil.rmtree(RUN_DIR / "cls_train", ignore_errors=True)
+    return {"launches": step_counts[0], "p50_ms": p50}
+
+
+def profile_cls(trainer, dataset, p50_ms: float) -> None:
+    """Two traced classification steps: device busy time, the idle share and
+    the groups (cuDNN convolutions, BatchNorm passes, the losses' forward,
+    AdamW, everything else), each from the device time of the kernels that
+    its CPU range launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from spine_vision_torch.data.loader import collate_classification
+    from spine_vision_torch.ops import batchnorm as bn
+
+    batch = collate_classification([dataset[i] for i in range(CLS_BATCH)])
+    trainer.train_step_fn(trainer.state, batch)
+    torch.cuda.synchronize()
+    fwd, bwd, loss_fn = bn.BatchNorm.forward, bn._BatchNormTrain.backward, trainer._multitask_loss
+
+    def labelled(label, fn):
+        def run(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return run
+
+    bn.BatchNorm.forward = labelled("cls::batchnorm", fwd)
+    bn._BatchNormTrain.backward = staticmethod(labelled("cls::batchnorm", bwd))
+    trainer._multitask_loss = labelled("cls::losses", loss_fn)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            for _ in range(2):
+                trainer.train_step_fn(trainer.state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3 / 2
+    finally:
+        bn.BatchNorm.forward, bn._BatchNormTrain.backward = fwd, staticmethod(bwd)
+        trainer._multitask_loss = loss_fn
+    events = _device_events(prof)
+    busy_ms = sum(_dev_us(e) for e in events) / 1e3 / 2
+    print(f"[profile] cls_train: traced wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.1%}); against the untraced p50 {p50_ms:.3f} ms the idle "
+          f"share is {1 - busy_ms / p50_ms:.1%}")
+    for e in sorted(events, key=_dev_us, reverse=True)[:15]:
+        print(f"[profile] cls_train: {_dev_us(e) / 1e3 / 2:9.3f} ms/step x{e.count // 2:<5d} "
+              f"{e.key[:90]}")
+    ranges = {e.key: e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CUDA}
+
+    def total_ms(keys) -> float:
+        return sum(getattr(ranges[k], "device_time_total", 0) for k in keys if k in ranges) \
+            / 1e3 / 2
+
+    groups = (("cuDNN convolutions (forward, data and weight gradients)",
+               ("aten::convolution", "ConvolutionBackward0")),
+              ("BatchNorm passes (statistics, scale-shift, three-term backward)",
+               ("cls::batchnorm",)),
+              ("losses (their forward; the backward's few kernels are in the rest)",
+               ("cls::losses",)),
+              ("AdamW", tuple(k for k in ranges if k.startswith("Optimizer.step#"))))
+    rest = busy_ms
+    for label, keys in groups:
+        ms = total_ms(keys)
+        rest -= ms
+        print(f"[profile] cls_train group: {ms:9.3f} ms/step {label}")
+    print(f"[profile] cls_train group: {rest:9.3f} ms/step everything else (upload, "
+          f"augmentation, pooling, heads, residual adds, ReLUs, casts, clipping)")
+
+
+def _cls_step(dev, dtype, batch) -> tuple:
+    """One classification step of ResNet-18 (weights from a seeded Flax-layout
+    tree, dropout 0) on ``dev`` in ``dtype`` (bf16: on f32 masters): ``(grads
+    by parameter name, loss, running statistics by name)``."""
+    import torch
+
+    from spine_vision_torch.models.classifier import Classifier
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+    from spine_vision_torch.train.classification import (
+        ClassificationTrainer,
+        create_tasks_for_training,
+    )
+
+    model = Classifier("resnet18", tasks=tuple(create_tasks_for_training()), dtype=dtype,
+                       device=dev, dropout=0.0, param_dtype=torch.float32)
+    load_flax_variables(model, *random_flax_variables(model, 31))
+    cfg = _cls_config(f"cls_grad_{dev.type}", output_size=(CLS_GRAD_HW, CLS_GRAD_HW),
+                      batch_size=CLS_GRAD_BATCH, num_epochs=1, augment=False, dropout=0.0,
+                      grad_clip=None, num_workers=1, use_weighted_sampling=False,
+                      mixed_precision=dtype == torch.bfloat16)
+    data = _Grades(CLS_GRAD_BATCH, CLS_GRAD_HW, 32)
+    trainer = ClassificationTrainer(cfg, model=model, train_dataset=data, val_dataset=data,
+                                    device=dev)
+    _zero_counts()
+    loss = float(trainer.train_step_fn(trainer.state, batch))
+    if _counts() != _launches():
+        raise AssertionError(f"a ResNet-18 step launched a kernel of the package: {_counts()}")
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    stats = {n: b.detach().float().cpu() for n, b in model.named_buffers()}
+    shutil.rmtree(RUN_DIR / f"cls_grad_{dev.type}", ignore_errors=True)
+    return grads, loss, stats
+
+
+def cls_grad_check(device) -> None:
+    """One classification step's parameter gradients, loss and updated
+    running statistics: the card in f32 and in bf16 on f32 masters against
+    the CPU's f32 run (see CLS_F32_WORST and CLS_BF16_MARGIN)."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.data.loader import collate_classification
+
+    data = _Grades(CLS_GRAD_BATCH, CLS_GRAD_HW, 33)
+    batch = collate_classification([data[i] for i in range(CLS_GRAD_BATCH)])
+    cpu = torch.device("cpu")
+    ref = _cls_step(cpu, torch.float32, batch)
+    cpu16 = _cls_step(cpu, torch.bfloat16, batch)
+    card32 = _cls_step(device, torch.float32, batch)
+    card16 = _cls_step(device, torch.bfloat16, batch)
+
+    def rel(a: dict, b: dict) -> dict:
+        return {n: (torch.linalg.vector_norm(a[n] - b[n]) /
+                    torch.linalg.vector_norm(b[n]).clamp_min(1e-30)).item() for n in b}
+
+    def summary(errs: dict) -> tuple:
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        return float(np.median(list(errs.values()))), worst
+
+    med, worst = summary(rel(card32[0], ref[0]))
+    print(f"[cls_grad] f32 gradients, card vs CPU over {len(ref[0])} parameters: median "
+          f"{med:.4g} (tol {CLS_F32_MEDIAN}), worst {worst[1]:.4g} ({worst[0]}; tol "
+          f"{CLS_F32_WORST}); loss {card32[1]:.6f} vs {ref[1]:.6f}")
+    if med > CLS_F32_MEDIAN or worst[1] > CLS_F32_WORST:
+        raise AssertionError(f"card and CPU f32 gradients differ: median {med}, worst {worst}")
+    for what, i in (("gradients", 0), ("running statistics", 2)):
+        med, worst = summary(rel(card16[i], ref[i]))
+        yard_med, yard_worst = summary(rel(cpu16[i], ref[i]))
+        tol_med = max(GRAD_REL_TOL, CLS_BF16_MARGIN * yard_med)
+        tol_worst = max(GRAD_REL_TOL, CLS_BF16_MARGIN * yard_worst[1])
+        print(f"[cls_grad] bf16 {what}, card vs CPU f32 over {len(ref[i])} tensors: median "
+              f"{med:.4g} (tol {tol_med:.4g}), worst {worst[1]:.4g} ({worst[0]}; tol "
+              f"{tol_worst:.4g}); the CPU's own bf16 run: median {yard_med:.4g}, worst "
+              f"{yard_worst[1]:.4g} ({yard_worst[0]})")
+        if med > tol_med or worst[1] > tol_worst:
+            raise AssertionError(f"card bf16 {what} beyond the bound: median {med}, {worst}")
+    loss_err, loss_yard = abs(card16[1] - ref[1]) / ref[1], abs(cpu16[1] - ref[1]) / ref[1]
+    loss_tol = max(GRAD_REL_TOL, CLS_BF16_MARGIN * loss_yard)
+    print(f"[cls_grad] bf16 loss: card {card16[1]:.6f}, CPU f32 {ref[1]:.6f}, CPU bf16 "
+          f"{cpu16[1]:.6f}; relative {loss_err:.4g}, tol {loss_tol:.4g}")
+    if loss_err > loss_tol:
+        raise AssertionError(f"card and CPU losses differ beyond {loss_tol}")
+
+
+def cls_overfit_check(device) -> None:
+    """CLS_OVERFIT_STEPS steps of ResNet-18 on one fixed batch of 16 at
+    256^2: the loss must fall below CLS_OVERFIT_FRACTION of its first value."""
+    import torch
+
+    from spine_vision_torch.data.loader import collate_classification
+    from spine_vision_torch.train.classification import ClassificationTrainer
+
+    data = _Grades(16, CLS_HW, 34)
+    batch = collate_classification([data[i] for i in range(16)])
+    cfg = _cls_config("cls_overfit", batch_size=16, num_epochs=1, augment=False, dropout=0.0,
+                      learning_rate=CLS_OVERFIT_LR, scheduler_type="none", num_workers=1,
+                      use_weighted_sampling=False)
+    trainer = ClassificationTrainer(cfg, train_dataset=data, val_dataset=data, device=device)
+    losses = [float(trainer.train_step_fn(trainer.state, batch))
+              for _ in range(CLS_OVERFIT_STEPS)]
+    shutil.rmtree(RUN_DIR / "cls_overfit", ignore_errors=True)
+    print(f"[cls_overfit] {CLS_OVERFIT_STEPS} steps at lr {CLS_OVERFIT_LR} on one batch of 16: "
+          f"loss {losses[0]:.6f} -> {losses[-1]:.6f} ({losses[-1] / losses[0]:.3f} of the "
+          f"first; must be < {CLS_OVERFIT_FRACTION}); every 5th: "
+          f"{[round(v, 4) for v in losses[::5]]}")
+    if not all(torch.isfinite(torch.tensor(losses))) or \
+            losses[-1] >= CLS_OVERFIT_FRACTION * losses[0]:
+        raise AssertionError("the classification loss did not fall on a fixed batch")
+
+
+def cls_convnext_check(device) -> dict:
+    """A ConvNeXt-base Classifier (use_pallas="hybrid", built by the trainer
+    from its seed) through ClassificationTrainer: batch 8 at 256^2,
+    CLS_CONVNEXT_STEPS steps; every step launches #1's emit_conv form and
+    #8/#9 on each block of C <= 512. Returns one step's launch counts."""
+    import math
+
+    from spine_vision_torch.models.convnext import ConvNeXtBlock
+    from spine_vision_torch.train.classification import ClassificationTrainer
+
+    cfg = _cls_config("cls_convnext", backbone="convnext_base", batch_size=8, num_epochs=1,
+                      num_workers=2, use_weighted_sampling=True)
+    trainer = ClassificationTrainer(cfg, train_dataset=_Grades(8 * CLS_CONVNEXT_STEPS, CLS_HW, 35),
+                                    val_dataset=_Grades(8, CLS_HW, 36), device=device)
+    routes = dict(Counter(b.route for b in trainer.model.modules()
+                          if isinstance(b, ConvNeXtBlock)))
+    step_counts = []
+    inner = trainer.train_step_fn
+
+    def counted_step(state, batch):
+        _zero_counts()
+        loss = inner(state, batch)
+        step_counts.append(_counts())
+        return loss
+
+    trainer.train_step_fn = counted_step
+    result = trainer.train()
+    shutil.rmtree(RUN_DIR / "cls_convnext", ignore_errors=True)
+    print(f"[cls_convnext] blocks by route {routes}; {len(step_counts)} steps, launches in "
+          f"each {step_counts}; train_loss {result.history['train_loss']}, macro_f1 "
+          f"{result.history['macro_f1']}")
+    if len(step_counts) != CLS_CONVNEXT_STEPS:
+        raise AssertionError(f"expected {CLS_CONVNEXT_STEPS} steps, got {len(step_counts)}")
+    for i, counts in enumerate(step_counts):
+        if counts != CLS_CONVNEXT_LAUNCHES:
+            raise AssertionError(f"cls_convnext step {i}: launches {counts}, expected "
+                                 f"{CLS_CONVNEXT_LAUNCHES}")
+    if not all(math.isfinite(v) for v in result.history["train_loss"]):
+        raise AssertionError(f"train_loss {result.history['train_loss']}")
+    return step_counts[0]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -1607,7 +2025,8 @@ def main() -> int:
     phase("whole-block backward kernel", block_train_kernel_phase, device, report)
     probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, **{p: None for p in TRAIN_PATHS},
-             "grad_check_mlp_no_layer_scale": None, "probes": probe_counts}
+             "grad_check_mlp_no_layer_scale": None, "cls_train": None,
+             "cls_convnext_hybrid": None, "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
@@ -1620,6 +2039,12 @@ def main() -> int:
                 phase("overfit", overfit_check, device)
         paths["grad_check_mlp_no_layer_scale"] = phase(
             "grad check 'mlp_no_layer_scale'", grad_check, device, "mlp_no_layer_scale")
+        paths["cls_train"] = phase("cls_train", cls_train_phase, device, card,
+                                   opts.profile)["launches"]
+        phase("cls grad check", cls_grad_check, device)
+        phase("cls overfit", cls_overfit_check, device)
+        paths["cls_convnext_hybrid"] = phase("cls ConvNeXt-base hybrid", cls_convnext_check,
+                                             device)
 
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",

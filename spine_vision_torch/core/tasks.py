@@ -1,25 +1,34 @@
-"""The eight lumbar-spine grading tasks and their host-side decode.
+"""The eight lumbar-spine grading tasks: their losses and host-side decode.
 
-Counterpart of ``spine_vision_tpu/core/tasks.py`` for inference:
-``TaskConfig``, ``TASK_REGISTRY`` and the strategies' predictions and
-probabilities (host numpy, float64 math as in the JAX package). The losses
-wait for the training slice.
+Counterpart of ``spine_vision_tpu/core/tasks.py``: ``TaskConfig``,
+``TASK_REGISTRY`` and one strategy per task type, which gives the task's
+loss as a function ``(logits, formatted targets) -> scalar`` (and its
+per-sample form ``-> [B]``, for weighted batch means), formats targets for
+it, and decodes logits into predictions and probabilities (host numpy,
+float64 math as in the JAX package). Losses compute in f32 whatever the
+logits' dtype (``ops/losses.py``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Literal
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Literal
 
 import numpy as np
+import torch
+
+from spine_vision_torch.ops import losses as L
 
 TaskType = Literal["binary", "multiclass", "multilabel", "ordinal", "regression"]
+LossFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 @dataclass(frozen=True)
 class TaskConfig:
-    """Configuration of one grading task (see the JAX package for the loss
-    fields, which this slice carries but does not use)."""
+    """Configuration of one grading task. ``label_smoothing`` acts on the
+    multiclass and ordinal cross entropy; ``use_focal_loss``,
+    ``focal_gamma`` and ``focal_alpha`` on the binary and multilabel loss;
+    ``loss_weight`` weights the task in the multi-task sum."""
 
     name: str
     num_classes: int
@@ -40,13 +49,50 @@ class TaskConfig:
             names = tuple(f"Class {i}" for i in range(self.num_classes))
             object.__setattr__(self, "class_names", names)
 
+    def with_overrides(self, **kwargs: Any) -> "TaskConfig":
+        """A copy with the given fields replaced."""
+        return replace(self, **kwargs)
+
+    @property
+    def is_binary(self) -> bool:
+        return self.task_type == "binary"
+
+    @property
+    def is_multiclass(self) -> bool:
+        return self.task_type == "multiclass"
+
+
+def _row_mean(elem: torch.Tensor) -> torch.Tensor:
+    return elem.reshape(elem.shape[0], -1).mean(dim=1)
+
 
 def _sigmoid64(logits: Any) -> np.ndarray:
     return 1.0 / (1.0 + np.exp(-np.asarray(logits).astype(np.float64)))
 
 
 class BinaryStrategy:
-    """sigmoid > 0.5; a trailing unit axis is squeezed from the predictions."""
+    """BCE with logits (or the focal loss); sigmoid > 0.5, a trailing unit
+    axis squeezed from the predictions."""
+
+    def loss_fn(self, task: TaskConfig) -> LossFn:
+        if task.use_focal_loss:
+            gamma, alpha = task.focal_gamma, task.focal_alpha
+            return lambda logits, targets: L.focal_loss_with_logits(
+                logits, targets, gamma=gamma, alpha=alpha, reduction="mean")
+        return lambda logits, targets: L.binary_cross_entropy_with_logits(logits, targets).mean()
+
+    def per_sample_loss_fn(self, task: TaskConfig) -> LossFn:
+        if task.use_focal_loss:
+            gamma, alpha = task.focal_gamma, task.focal_alpha
+            return lambda logits, targets: _row_mean(L.focal_loss_with_logits(
+                logits, targets, gamma=gamma, alpha=alpha, reduction="none"))
+        return lambda logits, targets: _row_mean(
+            L.binary_cross_entropy_with_logits(logits, targets))
+
+    def format_target(self, target: torch.Tensor) -> torch.Tensor:
+        """f32 ``[B, 1]`` from ``[B]`` or ``[B, 1]``."""
+        t = target.float()
+        return t[:, None] if t.ndim == 1 else t
 
     def compute_predictions(self, logits: Any) -> np.ndarray:
         preds = (_sigmoid64(logits) > 0.5).astype(np.int32)
@@ -59,7 +105,22 @@ class BinaryStrategy:
 
 
 class MulticlassStrategy:
-    """argmax over classes; softmax probabilities."""
+    """Softmax cross entropy with label smoothing; argmax over classes,
+    softmax probabilities."""
+
+    def loss_fn(self, task: TaskConfig) -> LossFn:
+        smoothing = task.label_smoothing
+        return lambda logits, targets: L.softmax_cross_entropy(
+            logits, targets, label_smoothing=smoothing).mean()
+
+    def per_sample_loss_fn(self, task: TaskConfig) -> LossFn:
+        smoothing = task.label_smoothing
+        return lambda logits, targets: L.softmax_cross_entropy(
+            logits, targets, label_smoothing=smoothing)
+
+    def format_target(self, target: torch.Tensor) -> torch.Tensor:
+        """Integer class labels."""
+        return target.long()
 
     def compute_predictions(self, logits: Any) -> np.ndarray:
         return np.argmax(np.asarray(logits), axis=1)
@@ -72,18 +133,30 @@ class MulticlassStrategy:
 
 
 class MultilabelStrategy(BinaryStrategy):
-    """Per-label sigmoid > 0.5 (no squeeze)."""
+    """Per-label BCE (or focal) loss; per-label sigmoid > 0.5 (no squeeze)."""
+
+    def format_target(self, target: torch.Tensor) -> torch.Tensor:
+        return target.float()
 
     def compute_predictions(self, logits: Any) -> np.ndarray:
         return (_sigmoid64(logits) > 0.5).astype(np.int32)
 
 
 class OrdinalStrategy(MulticlassStrategy):
-    """Decoded as multiclass."""
+    """Trained and decoded as multiclass."""
 
 
 class RegressionStrategy:
-    """Identity predictions and probabilities."""
+    """MSE loss; identity predictions and probabilities."""
+
+    def loss_fn(self, task: TaskConfig) -> LossFn:
+        return lambda logits, targets: L.mse_loss(logits, targets).mean()
+
+    def per_sample_loss_fn(self, task: TaskConfig) -> LossFn:
+        return lambda logits, targets: _row_mean(L.mse_loss(logits, targets))
+
+    def format_target(self, target: torch.Tensor) -> torch.Tensor:
+        return target.float()
 
     def compute_predictions(self, logits: Any) -> np.ndarray:
         return np.asarray(logits)
@@ -146,6 +219,9 @@ TASK_REGISTRY: dict[str, TaskConfig] = {
 }
 
 
+AVAILABLE_TASK_NAMES: tuple[str, ...] = tuple(TASK_REGISTRY)
+
+
 def get_task(name: str) -> TaskConfig:
     if name not in TASK_REGISTRY:
         raise KeyError(f"Unknown task: {name}. Available: {list(TASK_REGISTRY)}")
@@ -157,6 +233,14 @@ def get_tasks(names: list[str] | None = None) -> list[TaskConfig]:
     if names is None:
         return list(TASK_REGISTRY.values())
     return [get_task(n) for n in names]
+
+
+def create_loss_functions(
+    tasks: list[TaskConfig],
+) -> tuple[dict[str, LossFn], dict[str, float]]:
+    """Each task's loss function and loss weight, by task name."""
+    loss_fns = {t.name: get_strategy(t).loss_fn(t) for t in tasks}
+    return loss_fns, {t.name: t.loss_weight for t in tasks}
 
 
 def compute_predictions_for_tasks(

@@ -1,10 +1,12 @@
-"""Host input pipeline: seeded shuffling and threaded prefetch.
+"""Host input pipeline: seeded shuffling, weighted sampling, threaded prefetch.
 
 Counterpart of ``spine_vision_tpu/data/loader.py`` for one process:
 
-- epoch ``e`` draws its index stream from ``np.random.RandomState(seed + e)``
-  (a permutation when shuffling), so the port and the JAX package visit the
-  same samples in the same order;
+- epoch ``e`` draws its index stream from ``np.random.RandomState(seed + e)``:
+  with ``sample_weights``, ``n`` indices drawn with replacement in
+  proportion to the weights (``rng.choice``), else a permutation when
+  shuffling; so the port and the JAX package visit the same samples in the
+  same order;
 - ``drop_last`` defaults to ``shuffle``;
 - a thread pool loads a batch's samples concurrently and batches are
   prefetched a queue-depth ahead;
@@ -12,7 +14,6 @@ Counterpart of ``spine_vision_tpu/data/loader.py`` for one process:
   are collected into lists.
 
 There is one process, so there is no per-host slicing of the global batch.
-Weighted sampling waits for the classification trainer, its one user.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterator, Protocol, Sequence
 
 import numpy as np
+
+from spine_vision_torch.core.tasks import get_task
 
 
 class MapDataset(Protocol):
@@ -66,6 +69,29 @@ def collate_localization(samples: Sequence[dict[str, Any]]) -> dict[str, Any]:
     }
 
 
+def collate_classification(samples: Sequence[dict[str, Any]]) -> dict[str, Any]:
+    """Batch classification samples (``image`` uint8 ``[H, W, 3]``,
+    ``targets`` ``{task: label}``, ``level_idx``, ``metadata``): multiclass
+    targets as int32, the others as float32."""
+    targets = {
+        label: np.asarray([s["targets"][label] for s in samples],
+                          dtype=np.int32 if get_task(label).is_multiclass else np.float32)
+        for label in samples[0]["targets"]
+    }
+    return {
+        "image": np.stack([s["image"] for s in samples]),
+        "targets": targets,
+        "level_idx": np.asarray([s["level_idx"] for s in samples], np.int32),
+        "metadata": [s["metadata"] for s in samples],
+    }
+
+
+def compute_inverse_frequency_weights(labels: Sequence[Any]) -> np.ndarray:
+    """Per-sample weights ``1 / count of the sample's class``."""
+    _, inverse, counts = np.unique(np.asarray(labels), return_inverse=True, return_counts=True)
+    return (1.0 / counts)[inverse].astype(np.float64)
+
+
 class DataLoader:
     """Seeded, prefetching batch loader."""
 
@@ -76,6 +102,7 @@ class DataLoader:
         shuffle: bool = True,
         drop_last: bool | None = None,
         seed: int = 42,
+        sample_weights: np.ndarray | None = None,
         collate_fn: Callable[[Sequence[dict[str, Any]]], dict[str, Any]] | None = None,
         num_workers: int = 8,
         prefetch: int = 2,
@@ -85,6 +112,7 @@ class DataLoader:
         self.shuffle = shuffle
         self.drop_last = shuffle if drop_last is None else drop_last
         self.seed = seed
+        self.sample_weights = sample_weights
         self.collate_fn = collate_fn or default_collate
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
@@ -95,10 +123,15 @@ class DataLoader:
         self.epoch = epoch
 
     def epoch_indices(self) -> np.ndarray:
-        """This epoch's index stream."""
+        """This epoch's index stream (``shuffle`` does not apply with
+        ``sample_weights``)."""
         n = len(self.dataset)
+        rng = np.random.RandomState(self.seed + self.epoch)
+        if self.sample_weights is not None:
+            probs = self.sample_weights / self.sample_weights.sum()
+            return rng.choice(n, size=n, replace=True, p=probs)
         if self.shuffle:
-            return np.random.RandomState(self.seed + self.epoch).permutation(n)
+            return rng.permutation(n)
         return np.arange(n)
 
     def __len__(self) -> int:

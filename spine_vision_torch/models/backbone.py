@@ -34,7 +34,8 @@ _NOT_PORTED = {
 
 def create_backbone(
     name: str, dtype=torch.bfloat16, device=None, generator: torch.Generator | None = None,
-    use_pallas: bool | str = True, param_dtype=None,
+    use_pallas: bool | str = True, param_dtype=None, norm_impl: str = "tpu",
+    pool_impl: str = "flax",
 ) -> tuple[nn.Module, int]:
     """Build a backbone mapping ``[B, H, W, 3]`` images to ``[B, dim]`` features.
 
@@ -42,12 +43,15 @@ def create_backbone(
     (the inference kernels, trainable: the all-kernel block), ``"mlp"`` (the
     LN-fused MLP kernels), ``"hybrid"`` (the hybrid training block),
     ``"block"`` (the whole-block training kernel) or ``False`` (plain ops);
-    ResNets have none. ``param_dtype`` (ConvNeXt only) keeps the
-    weights in another dtype than the compute one, f32 masters for training.
+    ResNets have none. ``param_dtype`` keeps the weights in another dtype
+    than the compute one, f32 masters for training. ``norm_impl`` and
+    ``pool_impl`` (ResNets only) take the JAX defaults, "tpu" and "flax".
     """
     if name in RESNET_CONFIGS:
         cfg = RESNET_CONFIGS[name]
-        return ResNet(cfg, dtype=dtype, device=device, generator=generator), cfg.num_features
+        model = ResNet(cfg, dtype=dtype, device=device, generator=generator,
+                       param_dtype=param_dtype, norm_impl=norm_impl, pool_impl=pool_impl)
+        return model, cfg.num_features
     if name in CONVNEXT_CONFIGS:
         cn = CONVNEXT_CONFIGS[name]
         model = ConvNeXt(

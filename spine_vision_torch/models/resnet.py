@@ -1,10 +1,20 @@
-"""ResNet backbones with basic blocks (ResNet-18/34), inference, NHWC.
+"""ResNet backbones with basic blocks (ResNet-18/34), NHWC.
 
 Counterpart of ``spine_vision_tpu/models/resnet.py`` with its defaults
-(``norm_impl="tpu"``: BatchNorm folded to one scale-shift pass;
-``pool_impl="flax"``: the stem max pool pads with -inf). The stem pools
-before its ReLU, which is exact. Bottleneck, ResNeXt, wide and ResNet-RS
-variants wait (ROADMAP, Queue 1 item 12).
+(``norm_impl="tpu"``: ``ops/batchnorm.py``; ``pool_impl="flax"``: the stem
+max pool pads with -inf). The BatchNorms follow ``self.training``: batch
+statistics and a running update in training mode, the folded running
+statistics in eval mode (the JAX ``use_running_average=not train``). The
+convolutions keep their weights in ``param_dtype`` (f32 masters under bf16
+compute for training, as Flax's ``Conv(dtype=bf16)``), the BatchNorms
+theirs in f32.
+
+The stem pools before its ReLU, which is exact forward; backward, the pool
+routes each window's gradient to its first maximum in row-major order, as
+JAX's ``select_and_scatter`` with ``ge`` does
+(``tests/test_torch_batchnorm_train.py`` holds ties). Bottleneck, ResNeXt,
+wide and ResNet-RS variants, ``norm_impl="flax"`` and ``pool_impl="tpu"``
+wait (ROADMAP, Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -33,19 +43,26 @@ RESNET_CONFIGS: dict[str, ResNetConfig] = {
 }
 
 
+def stem_pool(x: torch.Tensor) -> torch.Tensor:
+    """3x3/2 max pool of NHWC ``x``, padded with -inf (Flax ``nn.max_pool``
+    with padding 1). Its gradient goes to each window's first maximum."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
 class BasicBlock(nn.Module):
-    """3x3-3x3 residual block."""
+    """3x3-3x3 residual block; its last BatchNorm's scale starts at 0."""
 
     def __init__(
         self, in_ch: int, filters: int, stride: int, dtype=torch.float32,
-        device=None, generator: torch.Generator | None = None,
+        device=None, generator: torch.Generator | None = None, param_dtype=None,
     ) -> None:
         super().__init__()
-        kw = {"dtype": dtype, "device": device, "generator": generator}
+        kw = {"dtype": dtype, "device": device, "generator": generator,
+              "param_dtype": param_dtype}
         self.conv1 = Conv(in_ch, filters, 3, stride, padding=1, bias=False, **kw)
         self.bn1 = BatchNorm(filters, device=device)
         self.conv2 = Conv(filters, filters, 3, 1, padding=1, bias=False, **kw)
-        self.bn2 = BatchNorm(filters, device=device)
+        self.bn2 = BatchNorm(filters, scale_init=0.0, device=device)
         if in_ch != filters or stride != 1:
             self.downsample_conv = Conv(in_ch, filters, 1, stride, bias=False, **kw)
             self.downsample_bn = BatchNorm(filters, device=device)
@@ -66,11 +83,20 @@ class ResNet(nn.Module):
 
     def __init__(
         self, config: ResNetConfig, dtype=torch.float32, device=None,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, param_dtype=None,
+        norm_impl: str = "tpu", pool_impl: str = "flax",
     ) -> None:
         super().__init__()
+        for option, value, ported in (("norm_impl", norm_impl, "tpu"),
+                                      ("pool_impl", pool_impl, "flax")):
+            if value != ported:
+                raise NotImplementedError(
+                    f"{option}={value!r} is not ported yet (only {ported!r}): ROADMAP.md, "
+                    "Queue 1 item 12 (ops/pool.py and the other ResNet variants)"
+                )
         self.config, self.dtype = config, dtype
-        kw = {"dtype": dtype, "device": device, "generator": generator}
+        kw = {"dtype": dtype, "device": device, "generator": generator,
+              "param_dtype": param_dtype}
         self.stem_conv = Conv(3, 64, 7, 2, padding=3, bias=False, **kw)
         self.stem_bn = BatchNorm(64, device=device)
         in_ch = 64
@@ -85,9 +111,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.stem_bn(self.stem_conv(x.to(self.dtype)))
-        # 3x3/2 max pool with -inf padding, before the ReLU (exact).
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
-        x = torch.relu(x)
+        x = torch.relu(stem_pool(x))  # pooling before the ReLU is exact
         for s, n in enumerate(self.config.stage_sizes):
             for b in range(n):
                 x = getattr(self, f"stage{s + 1}_block{b + 1}")(x)

@@ -1,11 +1,22 @@
-"""Inference BatchNorm as one scale-shift pass (NHWC, trailing channel axis).
+"""BatchNorm over the trailing (channel) axis of NHWC activations.
 
-Counterpart of ``spine_vision_tpu/ops/batchnorm.py`` at inference
-(``batch_norm_inference`` and ``TpuBatchNorm(use_running_average=True)``): the
-running statistics and the affine parameters fold into per-channel f32
-scalars ``A``, ``B``, and the activation takes one pass ``x * A + B`` computed
-in f32 and stored in its own dtype. Training statistics wait for the training
-slice.
+Counterpart of ``spine_vision_tpu/ops/batchnorm.py`` (``TpuBatchNorm``):
+
+- inference: the running statistics and the affine parameters fold into
+  per-channel f32 scalars ``A``, ``B``, and the activation takes one pass
+  ``x * A + B`` computed in f32 and stored in its own dtype;
+- training: the batch statistics are f32 sums of x and x² over the
+  activation (``var = max(s2/n - mean², 0)``, the biased variance), the
+  forward is the same scale-shift pass, and the backward is the JAX custom
+  VJP's three-term form ``dx = A*g + P*x + Q`` in x's dtype, with
+  ``dscale``, ``dbias`` from Σg and Σg·x; nothing flows back through the
+  statistics, whose gradient the three terms already carry;
+- the running statistics move as ``momentum * old + (1 - momentum) * batch``
+  with the biased batch variance (``momentum = 0.9``, as Flax).
+
+``torch.nn.BatchNorm2d`` differs in both of the last: it updates the running
+variance with the unbiased estimate and weights the new statistic by its
+``momentum``; so it is not used.
 """
 
 from __future__ import annotations
@@ -32,18 +43,81 @@ def batch_norm_inference(
     return (x.float() * a + b).to(x.dtype)
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm over the trailing axis. Parameters ``scale``/``bias``
-    and buffers ``mean``/``var`` are f32, named as the Flax variables."""
+def _reduce_dims(x: torch.Tensor) -> tuple[int, ...]:
+    return tuple(range(x.ndim - 1))
 
-    def __init__(self, features: int, eps: float = 1e-5, device=None) -> None:
+
+@torch.no_grad()
+def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, biased var) from f32 sums of x and x²."""
+    dims = _reduce_dims(x)
+    xf = x.float()
+    n = x.numel() // x.shape[-1]
+    mean = xf.sum(dims) / n
+    var = torch.clamp(xf.square().sum(dims) / n - mean.square(), min=0.0)
+    return mean, var
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Scale-shift by given batch statistics, with the three-term backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, mean, var, eps):
+        ctx.save_for_backward(x, scale, mean, torch.rsqrt(var + eps))
+        return batch_norm_inference(x, scale, bias, mean, var, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, mean, inv = ctx.saved_tensors
+        dims = _reduce_dims(x)
+        n = x.numel() // x.shape[-1]
+        gf, xf = g.float(), x.float()
+        sg = gf.sum(dims)
+        sgx = (gf * xf).sum(dims)
+        dscale = inv * (sgx - mean * sg)  # = sum(g * xhat)
+        a = scale * inv
+        # dx = a * (g - sg/n - xhat * dscale/n), as A*g + P*x + Q.
+        p = -(a * inv) * dscale / n
+        q = (a * inv * mean * dscale - a * sg) / n
+        dx = (gf * a + xf * p + q).to(x.dtype)
+        return dx, dscale, sg, None, None, None
+
+
+def batch_norm_train(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training-mode BatchNorm: ``(y, batch mean, batch var)``; the caller
+    owns the running update."""
+    mean, var = batch_moments(x)
+    return _BatchNormTrain.apply(x, scale, bias, mean, var, eps), mean, var
+
+
+MOMENTUM = 0.9  # weight of the old running statistic (the JAX ResNet's)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the trailing axis, in training or inference form by
+    ``self.training``. Parameters ``scale``/``bias`` and buffers
+    ``mean``/``var`` are f32, named as the Flax variables; ``scale_init`` is
+    the scale's initial value (0 for a residual block's last norm, as the
+    JAX package's ``scale_init=zeros_init()``)."""
+
+    def __init__(
+        self, features: int, eps: float = 1e-5, scale_init: float = 1.0, device=None,
+    ) -> None:
         super().__init__()
         self.eps = eps
         f32 = {"dtype": torch.float32, "device": device}
-        self.scale = nn.Parameter(torch.ones(features, **f32), requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(features, **f32), requires_grad=False)
+        self.scale = nn.Parameter(torch.full((features,), scale_init, **f32))
+        self.bias = nn.Parameter(torch.zeros(features, **f32))
         self.register_buffer("mean", torch.zeros(features, **f32))
         self.register_buffer("var", torch.ones(features, **f32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return batch_norm_inference(x, self.scale, self.bias, self.mean, self.var, self.eps)
+        if not self.training:
+            return batch_norm_inference(x, self.scale, self.bias, self.mean, self.var, self.eps)
+        y, mean, var = batch_norm_train(x, self.scale, self.bias, self.eps)
+        with torch.no_grad():
+            self.mean.copy_(MOMENTUM * self.mean + (1.0 - MOMENTUM) * mean)
+            self.var.copy_(MOMENTUM * self.var + (1.0 - MOMENTUM) * var)
+        return y

@@ -9,8 +9,9 @@ Counterpart of ``spine_vision_tpu/train/checkpoint.py``:
         config.yaml
         logs/
 
-``state.pt`` holds the model's parameters (f32 masters), the optimizer's
-moments, the update count, the learning rate and the generator's state.
+``state.pt`` holds the model's parameters (f32 masters) and BatchNorm
+running statistics (its ``state_dict``), the optimizer's moments, the
+update count, the learning rate and the generator's state.
 It is read back with ``weights_only=True``.
 """
 

@@ -1,4 +1,4 @@
-"""Localization trainer: ConvNeXt coordinate regression over 5 IVD levels.
+"""Localization trainer: coordinate regression over 5 IVD levels.
 
 Counterpart of ``spine_vision_tpu/train/localization.py``: masked smooth-L1
 (or mse, Huber) loss, MED/PCK metrics, MED-based best-model gating, and
@@ -12,8 +12,9 @@ block (``use_pallas="hybrid"``), the JAX package's training default on its
 accelerator, with ``use_pallas_dwconv=True`` the all-kernel block
 (``use_pallas=True``), or with ``use_pallas_mlp=True`` alone the LN-fused MLP
 mode (``use_pallas="mlp"``); a model built with ``use_pallas="block"`` and
-handed to the trainer trains the whole-block training kernel. On the CPU the
-same function runs through the kernels' plain versions.
+handed to the trainer trains the whole-block training kernel. ResNet-18 and
+-34 backbones train too (cuDNN convolutions, training BatchNorm). On the CPU
+the same function runs through the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ class LocalizationConfig(TrainingConfig):
 
     backbone: str = "convnext_base"
     pretrained: bool = True
-    freeze_backbone_epochs: int = 0
     dropout: float = 0.2
     loss_type: str = "smooth_l1"  # mse | smooth_l1 | huber
     num_levels: int = NUM_LEVELS
@@ -67,6 +67,11 @@ class LocalizationConfig(TrainingConfig):
     (``use_pallas=True``: the block kernel forward, the MLP and dwconv+LN
     backward kernels; the dwconv+LN kernels for C > 512). With
     ``use_pallas_mlp=False``: plain ops."""
+
+    norm_impl: str = "tpu"
+    """ResNet BatchNorm: "tpu" (``ops/batchnorm.py``); "flax" is not ported."""
+    pool_impl: str = "flax"
+    """ResNet stem max pool: "flax" (-inf padding); "tpu" is not ported."""
 
     pck_thresholds: list[float] = field(default_factory=lambda: [0.02, 0.05, 0.10])
     visualize_predictions: bool = False
@@ -96,9 +101,6 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
         val_dataset: Any | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        if config.freeze_backbone_epochs > 0:
-            raise _not_ported("freeze_backbone_epochs > 0 (zeroed grads and updates)",
-                              "Queue 1 item 7")
         if config.visualize_predictions:
             raise _not_ported("visualize_predictions (viz/*)", "Queue 1 item 13")
         if train_dataset is None or val_dataset is None:
@@ -106,13 +108,9 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
                 "building LocalizationDataset from disk (a PNG decoder without cv2 or PIL)",
                 "Queue 1 item 14",
             )
-        if config.backbone not in CONVNEXT_CONFIGS:
-            raise _not_ported(
-                f"training the {config.backbone!r} backbone (training BatchNorm and the "
-                "other families)", "Queue 1 items 3 and 12",
-            )
         dev = torch.device(device)
-        if not config.mixed_precision and dev.type == "cuda":
+        if (not config.mixed_precision and dev.type == "cuda"
+                and config.backbone in CONVNEXT_CONFIGS):
             raise _not_ported(
                 "mixed_precision=False on the card (an f32 ConvNeXt block kernel)", "Queue 3"
             )
@@ -127,6 +125,8 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
                 generator=torch.Generator().manual_seed(config.seed),
                 use_pallas=resolve_use_pallas(config.use_pallas_mlp, config.use_pallas_dwconv),
                 param_dtype=torch.float32,
+                norm_impl=config.norm_impl,
+                pool_impl=config.pool_impl,
             )
         if config.pretrained and config.pretrained_path is None:
             logger.warning(

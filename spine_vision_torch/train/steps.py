@@ -6,11 +6,20 @@ device (``/255``, augmentation, ImageNet normalisation), the model, the
 loss, the backward pass, global-norm clipping and one AdamW update at the
 scheduled learning rate. Dropout and augmentation draw from the state's
 generator.
+
+As in JAX, every trainable parameter takes part in every update: one
+without a gradient gets a zero one, so Adam's moments decay and weight
+decay applies (``torch.optim.AdamW`` skips a parameter whose gradient is
+None). A frozen parameter set (the backbone, while frozen) has its
+gradients zeroed before clipping and its update discarded after the
+optimizer step, as the JAX step zeroes that subtree's gradients and
+updates: its moments see zero gradients and decay, its weights do not move.
+BatchNorm running statistics update in the forward pass, frozen or not.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -24,7 +33,8 @@ Preprocess = Callable[[Batch, torch.Generator, bool], Batch]
 
 
 def to_device(batch: Batch, device: torch.device) -> Batch:
-    """Array fields of a host batch as tensors on ``device``; metadata stays."""
+    """Array fields of a host batch, nested dicts' too (a classification
+    batch's ``targets``), as tensors on ``device``; metadata stays."""
     out: Batch = {}
     for key, value in batch.items():
         if isinstance(value, np.ndarray):
@@ -32,15 +42,19 @@ def to_device(batch: Batch, device: torch.device) -> Batch:
             if device.type == "cuda":
                 t = t.pin_memory().to(device, non_blocking=True)
             out[key] = t
+        elif isinstance(value, dict):
+            out[key] = to_device(value, device)
         else:
             out[key] = value
     return out
 
 
 def train_step(
-    state: TrainState, batch: Batch, loss_fn: LossFn, preprocess: Preprocess | None = None
+    state: TrainState, batch: Batch, loss_fn: LossFn, preprocess: Preprocess | None = None,
+    frozen: Sequence[torch.nn.Parameter] = (),
 ) -> torch.Tensor:
-    """One update; returns the loss as a device tensor (no host sync)."""
+    """One update; returns the loss as a device tensor (no host sync).
+    ``frozen`` parameters keep their values (see the module docstring)."""
     model = state.model
     device = next(model.parameters()).device
     batch = to_device(batch, device)
@@ -52,12 +66,21 @@ def train_step(
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     params = state.trainable()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    for p in frozen:
+        p.grad.zero_()
     if state.grad_clip is not None:
-        clip_by_global_norm([p.grad for p in params if p.grad is not None], state.grad_clip)
+        clip_by_global_norm([p.grad for p in params], state.grad_clip)
     lr = state.lr_for_next_update()
     for group in state.optimizer.param_groups:
         group["lr"] = lr
+    kept = [p.detach().clone() for p in frozen]
     state.optimizer.step()
+    with torch.no_grad():
+        for p, value in zip(frozen, kept):
+            p.copy_(value)
     state.last_lr = lr
     state.step += 1
     return loss.detach()

@@ -4,6 +4,10 @@ Counterpart of ``spine_vision_tpu/train/trainer.py`` on one card:
 
 - per-update schedules (cosine, step) and the plateau decay of the learning
   rate on a stalled validation loss;
+- optional weighted sampling of the train set (``sample_weights``);
+- a frozen backbone for the first ``freeze_backbone_epochs`` epochs
+  (``frozen_backbone_at_start``, ``set_backbone_frozen``): its gradients
+  and updates are zeroed, as in ``train/steps.py``;
 - early stopping with ``patience`` and ``min_delta``; best-model gating on
   ``get_metric_for_checkpoint`` (lower is better), and the best model
   reloaded when training ends;
@@ -44,6 +48,14 @@ def generate_run_id() -> str:
     return f"{datetime.now().strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:6]}"
 
 
+def to_host(outputs: torch.Tensor | dict[str, torch.Tensor]) -> Any:
+    """A model's outputs (a tensor, or a classifier's ``{task: logits}``) as
+    f32 numpy."""
+    if isinstance(outputs, dict):
+        return {k: v.float().cpu().numpy() for k, v in outputs.items()}
+    return outputs.float().cpu().numpy()
+
+
 def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{option} is not ported yet: ROADMAP.md, {item}")
 
@@ -66,6 +78,7 @@ class TrainingConfig:
 
     batch_size: int = 32
     num_epochs: int = 15
+    freeze_backbone_epochs: int = 0
     learning_rate: float = 1e-4
     weight_decay: float = 1e-5
     grad_clip: float | None = 1.0
@@ -182,6 +195,7 @@ class BaseTrainer(Generic[TConfig]):
         val_dataset: Any | None = None,
         collate_fn: Callable | None = None,
         device: str | torch.device = "cuda",
+        sample_weights: np.ndarray | None = None,
     ) -> None:
         if config.distributed or (config.num_devices or 1) > 1:
             raise _not_ported("distributed / multi-device training", "Queue 1 item 9")
@@ -201,7 +215,8 @@ class BaseTrainer(Generic[TConfig]):
 
         self.train_loader = DataLoader(
             train_dataset, batch_size=config.batch_size, shuffle=True, seed=config.seed,
-            collate_fn=collate_fn, num_workers=config.num_workers,
+            sample_weights=sample_weights, collate_fn=collate_fn,
+            num_workers=config.num_workers,
         )
         self.val_loader = (
             DataLoader(
@@ -227,8 +242,13 @@ class BaseTrainer(Generic[TConfig]):
             generator=torch.Generator(device=self.device).manual_seed(config.seed),
             grad_clip=config.grad_clip,
         )
+        backbone = list(model.backbone.parameters()) if hasattr(model, "backbone") else []
+        self._frozen = self.frozen_backbone_at_start()
+        if self._frozen and not backbone:
+            raise ValueError("a frozen backbone needs a model with a `backbone` submodule")
         loss_fn, preprocess = self._loss_from_outputs, self._preprocess_fn()
-        self.train_step_fn = lambda state, batch: train_step(state, batch, loss_fn, preprocess)
+        self.train_step_fn = lambda state, batch: train_step(
+            state, batch, loss_fn, preprocess, frozen=backbone if self._frozen else ())
         self.eval_step_fn = lambda state, batch: eval_step(state, batch, loss_fn, preprocess)
 
         self.step_times: list[float] = []
@@ -254,6 +274,14 @@ class BaseTrainer(Generic[TConfig]):
 
     def _compute_metrics(self, outputs_list: list[Any], batches: list[Any]) -> dict[str, float]:
         return {}
+
+    def frozen_backbone_at_start(self) -> bool:
+        """Whether the backbone starts frozen."""
+        return self.config.freeze_backbone_epochs > 0
+
+    def set_backbone_frozen(self, frozen: bool) -> None:
+        """Freeze or unfreeze the backbone from the next train step on."""
+        self._frozen = frozen
 
     def on_train_begin(self) -> None:  # noqa: B027
         pass
@@ -292,8 +320,13 @@ class BaseTrainer(Generic[TConfig]):
             self._load(cfg.checkpoint_path)
         self.on_train_begin()
 
+        if self._frozen:
+            logger.info("Backbone frozen for the first %d epochs", cfg.freeze_backbone_epochs)
         for epoch in range(self.current_epoch, cfg.num_epochs):
             self.current_epoch = epoch
+            if self._frozen and epoch >= cfg.freeze_backbone_epochs:
+                logger.info("Unfreezing backbone at epoch %d", epoch + 1)
+                self.set_backbone_frozen(False)
             self.on_epoch_begin(epoch)
             start = time.perf_counter()
             train_loss = self._train_epoch()
@@ -374,14 +407,14 @@ class BaseTrainer(Generic[TConfig]):
 
     def _validate_epoch(self) -> tuple[float, dict[str, float]]:
         total, count = 0.0, 0
-        outputs_list: list[np.ndarray] = []
+        outputs_list: list[Any] = []
         batches: list[dict[str, Any]] = []
         for batch in self.val_loader:
             outputs, loss = self.eval_step_fn(self.state, batch)
             n = len(batch["image"])
             total += float(loss) * n
             count += n
-            outputs_list.append(outputs.float().cpu().numpy())
+            outputs_list.append(to_host(outputs))
             batches.append(batch)
         return total / max(count, 1), self._compute_metrics(outputs_list, batches)
 

@@ -323,10 +323,40 @@ def test_cpu_trainer_epoch_layout_reload_and_resume(tmp_path):
     assert trainer2.state.step == 4
 
 
+def test_resnet18_regressor_trains_with_a_frozen_then_unfrozen_backbone(tmp_path):
+    """A ResNet-18 CoordinateRegressor (training BatchNorm) for 2 epochs, the
+    backbone frozen in the first: its weights stay while its running
+    statistics move, then it trains."""
+    cfg = LocalizationConfig(backbone="resnet18", image_size=(32, 32), batch_size=4,
+                             num_epochs=2, output_path=tmp_path / "r18", num_workers=2, seed=0,
+                             pretrained=False, freeze_backbone_epochs=1)
+    trainer = LocalizationTrainer(cfg, train_dataset=_Set(8, 32, 0), val_dataset=_Set(4, 32, 1),
+                                  device="cpu")
+    backbone = trainer.model.backbone
+    weights0 = {n: p.detach().clone() for n, p in backbone.named_parameters()}
+    mean0 = backbone.stem_bn.mean.clone()
+    after_first = {}
+    trainer.on_epoch_end = lambda epoch, metrics: after_first or after_first.update(
+        {n: p.detach().clone() for n, p in backbone.named_parameters()})
+    result = trainer.train()
+    assert all(np.isfinite(result.history["med"]))
+    for n, value in after_first.items():
+        assert torch.equal(value, weights0[n]), n
+    assert not torch.equal(backbone.stem_bn.mean, mean0)
+    assert not trainer._frozen
+    state = torch.load(tmp_path / "r18" / "best_model" / "state.pt", weights_only=True)
+    if result.best_epoch == 1:
+        assert not torch.equal(state["model"]["backbone.stem_conv.weight"],
+                               weights0["stem_conv.weight"])
+
+
 @pytest.mark.parametrize(
     "overrides",
-    [{"freeze_backbone_epochs": 1}, {"visualize_predictions": True},
-     {"profile_trace": True}, {"sample_cache_dir": "cache"}, {"backbone": "resnet18"}],
+    # freeze_backbone_epochs and ResNet-18 train since training BatchNorm
+    # was ported; a bottleneck ResNet and the scatter-free pool still raise.
+    [{"backbone": "resnet50"}, {"visualize_predictions": True},
+     {"profile_trace": True}, {"sample_cache_dir": "cache"},
+     {"backbone": "resnet18", "pool_impl": "tpu"}],
 )
 def test_unported_options_name_the_roadmap(tmp_path, overrides):
     kw = {"backbone": "convnext_tiny", **overrides}
