@@ -16,11 +16,15 @@ over a batch of studies:
 
 Batches pad to a power of two of studies (dummy rows are 1x1 slices with
 spacing 1.0 whose results are dropped), as in the JAX package.
+``SeriesCropPipeline`` runs the localization and crop stages alone over a
+batch of series slices, for building classification sets; without a
+localization model it crops around fixed fallback centres.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
 import torch
@@ -36,6 +40,21 @@ from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
 from spine_vision_torch.ops.crop import crop_ivd_regions
 from spine_vision_torch.ops.geometry import mm_to_pixels, rotation_angles
 from spine_vision_torch.ops.image import imagenet_normalize, resize_dynamic
+
+# Approximate normalised (x, y) IVD centres L1/L2..L5/S1 used when there is
+# no localization model.
+DEFAULT_IVD_CENTERS_XY = np.array(
+    [(0.5, 0.25), (0.5, 0.35), (0.5, 0.45), (0.5, 0.55), (0.5, 0.65)], dtype=np.float32
+)
+
+
+def _fallback_centers(num_levels: int) -> np.ndarray:
+    """Centre-column fallback disc centres ``[L, 2]`` for any level count."""
+    if num_levels == len(DEFAULT_IVD_CENTERS_XY):
+        return DEFAULT_IVD_CENTERS_XY
+    y = np.linspace(0.25, 0.65, num_levels, dtype=np.float32)
+    return np.stack([np.full(num_levels, 0.5, np.float32), y], axis=-1)
+
 
 def _bucket_count(n: int, bucket: bool) -> int:
     """Padded batch size: the next power of two when bucketing."""
@@ -114,11 +133,12 @@ def _normalize_slices_masked(
 
 
 def loc_and_crop(
-    loc_model: CoordinateRegressor,
+    loc_model: CoordinateRegressor | None,
     cfg: StudyPipelineConfig,
     flat: torch.Tensor,  # [M, Hp, Wp] f32 raw intensities
     flat_hw: torch.Tensor,  # [M, 2] int
     flat_spacing: torch.Tensor,  # [M, 2] f32 (row, col) mm/px
+    centers_override: torch.Tensor | None = None,  # [M, L, 2]: skips the forward
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Localization + fused crop over a flat batch of slices.
 
@@ -126,10 +146,15 @@ def loc_and_crop(
     ``[M, L, ch, cw]`` uint8)."""
     m = flat.shape[0]
     flat, _ = _normalize_slices_masked(flat.float(), flat_hw)
-    lh, lw = cfg.loc_image_size
-    loc_in = resize_dynamic(flat, flat_hw, lh, lw)
-    loc_rgb = imagenet_normalize((loc_in[..., None] / 255.0).expand(m, lh, lw, 3))
-    coords = loc_model(loc_rgb).float()
+    if centers_override is not None:
+        coords = centers_override.float()
+    else:
+        if loc_model is None:
+            raise ValueError("loc_and_crop needs a loc_model or centers_override")
+        lh, lw = cfg.loc_image_size
+        loc_in = resize_dynamic(flat, flat_hw, lh, lw)
+        loc_rgb = imagenet_normalize((loc_in[..., None] / 255.0).expand(m, lh, lw, 3))
+        coords = loc_model(loc_rgb).float()
 
     if cfg.crop_mode == "rotated":
         angles = rotation_angles(coords, flat_hw, cfg.last_disc_angle_boost)
@@ -143,6 +168,66 @@ def loc_and_crop(
         separable=cfg.crop_mode != "rotated",
     )
     return coords, angles, crops
+
+
+class SeriesCropPipeline:
+    """Batched localization + fused IVD cropping, for building datasets.
+
+    A batch of series slices runs through :func:`loc_and_crop` in one call,
+    padded as the study pipeline pads studies. With ``loc_model=None`` the
+    fallback centres stand in for the forward. ``loc_model`` is moved to
+    ``device`` (CUDA by default; the CPU only when asked for)."""
+
+    def __init__(
+        self,
+        loc_model: CoordinateRegressor | None,
+        config: StudyPipelineConfig | None = None,
+        device: str | torch.device = "cuda",
+        mesh: Any | None = None,
+    ) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "SeriesCropPipeline(mesh=...) (sharded slice batches) is not ported yet: "
+                "ROADMAP.md, Queue 1 item 9"
+            )
+        self.device = resolve_device(device)
+        self.config = config or StudyPipelineConfig()
+        self.loc_model = None if loc_model is None else loc_model.to(self.device).eval()
+
+    def run(
+        self, slices: list[np.ndarray], spacings: list[tuple[float, float]]
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Crop a batch of ``[h, w]`` raw-intensity slices with their (row,
+        col) mm/px spacings.
+
+        Returns (coords ``[M, L, 2]``, angles ``[M, L]``, crops
+        ``[M, L, ch, cw]`` uint8) as host numpy."""
+        cfg = self.config
+        hp, wp = cfg.padded_hw
+        n_real = len(slices)
+        m = _bucket_count(n_real, cfg.bucket_batches)
+        flat = np.zeros((m, hp, wp), dtype=np.float32)
+        # Dummy rows carry 1x1 extents so the masked normalise stays finite.
+        hw = np.ones((m, 2), dtype=np.int32)
+        for i, sl in enumerate(slices):
+            _place_slice(flat[i], hw[i], np.asarray(sl, dtype=np.float32), cfg.padded_hw)
+        spacing = np.ones((m, 2), dtype=np.float32)
+        spacing[:n_real] = np.asarray(spacings, dtype=np.float32)
+        dev = self.device
+        centers = None
+        if self.loc_model is None:
+            centers = torch.from_numpy(_fallback_centers(cfg.num_levels)).to(dev).expand(m, -1, -1)
+        with torch.inference_mode():
+            coords, angles, crops = loc_and_crop(
+                self.loc_model, cfg, torch.from_numpy(flat).to(dev),
+                torch.from_numpy(hw).to(dev), torch.from_numpy(spacing).to(dev),
+                centers_override=centers,
+            )
+            return (
+                coords.cpu().numpy()[:n_real],
+                angles.cpu().numpy()[:n_real],
+                crops.cpu().numpy()[:n_real],
+            )
 
 
 class StudyInferencePipeline:

@@ -17,8 +17,15 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# The std of a unit normal truncated to [-2, 2] (Flax's variance_scaling).
+_TRUNCATED_STD = 0.87962566103423978
+
+
 def _lecun_normal(shape, fan_in: int, generator: torch.Generator | None) -> torch.Tensor:
-    return torch.randn(shape, generator=generator) / math.sqrt(fan_in)
+    """Flax's ``lecun_normal``: a normal truncated at two standard
+    deviations, scaled to variance ``1 / fan_in``."""
+    t = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t * (1.0 / (math.sqrt(fan_in) * _TRUNCATED_STD))
 
 
 def _param(t: torch.Tensor, dtype, device) -> nn.Parameter:

@@ -161,11 +161,11 @@ def ln_mlp_reference(
     gamma: torch.Tensor,
     residual: torch.Tensor,
 ) -> torch.Tensor:
-    """Plain ``residual + gamma * mlp(LN(x))``: the LayerNorm in f32 from x,
-    y rounded to x's dtype, then :func:`mlp_reference`."""
-    yhat, _ = ln_rows(x.float())
-    y = yhat * ln_scale.float() + ln_bias.float()
-    return mlp_reference(y.to(x.dtype), w1t, b1, w2t, b2, gamma, residual)
+    """Plain ``residual + gamma * mlp(LN(x))``: the plain stages L, F1 and F2
+    composed (the LayerNorm in f32 from x, y and the hidden rounded to x's
+    dtype, the output rounded once)."""
+    y = ln_rows_reference(x, ln_scale, ln_bias)
+    return out_reference(hidden_reference(y, w1t, b1), w2t, b2, gamma, residual)
 
 
 def bwd_rows_reference(

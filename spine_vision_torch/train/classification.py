@@ -27,7 +27,6 @@ import torch
 
 from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, TaskConfig, get_task
 from spine_vision_torch.data.loader import (
-    DataLoader,
     collate_classification,
     compute_inverse_frequency_weights,
 )
@@ -43,7 +42,6 @@ from spine_vision_torch.train.trainer import (
     TrainingResult,
     _not_ported,
     logger,
-    to_host,
 )
 
 
@@ -243,20 +241,4 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         if test_dataset is None:
             raise _not_ported("the test split from disk (ClassificationDataset)",
                               "Queue 1 item 14")
-        if len(test_dataset) == 0:
-            logger.warning("Empty test dataset; skipping evaluation")
-            return {}
-        loader = DataLoader(
-            test_dataset, batch_size=self.config.batch_size, shuffle=False, drop_last=False,
-            seed=self.config.seed, collate_fn=collate_classification,
-            num_workers=self.config.num_workers,
-        )
-        self.metrics.reset()
-        for batch in loader:
-            outputs, _ = self.eval_step_fn(self.state, batch)
-            self.metrics.update(to_host(outputs), batch["targets"])
-        metrics = self.metrics.compute()
-        logger.info("Test Results:")
-        for key, value in sorted(metrics.items()):
-            logger.info("  %s: %.4f", key, value)
-        return metrics
+        return self._test_metrics(test_dataset)

@@ -1,11 +1,12 @@
 """Localization trainer: coordinate regression over 5 IVD levels.
 
 Counterpart of ``spine_vision_tpu/train/localization.py``: masked smooth-L1
-(or mse, Huber) loss, MED/PCK metrics, MED-based best-model gating, and
-coordinate-aware augmentation on the device. The datasets are injected
-(any indexable of ``LocalizationDataset``-style samples: uint8 ``image``
-``[H, W, 3]``, ``coords`` ``[5, 2]``, ``mask`` ``[5]``, ``series_type_idx``,
-``metadata``).
+(or mse, Huber) loss, MED/PCK metrics, MED-based best-model gating,
+coordinate-aware augmentation on the device, and ``evaluate`` on a test set.
+The datasets are injected: any indexable of ``LocalizationDataset``-style
+samples (uint8 ``image`` ``[H, W, 3]``, ``coords`` ``[5, 2]``, ``mask``
+``[5]``, ``series_type_idx``, ``metadata``), such as ``data/datasets.py``'s
+``LocalizationDataset`` over an image store.
 
 The model trains in bf16 on f32 master weights with the hybrid ConvNeXt
 block (``use_pallas="hybrid"``), the JAX package's training default on its
@@ -185,3 +186,11 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
         if "med" in metrics:
             return metrics["med"]
         return super().get_metric_for_checkpoint(val_loss, metrics)
+
+    def evaluate(self, test_dataset: Any | None = None) -> dict[str, float]:
+        """MED, PCK and the per-level metrics of the model on ``test_dataset``
+        ({} when it is empty)."""
+        if test_dataset is None:
+            raise _not_ported("the test split from disk (LocalizationDataset)",
+                              "Queue 1 item 14")
+        return self._test_metrics(test_dataset)

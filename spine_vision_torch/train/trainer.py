@@ -212,6 +212,7 @@ class BaseTrainer(Generic[TConfig]):
         self.model = model
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
+        self._collate_fn = collate_fn
 
         self.train_loader = DataLoader(
             train_dataset, batch_size=config.batch_size, shuffle=True, seed=config.seed,
@@ -406,10 +407,31 @@ class BaseTrainer(Generic[TConfig]):
         return float(loss_sum) / max(count, 1) if loss_sum is not None else 0.0
 
     def _validate_epoch(self) -> tuple[float, dict[str, float]]:
+        return self._eval_loop(self.val_loader)
+
+    def _test_metrics(self, test_dataset: Any) -> dict[str, float]:
+        """The metrics of the model on ``test_dataset`` ({} when it is empty),
+        logged."""
+        if len(test_dataset) == 0:
+            logger.warning("Empty test dataset (too small for the split ratios): no "
+                           "evaluation metrics")
+            return {}
+        _, metrics = self._eval_loop(DataLoader(
+            test_dataset, batch_size=self.config.batch_size, shuffle=False, drop_last=False,
+            seed=self.config.seed, collate_fn=self._collate_fn,
+            num_workers=self.config.num_workers,
+        ))
+        logger.info("Test Results:")
+        for key, value in sorted(metrics.items()):
+            logger.info("  %s: %.4f", key, value)
+        return metrics
+
+    def _eval_loop(self, loader: DataLoader) -> tuple[float, dict[str, float]]:
+        """The mean loss and the metrics of one pass over ``loader``."""
         total, count = 0.0, 0
         outputs_list: list[Any] = []
         batches: list[dict[str, Any]] = []
-        for batch in self.val_loader:
+        for batch in loader:
             outputs, loss = self.eval_step_fn(self.state, batch)
             n = len(batch["image"])
             total += float(loss) * n
