@@ -90,6 +90,23 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    reference's record; it raises on ``loc_pass``, ``e2e_pass``,
    ``e2e_auc_defined`` and ``e2e_rotated_pass`` and prints ``cls_pass`` and
    ``all_pass`` (see ``parity_phase``).
+11. Training and inference from files (``file_backed``): a data directory of
+   80 gray 512^2 PNGs written by the port's encoder (``data/png.py``, most
+   rows Paeth or Sub) with ``annotations.csv``, and a seeded timm-named
+   ConvNeXt-base ``.pth`` converted to ``.npz``; ``LocalizationTrainer`` from
+   that directory (b16, 2 epochs, hybrid block, bf16) with
+   ``pretrained_path``, ``sample_cache_dir`` and ``profile_trace``: the
+   backbone equals the converted weights before training and differs after,
+   the cache is built, every step launches #1's ``emit_conv`` and #8/#9, the
+   Chrome trace names their kernels, ``evaluate()`` reads the test split from
+   disk; a second trainer reuses the cache; the host input rates (PNG decode
+   against the cache's ``get_batch``), the epoch and cache-build times;
+   ResNet-18 ``ClassificationTrainer`` from a directory of 256^2 crops with a
+   torchvision-named ``.pth`` converted on the fly; then
+   ``StudyInferencePipeline.from_checkpoints`` of both runs on the 8 studies
+   in both crop modes: the study phase's launch counts, and outputs equal bit
+   for bit to a pipeline over the trainers' in-memory models. Not run with
+   ``--kernels-only`` or ``--parity-only``.
 
 Each phase prints its wall time.
 
@@ -104,6 +121,7 @@ import argparse
 import copy
 import gc
 import json
+import logging
 import shutil
 import subprocess
 import sys
@@ -2071,6 +2089,414 @@ def parity_phase(device, card: str, seeds=PARITY_SEEDS) -> dict:
     return counts
 
 
+# The file_backed phase: the flow a user runs, from a data directory of PNGs
+# to checkpoints to inference from them.
+FILE_IMAGES = 80  # localization PNGs: 60 train, 16 val, 4 test
+FILE_HW = 512
+FILE_BACKBONE = "convnext_base"
+FILE_BATCH = 16
+FILE_CLS_HW = 256  # ClassificationConfig's crop size
+FILE_CLS_PATIENTS = 12  # x 5 levels x (T1, T2) gray 256^2 crops
+LEVELS = ("L1/L2", "L2/L3", "L3/L4", "L4/L5", "L5/S1")
+# Row filters by image: Paeth, Paeth, Sub, then the encoder's own choice.
+FILE_FILTERS = (4, 4, 1, None)
+# #1's P and #8/#9's LayerNorm-form stages, as the Chrome trace names them.
+TRACE_KERNELS = {"#1": ("block_prologue<",), "#8/#9": ("bwd_rows<", "ln_rows_bwd<")}
+
+
+def _write_loc_dir(root: Path, n: int, hw: int, seed: int) -> None:
+    """Seeded synthetic sagittal slices as gray PNGs (the port's encoder):
+    noise with a bright disc at each annotated level centre, and
+    ``annotations.csv``; about one level in ten unannotated."""
+    import numpy as np
+
+    from spine_vision_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    yy, xx = np.mgrid[0:hw, 0:hw]
+    rows = ["image_path,level,relative_x,relative_y,series_type,source"]
+    for i in range(n):
+        img = rng.integers(0, 96, (hw, hw), dtype=np.uint8)
+        name = f"images/slice_{i:03d}.png"
+        for level in LEVELS:
+            x, y = rng.uniform(0.2, 0.8, 2)
+            img[(yy - y * hw) ** 2 + (xx - x * hw) ** 2 < (hw / 40) ** 2] = 255
+            if rng.uniform() > 0.1:
+                rows.append(f"{name},{level},{x:.6f},{y:.6f},sag_t{1 + i % 2},synth")
+        write_png(root / name, img, FILE_FILTERS[i % len(FILE_FILTERS)])
+    (root / "annotations.csv").write_text("\n".join(rows) + "\n")
+
+
+def _write_cls_dir(root: Path, n_patients: int, hw: int, seed: int) -> None:
+    """Gray PNG crops of T1 and T2 for each patient and level, with all 8
+    label columns, as the classification builder writes them."""
+    import numpy as np
+
+    from spine_vision_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    rows = ["image_path,patient_id,ivd_level,series_type,source,pfirrmann_grade,"
+            "disc_herniation,disc_narrowing,disc_bulging,spondylolisthesis,modic,"
+            "up_endplate,low_endplate"]
+    for p in range(n_patients):
+        for level in range(1, 6):
+            labels = [rng.integers(1, 6), *rng.integers(0, 2, 4), rng.integers(0, 4),
+                      *rng.integers(0, 2, 2)]
+            for series in ("sag_t1", "sag_t2"):
+                name = f"images/synth_p{p:02d}_{series}_L{level}.png"
+                write_png(root / name, rng.integers(0, 256, (hw, hw), dtype=np.uint8))
+                rows.append(",".join(map(str, [name, f"p{p:02d}", level, series, "synth",
+                                               *labels])))
+    (root / "annotations.csv").write_text("\n".join(rows) + "\n")
+
+
+def _timm_convnext_state_dict(seed: int, depths, dims) -> dict:
+    """A seeded ConvNeXt v1 state dict under timm's names (``stem.N``,
+    ``stages.N.downsample.N``, ``stages.N.blocks.N.{conv_dw,norm,mlp.fc1,
+    mlp.fc2,gamma}``, ``head.norm``, ``head.fc``)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def rand(*shape, scale=0.02, shift=0.0):
+        return torch.randn(*shape, generator=g) * scale + shift
+
+    def ln(prefix, c):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = rand(c, shift=1.0), rand(c)
+
+    sd["stem.0.weight"], sd["stem.0.bias"] = rand(dims[0], 3, 4, 4, scale=0.1), rand(dims[0])
+    ln("stem.1", dims[0])
+    for s, (depth, c) in enumerate(zip(depths, dims)):
+        if s:
+            ln(f"stages.{s}.downsample.0", dims[s - 1])
+            sd[f"stages.{s}.downsample.1.weight"] = rand(c, dims[s - 1], 2, 2)
+            sd[f"stages.{s}.downsample.1.bias"] = rand(c)
+        for b in range(depth):
+            p = f"stages.{s}.blocks.{b}"
+            sd[f"{p}.conv_dw.weight"], sd[f"{p}.conv_dw.bias"] = rand(c, 1, 7, 7, scale=0.1), rand(c)
+            ln(f"{p}.norm", c)
+            sd[f"{p}.mlp.fc1.weight"], sd[f"{p}.mlp.fc1.bias"] = rand(4 * c, c), rand(4 * c)
+            sd[f"{p}.mlp.fc2.weight"], sd[f"{p}.mlp.fc2.bias"] = rand(c, 4 * c), rand(c)
+            sd[f"{p}.gamma"] = rand(c, shift=0.1)
+    ln("head.norm", dims[-1])
+    sd["head.fc.weight"], sd["head.fc.bias"] = rand(1000, dims[-1]), rand(1000)
+    return sd
+
+
+def _torchvision_resnet18_state_dict(seed: int) -> dict:
+    """A seeded state dict under torchvision's ``resnet18()`` names."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def rand(*shape, scale=0.05):
+        return torch.randn(*shape, generator=g) * scale
+
+    def bn(prefix, c):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = 1 + rand(c), rand(c)
+        sd[f"{prefix}.running_mean"], sd[f"{prefix}.running_var"] = rand(c), 1 + rand(c).abs()
+        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+    sd["conv1.weight"] = rand(64, 3, 7, 7)
+    bn("bn1", 64)
+    cin = 64
+    for s, c in enumerate((64, 128, 256, 512)):
+        for b in range(2):
+            p = f"layer{s + 1}.{b}"
+            sd[f"{p}.conv1.weight"] = rand(c, cin if b == 0 else c, 3, 3)
+            bn(f"{p}.bn1", c)
+            sd[f"{p}.conv2.weight"] = rand(c, c, 3, 3)
+            bn(f"{p}.bn2", c)
+            if b == 0 and s:
+                sd[f"{p}.downsample.0.weight"] = rand(c, cin, 1, 1)
+                bn(f"{p}.downsample.1", c)
+        cin = c
+    sd["fc.weight"], sd["fc.bias"] = rand(1000, 512), rand(1000)
+    return sd
+
+
+class _LogRecords(logging.Handler):
+    """The package logger's messages while attached (at INFO)."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.messages: list = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger = logging.getLogger("spine_vision_torch")
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def _trees_equal(got: dict, want: dict) -> bool:
+    import numpy as np
+
+    if set(got) != set(want):
+        return False
+    return all(_trees_equal(g, want[k]) if isinstance(g, dict)
+               else np.array_equal(np.asarray(g), np.asarray(want[k])) for k, g in got.items())
+
+
+def file_backed_phase(device, card: str) -> dict:
+    """Train from files, then serve from the checkpoints (``file_backed``).
+
+    A localization directory of 80 gray 512^2 PNGs (the port's encoder, most
+    rows Paeth or Sub) and a seeded timm-named ConvNeXt-base ``.pth``
+    converted to ``.npz``; ``LocalizationTrainer`` from that directory (b16,
+    2 epochs, hybrid block, bf16) with ``pretrained_path``,
+    ``sample_cache_dir`` and ``profile_trace``, then ``evaluate()`` on the test
+    split from disk; a second trainer reusing the cache; host input rates;
+    ResNet-18 ``ClassificationTrainer`` from a directory of 256^2 crops with a
+    torchvision-named ``.pth``; ``StudyInferencePipeline.from_checkpoints`` of
+    both runs in both crop modes, bit for bit against a pipeline over the
+    trainers' in-memory models. Returns the launch counts of the main path
+    (both training runs, ``evaluate`` and the two inference runs)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.core.tasks import get_tasks
+    from spine_vision_torch.data.cache import PackedDataset
+    from spine_vision_torch.data.datasets import PngStore
+    from spine_vision_torch.infer.pipeline import StudyInferencePipeline, StudyPipelineConfig
+    from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
+    from spine_vision_torch.models.convert import (
+        convert_checkpoint,
+        export_flax_variables,
+        load_backbone_npz,
+        load_pretrained_backbone,
+    )
+    from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS
+    from spine_vision_torch.train import trainer as trainer_mod
+    from spine_vision_torch.train.classification import ClassificationConfig, ClassificationTrainer
+    from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
+
+    tag = "[file_backed]"
+    root = RUN_DIR / "file_backed"
+    shutil.rmtree(root, ignore_errors=True)
+    total = dict.fromkeys(KERNEL_COUNTERS, 0)
+
+    def add_counts() -> None:
+        for name, n in _counts().items():
+            total[name] += n
+
+    t0 = time.perf_counter()
+    _write_loc_dir(root / "loc", FILE_IMAGES, FILE_HW, seed=20)
+    print(f"{tag} wrote {FILE_IMAGES} {FILE_HW}^2 PNGs + annotations.csv in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cn = CONVNEXT_CONFIGS[FILE_BACKBONE]
+    pth, npz = root / f"{FILE_BACKBONE}.pth", root / f"{FILE_BACKBONE}.npz"
+    t0 = time.perf_counter()
+    torch.save(_timm_convnext_state_dict(21, cn.depths, cn.dims), pth)
+    t1 = time.perf_counter()
+    convert_checkpoint(pth, FILE_BACKBONE, npz)
+    print(f"{tag} timm-named {FILE_BACKBONE} .pth saved in {t1 - t0:.2f} s, converted to .npz "
+          f"({npz.stat().st_size / 2**20:.1f} MiB) in {time.perf_counter() - t1:.2f} s")
+    converted, _, arch = load_backbone_npz(npz)
+    if arch != FILE_BACKBONE:
+        raise AssertionError(f"the .npz records arch {arch!r}")
+
+    # Time the cache build inside the trainer.
+    build_s: list = []
+    packed_view = trainer_mod.packed_view
+
+    def timed_packed_view(*args, **kwargs):
+        start = time.perf_counter()
+        out = packed_view(*args, **kwargs)
+        build_s.append(time.perf_counter() - start)
+        return out
+
+    def loc_trainer(name: str, epochs: int, **kw):
+        cfg = LocalizationConfig(
+            data_path=root / "loc", backbone=FILE_BACKBONE, image_size=(FILE_HW, FILE_HW),
+            batch_size=FILE_BATCH, num_epochs=epochs, output_path=root / name, num_workers=8,
+            sample_cache_dir=root / "cache", pretrained=False, profile_steps=True, seed=0, **kw)
+        return LocalizationTrainer(cfg, device=device)
+
+    def counted(trainer, step_counts: list, epoch_s: list) -> None:
+        """Record each train step's launches (a difference of the counts,
+        which keep running over the validation passes) and each epoch's
+        training wall time."""
+        inner_step, inner_epoch = trainer.train_step_fn, trainer._train_epoch
+
+        def step(state, batch):
+            start = _counts()
+            loss = inner_step(state, batch)
+            step_counts.append({k: n - start[k] for k, n in _counts().items()})
+            return loss
+
+        def epoch():
+            start = time.perf_counter()
+            out = inner_epoch()
+            epoch_s.append(time.perf_counter() - start)
+            return out
+
+        trainer.train_step_fn, trainer._train_epoch = step, epoch
+
+    trainer_mod.packed_view = timed_packed_view
+    try:
+        with _LogRecords() as log:
+            t0 = time.perf_counter()
+            first = loc_trainer("run1", 2, pretrained_path=npz, profile_trace=True)
+            init_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.packed_view = packed_view
+    built = [m for m in log.messages if m.startswith("Packed ")]
+    print(f"{tag} trainer built in {init_s:.2f} s, of which the cache build (train, val) "
+          f"{[round(b, 3) for b in build_s]} s: {built}")
+    if len(built) != 2 or not (root / "cache" / "train" / "index.json").exists():
+        raise AssertionError(f"the first run did not build the cache: {log.messages}")
+    if not any(m.startswith("Loaded pretrained backbone weights") for m in log.messages):
+        raise AssertionError("the pretrained backbone was not logged as loaded")
+    before, _ = export_flax_variables(first.model.backbone)
+    if not _trees_equal(before, converted):
+        raise AssertionError("the backbone differs from the converted weights before training")
+    step_counts: list = []
+    epoch_s: list = []
+    counted(first, step_counts, epoch_s)
+    _zero_counts()
+    t0 = time.perf_counter()
+    result = first.train()
+    wall = time.perf_counter() - t0
+    add_counts()
+    want = TRAIN_LAUNCHES["train_step"]
+    if len(step_counts) != 2 * (60 // FILE_BATCH) or any(c != want for c in step_counts):
+        raise AssertionError(f"train steps {len(step_counts)}, launches {step_counts}; "
+                             f"expected 6 steps of {want}")
+    for key in ("train_loss", "val_loss", "med"):
+        if not all(math.isfinite(v) for v in result.history[key]):
+            raise AssertionError(f"history[{key!r}] = {result.history[key]}")
+    after, _ = export_flax_variables(first.model.backbone)
+    if _trees_equal(after, converted):
+        raise AssertionError("training did not move the pretrained backbone")
+    trace = root / "run1" / "logs" / "profile" / "trace.json"
+    if not trace.exists():
+        raise AssertionError("profile_trace wrote no trace under logs/profile")
+    names = {e.get("name", "").replace(" ", "")
+             for e in json.loads(trace.read_text())["traceEvents"] if e.get("cat") == "kernel"}
+    for label, parts in TRACE_KERNELS.items():
+        if not any(p in n for n in names for p in parts):
+            raise AssertionError(f"the trace names no kernel of {label} {parts}")
+    print(f"{tag} run 1: {len(step_counts)} steps, launches a step {step_counts[0]}; "
+          f"train {wall:.2f} s; epoch 1 (traced) {epoch_s[0]:.2f} s, epoch 2 {epoch_s[1]:.2f} s "
+          f"(each 3 steps with the loader; p50 step {np.percentile(first.step_times, 50) * 1e3:.3f} "
+          f"ms); trace {trace.stat().st_size / 2**20:.1f} MiB, {len(names)} kernel names; "
+          f"history {result.history['train_loss']}, med {result.history['med']}")
+    _zero_counts()
+    t0 = time.perf_counter()
+    test_metrics = first.evaluate()
+    add_counts()
+    if not test_metrics or not math.isfinite(test_metrics["med"]):
+        raise AssertionError(f"evaluate() from disk: {test_metrics}")
+    print(f"{tag} evaluate() on the test split from disk ({len(first.train_dataset)} train "
+          f"images cached): med {test_metrics['med']:.4f} in {time.perf_counter() - t0:.2f} s")
+
+    with _LogRecords() as log:
+        second = loc_trainer("run2", 1)
+    reused = [m for m in log.messages if m.startswith("Reusing packed sample cache")]
+    if any(m.startswith("Packed ") for m in log.messages) or len(reused) != 2:
+        raise AssertionError(f"the second run did not reuse the cache: {log.messages}")
+    step_counts2: list = []
+    epoch_s2: list = []
+    counted(second, step_counts2, epoch_s2)
+    _zero_counts()
+    second.train()
+    add_counts()
+    if any(c != want for c in step_counts2):
+        raise AssertionError(f"second run launches {step_counts2}")
+    print(f"{tag} run 2 reused the cache ({reused}); its epoch {epoch_s2[0]:.2f} s")
+
+    # Host input rates, one thread each: PNG decode against the cache.
+    store = PngStore(root / "loc", "color")
+    keys = list(store)
+    t0 = time.perf_counter()
+    for key in keys:
+        store[key]
+    png_rate = len(keys) / (time.perf_counter() - t0)
+    packed = PackedDataset(root / "cache" / "train")
+    order = np.random.default_rng(0).permutation(len(packed))
+    t0 = time.perf_counter()
+    for _ in range(5):
+        for i in range(0, len(order), FILE_BATCH):
+            packed.get_batch(order[i:i + FILE_BATCH])
+    cache_rate = 5 * len(order) / (time.perf_counter() - t0)
+    print(f"{tag} host input, one thread: PNG decode through PngStore {png_rate:.2f} images/s "
+          f"({FILE_HW}^2 gray as RGB), packed cache get_batch {cache_rate:.2f} images/s "
+          f"(b{FILE_BATCH}, 5 passes over {len(order)}) on {card}")
+
+    t0 = time.perf_counter()
+    _write_cls_dir(root / "cls", FILE_CLS_PATIENTS, FILE_CLS_HW, seed=22)
+    torch.save(_torchvision_resnet18_state_dict(23), root / "resnet18.pth")
+    cls_cfg = ClassificationConfig(
+        data_path=root / "cls", backbone="resnet18", batch_size=FILE_BATCH, num_epochs=1,
+        output_path=root / "cls_run", num_workers=8, pretrained=False, seed=0,
+        output_size=(FILE_CLS_HW, FILE_CLS_HW), pretrained_path=root / "resnet18.pth")
+    cls_trainer = ClassificationTrainer(cls_cfg, device=device)
+    want_params, want_stats = load_pretrained_backbone(root / "resnet18.pth", "resnet18")
+    got_params, got_stats = export_flax_variables(cls_trainer.model.backbone)
+    if not (_trees_equal(got_params, want_params) and _trees_equal(got_stats, want_stats)):
+        raise AssertionError("the classifier's backbone differs from the converted .pth")
+    _zero_counts()
+    cls_result = cls_trainer.train()
+    cls_metrics = cls_trainer.evaluate()
+    add_counts()
+    if not math.isfinite(cls_result.history["train_loss"][0]) or "macro_f1" not in cls_metrics:
+        raise AssertionError(f"classification from files: {cls_result.history}, {cls_metrics}")
+    print(f"{tag} classification from {2 * 5 * FILE_CLS_PATIENTS} {FILE_CLS_HW}^2 PNG crops: "
+          f"{len(cls_trainer.train_dataset)} train records, torchvision .pth converted on the "
+          f"fly; train_loss {cls_result.history['train_loss']}, test macro_f1 "
+          f"{cls_metrics['macro_f1']:.4f}; {time.perf_counter() - t0:.2f} s")
+
+    # Inference from the checkpoints, and from the trainers' models in memory.
+    # from_checkpoints' default: the kernels on the card (plain ops on the CPU).
+    kw = {"dtype": torch.bfloat16, "device": device,
+          "use_pallas": torch.device(device).type == "cuda", "param_dtype": torch.float32}
+    mem_loc = CoordinateRegressor(FILE_BACKBONE, **kw)
+    mem_loc.load_state_dict(first.model.state_dict())
+    mem_cls = Classifier("resnet18", tasks=tuple(get_tasks()), **kw)
+    mem_cls.load_state_dict(cls_trainer.model.state_dict())
+    studies = _studies(8, 0)
+    for mode in ("horizontal", "rotated"):
+        cfg = StudyPipelineConfig(padded_hw=(768, 768), crop_mode=mode)
+        pipe = StudyInferencePipeline.from_checkpoints(
+            root / "run1" / "best_model", root / "cls_run" / "best_model",
+            loc_backbone=FILE_BACKBONE, config=cfg, device=device)
+        _zero_counts()
+        results = pipe.run(studies)
+        counts = _counts()
+        add_counts()
+        if counts != INFERENCE_LAUNCHES:
+            raise AssertionError(f"from_checkpoints {mode}: launches {counts}, expected "
+                                 f"{INFERENCE_LAUNCHES}")
+        _check_results(results, 8, get_tasks())
+        memory = StudyInferencePipeline(mem_loc, mem_cls, config=cfg, device=device).run(studies)
+        for got, ref in zip(results, memory, strict=True):
+            same = (np.array_equal(got.coords, ref.coords) and np.array_equal(got.angles, ref.angles)
+                    and np.array_equal(got.crops, ref.crops)
+                    and all(np.array_equal(got.logits[k], ref.logits[k]) for k in ref.logits))
+            if not same:
+                raise AssertionError(f"from_checkpoints {mode}: {got.study_id} differs from the "
+                                     "in-memory models' pipeline")
+        print(f"{tag} from_checkpoints {mode}: launches {counts}, 8 studies equal bit for bit "
+              "to the in-memory models' pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": total, "png_images_s": png_rate, "cache_images_s": cache_rate}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2143,7 +2569,8 @@ def main() -> int:
     probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
-             "cls_convnext_hybrid": None, "parity": None, "probes": probe_counts}
+             "cls_convnext_hybrid": None, "parity": None, "file_backed": None,
+             "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
@@ -2164,6 +2591,8 @@ def main() -> int:
                                              device)
         paths["parity"] = phase("parity", parity_phase, device, card,
                                 tuple(opts.parity_seeds))
+        paths["file_backed"] = phase("file_backed", file_backed_phase, device,
+                                     card)["launches"]
 
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",

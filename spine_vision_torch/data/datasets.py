@@ -4,8 +4,10 @@ Counterpart of ``spine_vision_tpu/data/datasets.py``. The annotations come
 from ``annotations.csv`` (the standard ``csv`` module); the images come from
 an *image store*: a mapping from the CSV's ``image_path`` to the decoded
 uint8 array (RGB ``[H, W, 3]`` for localization, a gray ``[H, W]`` plane for
-classification). The store stands where the JAX package calls
-``cv2.imread``; everything after the read is the JAX code's: the host
+classification). The default store, :class:`PngStore`, decodes the PNGs of
+the data directory on each access (``data/png.py``, the reads of
+``cv2.imread``); an in-memory mapping stands in for it where a caller holds
+the arrays already. Everything after the read is the JAX code's: the host
 bilinear resize, the grouping and T1/T2 pairing, the ``[T2, T1, T2]``
 channels, the targets and the splits:
 
@@ -14,8 +16,7 @@ channels, the targets and the splits:
   (``data/stratification.py``).
 
 Samples are the dicts ``data/loader.py``'s ``collate_localization`` and
-``collate_classification`` take. Reading PNGs from disk (a store that
-decodes them) is not ported: without a store a dataset raises.
+``collate_classification`` take.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ import csv
 import logging
 from collections import Counter, defaultdict
 from pathlib import Path
-from typing import Any, Literal, Mapping
+from typing import Any, Iterator, Literal, Mapping
 
 import numpy as np
 
 from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES
+from spine_vision_torch.data.png import read_png
 from spine_vision_torch.data.levels import (
     IDX_TO_LEVEL,
     LEVEL_TO_IDX,
@@ -44,11 +46,29 @@ ImageStore = Mapping[str, np.ndarray]
 LABEL_TO_RECORD_KEY = _LABEL_TO_RECORD_KEY
 
 
-def _no_store(dataset: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{dataset} without an image_store (a PNG decoder without cv2 or PIL) is not "
-        "ported yet: ROADMAP.md, Queue 1 item 14"
-    )
+class PngStore(Mapping[str, np.ndarray]):
+    """The images of a data directory: ``annotations.csv``'s ``image_path``
+    -> the PNG at ``data_path / image_path``, decoded on each access as
+    ``cv2.imread`` reads it in ``mode`` ``"color"`` (RGB ``[H, W, 3]``) or
+    ``"gray"`` (``[H, W]``). A file that is missing or cannot be decoded
+    raises."""
+
+    def __init__(self, data_path: Path, mode: Literal["color", "gray"]) -> None:
+        self.data_path = Path(data_path)
+        self.mode = mode
+        with open(self.data_path / "annotations.csv", newline="") as f:
+            self._keys = dict.fromkeys(row["image_path"] for row in csv.DictReader(f))
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        if key not in self._keys:
+            raise KeyError(key)
+        return read_png(self.data_path / key, self.mode)
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._keys)
+
+    def __len__(self) -> int:
+        return len(self._keys)
 
 
 def resize_bilinear_u8(images: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -133,17 +153,15 @@ class LocalizationDataset:
         seed: int = 42,
         image_store: ImageStore | None = None,
     ) -> None:
-        if image_store is None:
-            raise _no_store("LocalizationDataset")
         self.data_path = Path(data_path)
         self.split = split
         self.image_size = image_size
         self.augment = augment and split == "train"
-        self.image_store = image_store
 
         annotations_path = self.data_path / "annotations.csv"
         if not annotations_path.exists():
             raise FileNotFoundError(f"Annotations not found: {annotations_path}")
+        self.image_store = PngStore(self.data_path, "color") if image_store is None else image_store
 
         raw_records = self._load_annotations(annotations_path)
         # A filter naming nothing the data holds would empty the dataset.
@@ -304,13 +322,10 @@ class ClassificationDataset:
         seed: int = 42,
         image_store: ImageStore | None = None,
     ) -> None:
-        if image_store is None:
-            raise _no_store("ClassificationDataset")
         self.data_path = Path(data_path)
         self.split = split
         self.output_size = output_size
         self.augment = augment and split == "train"
-        self.image_store = image_store
 
         valid_series = {"sag_t1", "sag_t2"}
         if series_types is not None:
@@ -334,6 +349,7 @@ class ClassificationDataset:
             self.target_labels = list(AVAILABLE_TASK_NAMES)
 
         self.records = self._load_and_pair_annotations()
+        self.image_store = PngStore(self.data_path, "gray") if image_store is None else image_store
 
         if levels:
             valid_levels = set(IDX_TO_LEVEL.values())

@@ -9,7 +9,9 @@ Counterpart of ``spine_vision_tpu/data/loader.py`` for one process:
   same order;
 - ``drop_last`` defaults to ``shuffle``;
 - a thread pool loads a batch's samples concurrently and batches are
-  prefetched a queue-depth ahead;
+  prefetched a queue-depth ahead; a dataset with ``get_batch`` (the packed
+  sample cache, ``data/cache.py``) assembles a whole batch in one gather
+  per field instead, where the collate function is ``default_collate``;
 - batches are dicts of stacked numpy arrays; non-array entries (metadata)
   are collected into lists.
 
@@ -150,6 +152,10 @@ class DataLoader:
         ]
         out_queue: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        # get_batch builds default_collate's structure; a custom collate_fn
+        # expects per-sample dicts.
+        fast_batch = (getattr(self.dataset, "get_batch", None)
+                      if self.collate_fn is default_collate else None)
 
         def producer() -> None:
             try:
@@ -157,8 +163,11 @@ class DataLoader:
                     for bidx in batch_indices:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__, bidx))
-                        out_queue.put(self.collate_fn(samples))
+                        batch = fast_batch(bidx) if fast_batch else None
+                        if batch is None:  # get_batch returns None for deep layouts
+                            batch = self.collate_fn(list(pool.map(self.dataset.__getitem__,
+                                                                  bidx)))
+                        out_queue.put(batch)
                 out_queue.put(None)
             except BaseException as exc:  # handed to the consumer, which raises it
                 out_queue.put(exc)

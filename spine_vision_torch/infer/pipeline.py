@@ -16,6 +16,8 @@ over a batch of studies:
 
 Batches pad to a power of two of studies (dummy rows are 1x1 slices with
 spacing 1.0 whose results are dropped), as in the JAX package.
+``StudyInferencePipeline.from_checkpoints`` builds both models from the
+trainers' run directories (``state.pt``, the model alone).
 ``SeriesCropPipeline`` runs the localization and crop stages alone over a
 batch of series slices, for building classification sets; without a
 localization model it crops around fixed fallback centres.
@@ -23,7 +25,9 @@ localization model it crops around fixed fallback centres.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any
 
 import numpy as np
@@ -40,6 +44,9 @@ from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
 from spine_vision_torch.ops.crop import crop_ivd_regions
 from spine_vision_torch.ops.geometry import mm_to_pixels, rotation_angles
 from spine_vision_torch.ops.image import imagenet_normalize, resize_dynamic
+from spine_vision_torch.train.checkpoint import load_model_state
+
+logger = logging.getLogger("spine_vision_torch")
 
 # Approximate normalised (x, y) IVD centres L1/L2..L5/S1 used when there is
 # no localization model.
@@ -250,6 +257,46 @@ class StudyInferencePipeline:
         self.cls_model = cls_model.to(self.device).eval()
         self.tasks = tasks if tasks is not None else get_tasks()
         self._pinned: dict[tuple[int, ...], torch.Tensor] = {}
+
+    @classmethod
+    def from_checkpoints(
+        cls,
+        loc_checkpoint: Path,
+        cls_checkpoint: Path,
+        loc_backbone: str = "convnext_base",
+        cls_backbone: str = "resnet18",
+        config: StudyPipelineConfig | None = None,
+        tasks: list[TaskConfig] | None = None,
+        dtype: torch.dtype = torch.bfloat16,
+        use_pallas: bool | None = None,
+        device: str | torch.device = "cuda",
+        mesh: Any | None = None,
+    ) -> "StudyInferencePipeline":
+        """Both stages from the trainers' run directories (``best_model``,
+        say): the models' parameters and BatchNorm statistics, kept in f32
+        and computed in ``dtype``, as the JAX package's Flax models are.
+
+        ``use_pallas=None`` runs the kernels on CUDA and the plain path on the
+        CPU; a checkpoint trained in any ``use_pallas`` mode loads in any."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "from_checkpoints(mesh=...) (sharded study batches) is not ported yet: "
+                "ROADMAP.md, Queue 1 item 9"
+            )
+        dev = resolve_device(device)
+        if use_pallas is None:
+            use_pallas = dev.type == "cuda"
+        config = config or StudyPipelineConfig()
+        task_list = tasks if tasks is not None else get_tasks()
+        kw = {"dtype": dtype, "device": dev, "use_pallas": use_pallas,
+              "param_dtype": torch.float32}
+        loc_model = CoordinateRegressor(loc_backbone, num_levels=config.num_levels, **kw)
+        load_model_state(Path(loc_checkpoint), loc_model)
+        cls_model = Classifier(cls_backbone, tasks=tuple(task_list), **kw)
+        load_model_state(Path(cls_checkpoint), cls_model)
+        logger.info("Loaded pipeline: loc=%s (%s), cls=%s (%s)", loc_backbone, loc_checkpoint,
+                    cls_backbone, cls_checkpoint)
+        return cls(loc_model, cls_model, config=config, tasks=task_list, device=dev)
 
     def _host_buffer(self, shape: tuple[int, ...]) -> np.ndarray:
         """Zeroed f32 host buffer for the packed slices: page-locked and

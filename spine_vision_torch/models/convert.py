@@ -16,12 +16,25 @@ a module's own shapes: a run without JAX can carry weights exactly as a
 checkpoint would. :func:`export_flax_variables` is the inverse of the load:
 the port's variables (f32 master weights after training steps, say) back as a
 Flax-layout numpy tree.
+
+The pretrained-weights half is the JAX module's own: a torchvision or timm
+state-dict file (``.pth``/``.pt``) of a ResNet or ConvNeXt is rewritten into
+Flax-layout ``(params, batch_stats)`` trees (:func:`convert_resnet_state_dict`,
+:func:`convert_convnext_state_dict`, both ConvNeXt namings), kept as a flat
+``.npz`` artifact whose keys and ``__meta__/arch`` are the JAX package's
+(:func:`convert_checkpoint`, :func:`save_backbone_npz`,
+:func:`load_backbone_npz`), and loaded from either form
+(:func:`load_pretrained_backbone`). A trainer carries the trees into its
+backbone with :func:`load_flax_variables`. The other backbone families'
+converters wait for the families themselves (ROADMAP.md, Queue 1 item 12).
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
-from typing import Any, Callable, Iterator
+from pathlib import Path
+from typing import Any, Callable, Iterator, Mapping
 
 import numpy as np
 import torch
@@ -32,6 +45,8 @@ from spine_vision_torch.models.layers import Conv, Dense, LayerNorm
 from spine_vision_torch.ops.batchnorm import BatchNorm
 
 Tree = dict[str, Any]
+
+logger = logging.getLogger("spine_vision_torch")
 
 
 @dataclass
@@ -204,3 +219,360 @@ def random_flax_variables(module: nn.Module, seed: int) -> tuple[Tree, Tree]:
             node = node.setdefault(key, {})
         node[e.path[-1]] = _random_leaf(rng, e).astype(np.float32)
     return trees["params"], trees["batch_stats"]
+
+
+# ---------------------------------------------------------------------------
+# Pretrained torch checkpoints -> Flax-layout trees (the JAX package's
+# conversions: OIHW -> HWIO, depthwise (C,1,kh,kw) -> (kh,kw,1,C), linear
+# (out,in) -> (in,out), BatchNorm weight/bias/running stats -> scale/bias +
+# batch_stats, LayerNorm weight/bias -> scale/bias).
+# ---------------------------------------------------------------------------
+
+
+def _np(tensor: Any) -> np.ndarray:
+    if hasattr(tensor, "detach"):
+        tensor = tensor.detach().cpu().numpy()
+    return np.asarray(tensor)
+
+
+def _conv(tensor: Any) -> np.ndarray:
+    return _np(tensor).transpose(2, 3, 1, 0)  # OIHW -> HWIO
+
+
+def _dwconv(tensor: Any) -> np.ndarray:
+    return _np(tensor).transpose(2, 3, 1, 0)  # (C,1,kh,kw) -> (kh,kw,1,C)
+
+
+def _linear(tensor: Any) -> np.ndarray:
+    return _np(tensor).transpose(1, 0)  # (out,in) -> (in,out)
+
+
+def _set(tree: dict, path: tuple[str, ...], value: np.ndarray) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+def convert_resnet_state_dict(
+    state_dict: Mapping[str, Any],
+) -> tuple[dict, dict]:
+    """torchvision/timm ResNet state dict -> (params, batch_stats) trees.
+
+    Torch names: ``conv1/bn1`` stem, ``layer{1-4}.{i}.conv{n}/bn{n}`` blocks,
+    ``layer{s}.{i}.downsample.0/1`` projections. The classifier ``fc`` is
+    dropped (backbones are created with num_classes=0 in the reference).
+    """
+    params: dict = {}
+    stats: dict = {}
+    consumed = 0
+
+    def put_bn(prefix: tuple[str, ...], torch_key: str) -> None:
+        nonlocal consumed
+        _set(params, prefix + ("scale",), _np(state_dict[f"{torch_key}.weight"]))
+        _set(params, prefix + ("bias",), _np(state_dict[f"{torch_key}.bias"]))
+        _set(stats, prefix + ("mean",), _np(state_dict[f"{torch_key}.running_mean"]))
+        _set(stats, prefix + ("var",), _np(state_dict[f"{torch_key}.running_var"]))
+        consumed += 4
+
+    _set(params, ("stem_conv", "kernel"), _conv(state_dict["conv1.weight"]))
+    consumed += 1
+    put_bn(("stem_bn",), "bn1")
+
+    for torch_key in state_dict:
+        if not torch_key.startswith("layer"):
+            continue
+        parts = torch_key.split(".")
+        stage = int(parts[0][len("layer") :])
+        block = int(parts[1]) + 1
+        prefix = (f"stage{stage}_block{block}",)
+        rest = parts[2:]
+        if rest[0].startswith("conv") and rest[1] == "weight":
+            _set(params, prefix + (rest[0], "kernel"), _conv(state_dict[torch_key]))
+            consumed += 1
+        elif rest[0].startswith("bn") and rest[1] == "weight":
+            put_bn(prefix + (rest[0],), f"{parts[0]}.{parts[1]}.{rest[0]}")
+        elif rest[0] == "downsample" and rest[1] == "0" and rest[2] == "weight":
+            _set(
+                params,
+                prefix + ("downsample_conv", "kernel"),
+                _conv(state_dict[torch_key]),
+            )
+            consumed += 1
+        elif rest[0] == "downsample" and rest[1] == "1" and rest[2] == "weight":
+            put_bn(
+                prefix + ("downsample_bn",), f"{parts[0]}.{parts[1]}.downsample.1"
+            )
+
+    total = len(
+        [
+            k
+            for k in state_dict
+            if not k.startswith("fc.") and not k.endswith("num_batches_tracked")
+        ]
+    )
+    if consumed != total:
+        logger.warning(
+            "ResNet conversion consumed %d of %d non-classifier tensors",
+            consumed,
+            total,
+        )
+    return params, stats
+
+
+def _normalize_convnext_keys(state_dict: Mapping[str, Any]) -> dict[str, Any]:
+    """Rewrite timm ConvNeXt naming to the facebookresearch layout.
+
+    timm: ``stem.{0,1}``, ``stages.{s}.blocks.{b}.{conv_dw,norm,mlp.fc1,
+    mlp.fc2,gamma}``, ``stages.{s}.downsample.{0,1}`` (s>=1), ``head.norm``.
+    fb:   ``downsample_layers.0.{0,1}``, ``stages.{s}.{b}.{dwconv,norm,
+    pwconv1,pwconv2,gamma}``, ``downsample_layers.{s}.{0,1}``, ``norm``.
+    """
+    out: dict[str, Any] = {}
+    for key, value in state_dict.items():
+        new = key
+        if new.startswith("stem.0."):
+            new = new.replace("stem.0.", "downsample_layers.0.0.", 1)
+        elif new.startswith("stem.1."):
+            new = new.replace("stem.1.", "downsample_layers.0.1.", 1)
+        elif ".downsample." in new and new.startswith("stages."):
+            stage = new.split(".")[1]
+            new = new.replace(
+                f"stages.{stage}.downsample.", f"downsample_layers.{stage}.", 1
+            )
+        if ".blocks." in new:
+            new = new.replace(".blocks.", ".", 1)
+        new = (
+            new.replace(".conv_dw.", ".dwconv.")
+            .replace(".mlp.fc1.", ".pwconv1.")
+            .replace(".mlp.fc2.", ".pwconv2.")
+        )
+        if new.startswith("head.norm."):
+            new = new.replace("head.norm.", "norm.", 1)
+        out[new] = value
+    return out
+
+
+def convert_convnext_state_dict(
+    state_dict: Mapping[str, Any],
+) -> dict:
+    """timm or facebookresearch ConvNeXt state dict -> params tree.
+
+    facebookresearch names: ``downsample_layers.0.{0,1}`` stem conv+LN,
+    ``downsample_layers.{s}.{0,1}`` LN+conv, ``stages.{s}.{b}.*`` blocks
+    (dwconv, norm, pwconv1/2, [gamma|grn]), final ``norm``; timm naming is
+    rewritten to this layout first. The classifier ``head`` is dropped.
+    A conversion that consumes no tensors raises instead of returning an
+    empty tree.
+    """
+    if any(".blocks." in k or k.startswith("stem.") for k in state_dict):
+        state_dict = _normalize_convnext_keys(state_dict)
+    params: dict = {}
+    consumed = 0
+
+    def put(path: tuple[str, ...], value: np.ndarray) -> None:
+        nonlocal consumed
+        _set(params, path, value)
+        consumed += 1
+
+    for key, tensor in state_dict.items():
+        parts = key.split(".")
+        if parts[0] == "head" or parts[0] == "fc":
+            continue
+        if parts[0] == "downsample_layers":
+            stage = int(parts[1])
+            sub = parts[2]
+            kind = "weight" if parts[3] == "weight" else "bias"
+            if stage == 0:
+                if sub == "0":  # stem conv
+                    if kind == "weight":
+                        put(("stem_conv", "kernel"), _conv(tensor))
+                    else:
+                        put(("stem_conv", "bias"), _np(tensor))
+                else:  # stem LN
+                    put(
+                        ("stem_norm", "scale" if kind == "weight" else "bias"),
+                        _np(tensor),
+                    )
+            else:
+                if sub == "0":  # LN before downsample conv
+                    put(
+                        (
+                            f"downsample{stage}_norm",
+                            "scale" if kind == "weight" else "bias",
+                        ),
+                        _np(tensor),
+                    )
+                else:
+                    if kind == "weight":
+                        put((f"downsample{stage}_conv", "kernel"), _conv(tensor))
+                    else:
+                        put((f"downsample{stage}_conv", "bias"), _np(tensor))
+        elif parts[0] == "stages":
+            stage = int(parts[1]) + 1
+            block = int(parts[2]) + 1
+            prefix = (f"stage{stage}_block{block}",)
+            leaf = parts[3]
+            if leaf == "dwconv":
+                if parts[4] == "weight":
+                    put(prefix + ("dwconv", "kernel"), _dwconv(tensor))
+                else:
+                    put(prefix + ("dwconv", "bias"), _np(tensor))
+            elif leaf == "norm":
+                put(
+                    prefix + ("norm", "scale" if parts[4] == "weight" else "bias"),
+                    _np(tensor),
+                )
+            elif leaf in ("pwconv1", "pwconv2"):
+                if parts[4] == "weight":
+                    put(prefix + (leaf, "kernel"), _linear(tensor))
+                else:
+                    put(prefix + (leaf, "bias"), _np(tensor))
+            elif leaf == "gamma":
+                put(prefix + ("gamma",), _np(tensor))
+            elif leaf == "grn":
+                put(
+                    prefix + ("grn", parts[4]),
+                    _np(tensor).reshape(-1),
+                )
+        elif parts[0] == "norm":
+            put(("head_norm", "scale" if parts[1] == "weight" else "bias"), _np(tensor))
+
+    total = len(
+        [k for k in state_dict if not (k.startswith("head") or k.startswith("fc"))]
+    )
+    if consumed == 0:
+        raise ValueError(
+            "ConvNeXt conversion consumed no tensors — unrecognized naming "
+            f"scheme (sample keys: {sorted(state_dict)[:4]})"
+        )
+    if consumed != total:
+        logger.warning(
+            "ConvNeXt conversion consumed %d of %d non-classifier tensors",
+            consumed,
+            total,
+        )
+    return params
+
+
+def load_torch_backbone(checkpoint_path: Path, arch: str) -> tuple[dict, dict]:
+    """Load a torch ``.pth``/``.pt`` state-dict file and convert it for
+    ``arch``: ``(params, batch_stats)``, ``batch_stats`` empty for ConvNeXt.
+    The ResNet and ConvNeXt families; the others raise."""
+    raw = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    if isinstance(raw, dict) and "state_dict" in raw:
+        raw = raw["state_dict"]
+    if arch.startswith(("resnet", "resnext", "wide_resnet")):
+        return convert_resnet_state_dict(raw)
+    if arch.startswith("convnext"):
+        return convert_convnext_state_dict(raw), {}
+    if arch.startswith(("vit", "deit", "swin", "efficientnet", "mobilenetv3")):
+        raise NotImplementedError(
+            f"converting {arch!r} weights is not ported yet: ROADMAP.md, Queue 1 item 12 "
+            "(the rest of the backbone zoo)"
+        )
+    raise ValueError(f"No converter for architecture: {arch}")
+
+
+# ---------------------------------------------------------------------------
+# Native backbone artifact: a flat .npz of the CONVERTED trees, keys
+# '/'-joined tree paths under 'params/' and 'batch_stats/', the arch under
+# '__meta__/arch', dtypes kept: the JAX package's format, read and written
+# by both packages.
+# ---------------------------------------------------------------------------
+
+_NPZ_META_KEY = "__meta__/arch"
+
+
+def _flatten_tree(tree: Mapping[str, Any], prefix: str) -> dict[str, np.ndarray]:
+    flat: dict[str, np.ndarray] = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}"
+        if isinstance(value, Mapping):
+            flat.update(_flatten_tree(value, path))
+        else:
+            flat[path] = np.asarray(value)
+    return flat
+
+
+def _unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def save_backbone_npz(
+    params: Mapping[str, Any],
+    batch_stats: Mapping[str, Any],
+    path: Path,
+    arch: str = "",
+) -> None:
+    """Write converted backbone trees as the native flat .npz artifact."""
+    flat = _flatten_tree(params, "params")
+    flat.update(_flatten_tree(batch_stats or {}, "batch_stats"))
+    if arch:
+        flat[_NPZ_META_KEY] = np.asarray(arch)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **flat)
+
+
+def load_backbone_npz(path: Path) -> tuple[dict, dict, str]:
+    """Load a native backbone artifact -> (params, batch_stats, arch)."""
+    with np.load(Path(path)) as data:
+        arch = ""
+        flat: dict[str, np.ndarray] = {}
+        for key in data.files:
+            if key == _NPZ_META_KEY:
+                arch = str(data[key])
+            else:
+                flat[key] = data[key]
+    tree = _unflatten_tree(flat)
+    return tree.get("params", {}), tree.get("batch_stats", {}), arch
+
+
+def convert_checkpoint(
+    checkpoint_path: Path, arch: str, output_path: Path
+) -> Path:
+    """One-shot torch ``.pth``/``.pt`` -> ``.npz`` artifact conversion.
+
+    The artifact is read by ``TrainingConfig.pretrained_path`` and
+    :func:`load_pretrained_backbone`, of this package or the JAX package.
+    """
+    params, stats = load_torch_backbone(Path(checkpoint_path), arch)
+    save_backbone_npz(params, stats, Path(output_path), arch=arch)
+    n = sum(
+        int(np.prod(x.shape)) for x in _flatten_tree(params, "params").values()
+    )
+    logger.info(
+        "Converted %s (%s, %d params) -> %s",
+        checkpoint_path,
+        arch,
+        n,
+        output_path,
+    )
+    return Path(output_path)
+
+
+def load_pretrained_backbone(path: Path, arch: str) -> tuple[dict, dict]:
+    """Load pretrained backbone trees from either artifact format.
+
+    ``.npz`` -> the converted artifact (the arch recorded at conversion
+    time must match when present). Anything else -> a torch state-dict file
+    converted on the fly by :func:`load_torch_backbone`.
+    """
+    path = Path(path)
+    if path.suffix == ".npz":
+        params, stats, saved_arch = load_backbone_npz(path)
+        if saved_arch and arch and saved_arch != arch:
+            raise ValueError(
+                f"Backbone artifact {path} was converted for "
+                f"'{saved_arch}', not '{arch}'"
+            )
+        return params, stats
+    return load_torch_backbone(path, arch)

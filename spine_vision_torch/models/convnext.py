@@ -148,8 +148,10 @@ class ConvNeXtBlock(nn.Module):
             self.route = "plain"
         if self.route == "fused" and self.gamma is None:
             # The whole-block kernel always applies a scale (ones here, a
-            # buffer, so its gradient is dropped).
-            self.register_buffer("_ones", torch.ones(dim, dtype=f32, device=device))
+            # buffer, so its gradient is dropped; not saved, so a checkpoint
+            # of another route loads).
+            self.register_buffer("_ones", torch.ones(dim, dtype=f32, device=device),
+                                 persistent=False)
 
     def _weights(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         d = self.dtype

@@ -12,7 +12,9 @@ Counterpart of ``spine_vision_tpu/train/checkpoint.py``:
 ``state.pt`` holds the model's parameters (f32 masters) and BatchNorm
 running statistics (its ``state_dict``), the optimizer's moments, the
 update count, the learning rate and the generator's state.
-It is read back with ``weights_only=True``.
+It is read back with ``weights_only=True``: whole by :func:`load_checkpoint`,
+the model alone by :func:`load_model_state` (the JAX package's
+``load_checkpoint(..., restore_opt_state=False)``, for inference).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from torch import nn
 
 from spine_vision_torch.train.state import TrainState
 
@@ -72,3 +76,10 @@ def load_checkpoint(path: Path, state: TrainState) -> dict[str, Any]:
     state.last_lr = float(payload["last_lr"])
     meta_path = path.parent / f"{path.name}.meta.json"
     return json.loads(meta_path.read_text()) if meta_path.exists() else {}
+
+
+def load_model_state(path: Path, model: nn.Module) -> None:
+    """Restore only ``model``'s parameters and buffers from ``path``, cast to
+    the model's dtypes; every key must match."""
+    payload = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
+    model.load_state_dict(payload["model"])

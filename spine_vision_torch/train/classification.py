@@ -8,13 +8,15 @@ validation with best-model gating on ``-f1`` (one task) or ``-macro_f1``,
 an optionally frozen backbone for the first epochs, and test-set
 evaluation.
 
-The datasets are injected: any indexable of classification samples (uint8
-``image`` ``[H, W, 3]``, ``targets`` ``{task: label}``, ``level_idx``,
-``metadata``) with ``sample_label_values(label)`` when weighted sampling is
-on. The model trains in bf16 on f32 master weights (ResNet-18 by default;
-training BatchNorm); a ConvNeXt backbone takes the localization trainer's
-kernel modes. Reading the datasets from disk (ROADMAP.md, Queue 1 item 14)
-and the plots (item 13) are not ported.
+Without injected datasets the trainer reads ``config.data_path`` (gray PNG
+crops and ``annotations.csv``, ``data/datasets.py``'s
+``ClassificationDataset``), and ``evaluate()`` its test split; injected
+datasets are any indexable of classification samples (uint8 ``image``
+``[H, W, 3]``, ``targets`` ``{task: label}``, ``level_idx``, ``metadata``)
+with ``sample_label_values(label)`` when weighted sampling is on. The model
+trains in bf16 on f32 master weights (ResNet-18 by default; training
+BatchNorm); a ConvNeXt backbone takes the localization trainer's kernel
+modes. The plots (ROADMAP.md, Queue 1 item 13) are not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Callable
 import torch
 
 from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, TaskConfig, get_task
+from spine_vision_torch.data.datasets import ClassificationDataset
 from spine_vision_torch.data.loader import (
     collate_classification,
     compute_inverse_frequency_weights,
@@ -135,16 +138,16 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
     ) -> None:
         if config.visualize_predictions:
             raise _not_ported("visualize_predictions (viz/*)", "Queue 1 item 13")
-        if train_dataset is None or val_dataset is None:
-            raise _not_ported(
-                "building ClassificationDataset from disk (a PNG decoder without cv2 or PIL)",
-                "Queue 1 item 14",
-            )
         if (not config.mixed_precision and torch.device(device).type == "cuda"
                 and config.backbone in CONVNEXT_CONFIGS):
             raise _not_ported(
-                "mixed_precision=False on the card (an f32 ConvNeXt block kernel)", "Queue 3"
+                "mixed_precision=False on the card (f32 forms of the ConvNeXt kernels)",
+                "Queue 1 item 15"
             )
+        if train_dataset is None:
+            train_dataset = self._split_from_disk(config, "train")
+        if val_dataset is None:
+            val_dataset = self._split_from_disk(config, "val")
         target_labels = config.target_labels or list(AVAILABLE_TASK_NAMES)
 
         sample_weights = None
@@ -191,6 +194,15 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         )
         self.metrics = ClassifierMetrics(target_labels=target_labels)
 
+    @staticmethod
+    def _split_from_disk(config: ClassificationConfig, split: str) -> ClassificationDataset:
+        return ClassificationDataset(
+            data_path=config.data_path, split=split, val_ratio=config.val_split,
+            levels=config.levels, series_types=config.series_types,
+            target_labels=config.target_labels, output_size=config.output_size,
+            augment=config.augment and split == "train", seed=config.seed,
+        )
+
     def _preprocess_fn(self) -> Callable:
         augment, aug_cfg = self.config.augment, self._aug_cfg
 
@@ -219,8 +231,8 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         stats = getattr(self.train_dataset, "get_stats", None)
         if stats is not None:
             logger.info("Train dataset stats: %s", stats())
-        logger.info("Label-distribution plot skipped: the viz module and the test split "
-                    "from disk are not ported (ROADMAP.md, Queue 1 items 13 and 14)")
+        logger.info("Label-distribution plot skipped: the viz module is not ported "
+                    "(ROADMAP.md, Queue 1 item 13)")
 
     def on_train_end(self, result: TrainingResult) -> None:
         logger.info("Training-curve plot skipped: the viz module is not ported "
@@ -234,11 +246,10 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         return super().get_metric_for_checkpoint(val_loss, metrics)
 
     def evaluate(self, test_dataset: Any | None = None, visualize: bool = False) -> dict[str, float]:
-        """``ClassifierMetrics`` of the model on ``test_dataset`` ({} when it
-        is empty)."""
+        """``ClassifierMetrics`` of the model on ``test_dataset``, by default
+        the test split of ``config.data_path`` ({} when it is empty)."""
         if visualize:
             raise _not_ported("evaluate(visualize=True) (viz/*)", "Queue 1 item 13")
         if test_dataset is None:
-            raise _not_ported("the test split from disk (ClassificationDataset)",
-                              "Queue 1 item 14")
+            test_dataset = self._split_from_disk(self.config, "test")
         return self._test_metrics(test_dataset)

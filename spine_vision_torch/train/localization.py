@@ -3,10 +3,11 @@
 Counterpart of ``spine_vision_tpu/train/localization.py``: masked smooth-L1
 (or mse, Huber) loss, MED/PCK metrics, MED-based best-model gating,
 coordinate-aware augmentation on the device, and ``evaluate`` on a test set.
-The datasets are injected: any indexable of ``LocalizationDataset``-style
+Without injected datasets the trainer reads ``config.data_path`` (PNGs and
+``annotations.csv``, ``data/datasets.py``'s ``LocalizationDataset``), and
+``evaluate()`` its test split; injected datasets are any indexable of such
 samples (uint8 ``image`` ``[H, W, 3]``, ``coords`` ``[5, 2]``, ``mask``
-``[5]``, ``series_type_idx``, ``metadata``), such as ``data/datasets.py``'s
-``LocalizationDataset`` over an image store.
+``[5]``, ``series_type_idx``, ``metadata``).
 
 The model trains in bf16 on f32 master weights with the hybrid ConvNeXt
 block (``use_pallas="hybrid"``), the JAX package's training default on its
@@ -26,6 +27,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from spine_vision_torch.data.datasets import LocalizationDataset
 from spine_vision_torch.data.levels import IDX_TO_LEVEL, NUM_LEVELS
 from spine_vision_torch.data.loader import collate_localization
 from spine_vision_torch.metrics import LocalizationMetrics
@@ -104,16 +106,12 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
     ) -> None:
         if config.visualize_predictions:
             raise _not_ported("visualize_predictions (viz/*)", "Queue 1 item 13")
-        if train_dataset is None or val_dataset is None:
-            raise _not_ported(
-                "building LocalizationDataset from disk (a PNG decoder without cv2 or PIL)",
-                "Queue 1 item 14",
-            )
         dev = torch.device(device)
         if (not config.mixed_precision and dev.type == "cuda"
                 and config.backbone in CONVNEXT_CONFIGS):
             raise _not_ported(
-                "mixed_precision=False on the card (an f32 ConvNeXt block kernel)", "Queue 3"
+                "mixed_precision=False on the card (f32 forms of the ConvNeXt kernels)",
+                "Queue 1 item 15"
             )
         if model is None:
             model = CoordinateRegressor(
@@ -134,6 +132,10 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
                 "pretrained=True has no effect without pretrained_path: training "
                 "proceeds from the model's current (random or loaded) weights."
             )
+        if train_dataset is None:
+            train_dataset = self._split_from_disk(config, "train")
+        if val_dataset is None:
+            val_dataset = self._split_from_disk(config, "val")
         self._aug_cfg = AugmentConfig()
         super().__init__(
             config, model, train_dataset, val_dataset,
@@ -141,6 +143,15 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
         )
         self.metrics = LocalizationMetrics(
             pck_thresholds=config.pck_thresholds, level_names=list(IDX_TO_LEVEL.values())
+        )
+
+    @staticmethod
+    def _split_from_disk(config: LocalizationConfig, split: str) -> LocalizationDataset:
+        return LocalizationDataset(
+            data_path=config.data_path, split=split, val_ratio=config.val_split,
+            series_types=config.series_types, sources=config.sources,
+            image_size=config.image_size, augment=config.augment and split == "train",
+            seed=config.seed,
         )
 
     def _preprocess_fn(self) -> Callable:
@@ -188,9 +199,9 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
         return super().get_metric_for_checkpoint(val_loss, metrics)
 
     def evaluate(self, test_dataset: Any | None = None) -> dict[str, float]:
-        """MED, PCK and the per-level metrics of the model on ``test_dataset``
-        ({} when it is empty)."""
+        """MED, PCK and the per-level metrics of the model on ``test_dataset``,
+        by default the test split of ``config.data_path`` ({} when it is
+        empty)."""
         if test_dataset is None:
-            raise _not_ported("the test split from disk (LocalizationDataset)",
-                              "Queue 1 item 14")
+            test_dataset = self._split_from_disk(self.config, "test")
         return self._test_metrics(test_dataset)

@@ -13,7 +13,16 @@ Counterpart of ``spine_vision_tpu/train/trainer.py`` on one card:
   reloaded when training ends;
 - the hooks ``on_train_begin``, ``on_epoch_begin(epoch)``,
   ``on_epoch_end(epoch, metrics)``, ``on_train_end(result)`` and ``history``;
-- the run-dir layout of ``train/checkpoint.py`` with a ``config.yaml``.
+- the run-dir layout of ``train/checkpoint.py`` with a ``config.yaml``;
+- ``sample_cache_dir``: the train and validation sets decoded once into
+  packed caches (``data/cache.py``) under ``<dir>/train`` and ``<dir>/val``,
+  reused by later runs whose samples and seed match;
+- ``pretrained_path``: the backbone's parameters and BatchNorm statistics
+  replaced by a converted checkpoint (``models/convert.py``, an ``.npz``
+  artifact or a torch state dict) after the state is built, leaf by leaf;
+- ``profile_steps`` (each step's wall time, ``utils/profiling.py``'s
+  ``StepTimer``) and ``profile_trace`` (a ``torch.profiler`` trace of the
+  first epoch in ``logs/profile``).
 
 There is no mesh: one process drives one device. Options whose modules are
 not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
@@ -33,12 +42,15 @@ from typing import Any, Callable, Generic, TypeVar
 import numpy as np
 import torch
 
+from spine_vision_torch.data.cache import packed_view
 from spine_vision_torch.data.loader import DataLoader
 from spine_vision_torch.device import resolve_device
+from spine_vision_torch.models.convert import load_flax_variables, load_pretrained_backbone
 from spine_vision_torch.train import schedules
 from spine_vision_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from spine_vision_torch.train.state import TrainState
 from spine_vision_torch.train.steps import eval_step, train_step
+from spine_vision_torch.utils.profiling import StepTimer, trace_profile
 
 logger = logging.getLogger("spine_vision_torch")
 
@@ -100,6 +112,9 @@ class TrainingConfig:
     distributed: bool = False
     num_workers: int = 8
     sample_cache_dir: Path | None = None
+    """Decode-once packed sample cache (``data/cache.py``) of the train and
+    validation sets, built on first use and reused while its fingerprint
+    matches."""
     mixed_precision: bool = True
     """bf16 compute on f32 master weights."""
 
@@ -107,11 +122,16 @@ class TrainingConfig:
     save_frequency: int = 10
 
     pretrained_path: Path | None = None
+    """The backbone's pretrained weights: an ``.npz`` artifact of
+    ``models/convert.py::convert_checkpoint`` or a torch state-dict file
+    converted on the fly."""
 
     profile_steps: bool = False
     """Record each train step's wall time (synchronising the card) in
     ``step_times``, and log the p50 and p95 each epoch."""
     profile_trace: bool = False
+    """Trace the first training epoch with ``torch.profiler`` into
+    ``logs/profile``."""
 
     use_tracker: bool = False
     tracker_project: str = "spine-vision-torch"
@@ -199,20 +219,26 @@ class BaseTrainer(Generic[TConfig]):
     ) -> None:
         if config.distributed or (config.num_devices or 1) > 1:
             raise _not_ported("distributed / multi-device training", "Queue 1 item 9")
-        if config.sample_cache_dir is not None:
-            raise _not_ported("sample_cache_dir (data/cache.py)", "Queue 1 item 7")
-        if config.pretrained_path is not None:
-            raise _not_ported("pretrained_path (pretrained backbone loading)", "Queue 1 item 7")
         if config.use_tracker:
             raise _not_ported("use_tracker (viz/tracker.py)", "Queue 1 item 13")
-        if config.profile_trace:
-            raise _not_ported("profile_trace", "Queue 1 item 7")
         self.config = config
         self.device = resolve_device(device)
         self.model = model
+        self._collate_fn = collate_fn
+
+        if config.sample_cache_dir is not None:
+            token = f"{type(train_dataset).__name__}:{config.seed}"
+            train_dataset = packed_view(
+                train_dataset, config.sample_cache_dir / "train",
+                num_workers=config.num_workers, fingerprint_token=token + ":train",
+            )
+            if val_dataset is not None and len(val_dataset) > 0:
+                val_dataset = packed_view(
+                    val_dataset, config.sample_cache_dir / "val",
+                    num_workers=config.num_workers, fingerprint_token=token + ":val",
+                )
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
-        self._collate_fn = collate_fn
 
         self.train_loader = DataLoader(
             train_dataset, batch_size=config.batch_size, shuffle=True, seed=config.seed,
@@ -243,6 +269,8 @@ class BaseTrainer(Generic[TConfig]):
             generator=torch.Generator(device=self.device).manual_seed(config.seed),
             grad_clip=config.grad_clip,
         )
+        if config.pretrained_path is not None:
+            self._load_pretrained_backbone(config.pretrained_path)
         backbone = list(model.backbone.parameters()) if hasattr(model, "backbone") else []
         self._frozen = self.frozen_backbone_at_start()
         if self._frozen and not backbone:
@@ -252,7 +280,7 @@ class BaseTrainer(Generic[TConfig]):
             state, batch, loss_fn, preprocess, frozen=backbone if self._frozen else ())
         self.eval_step_fn = lambda state, batch: eval_step(state, batch, loss_fn, preprocess)
 
-        self.step_times: list[float] = []
+        self.step_times: list[float] = []  # profile_steps: every step's seconds
         self.current_epoch = 0
         self.best_metric = float("inf")
         self.best_epoch = 0
@@ -311,6 +339,17 @@ class BaseTrainer(Generic[TConfig]):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _load_pretrained_backbone(self, path: Path) -> None:
+        """Replace the backbone's parameters and BatchNorm statistics with the
+        converted checkpoint at ``path`` for ``config.backbone``; every leaf of
+        the backbone must be in it with its shape, and every leaf of it used."""
+        backbone = getattr(self.model, "backbone", None)
+        if backbone is None:
+            raise ValueError("pretrained_path needs a model with a `backbone` submodule")
+        params, stats = load_pretrained_backbone(Path(path), getattr(self.config, "backbone", ""))
+        load_flax_variables(backbone, params, stats)
+        logger.info("Loaded pretrained backbone weights: %s", path)
+
     def train(self) -> TrainingResult:
         """Run the full training loop."""
         cfg = self.config
@@ -323,14 +362,19 @@ class BaseTrainer(Generic[TConfig]):
 
         if self._frozen:
             logger.info("Backbone frozen for the first %d epochs", cfg.freeze_backbone_epochs)
-        for epoch in range(self.current_epoch, cfg.num_epochs):
+        first_epoch = self.current_epoch
+        for epoch in range(first_epoch, cfg.num_epochs):
             self.current_epoch = epoch
             if self._frozen and epoch >= cfg.freeze_backbone_epochs:
                 logger.info("Unfreezing backbone at epoch %d", epoch + 1)
                 self.set_backbone_frozen(False)
             self.on_epoch_begin(epoch)
             start = time.perf_counter()
-            train_loss = self._train_epoch()
+            if cfg.profile_trace and epoch == first_epoch:
+                with trace_profile(cfg.logs_path / "profile"):
+                    train_loss = self._train_epoch()
+            else:
+                train_loss = self._train_epoch()
             epoch_time = time.perf_counter() - start
             lr = self.state.last_lr
             self.history["train_loss"].append(train_loss)
@@ -383,27 +427,27 @@ class BaseTrainer(Generic[TConfig]):
 
     def _train_epoch(self) -> float:
         self.train_loader.set_epoch(self.current_epoch)
-        timed = self.config.profile_steps
-        times: list[float] = []
+        timer = StepTimer() if self.config.profile_steps else None
         loss_sum = None  # on the device; read once an epoch
         count = 0
         for batch_idx, batch in enumerate(self.train_loader):
-            if timed:
+            if timer is not None:
                 self._sync()
-                start = time.perf_counter()
+                timer.start()
             loss = self.train_step_fn(self.state, batch)
-            if timed:
+            if timer is not None:
                 self._sync()
-                times.append(time.perf_counter() - start)
+                timer.stop()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             count += 1
             if (batch_idx + 1) % self.config.log_frequency == 0:
                 logger.debug("Epoch %d [%d/%d] Loss: %.6f", self.current_epoch, batch_idx + 1,
                              len(self.train_loader), float(loss))
-        if times:
-            self.step_times.extend(times)
+        if timer is not None and len(timer):
+            self.step_times.extend(timer.times)
+            summary = timer.summary(skip_first=0)  # this epoch's every step
             logger.info("Step timing: p50 %.1f ms, p95 %.1f ms over %d steps",
-                        np.percentile(times, 50) * 1e3, np.percentile(times, 95) * 1e3, len(times))
+                        summary["p50_s"] * 1e3, summary["p95_s"] * 1e3, int(summary["steps"]))
         return float(loss_sum) / max(count, 1) if loss_sum is not None else 0.0
 
     def _validate_epoch(self) -> tuple[float, dict[str, float]]:

@@ -123,20 +123,66 @@ def test_to_device_uploads_nested_targets():
     assert isinstance(out["targets"]["modic"], torch.Tensor) and out["metadata"] == [{}, {}]
 
 
+def _png_dir(root, n_patients, hw, seed):
+    """A classification data directory: gray PNG crops (the port's encoder)
+    for T1 and T2 of each patient and level, all 8 label columns."""
+    from spine_vision_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    lines = ["image_path,patient_id,ivd_level,series_type,source,pfirrmann_grade,"
+             "disc_herniation,disc_narrowing,disc_bulging,spondylolisthesis,modic,"
+             "up_endplate,low_endplate"]
+    for p in range(n_patients):
+        for level in range(1, 6):
+            labels = [rng.integers(1, 6), *rng.integers(0, 2, 4), rng.integers(0, 4),
+                      *rng.integers(0, 2, 2)]
+            for series in ("sag_t1", "sag_t2"):
+                name = f"images/synth_p{p}_{series}_L{level}.png"
+                write_png(root / name, rng.integers(0, 256, (hw, hw), dtype=np.uint8))
+                lines.append(",".join(map(str, [name, f"p{p}", level, series, "synth",
+                                                *labels])))
+    (root / "annotations.csv").write_text("\n".join(lines) + "\n")
+    return root
+
+
 @pytest.mark.parametrize(
     "overrides,call",
+    # Datasets and evaluate() from disk are ported: their cases check that
+    # they read the data directory.
     [({"visualize_predictions": True}, None), ({"norm_impl": "flax"}, None),
      ({"pool_impl": "tpu"}, None), ({"backbone": "resnet50"}, None),
      ({"backbone": "efficientnet_b0"}, None), ({}, "no_datasets"),
      ({}, "evaluate_visualize"), ({}, "evaluate_from_disk")],
 )
 def test_unported_classification_options_name_the_roadmap(tmp_path, overrides, call):
+    if call in ("no_datasets", "evaluate_from_disk"):
+        from spine_vision_torch.data.datasets import ClassificationDataset, PngStore
+
+        data = _png_dir(tmp_path / "data", 6, 32, seed=5)
+        cfg = _config(tmp_path, "r", data_path=data, num_epochs=1, **overrides)
+        if call == "no_datasets":
+            trainer = ClassificationTrainer(cfg, device="cpu")
+            for ds, split in ((trainer.train_dataset, "train"), (trainer.val_dataset, "val")):
+                assert isinstance(ds, ClassificationDataset) and ds.split == split and len(ds)
+                assert isinstance(ds.image_store, PngStore) and ds.image_store.mode == "gray"
+            assert trainer.train_loader.sample_weights is not None
+            result = trainer.train()
+            assert len(result.history["macro_f1"]) == 1
+            assert np.isfinite(result.history["train_loss"][0])
+            return
+        trainer = ClassificationTrainer(cfg, train_dataset=_Set(4, 32, 0),
+                                        val_dataset=_Set(2, 32, 1), device="cpu")
+        test = ClassificationDataset(data, split="test", val_ratio=0.2, output_size=(32, 32),
+                                     augment=False, seed=0)
+        assert len(test) > 0
+        got = trainer.evaluate()
+        assert "macro_f1" in got
+        np.testing.assert_equal(got, trainer.evaluate(test_dataset=test))  # NaN == NaN
+        return
     cfg = _config(tmp_path, "r", **overrides)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "no_datasets":
-            ClassificationTrainer(cfg, device="cpu")
         trainer = ClassificationTrainer(cfg, train_dataset=_Set(4, 32, 0),
                                         val_dataset=_Set(2, 32, 1), device="cpu")
         if call == "evaluate_visualize":
             trainer.evaluate(test_dataset=_Set(2, 32, 2), visualize=True)
-        trainer.evaluate()

@@ -1,4 +1,4 @@
-"""The port's in-memory datasets against the JAX package's datasets on disk.
+"""The port's datasets against the JAX package's datasets on disk.
 
 The parity suite's builders render the same seeded slices in both packages:
 the JAX package writes PNGs (PIL) and reads them back (cv2), the port keeps
@@ -8,6 +8,8 @@ images, coordinates and masks bit for bit; for classification (crops made by
 both packages' ``SeriesCropPipeline`` at the fallback centres, in both crop
 modes) the same rows, splits and targets, the crops within one gray level on
 at most 1% of the pixels (the crop kernels' bound, ``test_torch_pipeline.py``).
+Over the JAX package's PNG directories themselves, the port's datasets
+(their default ``PngStore``) give the JAX datasets' samples bit for bit.
 """
 
 from pathlib import Path
@@ -138,9 +140,45 @@ def test_one_series_fills_three_channels(cls_sets):
 
 
 def test_datasets_without_a_store_name_the_roadmap(loc_sets, cls_sets):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tds.LocalizationDataset(loc_sets[1])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tds.ClassificationDataset(cls_sets[1])
+    """Without a store a dataset decodes the PNGs of its directory (the
+    port's store directories hold only the CSV, so the first read names the
+    missing file); an explicit store is read instead."""
+    loc = tds.LocalizationDataset(loc_sets[1])
+    assert isinstance(loc.image_store, tds.PngStore) and loc.image_store.mode == "color"
+    assert sorted(loc.image_store) == sorted(loc_sets[2])
+    with pytest.raises(FileNotFoundError, match="Could not read image: .*images"):
+        loc[0]
+    cls = tds.ClassificationDataset(cls_sets[1])
+    assert isinstance(cls.image_store, tds.PngStore) and cls.image_store.mode == "gray"
+    with pytest.raises(FileNotFoundError, match="Could not read image"):
+        cls[0]
     with pytest.raises(FileNotFoundError, match="not in the image store"):
         tds.LocalizationDataset(loc_sets[1], image_store={})[0]
+
+
+@pytest.mark.parametrize("split", ["train", "test"])
+def test_datasets_over_the_jax_png_directories_match_bit_for_bit(loc_sets, cls_sets, split):
+    jroot = loc_sets[0]
+    kw = {"split": split, "val_ratio": 0.2, "test_ratio": 0.1, "image_size": tparity.LOC_SIZE,
+          "seed": SEED}
+    want, got = JLocalization(jroot, **kw), tds.LocalizationDataset(jroot, **kw)
+    assert isinstance(got.image_store, tds.PngStore)
+    assert got.image_list == want.image_list and len(got) > 0
+    for i in range(len(want)):
+        g, w = got[i], want[i]
+        for key in ("image", "coords", "mask"):
+            np.testing.assert_array_equal(g[key], w[key])
+            assert g[key].dtype == w[key].dtype
+        assert g["series_type_idx"] == w["series_type_idx"] and g["metadata"] == w["metadata"]
+
+    jroot = cls_sets[0]
+    kw = {"split": split, "val_ratio": 0.15, "output_size": tparity.CROP_SIZE, "seed": SEED}
+    want, got = JClassification(jroot, **kw), tds.ClassificationDataset(jroot, **kw)
+    assert [_row(r, None) for r in got.records] == [_row(r, jroot) for r in want.records]
+    assert len(got) > 0
+    for i in range(len(want)):
+        g, w = got[i], want[i]
+        np.testing.assert_array_equal(g["image"], w["image"])
+        assert g["level_idx"] == w["level_idx"] and g["metadata"] == w["metadata"]
+        for k in w["targets"]:
+            np.testing.assert_array_equal(g["targets"][k], w["targets"][k])

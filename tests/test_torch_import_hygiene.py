@@ -42,6 +42,8 @@ def test_port_imports_with_jax_blocked():
         "import sys\n"
         f"for name in {FORBIDDEN!r}: sys.modules[name] = None\n"
         "import spine_vision_torch.infer.pipeline, spine_vision_torch.models.convert\n"
+        "import spine_vision_torch.data.png, spine_vision_torch.data.cache\n"
+        "import spine_vision_torch.train.classification, spine_vision_torch.utils.profiling\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )

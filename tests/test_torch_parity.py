@@ -22,6 +22,7 @@ import torch
 from flax.core import freeze, unfreeze
 
 from spine_vision_torch.data import datasets as tds
+from spine_vision_torch.data.png import write_png
 from spine_vision_torch.infer import pipeline as tpipe
 from spine_vision_torch.models.classifier import CoordinateRegressor as TRegressor
 from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
@@ -144,8 +145,17 @@ def test_localization_evaluate_matches_jax(regressor, tmp_path):
         # f32 forwards of one ResNet-18 in two libraries: 1e-5 of a unit
         # square in every distance statistic (PCK counts agree exactly).
         np.testing.assert_allclose(got[key], want[key], atol=1e-5, err_msg=key)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tt.evaluate()
+    # evaluate() reads the test split of config.data_path: the store's
+    # arrays written as PNGs decode to the same images, so the same metrics.
+    for key, image in store.items():
+        (tmp_path / "loc" / key).parent.mkdir(parents=True, exist_ok=True)
+        write_png(tmp_path / "loc" / key, image)
+    tt.config.data_path = tmp_path / "loc"
+    from_disk = tds.LocalizationDataset(tmp_path / "loc", split="test", val_ratio=0.2,
+                                        image_size=(64, 64), augment=False, seed=2,
+                                        image_store=store)
+    assert len(from_disk) > 0
+    np.testing.assert_equal(tt.evaluate(), tt.evaluate(from_disk))
     empty = tds.LocalizationDataset(tmp_path / "loc", split="test", test_ratio=0.0,
                                     image_store=store)
     assert len(empty) == 0 and tt.evaluate(empty) == {}

@@ -354,14 +354,73 @@ def test_resnet18_regressor_trains_with_a_frozen_then_unfrozen_backbone(tmp_path
     "overrides",
     # freeze_backbone_epochs and ResNet-18 train since training BatchNorm
     # was ported; a bottleneck ResNet and the scatter-free pool still raise.
+    # profile_trace and sample_cache_dir are ported: their cases check that
+    # the option works.
     [{"backbone": "resnet50"}, {"visualize_predictions": True},
      {"profile_trace": True}, {"sample_cache_dir": "cache"},
      {"backbone": "resnet18", "pool_impl": "tpu"}],
 )
 def test_unported_options_name_the_roadmap(tmp_path, overrides):
-    kw = {"backbone": "convnext_tiny", **overrides}
+    ported = {"profile_trace", "sample_cache_dir"} & set(overrides)
+    # The ported options train a ResNet-18, a few seconds on a busy CPU.
+    kw = {"backbone": "resnet18" if ported else "convnext_tiny", **overrides}
+    if "sample_cache_dir" in kw:
+        kw["sample_cache_dir"] = tmp_path / kw["sample_cache_dir"]
     cfg = LocalizationConfig(output_path=tmp_path / "r", pretrained=False,
-                             image_size=(32, 32), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LocalizationTrainer(cfg, train_dataset=_Set(4, 32, 0), val_dataset=_Set(2, 32, 1),
-                            device="cpu")
+                             image_size=(32, 32), batch_size=2, num_epochs=1, num_workers=2,
+                             seed=0, **kw)
+    if not ported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            LocalizationTrainer(cfg, train_dataset=_Set(4, 32, 0), val_dataset=_Set(2, 32, 1),
+                                device="cpu")
+        return
+    train_set, val_set = _Set(4, 32, 0), _Set(2, 32, 1)
+    trainer = LocalizationTrainer(cfg, train_dataset=train_set, val_dataset=val_set,
+                                  device="cpu")
+    result = trainer.train()
+    assert all(np.isfinite(result.history["train_loss"]))
+    if "profile_trace" in overrides:
+        trace = json.loads((tmp_path / "r" / "logs" / "profile" / "trace.json").read_text())
+        names = {e.get("name", "") for e in trace["traceEvents"]}
+        assert any(n.startswith("aten::") for n in names)  # the epoch's operators
+        return
+    # The cache: packed once, its samples those of the dataset; a second
+    # trainer with the same seed reuses it.
+    for split, source in (("train", train_set), ("val", val_set)):
+        assert (tmp_path / "cache" / split / "index.json").exists()
+    assert type(trainer.train_dataset).__name__ == "PackedDataset"
+    for i in range(len(train_set)):
+        got, want = trainer.train_dataset[i], train_set[i]
+        for key in ("image", "coords", "mask"):
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["metadata"] == want["metadata"]
+    stamp = (tmp_path / "cache" / "train" / "image.npy").stat().st_mtime_ns
+    again = LocalizationTrainer(cfg, train_dataset=_Set(4, 32, 0), val_dataset=_Set(2, 32, 1),
+                                device="cpu")
+    assert type(again.train_dataset).__name__ == "PackedDataset"
+    assert (tmp_path / "cache" / "train" / "image.npy").stat().st_mtime_ns == stamp
+
+
+@pytest.mark.parametrize("skip_first", [0, 1, 3])
+def test_step_timer_summary_matches_jax(monkeypatch, skip_first):
+    """``utils/profiling.py::StepTimer`` (the trainer's ``profile_steps``)
+    against the JAX package's on the same clock readings."""
+    import time
+
+    from spine_vision_torch.utils import profiling as tprof
+    from spine_vision_tpu.utils import profiling as jprof
+
+    ticks = np.cumsum(np.random.default_rng(skip_first).uniform(0.01, 0.2, 24)).tolist()
+    summaries = []
+    for timer in (tprof.StepTimer(), jprof.StepTimer()):
+        clock = iter(ticks)
+        monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+        for _ in range(12):
+            with timer.measure():
+                pass
+        monkeypatch.undo()
+        assert len(timer) == 12
+        summaries.append(timer.summary(skip_first=skip_first))
+    assert summaries[0] == summaries[1] and summaries[0]["steps"] == 12 - skip_first
+    empty = tprof.StepTimer()
+    assert empty.summary() == jprof.StepTimer().summary() == {}
