@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown
     python3 chip_smoke.py --parity-only --parity-seeds 0 1 2 3   # the parity band
+    python3 chip_smoke.py --ocr-only [--profile]   # report OCR alone
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -107,6 +108,21 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    in both crop modes: the study phase's launch counts, and outputs equal bit
    for bit to a pipeline over the trainers' in-memory models. Not run with
    ``--kernels-only`` or ``--parity-only``.
+12. Report OCR (``ocr``, also alone with ``--ocr-only``):
+   ``DocumentExtractor(device="cuda")`` with the shipped weights (every
+   parameter and buffer on the card) on the 16 bench pages and 2 report
+   files of ``tests/fixtures/torch_ocr``, read with ``data/png.py``, held to
+   the JAX package's record there (``utils/ocr_parity.py``: each page's box
+   count and quads within 2 px once threshold ties take JAX's decision, the
+   CER of the lines against JAX's within 5e-3, name, birthday and ID from
+   both reports) with no kernel of this package launched; then, printed
+   only, the CERs of the card and of the record against the rendered truth,
+   the card-vs-CPU gaps of the maps and logits, ``ocr_pages_per_s`` as
+   ``bench.py:_ocr_pages_per_s`` defines it (one warm-up, 4 batches of the
+   16 pages, host work included), boxes per page, each stage's time (host
+   prep, detector forward, components, rectification, recognizer forward,
+   CTC decode) and, with ``--profile``, the device's busy and idle share of
+   a batch.
 
 Each phase prints its wall time.
 
@@ -2497,6 +2513,142 @@ def file_backed_phase(device, card: str) -> dict:
     return {"launches": total, "png_images_s": png_rate, "cache_images_s": cache_rate}
 
 
+# The ocr phase: report OCR with the shipped weights on the card, held to the
+# JAX package's record of the fixture pages (tests/fixtures/torch_ocr).
+OCR_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_ocr"
+OCR_REPS = 4  # bench.py:_ocr_pages_per_s: one warm-up, then 4 timed batches of 16 pages
+OCR_STAGE_REPS = 5
+
+
+def _host_ms(fn, reps: int = OCR_STAGE_REPS) -> tuple[float, object]:
+    """Median wall ms of ``fn`` (ending in a synchronise) and its last result."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return sorted(times)[len(times) // 2], out
+
+
+def ocr_phase(device, card: str, profile: bool = False) -> dict:
+    """``DocumentExtractor(device="cuda")`` with the shipped weights on the
+    record's 16 bench pages (``extract_from_images``, one batch) and its two
+    report files (``extract_lines``), held to the JAX record by
+    ``utils/ocr_parity.py::check_against_record`` (box counts and quads
+    within 2 px once threshold ties take JAX's decision, the CER of the lines
+    against JAX's at most ``CER_BOUND``, the three report fields). Prints the
+    CERs against the rendered truth, the card-vs-CPU gaps of the maps and
+    logits, ``ocr_pages_per_s`` as ``bench.py`` defines it and the stage
+    split; with ``profile``, the device's busy and idle share of a batch.
+    Returns the launch counts of the checked run (no kernel of this package
+    lies on the path: all zero)."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.data.phenikaa.ocr import DocumentExtractor
+    from spine_vision_torch.models.textdet import extract_boxes_from_probmap
+    from spine_vision_torch.models.textrec import ctc_greedy_decode
+    from spine_vision_torch.utils import ocr_parity
+
+    tag = "[ocr]"
+    t0 = time.perf_counter()
+    extractor = DocumentExtractor(device=device)
+    nets = (extractor.detector.model, extractor.recognizer.model)
+    off_card = [n for net in nets for n, t in (*net.named_parameters(), *net.named_buffers())
+                if t.device.type != "cuda"]
+    if off_card:
+        raise AssertionError(f"ocr: {len(off_card)} tensors off the card, e.g. {off_card[:3]}")
+    pages = ocr_parity.load_record(OCR_FIXTURES)
+    bench = [p.image for p in pages if p.file.startswith("bench_")]
+    print(f"{tag} shipped weights on the card, {len(pages)} record pages read with data/png.py "
+          f"in {time.perf_counter() - t0:.1f} s ({card})")
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    result = ocr_parity.check_against_record(extractor, pages)
+    launches = _counts()
+    print(f"{tag} checked run {time.perf_counter() - t0:.2f} s: {result['pages']} pages, "
+          f"{result['boxes']} boxes (record {result['boxes_record']}), quads (ties resolved) "
+          f"within {result['max_quad_px']:.4f} px of the record's (bound "
+          f"{ocr_parity.QUAD_TOL_PX}), pages with threshold ties {result['tie_pages']}, "
+          f"CER against the record {result['cer_vs_record']:.6f} over "
+          f"{result['lines_paired']} lines (bound {ocr_parity.CER_BOUND})")
+    print(f"{tag} fields: {json.dumps(result['fields'], ensure_ascii=False)}")
+    print(f"{tag} printed only: CER against the rendered truth, card {result['cer_truth']:.6f}, "
+          f"JAX record {result['cer_truth_record']:.6f}")
+    if result["failures"]:
+        raise AssertionError("ocr: " + "; ".join(result["failures"]))
+    if any(launches.values()):
+        raise AssertionError(f"ocr launched a kernel of the package: {launches}")
+
+    cpu = DocumentExtractor(device="cpu")
+    maps = extractor.detector.probability_maps(bench)
+    quads = [extract_boxes_from_probmap(m) for m in maps]
+    patches = extractor.rectify_pages(bench, quads)
+    logits = extractor.recognizer.logits(patches)
+    map_gap = np.abs(maps - cpu.detector.probability_maps(bench))
+    logit_gap = np.abs(logits - cpu.recognizer.logits(patches.cpu()))
+    print(f"{tag} printed only: card vs CPU, the port on the same pages: maps largest "
+          f"{map_gap.max():.3e}, median {np.median(map_gap):.3e}; logits largest "
+          f"{logit_gap.max():.3e}, median {np.median(logit_gap):.3e} (max |logit| "
+          f"{np.abs(logits).max():.3f})")
+
+    extractor.extract_from_images(bench)  # warm-up
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(OCR_REPS):
+        out = extractor.extract_from_images(bench)
+    elapsed = time.perf_counter() - start
+    boxes = sum(len(t) for t in out)
+    pages_s = len(bench) * OCR_REPS / elapsed
+    print(f"{tag} ocr_pages_per_s {pages_s:.3f} ({len(bench)} pages x {OCR_REPS} batches in "
+          f"{elapsed * 1e3:.3f} ms, {elapsed * 1e3 / OCR_REPS:.3f} ms a batch), boxes per page "
+          f"{boxes / len(bench):.4f} ({card})")
+
+    batch = torch.from_numpy(extractor.detector.prepare(bench)).to(device)[..., None]
+    scaled = (patches / 255.0)[..., None]
+    with torch.inference_mode():
+        det_ms = _time_ms(lambda: extractor.detector.model(batch), iters=10)
+        rec_ms = _time_ms(lambda: extractor.recognizer.model(scaled), iters=10)
+    stages = {
+        "host prep of the detector's input": _host_ms(lambda: extractor.detector.prepare(bench))[0],
+        "detector forward (device)": det_ms,
+        "upload, forward and fetch of the maps": _host_ms(
+            lambda: extractor.detector.probability_maps(bench))[0],
+        "connected components (host)": _host_ms(
+            lambda: [extract_boxes_from_probmap(m) for m in maps])[0],
+        "rectification (host stacking, upload, device)": _host_ms(
+            lambda: extractor.rectify_pages(bench, quads))[0],
+        "recognizer forward (device)": rec_ms,
+        "recognizer forward and fetch of the logits": _host_ms(
+            lambda: extractor.recognizer.logits(patches))[0],
+        "CTC decode (host)": _host_ms(lambda: ctc_greedy_decode(logits))[0],
+    }
+    for name, ms in stages.items():
+        print(f"{tag} stage {name}: {ms:.3f} ms a batch of {len(bench)} pages "
+              f"({len(patches)} boxes)")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            extractor.extract_from_images(bench)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - start) * 1e6
+        events = _device_events(prof)
+        busy_us = sum(_dev_us(e) for e in events)
+        print(f"{tag} profile: traced wall {wall_us / 1e3:.3f} ms a batch, device busy "
+              f"{busy_us / 1e3:.3f} ms, idle {1 - busy_us / wall_us:.1%} ({card})")
+        for e in sorted(events, key=_dev_us, reverse=True)[:10]:
+            print(f"{tag} profile: {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2508,6 +2660,8 @@ def main() -> int:
     parser.add_argument("--parity-seeds", type=int, nargs="+", default=list(PARITY_SEEDS),
                         help="the parity phase's seeds (default: %(default)s, the tpu/flax "
                              "seeds of PARITY_SEEDS.json)")
+    parser.add_argument("--ocr-only", action="store_true",
+                        help="run only the ocr phase (no kernel build, no kernels line)")
     opts = parser.parse_args()
 
     try:
@@ -2549,6 +2703,9 @@ def main() -> int:
     if opts.parity_only:
         phase("parity", parity_phase, device, card, tuple(opts.parity_seeds))
         return verdict()
+    if opts.ocr_only:
+        phase("ocr", ocr_phase, device, card, opts.profile)
+        return verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -2569,7 +2726,7 @@ def main() -> int:
     probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
-             "cls_convnext_hybrid": None, "parity": None, "file_backed": None,
+             "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
              "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
@@ -2593,6 +2750,7 @@ def main() -> int:
                                 tuple(opts.parity_seeds))
         paths["file_backed"] = phase("file_backed", file_backed_phase, device,
                                      card)["launches"]
+        paths["ocr"] = phase("ocr", ocr_phase, device, card, opts.profile)
 
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",

@@ -17,6 +17,11 @@ checkpoint would. :func:`export_flax_variables` is the inverse of the load:
 the port's variables (f32 master weights after training steps, say) back as a
 Flax-layout numpy tree.
 
+The OCR nets (``models/textdet.py``, ``models/textrec.py``) load the same
+way: their attention's ``[C, heads, d]`` kernels and ``pos_embedding`` keep
+the Flax layout, and :func:`load_variables_npz` reads the JAX package's
+flat ``.npz`` of them (the shipped OCR weights).
+
 The pretrained-weights half is the JAX module's own: a torchvision or timm
 state-dict file (``.pth``/``.pt``) of a ResNet or ConvNeXt is rewritten into
 Flax-layout ``(params, batch_stats)`` trees (:func:`convert_resnet_state_dict`,
@@ -41,7 +46,8 @@ import torch
 from torch import nn
 
 from spine_vision_torch.models.convnext import GRN, ConvNeXtBlock
-from spine_vision_torch.models.layers import Conv, Dense, LayerNorm
+from spine_vision_torch.models.layers import Conv, Dense, LayerNorm, MultiHeadDotProductAttention
+from spine_vision_torch.models.textrec import TextRecognitionNet
 from spine_vision_torch.ops.batchnorm import BatchNorm
 
 Tree = dict[str, Any]
@@ -129,6 +135,14 @@ def _entries_of(name: str, mod: nn.Module) -> Iterator[_Entry]:
         yield _Entry("params", p + ("pwconv2", "bias"), (c,), mod.pw2_bias, _same, _same)
         if mod.gamma is not None:
             yield _Entry("params", p + ("gamma",), (c,), mod.gamma, _same, _same)
+    elif isinstance(mod, MultiHeadDotProductAttention):
+        for name in ("query", "key", "value", "out"):
+            kernel, bias = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_bias")
+            yield _Entry("params", p + (name, "kernel"), tuple(kernel.shape), kernel, _same, _same)
+            yield _Entry("params", p + (name, "bias"), tuple(bias.shape), bias, _same, _same)
+    elif isinstance(mod, TextRecognitionNet):
+        pos = mod.pos_embedding
+        yield _Entry("params", p + ("pos_embedding",), tuple(pos.shape), pos, _same, _same)
 
 
 def _entries(module: nn.Module) -> list[_Entry]:
@@ -520,6 +534,19 @@ def save_backbone_npz(
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **flat)
+
+
+def load_variables_npz(path: Path) -> dict:
+    """A Flax variables tree (``{"params": ..., "batch_stats": ...}``) from a
+    flat ``.npz`` of ``a/b/c`` keys, f16 leaves widened to f32: the JAX
+    package's ``train/ocr.py::save_variables_npz`` format, in which the OCR
+    nets' weights ship."""
+    flat = {}
+    with np.load(Path(path)) as data:
+        for key in data.files:
+            arr = data[key]
+            flat[key] = arr.astype(np.float32) if arr.dtype == np.float16 else arr
+    return _unflatten_tree(flat)
 
 
 def load_backbone_npz(path: Path) -> tuple[dict, dict, str]:

@@ -2,6 +2,7 @@
 
 - No module of ``spine_vision_torch`` (nor ``chip_smoke.py``) imports JAX,
   Flax, optax or the JAX package; the port imports and runs without them.
+  Nor cv2, PIL, rapidfuzz or PyMuPDF: the port runs where none is installed.
 - Entry points run on the card by default and raise when there is none,
   instead of carrying on quietly on the CPU.
 """
@@ -18,7 +19,8 @@ from spine_vision_torch.infer.pipeline import StudyInferencePipeline
 from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "spine_vision_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "spine_vision_tpu", "cv2", "PIL",
+             "rapidfuzz", "fitz", "pymupdf")
 SOURCES = sorted((ROOT / "spine_vision_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -44,6 +46,7 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.infer.pipeline, spine_vision_torch.models.convert\n"
         "import spine_vision_torch.data.png, spine_vision_torch.data.cache\n"
         "import spine_vision_torch.train.classification, spine_vision_torch.utils.profiling\n"
+        "import spine_vision_torch.data.phenikaa.ocr, spine_vision_torch.utils.ocr_parity\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
