@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown
     python3 chip_smoke.py --parity-only --parity-seeds 0 1 2 3   # the parity band
     python3 chip_smoke.py --ocr-only [--profile]   # report OCR alone
+    python3 chip_smoke.py --io-only    # study inference from volume files alone
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -123,6 +124,17 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    prep, detector forward, components, rectification, recognizer forward,
    CTC decode) and, with ``--profile``, the device's busy and idle share of
    a batch.
+13. Study inference from volume files (``volume_io``, run after phase 4, also
+   alone with ``--io-only``; see ``volume_io_phase``): 8 studies of seeded
+   int16 T1/T2 series of 17 sagittal slices of 512^2 written by the port's
+   writers as DICOM (uncompressed and JPEG Lossless), ``.nii.gz``, ``.mha``
+   and ``.nrrd``; read back bit for bit; ``study_input_from_paths`` on the
+   card against the CPU; the fast middle slice against the whole-volume
+   resample on the card; ``StudyInferencePipeline.run`` from the files in
+   both crop modes with the study phase's launch counts, equal bit for bit
+   to a run on the in-memory volumes' slices; decode, entropy-decode, slice
+   and files-to-results times. Not run with ``--kernels-only`` or
+   ``--parity-only``.
 
 Each phase prints its wall time.
 
@@ -2500,17 +2512,270 @@ def file_backed_phase(device, card: str) -> dict:
                                  f"{INFERENCE_LAUNCHES}")
         _check_results(results, 8, get_tasks())
         memory = StudyInferencePipeline(mem_loc, mem_cls, config=cfg, device=device).run(studies)
-        for got, ref in zip(results, memory, strict=True):
-            same = (np.array_equal(got.coords, ref.coords) and np.array_equal(got.angles, ref.angles)
-                    and np.array_equal(got.crops, ref.crops)
-                    and all(np.array_equal(got.logits[k], ref.logits[k]) for k in ref.logits))
-            if not same:
-                raise AssertionError(f"from_checkpoints {mode}: {got.study_id} differs from the "
-                                     "in-memory models' pipeline")
+        if not _same_results(results, memory):
+            raise AssertionError(f"from_checkpoints {mode}: the results differ from the "
+                                 "in-memory models' pipeline")
         print(f"{tag} from_checkpoints {mode}: launches {counts}, 8 studies equal bit for bit "
               "to the in-memory models' pipeline")
     shutil.rmtree(root, ignore_errors=True)
     return {"launches": total, "png_images_s": png_rate, "cache_images_s": cache_rate}
+
+
+# The volume_io phase: study inference from volume files in every format the
+# port reads, at a clinical lumbar sagittal geometry.
+IO_SHAPE = (17, 512, 512)  # (z, y, x): 17 sagittal slices of 512^2
+# (x, y, z) mm. 19/32 mm in-plane (a 304 mm field of view) is exact in binary
+# and in every format's text, so each file holds the in-memory geometry
+# exactly and its middle slice is the in-memory volume's.
+IO_SPACING = (0.59375, 0.59375, 4.0)
+IO_ORIGIN = (-150.0, -152.0, 34.0)
+IO_FORMATS = ("dicom", "dicom", "dicom", "dicom_jpeg_lossless", ".nii.gz", ".nii.gz", ".mha",
+              ".nrrd")
+# This study's series are tilted 5 degrees about the S axis. A MetaImage
+# stores the spacing apart from the direction, so the oblique geometry reads
+# back with the exact spacing the slice depends on (a DICOM series derives
+# the slice spacing from positions along the normal, 1e-8 mm off).
+IO_OBLIQUE = 6
+IO_REPS = 5
+IO_ULPS = 4  # card vs CPU slices: bit for bit, else within 4 f32 ulps of max |slice|
+
+
+def _io_direction(oblique: bool):
+    """Sagittal: x index along P, y along I, the slice normal (z) along R,
+    their cross product as in every DICOM series; optionally tilted 5
+    degrees about S."""
+    import numpy as np
+
+    sagittal = np.array([[0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    if not oblique:
+        return sagittal
+    t = np.deg2rad(5.0)
+    tilt = np.array([[np.cos(t), -np.sin(t), 0.0], [np.sin(t), np.cos(t), 0.0], [0.0, 0.0, 1.0]])
+    return tilt @ sagittal
+
+
+def _io_volume(rng, level: float):
+    """A seeded int16 series: a smooth in-plane pattern, a ramp across the
+    slices and noise."""
+    import numpy as np
+
+    d, h, w = IO_SHAPE
+    y = np.arange(h, dtype=np.float32)[:, None]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    plane = level + 300.0 * np.sin(y / 40.0) * np.cos(x / 55.0)
+    ramp = 20.0 * np.arange(d, dtype=np.float32)[:, None, None]
+    vol = plane[None] + ramp + rng.normal(0.0, 80.0, IO_SHAPE).astype(np.float32)
+    return np.clip(vol, 0, 4000).astype(np.int16)
+
+
+def _write_io_study(root: Path, k: int, fmt: str, pair: dict) -> dict:
+    from spine_vision_torch.io import write_medical_image
+    from spine_vision_torch.io.dicom_write import write_dicom_series
+
+    paths = {}
+    for series, image in pair.items():
+        if fmt.startswith("dicom"):
+            path = root / f"study{k}_{series}"
+            write_dicom_series(image, path, jpeg_lossless=fmt == "dicom_jpeg_lossless")
+        else:
+            path = root / f"study{k}_{series}{fmt}"
+            write_medical_image(image, path)
+        paths[series] = path
+    return paths
+
+
+def _same_results(got, want) -> bool:
+    import numpy as np
+
+    return all(
+        np.array_equal(g.coords, w.coords) and np.array_equal(g.angles, w.angles)
+        and np.array_equal(g.crops, w.crops)
+        and all(np.array_equal(g.logits[k], w.logits[k]) for k in w.logits)
+        and all(np.array_equal(g.probabilities[k], w.probabilities[k]) for k in w.logits)
+        for g, w in zip(got, want, strict=True))
+
+
+def volume_io_phase(device, card: str) -> dict:
+    """Study inference from volume files (``--io-only`` runs it alone).
+
+    Eight studies of seeded int16 T1 and T2 series (17 sagittal slices of
+    512^2, ``IO_SPACING``, study ``IO_OBLIQUE`` tilted 5 degrees), written by
+    the port's writers: studies 0-2 uncompressed DICOM directories, 3 a JPEG
+    Lossless SV1 DICOM directory, 4-5 ``.nii.gz``, 6 ``.mha``, 7 ``.nrrd``.
+    Checks: (a) every series reads back bit for bit with its geometry;
+    (b) ``study_input_from_paths(device="cuda")`` gives each study's slices
+    equal to ``extract_isotropic_middle_slice(device="cpu")`` of the
+    in-memory volumes (bit for bit, else within ``IO_ULPS`` f32 ulps of max
+    |slice|, printed); (c) one study's fast slice on the card against the
+    whole-volume ``resample_to_isotropic`` on the card, ``orient("LPI")`` and
+    the middle slice, within ``rtol=1e-4, atol=1e-2``; (d)
+    ``StudyInferencePipeline.run`` (ConvNeXt-base 512^2 and ResNet-18 256^2,
+    bf16, seeded Flax trees) on the 8 studies from files in both crop modes:
+    the study phase's launch counts, and results equal bit for bit to a run
+    on the slices of the in-memory volumes on the card. Prints, with the
+    card's name and power limit, each format's decode ms a series, the C++
+    entropy decode ms a slice, the card's middle-slice ms,
+    ``study_input_from_paths`` ms a study, and files-to-results ms a study
+    in each crop mode (host work included)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from spine_vision_torch import io as tio
+    from spine_vision_torch import native
+    from spine_vision_torch.core.tasks import get_tasks
+    from spine_vision_torch.infer.pipeline import (
+        StudyInferencePipeline,
+        StudyInput,
+        StudyPipelineConfig,
+        study_input_from_paths,
+    )
+    from spine_vision_torch.io import jpeg_lossless as jl
+    from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+    from spine_vision_torch.ops.resample import resample_to_isotropic
+
+    tag = "[volume_io]"
+    root = RUN_DIR / "volume_io"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    images, paths = [], []
+    write_s = encode_s = 0.0
+    for k, fmt in enumerate(IO_FORMATS):
+        pair = {series: tio.MedicalImage(array=_io_volume(rng, level), spacing=IO_SPACING,
+                                         origin=IO_ORIGIN, direction=_io_direction(k == IO_OBLIQUE))
+                for series, level in (("t1", 700.0), ("t2", 500.0))}
+        t0 = time.perf_counter()
+        paths.append(_write_io_study(root, k, fmt, pair))
+        if fmt == "dicom_jpeg_lossless":
+            encode_s += time.perf_counter() - t0
+        else:
+            write_s += time.perf_counter() - t0
+        images.append(pair)
+    print(f"{tag} wrote {len(IO_FORMATS)} studies x (T1, T2) of {IO_SHAPE} int16 in "
+          f"{write_s:.2f} s; study 3's JPEG Lossless DICOM (encode included, left out of the "
+          f"timed figures) in {encode_s:.2f} s")
+
+    # (a) Every series reads back as written.
+    worst_geometry = 0.0
+    decode_ms = {}
+    for k, fmt in enumerate(IO_FORMATS):
+        for series in ("t1", "t2"):
+            got, want = tio.read_medical_image(paths[k][series]), images[k][series]
+            if got.array.dtype != np.int16 or not np.array_equal(got.array, want.array):
+                raise AssertionError(f"study {k} {series} ({fmt}): the array read back differs")
+            for name in ("spacing", "origin", "direction"):
+                gap = float(np.abs(np.asarray(getattr(got, name), float)
+                                   - np.asarray(getattr(want, name), float)).max())
+                worst_geometry = max(worst_geometry, gap)
+                if gap > 1e-6:
+                    raise AssertionError(f"study {k} {series} ({fmt}): {name} off by {gap}")
+        if fmt not in decode_ms:
+            decode_ms[fmt] = _host_ms(lambda: tio.read_medical_image(paths[k]["t1"]), IO_REPS)[0]
+    print(f"{tag} (a) 16 series in {len(set(IO_FORMATS))} formats read back bit for bit; "
+          f"geometry within {worst_geometry:.3g} (the oblique .mha's 6-digit text)")
+    print(f"{tag} decode ms a series ({IO_SHAPE[0]} x {IO_SHAPE[1]}^2 int16): "
+          + ", ".join(f"{f} {ms:.3f}" for f, ms in decode_ms.items()) + f" on {card}")
+
+    frame = jl.encode_jpeg_lossless(images[3]["t1"].array[IO_SHAPE[0] // 2].view(np.uint16))
+    _, scans = jl._parse_markers(frame)
+    entropy, luts, ri = scans[0][4], scans[0][5], scans[0][6]
+    entropy_ms = _host_ms(lambda: native.jpegls_decode_diffs(
+        *native.jpegls_unstuff_split(entropy), luts, ri, IO_SHAPE[1] * IO_SHAPE[2], 1), 10)[0]
+    slice_decode_ms = _host_ms(lambda: jl.decode_jpeg_lossless(frame), 10)[0]
+    print(f"{tag} JPEG Lossless {IO_SHAPE[1]}^2 16-bit slice ({len(frame)} bytes): C++ entropy "
+          f"decode {entropy_ms:.3f} ms, whole decode {slice_decode_ms:.3f} ms on {card}")
+
+    # (b) Slices from files on the card against the in-memory volumes' on the CPU.
+    slice_ms = _host_ms(lambda: tio.extract_isotropic_middle_slice(images[0]["t1"],
+                                                                     device=device), 10)[0]
+    print(f"{tag} card middle slice {slice_ms:.3f} ms a series (host blend, two products, the "
+          f"slice back to the host) on {card}")
+    cpu_slices = [{s: tio.extract_isotropic_middle_slice(images[k][s], device="cpu")[0]
+                   for s in ("t1", "t2")} for k in range(len(IO_FORMATS))]
+    side = round(IO_SHAPE[1] * IO_SPACING[1] / 0.3)  # the slice's rows and columns at 0.3 mm
+    inputs_ms, worst_ulps = [], 0.0
+    for k in range(len(IO_FORMATS)):
+        t0 = time.perf_counter()
+        study = study_input_from_paths(paths[k]["t1"], paths[k]["t2"], device=device)
+        inputs_ms.append((time.perf_counter() - t0) * 1e3)
+        for series, got in (("t1", study.t1_slice), ("t2", study.t2_slice)):
+            want = cpu_slices[k][series]
+            if got.shape != want.shape or got.shape != (side, side):
+                raise AssertionError(f"study {k} {series}: slice {got.shape}, want {want.shape}")
+            ulps = float(np.abs(got - want).max()) / (np.finfo(np.float32).eps
+                                                       * float(np.abs(want).max()))
+            worst_ulps = max(worst_ulps, ulps)
+            if ulps > IO_ULPS:
+                raise AssertionError(f"study {k} {series}: card vs CPU {ulps:.2f} ulps")
+    verdict = "bit for bit" if worst_ulps == 0 else f"within {worst_ulps:.3f} f32 ulps of max|slice|"
+    print(f"{tag} (b) study_input_from_paths on the card: 16 slices of {side}^2 equal the CPU's "
+          f"from the in-memory volumes {verdict}; {float(np.median(inputs_ms)):.3f} ms a study "
+          f"(median of 8, two threads) on {card}")
+
+    # (c) The fast slice against the naive whole-volume path, on the card.
+    image = images[IO_OBLIQUE]["t1"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    volume, new = resample_to_isotropic(image.array, image.spacing_zyx, device=device)
+    torch.cuda.synchronize()
+    naive_ms = (time.perf_counter() - t0) * 1e3
+    iso = replace(image, array=volume.cpu().numpy(), spacing=new[::-1])
+    naive = iso.extract_middle_slice()
+    fast = tio.extract_isotropic_middle_slice(image, device=device)[0]
+    if fast.shape != naive.shape or not np.allclose(fast, naive, rtol=1e-4, atol=1e-2):
+        raise AssertionError(f"fast slice {fast.shape} vs naive {naive.shape}: max gap "
+                             f"{float(np.abs(fast - naive).max()) if fast.shape == naive.shape else None}")
+    print(f"{tag} (c) study {IO_OBLIQUE}: fast slice within rtol 1e-4, atol 1e-2 of the whole "
+          f"volume resampled on the card ({tuple(volume.shape)} f32, "
+          f"{volume.numel() * 4 / 1e9:.2f} GB, {naive_ms:.1f} ms, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB), max gap "
+          f"{float(np.abs(fast - naive).max()):.3g}")
+    del volume, iso
+
+    # (d) The study graph on the studies from files, both crop modes.
+    loc = CoordinateRegressor("convnext_base", dtype=torch.bfloat16, device=device)
+    cls = Classifier("resnet18", dtype=torch.bfloat16, device=device)
+    for model, seed in ((loc, 0), (cls, 1)):
+        params, stats = random_flax_variables(model, seed)
+        load_flax_variables(model, params, stats)
+    tasks = get_tasks()
+    memory_inputs = [
+        StudyInput(
+            t1_slice=tio.extract_isotropic_middle_slice(images[k]["t1"], device=device)[0],
+            t2_slice=tio.extract_isotropic_middle_slice(images[k]["t2"], device=device)[0],
+            t1_spacing=(0.3, 0.3), t2_spacing=(0.3, 0.3), study_id=Path(paths[k]["t2"]).stem)
+        for k in range(len(IO_FORMATS))]
+    launches, e2e = {}, {}
+    for mode in ("horizontal", "rotated"):
+        pipe = StudyInferencePipeline(loc, cls, config=StudyPipelineConfig(crop_mode=mode),
+                                      device=device)
+        memory = pipe.run(memory_inputs)  # also warms the graph
+        _check_results(memory, len(IO_FORMATS), tasks)
+        _zero_counts()
+        from_files = [study_input_from_paths(p["t1"], p["t2"], device=device) for p in paths]
+        results = pipe.run(from_files)
+        counts = _counts()
+        if counts != INFERENCE_LAUNCHES:
+            raise AssertionError(f"{mode}: expected {INFERENCE_LAUNCHES} launches, got {counts}")
+        _check_results(results, len(IO_FORMATS), tasks)
+        if not _same_results(results, memory):
+            raise AssertionError(f"{mode}: results from files differ from those from memory")
+        if [r.study_id for r in results] != [m.study_id for m in memory_inputs]:
+            raise AssertionError(f"{mode}: study ids {[r.study_id for r in results]}")
+        launches[mode] = counts
+        e2e[mode] = _host_ms(lambda: pipe.run(
+            [study_input_from_paths(p["t1"], p["t2"], device=device) for p in paths]),
+            IO_REPS)[0] / len(IO_FORMATS)
+        print(f"{tag} (d) {mode}: launches {counts}; 8 studies from files equal bit for bit to "
+              f"the in-memory slices' run; files to results {e2e[mode]:.3f} ms a study "
+              f"(median of {IO_REPS} runs of 8, host work included) on {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches["horizontal"], "files_to_results_ms": e2e,
+            "decode_ms": decode_ms, "entropy_ms": entropy_ms, "slice_ms": slice_ms}
 
 
 # The ocr phase: report OCR with the shipped weights on the card, held to the
@@ -2662,6 +2927,8 @@ def main() -> int:
                              "seeds of PARITY_SEEDS.json)")
     parser.add_argument("--ocr-only", action="store_true",
                         help="run only the ocr phase (no kernel build, no kernels line)")
+    parser.add_argument("--io-only", action="store_true",
+                        help="run only the volume_io phase (no kernels line)")
     opts = parser.parse_args()
 
     try:
@@ -2706,6 +2973,9 @@ def main() -> int:
     if opts.ocr_only:
         phase("ocr", ocr_phase, device, card, opts.profile)
         return verdict()
+    if opts.io_only:
+        phase("volume_io", volume_io_phase, device, card)
+        return verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -2724,13 +2994,14 @@ def main() -> int:
     phase("mlp-mode kernels", mlp_kernel_phase, device, report)
     phase("whole-block backward kernel", block_train_kernel_phase, device, report)
     probe_counts, probe_rows = phase("probes", probe_phase, device)
-    paths = {"study_inference": None, **{p: None for p in TRAIN_PATHS},
+    paths = {"study_inference": None, "volume_io": None, **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
              "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
+        paths["volume_io"] = phase("volume_io", volume_io_phase, device, card)["launches"]
         for path, grad_mode in (("train_step", "hybrid"), ("train_step_dwconv", True),
                                 ("train_step_mlp", "mlp"), ("train_step_block", "block")):
             paths[path] = phase(path, train_phase, device, card, path,

@@ -38,6 +38,7 @@ from spine_vision_torch.data.levels import (
     SERIES_TYPE_TO_IDX,
 )
 from spine_vision_torch.data.stratification import _LABEL_TO_RECORD_KEY, split_patients
+from spine_vision_torch.native import resize_bilinear_u8
 
 logger = logging.getLogger("spine_vision_torch")
 
@@ -69,40 +70,6 @@ class PngStore(Mapping[str, np.ndarray]):
 
     def __len__(self) -> int:
         return len(self._keys)
-
-
-def resize_bilinear_u8(images: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """Batched bilinear resize of ``[N, H, W]`` (or ``[H, W]``) uint8 images.
-
-    The JAX package's host resize (``native/src/host_ops.cpp``,
-    ``resize_bilinear_u8_batch``) in numpy, f32 arithmetic in its order:
-    half-pixel source coordinates clamped to the edge, the two lerps, then
-    ``+ 0.5`` truncated."""
-    arr = np.ascontiguousarray(images, dtype=np.uint8)
-    squeeze = arr.ndim == 2
-    if squeeze:
-        arr = arr[None]
-    _, in_h, in_w = arr.shape
-    f32 = np.float32
-
-    def axis(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        scale = f32(n_in) / f32(n_out)
-        src = (np.arange(n_out, dtype=f32) + f32(0.5)) * scale - f32(0.5)
-        src = np.minimum(np.maximum(src, f32(0.0)), f32(n_in - 1))
-        i0 = src.astype(np.int64)
-        return i0, np.minimum(i0 + 1, n_in - 1), src - i0.astype(f32)
-
-    y0, y1, wy = axis(in_h, out_h)
-    x0, x1, wx = axis(in_w, out_w)
-    wy, wx = wy[None, :, None], wx[None, None, :]
-    a = arr[:, y0[:, None], x0[None, :]].astype(f32)
-    b = arr[:, y0[:, None], x1[None, :]].astype(f32)
-    c = arr[:, y1[:, None], x0[None, :]].astype(f32)
-    d = arr[:, y1[:, None], x1[None, :]].astype(f32)
-    top = a * (f32(1) - wx) + b * wx
-    bot = c * (f32(1) - wx) + d * wx
-    out = (top * (f32(1) - wy) + bot * wy + f32(0.5)).astype(np.uint8)
-    return out[0] if squeeze else out
 
 
 def _resize_rgb(img: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -13,10 +13,14 @@ tree ``{"params": ..., "batch_stats": ...}``) override them, and missing
 weights raise. Every class takes ``device="cuda"`` and raises without a card
 unless asked for the CPU.
 
-Files: PNG only (``data/png.py``, cv2's ``IMREAD_COLOR`` read). PDF, JPEG
-and other formats raise ``NotImplementedError`` naming ROADMAP Queue 1 item
-13, before any decode, so a missing decoder never reads as an empty page; a
-corrupt PNG gives a warning and ``[]``, as in the JAX package.
+Files: PNG pages (``data/png.py``, cv2's ``IMREAD_COLOR`` read). A PDF
+goes through ``io/pdf.py``, which raises ``ImportError`` (the port does not
+import PyMuPDF): ``extract_from_pdf*`` raise it, and ``extract`` or
+``extract_lines`` of a ``.pdf`` warn and return ``[]``, as the JAX package
+does without PyMuPDF. JPEG and other raster formats raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 13, before any decode,
+so a missing decoder never reads as an empty page; a corrupt PNG gives a
+warning and ``[]``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from spine_vision_torch.data.png import read_png
 from spine_vision_torch.device import resolve_device
+from spine_vision_torch.io.pdf import pdf_first_page_to_array
 from spine_vision_torch.models.convert import load_flax_variables, load_variables_npz
 from spine_vision_torch.models.textdet import TextDetectionNet, extract_boxes_from_probmap
 from spine_vision_torch.models.textrec import TextRecognitionNet, ctc_greedy_decode
@@ -192,9 +197,12 @@ class DocumentExtractor:
         patch_height: int = 32,
         patch_width: int = 256,
         weights_dir: Path = DEFAULT_WEIGHTS_DIR,
+        pdf_dpi: int = 200,
         device: str | torch.device = "cuda",
     ) -> None:
         self.device = resolve_device(device)
+        self.pdf_dpi = pdf_dpi
+        self._page_cache: tuple[tuple[str, int], np.ndarray | None] | None = None
         self.detector = detector or TextDetector(weights_dir=weights_dir, device=self.device)
         self.recognizer = recognizer or TextRecognizer(
             weights_dir=weights_dir, patch_height=patch_height, patch_width=patch_width,
@@ -270,21 +278,62 @@ class DocumentExtractor:
         return out
 
     def extract(self, path: Path) -> list[str]:
-        """OCR a PNG report. A corrupt or unreadable file returns [] with a
-        warning: one bad file must not abort a long preprocessing run."""
+        """OCR a report file (a PDF's first page, or a PNG). A corrupt or
+        unreadable file returns [] with a warning: one bad file must not
+        abort a long preprocessing run."""
         return [text for text, _ in self.extract_lines(path)]
 
     def extract_lines(self, path: Path) -> list[tuple[str, np.ndarray]]:
-        """OCR a PNG report into (text, quad) pairs (the file contract of
+        """OCR a report file into (text, quad) pairs (the file contract of
         :meth:`extract`)."""
         path = Path(path)
-        if path.suffix.lower() != ".png":
+        suffix = path.suffix.lower()
+        if suffix not in (".pdf", ".png"):
             raise NotImplementedError(
-                f"{path.name}: the port reads PNG reports only; PDF, JPEG and other "
-                "decoders wait for ROADMAP Queue 1 item 13"
+                f"{path.name}: the port decodes PNG report pages only; JPEG and other "
+                "raster formats wait for a decoder (ROADMAP Queue 1 item 13)"
             )
         try:
+            if suffix == ".pdf":
+                page = self._render_first_page(path, self.pdf_dpi)
+                return [] if page is None else self.extract_lines_from_image(page)
             return self.extract_lines_from_image(read_png(path, mode="color"))
         except Exception as exc:  # noqa: BLE001 — isolate bad files
             logger.warning("OCR failed for %s: %s", path, exc)
             return []
+
+    def _render_first_page(self, pdf_path: Path, dpi: int) -> np.ndarray | None:
+        """First PDF page at ``dpi``, memoized (size 1) so the crop fast
+        path and the full-page fallback do not rasterize the page twice."""
+        key = (str(Path(pdf_path).resolve()), dpi)
+        if self._page_cache is not None and self._page_cache[0] == key:
+            return self._page_cache[1]
+        page = pdf_first_page_to_array(pdf_path, dpi=dpi)
+        self._page_cache = (key, page)
+        return page
+
+    def extract_from_pdf(self, pdf_path: Path, dpi: int | None = None) -> list[str]:
+        """OCR the first page of a PDF."""
+        page = self._render_first_page(pdf_path, dpi or self.pdf_dpi)
+        if page is None:
+            return []
+        return self.extract_from_image(page)
+
+    def extract_from_pdf_crop(
+        self,
+        pdf_path: Path,
+        crop_region: tuple[int, int, int, int],
+        dpi: int | None = None,
+    ) -> list[str]:
+        """OCR a fixed pixel region of a PDF's first page. The region is in
+        200-DPI pixels and is rescaled when the page renders at another DPI."""
+        rendered_dpi = dpi or self.pdf_dpi
+        page = self._render_first_page(pdf_path, rendered_dpi)
+        if page is None:
+            return []
+        scale = rendered_dpi / 200.0
+        x1, y1, x2, y2 = (int(round(c * scale)) for c in crop_region)
+        region = page[y1:y2, x1:x2]
+        if region.size == 0:
+            return []
+        return self.extract_from_image(region)

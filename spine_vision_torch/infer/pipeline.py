@@ -18,6 +18,8 @@ Batches pad to a power of two of studies (dummy rows are 1x1 slices with
 spacing 1.0 whose results are dropped), as in the JAX package.
 ``StudyInferencePipeline.from_checkpoints`` builds both models from the
 trainers' run directories (``state.pt``, the model alone).
+``study_input_from_paths`` builds a study's input from its two series on
+disk (``io/series.py``).
 ``SeriesCropPipeline`` runs the localization and crop stages alone over a
 batch of series slices, for building classification sets; without a
 localization model it crops around fixed fallback centres.
@@ -105,6 +107,37 @@ class StudyInput:
     t1_spacing: tuple[float, float]  # (row, col) mm/px
     t2_spacing: tuple[float, float]
     study_id: str = ""
+
+
+def study_input_from_paths(
+    t1_path: Path, t2_path: Path, study_id: str = "", device: str | torch.device = "cuda"
+) -> StudyInput:
+    """A StudyInput from two series on disk (DICOM directory, .mha, .nii(.gz),
+    .nrrd): each series' 0.3 mm isotropic middle sagittal slice and its
+    spacing (``io/series.py``, the in-plane products on ``device``).
+    ``study_id`` defaults to the T2 path's stem.
+
+    The two series decode on two threads, as in the JAX package: the file
+    reads, inflation and C++ entropy decode overlap; the products queue on
+    the device either way. Both results are read, so the first error raises.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spine_vision_torch.io.series import prepare_series_slice
+
+    dev = resolve_device(device)
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        t1_future = pool.submit(prepare_series_slice, t1_path, device=dev)
+        t2_future = pool.submit(prepare_series_slice, t2_path, device=dev)
+        t1_slice, t1_spacing = t1_future.result()
+        t2_slice, t2_spacing = t2_future.result()
+    return StudyInput(
+        t1_slice=t1_slice,
+        t2_slice=t2_slice,
+        t1_spacing=t1_spacing,
+        t2_spacing=t2_spacing,
+        study_id=study_id or Path(t2_path).stem,
+    )
 
 
 @dataclass

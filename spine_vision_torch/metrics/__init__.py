@@ -19,6 +19,7 @@ from typing import Any
 
 import numpy as np
 
+from spine_vision_torch.core.registry import register_metrics
 from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, TaskConfig, get_task
 
 LEVEL_NAMES_DEFAULT = ["L1/L2", "L2/L3", "L3/L4", "L4/L5", "L5/S1"]
@@ -79,6 +80,7 @@ def _precision_recall_f1(tp: int, fp: int, fn: int) -> tuple[float, float, float
     return float(precision), float(recall), float(f1)
 
 
+@register_metrics("localization")
 class LocalizationMetrics:
     """MED / MAE / PCK over ``[N, 2]`` predictions and targets."""
 
@@ -122,6 +124,7 @@ class LocalizationMetrics:
         return metrics
 
 
+@register_metrics("classification")
 class ClassificationMetrics:
     """One multiclass task: accuracy, per-class P/R/F1, balanced accuracy and
     macro F1 over ``[N]`` class predictions (argmaxed when ``[N, C]``)."""
@@ -172,6 +175,7 @@ class ClassificationMetrics:
         return metrics
 
 
+@register_metrics("classifier")
 class ClassifierMetrics:
     """Every task's metrics and their aggregates, accumulated over batches of
     ``{task: logits}`` and ``{task: targets}``.

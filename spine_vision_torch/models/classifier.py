@@ -22,11 +22,13 @@ from spine_vision_torch.core.tasks import (
     get_strategy,
     get_tasks,
 )
+from spine_vision_torch.core.registry import register_model
 from spine_vision_torch.device import resolve_device
 from spine_vision_torch.models.backbone import create_backbone
 from spine_vision_torch.models.layers import Dense, LayerNorm
 
 
+@register_model("classifier")
 class Classifier(nn.Module):
     """backbone -> pooled features -> Dropout(p) -> one Dense per task ->
     ``{task: logits}``.
@@ -139,6 +141,7 @@ def dropout(
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+@register_model("coordinate_regressor")
 class CoordinateRegressor(nn.Module):
     """backbone -> LayerNorm -> Dropout(p) -> Dense(256) -> erf-GELU ->
     Dropout(p/2) -> Dense(L*2) -> sigmoid, giving ``[B, num_levels,

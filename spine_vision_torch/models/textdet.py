@@ -30,6 +30,7 @@ import torch
 from scipy import ndimage
 from torch import nn
 
+from spine_vision_torch.core.registry import register_model
 from spine_vision_torch.models.layers import Conv, FlaxBatchNorm, bf16_round
 
 # 4-connectivity (cv2's connectivity=4).
@@ -57,6 +58,7 @@ def _up(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return up[:, : like.shape[1], : like.shape[2]]
 
 
+@register_model("text_detection")
 class TextDetectionNet(nn.Module):
     """FCN text detector: ``[B, H, W, 1]`` f32 -> probability map
     ``[B, H/2, W/2, 1]`` f32.

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from spine_vision_torch.core.registry import register_model
 from spine_vision_torch.models.layers import (
     Conv,
     Dense,
@@ -79,6 +80,7 @@ def _gelu_tanh_bf16(x: torch.Tensor) -> torch.Tensor:
     return (x * (c[0.5] * (c[1.0] + torch.tanh(inner)))).float()
 
 
+@register_model("text_recognition")
 class TextRecognitionNet(nn.Module):
     """CRNN-style recognizer: ``[B, 32, W, 1]`` f32 -> CTC logits
     ``[B, W/4, charset_size()]`` f32.

@@ -1,0 +1,209 @@
+"""Host ops of the input path: the JPEG-Lossless entropy decoder in C++,
+and the image helpers in numpy.
+
+Counterpart of ``spine_vision_tpu/native/__init__.py``:
+
+- ``jpegls_unstuff_split`` and ``jpegls_decode_diffs`` call the C++ of
+  ``src/host_ops.cpp`` (a copy of the JAX package's JPEG functions) through
+  ctypes. It compiles with ``g++ -O3 -fopenmp -shared -fPIC`` at first use
+  into ``build/spine_vision_torch/libhost_ops-<hash>.so`` at the repository
+  root (the hash covers the source and the flags, so an edited source
+  rebuilds). A failed build raises, naming the compiler and its output:
+  there is no quiet Python fallback (``io/jpeg_lossless.py`` keeps the
+  Python decoder as the tests' plain version).
+- ``normalize_minmax_u8``, ``assemble_t2t1t2`` and ``resize_bilinear_u8``
+  are numpy with the C++ library's f32 arithmetic, so their bits equal the
+  JAX package's whenever its library is built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from spine_vision_torch.ops.cuda_build import BUILD_DIR
+
+SOURCE = Path(__file__).resolve().parent / "src" / "host_ops.cpp"
+CXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC", "-std=c++17")
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def library_path() -> Path:
+    """Where the library of this source and these flags is (or will be) built."""
+    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR / f"libhost_ops-{digest.hexdigest()[:12]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless it is built; return its path. Raises
+    ``RuntimeError`` with the compiler's output when the build fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH: it builds spine_vision_torch/native")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"g++ failed to build {SOURCE.name} ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The loaded library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            u8 = ctypes.POINTER(ctypes.c_uint8)
+            i64 = ctypes.c_int64
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            lib.jpegls_unstuff_split.argtypes = [u8, i64, u8, i64p, i64]
+            lib.jpegls_unstuff_split.restype = i64
+            lib.jpegls_decode_diffs.argtypes = [
+                u8, i64p, i64, ctypes.POINTER(ctypes.c_uint16), i64, i64, i64,
+                ctypes.POINTER(ctypes.c_int32),
+            ]
+            lib.jpegls_decode_diffs.restype = i64
+            _lib = lib
+        return _lib
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def jpegls_unstuff_split(entropy: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """0xFF00-unstuff a JPEG entropy segment and split it at RSTn markers.
+
+    Returns (data uint8 [n_unstuffed], offsets int64 [n_chunks + 1])."""
+    raw = np.frombuffer(entropy, dtype=np.uint8)
+    out = np.empty(max(1, raw.size), dtype=np.uint8)
+    max_chunks = raw.size // 2 + 3  # every RSTn takes two bytes
+    offsets = np.zeros(max_chunks + 1, dtype=np.int64)
+    n_chunks = load().jpegls_unstuff_split(
+        _ptr(raw, ctypes.c_uint8), raw.size, _ptr(out, ctypes.c_uint8),
+        _ptr(offsets, ctypes.c_int64), max_chunks,
+    )
+    return out[: offsets[n_chunks]], offsets[: n_chunks + 1]
+
+
+def jpegls_decode_diffs(
+    data: np.ndarray,
+    offsets: np.ndarray,
+    luts: list[np.ndarray],
+    counts_per_interval: int,
+    total: int,
+    ncomp: int,
+) -> np.ndarray:
+    """Entropy-decode every difference value, int32 ``[total, ncomp]`` in
+    MCU order, from ``jpegls_unstuff_split``'s chunks. ``luts`` holds each
+    component's 16-bit peek table, entry ``(code_length << 8) | ssss``;
+    ``counts_per_interval`` is the restart interval in MCUs (0: none).
+    Raises ``ValueError`` as the Python decoder does: an invalid Huffman
+    code, a restart interval whose padding is not 1s, a truncated scan."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    luts_arr = np.ascontiguousarray(np.stack(luts), dtype=np.uint16)
+    if luts_arr.shape != (ncomp, 1 << 16):
+        raise ValueError(f"expected {ncomp} tables of 65536 entries, got {luts_arr.shape}")
+    out = np.empty((total, ncomp), dtype=np.int32)
+    got = load().jpegls_decode_diffs(
+        _ptr(data, ctypes.c_uint8), _ptr(offsets, ctypes.c_int64), len(offsets) - 1,
+        _ptr(luts_arr, ctypes.c_uint16), ncomp, counts_per_interval, total,
+        _ptr(out, ctypes.c_int32),
+    )
+    if got == -2:
+        raise ValueError("Corrupt entropy tail")
+    if got < 0:
+        raise ValueError("Invalid Huffman code")
+    if got < total:
+        raise ValueError(f"Truncated scan: {got}/{total} samples")
+    return out
+
+
+def normalize_minmax_u8(array: np.ndarray) -> np.ndarray:
+    """Min-max normalise any array to uint8 in the C++ library's f32 steps:
+    ``inv = 255 / (hi - lo)`` in f32, then ``(x - lo) * inv`` truncated; a
+    constant array maps to 0."""
+    arr = np.ascontiguousarray(array, dtype=np.float32)
+    if arr.size == 0:
+        return np.zeros(arr.shape, dtype=np.uint8)
+    lo, hi = arr.min(), arr.max()
+    with np.errstate(over="ignore"):
+        span = hi - lo
+    if not span > 0:
+        return np.zeros(arr.shape, dtype=np.uint8)
+    inv = np.float32(255.0) / span
+    return ((arr - lo) * inv).astype(np.uint8)
+
+
+def assemble_t2t1t2(t1: np.ndarray | None, t2: np.ndarray | None) -> np.ndarray:
+    """[T2, T1, T2] channels ``[N, H, W, 3]`` from ``[N, H, W]`` uint8 pairs;
+    a missing series is replaced by the other."""
+    if t1 is None and t2 is None:
+        raise ValueError("At least one of t1/t2 must be given")
+    a = np.asarray(t2 if t2 is not None else t1, dtype=np.uint8)
+    b = np.asarray(t1 if t1 is not None else t2, dtype=np.uint8)
+    return np.stack([a, b, a], axis=-1)
+
+
+def resize_bilinear_u8(images: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Batched bilinear resize of ``[N, H, W]`` (or ``[H, W]``) uint8 images.
+
+    The C++ library's ``resize_bilinear_u8_batch`` in numpy, f32 arithmetic
+    in its order: half-pixel source coordinates clamped to the edge, the two
+    lerps, then ``+ 0.5`` truncated."""
+    arr = np.ascontiguousarray(images, dtype=np.uint8)
+    squeeze = arr.ndim == 2
+    if squeeze:
+        arr = arr[None]
+    _, in_h, in_w = arr.shape
+    f32 = np.float32
+
+    def axis(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        scale = f32(n_in) / f32(n_out)
+        src = (np.arange(n_out, dtype=f32) + f32(0.5)) * scale - f32(0.5)
+        src = np.minimum(np.maximum(src, f32(0.0)), f32(n_in - 1))
+        i0 = src.astype(np.int64)
+        return i0, np.minimum(i0 + 1, n_in - 1), src - i0.astype(f32)
+
+    y0, y1, wy = axis(in_h, out_h)
+    x0, x1, wx = axis(in_w, out_w)
+    wy, wx = wy[None, :, None], wx[None, None, :]
+    a = arr[:, y0[:, None], x0[None, :]].astype(f32)
+    b = arr[:, y0[:, None], x1[None, :]].astype(f32)
+    c = arr[:, y1[:, None], x0[None, :]].astype(f32)
+    d = arr[:, y1[:, None], x1[None, :]].astype(f32)
+    top = a * (f32(1) - wx) + b * wx
+    bot = c * (f32(1) - wx) + d * wx
+    out = (top * (f32(1) - wy) + bot * wy + f32(0.5)).astype(np.uint8)
+    return out[0] if squeeze else out
+
+
+__all__ = [
+    "assemble_t2t1t2",
+    "build",
+    "jpegls_decode_diffs",
+    "jpegls_unstuff_split",
+    "load",
+    "normalize_minmax_u8",
+    "resize_bilinear_u8",
+]

@@ -27,6 +27,7 @@ from typing import Any, Callable
 
 import torch
 
+from spine_vision_torch.core.registry import register_trainer
 from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, TaskConfig, get_task
 from spine_vision_torch.data.datasets import ClassificationDataset
 from spine_vision_torch.data.loader import (
@@ -125,6 +126,7 @@ class ClassificationConfig(TrainingConfig):
     max_samples_per_cell: int = 4
 
 
+@register_trainer("classification", config_cls=ClassificationConfig)
 class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
     """Trainer for multi-task lumbar-spine classification."""
 

@@ -27,6 +27,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from spine_vision_torch.core.registry import register_trainer
 from spine_vision_torch.data.datasets import LocalizationDataset
 from spine_vision_torch.data.levels import IDX_TO_LEVEL, NUM_LEVELS
 from spine_vision_torch.data.loader import collate_localization
@@ -93,6 +94,7 @@ def resolve_use_pallas(use_pallas_mlp: bool | None, use_pallas_dwconv: bool) -> 
     return "mlp" if use_pallas_mlp else False
 
 
+@register_trainer("localization", config_cls=LocalizationConfig)
 class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
     """Trainer for IVD localization with coordinate regression."""
 

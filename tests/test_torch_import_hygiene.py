@@ -2,7 +2,8 @@
 
 - No module of ``spine_vision_torch`` (nor ``chip_smoke.py``) imports JAX,
   Flax, optax or the JAX package; the port imports and runs without them.
-  Nor cv2, PIL, rapidfuzz or PyMuPDF: the port runs where none is installed.
+  Nor cv2, PIL, rapidfuzz, PyMuPDF, pandas, pydantic, tqdm or openpyxl: the
+  port runs where none is installed.
 - Entry points run on the card by default and raise when there is none,
   instead of carrying on quietly on the CPU.
 """
@@ -20,7 +21,7 @@ from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "spine_vision_tpu", "cv2", "PIL",
-             "rapidfuzz", "fitz", "pymupdf")
+             "rapidfuzz", "fitz", "pymupdf", "pandas", "pydantic", "tqdm", "openpyxl")
 SOURCES = sorted((ROOT / "spine_vision_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -47,6 +48,8 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.data.png, spine_vision_torch.data.cache\n"
         "import spine_vision_torch.train.classification, spine_vision_torch.utils.profiling\n"
         "import spine_vision_torch.data.phenikaa.ocr, spine_vision_torch.utils.ocr_parity\n"
+        "import spine_vision_torch.io, spine_vision_torch.io.series, spine_vision_torch.native\n"
+        "import spine_vision_torch.ops.resample, spine_vision_torch.core.registry\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )

@@ -863,3 +863,49 @@ def test_ocr_nets_on_the_card_match_the_cpu(cuda):
     want = cpu.recognizer.logits(patches.cpu())
     gap = np.abs(got - want) / np.abs(want).max()
     assert np.median(gap) <= 1e-3 and gap.max() <= 2e-2, (np.median(gap), gap.max())
+
+
+def test_middle_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The isotropic middle slice (``io/series.py``: the hat-matrix products
+    on the card, TF32 off for the call) against the same call on the CPU, on
+    clinical sagittal series (17 slices of 512^2 at 0.59375 mm, 4 mm apart,
+    one 5 degree oblique): within 4 f32 ulps of max |slice| (two nonzero
+    terms a sum, whose order and fusion cuBLAS and the CPU choose apart),
+    with TF32 left on by the caller; and ``study_input_from_paths`` from
+    files the same. The fast slice against the whole-volume resample on the
+    card within the JAX test's ``rtol=1e-4, atol=1e-2``."""
+    from dataclasses import replace
+
+    from spine_vision_torch import io as tio
+    from spine_vision_torch.infer.pipeline import study_input_from_paths
+    from spine_vision_torch.ops.resample import resample_to_isotropic
+
+    rng = np.random.default_rng(0)
+    sagittal = np.array([[0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    t = np.deg2rad(5.0)
+    tilt = np.array([[np.cos(t), -np.sin(t), 0], [np.sin(t), np.cos(t), 0], [0, 0, 1.0]])
+    eps = float(np.finfo(np.float32).eps)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for k, direction in enumerate((sagittal, tilt @ sagittal)):
+            vol = rng.normal(800, 200, (17, 512, 512)).clip(0, 4000).astype(np.int16)
+            image = tio.MedicalImage(array=vol, spacing=(0.59375, 0.59375, 4.0),
+                                     direction=direction)
+            got, _ = tio.extract_isotropic_middle_slice(image, device=cuda)
+            want, _ = tio.extract_isotropic_middle_slice(image, device="cpu")
+            assert got.shape == want.shape == (1013, 1013)
+            assert np.abs(got - want).max() <= 4 * eps * np.abs(want).max()
+            tio.write_medical_image(image, tmp_path / f"t{k}.nii.gz")
+        study = study_input_from_paths(tmp_path / "t0.nii.gz", tmp_path / "t1.nii.gz",
+                                       device=cuda)
+        cpu = study_input_from_paths(tmp_path / "t0.nii.gz", tmp_path / "t1.nii.gz",
+                                     device="cpu")
+        for a, b in ((study.t1_slice, cpu.t1_slice), (study.t2_slice, cpu.t2_slice)):
+            assert np.abs(a - b).max() <= 4 * eps * np.abs(b).max()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    resampled, new = resample_to_isotropic(image.array, image.spacing_zyx, device=cuda)
+    assert resampled.device.type == "cuda" and resampled.shape == (227, 1013, 1013)
+    iso = replace(image, array=resampled.cpu().numpy(), spacing=new[::-1])
+    np.testing.assert_allclose(got, iso.extract_middle_slice(), rtol=1e-4, atol=1e-2)

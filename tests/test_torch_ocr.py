@@ -66,12 +66,23 @@ def test_report_files(extractor, tmp_path, caplog):
     lines = extractor.extract_lines(path)
     assert extractor.extract(path) == [t for t, _ in lines]
     assert all(q.shape == (4, 2) for _, q in lines)
-    # A missing decoder raises before any read: never an empty page.
-    for name in ("report.pdf", "report.PDF", "scan.jpg", "scan.jpeg", "scan.tif"):
+    # A missing raster decoder raises before any read: never an empty page.
+    for name in ("scan.jpg", "scan.jpeg", "scan.tif"):
         with pytest.raises(NotImplementedError, match="item 13"):
             extractor.extract(tmp_path / name)
         with pytest.raises(NotImplementedError, match="item 13"):
             extractor.extract_lines(tmp_path / name)
+    # A PDF without PyMuPDF warns and gives no lines, as in the JAX package;
+    # its explicit entry points raise the ImportError.
+    for name in ("report.pdf", "report.PDF"):
+        with caplog.at_level(logging.WARNING, logger="spine_vision_torch"):
+            assert extractor.extract(tmp_path / name) == []
+            assert extractor.extract_lines(tmp_path / name) == []
+        assert "PyMuPDF" in caplog.text
+    with pytest.raises(ImportError, match="PyMuPDF"):
+        extractor.extract_from_pdf(tmp_path / "report.pdf")
+    with pytest.raises(ImportError, match="PyMuPDF"):
+        extractor.extract_from_pdf_crop(tmp_path / "report.pdf", (0, 0, 10, 10))
     bad = tmp_path / "corrupt.png"
     bad.write_bytes(b"\x89PNG\r\n\x1a\n" + b"\x00" * 40)
     with caplog.at_level(logging.WARNING, logger="spine_vision_torch"):

@@ -3,7 +3,8 @@
 Tiny pipeline shape (loc 64^2, crop 32, padded 128), a ConvNeXt-tiny
 localization model (JAX side with both Pallas kernels, interpret mode) and a
 ResNet-18 grading model, f32, the same seeded weights in both, in both crop
-modes; and bucketing of a 3-study request.
+modes; bucketing of a 3-study request; and the same graph fed from volume
+files through ``study_input_from_paths``.
 """
 
 import jax.numpy as jnp
@@ -113,3 +114,58 @@ def test_oversized_slice_is_rejected(models):
     )
     with pytest.raises(ValueError, match="padded_hw"):
         port.run([study])
+
+
+def test_study_results_from_volume_files_match_jax(tmp_path):
+    """The slice as a whole: volume files (a DICOM series, ``.nii.gz``,
+    ``.mha``, ``.nrrd``; one study 5 degrees oblique) ->
+    ``study_input_from_paths`` -> ``StudyInferencePipeline`` at its default
+    crop mode, the port on the CPU against the JAX package on the same files
+    with the same Flax variables, within this file's tolerances. ResNet-18
+    localization and grading keep the JAX compile short; the tests above
+    hold the ConvNeXt kernels' path and both crop modes."""
+    from spine_vision_torch import io as tio
+    from spine_vision_tpu.infer import study_input_from_paths
+
+    rng = np.random.default_rng(11)
+    sagittal = np.array([[0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])
+    t = np.deg2rad(5.0)
+    tilt = np.array([[np.cos(t), -np.sin(t), 0.0], [np.sin(t), np.cos(t), 0.0], [0, 0, 1.0]])
+    files = []
+    for name, formats, direction in (("s0", ("", ".nii.gz"), sagittal),
+                                     ("s1", (".mha", ".nrrd"), tilt @ sagittal)):
+        pair = []
+        for series, suffix in zip(("t1", "t2"), formats):
+            vol = rng.normal(300, 80, (5, 20, 24)).clip(0, 4000).astype(np.int16)
+            path = tmp_path / f"{name}_{series}{suffix}"
+            tio.write_medical_image(tio.MedicalImage(
+                array=vol, spacing=(1.2, 1.5, 4.0), origin=(-20.0, 5.0, 30.0),
+                direction=direction), path)
+            pair.append(path)
+        files.append(pair)
+    loc = tcls.CoordinateRegressor("resnet18", dtype=torch.float32, device="cpu")
+    cls = tcls.Classifier("resnet18", dtype=torch.float32, device="cpu")
+    trees = []
+    for model, seed in ((loc, 0), (cls, 1)):
+        params, stats = random_flax_variables(model, seed)
+        load_flax_variables(model, params, stats)
+        trees.append({"params": params, **({"batch_stats": stats} if stats else {})})
+    port = tpipe.StudyInferencePipeline(
+        loc, cls, config=tpipe.StudyPipelineConfig(**_CONFIG), device="cpu")
+    ref = StudyInferencePipeline(
+        CoordinateRegressor(backbone_name="resnet18", dtype=jnp.float32), trees[0],
+        Classifier(backbone_name="resnet18", dtype=jnp.float32), trees[1],
+        config=StudyPipelineConfig(**_CONFIG))
+    got = port.run([tpipe.study_input_from_paths(a, b, device="cpu") for a, b in files])
+    want = ref.run([study_input_from_paths(a, b) for a, b in files])
+    assert [g.study_id for g in got] == [w.study_id for w in want] == ["s0_t2.nii", "s1_t2"]
+    assert got[0].crops.shape == (2, 5, 32, 32)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.coords, w.coords, atol=1e-4)
+        np.testing.assert_allclose(g.angles, w.angles, atol=1e-2)
+        diff = np.abs(g.crops.astype(int) - w.crops.astype(int))
+        assert diff.max() <= 1 and np.mean(diff > 0) <= 0.01
+        for k in w.logits:
+            np.testing.assert_allclose(g.logits[k], w.logits[k], atol=5e-3, err_msg=k)
+            np.testing.assert_allclose(g.probabilities[k], w.probabilities[k], atol=5e-3)
+            np.testing.assert_array_equal(g.predictions[k], w.predictions[k])

@@ -12,6 +12,8 @@ largest within 2e-2 (a value on the other side of a bf16 rounding step
 moves its neighbourhood). The decode and the charset equal.
 """
 
+from pathlib import Path
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -92,3 +94,30 @@ def test_ctc_greedy_decode_matches_jax():
     assert tr.VIETNAMESE_CHARSET == jr.VIETNAMESE_CHARSET
     assert tr.charset_size() == jr.charset_size() == 218
     assert tr.ctc_greedy_decode(logits) == jr.ctc_greedy_decode(logits)
+
+
+def test_shipped_recognizer_full_width_logits_match_jax():
+    """The shipped recognizer at its full width on the rectified boxes of
+    two record pages (JAX's quads from ``tests/fixtures/torch_ocr``), the
+    port against ``jax.jit(TextRecognitionNet().apply)`` with the shipped
+    variables: the card test's bounds (median 1e-3 of max |logit|, max
+    2e-2), which at full width the attention's spread of bf16 rounding
+    steps needs, on the CPU as on the card."""
+    from spine_vision_torch.data.phenikaa.ocr import DocumentExtractor
+    from spine_vision_torch.utils.ocr_parity import load_record
+    from spine_vision_tpu.train.ocr import DEFAULT_WEIGHTS_DIR, load_variables_npz
+
+    fixtures = Path(__file__).resolve().parent / "fixtures" / "torch_ocr"
+    pages = load_record(fixtures, ["bench_00.png", "report_clean.png"])
+    extractor = DocumentExtractor(device="cpu")
+    quads = [np.asarray(p.jax["quads"], np.float32).reshape(-1, 4, 2) for p in pages]
+    patches = extractor.rectify_pages([p.image for p in pages], quads).numpy()
+    assert patches.shape[0] == sum(len(q) for q in quads) > 10
+    got = extractor.recognizer.logits(patches)
+    variables = load_variables_npz(DEFAULT_WEIGHTS_DIR / "ocr_recognizer.npz")
+    net = jr.TextRecognitionNet()
+    want = np.asarray(jax.jit(lambda v, x: net.apply(v, x, train=False))(
+        variables, jnp.asarray(patches / 255.0)[..., None]))
+    assert got.shape == want.shape == (patches.shape[0], 64, tr.charset_size())
+    gap = np.abs(got - want) / np.abs(want).max()
+    assert np.median(gap) <= 1e-3 and gap.max() <= 2e-2, (np.median(gap), gap.max())
