@@ -7,6 +7,8 @@
     python3 chip_smoke.py --parity-only --parity-seeds 0 1 2 3   # the parity band
     python3 chip_smoke.py --ocr-only [--profile]   # report OCR alone
     python3 chip_smoke.py --io-only    # study inference from volume files alone
+    python3 chip_smoke.py --serve-only [--profile]   # the directory server alone
+    python3 chip_smoke.py --build-only # the dataset builders alone
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -135,6 +137,20 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    to a run on the in-memory volumes' slices; decode, entropy-decode, slice
    and files-to-results times. Not run with ``--kernels-only`` or
    ``--parity-only``.
+14. The directory server (``serve``, after phase 13 on its files, also alone
+   with ``--serve-only``; see ``serve_phase``): 32 requests and a malformed
+   one through ``serve_directory``, each result equal to ``run`` on the same
+   batch, then two server threads on one pipeline serving each request
+   once; ms a study from the first claim to the last result.
+15. The dataset builders (``builders``, after phase 14, also alone with
+   ``--build-only``; see ``builders_phase``): the classification builder
+   over SPIDER and Phenikaa trees of phase 13's series with a ConvNeXt-base
+   checkpoint (crops equal to ``SeriesCropPipeline.run``, resume writes
+   nothing), the localization builder over RSNA-like DICOM and pretrain
+   sources, ``preprocess_phenikaa`` with the shipped OCR weights on the two
+   fixture report pages; series and crops a second, each builder's wall
+   time. Phases 14 and 15 launch #1 and #2 as the study graph does, a
+   forward; the ``kernels`` line reports them a forward.
 
 Each phase prints its wall time.
 
@@ -2584,59 +2600,13 @@ def _write_io_study(root: Path, k: int, fmt: str, pair: dict) -> dict:
     return paths
 
 
-def _same_results(got, want) -> bool:
+def _io_files(tag: str) -> tuple[list, list]:
+    """Write the volume_io phase's 8 studies under ``RUN_DIR/volume_io``;
+    return their in-memory images and their paths."""
     import numpy as np
-
-    return all(
-        np.array_equal(g.coords, w.coords) and np.array_equal(g.angles, w.angles)
-        and np.array_equal(g.crops, w.crops)
-        and all(np.array_equal(g.logits[k], w.logits[k]) for k in w.logits)
-        and all(np.array_equal(g.probabilities[k], w.probabilities[k]) for k in w.logits)
-        for g, w in zip(got, want, strict=True))
-
-
-def volume_io_phase(device, card: str) -> dict:
-    """Study inference from volume files (``--io-only`` runs it alone).
-
-    Eight studies of seeded int16 T1 and T2 series (17 sagittal slices of
-    512^2, ``IO_SPACING``, study ``IO_OBLIQUE`` tilted 5 degrees), written by
-    the port's writers: studies 0-2 uncompressed DICOM directories, 3 a JPEG
-    Lossless SV1 DICOM directory, 4-5 ``.nii.gz``, 6 ``.mha``, 7 ``.nrrd``.
-    Checks: (a) every series reads back bit for bit with its geometry;
-    (b) ``study_input_from_paths(device="cuda")`` gives each study's slices
-    equal to ``extract_isotropic_middle_slice(device="cpu")`` of the
-    in-memory volumes (bit for bit, else within ``IO_ULPS`` f32 ulps of max
-    |slice|, printed); (c) one study's fast slice on the card against the
-    whole-volume ``resample_to_isotropic`` on the card, ``orient("LPI")`` and
-    the middle slice, within ``rtol=1e-4, atol=1e-2``; (d)
-    ``StudyInferencePipeline.run`` (ConvNeXt-base 512^2 and ResNet-18 256^2,
-    bf16, seeded Flax trees) on the 8 studies from files in both crop modes:
-    the study phase's launch counts, and results equal bit for bit to a run
-    on the slices of the in-memory volumes on the card. Prints, with the
-    card's name and power limit, each format's decode ms a series, the C++
-    entropy decode ms a slice, the card's middle-slice ms,
-    ``study_input_from_paths`` ms a study, and files-to-results ms a study
-    in each crop mode (host work included)."""
-    from dataclasses import replace
-
-    import numpy as np
-    import torch
 
     from spine_vision_torch import io as tio
-    from spine_vision_torch import native
-    from spine_vision_torch.core.tasks import get_tasks
-    from spine_vision_torch.infer.pipeline import (
-        StudyInferencePipeline,
-        StudyInput,
-        StudyPipelineConfig,
-        study_input_from_paths,
-    )
-    from spine_vision_torch.io import jpeg_lossless as jl
-    from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
-    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
-    from spine_vision_torch.ops.resample import resample_to_isotropic
 
-    tag = "[volume_io]"
     root = RUN_DIR / "volume_io"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -2657,6 +2627,79 @@ def volume_io_phase(device, card: str) -> dict:
     print(f"{tag} wrote {len(IO_FORMATS)} studies x (T1, T2) of {IO_SHAPE} int16 in "
           f"{write_s:.2f} s; study 3's JPEG Lossless DICOM (encode included, left out of the "
           f"timed figures) in {encode_s:.2f} s")
+    return images, paths
+
+
+def _study_models(device) -> tuple:
+    """The study phase's graph: ConvNeXt-base localization and ResNet-18
+    grading in bf16 from seeded Flax-layout trees (seeds 0 and 1)."""
+    import torch
+
+    from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+
+    loc = CoordinateRegressor("convnext_base", dtype=torch.bfloat16, device=device)
+    cls = Classifier("resnet18", dtype=torch.bfloat16, device=device)
+    for model, seed in ((loc, 0), (cls, 1)):
+        params, stats = random_flax_variables(model, seed)
+        load_flax_variables(model, params, stats)
+    return loc, cls
+
+
+def _same_results(got, want) -> bool:
+    import numpy as np
+
+    return all(
+        np.array_equal(g.coords, w.coords) and np.array_equal(g.angles, w.angles)
+        and np.array_equal(g.crops, w.crops)
+        and all(np.array_equal(g.logits[k], w.logits[k]) for k in w.logits)
+        and all(np.array_equal(g.probabilities[k], w.probabilities[k]) for k in w.logits)
+        for g, w in zip(got, want, strict=True))
+
+
+def volume_io_phase(device, card: str, keep_files: bool = False) -> dict:
+    """Study inference from volume files (``--io-only`` runs it alone).
+
+    Eight studies of seeded int16 T1 and T2 series (17 sagittal slices of
+    512^2, ``IO_SPACING``, study ``IO_OBLIQUE`` tilted 5 degrees), written by
+    the port's writers: studies 0-2 uncompressed DICOM directories, 3 a JPEG
+    Lossless SV1 DICOM directory, 4-5 ``.nii.gz``, 6 ``.mha``, 7 ``.nrrd``.
+    Checks: (a) every series reads back bit for bit with its geometry;
+    (b) ``study_input_from_paths(device="cuda")`` gives each study's slices
+    equal to ``extract_isotropic_middle_slice(device="cpu")`` of the
+    in-memory volumes (bit for bit, else within ``IO_ULPS`` f32 ulps of max
+    |slice|, printed); (c) one study's fast slice on the card against the
+    whole-volume ``resample_to_isotropic`` on the card, ``orient("LPI")`` and
+    the middle slice, within ``rtol=1e-4, atol=1e-2``; (d)
+    ``StudyInferencePipeline.run`` (ConvNeXt-base 512^2 and ResNet-18 256^2,
+    bf16, seeded Flax trees) on the 8 studies from files in both crop modes:
+    the study phase's launch counts, and results equal bit for bit to a run
+    on the slices of the in-memory volumes on the card. Prints, with the
+    card's name and power limit, each format's decode ms a series, the C++
+    entropy decode ms a slice, the card's middle-slice ms,
+    ``study_input_from_paths`` ms a study, and files-to-results ms a study
+    in each crop mode (host work included). With ``keep_files``, the files
+    stay for the ``serve`` and ``builders`` phases, which the result names
+    (``images``, ``paths``) with the graph's two models (``models``)."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from spine_vision_torch import io as tio
+    from spine_vision_torch import native
+    from spine_vision_torch.core.tasks import get_tasks
+    from spine_vision_torch.infer.pipeline import (
+        StudyInferencePipeline,
+        StudyInput,
+        StudyPipelineConfig,
+        study_input_from_paths,
+    )
+    from spine_vision_torch.io import jpeg_lossless as jl
+    from spine_vision_torch.ops.resample import resample_to_isotropic
+
+    tag = "[volume_io]"
+    images, paths = _io_files(tag)
 
     # (a) Every series reads back as written.
     worst_geometry = 0.0
@@ -2737,11 +2780,7 @@ def volume_io_phase(device, card: str) -> dict:
     del volume, iso
 
     # (d) The study graph on the studies from files, both crop modes.
-    loc = CoordinateRegressor("convnext_base", dtype=torch.bfloat16, device=device)
-    cls = Classifier("resnet18", dtype=torch.bfloat16, device=device)
-    for model, seed in ((loc, 0), (cls, 1)):
-        params, stats = random_flax_variables(model, seed)
-        load_flax_variables(model, params, stats)
+    loc, cls = _study_models(device)
     tasks = get_tasks()
     memory_inputs = [
         StudyInput(
@@ -2773,9 +2812,583 @@ def volume_io_phase(device, card: str) -> dict:
         print(f"{tag} (d) {mode}: launches {counts}; 8 studies from files equal bit for bit to "
               f"the in-memory slices' run; files to results {e2e[mode]:.3f} ms a study "
               f"(median of {IO_REPS} runs of 8, host work included) on {card}")
-    shutil.rmtree(root, ignore_errors=True)
+    if not keep_files:
+        shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
     return {"launches": launches["horizontal"], "files_to_results_ms": e2e,
-            "decode_ms": decode_ms, "entropy_ms": entropy_ms, "slice_ms": slice_ms}
+            "decode_ms": decode_ms, "entropy_ms": entropy_ms, "slice_ms": slice_ms,
+            "images": images, "paths": paths, "models": (loc, cls)}
+
+
+# The serve phase: the directory server over the study graph, on volume_io's
+# files (``infer/serve.py``).
+SERVE_REPEATS = 4  # each of the 8 studies requested 4 times: 32 requests
+SERVE_BATCH = 8
+
+
+class _RecordingPipeline:
+    """A study pipeline whose ``run`` also records each batch's study ids,
+    so that the results can be held to ``run`` on the same batches."""
+
+    def __init__(self, pipe) -> None:
+        self.pipe, self.batches = pipe, []
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+    def run(self, studies, fetch_crops: bool = True):
+        self.batches.append([s.study_id for s in studies])
+        return self.pipe.run(studies, fetch_crops=fetch_crops)
+
+
+def _serve_requests(watch: Path, paths: list) -> dict:
+    """Write the 32 requests (each study under ``SERVE_REPEATS`` new ids)
+    and, last, a malformed one; return {study id: series paths}."""
+    watch.mkdir(parents=True)
+    specs = {}
+    for j in range(SERVE_REPEATS):
+        for k, pair in enumerate(paths):
+            sid = f"study{k}_r{j}"
+            specs[sid] = pair
+            (watch / f"{sid}.json").write_text(json.dumps(
+                {"study_id": sid, "t1": str(pair["t1"]), "t2": str(pair["t2"])}))
+    (watch / "malformed.json").write_text(json.dumps({"t1": str(paths[0]["t1"])}))
+    return specs
+
+
+def _serve_outcome(tag: str, watch: Path, specs: dict, stats: list, batches: list) -> None:
+    """Every request served once (done/), the malformed one in failed/ with
+    its error text, nothing left claimed."""
+    processed = sum(s.processed for s in stats)
+    served = sorted(sid for s in stats for sid in s.study_ids)
+    batched = sorted(sid for b in batches for sid in b)
+    if processed != len(specs) or served != sorted(specs) or batched != served:
+        raise AssertionError(f"{tag} served {processed}: {served} (batches {batches})")
+    if sum(s.failed for s in stats) != 1 or sum(s.batches for s in stats) != len(batches):
+        raise AssertionError(f"{tag} failed {[s.failed for s in stats]}, batches "
+                             f"{[s.batches for s in stats]} against {len(batches)} recorded")
+    done = sorted(p.stem for p in (watch / "done").iterdir())
+    error = (watch / "failed" / "malformed.error.txt").read_text()
+    if done != sorted(specs) or "must carry 't1' and 't2'" not in error:
+        raise AssertionError(f"{tag} done/ {done}; the malformed request's error: {error!r}")
+    left = list(watch.glob("*.json")) + list((watch / "inflight").iterdir())
+    if not (watch / "failed" / "malformed.json").exists() or left:
+        raise AssertionError(f"{tag} requests left in the watch or inflight directory")
+
+
+def serve_phase(device, card: str, profile: bool = False, io: dict | None = None) -> dict:
+    """The directory server (``--serve-only`` runs it alone).
+
+    ``volume_io``'s 8 studies of 17x512^2 int16 files (written anew when run
+    alone) and the study phase's weights, horizontal crops: 32 requests
+    (each study 4 times under new ids) and a malformed one. (a) One
+    ``serve_directory(max_batch=8, once=True)``: every request served once,
+    the malformed one in ``failed/`` with its error file, the study phase's
+    launch counts a forward, ms a study from the first claim to the last
+    result (with ``--profile``, a traced repeat gives the device's busy
+    share);
+    (b) every result JSON equal to ``run(..., fetch_crops=False)`` of
+    ``study_input_from_paths`` of the same files in the same batches; (c)
+    two server threads on the one pipeline over the same 32 requests: each
+    served exactly once, none re-queued, every result equal to the
+    one-server run's, or, where the two runs padded the study's batch to
+    another size, to ``run`` on its two-server batch (both counted, and the
+    latter's gaps to the one-server run printed)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.infer import serve as tserve
+    from spine_vision_torch.infer.pipeline import StudyInferencePipeline, study_input_from_paths
+
+    tag = "[serve]"
+    if io is None:
+        _, paths = _io_files(tag)
+        loc, cls = _study_models(device)
+    else:
+        paths, (loc, cls) = io["paths"], io["models"]
+    root = RUN_DIR / "serve"
+    shutil.rmtree(root, ignore_errors=True)
+    pipe = StudyInferencePipeline(loc, cls, device=device)
+    pipe.run([study_input_from_paths(p["t1"], p["t2"], device=device) for p in paths],
+             fetch_crops=False)  # warm the graph at the serve batch
+
+    def reference(batch: list, specs: dict) -> dict:
+        studies = [study_input_from_paths(specs[sid]["t1"], specs[sid]["t2"], study_id=sid,
+                                          device=device) for sid in batch]
+        return {r.study_id: json.dumps(tserve._result_payload(r), indent=2)
+                for r in pipe.run(studies, fetch_crops=False)}
+
+    # (a) One server.
+    watch, out = root / "one" / "requests", root / "one" / "results"
+    specs = _serve_requests(watch, paths)
+    rec = _RecordingPipeline(pipe)
+    _zero_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    stats = tserve.serve_directory(rec, watch, out, max_batch=SERVE_BATCH, once=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = _counts()
+    _serve_outcome(f"{tag} (a)", watch, specs, [stats], rec.batches)
+    per_forward = {k: v // stats.batches for k, v in counts.items()}
+    if per_forward != INFERENCE_LAUNCHES or any(v % stats.batches for v in counts.values()):
+        raise AssertionError(f"{tag} {stats.batches} forwards launched {counts}; expected "
+                             f"{INFERENCE_LAUNCHES} a forward")
+    ms_study = wall * 1e3 / len(specs)
+    print(f"{tag} (a) one server: {len(specs)} requests and a malformed one in "
+          f"{stats.batches} batches {[len(b) for b in rec.batches]}, {ms_study:.3f} ms a study "
+          f"from the first claim to the last result ({wall:.3f} s); launches "
+          f"{ {k: v for k, v in per_forward.items() if v} } a forward on {card}")
+    if profile:
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        traced = root / "traced" / "requests"
+        _serve_requests(traced, paths)
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            tserve.serve_directory(pipe, traced, traced.parent / "results",
+                                   max_batch=SERVE_BATCH, once=True)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - start
+        busy = sum(_dev_us(e) for e in _device_events(prof)) / 1e6
+        print(f"{tag} (a) profile: the same run traced, {traced_s * 1e3 / len(specs):.3f} ms a "
+              f"study ({traced_s:.3f} s); device busy {busy * 1e3:.3f} ms, "
+              f"{busy / traced_s:.1%} of the traced window, {busy / wall:.1%} of the untraced "
+              f"one ({card})")
+        for e in sorted(_device_events(prof), key=_dev_us, reverse=True)[:8]:
+            print(f"{tag} profile: {_dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+    # (b) Each result is run's on the same files in the same batch.
+    one = {sid: (out / f"{sid}.json").read_text() for sid in specs}
+    for batch in rec.batches:
+        for sid, text in reference(batch, specs).items():
+            if one[sid] != text:
+                raise AssertionError(f"{tag} (b) {sid}: the served result is not run's")
+    print(f"{tag} (b) {len(specs)} result JSONs equal run(..., fetch_crops=False) of the same "
+          "files in the same batches bit for bit")
+
+    # (c) Two servers on the one pipeline and one watch directory.
+    watch, out = root / "two" / "requests", root / "two" / "results"
+    _serve_requests(watch, paths)
+    recs = [_RecordingPipeline(pipe) for _ in range(2)]
+    results: list = [None, None]
+    errors: list = []
+
+    def server(i: int) -> None:
+        try:
+            results[i] = tserve.serve_directory(recs[i], watch, out, max_batch=SERVE_BATCH,
+                                                once=True)
+        except Exception as exc:  # noqa: BLE001 -- raised below
+            errors.append(exc)
+
+    with _LogRecords() as logs:
+        threads = [threading.Thread(target=server, args=(i,)) for i in range(2)]
+        start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall2 = time.perf_counter() - start
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"{tag} (c) servers failed: {errors}")
+    requeued = [m for m in logs.messages if "Re-queueing" in m]
+    if requeued:
+        raise AssertionError(f"{tag} (c) re-queued: {requeued}")
+    _serve_outcome(f"{tag} (c)", watch, specs, results, recs[0].batches + recs[1].batches)
+    bucket = {sid: 1 << (len(b) - 1).bit_length() for b in rec.batches for sid in b}
+    same, rebatched, coord_gap, probability_gap, predictions_equal = 0, 0, 0.0, 0.0, True
+    for r in recs:
+        for batch in r.batches:
+            want = reference(batch, specs) if any(
+                bucket[sid] != 1 << (len(batch) - 1).bit_length() for sid in batch) else {}
+            for sid in batch:
+                text = (out / f"{sid}.json").read_text()
+                if text == one[sid]:
+                    same += 1
+                elif sid in want and text == want[sid]:
+                    rebatched += 1
+                    got, first = json.loads(text), json.loads(one[sid])
+                    coord_gap = max(coord_gap, float(np.abs(
+                        np.asarray(got["coords"]) - np.asarray(first["coords"])).max()))
+                    probability_gap = max(probability_gap, max(float(np.abs(
+                        np.asarray(got["probabilities"][k])
+                        - np.asarray(first["probabilities"][k])).max())
+                        for k in first["probabilities"]))
+                    predictions_equal &= got["predictions"] == first["predictions"]
+                else:
+                    raise AssertionError(f"{tag} (c) {sid}: the two-server result differs")
+    print(f"{tag} (c) two servers: {[s.processed for s in results]} served in "
+          f"{[len(b) for b in recs[0].batches]} and {[len(b) for b in recs[1].batches]}, each "
+          f"request once, none re-queued; {same} results equal the one-server run's bit for "
+          f"bit, {rebatched} (padded to another batch size) run's on their batch, against the "
+          f"one-server run max |coords| gap {coord_gap:.3g}, probabilities {probability_gap:.3g}, "
+          f"predictions {'equal' if predictions_equal else 'NOT equal'}; "
+          f"{wall2 * 1e3 / len(specs):.3f} ms a study ({wall2:.3f} s) on {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": per_forward, "ms_study": ms_study, "batches": stats.batches,
+            "two_server_ms_study": wall2 * 1e3 / len(specs)}
+
+
+# The builders phase: the dataset builders at full width on volume_io's
+# clinical geometry (``data/builders``, ``data/phenikaa``).
+BUILD_PATIENTS = 4  # per source
+BUILD_BATCH = 8  # series a crop batch: 16 series in 2 forwards
+BUILD_CONFIG: dict = {}  # ClassificationDatasetConfig's crop geometry: its defaults
+RSNA_INSTANCES = 3  # 512^2 DICOM instances a series, 4 studies x 2 series
+PRETRAIN_IMAGES = 4  # 512^2 pretrain sources: 2 JPGs, 2 .npy
+
+
+def _loc_checkpoint(device, path: Path) -> None:
+    """A seeded ConvNeXt-base CoordinateRegressor (f32 parameters, bf16
+    compute) saved with the port's ``save_checkpoint``, as the trainer saves
+    ``best_model``."""
+    import torch
+
+    from spine_vision_torch.models.classifier import CoordinateRegressor
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+    from spine_vision_torch.train.checkpoint import save_checkpoint
+    from spine_vision_torch.train.state import TrainState
+
+    model = CoordinateRegressor("convnext_base", dtype=torch.bfloat16, device=device,
+                                param_dtype=torch.float32)
+    load_flax_variables(model, random_flax_variables(model, 0)[0])
+    state = TrainState(model=model, optimizer=torch.optim.AdamW(model.parameters()),
+                       schedule=lambda step: 1e-4, generator=torch.Generator())
+    save_checkpoint(path, state, {"epoch": 0})
+
+
+def _write_csv(path: Path, rows: list) -> None:
+    import csv
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def _read_csv(path: Path) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def _grades(rng) -> dict:
+    return {"Pfirrman grade": int(rng.integers(1, 6)), "Disc herniation": int(rng.integers(0, 2)),
+            "Disc narrowing": int(rng.integers(0, 2)), "Disc bulging": int(rng.integers(0, 2)),
+            "Spondylolisthesis": int(rng.integers(0, 2)), "UP endplate": int(rng.integers(0, 2)),
+            "LOW endplate": int(rng.integers(0, 2))}
+
+
+def _classification_tree(root: Path, images: list, paths: list, rng) -> list:
+    """SPIDER: 4 patients' T1/T2 ``.mha`` (volume_io's studies 4-7 volumes)
+    and gradings; Phenikaa: 4 patients whose "SAG T1"/"SAG T2" directories
+    are volume_io's DICOM series (studies 0-2 uncompressed, 3 JPEG Lossless)
+    and labels with one-hot Modic. Returns the series in the builder's queue
+    order: (crop file prefix, series path)."""
+    from spine_vision_torch import io as tio
+
+    order = []
+    rows = []
+    phenikaa = root / "interim" / "Phenikaa"
+    for k in range(BUILD_PATIENTS):
+        pid = f"25000000{k + 1}"
+        for level in range(1, 6):
+            modic = int(rng.integers(0, 4))
+            rows.append({"Patient ID": pid, "IVD label": level, **_grades(rng),
+                         **{f"Modic_{i}": int(i == modic) for i in range(4)}})
+        for series in ("t1", "t2"):
+            link = phenikaa / "images" / pid / f"SAG {series.upper()}"
+            link.parent.mkdir(parents=True, exist_ok=True)
+            link.symlink_to(Path(paths[k][series]).resolve(), target_is_directory=True)
+            order.append((f"phenikaa_{pid}_sag_{series}", link))
+    _write_csv(phenikaa / "radiological_labels.csv", rows)
+    spider = root / "raw" / "SPIDER"
+    rows = []
+    for k in range(BUILD_PATIENTS):
+        pid = k + 1
+        for spider_level in range(1, 6):
+            rows.append({"Patient": pid, "IVD label": spider_level, **_grades(rng),
+                         "Modic": int(rng.integers(0, 4))})
+        for series in ("t1", "t2"):
+            path = spider / "images" / f"{pid}_{series}.mha"
+            tio.write_medical_image(images[BUILD_PATIENTS + k][series], path)
+            order.append((f"spider_{pid}_sag_{series}", path))
+    _write_csv(spider / "radiological_gradings.csv", rows)
+    return order
+
+
+def _localization_tree(root: Path, rng) -> tuple[list, list, list]:
+    """The lumbar-coords pretrain sources (2 JPGs, 2 ``.npy`` listed as
+    ``.jpg``) and an RSNA tree: 4 studies x (Sagittal T1, Sagittal T2/STIR)
+    x 3 instances of 512^2 int16 DICOM at volume_io's geometry, with a
+    subarticular (axial) row the builder drops. Returns the JPG sources, the
+    ``.npy`` sources and the DICOM instances."""
+    import numpy as np
+
+    from spine_vision_torch import io as tio
+    from spine_vision_torch.io.dicom_write import write_dicom_series
+    from spine_vision_torch.io.jpeg_lossless import encode_jpeg_lossless
+
+    base = root / "raw" / "Lumbar Coords"
+    data = base / "data"
+    jpgs, npys, rows = [], [], []
+    for i in range(PRETRAIN_IMAGES):
+        level = LEVELS[i % len(LEVELS)]
+        if i % 2 == 0:
+            path = data / "processed_spider_jpgs" / f"p{i}.jpg"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            pixels = rng.integers(0, 256, (512, 512)).astype(np.uint16)
+            path.write_bytes(encode_jpeg_lossless(pixels, precision=8))
+            jpgs.append(path)
+            rows.append({"filename": path.name, "source": "spider", "level": level,
+                         "relative_x": 0.5, "relative_y": 0.2 + 0.1 * i})
+        else:
+            path = data / "processed_lsd" / f"p{i}.npy"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            np.save(path, rng.normal(0.0, 1.0, (512, 512)))
+            npys.append(path)
+            rows.append({"filename": f"p{i}.jpg", "source": "lsd", "level": level,
+                         "relative_x": 0.45, "relative_y": 0.2 + 0.1 * i})
+    _write_csv(base / "coords_pretrain.csv", rows)
+
+    rsna = root / "raw" / "RSNA"
+    descriptions, coords, dicoms = [], [], []
+    for s in range(4):
+        study = 4000 + s
+        for series, desc, condition in (
+                (10 * s + 1, "Sagittal T1", "Left Neural Foraminal Narrowing"),
+                (10 * s + 2, "Sagittal T2/STIR", "Spinal Canal Stenosis")):
+            descriptions.append(
+                {"study_id": study, "series_id": series, "series_description": desc})
+            vol = rng.normal(700, 150, (RSNA_INSTANCES, 512, 512)).clip(0, 4000).astype(np.int16)
+            staging = rsna / "staging"
+            write_dicom_series(tio.MedicalImage(array=vol, spacing=IO_SPACING, origin=IO_ORIGIN,
+                                                direction=_io_direction(False)), staging)
+            for k in range(1, RSNA_INSTANCES + 1):
+                target = rsna / "train_images" / str(study) / str(series) / f"{k}.dcm"
+                target.parent.mkdir(parents=True, exist_ok=True)
+                (staging / f"slice_{k:04d}.dcm").rename(target)
+                dicoms.append(target)
+                coords.append({"study_id": study, "series_id": series, "instance_number": k,
+                               "condition": condition, "level": LEVELS[k], "relative_x": 0.5,
+                               "relative_y": 0.3 + 0.1 * k})
+            coords.append({"study_id": study, "series_id": series, "instance_number": 1,
+                           "condition": "Right Subarticular Stenosis", "level": "L4/L5",
+                           "relative_x": 0.5, "relative_y": 0.6})
+            staging.rmdir()
+    _write_csv(rsna / "train_series_descriptions.csv", descriptions)
+    _write_csv(base / "coords_rsna_improved.csv", coords)
+    return jpgs, npys, dicoms
+
+
+def _phenikaa_raw_tree(root: Path) -> tuple[dict, list]:
+    """Report pages (the OCR fixture's two report pages, each under a file
+    name built from its record's name and birthday), a label table of their
+    IDs and a decoy's, and a folder tree with each record's study folder
+    (name and birth year) among decoys. Returns {ID: matching folder} and
+    the record fields."""
+    from spine_vision_torch.data.phenikaa.matching import ascii_fold
+
+    manifest = json.loads((OCR_FIXTURES / "manifest.json").read_text())
+    records = [p for p in manifest["pages"] if p["file"].startswith("report_")]
+    reports = root / "labels" / "reports"
+    reports.mkdir(parents=True)
+    rows, matching, fields = [], {}, []
+    for i, page in enumerate(records):
+        f = page["truth"]["fields"]
+        fields.append(f)
+        day, month, year = f["birthday"].split("/")
+        shutil.copy(OCR_FIXTURES / page["file"],
+                    reports / ("_".join(f["name"].split()) + f"_{day}{month}{year}.png"))
+        folder = "_".join(ascii_fold(f["name"]).upper().split())
+        match = root / "images" / f"site{i}" / f"{folder}_{year}_2024010{i + 1}"
+        for decoy in (f"{folder}_{int(year) + 10}_2024020{i + 1}",
+                      f"PHAM_VAN_BINH_{year}_2024030{i + 1}"):
+            (root / "images" / decoy).mkdir(parents=True)
+            (root / "images" / decoy / "decoy.txt").write_text(decoy)
+        (match / "SAG T1").mkdir(parents=True)
+        (match / "SAG T1" / "slice_0001.txt").write_text(f"{f['id']} T1")
+        (match / "notes.txt").write_text(f"{f['id']}")
+        matching[f["id"]] = match
+        rows += [{"Patient ID": f["id"], "IVD label": lvl, "Pfirrman grade": lvl, "Modic": lvl % 3}
+                 for lvl in (1, 2)]
+    rows.append({"Patient ID": "250000001", "IVD label": 1, "Pfirrman grade": 1, "Modic": 0})
+    _write_csv(root / "labels" / "tables" / "labels.csv", rows)
+    return matching, fields
+
+
+def _tree_snapshot(root: Path, mtimes: bool = True) -> dict:
+    """Each file under ``root``: its bytes and, with ``mtimes``, its mtime."""
+    return {p.relative_to(root): (p.read_bytes(), p.stat().st_mtime_ns if mtimes else None)
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def builders_phase(device, card: str, io: dict | None = None) -> dict:
+    """The dataset builders (``--build-only`` runs it alone).
+
+    (a) ``create_classification_dataset`` over a SPIDER tree (4 patients'
+    T1/T2 ``.mha``) and a Phenikaa tree (4 patients' DICOM series, one JPEG
+    Lossless), volume_io's 17x512^2 int16 series (written anew when run
+    alone), with a seeded ConvNeXt-base saved by ``save_checkpoint`` and
+    loaded through ``localization_model_path``, crop batch 8 at the config's
+    defaults: 80 records, each crop PNG equal bit for bit to
+    ``SeriesCropPipeline.run`` on ``prepare_series_slice`` of the same files
+    in the same batches, the records CSV, the study phase's launch counts a
+    forward; a second run (resume) writes no file, launches nothing and
+    gives the same records. (b) ``create_localization_dataset`` over an
+    RSNA-like tree and pretrain sources: the PNGs equal the CPU's
+    normalisation of the same arrays, the JPGs byte copies, no kernel
+    launched. (c) ``preprocess_phenikaa`` with the shipped OCR weights on the
+    card over the two fixture report pages under patient-named file names:
+    each record's ID matched to its folder among decoys, the folders copied,
+    the table keeping those IDs alone. Prints each builder's wall time and
+    the classification build's series and crops a second."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.data import builders
+    from spine_vision_torch.data.phenikaa import PreprocessConfig, preprocess_phenikaa
+    from spine_vision_torch.data.png import read_png
+    from spine_vision_torch.infer.pipeline import SeriesCropPipeline, StudyPipelineConfig
+    from spine_vision_torch.io.dicom import read_dicom_file
+    from spine_vision_torch.io.series import prepare_series_slice
+    from spine_vision_torch.models.classifier import CoordinateRegressor
+    from spine_vision_torch.ops.image import normalize_to_uint8
+    from spine_vision_torch.train.checkpoint import load_model_state
+
+    tag = "[builders]"
+    images, paths = _io_files(tag) if io is None else (io["images"], io["paths"])
+    root = RUN_DIR / "builders"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(7)
+    ckpt = root / "loc_run" / "best_model"
+    _loc_checkpoint(device, ckpt)
+    t0 = time.perf_counter()
+    order = _classification_tree(root, images, paths, rng)
+    print(f"{tag} trees: SPIDER {BUILD_PATIENTS} patients (.mha written in "
+          f"{time.perf_counter() - t0:.2f} s), Phenikaa {BUILD_PATIENTS} patients (volume_io's "
+          "DICOM series); ConvNeXt-base checkpoint saved")
+
+    # (a) The classification builder.
+    config = builders.ClassificationDatasetConfig(
+        base_path=root, localization_model_path=ckpt, device_batch_size=BUILD_BATCH,
+        **BUILD_CONFIG)
+    _zero_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    result = builders.create_classification_dataset(config, device=device)
+    torch.cuda.synchronize()
+    cls_s = time.perf_counter() - start
+    counts = _counts()
+    forwards = -(-len(order) // BUILD_BATCH)
+    per_forward = {k: v // forwards for k, v in counts.items()}
+    if per_forward != INFERENCE_LAUNCHES or any(v % forwards for v in counts.values()):
+        raise AssertionError(f"{tag} (a) {forwards} forwards launched {counts}; expected "
+                             f"{INFERENCE_LAUNCHES} a forward")
+    n_crops = 5 * len(order)
+    if result.num_samples != n_crops or "0 recovered" not in result.summary:
+        raise AssertionError(f"{tag} (a) {result}")
+    model = CoordinateRegressor(config.localization_backbone, dtype=torch.bfloat16,
+                                device=device, param_dtype=torch.float32)
+    load_model_state(ckpt, model)
+    pipe = SeriesCropPipeline(model, config=StudyPipelineConfig(
+        loc_image_size=config.image_size, crop_size=config.crop_size,
+        crop_delta_mm=config.crop_delta_mm, crop_mode=config.crop_mode,
+        padded_hw=config.padded_hw), device=device)
+    out_images = config.output_path / "images"
+    for b in range(0, len(order), BUILD_BATCH):
+        batch = order[b:b + BUILD_BATCH]
+        inputs = [prepare_series_slice(path, device=device) for _, path in batch]
+        _, _, crops = pipe.run([s for s, _ in inputs], [sp for _, sp in inputs])
+        for (prefix, _), series_crops in zip(batch, crops):
+            for level in range(1, 6):
+                got = read_png(out_images / f"{prefix}_L{level}.png", mode="gray")
+                if not np.array_equal(got, series_crops[level - 1]):
+                    raise AssertionError(f"{tag} (a) {prefix}_L{level}.png differs from "
+                                         "SeriesCropPipeline.run")
+    rows = _read_csv(config.output_path / "annotations.csv")
+    want = sorted((f"images/{prefix}_L{lvl}.png", prefix.split("_")[0]) for prefix, _ in order
+                  for lvl in range(1, 6))
+    if sorted((r["image_path"], r["source"]) for r in rows) != want or any(
+            not 1 <= int(r["pfirrmann_grade"]) <= 5 or not 0 <= int(r["modic"]) <= 3
+            for r in rows):
+        raise AssertionError(f"{tag} (a) the records CSV: {rows[:3]} ...")
+    print(f"{tag} (a) classification: {len(order)} series, {n_crops} crops of "
+          f"{config.crop_size} in {cls_s:.3f} s ({len(order) / cls_s:.3f} series/s, "
+          f"{n_crops / cls_s:.3f} crops/s; decode, crops and PNG writes included); every crop "
+          f"equals SeriesCropPipeline.run on the same files bit for bit; launches "
+          f"{ {k: v for k, v in per_forward.items() if v} } a forward over {forwards} forwards "
+          f"on {card}")
+    before = _tree_snapshot(out_images)
+    _zero_counts()
+    start = time.perf_counter()
+    again = builders.create_classification_dataset(config, device=device)
+    resume_s = time.perf_counter() - start
+    rows_again = _read_csv(config.output_path / "annotations.csv")
+    key = lambda r: r["image_path"]  # noqa: E731
+    if (_tree_snapshot(out_images) != before or any(_counts().values())
+            or f"0 new, {n_crops} recovered" not in again.summary
+            or sorted(rows_again, key=key) != sorted(rows, key=key)):
+        raise AssertionError(f"{tag} (a) resume: {again.summary}")
+    print(f"{tag} (a) resume: no crop written, no kernel launched, the same {n_crops} records "
+          f"(in file-name order) in {resume_s:.3f} s")
+
+    # (b) The localization builder.
+    jpgs, npys, dicoms = _localization_tree(root, rng)
+    loc_config = builders.LocalizationDatasetConfig(base_path=root)
+    start = time.perf_counter()
+    loc_result = builders.create_localization_dataset(loc_config, device=device)
+    torch.cuda.synchronize()
+    loc_s = time.perf_counter() - start
+    loc_images = loc_config.output_path / "images"
+    for jpg in jpgs:
+        if (loc_images / f"pretrain_spider_{jpg.name}").read_bytes() != jpg.read_bytes():
+            raise AssertionError(f"{tag} (b) {jpg.name} is not a byte copy")
+    normalised = [(loc_images / f"pretrain_lsd_{p.stem}.jpg", np.load(p)) for p in npys] + [
+        (loc_images / f"rsna_{p.parent.parent.name}_{p.parent.name}_{p.stem}.png",
+         read_dicom_file(p).array.reshape(512, 512)) for p in dicoms]
+    for png, arr in normalised:
+        want_u8 = normalize_to_uint8(torch.from_numpy(np.ascontiguousarray(arr, np.float32)))
+        if not np.array_equal(read_png(png, mode="gray"), want_u8.numpy()):
+            raise AssertionError(f"{tag} (b) {png.name} differs from the CPU's normalisation")
+    n_loc = PRETRAIN_IMAGES + len(dicoms)
+    if loc_result.num_samples != n_loc or any(_counts().values()):
+        raise AssertionError(f"{tag} (b) {loc_result}, launches {_counts()}")
+    print(f"{tag} (b) localization: {n_loc} annotations ({len(dicoms)} 512^2 DICOM instances "
+          f"and {len(npys)} .npy normalised on the card, equal to the CPU's normalisation; "
+          f"{len(jpgs)} JPGs copied byte for byte) in {loc_s:.3f} s on {card}")
+
+    # (c) Phenikaa report preprocessing with the shipped OCR weights.
+    matching, fields = _phenikaa_raw_tree(root / "phenikaa")
+    pre_config = PreprocessConfig(data_path=root / "phenikaa",
+                                  output_path=root / "phenikaa_interim")
+    start = time.perf_counter()
+    pre_result = preprocess_phenikaa(pre_config, device=device)
+    torch.cuda.synchronize()
+    ocr_s = time.perf_counter() - start
+    copied = sorted(p.name for p in pre_config.output_image_path.iterdir())
+    for pid, folder in matching.items():
+        if _tree_snapshot(pre_config.output_image_path / pid, False) != _tree_snapshot(
+                folder, False):
+            raise AssertionError(f"{tag} (c) {pid}: not a copy of {folder.name}")
+    table = _read_csv(pre_config.output_table_path)
+    if (pre_result.num_samples != len(fields) or copied != sorted(matching)
+            or sorted({r["Patient ID"] for r in table}) != sorted(matching)
+            or len(table) != 2 * len(fields) or any(_counts().values())):
+        raise AssertionError(f"{tag} (c) {pre_result}; copied {copied}; table {table}")
+    print(f"{tag} (c) preprocess_phenikaa: {len(fields)} patient-named reports read by the "
+          f"shipped OCR on the card, IDs {sorted(matching)} matched to their folders among "
+          f"decoys and copied, the table kept to those IDs ({len(table)} rows) in {ocr_s:.3f} s "
+          f"on {card}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": per_forward, "classification_s": cls_s, "localization_s": loc_s,
+            "phenikaa_s": ocr_s, "series_s": len(order) / cls_s, "crops_s": n_crops / cls_s}
 
 
 # The ocr phase: report OCR with the shipped weights on the card, held to the
@@ -2929,6 +3542,10 @@ def main() -> int:
                         help="run only the ocr phase (no kernel build, no kernels line)")
     parser.add_argument("--io-only", action="store_true",
                         help="run only the volume_io phase (no kernels line)")
+    parser.add_argument("--serve-only", action="store_true",
+                        help="run only the serve phase (no kernels line)")
+    parser.add_argument("--build-only", action="store_true",
+                        help="run only the builders phase (no kernels line)")
     opts = parser.parse_args()
 
     try:
@@ -2976,6 +3593,14 @@ def main() -> int:
     if opts.io_only:
         phase("volume_io", volume_io_phase, device, card)
         return verdict()
+    if opts.serve_only:
+        phase("serve", serve_phase, device, card, opts.profile)
+        shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
+        return verdict()
+    if opts.build_only:
+        phase("builders", builders_phase, device, card)
+        shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
+        return verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -2994,14 +3619,21 @@ def main() -> int:
     phase("mlp-mode kernels", mlp_kernel_phase, device, report)
     phase("whole-block backward kernel", block_train_kernel_phase, device, report)
     probe_counts, probe_rows = phase("probes", probe_phase, device)
-    paths = {"study_inference": None, "volume_io": None, **{p: None for p in TRAIN_PATHS},
+    paths = {"study_inference": None, "volume_io": None, "serve": None, "builders": None,
+             **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
              "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
-        paths["volume_io"] = phase("volume_io", volume_io_phase, device, card)["launches"]
+        io = phase("volume_io", volume_io_phase, device, card, True)
+        paths["volume_io"] = io["launches"]
+        # serve and builders: the launches a ConvNeXt-base forward.
+        paths["serve"] = phase("serve", serve_phase, device, card, opts.profile, io)["launches"]
+        paths["builders"] = phase("builders", builders_phase, device, card, io)["launches"]
+        del io
+        shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
         for path, grad_mode in (("train_step", "hybrid"), ("train_step_dwconv", True),
                                 ("train_step_mlp", "mlp"), ("train_step_block", "block")):
             paths[path] = phase(path, train_phase, device, card, path,

@@ -11,15 +11,22 @@ needs no native string-matching package:
   included, taken in both directions when the lengths are equal.
 
 Vietnamese diacritics fold with ``unicodedata`` (NFD, combining marks
-dropped, đ/Đ -> d/D). The folder lookup and ``PatientMatcher`` wait for
-ROADMAP Queue 1 item 11.
+dropped, đ/Đ -> d/D). Patients match image study folders
+(``NAME(_YYYY)_YYYYMMDD( (N))``) by the folded name's partial ratio, the
+birth year breaking ties (:class:`PatientMatcher`).
 """
 
 from __future__ import annotations
 
+import re
 import unicodedata
+from dataclasses import dataclass
+from datetime import datetime
+from pathlib import Path
 
 import numpy as np
+
+from spine_vision_torch.core.logging import logger
 
 
 def _lcs_length(block: dict[str, int], len1: int, s2: str) -> int:
@@ -238,3 +245,112 @@ def fuzzy_find_best_match(
     if best_score >= threshold:
         return best_match, best_score
     return None, best_score
+
+
+# Patient image folder names: NAME(_YYYY)?_YYYYMMDD( (N))?
+IMAGE_FOLDER_REGEX = re.compile(r"^[A-Z_]+(_\d{4})?_\d{8}( \(\d+\))?$")
+
+
+@dataclass
+class FolderInfo:
+    """A parsed patient image folder."""
+
+    path: Path
+    name_part: str
+    birth_year: str | None
+
+
+def parse_image_folder_name(folder_name: str) -> tuple[str, str | None]:
+    """Split ``PATIENT_NAME(_YYYY)_YYYYMMDD( (N))`` into (name, birth year)."""
+    base_name = re.sub(r" \(\d+\)$", "", folder_name)
+    parts = base_name.split("_")
+    if len(parts) >= 3 and re.fullmatch(r"\d{4}", parts[-2]):
+        return "".join(parts[:-2]), parts[-2]
+    return "".join(parts[:-1]), None
+
+
+def build_folder_lookup(image_path: Path) -> dict[str, FolderInfo]:
+    """Index the patient folders under ``image_path``, recursively, keyed
+    by the folder's path: two studies of one patient, or two patients of one
+    name, both stay visible."""
+    folder_dict: dict[str, FolderInfo] = {}
+    for path in Path(image_path).rglob("*"):
+        if not path.is_dir() or not IMAGE_FOLDER_REGEX.match(path.name):
+            continue
+        name_part, birth_year = parse_image_folder_name(path.name)
+        folder_dict[str(path)] = FolderInfo(path=path, name_part=name_part, birth_year=birth_year)
+    return folder_dict
+
+
+def find_matching_folder(
+    patient_name: str,
+    patient_birthday: str,
+    folder_map: dict[str, FolderInfo],
+    threshold: float = 85,
+    date_format: str = "%d/%m/%Y",
+) -> Path | None:
+    """The folder whose name scores best above ``threshold`` (both sides
+    folded), ties broken by the birth year, then by a folder without one."""
+    try:
+        patient_birth_year: int | None = datetime.strptime(patient_birthday, date_format).year
+    except ValueError:
+        logger.warning("Could not parse birthday: %s", patient_birthday)
+        patient_birth_year = None
+
+    candidates = []
+    for info in folder_map.values():
+        score = fuzzy_match_score(patient_name, info.name_part)
+        if score > threshold:
+            candidates.append((score, info))
+    if not candidates:
+        return None
+
+    candidates.sort(key=lambda c: c[0], reverse=True)
+    best_score = candidates[0][0]
+    top = [info for score, info in candidates if score == best_score]
+
+    if patient_birth_year is not None:
+        for info in top:
+            if info.birth_year == str(patient_birth_year):
+                return info.path
+    for info in top:
+        if info.birth_year is None:
+            return info.path
+    return top[0].path
+
+
+def find_matching_folder_by_name(
+    patient_name: str,
+    folder_map: dict[str, FolderInfo],
+    threshold: float = 85,
+) -> Path | None:
+    """Name-only variant (when no birthday is available)."""
+    best: tuple[float, FolderInfo] | None = None
+    for info in folder_map.values():
+        score = fuzzy_match_score(patient_name, info.name_part)
+        if score > threshold and (best is None or score > best[0]):
+            best = (score, info)
+    return best[1].path if best else None
+
+
+class PatientMatcher:
+    """Folder matcher over one image tree's lookup."""
+
+    def __init__(
+        self,
+        image_path: Path,
+        threshold: float = 85,
+        date_format: str = "%d/%m/%Y",
+    ) -> None:
+        self.threshold = threshold
+        self.date_format = date_format
+        self.folder_map = build_folder_lookup(image_path)
+        logger.info("Built folder lookup with %d entries", len(self.folder_map))
+
+    def match(self, patient_name: str, patient_birthday: str) -> Path | None:
+        return find_matching_folder(
+            patient_name, patient_birthday, self.folder_map, self.threshold, self.date_format
+        )
+
+    def match_by_name(self, patient_name: str) -> Path | None:
+        return find_matching_folder_by_name(patient_name, self.folder_map, self.threshold)

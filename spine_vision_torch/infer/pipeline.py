@@ -23,11 +23,19 @@ disk (``io/series.py``).
 ``SeriesCropPipeline`` runs the localization and crop stages alone over a
 batch of series slices, for building classification sets; without a
 localization model it crops around fixed fallback centres.
+
+``StudyInferencePipeline.run`` may be called from several threads (two
+servers on one watch directory share one pipeline): on CUDA its page-locked
+host buffer is reused across calls, so a lock held from the packing to the
+fetch of the results keeps a second call from refilling the buffer while the
+first call's upload is still queued. ``SeriesCropPipeline.run`` packs into a
+fresh buffer each call and needs none.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
@@ -290,6 +298,7 @@ class StudyInferencePipeline:
         self.cls_model = cls_model.to(self.device).eval()
         self.tasks = tasks if tasks is not None else get_tasks()
         self._pinned: dict[tuple[int, ...], torch.Tensor] = {}
+        self._run_lock = threading.Lock()
 
     @classmethod
     def from_checkpoints(
@@ -398,11 +407,12 @@ class StudyInferencePipeline:
 
         ``fetch_crops=False`` leaves the crop tensor on the device;
         ``StudyResult.crops`` is then None."""
-        slices, hw, spacing = self._pack(studies)
         dev = self.device
-        with torch.inference_mode():
-            # The host buffer is reused by the next call; the copies below
-            # finish before this call returns (its results are fetched).
+        # The lock spans the packing, the asynchronous upload and the fetch
+        # that waits for it: the next call (from any thread) refills the
+        # reused host buffer only once this call's copy has finished.
+        with self._run_lock, torch.inference_mode():
+            slices, hw, spacing = self._pack(studies)
             out = self._fused(
                 torch.from_numpy(slices).to(dev, non_blocking=True),
                 torch.from_numpy(hw).to(dev), torch.from_numpy(spacing).to(dev),

@@ -71,6 +71,18 @@ def write_records_csv(records: Sequence[Any], csv_path: Path) -> None:
     logger.info("Wrote %d records to %s", len(rows), csv_path)
 
 
+def write_table_csv(rows: Sequence[dict[str, Any]], csv_path: Path, columns: Sequence[str]) -> None:
+    """Write a table of row dicts as ``DataFrame.to_csv(path, index=False)``
+    writes a frame of those columns: the header, then each row, fields
+    quoted only where needed, lines ending in ``\n``. Values are written as
+    ``str`` gives them (the frame's ints and strings; pandas writes floats
+    by ``repr`` too). No rows give the header alone."""
+    with open(csv_path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(columns)
+        writer.writerows([[row[c] for c in columns] for row in rows])
+
+
 def _float(text: str) -> float | None:
     if "_" in text:
         return None

@@ -909,3 +909,136 @@ def test_middle_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert resampled.device.type == "cuda" and resampled.shape == (227, 1013, 1013)
     iso = replace(image, array=resampled.cpu().numpy(), spacing=new[::-1])
     np.testing.assert_allclose(got, iso.extract_middle_slice(), rtol=1e-4, atol=1e-2)
+
+
+def _card_pipeline(cuda, loc_backbone="convnext_tiny", **config):
+    """A bf16 study pipeline on the card from seeded Flax-layout trees."""
+    from spine_vision_torch.infer.pipeline import StudyInferencePipeline, StudyPipelineConfig
+    from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+
+    loc = CoordinateRegressor(loc_backbone, dtype=torch.bfloat16, device=cuda)
+    cls = Classifier("resnet18", dtype=torch.bfloat16, device=cuda)
+    for model, seed in ((loc, 0), (cls, 1)):
+        params, stats = random_flax_variables(model, seed)
+        load_flax_variables(model, params, stats)
+    return StudyInferencePipeline(loc, cls, config=StudyPipelineConfig(**config), device=cuda)
+
+
+def _study_inputs(seed, n, hw=(640, 640)):
+    from spine_vision_torch.infer.pipeline import StudyInput
+
+    rng = np.random.default_rng(seed)
+    return [StudyInput(t1_slice=rng.normal(100 + seed, 30, hw).astype(np.float32),
+                       t2_slice=rng.normal(90 + seed, 25, hw).astype(np.float32),
+                       t1_spacing=(0.3, 0.3), t2_spacing=(0.3, 0.3), study_id=f"t{seed}_{i}")
+            for i in range(n)]
+
+
+def _same_study_results(got, want):
+    return all(
+        np.array_equal(g.coords, w.coords) and np.array_equal(g.crops, w.crops)
+        and all(np.array_equal(g.logits[k], w.logits[k]) for k in w.logits)
+        for g, w in zip(got, want, strict=True))
+
+
+def test_study_pipeline_run_from_two_threads_matches_serial(cuda):
+    """Two threads call one pipeline's ``run`` with different studies of one
+    shape (so one reused page-locked host buffer): every result equals the
+    serial run's bit for bit. Without the run lock, a thread's packing
+    overwrites the buffer while the other's upload is still queued."""
+    import threading
+
+    pipe = _card_pipeline(cuda)
+    batches = [_study_inputs(seed, 8) for seed in (1, 2)]
+    serial = [pipe.run(b) for b in batches]
+    failures, errors = [], []
+
+    def worker(k):
+        try:
+            for _ in range(6):
+                if not _same_study_results(pipe.run(batches[k]), serial[k]):
+                    failures.append(k)
+        except Exception as exc:  # noqa: BLE001 -- reported below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors and not failures, (errors, failures)
+
+
+def test_serve_directory_on_the_card_equals_run(cuda, tmp_path):
+    """``serve_directory`` on the card writes, for every request,
+    ``run(..., fetch_crops=False)`` of the same files in the same batch."""
+    import json
+
+    from spine_vision_torch import io as tio
+    from spine_vision_torch.infer import serve
+    from spine_vision_torch.infer.pipeline import study_input_from_paths
+
+    pipe = _card_pipeline(cuda)
+    rng = np.random.default_rng(5)
+    watch, out = tmp_path / "requests", tmp_path / "results"
+    watch.mkdir()
+    specs = []
+    for i in range(3):
+        pair = {}
+        for series in ("t1", "t2"):
+            vol = rng.normal(600, 150, (9, 256, 256)).clip(0, 4000).astype(np.int16)
+            pair[series] = str(tmp_path / f"s{i}_{series}.nii.gz")
+            tio.write_medical_image(tio.MedicalImage(array=vol, spacing=(0.6, 0.6, 4.0)),
+                                    pair[series])
+        (watch / f"r{i}.json").write_text(json.dumps({"study_id": f"s{i}", **pair}))
+        specs.append(pair)
+    stats = serve.serve_directory(pipe, watch, out, once=True)
+    assert (stats.processed, stats.failed, stats.batches) == (3, 0, 1)
+    studies = [study_input_from_paths(p["t1"], p["t2"], study_id=f"s{i}", device=cuda)
+               for i, p in enumerate(specs)]
+    for result in pipe.run(studies, fetch_crops=False):
+        assert ((out / f"{result.study_id}.json").read_text()
+                == json.dumps(serve._result_payload(result), indent=2))
+
+
+def test_classification_builder_crops_on_the_card_match_the_cpu(cuda, tmp_path):
+    """The classification builder at the fallback centres on the card and on
+    the CPU: the same files and CSV, the crops within 1 uint8 level on at
+    most 1% of the pixels (the CPU tests' tolerance against JAX)."""
+    import csv
+
+    from spine_vision_torch import io as tio
+    from spine_vision_torch.data import builders
+    from spine_vision_torch.data.png import read_png
+
+    rng = np.random.default_rng(6)
+    images = tmp_path / "raw" / "SPIDER" / "images"
+    images.mkdir(parents=True)
+    fields = ["Patient", "IVD label", "Pfirrman grade", "Modic"]
+    with open(tmp_path / "raw" / "SPIDER" / "radiological_gradings.csv", "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=fields)
+        writer.writeheader()
+        for pid in (1, 2, 3):
+            writer.writerows({"Patient": pid, "IVD label": lvl, "Pfirrman grade": 3, "Modic": 0}
+                             for lvl in range(1, 6))
+            for s in ("t1", "t2"):
+                vol = rng.normal(500, 120, (9, 320, 300)).clip(0, 4000).astype(np.int16)
+                tio.write_medical_image(tio.MedicalImage(array=vol, spacing=(0.7, 0.7, 4.0)),
+                                        images / f"{pid}_{s}.mha")
+    outs = {}
+    for dev in ("cpu", cuda):
+        config = builders.ClassificationDatasetConfig(
+            base_path=tmp_path, output_name=f"cls_{torch.device(dev).type}",
+            include_phenikaa=False, device_batch_size=4, padded_hw=(1024, 1024))
+        assert builders.create_classification_dataset(config, device=dev).num_samples == 30
+        outs[torch.device(dev).type] = config.output_path
+    cpu, card = outs["cpu"], outs["cuda"]
+    assert (cpu / "annotations.csv").read_bytes() == (card / "annotations.csv").read_bytes()
+    names = sorted(p.name for p in (cpu / "images").iterdir())
+    assert names == sorted(p.name for p in (card / "images").iterdir()) and len(names) == 30
+    for name in names:
+        diff = np.abs(read_png(card / "images" / name, "gray").astype(int)
+                      - read_png(cpu / "images" / name, "gray").astype(int))
+        assert diff.max() <= 1 and np.mean(diff > 0) <= 0.01, name
