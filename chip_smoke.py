@@ -9,6 +9,7 @@
     python3 chip_smoke.py --io-only    # study inference from volume files alone
     python3 chip_smoke.py --serve-only [--profile]   # the directory server alone
     python3 chip_smoke.py --build-only # the dataset builders alone
+    python3 chip_smoke.py --ddp-only   # data parallelism alone
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -151,6 +152,20 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    fixture report pages; series and crops a second, each builder's wall
    time. Phases 14 and 15 launch #1 and #2 as the study graph does, a
    forward; the ``kernels`` line reports them a forward.
+16. Data parallelism (``ddp``, last, also alone with ``--ddp-only``; see
+   ``ddp_phase``): ranks started as processes of this script. One rank over
+   NCCL trains the train phase's ConvNeXt-base (hybrid, 512^2, batch 32)
+   and the cls_train phase's ResNet-18 (256^2, batch 256, f32) through
+   ``train()`` without a group and through DistributedDataParallel, bit for
+   bit the same, and prints both step p50s; two ranks on the one card over
+   gloo train the same global batches split in two (BatchNorm synced over
+   them), the first step's gradients and BatchNorm running statistics held
+   to the single process's and the parameters after two steps by the CPU
+   test's rule, the largest gaps printed; a control run of the ResNet with
+   each rank's own BatchNorm statistics must fail those bounds;
+   ``from_checkpoints(mesh=data_parallel_mesh())`` bit
+   for bit ``mesh=None`` on 8 studies. The ``kernels`` line's ``ddp`` path
+   counts one DDP step's launches and one forward's, summed.
 
 Each phase prints its wall time.
 
@@ -163,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import gc
 import json
 import logging
@@ -1351,24 +1367,28 @@ class _Images:
 
 
 def _regressor(device, seed: int, dropout: float, use_pallas="hybrid",
-               layer_scale_init: float | None = None):
-    """ConvNeXt-base CoordinateRegressor for training (bf16 on f32 masters,
-    the given kernel mode), weights from a seeded Flax-layout tree. With
-    ``layer_scale_init``, the backbone is ConvNeXt-base's depths and widths
-    with that LayerScale (0: none)."""
+               layer_scale_init: float | None = None, backbone: str = "convnext_base"):
+    """ConvNeXt-base (or ``backbone``) CoordinateRegressor for training (bf16
+    on f32 masters, the given kernel mode), weights from a seeded Flax-layout
+    tree. With ``layer_scale_init``, the backbone is ConvNeXt-base's depths
+    and widths with that LayerScale (0: none). The modules are built on the
+    meta device, so the constructor's own initial draws (all replaced by
+    the tree's) cost nothing."""
     import torch
 
     from spine_vision_torch.models.classifier import CoordinateRegressor
     from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
     from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXt, ConvNeXtConfig
 
-    kw = {"dtype": torch.bfloat16, "device": device, "use_pallas": use_pallas,
+    kw = {"dtype": torch.bfloat16, "device": "meta", "use_pallas": use_pallas,
           "param_dtype": torch.float32}
-    model = CoordinateRegressor("convnext_base", dropout=dropout, **kw)
-    if layer_scale_init is not None:
-        base = CONVNEXT_CONFIGS["convnext_base"]
-        model.backbone = ConvNeXt(
-            ConvNeXtConfig(base.depths, base.dims, layer_scale_init=layer_scale_init), **kw)
+    with torch.device("meta"):
+        model = CoordinateRegressor(backbone, dropout=dropout, **kw)
+        if layer_scale_init is not None:
+            base = CONVNEXT_CONFIGS["convnext_base"]
+            model.backbone = ConvNeXt(
+                ConvNeXtConfig(base.depths, base.dims, layer_scale_init=layer_scale_init), **kw)
+    model = model.to_empty(device=device)
     params, _ = random_flax_variables(model, seed)
     return load_flax_variables(model, params)
 
@@ -3527,6 +3547,454 @@ def ocr_phase(device, card: str, profile: bool = False) -> dict:
     return launches
 
 
+# The data-parallel phase (``ddp``). Its ranks are this script run again with
+# ``--ddp-rank <spec>``, each a process of its own. The world-size-1 rank
+# trains DDP_STEPS steps without a process group and then the same steps
+# through DistributedDataParallel over NCCL: bit for bit the same. The two
+# ranks on cuda:0 (gloo: NCCL refuses two ranks on one device) train the
+# same global batches split in two; their parameters after DDP_CHECK_STEPS
+# steps are held to the single process's by tests/test_torch_multiprocess.py's
+# rule: every element within 2 lr a step, and the share of elements off by
+# more than lr / 5 (those whose gradient sits within the gradients' error of
+# 0, where Adam's update can take any sign) at most a bound. Adam's update
+# hardly sees a gradient's scale, so the first step's reduced gradients are
+# held too, each parameter's difference over its norm, worst and median:
+# for the bf16 ConvNeXt within GRAD_REL_TOL (the card-against-CPU checks'
+# tolerance); for the ResNet-18, which trains in f32 here so that its
+# synced BatchNorm is held at f32's rounding, within the DDP_CLS_* bounds,
+# set from the readings of a sound run. The ResNet's BatchNorm running
+# statistics after the first step, 0.9 of their start plus 0.1 of that
+# step's batch moments, are the direct witness of global statistics: each
+# buffer's difference over its norm within DDP_BN_TOL. A control run of the
+# ResNet on the two ranks with its BatchNorms' process group unset (each
+# rank normalising with its own half's statistics, the fault a plain DDP
+# wrap has) must fail the statistics and the gradient-median bounds.
+DDP_STEPS = 6  # the world-size-1 runs: the step p50 over the steps after the first
+DDP_CHECK_STEPS = 2
+DDP_LR = 1e-4  # the localization trainer's default, held constant
+DDP_CLS_LR = 1e-3
+# Sound two-rank ResNet-18 runs read (my chip runs, H100): gradients worst
+# 2.41e-3 of the norm (a stage-1 BatchNorm bias whose gradient is near 0),
+# median 8.65e-7; after 2 steps 1.105e-2 of the elements off by more than
+# lr / 5, largest gap 2.015e-3 (step 1 flips the updates of a few BatchNorm
+# scales and biases whose f32 gradients sit within rounding of 0, and those
+# channels move every gradient of step 2); running statistics after step 1
+# worst 1.21e-6 of a buffer's norm, median 1.47e-7. The control with each
+# rank's own statistics read: gradients worst 0.297, median 3.29e-3;
+# statistics worst 8.08e-2, median 9.17e-4; share 0.157.
+DDP_CLS_GRAD_WORST = 1e-2
+DDP_CLS_GRAD_MEDIAN = 1e-5
+DDP_CLS_SHARE = 5e-2
+DDP_BN_TOL = 1e-5
+DDP_TIMEOUT_S = 600
+# The models and batches: the train phase's (ConvNeXt-base at 512^2, global
+# batch 32, the hybrid block, augmentation and dropout) and the cls_train
+# phase's (ResNet-18 at 256^2, global batch 256, 8 tasks, BatchNorm synced
+# over the ranks).
+DDP_SHAPES = {"backbone": "convnext_base", "hw": 512, "batch": TRAIN_BATCH,
+              "cls_hw": CLS_HW, "cls_batch": CLS_BATCH}
+DDP_STUDIES = 8
+
+
+@functools.lru_cache(maxsize=2)
+def _ddp_data(name: str, n: int, hw: int):
+    """The ddp phase's samples for ``name``, made once a process."""
+    return _Images(n, hw, 40) if name == "convnext" else _Grades(n, hw, 30)
+
+
+def _ddp_trainer(spec: dict, name: str, run: Path, distributed: bool, model=None):
+    """The ddp phase's trainer ``name`` ("convnext", or "resnet" and its
+    control "resnet_local") on the rank's device, its global batch from
+    ``spec``; the model is ``model`` when given (a copy of a seeded one)."""
+    import torch
+
+    from spine_vision_torch.train.classification import (
+        ClassificationConfig,
+        ClassificationTrainer,
+    )
+    from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
+
+    device = torch.device(spec["device"])
+    common = dict(num_epochs=1, output_path=run, num_workers=8, pretrained=False, seed=0,
+                  scheduler_type="none", early_stopping=False, profile_steps=True,
+                  mixed_precision=True, distributed=distributed)
+    shutil.rmtree(run, ignore_errors=True)
+    if name == "convnext":
+        hw, batch = spec["hw"], spec["batch"]
+        cfg = LocalizationConfig(backbone=spec["backbone"], image_size=(hw, hw), batch_size=batch,
+                                 augment=True, dropout=0.2, learning_rate=DDP_LR, **common)
+        if model is None:
+            model = _regressor(device, seed=0, dropout=0.2, backbone=spec["backbone"])
+        return LocalizationTrainer(cfg, model=model, val_dataset=[], device=device,
+                                   train_dataset=_ddp_data(name, DDP_STEPS * batch, hw))
+    hw, batch = spec["cls_hw"], spec["cls_batch"]
+    cfg = ClassificationConfig(backbone="resnet18", output_size=(hw, hw), batch_size=batch,
+                               augment=True, dropout=0.3, use_weighted_sampling=True,
+                               learning_rate=DDP_CLS_LR, **{**common, "mixed_precision": False})
+    trainer = ClassificationTrainer(
+        cfg, model=model, val_dataset=[], device=device,
+        train_dataset=_ddp_data("resnet", DDP_CHECK_STEPS * batch, hw))
+    if name == "resnet_local":
+        from spine_vision_torch.ops.batchnorm import BatchNorm
+
+        for module in trainer.model.modules():
+            if isinstance(module, BatchNorm):
+                module.process_group = None
+    return trainer
+
+
+def _ddp_run(spec: dict, name: str, run: Path, distributed: bool, model=None) -> dict:
+    """``train()`` of one ddp trainer: each step's launch counts, the step
+    times, the history, the first step's reduced gradients and BatchNorm
+    running statistics, the parameters and buffers after DDP_CHECK_STEPS
+    steps and at the end (on the host), and the run's wall seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    trainer = _ddp_trainer(spec, name, run, distributed, model)
+    del model
+    counts, snapshot, grads, stats = [], {}, {}, {}
+    inner = trainer.train_step_fn
+
+    def step(state, batch):
+        _zero_counts()
+        loss = inner(state, batch)
+        counts.append(_counts())
+        if len(counts) == 1:
+            grads.update({k: p.grad.detach().float().cpu().clone()
+                          for k, p in trainer.model.named_parameters()})
+            stats.update({k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()
+                          if k.endswith((".mean", ".var"))})
+        if len(counts) == DDP_CHECK_STEPS:
+            snapshot.update({k: v.detach().cpu().clone()
+                             for k, v in trainer.model.state_dict().items()})
+        return loss
+
+    trainer.train_step_fn = step
+    result = trainer.train()
+    final = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+    out = {"history": result.history, "step_ms": [t * 1e3 for t in trainer.step_times],
+           "counts": counts, "snapshot": snapshot, "final": final, "grads": grads,
+           "stats": stats, "replica": trainer.state.replica is not None,
+           "world": trainer.mesh_ctx.world_size}
+    del trainer, result
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    shutil.rmtree(run, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _same_tensors(a: dict, b: dict) -> list:
+    """The names whose tensors differ (bit for bit) between ``a`` and ``b``."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def ddp_rank(spec: dict) -> None:
+    """One rank of the ddp phase. World size 1: each trainer without a group,
+    then through DDP (a group of one over ``spec["backend"]``), which must be
+    bit for bit the same; the plain runs' snapshots are saved for the
+    two-rank comparison. World size 2: each trainer through DDP over gloo;
+    rank 0 saves its snapshots. Every rank writes its report."""
+    import torch
+    import torch.distributed as dist
+
+    from spine_vision_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # two runs of one process, bit for bit
+    out, world, rank = Path(spec["out"]), spec["world"], spec["rank"]
+    report = {}
+    names = ("convnext", "resnet")
+    address = f"127.0.0.1:{spec['port']}"
+    if world == 1:
+        # The seeded models, built once each: the plain runs train copies.
+        t0 = time.perf_counter()
+        seeded = {"convnext": _regressor(torch.device(spec["device"]), seed=0, dropout=0.2,
+                                         backbone=spec["backbone"]),
+                  "resnet": _ddp_trainer(spec, "resnet", out / "build", False).model}
+        shutil.rmtree(out / "build", ignore_errors=True)
+        print(f"[ddp] one rank: models built in {time.perf_counter() - t0:.1f} s", flush=True)
+        plain = {n: _ddp_run(spec, n, out / f"plain_{n}", distributed=False,
+                             model=copy.deepcopy(seeded[n])) for n in names}
+        if not initialize_distributed(address, 1, 0, backend=spec["backend"]):
+            raise RuntimeError("ddp rank: a process group existed before the DDP runs")
+        for n in names:
+            ddp = _ddp_run(spec, n, out / f"ddp1_{n}", distributed=True, model=seeded.pop(n))
+            if plain[n]["replica"] or not ddp["replica"] or ddp["world"] != 1:
+                raise AssertionError(f"{n}: the plain run has a replica or the DDP run none")
+            differ = (_same_tensors(plain[n]["grads"], ddp["grads"])
+                      + _same_tensors(plain[n]["stats"], ddp["stats"])
+                      + _same_tensors(plain[n]["snapshot"], ddp["snapshot"])
+                      + _same_tensors(plain[n]["final"], ddp["final"]))
+            if differ or plain[n]["history"] != ddp["history"]:
+                raise AssertionError(f"{n}: DDP over one rank differs from the plain run: "
+                                     f"{differ[:5]}, {plain[n]['history']} vs {ddp['history']}")
+            torch.save({"params": plain[n]["snapshot"], "grads": plain[n]["grads"],
+                        "stats": plain[n]["stats"]}, out / f"plain_{n}.pt")
+            report[n] = {k: {"step_ms": r["step_ms"], "counts": r["counts"],
+                             "history": r["history"]}
+                         for k, r in (("plain", plain[n]), ("ddp", ddp))}
+            print(f"[ddp] {n}: DDP over one rank ({spec['backend']}) equals the plain run bit "
+                  f"for bit: the first step's gradients, {len(ddp['final'])} parameters and "
+                  f"buffers after {DDP_CHECK_STEPS} and {len(ddp['step_ms'])} steps, losses "
+                  f"{ddp['history']['train_loss']}; runs {plain[n]['seconds']:.1f} s plain, "
+                  f"{ddp['seconds']:.1f} s DDP", flush=True)
+    else:
+        if not initialize_distributed(address, world, rank, backend="gloo"):
+            raise RuntimeError("ddp rank: a process group existed before the DDP runs")
+        for n in (*names, "resnet_local"):
+            r = _ddp_run(spec, n, out / f"ddp{world}_{n}", distributed=True)
+            if r["world"] != world or not r["replica"]:
+                raise AssertionError(f"{n}: rank {rank} trained without its group")
+            if rank == 0:
+                torch.save({"params": r["snapshot"], "grads": r["grads"], "stats": r["stats"]},
+                           out / f"ddp{world}_{n}.pt")
+                print(f"[ddp] two ranks: {n} run {r['seconds']:.1f} s", flush=True)
+            report[n] = {"step_ms": r["step_ms"], "counts": r["counts"], "history": r["history"]}
+        dist.barrier()
+    (out / f"rank{rank}_of_{world}.json").write_text(json.dumps(report))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(spec: dict, world: int) -> list:
+    """Start ``world`` ranks of the ddp phase and wait for them; a rank's
+    non-zero exit (or the time limit) raises. Returns their outputs."""
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--ddp-rank",
+         json.dumps({**spec, "world": world, "rank": rank, "port": port})],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for rank in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DDP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if line.startswith("[ddp]"):
+                print(line)
+        if p.returncode != 0:
+            raise RuntimeError(f"ddp rank {rank} of {world} exited {p.returncode}:\n"
+                               f"{log[-6000:]}")
+    return logs
+
+
+def _rel_errs(got: dict, want: dict) -> dict:
+    """Each tensor's difference over its norm (f32)."""
+    return {k: float((got[k].float() - w.float()).norm() / max(float(w.float().norm()), 1e-30))
+            for k, w in want.items()}
+
+
+def _ddp_compare(got: dict, want: dict, lr: float, steps: int, tols: tuple) -> tuple:
+    """Two ranks' rank 0 against the single process: each parameter's
+    first-step gradient (the norm of the difference over the norm; worst and
+    median within ``tols[:2]``), the BatchNorm running statistics after the
+    first step (each buffer's within ``tols[3]``; none in a ConvNeXt), and
+    the parameters after ``steps`` steps by
+    ``tests/test_torch_multiprocess.py::check_adam_params``'s rule (every
+    element within 2 lr a step; the share off by more than lr / 5, the
+    elements whose gradient sits within the gradients' error of 0, at most
+    ``tols[2]``). Returns (numbers, failures)."""
+    import numpy as np
+
+    errs = _rel_errs(got["grads"], want["grads"])
+    stats = _rel_errs(got["stats"], want["stats"])
+    params = [k for k, w in want["params"].items()
+              if w.is_floating_point() and not k.endswith((".mean", ".var"))]
+    gaps = {k: (got["params"][k].float() - want["params"][k].float()).abs() for k in params}
+    off = {k: int((g > 0.2 * lr).sum()) for k, g in gaps.items()}
+    n = {
+        "grad_worst": max(errs.values()), "grad_worst_at": max(errs, key=errs.get),
+        "grad_median": float(np.median(list(errs.values()))),
+        "largest": max(float(g.max()) for g in gaps.values()),
+        "share": sum(off.values()) / sum(g.numel() for g in gaps.values()),
+        "most_off": sorted(((v / gaps[k].numel(), k) for k, v in off.items()), reverse=True)[:3],
+        "stats_worst": max(stats.values(), default=0.0),
+        "stats_worst_at": max(stats, key=stats.get, default=None),
+        "stats_median": float(np.median(list(stats.values()))) if stats else 0.0,
+    }
+    failures = []
+    if n["grad_worst"] > tols[0] or n["grad_median"] > tols[1]:
+        failures.append(f"first-step gradients worst {n['grad_worst']:.3e}, median "
+                        f"{n['grad_median']:.3e} (bounds {tols[:2]})")
+    if n["stats_worst"] > tols[3]:
+        failures.append(f"BatchNorm running statistics after the first step worst "
+                        f"{n['stats_worst']:.3e} ({n['stats_worst_at']}; bound {tols[3]})")
+    if n["largest"] > 2 * lr * steps or n["share"] > tols[2]:
+        failures.append(f"parameters: largest gap {n['largest']:.3e} (bound "
+                        f"{2 * lr * steps:.1e}), share off by more than lr/5 {n['share']:.3e} "
+                        f"(bound {tols[2]})")
+    return n, failures
+
+
+def _cls_checkpoint(device, path: Path) -> None:
+    """A seeded ResNet-18 Classifier (f32 parameters, bf16 compute) saved with
+    the port's ``save_checkpoint``."""
+    import torch
+
+    from spine_vision_torch.models.classifier import Classifier
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+    from spine_vision_torch.train.checkpoint import save_checkpoint
+    from spine_vision_torch.train.state import TrainState
+
+    model = Classifier("resnet18", dtype=torch.bfloat16, device=device, param_dtype=torch.float32)
+    load_flax_variables(model, *random_flax_variables(model, 1))
+    state = TrainState(model=model, optimizer=torch.optim.AdamW(model.parameters()),
+                       schedule=lambda step: 1e-4, generator=torch.Generator())
+    save_checkpoint(path, state, {"epoch": 0})
+
+
+def ddp_phase(device, card: str) -> dict:
+    """Data parallelism (``--ddp-only`` runs it alone; see ``ddp_rank``).
+
+    (a) One rank over NCCL: the train phase's ConvNeXt-base (hybrid block,
+    512^2, batch 32, bf16, augmentation and dropout) for DDP_STEPS steps and
+    the cls_train phase's ResNet-18 (256^2, batch 256, here in f32) for 2,
+    each through ``train()`` without a group and then through
+    DistributedDataParallel: bit for bit the same first-step gradients,
+    parameters, buffers and losses (cuDNN's deterministic algorithms in
+    both). (b) Two ranks on the one card over gloo, each half of the same
+    global batches: rank 0's first-step gradients and BatchNorm running
+    statistics and its parameters after DDP_CHECK_STEPS steps within
+    ``_ddp_compare``'s bounds of the single process's, both ranks' losses
+    the same; the ResNet's control run with each rank's own statistics
+    outside them. (c)
+    ``StudyInferencePipeline.from_checkpoints(mesh=data_parallel_mesh())``
+    on the 8 studies: bit for bit the ``mesh=None`` results, with the study
+    phase's launches a forward. Returns the launch counts of one DDP step
+    and one pipeline forward, summed."""
+    import torch
+
+    from spine_vision_torch.infer.pipeline import StudyInferencePipeline
+    from spine_vision_torch.ops import cuda_build
+    from spine_vision_torch.parallel import data_parallel_mesh
+
+    tag = "[ddp]"
+    t_phase = time.perf_counter()
+    cuda_build.build_all()  # the ranks load the built kernels
+    out = RUN_DIR / "ddp"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    spec = {"out": str(out), "device": f"{device.type}:0" if device.type == "cuda" else "cpu",
+            "backend": "nccl" if device.type == "cuda" else "gloo", **DDP_SHAPES}
+    t0 = time.perf_counter()
+    _spawn_ranks(spec, 1)
+    one = json.loads((out / "rank0_of_1.json").read_text())
+    t_one = time.perf_counter() - t0
+    print(f"{tag} one rank: {t_one:.1f} s with its process's start")
+    t0 = time.perf_counter()
+    _spawn_ranks(spec, 2)
+    two = [json.loads((out / f"rank{r}_of_2.json").read_text()) for r in range(2)]
+    t_two = time.perf_counter() - t0
+
+    step = one["convnext"]["ddp"]["counts"]
+    if any(c != TRAIN_LAUNCHES["train_step"] for c in step):
+        raise AssertionError(f"a DDP step's launches {step[0]}, expected "
+                             f"{TRAIN_LAUNCHES['train_step']}")
+    if any(c != TRAIN_LAUNCHES["train_step"] for r in two for c in r["convnext"]["counts"]):
+        raise AssertionError("a two-rank DDP step did not launch the hybrid block's kernels")
+    failures = []
+    cls_tols = (DDP_CLS_GRAD_WORST, DDP_CLS_GRAD_MEDIAN, DDP_CLS_SHARE, DDP_BN_TOL)
+    for name, lr, tols in (("convnext", DDP_LR, (GRAD_REL_TOL,) * 3 + (DDP_BN_TOL,)),
+                           ("resnet", DDP_CLS_LR, cls_tols),
+                           ("resnet_local", DDP_CLS_LR, cls_tols)):
+        if two[0][name]["history"] != two[1][name]["history"]:
+            failures.append(f"{name}: the ranks logged different losses: "
+                            f"{two[0][name]['history']} vs {two[1][name]['history']}")
+        got = torch.load(out / f"ddp2_{name}.pt", weights_only=True)
+        plain = name.removesuffix("_local")
+        want = torch.load(out / f"plain_{plain}.pt", weights_only=True)
+        n, failed = _ddp_compare(got, want, lr, DDP_CHECK_STEPS, tols)
+        if name == "resnet_local":
+            # The control: local statistics must fail the statistics and the
+            # gradient-median bounds.
+            if n["stats_worst"] <= tols[3] or n["grad_median"] <= tols[1]:
+                failures.append(f"{name}: the control with local BatchNorm statistics passed "
+                                f"the bounds that must catch it: {failed}")
+        else:
+            failures += [f"{name}: {f}" for f in failed]
+        what = (f"{spec['backbone']} {spec['hw']}^2 b{spec['batch']} bf16" if name == "convnext"
+                else f"resnet18 {spec['cls_hw']}^2 b{spec['cls_batch']} f32")
+        if name == "resnet_local":
+            what += ", the control: BatchNorm statistics of each rank's own half"
+        print(f"{tag} {name} ({what}) two ranks on one card over gloo against one process: "
+              f"first-step gradients worst {n['grad_worst']:.4e} of the norm "
+              f"({n['grad_worst_at']}), median {n['grad_median']:.4e} (bounds {tols[0]}, "
+              f"{tols[1]}); BatchNorm running statistics after step 1 worst "
+              f"{n['stats_worst']:.4e} ({n['stats_worst_at']}), median {n['stats_median']:.4e} "
+              f"(bound {tols[3]}); after {DDP_CHECK_STEPS} steps at lr {lr}: largest parameter "
+              f"gap {n['largest']:.4e} (bound {2 * lr * DDP_CHECK_STEPS:.1e}), share of elements "
+              f"off by more than lr/5 {n['share']:.4e} (bound {tols[2]}; most in "
+              f"{[(k, round(v, 5)) for v, k in n['most_off']]}); losses two ranks "
+              f"{two[0][name]['history']['train_loss']}, one process "
+              f"{one[plain]['plain']['history']['train_loss']}"
+              + (f"; failed as it must: {failed}" if name == "resnet_local" else ""))
+    import numpy as np
+
+    plain_p50 = float(np.percentile(one["convnext"]["plain"]["step_ms"][1:], 50))
+    ddp_p50 = float(np.percentile(one["convnext"]["ddp"]["step_ms"][1:], 50))
+    two_p50 = float(np.percentile(two[0]["convnext"]["step_ms"][1:], 50))
+    print(f"{tag} ConvNeXt-base 512^2 b{spec['batch']} hybrid train step p50: DDP over one rank "
+          f"(NCCL) {ddp_p50:.3f} ms beside the plain step {plain_p50:.3f} ms "
+          f"({ddp_p50 / plain_p50 - 1:+.2%}); two ranks of b{spec['batch'] // 2} on the one card "
+          f"over gloo {two_p50:.3f} ms (printed only: gloo stages the gradients through the host); "
+          f"{len(one['convnext']['ddp']['step_ms']) - 1} steps after the first each; on {card}")
+    cls_plain = float(np.percentile(one["resnet"]["plain"]["step_ms"][1:], 50))
+    cls_ddp = float(np.percentile(one["resnet"]["ddp"]["step_ms"][1:], 50))
+    print(f"{tag} ResNet-18 256^2 b{spec['cls_batch']} f32 train step (the second): DDP over one "
+          f"rank {cls_ddp:.3f} ms beside the plain step {cls_plain:.3f} ms on {card}")
+
+    # (c) the study pipeline over the device list.
+    t0 = time.perf_counter()
+    _loc_checkpoint(device, out / "loc" / "best_model")
+    _cls_checkpoint(device, out / "cls" / "best_model")
+    paths = (out / "loc" / "best_model", out / "cls" / "best_model")
+    plain = StudyInferencePipeline.from_checkpoints(*paths, device=device)
+    mesh = data_parallel_mesh()
+    meshed = StudyInferencePipeline.from_checkpoints(*paths, mesh=mesh)
+    studies = _studies(DDP_STUDIES, 5)
+    want = plain.run(studies)
+    _zero_counts()
+    got = meshed.run(studies)
+    forward = _counts()
+    if forward != INFERENCE_LAUNCHES:
+        raise AssertionError(f"the meshed pipeline's forward launched {forward}, expected "
+                             f"{INFERENCE_LAUNCHES}")
+    if not _same_results(got, want):
+        raise AssertionError("from_checkpoints(mesh=data_parallel_mesh()) differs from mesh=None")
+    print(f"{tag} from_checkpoints(mesh=data_parallel_mesh()) over {len(mesh)} device(s) "
+          f"{[str(d) for d in mesh]}: {DDP_STUDIES} studies bit for bit the mesh=None results, "
+          f"launches a forward {forward} ({time.perf_counter() - t0:.1f} s)")
+    del plain, meshed
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"{tag} wall: one rank {t_one:.1f} s, two ranks {t_two:.1f} s (each with its "
+          f"processes' start), the phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    if failures:
+        raise AssertionError("ddp: " + "; ".join(failures))
+    return {k: step[0][k] + forward[k] for k in step[0]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -3546,7 +4014,14 @@ def main() -> int:
                         help="run only the serve phase (no kernels line)")
     parser.add_argument("--build-only", action="store_true",
                         help="run only the builders phase (no kernels line)")
+    parser.add_argument("--ddp-only", action="store_true",
+                        help="run only the ddp phase (no kernels line)")
+    parser.add_argument("--ddp-rank", help=argparse.SUPPRESS)  # a rank of the ddp phase
     opts = parser.parse_args()
+    if opts.ddp_rank:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        ddp_rank(json.loads(opts.ddp_rank))
+        return 0
 
     try:
         import torch
@@ -3601,6 +4076,9 @@ def main() -> int:
         phase("builders", builders_phase, device, card)
         shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
         return verdict()
+    if opts.ddp_only:
+        phase("ddp", ddp_phase, device, card)
+        return verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -3623,7 +4101,7 @@ def main() -> int:
              **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
-             "probes": probe_counts}
+             "ddp": None, "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
@@ -3654,6 +4132,7 @@ def main() -> int:
         paths["file_backed"] = phase("file_backed", file_backed_phase, device,
                                      card)["launches"]
         paths["ocr"] = phase("ocr", ocr_phase, device, card, opts.profile)
+        paths["ddp"] = phase("ddp", ddp_phase, device, card)
 
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",

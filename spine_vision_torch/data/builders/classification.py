@@ -31,6 +31,7 @@ from spine_vision_torch.device import resolve_device
 from spine_vision_torch.infer.pipeline import SeriesCropPipeline, StudyPipelineConfig
 from spine_vision_torch.io.series import prepare_series_slice
 from spine_vision_torch.io.tabular import write_records_csv
+from spine_vision_torch.parallel import data_parallel_mesh
 
 
 @dataclass
@@ -58,7 +59,8 @@ class ClassificationDatasetConfig(BaseConfig):
     device_batch_size: int = 8
     """Series slices cropped per pipeline call."""
     data_parallel: bool = False
-    """Shard each crop batch over every local device (not ported)."""
+    """Shard each crop batch over every local device
+    (``parallel/mesh.py::data_parallel_mesh``)."""
     padded_hw: tuple[int, int] = (1536, 1536)
     """Static slice buffer; isotropic 0.3 mm slices of lumbar MRI fit."""
 
@@ -446,14 +448,13 @@ def _build_pipeline(
         last_disc_angle_boost=config.last_disc_angle_boost,
         padded_hw=config.padded_hw,
     )
+    # data_parallel: every local device of the kind asked for (the CPU is one).
+    mesh = None
     if config.data_parallel:
-        raise NotImplementedError(
-            "ClassificationDatasetConfig(data_parallel=True) (crop batches sharded over "
-            "devices) is not ported yet: ROADMAP.md, Queue 1 item 9"
-        )
+        mesh = data_parallel_mesh() if dev.type == "cuda" else data_parallel_mesh([dev])
     if config.localization_model_path is None:
         logger.info("No localization model; using center fallback locations")
-        return SeriesCropPipeline(None, config=pipe_config, device=dev)
+        return SeriesCropPipeline(None, config=pipe_config, device=dev, mesh=mesh)
 
     from spine_vision_torch.models.classifier import CoordinateRegressor
     from spine_vision_torch.train.checkpoint import load_model_state
@@ -464,7 +465,7 @@ def _build_pipeline(
         use_pallas=dev.type == "cuda", param_dtype=torch.float32,
     )
     load_model_state(config.localization_model_path, model)
-    return SeriesCropPipeline(model, config=pipe_config, device=dev)
+    return SeriesCropPipeline(model, config=pipe_config, device=dev, mesh=mesh)
 
 
 def log_dataset_summary(records: Iterable[ClassificationRecord]) -> None:

@@ -1,6 +1,6 @@
 """Host input pipeline: seeded shuffling, weighted sampling, threaded prefetch.
 
-Counterpart of ``spine_vision_tpu/data/loader.py`` for one process:
+Counterpart of ``spine_vision_tpu/data/loader.py``:
 
 - epoch ``e`` draws its index stream from ``np.random.RandomState(seed + e)``:
   with ``sample_weights``, ``n`` indices drawn with replacement in
@@ -13,9 +13,14 @@ Counterpart of ``spine_vision_tpu/data/loader.py`` for one process:
   sample cache, ``data/cache.py``) assembles a whole batch in one gather
   per field instead, where the collate function is ``default_collate``;
 - batches are dicts of stacked numpy arrays; non-array entries (metadata)
-  are collected into lists.
-
-There is one process, so there is no per-host slicing of the global batch.
+  are collected into lists;
+- in a multi-process run (``process_count`` ranks, by default the process
+  group's) every rank draws the same global index stream and takes the same
+  contiguous, equal slice of every global batch. A trailing partial batch is
+  first padded to a ``process_count`` multiple by repeating its last index;
+  such a batch carries ``_n_valid_global`` (its real global size, the same on
+  every rank) and, on a rank holding repeated rows, ``_n_valid`` (its real
+  local rows). ``len`` is the same on every rank.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Any, Callable, Iterator, Protocol, Sequence
 import numpy as np
 
 from spine_vision_torch.core.tasks import get_task
+from spine_vision_torch.parallel import mesh
 
 
 class MapDataset(Protocol):
@@ -95,7 +101,8 @@ def compute_inverse_frequency_weights(labels: Sequence[Any]) -> np.ndarray:
 
 
 class DataLoader:
-    """Seeded, prefetching batch loader."""
+    """Seeded, prefetching batch loader; ``batch_size`` is the global batch,
+    of which this process loads its ``batch_size / process_count`` slice."""
 
     def __init__(
         self,
@@ -108,6 +115,8 @@ class DataLoader:
         collate_fn: Callable[[Sequence[dict[str, Any]]], dict[str, Any]] | None = None,
         num_workers: int = 8,
         prefetch: int = 2,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -119,6 +128,11 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.epoch = 0
+        self.process_index = mesh.rank() if process_index is None else process_index
+        self.process_count = mesh.world_size() if process_count is None else process_count
+        if self.batch_size % self.process_count != 0:
+            raise ValueError(f"batch_size={batch_size} not divisible by "
+                             f"process_count={self.process_count}")
 
     def set_epoch(self, epoch: int) -> None:
         """Set the epoch for deterministic reshuffling."""
@@ -142,6 +156,17 @@ class DataLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def _process_slice(self, batch: np.ndarray) -> tuple[np.ndarray, int]:
+        """This rank's contiguous equal share of a global batch (padded by
+        repeating its last index) and its count of real rows."""
+        n = len(batch)
+        pad = (-n) % self.process_count
+        if pad:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], pad)])
+        share = len(batch) // self.process_count
+        start = self.process_index * share
+        return batch[start: start + share], int(np.clip(n - start, 0, share))
+
     def __iter__(self) -> Iterator[dict[str, Any]]:
         n_batches = len(self)
         if n_batches == 0:
@@ -150,6 +175,12 @@ class DataLoader:
         batch_indices = [
             indices[i * self.batch_size: (i + 1) * self.batch_size] for i in range(n_batches)
         ]
+        n_global = [len(b) for b in batch_indices]
+        n_real = list(n_global)
+        if self.process_count > 1:
+            sliced = [self._process_slice(b) for b in batch_indices]
+            batch_indices = [b for b, _ in sliced]
+            n_real = [v for _, v in sliced]
         out_queue: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         # get_batch builds default_collate's structure; a custom collate_fn
@@ -160,13 +191,17 @@ class DataLoader:
         def producer() -> None:
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                    for bidx in batch_indices:
+                    for bidx, valid, global_valid in zip(batch_indices, n_real, n_global):
                         if stop.is_set():
                             return
                         batch = fast_batch(bidx) if fast_batch else None
                         if batch is None:  # get_batch returns None for deep layouts
                             batch = self.collate_fn(list(pool.map(self.dataset.__getitem__,
                                                                   bidx)))
+                        if global_valid % self.process_count:  # a padded global batch
+                            batch["_n_valid_global"] = global_valid
+                            if valid < len(bidx):
+                                batch["_n_valid"] = valid
                         out_queue.put(batch)
                 out_queue.put(None)
             except BaseException as exc:  # handed to the consumer, which raises it

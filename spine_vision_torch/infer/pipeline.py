@@ -30,10 +30,20 @@ host buffer is reused across calls, so a lock held from the packing to the
 fetch of the results keeps a second call from refilling the buffer while the
 first call's upload is still queued. ``SeriesCropPipeline.run`` packs into a
 fresh buffer each call and needs none.
+
+Both pipelines take ``mesh=data_parallel_mesh()`` (``parallel/mesh.py``), a
+list of local devices, as the JAX package takes a ``("data",)`` mesh: they
+keep one model replica per device, pad the batch to a multiple of the
+device count, queue every shard's graph on its device before any fetch, so
+the devices overlap, then gather to the host and drop the padding. The
+shards upload from slices of the one packed host buffer, under the same
+lock. ``mesh=None`` is the one-device path.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import threading
 from dataclasses import dataclass, field
@@ -73,11 +83,39 @@ def _fallback_centers(num_levels: int) -> np.ndarray:
     return np.stack([np.full(num_levels, 0.5, np.float32), y], axis=-1)
 
 
-def _bucket_count(n: int, bucket: bool) -> int:
-    """Padded batch size: the next power of two when bucketing."""
+def _bucket_count(n: int, bucket: bool, multiple: int = 1) -> int:
+    """Padded batch size: the next power of two when bucketing, then rounded
+    up to a multiple of the device count."""
     if bucket and n > 0:
         n = 1 << (n - 1).bit_length()
+    if multiple > 1 and n > 0:
+        n = -(-n // multiple) * multiple
     return n
+
+
+def _mesh_devices(mesh: Any | None, device: str | torch.device) -> tuple[torch.device, ...]:
+    """The devices a pipeline runs on: ``mesh``'s (each resolved), or
+    ``(device,)``. A batch pads to a multiple of their count."""
+    if mesh is None:
+        return (resolve_device(device),)
+    devices = tuple(resolve_device(d) for d in mesh)
+    if not devices:
+        raise ValueError("a pipeline's mesh needs at least one device")
+    return devices
+
+
+def _replicate_model(model: torch.nn.Module | None, devices: tuple[torch.device, ...]) -> list:
+    """One eval-mode copy of ``model`` per device: the model itself on the
+    first device, copies on the others."""
+    if model is None:
+        return [None] * len(devices)
+    first = model.to(devices[0]).eval()
+    return [first] + [copy.deepcopy(first).to(d).eval() for d in devices[1:]]
+
+
+def _on(device: torch.device):
+    """The device's context: kernels launch on the current CUDA device."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
 
 
 def _place_slice(
@@ -224,7 +262,8 @@ class SeriesCropPipeline:
     A batch of series slices runs through :func:`loc_and_crop` in one call,
     padded as the study pipeline pads studies. With ``loc_model=None`` the
     fallback centres stand in for the forward. ``loc_model`` is moved to
-    ``device`` (CUDA by default; the CPU only when asked for)."""
+    ``device`` (CUDA by default; the CPU only when asked for), or replicated
+    over ``mesh``'s devices, each of which crops its shard of the batch."""
 
     def __init__(
         self,
@@ -233,14 +272,11 @@ class SeriesCropPipeline:
         device: str | torch.device = "cuda",
         mesh: Any | None = None,
     ) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "SeriesCropPipeline(mesh=...) (sharded slice batches) is not ported yet: "
-                "ROADMAP.md, Queue 1 item 9"
-            )
-        self.device = resolve_device(device)
+        self.devices = _mesh_devices(mesh, device)
+        self.device = self.devices[0]
         self.config = config or StudyPipelineConfig()
-        self.loc_model = None if loc_model is None else loc_model.to(self.device).eval()
+        self._loc_replicas = _replicate_model(loc_model, self.devices)
+        self.loc_model = self._loc_replicas[0]
 
     def run(
         self, slices: list[np.ndarray], spacings: list[tuple[float, float]]
@@ -253,7 +289,7 @@ class SeriesCropPipeline:
         cfg = self.config
         hp, wp = cfg.padded_hw
         n_real = len(slices)
-        m = _bucket_count(n_real, cfg.bucket_batches)
+        m = _bucket_count(n_real, cfg.bucket_batches, len(self.devices))
         flat = np.zeros((m, hp, wp), dtype=np.float32)
         # Dummy rows carry 1x1 extents so the masked normalise stays finite.
         hw = np.ones((m, 2), dtype=np.int32)
@@ -261,20 +297,24 @@ class SeriesCropPipeline:
             _place_slice(flat[i], hw[i], np.asarray(sl, dtype=np.float32), cfg.padded_hw)
         spacing = np.ones((m, 2), dtype=np.float32)
         spacing[:n_real] = np.asarray(spacings, dtype=np.float32)
-        dev = self.device
-        centers = None
-        if self.loc_model is None:
-            centers = torch.from_numpy(_fallback_centers(cfg.num_levels)).to(dev).expand(m, -1, -1)
+        k = m // len(self.devices)  # rows a device
+        outs = []
         with torch.inference_mode():
-            coords, angles, crops = loc_and_crop(
-                self.loc_model, cfg, torch.from_numpy(flat).to(dev),
-                torch.from_numpy(hw).to(dev), torch.from_numpy(spacing).to(dev),
-                centers_override=centers,
-            )
-            return (
-                coords.cpu().numpy()[:n_real],
-                angles.cpu().numpy()[:n_real],
-                crops.cpu().numpy()[:n_real],
+            for i, (dev, model) in enumerate(zip(self.devices, self._loc_replicas)):
+                rows = slice(i * k, (i + 1) * k)
+                centers = None
+                if model is None:
+                    centers = torch.from_numpy(_fallback_centers(cfg.num_levels)).to(
+                        dev).expand(k, -1, -1)
+                with _on(dev):
+                    outs.append(loc_and_crop(
+                        model, cfg, torch.from_numpy(flat[rows]).to(dev),
+                        torch.from_numpy(hw[rows]).to(dev),
+                        torch.from_numpy(spacing[rows]).to(dev), centers_override=centers,
+                    ))
+            return tuple(
+                np.concatenate([out[j].cpu().numpy() for out in outs])[:n_real]
+                for j in range(3)
             )
 
 
@@ -282,7 +322,8 @@ class StudyInferencePipeline:
     """Batched fused localization -> crop -> grading executor.
 
     The models are moved to ``device`` (CUDA by default; the CPU only when
-    asked for)."""
+    asked for), or replicated over ``mesh``'s devices (``parallel/mesh.py::
+    data_parallel_mesh``), each of which runs its shard of the batch."""
 
     def __init__(
         self,
@@ -291,11 +332,14 @@ class StudyInferencePipeline:
         config: StudyPipelineConfig | None = None,
         tasks: list[TaskConfig] | None = None,
         device: str | torch.device = "cuda",
+        mesh: Any | None = None,
     ) -> None:
-        self.device = resolve_device(device)
+        self.devices = _mesh_devices(mesh, device)
+        self.device = self.devices[0]
         self.config = config or StudyPipelineConfig()
-        self.loc_model = loc_model.to(self.device).eval()
-        self.cls_model = cls_model.to(self.device).eval()
+        self._replicas = list(zip(_replicate_model(loc_model, self.devices),
+                                  _replicate_model(cls_model, self.devices)))
+        self.loc_model, self.cls_model = self._replicas[0]
         self.tasks = tasks if tasks is not None else get_tasks()
         self._pinned: dict[tuple[int, ...], torch.Tensor] = {}
         self._run_lock = threading.Lock()
@@ -319,13 +363,10 @@ class StudyInferencePipeline:
         and computed in ``dtype``, as the JAX package's Flax models are.
 
         ``use_pallas=None`` runs the kernels on CUDA and the plain path on the
-        CPU; a checkpoint trained in any ``use_pallas`` mode loads in any."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "from_checkpoints(mesh=...) (sharded study batches) is not ported yet: "
-                "ROADMAP.md, Queue 1 item 9"
-            )
-        dev = resolve_device(device)
+        CPU; a checkpoint trained in any ``use_pallas`` mode loads in any.
+        ``mesh`` (a device list) replicates both models over its devices,
+        which then take the place of ``device``."""
+        dev = _mesh_devices(mesh, device)[0]
         if use_pallas is None:
             use_pallas = dev.type == "cuda"
         config = config or StudyPipelineConfig()
@@ -338,7 +379,7 @@ class StudyInferencePipeline:
         load_model_state(Path(cls_checkpoint), cls_model)
         logger.info("Loaded pipeline: loc=%s (%s), cls=%s (%s)", loc_backbone, loc_checkpoint,
                     cls_backbone, cls_checkpoint)
-        return cls(loc_model, cls_model, config=config, tasks=task_list, device=dev)
+        return cls(loc_model, cls_model, config=config, tasks=task_list, device=dev, mesh=mesh)
 
     def _host_buffer(self, shape: tuple[int, ...]) -> np.ndarray:
         """Zeroed f32 host buffer for the packed slices: page-locked and
@@ -356,12 +397,15 @@ class StudyInferencePipeline:
 
     def _fused(
         self, slices: torch.Tensor, hw: torch.Tensor, spacing: torch.Tensor,
-        include_crops: bool = True,
+        include_crops: bool = True, replica: int = 0,
     ) -> dict:
+        """The study graph on one device's batch, with its ``replica`` of the
+        models."""
         cfg = self.config
+        loc_model, cls_model = self._replicas[replica]
         n, s, hp, wp = slices.shape
         coords, angles, crops = loc_and_crop(
-            self.loc_model, cfg, slices.reshape(n * s, hp, wp).float(),
+            loc_model, cfg, slices.reshape(n * s, hp, wp).float(),
             hw.reshape(n * s, 2), spacing.reshape(n * s, 2),
         )
         ch, cw = cfg.crop_size
@@ -373,7 +417,7 @@ class StudyInferencePipeline:
         cls_in = imagenet_normalize(rgb.reshape(n * cfg.num_levels, ch, cw, 3))
         logits = {
             k: v.reshape(n, cfg.num_levels, *v.shape[1:]).float()
-            for k, v in self.cls_model(cls_in).items()
+            for k, v in cls_model(cls_in).items()
         }
         out = {
             "coords": coords.reshape(n, s, cfg.num_levels, 2),
@@ -386,7 +430,7 @@ class StudyInferencePipeline:
 
     def _pack(self, studies: list[StudyInput]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         hp, wp = self.config.padded_hw
-        n = _bucket_count(len(studies), self.config.bucket_batches)
+        n = _bucket_count(len(studies), self.config.bucket_batches, len(self.devices))
         slices = self._host_buffer((n, 2, hp, wp))
         # Dummy rows carry 1x1 extents so the masked normalise stays finite.
         hw = np.ones((n, 2, 2), dtype=np.int32)
@@ -405,26 +449,36 @@ class StudyInferencePipeline:
     def run(self, studies: list[StudyInput], fetch_crops: bool = True) -> list[StudyResult]:
         """Run the graph on a batch of studies and decode on the host.
 
-        ``fetch_crops=False`` leaves the crop tensor on the device;
-        ``StudyResult.crops`` is then None."""
-        dev = self.device
-        # The lock spans the packing, the asynchronous upload and the fetch
-        # that waits for it: the next call (from any thread) refills the
-        # reused host buffer only once this call's copy has finished.
+        ``fetch_crops=False`` leaves the crop tensor on the device (on a mesh,
+        each device's shard); ``StudyResult.crops`` is then None."""
+        # The lock spans the packing, the asynchronous uploads and the fetch
+        # that waits for them: the next call (from any thread) refills the
+        # reused host buffer only once this call's copies have finished.
         with self._run_lock, torch.inference_mode():
             slices, hw, spacing = self._pack(studies)
-            out = self._fused(
-                torch.from_numpy(slices).to(dev, non_blocking=True),
-                torch.from_numpy(hw).to(dev), torch.from_numpy(spacing).to(dev),
-                include_crops=fetch_crops,
-            )
+            k = len(slices) // len(self.devices)  # studies a device
+            outs = []
+            for i, dev in enumerate(self.devices):  # every shard queued before a fetch
+                rows = slice(i * k, (i + 1) * k)
+                with _on(dev):
+                    outs.append(self._fused(
+                        torch.from_numpy(slices[rows]).to(dev, non_blocking=True),
+                        torch.from_numpy(hw[rows]).to(dev),
+                        torch.from_numpy(spacing[rows]).to(dev),
+                        include_crops=fetch_crops, replica=i,
+                    ))
+
+            def gather(key: str) -> np.ndarray:
+                return np.concatenate([out[key].cpu().numpy() for out in outs])
+
             host = {
-                "coords": out["coords"].cpu().numpy(),
-                "angles": out["angles"].cpu().numpy(),
-                "logits": {k: v.cpu().numpy() for k, v in out["logits"].items()},
+                "coords": gather("coords"),
+                "angles": gather("angles"),
+                "logits": {k: np.concatenate([out["logits"][k].cpu().numpy() for out in outs])
+                           for k in outs[0]["logits"]},
             }
             if fetch_crops:
-                host["crops"] = out["crops"].cpu().numpy()
+                host["crops"] = gather("crops")
         results = []
         for i, study in enumerate(studies):
             logits = {k: v[i] for k, v in host["logits"].items()}

@@ -4,7 +4,8 @@ multi-task loss.
 Counterparts of ``spine_vision_tpu/models/classifier.py``. The heads run in
 f32, as the Flax heads (no ``dtype``) do on the backbone's f32 features.
 Dropout acts in training mode only and draws from the generator passed to
-``forward``. Both models are built in eval mode, as inference callers
+``forward``; with ``shard`` (``ops/draws.py``) its masks are this rank's rows
+of the global batch's. Both models are built in eval mode, as inference callers
 expect; the trainer switches them with ``train()``.
 """
 
@@ -26,6 +27,7 @@ from spine_vision_torch.core.registry import register_model
 from spine_vision_torch.device import resolve_device
 from spine_vision_torch.models.backbone import create_backbone
 from spine_vision_torch.models.layers import Dense, LayerNorm
+from spine_vision_torch.ops.draws import DrawShard, rand
 
 
 @register_model("classifier")
@@ -61,12 +63,13 @@ class Classifier(nn.Module):
         self.eval()
 
     def forward(
-        self, x: torch.Tensor, generator: torch.Generator | None = None
+        self, x: torch.Tensor, generator: torch.Generator | None = None,
+        shard: DrawShard | None = None,
     ) -> dict[str, torch.Tensor]:
         """``generator`` feeds the dropout mask in training mode."""
         features = self.backbone(x)
         if self.training:
-            features = dropout(features, self.dropout, generator)
+            features = dropout(features, self.dropout, generator, shard)
         return {t.name: getattr(self, f"head_{t.name}")(features) for t in self.tasks}
 
 
@@ -79,9 +82,13 @@ def make_multitask_loss_fn(
     """The weighted multi-task loss ``sum_i w_i * loss_i`` over the tasks
     present in both the predictions and the targets (strategy-formatted).
 
-    The returned ``loss_fn(predictions, targets, sample_weight=None)`` takes
-    an optional ``[B]`` ``sample_weight``: each task's loss is then the
-    weighted mean of its per-sample losses, ``sum(l * w) / max(sum(w), 1)``.
+    The returned ``loss_fn(predictions, targets, sample_weight=None,
+    weight_total=None)`` takes an optional ``[B]`` ``sample_weight``: each
+    task's loss is then the weighted mean of its per-sample losses,
+    ``sum(l * w) / max(sum(w), 1)``. ``weight_total`` replaces that divisor: a
+    data-parallel rank passes the group's ``max(sum(w), 1)`` over the world
+    size, so that the ranks' mean is the global batch's loss. The plain means
+    need no such count: every rank holds an equal share of the batch.
     """
     tasks = list(tasks)
     loss_fns, loss_weights = create_loss_functions(tasks)
@@ -89,7 +96,8 @@ def make_multitask_loss_fn(
     per_sample_fns = {t.name: strategies[t.name].per_sample_loss_fn(t) for t in tasks}
 
     def loss_fn(
-        predictions: Outputs, targets: Outputs, sample_weight: torch.Tensor | None = None
+        predictions: Outputs, targets: Outputs, sample_weight: torch.Tensor | None = None,
+        weight_total: torch.Tensor | None = None,
     ) -> torch.Tensor:
         device = next(iter(predictions.values())).device
         total = torch.zeros((), dtype=torch.float32, device=device)
@@ -101,7 +109,8 @@ def make_multitask_loss_fn(
             if sample_weight is not None:
                 w = sample_weight.float()
                 per_sample = per_sample_fns[name](predictions[name], target)
-                task_loss = (per_sample * w).sum() / torch.clamp(w.sum(), min=1.0)
+                divisor = torch.clamp(w.sum(), min=1.0) if weight_total is None else weight_total
+                task_loss = (per_sample * w).sum() / divisor
             else:
                 task_loss = loss_fns[name](predictions[name], target)
             total = total + loss_weights[name] * task_loss
@@ -129,15 +138,17 @@ def make_multitask_loss_breakdown_fn(
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None
+    x: torch.Tensor, rate: float, generator: torch.Generator | None,
+    shard: DrawShard | None = None,
 ) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability ``1 - rate``, scaled by
-    ``1 / (1 - rate)``; the mask is drawn from ``generator``."""
+    ``1 / (1 - rate)``; the mask is drawn from ``generator`` (this rank's rows
+    of the global batch's mask with ``shard``)."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = rand(x.shape, generator, x.device, shard) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -173,14 +184,15 @@ class CoordinateRegressor(nn.Module):
         self.eval()
 
     def forward(
-        self, x: torch.Tensor, generator: torch.Generator | None = None
+        self, x: torch.Tensor, generator: torch.Generator | None = None,
+        shard: DrawShard | None = None,
     ) -> torch.Tensor:
         """``generator`` feeds the dropout masks in training mode."""
         y = self.head_norm(self.backbone(x))
         if self.training:
-            y = dropout(y, self.dropout, generator)
+            y = dropout(y, self.dropout, generator, shard)
         y = F.gelu(self.head_fc1(y), approximate="none")
         if self.training:
-            y = dropout(y, self.dropout / 2, generator)
+            y = dropout(y, self.dropout / 2, generator, shard)
         out = torch.sigmoid(self.head_fc2(y))
         return out.reshape(-1, self.num_levels, self.num_outputs)

@@ -10,6 +10,8 @@ floats in [0, 1], coordinates ``[B, L, 2]`` normalised (x, y).
 The parameters are drawn by :func:`affine_params` from a ``torch.Generator``
 (other numbers than ``jax.random``'s from the same seed); :func:`augment_with`
 applies given parameters, so a test can hand both packages the same draws.
+With a ``DrawShard`` (``ops/draws.py``) the draws are the global batch's and a
+rank keeps its rows, as the JAX package draws inside its data-parallel step.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from spine_vision_torch.ops.draws import DrawShard, rand
 
 
 class AugmentConfig(NamedTuple):
@@ -47,19 +51,21 @@ class AffineParams(NamedTuple):
 
 
 def affine_params(
-    generator: torch.Generator, batch: int, cfg: AugmentConfig, device
+    generator: torch.Generator, batch: int, cfg: AugmentConfig, device,
+    shard: DrawShard | None = None,
 ) -> AffineParams:
-    """Draw one transform per image, uniform in the configured ranges."""
+    """Draw one transform per image, uniform in the configured ranges; with
+    ``shard``, this rank's ``batch`` rows of the global batch's draws."""
 
     def uniform(lo: float, hi: float) -> torch.Tensor:
-        u = torch.rand(batch, generator=generator, device=device)
+        u = rand((batch,), generator, device, shard)
         return lo + (hi - lo) * u
 
     theta = uniform(-cfg.degrees, cfg.degrees) * (math.pi / 180.0)
     tx = uniform(-cfg.translate, cfg.translate)
     ty = uniform(-cfg.translate, cfg.translate)
     scale = uniform(cfg.scale_min, cfg.scale_max)
-    flip = torch.rand(batch, generator=generator, device=device) < cfg.hflip_prob
+    flip = rand((batch,), generator, device, shard) < cfg.hflip_prob
     brightness = uniform(1.0 - cfg.brightness, 1.0 + cfg.brightness)
     contrast = uniform(1.0 - cfg.contrast, 1.0 + cfg.contrast)
     return AffineParams(theta, tx, ty, scale, flip, brightness, contrast)
@@ -143,7 +149,9 @@ def augment_batch(
     images: torch.Tensor,
     coords: torch.Tensor | None = None,
     cfg: AugmentConfig = AugmentConfig(),
+    shard: DrawShard | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Draw a transform per image from ``generator`` and apply it."""
-    p = affine_params(generator, images.shape[0], cfg, images.device)
+    """Draw a transform per image from ``generator`` (this rank's rows of the
+    global batch's draws with ``shard``) and apply it."""
+    p = affine_params(generator, images.shape[0], cfg, images.device, shard)
     return augment_with(images, coords, p, cfg)

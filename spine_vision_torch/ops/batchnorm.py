@@ -16,12 +16,22 @@ Counterpart of ``spine_vision_tpu/ops/batchnorm.py`` (``TpuBatchNorm``):
 
 ``torch.nn.BatchNorm2d`` differs in both of the last: it updates the running
 variance with the unbiased estimate and weights the new statistic by its
-``momentum``; so it is not used.
+``momentum``; so it is not used, nor ``torch.nn.SyncBatchNorm``.
+
+With a ``process_group`` (the trainer sets one on every BatchNorm when it
+runs more than one process) the training statistics are those of the global
+batch, as under the JAX package's data-parallel ``jit``: the forward
+all-reduces Σx, Σx² and the count before the variance, the backward Σg and
+Σg·x before the three-term ``dx``, as the JAX custom VJP psums them over its
+``axis_name``. ``dscale`` and ``dbias`` stay this rank's shares, which the
+data-parallel gradient average sums. The sums cross the group in f64. Without
+a group (evaluation, one process) nothing changes and no collective runs.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -47,49 +57,70 @@ def _reduce_dims(x: torch.Tensor) -> tuple[int, ...]:
     return tuple(range(x.ndim - 1))
 
 
+def _group_sums(group, *sums: torch.Tensor) -> list[torch.Tensor]:
+    """Per-channel f32 sums (and scalar counts) summed over ``group`` in
+    f64, returned in f32."""
+    packed = torch.cat([s.double().reshape(-1) for s in sums])
+    dist.all_reduce(packed, group=group)
+    return [part.float().reshape(s.shape)
+            for part, s in zip(packed.split([s.numel() for s in sums]), sums)]
+
+
 @torch.no_grad()
-def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel (mean, biased var) from f32 sums of x and x²."""
+def batch_moments(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor, object]:
+    """Per-channel (mean, biased var) from f32 sums of x and x², and the
+    count they are over: this tensor's rows, or the group's with ``group``."""
     dims = _reduce_dims(x)
     xf = x.float()
     n = x.numel() // x.shape[-1]
-    mean = xf.sum(dims) / n
-    var = torch.clamp(xf.square().sum(dims) / n - mean.square(), min=0.0)
-    return mean, var
+    s1, s2 = xf.sum(dims), xf.square().sum(dims)
+    if group is not None:
+        s1, s2, n = _group_sums(group, s1, s2, s1.new_full((1,), n))
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean.square(), min=0.0)
+    return mean, var, n
 
 
 class _BatchNormTrain(torch.autograd.Function):
-    """Scale-shift by given batch statistics, with the three-term backward."""
+    """Scale-shift by given batch statistics over ``n`` rows, with the
+    three-term backward (its sums over ``group`` when one is given)."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, mean, var, eps):
+    def forward(ctx, x, scale, bias, mean, var, eps, n, group):
         ctx.save_for_backward(x, scale, mean, torch.rsqrt(var + eps))
+        ctx.n, ctx.group = n, group
         return batch_norm_inference(x, scale, bias, mean, var, eps)
 
     @staticmethod
     def backward(ctx, g):
         x, scale, mean, inv = ctx.saved_tensors
         dims = _reduce_dims(x)
-        n = x.numel() // x.shape[-1]
+        n = ctx.n
         gf, xf = g.float(), x.float()
         sg = gf.sum(dims)
         sgx = (gf * xf).sum(dims)
         dscale = inv * (sgx - mean * sg)  # = sum(g * xhat)
+        sg_all, dscale_all = sg, dscale
+        if ctx.group is not None:
+            sg_all, sgx_all = _group_sums(ctx.group, sg, sgx)
+            dscale_all = inv * (sgx_all - mean * sg_all)
         a = scale * inv
         # dx = a * (g - sg/n - xhat * dscale/n), as A*g + P*x + Q.
-        p = -(a * inv) * dscale / n
-        q = (a * inv * mean * dscale - a * sg) / n
+        p = -(a * inv) * dscale_all / n
+        q = (a * inv * mean * dscale_all - a * sg_all) / n
         dx = (gf * a + xf * p + q).to(x.dtype)
-        return dx, dscale, sg, None, None, None
+        return dx, dscale, sg, None, None, None, None, None
 
 
 def batch_norm_train(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Training-mode BatchNorm: ``(y, batch mean, batch var)``; the caller
-    owns the running update."""
-    mean, var = batch_moments(x)
-    return _BatchNormTrain.apply(x, scale, bias, mean, var, eps), mean, var
+    """Training-mode BatchNorm: ``(y, batch mean, batch var)``, the
+    statistics the global batch's with ``group``; the caller owns the
+    running update."""
+    mean, var, n = batch_moments(x, group)
+    return _BatchNormTrain.apply(x, scale, bias, mean, var, eps, n, group), mean, var
 
 
 MOMENTUM = 0.9  # weight of the old running statistic (the JAX ResNet's)
@@ -112,11 +143,12 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features, **f32))
         self.register_buffer("mean", torch.zeros(features, **f32))
         self.register_buffer("var", torch.ones(features, **f32))
+        self.process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return batch_norm_inference(x, self.scale, self.bias, self.mean, self.var, self.eps)
-        y, mean, var = batch_norm_train(x, self.scale, self.bias, self.eps)
+        y, mean, var = batch_norm_train(x, self.scale, self.bias, self.eps, self.process_group)
         with torch.no_grad():
             self.mean.copy_(MOMENTUM * self.mean + (1.0 - MOMENTUM) * mean)
             self.var.copy_(MOMENTUM * self.var + (1.0 - MOMENTUM) * var)

@@ -98,12 +98,15 @@ def masked_coordinate_loss(
     targets: torch.Tensor,
     mask: torch.Tensor | None = None,
     loss_type: str = "smooth_l1",
+    num_valid: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Mean coordinate loss over the valid entries of ``[B, L, 2]`` tensors.
 
     ``mask`` ``[B, L]`` (1 = valid) weights the elementwise loss, which is
     normalised by the number of valid elements; a batch with none valid
-    gives 0.
+    gives 0. ``num_valid`` replaces that count: a data-parallel rank passes
+    the group's count over the world size, so that the ranks' mean is the
+    global batch's loss even where the ranks see different counts.
     """
     if loss_type not in _COORD_LOSSES:
         raise ValueError(f"Unknown loss type: {loss_type}")
@@ -114,6 +117,7 @@ def masked_coordinate_loss(
     if mask is None:
         return elementwise.mean()
     mask_f = mask.float()[..., None]
-    num_valid = mask_f.sum() * elementwise.shape[-1]
+    if num_valid is None:
+        num_valid = mask_f.sum() * elementwise.shape[-1]
     total = (elementwise * mask_f).sum()
     return torch.where(num_valid > 0, total / torch.clamp(num_valid, min=1.0), 0.0)

@@ -41,6 +41,7 @@ from spine_vision_torch.ops.augment import AugmentConfig, augment_batch
 from spine_vision_torch.ops.image import imagenet_normalize
 from spine_vision_torch.train.localization import resolve_use_pallas
 from spine_vision_torch.train.trainer import (
+    EVALUATE_SINGLE_CONTROLLER,
     BaseTrainer,
     TrainingConfig,
     TrainingResult,
@@ -130,6 +131,9 @@ class ClassificationConfig(TrainingConfig):
 class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
     """Trainer for multi-task lumbar-spine classification."""
 
+    # A task's head gets no gradient in a step whose batch lacks its targets.
+    find_unused_parameters = True
+
     def __init__(
         self,
         config: ClassificationConfig,
@@ -167,19 +171,6 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
             focal_gamma=config.focal_gamma,
             focal_alpha=config.focal_alpha,
         )
-        if model is None:
-            model = Classifier(
-                backbone_name=config.backbone,
-                tasks=tuple(tasks),
-                dropout=config.dropout,
-                dtype=torch.bfloat16 if config.mixed_precision else torch.float32,
-                device=device,
-                generator=torch.Generator().manual_seed(config.seed),
-                use_pallas=resolve_use_pallas(config.use_pallas_mlp, config.use_pallas_dwconv),
-                param_dtype=torch.float32,
-                norm_impl=config.norm_impl,
-                pool_impl=config.pool_impl,
-            )
         if config.pretrained and config.pretrained_path is None:
             logger.warning(
                 "pretrained=True has no effect without pretrained_path: training "
@@ -196,6 +187,21 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         )
         self.metrics = ClassifierMetrics(target_labels=target_labels)
 
+    def _build_model(self, device: torch.device) -> Classifier:
+        config = self.config
+        return Classifier(
+            backbone_name=config.backbone,
+            tasks=tuple(self._tasks),
+            dropout=config.dropout,
+            dtype=torch.bfloat16 if config.mixed_precision else torch.float32,
+            device=device,
+            generator=torch.Generator().manual_seed(config.seed),
+            use_pallas=resolve_use_pallas(config.use_pallas_mlp, config.use_pallas_dwconv),
+            param_dtype=torch.float32,
+            norm_impl=config.norm_impl,
+            pool_impl=config.pool_impl,
+        )
+
     @staticmethod
     def _split_from_disk(config: ClassificationConfig, split: str) -> ClassificationDataset:
         return ClassificationDataset(
@@ -206,18 +212,29 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         )
 
     def _preprocess_fn(self) -> Callable:
-        augment, aug_cfg = self.config.augment, self._aug_cfg
+        augment, aug_cfg, shard = self.config.augment, self._aug_cfg, self._draw_shard
 
         def preprocess(batch: dict[str, Any], generator: torch.Generator, train: bool):
             images = batch["image"].float() / 255.0
             if train and augment:
-                images, _ = augment_batch(generator, images, None, aug_cfg)
+                images, _ = augment_batch(generator, images, None, aug_cfg, shard)
             return {**batch, "image": imagenet_normalize(images)}
 
         return preprocess
 
     def _loss_from_outputs(self, outputs: dict[str, torch.Tensor], batch: dict[str, Any]):
-        return self._multitask_loss(outputs, batch["targets"])
+        """The weighted multi-task loss. A train batch takes its plain means,
+        which need nothing over more than one rank (equal shares of the
+        batch). A batch with ``_valid`` (every eval batch above one rank)
+        takes the weighted form: the rows the loader repeated weigh 0, and
+        above one rank the weights' divisor is the group's
+        (:meth:`_counted_rows`)."""
+        if "_valid" not in batch:
+            return self._multitask_loss(outputs, batch["targets"])
+        ones = torch.ones(len(batch["_valid"]), device=batch["_valid"].device)
+        weights, total = self._counted_rows(batch, ones)
+        return self._multitask_loss(outputs, batch["targets"], sample_weight=weights,
+                                    weight_total=total)
 
     def _compute_metrics(self, outputs_list: list[Any], batches: list[Any]) -> dict[str, float]:
         self.metrics.reset()
@@ -249,7 +266,10 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
 
     def evaluate(self, test_dataset: Any | None = None, visualize: bool = False) -> dict[str, float]:
         """``ClassifierMetrics`` of the model on ``test_dataset``, by default
-        the test split of ``config.data_path`` ({} when it is empty)."""
+        the test split of ``config.data_path`` ({} when it is empty).
+        Single-process only, as in the JAX package."""
+        if self.mesh_ctx.world_size > 1:
+            raise NotImplementedError(EVALUATE_SINGLE_CONTROLLER)
         if visualize:
             raise _not_ported("evaluate(visualize=True) (viz/*)", "Queue 1 item 13")
         if test_dataset is None:

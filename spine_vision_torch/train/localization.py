@@ -38,6 +38,7 @@ from spine_vision_torch.ops.augment import AugmentConfig, augment_batch
 from spine_vision_torch.ops.image import imagenet_normalize
 from spine_vision_torch.ops.losses import masked_coordinate_loss
 from spine_vision_torch.train.trainer import (
+    EVALUATE_SINGLE_CONTROLLER,
     BaseTrainer,
     TrainingConfig,
     _not_ported,
@@ -115,20 +116,6 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
                 "mixed_precision=False on the card (f32 forms of the ConvNeXt kernels)",
                 "Queue 1 item 15"
             )
-        if model is None:
-            model = CoordinateRegressor(
-                backbone_name=config.backbone,
-                num_outputs=2,
-                num_levels=config.num_levels,
-                dropout=config.dropout,
-                dtype=torch.bfloat16 if config.mixed_precision else torch.float32,
-                device=device,
-                generator=torch.Generator().manual_seed(config.seed),
-                use_pallas=resolve_use_pallas(config.use_pallas_mlp, config.use_pallas_dwconv),
-                param_dtype=torch.float32,
-                norm_impl=config.norm_impl,
-                pool_impl=config.pool_impl,
-            )
         if config.pretrained and config.pretrained_path is None:
             logger.warning(
                 "pretrained=True has no effect without pretrained_path: training "
@@ -147,6 +134,22 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
             pck_thresholds=config.pck_thresholds, level_names=list(IDX_TO_LEVEL.values())
         )
 
+    def _build_model(self, device: torch.device) -> CoordinateRegressor:
+        config = self.config
+        return CoordinateRegressor(
+            backbone_name=config.backbone,
+            num_outputs=2,
+            num_levels=config.num_levels,
+            dropout=config.dropout,
+            dtype=torch.bfloat16 if config.mixed_precision else torch.float32,
+            device=device,
+            generator=torch.Generator().manual_seed(config.seed),
+            use_pallas=resolve_use_pallas(config.use_pallas_mlp, config.use_pallas_dwconv),
+            param_dtype=torch.float32,
+            norm_impl=config.norm_impl,
+            pool_impl=config.pool_impl,
+        )
+
     @staticmethod
     def _split_from_disk(config: LocalizationConfig, split: str) -> LocalizationDataset:
         return LocalizationDataset(
@@ -159,17 +162,23 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
     def _preprocess_fn(self) -> Callable:
         augment, aug_cfg = self.config.augment, self._aug_cfg
 
+        shard = self._draw_shard
+
         def preprocess(batch: dict[str, Any], generator: torch.Generator, train: bool):
             images = batch["image"].float() / 255.0
             coords = batch["coords"]
             if train and augment:
-                images, coords = augment_batch(generator, images, coords, aug_cfg)
+                images, coords = augment_batch(generator, images, coords, aug_cfg, shard)
             return {**batch, "image": imagenet_normalize(images), "coords": coords}
 
         return preprocess
 
     def _loss_from_outputs(self, outputs: torch.Tensor, batch: dict[str, Any]) -> torch.Tensor:
-        return masked_coordinate_loss(outputs, batch["coords"], batch["mask"], self.config.loss_type)
+        """The masked coordinate loss; over more than one rank, divided by the
+        group's count of visible coordinates (:meth:`_counted_rows`)."""
+        mask, num_valid = self._counted_rows(batch, batch["mask"], per_row=outputs.shape[-1])
+        return masked_coordinate_loss(outputs, batch["coords"], mask, self.config.loss_type,
+                                      num_valid=num_valid)
 
     @staticmethod
     def _flatten_with_mask(
@@ -203,7 +212,9 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
     def evaluate(self, test_dataset: Any | None = None) -> dict[str, float]:
         """MED, PCK and the per-level metrics of the model on ``test_dataset``,
         by default the test split of ``config.data_path`` ({} when it is
-        empty)."""
+        empty). Single-process only, as in the JAX package."""
+        if self.mesh_ctx.world_size > 1:
+            raise NotImplementedError(EVALUATE_SINGLE_CONTROLLER)
         if test_dataset is None:
             test_dataset = self._split_from_disk(self.config, "test")
         return self._test_metrics(test_dataset)

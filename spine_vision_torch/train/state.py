@@ -1,5 +1,7 @@
 """Train state: the model, its optimizer and schedule, the update count and
-the generator that feeds dropout and augmentation.
+the generator that feeds dropout and augmentation; in a data-parallel run
+also the ``DistributedDataParallel`` replica that the train step calls and
+this rank's place on the data axis, which shapes the draws.
 
 Counterpart of ``spine_vision_tpu/train/state.py``. JAX threads an immutable
 pytree through pure steps; here the state is one object that the steps
@@ -13,6 +15,7 @@ from dataclasses import dataclass, field
 import torch
 from torch import nn
 
+from spine_vision_torch.ops.draws import DrawShard
 from spine_vision_torch.train.schedules import Schedule
 
 
@@ -27,6 +30,8 @@ class TrainState:
     grad_clip: float | None = 1.0
     step: int = 0
     lr_override: float | None = None  # set by the plateau scheduler
+    replica: nn.Module | None = None  # the model's DDP wrapper, when there is a group
+    draw_shard: DrawShard | None = None  # this rank's place, when the world is above 1
     last_lr: float = field(init=False)
 
     def __post_init__(self) -> None:

@@ -15,6 +15,12 @@ gradients zeroed before clipping and its update discarded after the
 optimizer step, as the JAX step zeroes that subtree's gradients and
 updates: its moments see zero gradients and decay, its weights do not move.
 BatchNorm running statistics update in the forward pass, frozen or not.
+
+In a data-parallel run the step calls the state's ``DistributedDataParallel``
+replica, whose reducer averages the gradients over the ranks in the backward
+pass; the zero-filling, the frozen set and the clipping then act on the
+reduced gradients, the same on every rank. The model's dropout draws for the
+global batch (``state.draw_shard``).
 """
 
 from __future__ import annotations
@@ -61,7 +67,9 @@ def train_step(
     if preprocess is not None:
         batch = preprocess(batch, state.generator, True)
     model.train()
-    outputs = model(batch["image"], generator=state.generator)
+    net = model if state.replica is None else state.replica
+    shard = {} if state.draw_shard is None else {"shard": state.draw_shard}
+    outputs = net(batch["image"], generator=state.generator, **shard)
     loss = loss_fn(outputs, batch)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()

@@ -22,10 +22,20 @@ Counterpart of ``spine_vision_tpu/train/trainer.py`` on one card:
   artifact or a torch state dict) after the state is built, leaf by leaf;
 - ``profile_steps`` (each step's wall time, ``utils/profiling.py``'s
   ``StepTimer``) and ``profile_trace`` (a ``torch.profiler`` trace of the
-  first epoch in ``logs/profile``).
+  first epoch in ``logs/profile``);
+- data parallelism, one process per device (``parallel/mesh.py``):
+  ``distributed=True`` joins the process group (``torchrun``'s environment),
+  each rank loads its slice of every global batch and trains a
+  ``DistributedDataParallel`` replica on ``cuda:{LOCAL_RANK}``; its
+  BatchNorms reduce over the group, its draws are the global batch's, the
+  losses divide by global counts, and the logged train and validation
+  losses are the group's, so every rank takes the same plateau, early-stop
+  and best-model decisions. Validation weights each batch by its global
+  count and computes metrics only at world size 1; rank 0 writes the
+  checkpoints and configs, every rank loads them.
 
-There is no mesh: one process drives one device. Options whose modules are
-not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+Options whose modules are not ported yet raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,11 +51,16 @@ from typing import Any, Callable, Generic, TypeVar
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from spine_vision_torch.data.cache import packed_view
 from spine_vision_torch.data.loader import DataLoader
 from spine_vision_torch.device import resolve_device
 from spine_vision_torch.models.convert import load_flax_variables, load_pretrained_backbone
+from spine_vision_torch.ops.batchnorm import BatchNorm
+from spine_vision_torch.ops.draws import DrawShard
+from spine_vision_torch.parallel import MeshContext, initialize_distributed, make_mesh
 from spine_vision_torch.train import schedules
 from spine_vision_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from spine_vision_torch.train.state import TrainState
@@ -70,6 +85,32 @@ def to_host(outputs: torch.Tensor | dict[str, torch.Tensor]) -> Any:
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{option} is not ported yet: ROADMAP.md, {item}")
+
+
+def trainer_mesh(config: "TrainingConfig", device: str | torch.device) -> MeshContext:
+    """The data axis of a trainer: join the process group when
+    ``config.distributed`` (gloo for a CPU ``device``), then this rank's
+    context; ``"cuda"`` without an index is ``cuda:{LOCAL_RANK}``, which
+    becomes the current device. A batch size the world size does not
+    divide raises."""
+    dev = torch.device(device)
+    if config.distributed:
+        initialize_distributed(backend="gloo" if dev.type == "cpu" else None)
+    dev = resolve_device(dev)
+    mesh = make_mesh(num_devices=config.num_devices,
+                     device=None if dev.type == "cuda" and dev.index is None else dev)
+    if mesh.device.type == "cuda" and mesh.world_size > 1:
+        torch.cuda.set_device(mesh.device)
+    if config.batch_size % mesh.data_axis_size != 0:
+        raise ValueError(f"batch_size={config.batch_size} not divisible by data-parallel "
+                         f"size {mesh.data_axis_size}")
+    return mesh
+
+
+EVALUATE_SINGLE_CONTROLLER = (
+    "evaluate() is single-controller only; load the checkpoint in a single-process "
+    "session to compute test metrics"
+)
 
 
 @dataclass
@@ -202,27 +243,37 @@ class BaseTrainer(Generic[TConfig]):
     """Trainer with the JAX package's loop, hook and checkpoint surface.
 
     Subclasses give the model, the loss over outputs, the device
-    preprocessing and the metrics; this class owns the loaders, the
-    optimizer and schedule, the epoch loop, early stopping and checkpoints.
-    ``train_step_fn(state, batch) -> loss`` is the step the loop calls.
+    preprocessing and the metrics; this class owns the data axis, the
+    loaders, the optimizer and schedule, the epoch loop, early stopping and
+    checkpoints. ``train_step_fn(state, batch) -> loss`` is the step the loop
+    calls. The data axis (``mesh_ctx``) is joined first; a subclass that
+    builds its own model does so in :meth:`_build_model` on that axis's
+    device, called when ``model`` is None.
     """
+
+    find_unused_parameters = False
+    """``DistributedDataParallel``'s option: True where a parameter can miss
+    the loss in a step (a task head whose targets a batch lacks)."""
 
     def __init__(
         self,
         config: TConfig,
-        model: torch.nn.Module,
+        model: torch.nn.Module | None,
         train_dataset: Any,
         val_dataset: Any | None = None,
         collate_fn: Callable | None = None,
         device: str | torch.device = "cuda",
         sample_weights: np.ndarray | None = None,
     ) -> None:
-        if config.distributed or (config.num_devices or 1) > 1:
-            raise _not_ported("distributed / multi-device training", "Queue 1 item 9")
         if config.use_tracker:
             raise _not_ported("use_tracker (viz/tracker.py)", "Queue 1 item 13")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh_ctx = mesh = trainer_mesh(config, device)
+        self.device = mesh.device
+        if model is None:
+            model = self._build_model(mesh.device)
+        # Draws for the global batch once the world is above 1.
+        self._draw_shard = DrawShard(mesh.rank, mesh.world_size) if mesh.world_size > 1 else None
         self.model = model
         self._collate_fn = collate_fn
 
@@ -268,9 +319,12 @@ class BaseTrainer(Generic[TConfig]):
             schedule=schedule,
             generator=torch.Generator(device=self.device).manual_seed(config.seed),
             grad_clip=config.grad_clip,
+            draw_shard=self._draw_shard,
         )
         if config.pretrained_path is not None:
             self._load_pretrained_backbone(config.pretrained_path)
+        if dist.is_available() and dist.is_initialized():
+            self._replicate(model)
         backbone = list(model.backbone.parameters()) if hasattr(model, "backbone") else []
         self._frozen = self.frozen_backbone_at_start()
         if self._frozen and not backbone:
@@ -290,9 +344,56 @@ class BaseTrainer(Generic[TConfig]):
 
         self.config.output_path.mkdir(parents=True, exist_ok=True)
         self.config.logs_path.mkdir(parents=True, exist_ok=True)
-        self.config.save_config()
+        if mesh.is_main:
+            self.config.save_config()
+        mesh.barrier()
+
+    def _replicate(self, model: torch.nn.Module) -> None:
+        """Wrap the model for the group: BatchNorm statistics over the group
+        (above one rank), so the buffers need no broadcast, and the
+        ``DistributedDataParallel`` replica the train step calls."""
+        if self.mesh_ctx.world_size > 1:
+            for module in model.modules():
+                if isinstance(module, BatchNorm):
+                    module.process_group = dist.group.WORLD
+        dev = self.device
+        self.state.replica = DistributedDataParallel(
+            model, device_ids=[dev.index] if dev.type == "cuda" else None,
+            broadcast_buffers=False, find_unused_parameters=self.find_unused_parameters,
+        )
+
+    def _group_mean(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` (detached) averaged over the ranks; itself at world size 1.
+        For a per-rank loss, the group's loss."""
+        mesh = self.mesh_ctx
+        return value if mesh.world_size == 1 else mesh.all_sum(value) / mesh.world_size
+
+    def _counted_rows(self, batch: dict[str, Any], counted: torch.Tensor,
+                      per_row: int = 1) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """What a loss counts, and what it divides by. ``counted`` holds
+        ``[B, ...]`` 0/1 weights; the rows the loader repeated on this rank
+        (``_valid`` 0) are zeroed in it. The divisor is None at world size 1
+        (the loss counts its own batch); above, it is the group's count (of
+        ``counted``, times ``per_row``) over the world size, so that DDP's
+        mean of the ranks' losses divides the global sum by the global
+        count. Above one rank the localization loss calls this for every
+        batch, the classification loss for every batch with ``_valid``, and
+        the eval loop gives every batch ``_valid`` on every rank: the ranks
+        run the same collectives in the same order."""
+        valid = batch.get("_valid")
+        if valid is not None:
+            counted = counted * valid.to(counted.dtype).reshape(-1, *[1] * (counted.dim() - 1))
+        mesh = self.mesh_ctx
+        if mesh.world_size == 1:
+            return counted, None
+        count = mesh.all_sum(counted.detach().float().sum() * per_row)
+        return counted, count / mesh.world_size
 
     # Subclass surface ---------------------------------------------------
+
+    def _build_model(self, device: torch.device) -> torch.nn.Module:
+        """The model to train when none is given, on ``device``."""
+        raise NotImplementedError
 
     def _loss_from_outputs(self, outputs: torch.Tensor, batch: dict[str, Any]) -> torch.Tensor:
         raise NotImplementedError
@@ -448,7 +549,9 @@ class BaseTrainer(Generic[TConfig]):
             summary = timer.summary(skip_first=0)  # this epoch's every step
             logger.info("Step timing: p50 %.1f ms, p95 %.1f ms over %d steps",
                         summary["p50_s"] * 1e3, summary["p95_s"] * 1e3, int(summary["steps"]))
-        return float(loss_sum) / max(count, 1) if loss_sum is not None else 0.0
+        if loss_sum is None:
+            return 0.0
+        return float(self._group_mean(loss_sum)) / max(count, 1)
 
     def _validate_epoch(self) -> tuple[float, dict[str, float]]:
         return self._eval_loop(self.val_loader)
@@ -471,18 +574,33 @@ class BaseTrainer(Generic[TConfig]):
         return metrics
 
     def _eval_loop(self, loader: DataLoader) -> tuple[float, dict[str, float]]:
-        """The mean loss and the metrics of one pass over ``loader``."""
+        """The mean loss and the metrics of one pass over ``loader``.
+
+        Each batch's loss is the group's weighted by its global count, the
+        same on every rank. Above one rank every batch carries ``_valid``
+        (0 on the rows the loader repeated on this rank, 1 elsewhere), so
+        that every rank's loss takes the same path (:meth:`_counted_rows`).
+        The metrics need every output on one host, so a multi-process run
+        computes none ({}), as in the JAX package."""
+        world = self.mesh_ctx.world_size
         total, count = 0.0, 0
         outputs_list: list[Any] = []
         batches: list[dict[str, Any]] = []
         for batch in loader:
-            outputs, loss = self.eval_step_fn(self.state, batch)
             n = len(batch["image"])
-            total += float(loss) * n
-            count += n
-            outputs_list.append(to_host(outputs))
-            batches.append(batch)
-        return total / max(count, 1), self._compute_metrics(outputs_list, batches)
+            step_batch = batch
+            if world > 1:
+                valid = (np.arange(n) < batch.get("_n_valid", n)).astype(np.float32)
+                step_batch = {**batch, "_valid": valid}
+            outputs, loss = self.eval_step_fn(self.state, step_batch)
+            weight = batch.get("_n_valid_global", n * world)
+            total += float(self._group_mean(loss)) * weight
+            count += weight
+            if world == 1:
+                outputs_list.append(to_host(outputs))
+                batches.append(batch)
+        metrics = self._compute_metrics(outputs_list, batches) if world == 1 else {}
+        return total / max(count, 1), metrics
 
     def _plateau_step(self, val_loss: float) -> None:
         best_val = min(self.history["val_loss"][:-1], default=float("inf"))
@@ -505,6 +623,7 @@ class BaseTrainer(Generic[TConfig]):
         logger.info(msg + f" - LR: {lr:.2e} - {epoch_time:.1f}s")
 
     def _save(self, is_best: bool) -> None:
+        """Rank 0 writes, then every rank waits for it."""
         name = "best_model" if is_best else f"checkpoint_epoch_{self.current_epoch + 1}"
         meta = {
             "epoch": self.current_epoch,
@@ -513,7 +632,9 @@ class BaseTrainer(Generic[TConfig]):
             "history": self.history,
             "config": self.config.to_dict(),
         }
-        save_checkpoint(self.config.output_path / name, self.state, meta)
+        if self.mesh_ctx.is_main:
+            save_checkpoint(self.config.output_path / name, self.state, meta)
+        self.mesh_ctx.barrier()
 
     def _load(self, path: Path, restore_loop_state: bool = True) -> None:
         """Restore the model and optimizer; optionally the loop state too."""

@@ -170,10 +170,24 @@ def test_spider_level_conversion():
     assert tcb.convert_spider_to_phenikaa_level(5) == 1  # L1/L2
 
 
-def test_data_parallel_raises_naming_item_9(tmp_path):
-    config = tb.ClassificationDatasetConfig(base_path=tmp_path, data_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tb.create_classification_dataset(config, device="cpu")
+def test_data_parallel_raises_naming_item_9(tmp_path, monkeypatch, classification_builds):
+    """``data_parallel=True`` crops each batch over the device list (two CPU
+    entries here) and writes the files of the build without one, byte for
+    byte."""
+    lists = []
+
+    def two_cpus(devices=None):
+        lists.append(devices)
+        return (torch.device("cpu"),) * 2
+
+    monkeypatch.setattr(tcb, "data_parallel_mesh", two_cpus)
+    root = _classification_tree(tmp_path / "tree")
+    config = tb.ClassificationDatasetConfig(base_path=root, data_parallel=True, **_CLS_CONFIG)
+    result = tb.create_classification_dataset(config, device="cpu")
+    assert lists == [[torch.device("cpu")]]  # every local device of the kind asked for
+    _, want, want_files, _, _ = classification_builds["port"]
+    assert result.num_samples == want.num_samples == 40
+    assert _tree_files(config.output_path) == want_files
 
 
 def test_builders_default_to_cuda_and_raise_without_it(tmp_path, monkeypatch):

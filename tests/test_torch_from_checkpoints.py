@@ -16,6 +16,7 @@ import torch
 from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, get_task
 from spine_vision_torch.infer import pipeline as tpipe
 from spine_vision_torch.models.convert import export_flax_variables
+from spine_vision_torch.parallel import data_parallel_mesh
 from spine_vision_torch.train.checkpoint import load_model_state
 from spine_vision_torch.train.classification import ClassificationConfig, ClassificationTrainer
 from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
@@ -138,7 +139,7 @@ def test_from_checkpoints_matches_jax_on_the_same_weights(runs, loaded, mode):
             np.testing.assert_array_equal(g.logits[k], m.logits[k])
 
 
-def test_from_checkpoints_loads_f32_masters_and_refuses_a_mesh(runs):
+def test_from_checkpoints_loads_f32_masters_and_refuses_a_mesh(runs, loaded):
     root, loc_model, _ = runs
     pipe = tpipe.StudyInferencePipeline.from_checkpoints(
         root / "loc" / "best_model", root / "cls" / "best_model", loc_backbone="resnet18",
@@ -149,9 +150,22 @@ def test_from_checkpoints_loads_f32_masters_and_refuses_a_mesh(runs):
     for name, value in loc_model.state_dict().items():
         torch.testing.assert_close(pipe.loc_model.state_dict()[name], value, rtol=0, atol=0)
     assert len(pipe.tasks) == len(AVAILABLE_TASK_NAMES)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tpipe.StudyInferencePipeline.from_checkpoints(
-            root / "loc" / "best_model", root / "cls" / "best_model", device="cpu", mesh=object())
+    # mesh=: both models replicated over the device list (two CPU entries),
+    # 3 studies bucketed to 4 and split 2 + 2, against the one-device run:
+    # the same rows in convolutions of another batch size (measured: coords
+    # and crops equal, logits within 1e-6).
+    meshed = tpipe.StudyInferencePipeline.from_checkpoints(
+        root / "loc" / "best_model", root / "cls" / "best_model", loc_backbone="resnet18",
+        config=tpipe.StudyPipelineConfig(**CONFIG), dtype=torch.float32,
+        mesh=data_parallel_mesh(["cpu", "cpu"]))
+    assert meshed.devices == (torch.device("cpu"),) * 2 and meshed.device.type == "cpu"
+    studies = [tpipe.StudyInput(**s) for s in _studies(3, 4)]
+    for g, w in zip(meshed.run(studies), loaded.run(studies), strict=True):
+        np.testing.assert_allclose(g.coords, w.coords, atol=1e-6)
+        np.testing.assert_array_equal(g.crops, w.crops)
+        for k in w.logits:
+            np.testing.assert_allclose(g.logits[k], w.logits[k], atol=1e-5, err_msg=k)
+            np.testing.assert_array_equal(g.predictions[k], w.predictions[k])
     # The classifier's checkpoint is not a regressor's: the keys it misses are named.
     with pytest.raises(RuntimeError, match="Missing key.*head_norm"):
         load_model_state(root / "cls" / "best_model", pipe.loc_model)

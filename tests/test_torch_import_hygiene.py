@@ -52,6 +52,7 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.ops.resample, spine_vision_torch.core.registry\n"
         "import spine_vision_torch.infer.serve, spine_vision_torch.data.builders\n"
         "import spine_vision_torch.data.rsna, spine_vision_torch.data.phenikaa\n"
+        "import spine_vision_torch.parallel\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
