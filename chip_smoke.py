@@ -6,6 +6,8 @@
     python3 chip_smoke.py --profile    # adds a torch.profiler breakdown
     python3 chip_smoke.py --parity-only --parity-seeds 0 1 2 3   # the parity band
     python3 chip_smoke.py --ocr-only [--profile]   # report OCR alone
+    python3 chip_smoke.py --ocr-train-only [--profile]   # OCR training and evaluation alone
+    python3 chip_smoke.py --ocr-train-full   # train_ocr_stack at the JAX defaults
     python3 chip_smoke.py --io-only    # study inference from volume files alone
     python3 chip_smoke.py --serve-only [--profile]   # the directory server alone
     python3 chip_smoke.py --build-only # the dataset builders alone
@@ -152,7 +154,24 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    fixture report pages; series and crops a second, each builder's wall
    time. Phases 14 and 15 launch #1 and #2 as the study graph does, a
    forward; the ``kernels`` line reports them a forward.
-16. Data parallelism (``ddp``, last, also alone with ``--ddp-only``; see
+16. OCR training and evaluation (``ocr_train``, after phase 12, also alone
+   with ``--ocr-train-only``; see ``ocr_train_phase``): the shipped weights
+   through the port's ``evaluate_recognizer`` (clean, ``hard``, unseen
+   font), ``evaluate_detector`` (the same sets) and
+   ``evaluate_layout_extraction`` on the port's rendered sets, each beside
+   the JAX package's figure and held to a band of it; ``train_recognizer``
+   (100 steps, b64 lines of 32x256) and ``train_detector`` (40 steps, b16
+   pages of 320x448) from seed 0, the last 5 losses' mean at most 0.8 of the
+   first 5's, each step's p50 and spread (CUDA events), the render time a
+   chunk, the peak memory and, with ``--profile``, the device's idle share
+   of the run; one step of each net on the card against the CPU; the
+   written ``.npz`` read back by ``preprocess_phenikaa``'s loader into a
+   ``DocumentExtractor`` on the card, which reads a report page. No kernel
+   of this package lies on the path (all launch counts 0).
+   ``--ocr-train-full`` runs ``train_ocr_stack`` at the JAX defaults (4000
+   and 1200 steps; not in the default run) and prints every metric and
+   each part's wall time.
+17. Data parallelism (``ddp``, last, also alone with ``--ddp-only``; see
    ``ddp_phase``): ranks started as processes of this script. One rank over
    NCCL trains the train phase's ConvNeXt-base (hybrid, 512^2, batch 32)
    and the cls_train phase's ResNet-18 (256^2, batch 256, f32) through
@@ -177,6 +196,7 @@ rest of the repository; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import gc
@@ -3547,6 +3567,401 @@ def ocr_phase(device, card: str, profile: bool = False) -> dict:
     return launches
 
 
+# The ocr_train phase: OCR training and evaluation (train/ocr.py) on the
+# card. (a) The shipped weights on the port's rendered evaluation sets, each
+# figure beside the JAX package's for the same function and seed (its CPU
+# run) and held to OCR_CER_BANDS / OCR_RECALL_BANDS of it. (b) Short runs of
+# both trainers at full width from seed 0, the mean of the last 5 losses at
+# most OCR_LOSS_DROP of the first 5's. (c) One train step of each net on the
+# card against the CPU from the same variables and batch: with every bf16
+# rounding of the nets off (f32 arithmetic), the gradients within
+# OCR_GRAD_WORST (worst tensor, difference over its norm; the attention's key
+# biases, whose gradient is zero in exact arithmetic, printed apart) and
+# OCR_GRAD_MEDIAN (median tensor) and the BatchNorm running statistics within OCR_STATS_TOL
+# of each buffer's norm; with the roundings on (the trained arithmetic), a
+# flip of one bf16 rounding of a convolution's input spreads through the
+# layers after it (two convolution orders on one CPU, oneDNN's and
+# PyTorch's own, already differ by 3e-3 to 2e-2 of a tensor's norm), so the
+# card is held to the size of bf16's own rounding: its gaps to the CPU at
+# most the CPU's bf16 step's gaps to its f32 step, worst, median and
+# statistics. (d) The weights (b) wrote, read back by
+# preprocess_phenikaa's loader into a DocumentExtractor on the card, read a
+# report page.
+OCR_JAX_CER = {"clean": 0.0689, "hard": 0.1318, "unseen_font": 0.1579}
+OCR_JAX_RECALL = {"clean": 1.000, "hard": 0.988}
+OCR_CER_BANDS = {"clean": 0.02, "hard": 0.03, "unseen_font": 0.03}
+OCR_RECALL_BANDS = {"clean": 0.03, "hard": 0.03}
+OCR_TRAIN_RUNS = {"recognizer": {"steps": 100, "chunk": 25, "batch_size": 64},
+                  "detector": {"steps": 40, "chunk": 20, "batch_size": 16}}
+OCR_WARM_STEPS = 5  # steps left out of the p50: cuDNN's autotuning, the first allocations
+OCR_LOSS_DROP = 0.8
+OCR_GRAD_WORST, OCR_GRAD_MEDIAN, OCR_STATS_TOL = 2e-2, 1e-3, 1e-5
+OCR_STEP_BATCH = {"recognizer": 16, "detector": 4}
+
+
+@functools.lru_cache(maxsize=1)
+def _ocr_shipped():
+    from spine_vision_torch.models.convert import load_variables_npz
+    from spine_vision_torch.train import ocr
+
+    return (load_variables_npz(ocr.DEFAULT_WEIGHTS_DIR / "ocr_recognizer.npz"),
+            load_variables_npz(ocr.DEFAULT_WEIGHTS_DIR / "ocr_detector.npz"))
+
+
+def ocr_eval_check(device, card: str) -> dict:
+    """(a): the shipped weights through the port's evaluation functions."""
+    from spine_vision_torch.data.phenikaa import synth
+    from spine_vision_torch.train import ocr
+
+    rec, det = _ocr_shipped()
+    sets = {"clean": {}, "hard": {"degrade": "hard"},
+            "unseen_font": {"fonts": synth.HOLDOUT_FONT_PATHS}}
+    got, faults = {}, []
+    for name, kw in sets.items():
+        t0 = time.perf_counter()
+        cer = ocr.evaluate_recognizer(None, rec, device=device, **kw)
+        recall = ocr.evaluate_detector(None, det, device=device, **kw)
+        got[name] = {"cer": cer, "recall": recall}
+        line = (f"[ocr_train] shipped weights, {name}: recognizer CER {cer:.6f} (JAX "
+                f"{OCR_JAX_CER[name]}, band {OCR_CER_BANDS[name]}), detector recall "
+                f"{recall:.6f}")
+        line += (f" (JAX {OCR_JAX_RECALL[name]}, band {OCR_RECALL_BANDS[name]})"
+                 if name in OCR_JAX_RECALL else " (printed only: no JAX figure)")
+        print(f"{line}; {time.perf_counter() - t0:.1f} s ({card})")
+        if abs(cer - OCR_JAX_CER[name]) > OCR_CER_BANDS[name]:
+            faults.append(f"{name} CER {cer}")
+        if name in OCR_JAX_RECALL and abs(recall - OCR_JAX_RECALL[name]) > OCR_RECALL_BANDS[name]:
+            faults.append(f"{name} recall {recall}")
+    t0 = time.perf_counter()
+    layout = ocr.evaluate_layout_extraction(det, rec, n_pages=5, device=device)
+    got["layout_extraction_rate"] = layout
+    print(f"[ocr_train] shipped weights, unseen-layout extraction over 5 pages: {layout} "
+          f"(JAX 1.0); {time.perf_counter() - t0:.1f} s")
+    if layout < 0.8:
+        faults.append(f"layout extraction {layout}")
+    if faults:
+        raise AssertionError("ocr_train evaluation outside its bands: " + "; ".join(faults))
+    return got
+
+
+class _StepClock:
+    """CUDA events around each update of ``train/ocr.py`` (its ``_update``),
+    the losses, and the wall time of each call of the named chunk renderers."""
+
+    def __init__(self, ocr, *render_names: str):
+        import torch
+
+        self.torch, self.ocr = torch, ocr
+        self.events, self.losses = [], []
+        self.render_s = {name: [] for name in render_names}
+        self.saved = {name: getattr(ocr, name) for name in ("_update", *render_names)}
+
+    def __enter__(self):
+        def update(*args):
+            start, end = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            loss = self.saved["_update"](*args)
+            end.record()
+            self.events.append((start, end))
+            self.losses.append(loss)
+            return loss
+
+        def render(name):
+            def run(*args):
+                t0 = time.perf_counter()
+                out = self.saved[name](*args)
+                self.render_s[name].append(time.perf_counter() - t0)
+                return out
+            return run
+
+        self.ocr._update = update
+        for name in self.render_s:
+            setattr(self.ocr, name, render(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ocr, name, fn)
+
+    def step_ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _ocr_train_run(which: str, device, card: str, profile: bool, out: Path, **kw) -> dict:
+    """One trainer's run with its steps timed; returns its figures."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.train import ocr
+
+    train = ocr.train_recognizer if which == "recognizer" else ocr.train_detector
+    render = "_render_chunk_recognition" if which == "recognizer" else "_render_chunk_detection"
+    torch.cuda.reset_peak_memory_stats()
+    prof = None
+    with _StepClock(ocr, render) as clock:
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as torch_profile
+
+            prof = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        variables, metric = train(seed=0, output_path=out / f"ocr_{which}.npz", device=device,
+                                  **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+    steps = clock.step_ms()
+    losses = [float(x) for x in clock.losses]
+    timed = sorted(steps[OCR_WARM_STEPS:])
+    p50 = timed[len(timed) // 2]
+    render_s = clock.render_s[render]
+    figures = {"wall_s": wall, "metric": metric, "losses": losses, "step_ms": steps,
+               "render_s": render_s, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    print(f"[ocr_train] {which}: {len(steps)} steps ({kw}) in {wall:.1f} s; loss first 5 "
+          f"{first:.4f}, last 5 {last:.4f} (bound {OCR_LOSS_DROP} x first); held-out "
+          f"{'CER' if which == 'recognizer' else 'box recall'} {metric:.4f}")
+    print(f"[ocr_train] {which}{' (under the profiler)' if profile else ''}: step p50 "
+          f"{p50:.3f} ms, p10 {timed[len(timed) // 10]:.3f}, "
+          f"p90 {timed[len(timed) * 9 // 10]:.3f}, min {timed[0]:.3f}, max {timed[-1]:.3f} "
+          f"(CUDA events, {len(timed)} steps after {OCR_WARM_STEPS}); render "
+          f"{np.mean(render_s) * 1e3:.1f} ms a chunk of {kw['chunk']} batches "
+          f"({len(render_s)} chunks, {sum(render_s):.1f} s); steps "
+          f"{sum(steps) / 1e3:.1f} s; peak {figures['peak_gib']:.3f} GiB ({card})")
+    if prof is not None:
+        busy_us = sum(_dev_us(e) for e in _device_events(prof))
+        figures["idle_share"] = 1 - busy_us / (wall * 1e6)
+        print(f"[ocr_train] {which} profile: device busy {busy_us / 1e6:.3f} s of the run's "
+              f"{wall:.3f} s wall, idle {figures['idle_share']:.1%} ({card})")
+        for e in sorted(_device_events(prof), key=_dev_us, reverse=True)[:8]:
+            print(f"[ocr_train] {which} profile: {_dev_us(e) / 1e3:10.3f} ms x{e.count:<6d} "
+                  f"{e.key[:80]}")
+    if not all(np.isfinite(losses)) or last > OCR_LOSS_DROP * first:
+        raise AssertionError(f"ocr_train {which}: losses {first} -> {last}")
+    return figures
+
+
+@contextlib.contextmanager
+def _ocr_f32_arithmetic():
+    """The OCR nets with every bf16 rounding off (and the tanh-GELU in f32):
+    the same graph in f32, for the card-against-CPU check of its structure."""
+    import torch
+
+    from spine_vision_torch.models import layers, textdet, textrec
+
+    def same(x):
+        return x
+
+    patches = [(layers, "bf16_input", same), (layers, "bf16_round", same),
+               (layers, "bf16_grad", same), (textdet, "bf16_input", same),
+               (textrec, "bf16_input", same), (textrec, "bf16_round", same),
+               (textrec, "_gelu_tanh_bf16",
+                lambda x: torch.nn.functional.gelu(x, approximate="tanh"))]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, v in patches:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def _ocr_step(which: str, device, variables, batch) -> tuple:
+    """One train-mode forward and backward from ``variables``: (gradients,
+    running statistics after it) as flat numpy dicts."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.models.convert import export_flax_variables, load_flax_variables
+    from spine_vision_torch.models.textdet import TextDetectionNet
+    from spine_vision_torch.models.textrec import TextRecognitionNet
+    from spine_vision_torch.train import ocr
+
+    if which == "recognizer":
+        net = TextRecognitionNet(param_dtype=torch.float32, device=device)
+    else:
+        net = TextDetectionNet(param_dtype=torch.float32, device=device)
+    load_flax_variables(net, variables["params"], variables["batch_stats"])
+    args = [torch.from_numpy(a).to(device) for a in batch]
+    with ocr._tf32_off():
+        loss = (ocr.recognizer_loss(net, *args) if which == "recognizer"
+                else ocr.detector_loss(net, *args))
+        loss.backward()
+    grads, _ = export_flax_variables(net, grads=True)
+    _, stats = export_flax_variables(net)
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}/{k}") if isinstance(v, dict)
+                       else {f"{prefix}/{k}": np.asarray(v)})
+        return out
+
+    return flat(grads), flat(stats)
+
+
+def _step_gaps(got: dict, got_stats: dict, want: dict, want_stats: dict) -> tuple:
+    """(worst, median) of the gradients' differences over their norms, and
+    the worst running statistic's largest difference over its norm."""
+    import numpy as np
+
+    gaps = _norm_gaps(got, want)
+    stats = max(float(np.abs(got_stats[k] - want_stats[k]).max() / np.linalg.norm(want_stats[k]))
+                for k in want_stats)
+    return max(gaps.values()), float(np.median(list(gaps.values()))), stats
+
+
+def _norm_gaps(got: dict, want: dict) -> dict:
+    """Each gradient's difference over its norm, but the attention's key
+    biases: softmax ignores a constant added to a query's logits, so their
+    gradient is zero in exact arithmetic and what either side computes is
+    rounding alone (printed apart)."""
+    import numpy as np
+
+    return {k: float(np.linalg.norm(got[k] - want[k]) / max(np.linalg.norm(want[k]), 1e-30))
+            for k in want if not k.endswith("/key/bias")}
+
+
+def ocr_grad_check(device, nets=("recognizer", "detector")) -> None:
+    """(c): one step of each net on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.train import ocr
+
+    for which in nets:
+        rng = np.random.default_rng(5)
+        n = OCR_STEP_BATCH[which]
+        if which == "recognizer":
+            images, ids, pads = ocr._render_chunk_recognition(rng, 1, n, 256, 40)
+            batch = ((images[0] / 255.0).astype(np.float32)[..., None], ids[0], pads[0])
+            variables = ocr._variables(ocr._init_recognizer(0, 256, torch.device("cpu")))
+        else:
+            pages, targets = ocr._render_chunk_detection(rng, 1, n, (320, 448))
+            batch = ((pages[0] / 255.0).astype(np.float32)[..., None], targets[0])
+            variables = ocr._variables(ocr._init_detector(0, torch.device("cpu")))
+        with _ocr_f32_arithmetic():
+            card_f, card_fs = _ocr_step(which, device, variables, batch)
+            cpu_f, cpu_fs = _ocr_step(which, torch.device("cpu"), variables, batch)
+        key_bias = [float(np.abs(card_f[k]).max()) for k in card_f if k.endswith("/key/bias")]
+        if key_bias:
+            print(f"[ocr_train] grad check {which}: key biases (zero in exact arithmetic) "
+                  f"largest |gradient| {max(key_bias):.3e} on the card")
+        f32 = _step_gaps(card_f, card_fs, cpu_f, cpu_fs)
+        print(f"[ocr_train] grad check {which} (batch {n}), f32 arithmetic: gradients worst "
+              f"{f32[0]:.3e} of the norm (bound {OCR_GRAD_WORST}), median {f32[1]:.3e} (bound "
+              f"{OCR_GRAD_MEDIAN}); running statistics worst {f32[2]:.3e} of a buffer's norm "
+              f"(bound {OCR_STATS_TOL})")
+        if f32[0] > OCR_GRAD_WORST or f32[1] > OCR_GRAD_MEDIAN or f32[2] > OCR_STATS_TOL:
+            raise AssertionError(f"ocr_train {which}: f32 card-vs-CPU step outside its bounds")
+
+        card_g, card_s = _ocr_step(which, device, variables, batch)
+        cpu_g, cpu_s = _ocr_step(which, torch.device("cpu"), variables, batch)
+        torch.backends.mkldnn.enabled = False
+        try:
+            alt_g, alt_s = _ocr_step(which, torch.device("cpu"), variables, batch)
+        finally:
+            torch.backends.mkldnn.enabled = True
+        card = _step_gaps(card_g, card_s, cpu_g, cpu_s)
+        bf16 = _step_gaps(cpu_g, cpu_s, cpu_f, cpu_fs)  # the size of bf16's own rounding
+        order = _step_gaps(alt_g, alt_s, cpu_g, cpu_s)
+        print(f"[ocr_train] grad check {which}, bf16 arithmetic (worst, median, statistics): "
+              f"card vs CPU {card[0]:.3e}, {card[1]:.3e}, {card[2]:.3e}; bound, the CPU's bf16 "
+              f"vs its f32 {bf16[0]:.3e}, {bf16[1]:.3e}, {bf16[2]:.3e}; printed only, the "
+              f"CPU's two convolution orders {order[0]:.3e}, {order[1]:.3e}, {order[2]:.3e}")
+        if any(c > b for c, b in zip(card, bf16)):
+            raise AssertionError(f"ocr_train {which}: bf16 card-vs-CPU step outside its bounds")
+
+
+def ocr_train_phase(device, card: str, profile: bool = False) -> dict:
+    """(a)-(d) of the ocr_train phase; returns the launch counts of the
+    training runs (no kernel of this package lies on the path: all zero)."""
+    from spine_vision_torch.data.phenikaa import PreprocessConfig, _build_extractor
+
+    out = RUN_DIR / "ocr_train"
+    shutil.rmtree(out, ignore_errors=True)
+    ocr_eval_check(device, card)
+    _zero_counts()
+    for which, kw in OCR_TRAIN_RUNS.items():
+        _ocr_train_run(which, device, card, profile, out, **kw)
+    launches = _counts()
+    if any(launches.values()):
+        raise AssertionError(f"ocr_train launched a kernel of the package: {launches}")
+    ocr_grad_check(device)
+    config = PreprocessConfig(data_path=out, detection_checkpoint=out / "ocr_detector.npz",
+                              recognition_checkpoint=out / "ocr_recognizer.npz")
+    extractor = _build_extractor(config, device=device)
+    if not all(p.device.type == "cuda" for net in (extractor.detector.model,
+                                                  extractor.recognizer.model)
+               for p in net.parameters()):
+        raise AssertionError("ocr_train: the trained nets are not on the card")
+    lines = extractor.extract_lines(OCR_FIXTURES / "report_clean.png")
+    print(f"[ocr_train] the trained .npz through preprocess_phenikaa's loader on the card: "
+          f"{len(lines)} lines from report_clean.png, e.g. "
+          f"{[t for t, _ in lines[:3]]!r} (fields not bounded after so few steps)")
+    shutil.rmtree(out, ignore_errors=True)
+    return launches
+
+
+def ocr_train_full(device, card: str) -> dict:
+    """(e): ``train_ocr_stack`` at the JAX package's defaults (4000 and 1200
+    steps): every metric, each part's wall time, the trainers' step and
+    render times and the share of the wall the card spent in steps."""
+    import numpy as np
+
+    from spine_vision_torch.train import ocr
+
+    out = RUN_DIR / "ocr_train_full"
+    shutil.rmtree(out, ignore_errors=True)
+    parts: dict = {}
+    names = ("train_recognizer", "train_detector", "evaluate_recognizer",
+             "evaluate_detector", "evaluate_layout_extraction", "evaluate_recognizer_mpl")
+    saved = {n: getattr(ocr, n) for n in names}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    for n in names:
+        setattr(ocr, n, timed(n, saved[n]))
+    try:
+        with _StepClock(ocr, "_render_chunk_recognition", "_render_chunk_detection") as clock:
+            t0 = time.perf_counter()
+            metrics = ocr.train_ocr_stack(out, device=device)
+            wall = time.perf_counter() - t0
+            clocks = {"steps": clock.step_ms(),
+                      "rec_render": clock.render_s["_render_chunk_recognition"],
+                      "det_render": clock.render_s["_render_chunk_detection"]}
+    finally:
+        for n, fn in saved.items():
+            setattr(ocr, n, fn)
+    print(f"[ocr_train_full] train_ocr_stack at the JAX defaults in {wall:.1f} s ({card})")
+    print(f"[ocr_train_full] metrics {json.dumps(metrics)}")
+    for name, s in parts.items():
+        print(f"[ocr_train_full] part {name}: {s:.1f} s")
+    steps = clocks["steps"]
+    train_s = parts["train_recognizer"] + parts["train_detector"]
+    print(f"[ocr_train_full] {len(steps)} steps: {sum(steps) / 1e3:.1f} s in steps (CUDA "
+          f"events), step p50 {np.median(steps):.3f} ms; render {sum(clocks['rec_render']):.1f} "
+          f"s for the recognizer's {len(clocks['rec_render'])} chunks, "
+          f"{sum(clocks['det_render']):.1f} s for the detector's "
+          f"{len(clocks['det_render'])}; the card in steps {sum(steps) / 1e3 / train_s:.1%} of "
+          f"the trainers' {train_s:.1f} s")
+    if metrics["recognizer_cer"] > 0.15 or metrics["detector_box_recall"] < 0.9:
+        print("[ocr_train_full] FAULT: below the bars of a trainer that learns "
+              "(recognizer CER <= 0.15, detector recall >= 0.9)")
+    return metrics
+
+
 # The data-parallel phase (``ddp``). Its ranks are this script run again with
 # ``--ddp-rank <spec>``, each a process of its own. The world-size-1 rank
 # trains DDP_STEPS steps without a process group and then the same steps
@@ -4008,6 +4423,11 @@ def main() -> int:
                              "seeds of PARITY_SEEDS.json)")
     parser.add_argument("--ocr-only", action="store_true",
                         help="run only the ocr phase (no kernel build, no kernels line)")
+    parser.add_argument("--ocr-train-only", action="store_true",
+                        help="run only the ocr_train phase (no kernel build, no kernels line)")
+    parser.add_argument("--ocr-train-full", action="store_true",
+                        help="run train_ocr_stack at the JAX defaults (after the ocr_train "
+                             "phase with --ocr-train-only; not part of the default run)")
     parser.add_argument("--io-only", action="store_true",
                         help="run only the volume_io phase (no kernels line)")
     parser.add_argument("--serve-only", action="store_true",
@@ -4065,6 +4485,12 @@ def main() -> int:
     if opts.ocr_only:
         phase("ocr", ocr_phase, device, card, opts.profile)
         return verdict()
+    if opts.ocr_train_only or opts.ocr_train_full:
+        if opts.ocr_train_only:
+            phase("ocr_train", ocr_train_phase, device, card, opts.profile)
+        if opts.ocr_train_full:
+            phase("ocr_train_full", ocr_train_full, device, card)
+        return verdict()
     if opts.io_only:
         phase("volume_io", volume_io_phase, device, card)
         return verdict()
@@ -4101,7 +4527,7 @@ def main() -> int:
              **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
-             "ddp": None, "probes": probe_counts}
+             "ocr_train": None, "ddp": None, "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
@@ -4132,6 +4558,7 @@ def main() -> int:
         paths["file_backed"] = phase("file_backed", file_backed_phase, device,
                                      card)["launches"]
         paths["ocr"] = phase("ocr", ocr_phase, device, card, opts.profile)
+        paths["ocr_train"] = phase("ocr_train", ocr_train_phase, device, card, opts.profile)
         paths["ddp"] = phase("ddp", ddp_phase, device, card)
 
     sources = {

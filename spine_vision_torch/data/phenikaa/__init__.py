@@ -416,15 +416,19 @@ def _build_extractor(
 
 
 def _load_ocr_variables(path: Path) -> dict:
-    """A Flax variables tree from a ``.npz`` variable file (the format the
-    shipped weights come in). Orbax checkpoint directories are the JAX
-    package's training output and raise."""
+    """A Flax variables tree from a ``.npz`` variable file: the shipped
+    weights' format, which both packages' OCR trainers write
+    (``train/ocr.py``). The JAX package's loader reads Orbax checkpoint
+    directories, which no OCR trainer writes; reading them needs
+    tensorstore (ROADMAP.md, Queue 1: reading JAX Orbax checkpoint
+    directories), so they raise."""
     path = Path(path)
     if path.is_file() and path.suffix == ".npz":
         from spine_vision_torch.models.convert import load_variables_npz
 
         return load_variables_npz(path)
     raise NotImplementedError(
-        f"{path}: OCR checkpoints are read from .npz variable files; Orbax checkpoint "
-        "directories wait for the port's OCR training (ROADMAP.md, Queue 1 item 10)"
+        f"{path}: OCR checkpoints are read from .npz variable files (what train_ocr_stack "
+        "writes); reading JAX Orbax checkpoint directories is ROADMAP.md Queue 1's "
+        "'reading JAX Orbax checkpoint directories'"
     )

@@ -39,9 +39,12 @@ from spine_vision_torch.models.convert import load_flax_variables, load_variable
 from spine_vision_torch.models.textdet import TextDetectionNet, extract_boxes_from_probmap
 from spine_vision_torch.models.textrec import TextRecognitionNet, ctc_greedy_decode
 from spine_vision_torch.ops.warp import rectify_polygons
-from spine_vision_torch.train.ocr import DEFAULT_WEIGHTS_DIR
 
 logger = logging.getLogger("spine_vision_torch")
+
+
+# The shipped weights, read as data from the JAX package by path.
+DEFAULT_WEIGHTS_DIR = Path(__file__).resolve().parents[3] / "spine_vision_tpu" / "weights"
 
 
 class Detector(Protocol):

@@ -19,8 +19,9 @@ Flax-layout numpy tree.
 
 The OCR nets (``models/textdet.py``, ``models/textrec.py``) load the same
 way: their attention's ``[C, heads, d]`` kernels and ``pos_embedding`` keep
-the Flax layout, and :func:`load_variables_npz` reads the JAX package's
-flat ``.npz`` of them (the shipped OCR weights).
+the Flax layout, :func:`load_variables_npz` reads the JAX package's flat
+``.npz`` of them (the shipped OCR weights), and :func:`save_variables_npz`
+writes trained nets' trees (:func:`export_flax_variables`) in that format.
 
 The pretrained-weights half is the JAX module's own: a torchvision or timm
 state-dict file (``.pth``/``.pt``) of a ResNet or ConvNeXt is rewritten into
@@ -531,6 +532,22 @@ def save_backbone_npz(
     flat.update(_flatten_tree(batch_stats or {}, "batch_stats"))
     if arch:
         flat[_NPZ_META_KEY] = np.asarray(arch)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **flat)
+
+
+def save_variables_npz(variables: Mapping[str, Any], path: Path) -> None:
+    """Write a Flax variables tree (``{"params": ..., "batch_stats": ...}``)
+    as the JAX package's ``train/ocr.py::save_variables_npz`` does: a flat
+    compressed ``.npz`` of ``/``-joined paths, f32 params stored f16,
+    everything else as it is. Both packages' loaders read it."""
+    flat = {}
+    for collection, tree in variables.items():
+        for key, value in _flatten_tree(tree, collection).items():
+            if key.startswith("params/") and value.dtype == np.float32:
+                value = value.astype(np.float16)
+            flat[key] = value
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **flat)

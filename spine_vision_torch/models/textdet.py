@@ -11,7 +11,7 @@ bf16 operation in f32 and rounds its result, except where the model casts
 that result up to f32 (excess precision, its default): here every
 convolution's output goes to the f32 BatchNorm, so only the values the
 model casts to bf16 are rounded, the input and each convolution's input and
-kernel. The net does the same: ``bf16_round`` where the Flax model casts,
+kernel. The net does the same: ``bf16_input`` where the Flax model casts,
 f32 sums of kernels stored in bf16. Rounding each convolution's output as
 well (what a bf16 ``F.conv2d`` does) moves the probabilities against the
 JAX package's by several times more than the noise of f32 sums in another
@@ -31,7 +31,7 @@ from scipy import ndimage
 from torch import nn
 
 from spine_vision_torch.core.registry import register_model
-from spine_vision_torch.models.layers import Conv, FlaxBatchNorm, bf16_round
+from spine_vision_torch.models.layers import Conv, FlaxBatchNorm, bf16_input
 
 # 4-connectivity (cv2's connectivity=4).
 _FOUR_CONNECTED = ndimage.generate_binary_structure(2, 1)
@@ -42,14 +42,16 @@ class _ConvBlock(nn.Module):
     sums), then Flax's f32 BatchNorm and a ReLU."""
 
     def __init__(self, in_ch: int, features: int, stride: int = 1, device=None,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 param_dtype=torch.bfloat16) -> None:
         super().__init__()
         self.Conv_0 = Conv(in_ch, features, 3, stride, padding="SAME", bias=False,
-                           param_dtype=torch.bfloat16, device=device, generator=generator)
+                           param_dtype=param_dtype, bf16_kernel=True, device=device,
+                           generator=generator)
         self.BatchNorm_0 = FlaxBatchNorm(features, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.BatchNorm_0(self.Conv_0(bf16_round(x))))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.relu(self.BatchNorm_0(self.Conv_0(bf16_input(x)), train))
 
 
 def _up(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -65,11 +67,15 @@ class TextDetectionNet(nn.Module):
 
     Encoder strides 2/2/2/2 at widths (w, 2w, 4w, 8w); a top-down merge back
     to 1/2 resolution with f32 sums; an f32 1x1 head with bias and a sigmoid.
-    H and W must be multiples of 16.
+    H and W must be multiples of 16. ``param_dtype=torch.float32`` keeps f32
+    master kernels for training (Flax's default; the convolutions round them
+    to bf16), and ``forward(x, train=True)`` is Flax's ``apply(...,
+    train=True)``: the BatchNorms use and update the batch statistics.
     """
 
     def __init__(self, width: int = 32, device=None,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 param_dtype=torch.bfloat16) -> None:
         super().__init__()
         w = width
         kw = {"device": device, "generator": generator}
@@ -79,21 +85,26 @@ class TextDetectionNet(nn.Module):
                   (8 * w, 2 * w, 1), (4 * w, 2 * w, 1), (2 * w, 2 * w, 1), (w, 2 * w, 1),
                   (2 * w, w, 1))
         for i, (cin, cout, stride) in enumerate(blocks):
-            setattr(self, f"_ConvBlock_{i}", _ConvBlock(cin, cout, stride, **kw))
+            setattr(self, f"_ConvBlock_{i}", _ConvBlock(cin, cout, stride,
+                                                        param_dtype=param_dtype, **kw))
         self.Conv_0 = Conv(w, 1, 1, dtype=torch.float32, device=device, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = [getattr(self, f"_ConvBlock_{i}") for i in range(13)]
-        x = bf16_round(x)
-        c1 = b[1](b[0](x))  # 1/2
-        c2 = b[3](b[2](c1))  # 1/4
-        c3 = b[5](b[4](c2))  # 1/8
-        c4 = b[7](b[6](c3))  # 1/16
-        p4 = b[8](c4)
-        p3 = b[9](c3) + _up(p4, c3)
-        p2 = b[10](c2) + _up(p3, c2)
-        p1 = b[11](c1) + _up(p2, c1)
-        return torch.sigmoid(self.Conv_0(b[12](p1)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        blocks = [getattr(self, f"_ConvBlock_{i}") for i in range(13)]
+
+        def b(i: int, t: torch.Tensor) -> torch.Tensor:
+            return blocks[i](t, train)
+
+        x = bf16_input(x)
+        c1 = b(1, b(0, x))  # 1/2
+        c2 = b(3, b(2, c1))  # 1/4
+        c3 = b(5, b(4, c2))  # 1/8
+        c4 = b(7, b(6, c3))  # 1/16
+        p4 = b(8, c4)
+        p3 = b(9, c3) + _up(p4, c3)
+        p2 = b(10, c2) + _up(p3, c2)
+        p1 = b(11, c1) + _up(p2, c1)
+        return torch.sigmoid(self.Conv_0(b(12, p1)))
 
 
 def extract_boxes_from_probmap(

@@ -38,6 +38,7 @@ from spine_vision_torch.models.layers import (
     FlaxBatchNorm,
     LayerNorm,
     MultiHeadDotProductAttention,
+    bf16_input,
     bf16_round,
 )
 
@@ -65,8 +66,8 @@ def _dense_bf16(dense: Dense, x: torch.Tensor) -> torch.Tensor:
     """Flax ``Dense(dtype=bfloat16)`` as XLA runs it: the bf16-rounded input
     times the bf16 kernel summed in f32 and rounded, plus the bf16 bias; the
     sum is returned in f32 (the caller rounds it where XLA does)."""
-    y = bf16_round(torch.matmul(bf16_round(x), dense.weight.float().t()))
-    return y + dense.bias.float()
+    y = bf16_round(torch.matmul(bf16_round(x), bf16_round(dense.weight).t()))
+    return y + bf16_round(dense.bias)
 
 
 def _gelu_tanh_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -91,22 +92,27 @@ class TextRecognitionNet(nn.Module):
     layers (LayerNorm -> attention -> residual, LayerNorm -> Dense 2C ->
     tanh-GELU -> Dense C -> residual) run on the f32 residual stream; a final
     LayerNorm and an f32 Dense give the logits. ``patch_width`` fixes the
-    embedding's length W/4.
+    embedding's length W/4. ``param_dtype=torch.float32`` keeps f32 master
+    variables for training (Flax's default; they are rounded to bf16 where
+    the Flax net casts them), and ``forward(x, train=True)`` is Flax's
+    ``apply(..., train=True)``: the BatchNorms use and update the batch
+    statistics.
     """
 
     def __init__(self, width: int = 64, num_layers: int = 2, num_heads: int = 4,
                  patch_width: int = 256, device=None,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 param_dtype=torch.bfloat16) -> None:
         super().__init__()
         self.num_layers = num_layers
         w = width
         kw = {"device": device, "generator": generator}
-        bf16 = {"param_dtype": torch.bfloat16, **kw}
+        bf16 = {"param_dtype": param_dtype, **kw}
         convs = ((1, w, (2, 2)), (w, 2 * w, (2, 2)), (2 * w, 4 * w, (2, 1)),
                  (4 * w, 4 * w, (2, 1)), (4 * w, 4 * w, (2, 1)))
         for i, (cin, cout, stride) in enumerate(convs):
             setattr(self, f"Conv_{i}", Conv(cin, cout, 3, stride, padding="SAME", bias=False,
-                                            **bf16))
+                                            bf16_kernel=True, **bf16))
             setattr(self, f"BatchNorm_{i}", FlaxBatchNorm(cout, device=device))
         c = 4 * w
         self.pos_embedding = nn.Parameter(
@@ -115,17 +121,17 @@ class TextRecognitionNet(nn.Module):
         for i in range(num_layers):
             setattr(self, f"LayerNorm_{2 * i}", LayerNorm(c, device=device))
             setattr(self, f"MultiHeadDotProductAttention_{i}",
-                    MultiHeadDotProductAttention(c, num_heads, **kw))
+                    MultiHeadDotProductAttention(c, num_heads, param_dtype=param_dtype, **kw))
             setattr(self, f"LayerNorm_{2 * i + 1}", LayerNorm(c, device=device))
             setattr(self, f"Dense_{2 * i}", Dense(c, 2 * c, **bf16))
             setattr(self, f"Dense_{2 * i + 1}", Dense(2 * c, c, **bf16))
         setattr(self, f"LayerNorm_{2 * num_layers}", LayerNorm(c, device=device))
         setattr(self, f"Dense_{2 * num_layers}", Dense(c, charset_size(), **kw))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for i in range(5):
-            conv = getattr(self, f"Conv_{i}")(bf16_round(x))
-            x = torch.relu(getattr(self, f"BatchNorm_{i}")(conv))
+            conv = getattr(self, f"Conv_{i}")(bf16_input(x))
+            x = torch.relu(getattr(self, f"BatchNorm_{i}")(conv, train))
         seq = x[:, 0] + bf16_round(self.pos_embedding)
         for i in range(self.num_layers):
             attn_in = getattr(self, f"LayerNorm_{2 * i}")(seq)

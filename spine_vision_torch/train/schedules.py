@@ -5,7 +5,8 @@ plain functions of the update count with optax's formulas (the lr of update
 ``k``, counted from 0, is ``schedule(k)``): cosine to ``0.01 * lr`` over the
 run after an optional linear warmup, step decay by ``gamma`` every
 ``step_size`` epochs, and a constant for ``plateau`` (which the trainer
-lowers on a stalled validation loss) and ``none``. ``torch.optim.AdamW``
+lowers on a stalled validation loss) and ``none``; the OCR trainers'
+:func:`warmup_cosine_decay` is optax's ``warmup_cosine_decay_schedule``. ``torch.optim.AdamW``
 with optax's defaults matches ``optax.adamw`` update for update; clipping by
 global norm uses optax's formula, ``g * c / ||g||`` when ``||g|| > c``
 (``clip_grad_norm_`` adds 1e-6 to the norm, which optax does not).
@@ -40,6 +41,15 @@ def linear(init_value: float, end_value: float, steps: int) -> Schedule:
         return init_value + (end_value - init_value) * frac
 
     return schedule
+
+
+def warmup_cosine_decay(peak_value: float, warmup_steps: int, decay_steps: int) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule(0.0, peak_value, warmup_steps,
+    decay_steps)`` (end value 0): linear from 0 over the warmup, then a
+    cosine to 0 over ``decay_steps - warmup_steps``."""
+    warmup = linear(0.0, peak_value, warmup_steps)
+    cosine = cosine_decay(peak_value, decay_steps - warmup_steps)
+    return lambda count: warmup(count) if count < warmup_steps else cosine(count - warmup_steps)
 
 
 def build_lr_schedule(

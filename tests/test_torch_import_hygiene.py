@@ -53,6 +53,11 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.infer.serve, spine_vision_torch.data.builders\n"
         "import spine_vision_torch.data.rsna, spine_vision_torch.data.phenikaa\n"
         "import spine_vision_torch.parallel\n"
+        "import spine_vision_torch.train.ocr, spine_vision_torch.ops.ctc\n"
+        "import spine_vision_torch.data.phenikaa.synth, spine_vision_torch.data.phenikaa.raster\n"
+        "import spine_vision_torch.data.phenikaa.text\n"
+        "from spine_vision_torch.data.phenikaa import synth\n"
+        "synth.recognition_batch(__import__('numpy').random.default_rng(0), 2, degrade='hard')\n"
         "import chip_smoke\n"
         "print('ok')\n"
     )
@@ -62,7 +67,7 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Classifier("resnet18")
@@ -72,6 +77,19 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     cls = Classifier("resnet18", dtype=torch.float32, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StudyInferencePipeline(loc, cls)
+    from spine_vision_torch.train import ocr
+
+    for entry in (ocr.train_recognizer, ocr.train_detector):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ocr.train_ocr_stack(tmp_path)
+    for entry, size in ((ocr.evaluate_recognizer, {"n": 1}),
+                        (ocr.evaluate_recognizer_mpl, {"n": 1}),
+                        (ocr.evaluate_detector, {"n_pages": 1}),
+                        (ocr.evaluate_layout_extraction, {"n_pages": 1})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(None, None, **size)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -865,6 +865,23 @@ def test_ocr_nets_on_the_card_match_the_cpu(cuda):
     assert np.median(gap) <= 1e-3 and gap.max() <= 2e-2, (np.median(gap), gap.max())
 
 
+@pytest.mark.parametrize("which", ["recognizer", "detector"])
+def test_ocr_train_step_on_the_card_matches_the_cpu(cuda, which):
+    """One OCR train step on the card against the CPU from the same
+    variables and batch (``chip_smoke.py::ocr_grad_check``): in f32
+    arithmetic the gradients within 2e-2 of each tensor's norm (median
+    1e-3) and the running statistics within 1e-5 of each buffer's; in the
+    trained bf16 arithmetic within the gap of the CPU's bf16 step to its f32
+    step."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    chip_smoke.ocr_grad_check(cuda, (which,))
+
+
 def test_middle_slice_on_the_card_matches_the_cpu(cuda, tmp_path):
     """The isotropic middle slice (``io/series.py``: the hat-matrix products
     on the card, TF32 off for the call) against the same call on the CPU, on

@@ -254,12 +254,15 @@ def test_shipped_ocr_reads_a_patient_named_report(tmp_path):
 
 
 def test_orbax_checkpoint_raises_naming_item_10(tmp_path):
+    """An Orbax directory raises, naming its ROADMAP Queue 1 entry (it named
+    item 10 until the port's OCR trainers, which write .npz, landed)."""
     ckpt = tmp_path / "orbax_ckpt"
     ckpt.mkdir()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    entry = "reading JAX Orbax checkpoint directories"
+    with pytest.raises(NotImplementedError, match=entry):
         tp._load_ocr_variables(ckpt)
     config = tp.PreprocessConfig(data_path=tmp_path, detection_checkpoint=ckpt)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match=entry):
         tp._build_extractor(config, device="cpu")
     shipped = tp._load_ocr_variables(
         Path(__file__).resolve().parents[1] / "spine_vision_tpu" / "weights" / "ocr_detector.npz")
