@@ -12,6 +12,7 @@
     python3 chip_smoke.py --serve-only [--profile]   # the directory server alone
     python3 chip_smoke.py --build-only # the dataset builders alone
     python3 chip_smoke.py --ddp-only   # data parallelism alone
+    python3 chip_smoke.py --zoo-only   # the backbone zoo alone
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -185,6 +186,21 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    ``from_checkpoints(mesh=data_parallel_mesh())`` bit
    for bit ``mesh=None`` on 8 studies. The ``kernels`` line's ``ddp`` path
    counts one DDP step's launches and one forward's, summed.
+
+18. The backbone zoo (``zoo``, last, also alone with ``--zoo-only``; see
+   ``zoo_phase`` and ``ZOO_FORWARD``-``ZOO_PNGS``): a Classifier at 256^2,
+   b32, bf16 from seeded Flax-layout trees for one name per code path
+   (ResNet-50, ResNeXt-50, ResNet-RS-50, ResNet-50 with Flax BatchNorm and
+   the scatter-free pool, ViT-base, Swin-tiny, EfficientNet-B0 and V2-S,
+   MobileNetV3-large): two rows of logits against the CPU, the forward's
+   p50, img/s and peak memory; ``ClassificationTrainer.train()`` of
+   EfficientNet-B0, Swin-tiny and ViT-base (b64 at 256^2, 2 epochs) and
+   ``LocalizationTrainer.train()`` of a ViT-base ``CoordinateRegressor``
+   with a residual ``HeadConfig`` at 512^2 b16: run dirs, finite histories,
+   step p50s; one f32 step's gradients card against CPU per family; the
+   test-time inference functions on 8 PNG files and their arrays against a
+   direct forward. No kernel of this package lies on the zoo's paths: every
+   launch count of the phase is 0.
 
 Each phase prints its wall time.
 
@@ -4410,6 +4426,360 @@ def ddp_phase(device, card: str) -> dict:
     return {k: step[0][k] + forward[k] for k in step[0]}
 
 
+# The backbone zoo (``zoo``): every family beyond ResNet-18 and ConvNeXt at
+# full width, none of which runs a kernel of this package (the launch counts
+# of every part are all 0).
+#
+# Forward: a Classifier per distinct code path at 256^2, batch 32, bf16,
+# weights from seeded Flax-layout trees; two rows of the card's logits
+# against the same model on the CPU in f32, within ZOO_BF16_TOL of the
+# largest logit, or (run only past that) ZOO_BF16_MARGIN times the CPU's
+# own bf16 run's distance from its f32 run where that is larger (deep
+# random-weight nets amplify bf16 rounding, and the card and the CPU round
+# independently). The p50 of 20 forwards (CUDA events after a warm-up),
+# img/s and peak memory.
+ZOO_FORWARD = (("resnet50", {}), ("resnext50", {}), ("resnetrs50", {}),
+               ("resnet50", {"norm_impl": "flax", "pool_impl": "tpu"}), ("vit_base", {}),
+               ("swin_tiny", {}), ("efficientnet_b0", {}), ("efficientnetv2_s", {}),
+               ("mobilenetv3_large", {}))
+ZOO_BATCH, ZOO_HW, ZOO_ITERS = 32, 256, 20
+ZOO_BF16_TOL, ZOO_BF16_MARGIN = 5e-2, 2.0
+# Training: ClassificationTrainer.train() for 2 epochs of 3 train batches and
+# 1 validation batch (b64 at 256^2, bf16 on f32 masters, augmentation and
+# dropout) on each of ZOO_TRAIN; LocalizationTrainer.train() of a ViT-base
+# CoordinateRegressor with a residual head at 512^2, b16 (its position
+# embeddings interpolate 14 -> 32).
+ZOO_TRAIN, ZOO_TRAIN_BATCH = ("efficientnet_b0", "swin_tiny", "vit_base"), 64
+ZOO_LOC_BATCH, ZOO_LOC_HW = 16, 512
+# One f32 step's gradients on the card against the CPU for each family (b2
+# at 64^2, dropout 0, TF32 off): ocr_train's bounds, each parameter's
+# gradient within ZOO_GRAD_WORST of its norm, the median within
+# ZOO_GRAD_MEDIAN, or (run only past those) within ZOO_GRAD_MARGIN times the
+# CPU's own largest gap between the batch and the batch scaled by 1 + eps
+# for each eps of ZOO_GRAD_EPS, where that is larger. Nets with training
+# BatchNorm over few values (8 a channel at a ResNet's stage 4: 2 images of
+# 2x2; 32 at MobileNetV3's block 6) and ReLUs are chaotic at f32 rounding,
+# and a ReLU input that crosses 0 moves a gradient by a step: a 1e-5 change
+# of the input moves ResNet-RS-50's gradients by 2.0e-2 of their norms
+# (median), a 1e-4 change flips one ReLU of MobileNetV3-large's block 6 and
+# moves its expansion BatchNorm's bias gradient by 4.88e-2, exactly the gap
+# an H100 showed against the CPU; ViT-base moves by 3.4e-6 and
+# EfficientNet-B0 by 3.5e-5 (CPU runs of this check's model and batch;
+# PERF.md holds the card's). A gradient that is 0 in exact
+# arithmetic (the attention's key bias; a BatchNorm bias that reaches the
+# next training BatchNorm through linear layers only) is rounding noise on
+# both sides: norms below ZOO_GRAD_FLOOR of the largest gradient's count as
+# that floor.
+ZOO_GRAD = (("resnext50", {}), ("resnetrs50", {"norm_impl": "flax", "pool_impl": "tpu"}),
+            ("vit_base", {}), ("swin_tiny", {}), ("efficientnet_b0", {}),
+            ("efficientnetv2_s", {}), ("mobilenetv3_large", {}))
+ZOO_GRAD_BATCH, ZOO_GRAD_HW = 2, 64
+ZOO_GRAD_WORST, ZOO_GRAD_MEDIAN, ZOO_GRAD_FLOOR = 2e-2, 1e-3, 1e-5
+ZOO_GRAD_EPS, ZOO_GRAD_MARGIN = (1e-5, 1e-4), 2.0
+# Test-time inference: 8 PNG files and their decoded arrays.
+ZOO_PNGS = 8
+
+
+def _zoo_model(kind: str, name: str, device, dtype, seed: int, param_dtype=None, **kw):
+    """A Classifier (or CoordinateRegressor) over backbone ``name``, built on
+    the meta device and filled from a seeded Flax-layout tree."""
+    import torch
+
+    from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+
+    cls = Classifier if kind == "classifier" else CoordinateRegressor
+    with torch.device("meta"):
+        model = cls(name, dtype=dtype, device="meta", param_dtype=param_dtype, **kw)
+    model = model.to_empty(device=device)
+    load_flax_variables(model, *random_flax_variables(model, seed))
+    return model.eval()
+
+
+def _zoo_check_launches(what: str) -> None:
+    if _counts() != _launches():
+        raise AssertionError(f"zoo {what}: a kernel of the package was launched: {_counts()}")
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _zoo_forward(device, card: str) -> dict:
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.ops.image import imagenet_normalize
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(40)
+    images = torch.from_numpy(rng.integers(0, 256, (ZOO_BATCH, ZOO_HW, ZOO_HW, 3),
+                                           dtype=np.uint8))
+    x_cpu = imagenet_normalize(images.float() / 255.0)
+    x = x_cpu.to(device)
+    rows = {}
+    for i, (name, kw) in enumerate(ZOO_FORWARD):
+        label = name + ("" if not kw else " " + ",".join(f"{k}={v}" for k, v in kw.items()))
+        t0 = time.perf_counter()
+        model = _zoo_model("classifier", name, device, torch.bfloat16, 50 + i, **kw)
+        build_s = time.perf_counter() - t0
+        with torch.inference_mode():
+            for _ in range(3):
+                model(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(ZOO_ITERS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = model(x)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        p50 = float(np.percentile(times, 50))
+        card_logits = torch.cat([v[:2].float().cpu() for v in out.values()], dim=1)
+        if not torch.isfinite(card_logits).all():
+            raise AssertionError(f"zoo {label}: non-finite logits on the card")
+        del model
+        t0 = time.perf_counter()
+
+        def cpu_logits(dtype):
+            with torch.inference_mode():
+                ref = _zoo_model("classifier", name, cpu, dtype, 50 + i, **kw)
+                return torch.cat(list(ref(x_cpu[:2]).values()), dim=1)
+
+        want = cpu_logits(torch.float32)
+        err, tol, yard = _rel(card_logits, want), ZOO_BF16_TOL, "not needed"
+        if err > tol:  # the CPU's own bf16 run sets the scale
+            yard_err = _rel(cpu_logits(torch.bfloat16), want)
+            tol, yard = max(tol, ZOO_BF16_MARGIN * yard_err), f"{yard_err:.3e}"
+        cpu_s = time.perf_counter() - t0
+        print(f"[zoo] {label}: forward p50 {p50:.3f} ms a batch of {ZOO_BATCH} at {ZOO_HW}^2 "
+              f"bf16 = {ZOO_BATCH / p50 * 1e3:.1f} img/s (min {min(times):.3f}, max "
+              f"{max(times):.3f} ms), peak memory {peak:.2f} GiB; card vs CPU f32 logits "
+              f"{err:.3e} of the largest (tol {tol:.3e}; the CPU's bf16 run {yard}); "
+              f"built {build_s:.1f} s, CPU reference {cpu_s:.1f} s; on {card}")
+        if err > tol:
+            raise AssertionError(f"zoo {label}: card logits {err:.3e} from the CPU's > {tol}")
+        rows[label] = {"p50_ms": p50, "img_s": ZOO_BATCH / p50 * 1e3, "peak_gib": peak,
+                       "err": err}
+        gc.collect()
+        torch.cuda.empty_cache()
+    _zoo_check_launches("forward")
+    return rows
+
+
+def _zoo_train(device, card: str) -> dict:
+    import math
+
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.models.heads import HeadConfig
+    from spine_vision_torch.train.classification import ClassificationTrainer
+    from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
+
+    out = {}
+
+    def run(tag: str, trainer, run_dir: Path, keys) -> None:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        result = trainer.train()
+        wall = time.perf_counter() - t0
+        for name in ("best_model/state.pt", "best_model.meta.json", "config.yaml", "logs"):
+            if not (run_dir / name).exists():
+                raise AssertionError(f"{tag} run dir lacks {name}")
+        for key in keys:
+            values = result.history[key]
+            if len(values) != 2 or not all(math.isfinite(v) for v in values):
+                raise AssertionError(f"{tag} history[{key!r}] = {values}")
+        steps = np.asarray(trainer.step_times[1:]) * 1e3  # the first allocates and tunes
+        p50 = float(np.percentile(steps, 50))
+        batch = trainer.config.batch_size
+        print(f"{tag} 2 epochs in {wall:.1f} s; step p50 {p50:.3f} ms = "
+              f"{batch / p50 * 1e3:.1f} img/s ({len(steps)} steps after the first; all steps ms "
+              f"{[round(t * 1e3, 3) for t in trainer.step_times]}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; history "
+              f"{ {k: [round(v, 5) for v in result.history[k]] for k in keys} } on {card}")
+        out[tag] = {"p50_ms": p50, "img_s": batch / p50 * 1e3}
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    for name in ZOO_TRAIN:
+        cfg = _cls_config(f"zoo_{name}", backbone=name, output_size=(ZOO_HW, ZOO_HW),
+                          batch_size=ZOO_TRAIN_BATCH, augment=True, dropout=0.3,
+                          mixed_precision=True, profile_steps=True)
+        trainer = ClassificationTrainer(
+            cfg, train_dataset=_Grades(3 * ZOO_TRAIN_BATCH, ZOO_HW, 60),
+            val_dataset=_Grades(ZOO_TRAIN_BATCH, ZOO_HW, 61), device=device)
+        run(f"[zoo cls {name}]", trainer, RUN_DIR / f"zoo_{name}",
+            ("train_loss", "val_loss", "macro_f1"))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    model = _zoo_model("regressor", "vit_base", device, torch.bfloat16, 62,
+                       param_dtype=torch.float32, head_config=HeadConfig("residual"))
+    grid = model.backbone.config.patch_size
+    run_dir = RUN_DIR / "zoo_loc_vit"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg = LocalizationConfig(
+        backbone="vit_base", image_size=(ZOO_LOC_HW, ZOO_LOC_HW), batch_size=ZOO_LOC_BATCH,
+        num_epochs=2, augment=True, dropout=0.2, mixed_precision=True, output_path=run_dir,
+        num_workers=8, pretrained=False, profile_steps=True, seed=0)
+    trainer = LocalizationTrainer(
+        cfg, model=model, train_dataset=_Images(3 * ZOO_LOC_BATCH, ZOO_LOC_HW, 63),
+        val_dataset=_Images(ZOO_LOC_BATCH, ZOO_LOC_HW, 64), device=device)
+    print(f"[zoo loc vit_base] residual head; position grid 14 -> {ZOO_LOC_HW // grid}")
+    run("[zoo loc vit_base]", trainer, run_dir, ("train_loss", "val_loss", "med"))
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zoo_check_launches("training")
+    return out
+
+
+def _zoo_step_grads(name: str, kw: dict, dev, batch: dict, scale: float = 1.0) -> tuple:
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.models.classifier import make_multitask_loss_fn
+    from spine_vision_torch.models.convert import export_flax_variables
+    from spine_vision_torch.ops.image import imagenet_normalize
+    from spine_vision_torch.train.classification import create_tasks_for_training
+
+    tasks = create_tasks_for_training()
+    model = _zoo_model("classifier", name, dev, torch.float32, 70, param_dtype=torch.float32,
+                       tasks=tuple(tasks), dropout=0.0, **kw)
+    model.train()
+    x = imagenet_normalize(torch.from_numpy(batch["image"]).to(dev).float() / 255.0) * scale
+    targets = {k: torch.from_numpy(v).to(dev) for k, v in batch["targets"].items()}
+    loss = make_multitask_loss_fn(tasks)(model(x), targets)
+    loss.backward()
+    grads, _ = export_flax_variables(model, grads=True)
+
+    def flat(tree, prefix=""):
+        res = {}
+        for k, v in tree.items():
+            res.update(flat(v, f"{prefix}/{k}") if isinstance(v, dict)
+                       else {f"{prefix}/{k}": np.asarray(v)})
+        return res
+
+    return flat(grads), float(loss.detach())
+
+
+def _grad_gaps(got: dict, want: dict) -> tuple:
+    """(worst (name, gap), median gap) of each gradient's difference over
+    its norm, the norms floored at ZOO_GRAD_FLOOR of the largest."""
+    import numpy as np
+
+    floor = ZOO_GRAD_FLOOR * max(np.linalg.norm(w) for w in want.values())
+    gaps = {k: float(np.linalg.norm(got[k] - w) / max(np.linalg.norm(w), floor))
+            for k, w in want.items()}
+    return max(gaps.items(), key=lambda kv: kv[1]), float(np.median(list(gaps.values())))
+
+
+def _zoo_grads(device) -> dict:
+    import torch
+
+    from spine_vision_torch.data.loader import collate_classification
+
+    data = _Grades(ZOO_GRAD_BATCH, ZOO_GRAD_HW, 71)
+    batch = collate_classification([data[i] for i in range(ZOO_GRAD_BATCH)])
+    out = {}
+    for name, kw in ZOO_GRAD:
+        label = name + ("" if not kw else " " + ",".join(f"{k}={v}" for k, v in kw.items()))
+        got, loss = _zoo_step_grads(name, kw, device, batch)
+        cpu = torch.device("cpu")
+        want, want_loss = _zoo_step_grads(name, kw, cpu, batch)
+        worst, median = _grad_gaps(got, want)
+        tol_worst, tol_median, yard = ZOO_GRAD_WORST, ZOO_GRAD_MEDIAN, "not needed"
+        if worst[1] > tol_worst or median > tol_median:  # the model's own sensitivity
+            gaps = [_grad_gaps(_zoo_step_grads(name, kw, cpu, batch, scale=1.0 + eps)[0], want)
+                    for eps in ZOO_GRAD_EPS]
+            yard_worst = max((g[0] for g in gaps), key=lambda kv: kv[1])
+            yard_median = max(g[1] for g in gaps)
+            tol_worst = max(tol_worst, ZOO_GRAD_MARGIN * yard_worst[1])
+            tol_median = max(tol_median, ZOO_GRAD_MARGIN * yard_median)
+            yard = f"worst {yard_worst[1]:.3e} ({yard_worst[0]}), median {yard_median:.3e}"
+        print(f"[zoo grad] {label}: f32 step b{ZOO_GRAD_BATCH} {ZOO_GRAD_HW}^2, card vs CPU over "
+              f"{len(want)} tensors: worst {worst[1]:.3e} ({worst[0]}; bound {tol_worst:.3e}), "
+              f"median {median:.3e} (bound {tol_median:.3e}); the CPU's own largest gap at "
+              f"inputs {' or '.join(f'{e:g}' for e in ZOO_GRAD_EPS)} apart: {yard}; loss "
+              f"{loss:.6f} vs {want_loss:.6f}")
+        if worst[1] > tol_worst or median > tol_median:
+            raise AssertionError(f"zoo grad {label}: card and CPU gradients differ")
+        out[label] = {"worst": worst[1], "median": median}
+        gc.collect()
+        torch.cuda.empty_cache()
+    _zoo_check_launches("gradient check")
+    return out
+
+
+def _zoo_inference(device, card: str) -> None:
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.data.png import read_png, write_png
+    from spine_vision_torch.models.inference import (
+        classifier_test_inference,
+        regressor_test_inference,
+    )
+    from spine_vision_torch.ops.image import imagenet_normalize
+
+    folder = RUN_DIR / "zoo_pngs"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(80)
+    paths = []
+    for i in range(ZOO_PNGS):
+        shape = (300, 260) if i % 2 else (280, 320, 3)
+        paths.append(folder / f"img{i}.png")
+        write_png(paths[-1], rng.integers(0, 256, shape, dtype=np.uint8))
+    arrays = [read_png(p) for p in paths]
+    for kind, name, size, fn in (
+            ("classifier", "resnet50", (ZOO_HW, ZOO_HW), classifier_test_inference),
+            ("regressor", "efficientnet_b0", (ZOO_LOC_HW, ZOO_LOC_HW), regressor_test_inference)):
+        model = _zoo_model(kind, name, device, torch.bfloat16, 81)
+        from_files, from_arrays = fn(model, paths, image_size=size), fn(model, arrays,
+                                                                        image_size=size)
+        if not np.array_equal(from_files["images"], from_arrays["images"]):
+            raise AssertionError(f"zoo {kind} inference: files and arrays resize differently")
+        batch = imagenet_normalize(torch.from_numpy(from_files["images"]).to(device).float()
+                                   / 255.0)
+        with torch.inference_mode():
+            direct = model(batch)
+        if kind == "classifier":
+            got = np.concatenate([from_files["logits"][k] for k in direct], axis=1)
+            again = np.concatenate([from_arrays["logits"][k] for k in direct], axis=1)
+            direct = torch.cat([direct[k].float() for k in direct], dim=1)
+        else:
+            got, again = from_files["coordinates"], from_arrays["coordinates"]
+        err = _rel(torch.from_numpy(got), direct.cpu())
+        if err > 1e-3 or not np.array_equal(got, again) or not np.isfinite(got).all():
+            raise AssertionError(f"zoo {kind} inference: {err:.3e} from a direct forward")
+        print(f"[zoo inference] {kind}_test_inference ({name}, bf16) on {ZOO_PNGS} PNG files "
+              f"and their arrays at {size[0]}^2: equal outputs, {err:.3e} from a direct forward "
+              f"of the batch; timed forward {from_files['inference_time_ms']:.3f} ms on {card}")
+        del model
+    shutil.rmtree(folder, ignore_errors=True)
+    _zoo_check_launches("inference")
+
+
+def zoo_phase(device, card: str) -> dict:
+    """The backbone zoo at full width (see ZOO_FORWARD to ZOO_PNGS): the
+    forwards, the trainers, the card-vs-CPU steps and the test-time
+    inference functions. Returns the launch counts of the whole phase (all
+    0: no kernel of this package lies on the zoo's paths)."""
+    _zero_counts()
+    forward = _zoo_forward(device, card)
+    train = _zoo_train(device, card)
+    grads = _zoo_grads(device)
+    _zoo_inference(device, card)
+    print(f"[zoo] launches of the package's kernels over the phase: {_counts()}")
+    return {"launches": _counts(), "forward": forward, "train": train, "grads": grads}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -4436,6 +4806,8 @@ def main() -> int:
                         help="run only the builders phase (no kernels line)")
     parser.add_argument("--ddp-only", action="store_true",
                         help="run only the ddp phase (no kernels line)")
+    parser.add_argument("--zoo-only", action="store_true",
+                        help="run only the zoo phase (no kernel build, no kernels line)")
     parser.add_argument("--ddp-rank", help=argparse.SUPPRESS)  # a rank of the ddp phase
     opts = parser.parse_args()
     if opts.ddp_rank:
@@ -4505,6 +4877,9 @@ def main() -> int:
     if opts.ddp_only:
         phase("ddp", ddp_phase, device, card)
         return verdict()
+    if opts.zoo_only:
+        phase("zoo", zoo_phase, device, card)
+        return verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -4527,7 +4902,7 @@ def main() -> int:
              **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
-             "ocr_train": None, "ddp": None, "probes": probe_counts}
+             "ocr_train": None, "ddp": None, "zoo": None, "probes": probe_counts}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
@@ -4560,6 +4935,7 @@ def main() -> int:
         paths["ocr"] = phase("ocr", ocr_phase, device, card, opts.profile)
         paths["ocr_train"] = phase("ocr_train", ocr_train_phase, device, card, opts.profile)
         paths["ddp"] = phase("ddp", ddp_phase, device, card)
+        paths["zoo"] = phase("zoo", zoo_phase, device, card)["launches"]
 
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",

@@ -10,7 +10,8 @@ arithmetic so that a rendered line or page comes out as Pillow makes it:
   falls outside the image (Pillow's ``Geometry.c``);
 - :func:`resize_bilinear`: ``Image.resize(..., BILINEAR)``, Pillow's
   separable triangle filter, whose support widens by the scale when it
-  shrinks, in 22-bit fixed point (``Resample.c``);
+  shrinks, in 22-bit fixed point (``Resample.c``; kept in
+  ``data/pillow_resize.py`` beside its bicubic filter);
 - :func:`min_filter3` and :func:`max_filter3`: ``ImageFilter.MinFilter(3)``
   and ``MaxFilter(3)``, edges replicated;
 - :func:`gaussian_blur`: ``ImageFilter.GaussianBlur``, an extended box blur
@@ -30,6 +31,8 @@ from __future__ import annotations
 from functools import lru_cache
 
 import numpy as np
+
+from spine_vision_torch.data.pillow_resize import resize_bilinear  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # Geometric transforms (Geometry.c: ImagingGenericTransform, bilinear_filter8)
@@ -72,57 +75,6 @@ def transform(
     out = np.full((h_out, w_out), fill, np.uint8)
     out[inside] = v[inside].astype(np.uint8)
     return out
-
-
-# ---------------------------------------------------------------------------
-# Resize (Resample.c: precompute_coeffs, normalize_coeffs_8bpc, 8bpc passes)
-# ---------------------------------------------------------------------------
-
-_PRECISION_BITS = 32 - 8 - 2
-
-
-@lru_cache(maxsize=4096)
-def _resample_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
-    """Pillow's bilinear filter taps for one axis: the first source index of
-    each output and its ``[out, ksize]`` fixed-point weights (zero past the
-    tap count)."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    ksize = int(np.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
-    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
-    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
-    taps = np.arange(ksize)
-    ss = 1.0 / filterscale
-    w = np.maximum(1.0 - np.abs((taps[None] + xmin[:, None] - center[:, None] + 0.5) * ss), 0.0)
-    w = np.where(taps[None] < xmax[:, None], w, 0.0)
-    # Pillow sums the taps in order; a running sum adds them one by one too.
-    ww = np.cumsum(w, axis=1)[:, -1:]
-    kk = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
-    scaled = kk * (1 << _PRECISION_BITS)
-    fixed = np.where(kk < 0, (-0.5 + scaled).astype(np.int64), (0.5 + scaled).astype(np.int64))
-    return xmin, fixed
-
-
-def _resample_rows(src: np.ndarray, out_w: int) -> np.ndarray:
-    in_w = src.shape[1]
-    xmins, kk = _resample_coeffs(in_w, out_w)
-    idx = np.minimum(xmins[:, None] + np.arange(kk.shape[1])[None, :], in_w - 1)
-    acc = (src.astype(np.int64)[:, idx] * kk[None]).sum(-1) + (1 << (_PRECISION_BITS - 1))
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-
-
-def resize_bilinear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """``Image.resize((width, height), BILINEAR)`` of a uint8 image:
-    horizontal pass, then vertical, each rounded to uint8."""
-    out = np.asarray(img, np.uint8)
-    w, h = size
-    if out.shape[1] != w:
-        out = _resample_rows(out, w)
-    if out.shape[0] != h:
-        out = _resample_rows(out.T, h).T
-    return np.ascontiguousarray(out)
 
 
 # ---------------------------------------------------------------------------

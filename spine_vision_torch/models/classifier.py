@@ -1,8 +1,10 @@
 """Multi-task ``Classifier`` and ``CoordinateRegressor``, and the
 multi-task loss.
 
-Counterparts of ``spine_vision_tpu/models/classifier.py``. The heads run in
-f32, as the Flax heads (no ``dtype``) do on the backbone's f32 features.
+Counterparts of ``spine_vision_tpu/models/classifier.py``. The default heads
+run in f32, as the Flax heads (no ``dtype``) do on the backbone's f32
+features; a ``CoordinateRegressor``'s ``head_config`` head runs in the
+model's dtype, as the JAX ``create_head(config, out, self.dtype)``.
 Dropout acts in training mode only and draws from the generator passed to
 ``forward``; with ``shard`` (``ops/draws.py``) its masks are this rank's rows
 of the global batch's. Both models are built in eval mode, as inference callers
@@ -26,8 +28,10 @@ from spine_vision_torch.core.tasks import (
 from spine_vision_torch.core.registry import register_model
 from spine_vision_torch.device import resolve_device
 from spine_vision_torch.models.backbone import create_backbone
+from spine_vision_torch.models.heads import HeadConfig, create_head
 from spine_vision_torch.models.layers import Dense, LayerNorm
 from spine_vision_torch.ops.draws import DrawShard, rand
+from spine_vision_torch.ops.losses import masked_coordinate_loss
 
 
 @register_model("classifier")
@@ -37,10 +41,11 @@ class Classifier(nn.Module):
 
     ``use_pallas``, ``param_dtype``, ``norm_impl`` and ``pool_impl`` go to
     the backbone factory (``use_pallas`` and ``param_dtype`` as for
-    ``CoordinateRegressor``; ResNets have no kernels)."""
+    ``CoordinateRegressor``; only ConvNeXt has kernels). The backbone
+    defaults to ResNet-50, as the JAX ``Classifier``'s."""
 
     def __init__(
-        self, backbone_name: str = "resnet18", tasks: tuple[TaskConfig, ...] = (),
+        self, backbone_name: str = "resnet50", tasks: tuple[TaskConfig, ...] = (),
         dtype=torch.bfloat16, device="cuda",
         generator: torch.Generator | None = None, dropout: float = 0.3,
         use_pallas: bool | str = True, param_dtype=None, norm_impl: str = "tpu",
@@ -143,7 +148,8 @@ def dropout(
 ) -> torch.Tensor:
     """Flax ``nn.Dropout``: keep with probability ``1 - rate``, scaled by
     ``1 / (1 - rate)``; the mask is drawn from ``generator`` (this rank's rows
-    of the global batch's mask with ``shard``)."""
+    of the global batch's mask with ``shard``). The heads of
+    ``models/heads.py`` drop through it too."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
@@ -156,7 +162,9 @@ def dropout(
 class CoordinateRegressor(nn.Module):
     """backbone -> LayerNorm -> Dropout(p) -> Dense(256) -> erf-GELU ->
     Dropout(p/2) -> Dense(L*2) -> sigmoid, giving ``[B, num_levels,
-    num_outputs]`` normalised coordinates.
+    num_outputs]`` normalised coordinates. A ``head_config``
+    (``models/heads.py``) replaces that head by ``create_head(head_config,
+    L*2, dtype)`` (no sigmoid), named ``head``, in the model's dtype.
 
     ``use_pallas`` and ``param_dtype`` go to the backbone factory: with
     ``param_dtype=torch.float32``, ``use_pallas="hybrid"`` is the training
@@ -168,7 +176,7 @@ class CoordinateRegressor(nn.Module):
         num_levels: int = 5, dtype=torch.bfloat16, device="cuda",
         generator: torch.Generator | None = None, dropout: float = 0.2,
         use_pallas: bool | str = True, param_dtype=None, norm_impl: str = "tpu",
-        pool_impl: str = "flax",
+        pool_impl: str = "flax", head_config: HeadConfig | None = None,
     ) -> None:
         super().__init__()
         device = resolve_device(device)
@@ -178,9 +186,15 @@ class CoordinateRegressor(nn.Module):
             use_pallas=use_pallas, param_dtype=param_dtype, norm_impl=norm_impl,
             pool_impl=pool_impl,
         )
-        self.head_norm = LayerNorm(self.feature_dim, device=device)
-        self.head_fc1 = Dense(self.feature_dim, 256, device=device, generator=generator)
-        self.head_fc2 = Dense(256, num_levels * num_outputs, device=device, generator=generator)
+        total = num_levels * num_outputs
+        self.head_config = head_config
+        if head_config is not None:
+            self.head = create_head(head_config, total, dtype, in_features=self.feature_dim,
+                                    device=device, generator=generator, param_dtype=param_dtype)
+        else:
+            self.head_norm = LayerNorm(self.feature_dim, device=device)
+            self.head_fc1 = Dense(self.feature_dim, 256, device=device, generator=generator)
+            self.head_fc2 = Dense(256, total, device=device, generator=generator)
         self.eval()
 
     def forward(
@@ -188,7 +202,11 @@ class CoordinateRegressor(nn.Module):
         shard: DrawShard | None = None,
     ) -> torch.Tensor:
         """``generator`` feeds the dropout masks in training mode."""
-        y = self.head_norm(self.backbone(x))
+        features = self.backbone(x)
+        if self.head_config is not None:
+            out = self.head(features, generator, shard)
+            return out.reshape(-1, self.num_levels, self.num_outputs)
+        y = self.head_norm(features)
         if self.training:
             y = dropout(y, self.dropout, generator, shard)
         y = F.gelu(self.head_fc1(y), approximate="none")
@@ -196,3 +214,21 @@ class CoordinateRegressor(nn.Module):
             y = dropout(y, self.dropout / 2, generator, shard)
         out = torch.sigmoid(self.head_fc2(y))
         return out.reshape(-1, self.num_levels, self.num_outputs)
+
+
+def make_coordinate_loss_fn(
+    loss_type: str = "smooth_l1",
+) -> Callable[[torch.Tensor, torch.Tensor, torch.Tensor | None], torch.Tensor]:
+    """The masked coordinate loss of ``loss_type`` as a function of
+    ``(predictions, targets, mask=None)``."""
+
+    def loss_fn(predictions, targets, mask=None):
+        return masked_coordinate_loss(predictions, targets, mask, loss_type)
+
+    return loss_fn
+
+
+def coords_to_pixels(coords: torch.Tensor, image_size: tuple[int, int]) -> torch.Tensor:
+    """Normalised [0, 1] coordinates -> pixel coordinates for (H, W) images."""
+    h, w = image_size
+    return coords * torch.tensor([w, h], dtype=coords.dtype, device=coords.device)

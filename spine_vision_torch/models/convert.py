@@ -23,16 +23,25 @@ the Flax layout, :func:`load_variables_npz` reads the JAX package's flat
 ``.npz`` of them (the shipped OCR weights), and :func:`save_variables_npz`
 writes trained nets' trees (:func:`export_flax_variables`) in that format.
 
+Grouped and depthwise convolution kernels (``[kh, kw, in/groups, out]``)
+take the plain convolution's transpose; the zoo's other leaves keep their
+Flax layout: ViT's ``cls_token`` and ``pos_embed``, Swin's
+``relative_position_bias_table``, the attention's ``[C, heads, d]`` kernels.
+
 The pretrained-weights half is the JAX module's own: a torchvision or timm
-state-dict file (``.pth``/``.pt``) of a ResNet or ConvNeXt is rewritten into
+state-dict file (``.pth``/``.pt``) of any backbone family is rewritten into
 Flax-layout ``(params, batch_stats)`` trees (:func:`convert_resnet_state_dict`,
-:func:`convert_convnext_state_dict`, both ConvNeXt namings), kept as a flat
-``.npz`` artifact whose keys and ``__meta__/arch`` are the JAX package's
+:func:`convert_convnext_state_dict` in both ConvNeXt namings,
+:func:`convert_vit_state_dict`, :func:`convert_swin_state_dict` with timm's
+2x2 merge order permuted to the JAX reshape's,
+:func:`convert_efficientnet_state_dict`,
+:func:`convert_mobilenetv3_state_dict`), kept as a flat ``.npz`` artifact
+whose keys and ``__meta__/arch`` are the JAX package's
 (:func:`convert_checkpoint`, :func:`save_backbone_npz`,
 :func:`load_backbone_npz`), and loaded from either form
 (:func:`load_pretrained_backbone`). A trainer carries the trees into its
-backbone with :func:`load_flax_variables`. The other backbone families'
-converters wait for the families themselves (ROADMAP.md, Queue 1 item 12).
+backbone with :func:`load_flax_variables`. The converters read plain
+mappings of tensors or arrays; timm is not needed.
 """
 
 from __future__ import annotations
@@ -48,7 +57,9 @@ from torch import nn
 
 from spine_vision_torch.models.convnext import GRN, ConvNeXtBlock
 from spine_vision_torch.models.layers import Conv, Dense, LayerNorm, MultiHeadDotProductAttention
+from spine_vision_torch.models.swin import WindowAttention
 from spine_vision_torch.models.textrec import TextRecognitionNet
+from spine_vision_torch.models.vit import VIT_CONFIGS, ViT
 from spine_vision_torch.ops.batchnorm import BatchNorm
 
 Tree = dict[str, Any]
@@ -102,7 +113,8 @@ def _entries_of(name: str, mod: nn.Module) -> Iterator[_Entry]:
     elif isinstance(mod, Dense):
         o, i = mod.weight.shape
         yield _Entry("params", p + ("kernel",), (i, o), mod.weight, _transpose, _transpose)
-        yield _Entry("params", p + ("bias",), (o,), mod.bias, _same, _same)
+        if mod.bias is not None:
+            yield _Entry("params", p + ("bias",), (o,), mod.bias, _same, _same)
     elif isinstance(mod, LayerNorm):
         c = mod.scale.shape[0]
         yield _Entry("params", p + ("scale",), (c,), mod.scale, _same, _same)
@@ -144,6 +156,14 @@ def _entries_of(name: str, mod: nn.Module) -> Iterator[_Entry]:
     elif isinstance(mod, TextRecognitionNet):
         pos = mod.pos_embedding
         yield _Entry("params", p + ("pos_embedding",), tuple(pos.shape), pos, _same, _same)
+    elif isinstance(mod, ViT):
+        for leaf in ("cls_token", "pos_embed"):
+            t = getattr(mod, leaf)
+            yield _Entry("params", p + (leaf,), tuple(t.shape), t, _same, _same)
+    elif isinstance(mod, WindowAttention):
+        t = mod.relative_position_bias_table
+        yield _Entry("params", p + ("relative_position_bias_table",), tuple(t.shape), t, _same,
+                     _same)
 
 
 def _entries(module: nn.Module) -> list[_Entry]:
@@ -470,10 +490,376 @@ def convert_convnext_state_dict(
     return params
 
 
+def convert_vit_state_dict(
+    state_dict: Mapping[str, Any], num_heads: int
+) -> dict:
+    """timm ViT/DeiT state dict -> params tree.
+
+    timm names: ``cls_token``, ``pos_embed``, ``patch_embed.proj``,
+    ``blocks.{i}.{norm1,attn.{qkv,proj},norm2,mlp.fc1,mlp.fc2}``, ``norm``.
+    The fused qkv projection is split into flax MultiHeadDotProductAttention's
+    query/key/value trees with per-head reshapes. ``head`` is dropped.
+    DeiT-III LayerScale tensors (ls1/ls2 or gamma_1/gamma_2) are not part of
+    this package's ViT blocks and raise if present.
+    """
+    params: dict = {}
+    consumed = 0
+
+    def put(path: tuple[str, ...], value: np.ndarray) -> None:
+        nonlocal consumed
+        _set(params, path, value)
+        consumed += 1
+
+    if any(".ls1." in k or ".gamma_1" in k for k in state_dict):
+        raise ValueError(
+            "DeiT-III LayerScale checkpoints are not supported by the "
+            "plain-ViT block (no ls1/ls2 params)"
+        )
+
+    for key, tensor in state_dict.items():
+        parts = key.split(".")
+        if parts[0] in ("head", "fc_norm", "pre_logits"):
+            continue
+        if key == "cls_token":
+            put(("cls_token",), _np(tensor))
+        elif key == "pos_embed":
+            put(("pos_embed",), _np(tensor))
+        elif parts[0] == "patch_embed" and parts[1] == "proj":
+            if parts[2] == "weight":
+                put(("patch_embed", "kernel"), _conv(tensor))
+            else:
+                put(("patch_embed", "bias"), _np(tensor))
+        elif parts[0] == "blocks":
+            i = int(parts[1]) + 1
+            prefix = (f"block{i}",)
+            rest = parts[2:]
+            if rest[0] in ("norm1", "norm2"):
+                put(
+                    prefix + (rest[0], "scale" if rest[1] == "weight" else "bias"),
+                    _np(tensor),
+                )
+            elif rest[0] == "attn" and rest[1] == "qkv":
+                w = _np(tensor)
+                if rest[2] == "weight":
+                    d = w.shape[1]
+                    head_dim = d // num_heads
+                    for name, chunk in zip(
+                        ("query", "key", "value"), np.split(w, 3, axis=0)
+                    ):
+                        # torch [D_out, D_in] -> flax [D_in, heads, head_dim]
+                        put(
+                            prefix + ("attn", name, "kernel"),
+                            chunk.T.reshape(d, num_heads, head_dim),
+                        )
+                else:
+                    d = w.shape[0] // 3
+                    head_dim = d // num_heads
+                    for name, chunk in zip(
+                        ("query", "key", "value"), np.split(w, 3, axis=0)
+                    ):
+                        put(
+                            prefix + ("attn", name, "bias"),
+                            chunk.reshape(num_heads, head_dim),
+                        )
+            elif rest[0] == "attn" and rest[1] == "proj":
+                w = _np(tensor)
+                if rest[2] == "weight":
+                    d = w.shape[0]
+                    head_dim = d // num_heads
+                    put(
+                        prefix + ("attn", "out", "kernel"),
+                        w.T.reshape(num_heads, head_dim, d),
+                    )
+                else:
+                    put(prefix + ("attn", "out", "bias"), w)
+            elif rest[0] == "mlp":
+                put(
+                    prefix
+                    + (rest[1], "kernel" if rest[2] == "weight" else "bias"),
+                    _linear(tensor) if rest[2] == "weight" else _np(tensor),
+                )
+        elif parts[0] == "norm":
+            put(("norm", "scale" if parts[1] == "weight" else "bias"), _np(tensor))
+
+    if consumed == 0:
+        raise ValueError(
+            "ViT conversion consumed no tensors — unrecognized naming "
+            f"(sample keys: {sorted(state_dict)[:4]})"
+        )
+    return params
+
+
+# timm's PatchMerging concatenates the 2x2 neighborhood in (h-offset,
+# w-offset) order (0,0),(1,0),(0,1),(1,1); this package uses
+# (0,0),(0,1),(1,0),(1,1) — channel groups 1 and 2 swap.
+_MERGE_GROUP_PERM = (0, 2, 1, 3)
+
+
+def _permute_merge_groups(value: np.ndarray, axis: int) -> np.ndarray:
+    parts = np.split(value, 4, axis=axis)
+    return np.concatenate([parts[i] for i in _MERGE_GROUP_PERM], axis=axis)
+
+
+def convert_swin_state_dict(state_dict: Mapping[str, Any]) -> dict:
+    """timm Swin state dict -> params tree.
+
+    timm names: ``patch_embed.{proj,norm}``, ``layers.{s}.blocks.{b}.
+    {norm1,attn.{qkv,proj,relative_position_bias_table},norm2,mlp.fc1/fc2}``,
+    ``layers.{s}.downsample.{norm,reduction}`` (s>=1), final ``norm``.
+    ``relative_position_index`` buffers are recomputed at init and skipped;
+    the patch-merging 4C input is group-permuted to this package's 2x2
+    concatenation order.
+    """
+    params: dict = {}
+    consumed = 0
+
+    def put(path: tuple[str, ...], value: np.ndarray) -> None:
+        nonlocal consumed
+        _set(params, path, value)
+        consumed += 1
+
+    for key, tensor in state_dict.items():
+        parts = key.split(".")
+        if parts[0] == "head" or key.endswith("relative_position_index") or key.endswith("attn_mask"):
+            continue
+        if parts[0] == "patch_embed":
+            sub = "patch_embed" if parts[1] == "proj" else "patch_norm"
+            if parts[1] == "proj":
+                if parts[2] == "weight":
+                    put((sub, "kernel"), _conv(tensor))
+                else:
+                    put((sub, "bias"), _np(tensor))
+            else:
+                put(
+                    (sub, "scale" if parts[2] == "weight" else "bias"),
+                    _np(tensor),
+                )
+        elif parts[0] == "layers":
+            stage = int(parts[1])
+            if parts[2] == "downsample":
+                # timm attaches the merge at the *start* of stage s (s>=1).
+                prefix = (f"merge{stage}",)
+                if parts[3] == "reduction":
+                    put(
+                        prefix + ("Dense_0", "kernel"),
+                        _permute_merge_groups(_linear(tensor), axis=0),
+                    )
+                else:  # norm
+                    put(
+                        prefix
+                        + (
+                            "LayerNorm_0",
+                            "scale" if parts[4] == "weight" else "bias",
+                        ),
+                        _permute_merge_groups(_np(tensor), axis=0),
+                    )
+                continue
+            block = int(parts[3]) + 1
+            prefix = (f"stage{stage + 1}_block{block}",)
+            rest = parts[4:]
+            if rest[0] in ("norm1", "norm2"):
+                put(
+                    prefix + (rest[0], "scale" if rest[1] == "weight" else "bias"),
+                    _np(tensor),
+                )
+            elif rest[0] == "attn":
+                if rest[1] == "relative_position_bias_table":
+                    put(prefix + ("attn", "relative_position_bias_table"), _np(tensor))
+                elif rest[1] in ("qkv", "proj"):
+                    leaf = "kernel" if rest[2] == "weight" else "bias"
+                    value = _linear(tensor) if rest[2] == "weight" else _np(tensor)
+                    put(prefix + ("attn", rest[1], leaf), value)
+            elif rest[0] == "mlp":
+                put(
+                    prefix + (rest[1], "kernel" if rest[2] == "weight" else "bias"),
+                    _linear(tensor) if rest[2] == "weight" else _np(tensor),
+                )
+        elif parts[0] == "norm":
+            put(("norm", "scale" if parts[1] == "weight" else "bias"), _np(tensor))
+
+    if consumed == 0:
+        raise ValueError(
+            "Swin conversion consumed no tensors — unrecognized naming "
+            f"(sample keys: {sorted(state_dict)[:4]})"
+        )
+    return params
+
+
+def _se_paths(prefix: tuple[str, ...], rest: list[str]) -> tuple[tuple[str, ...], bool] | None:
+    """timm SE conv_reduce/conv_expand -> fc1/fc2 Dense paths."""
+    if rest[0] != "se":
+        return None
+    fc = "fc1" if rest[1] == "conv_reduce" else "fc2"
+    return prefix + ("se", fc, "kernel" if rest[2] == "weight" else "bias"), rest[2] == "weight"
+
+
+def _put_se(put, prefix, rest, tensor) -> bool:
+    mapped = _se_paths(prefix, rest)
+    if mapped is None:
+        return False
+    path, is_weight = mapped
+    # timm SE uses 1x1 convs [out, in, 1, 1]; ours are Dense [in, out].
+    value = _np(tensor)
+    if is_weight:
+        value = value.reshape(value.shape[0], value.shape[1]).T
+    put(path, value)
+    return True
+
+
+def convert_efficientnet_state_dict(
+    state_dict: Mapping[str, Any],
+) -> tuple[dict, dict]:
+    """timm EfficientNet v1 / v2 state dict -> (params, batch_stats).
+
+    timm block layouts: DepthwiseSeparable ``conv_dw/bn1/se/conv_pw/bn2``,
+    InvertedResidual ``conv_pw/bn1/conv_dw/bn2/se/conv_pwl/bn3``,
+    EdgeResidual (v2 fused) ``conv_exp/bn1/conv_pwl/bn2``; stem
+    ``conv_stem/bn1``; head ``conv_head/bn2``; classifier dropped.
+    """
+    params: dict = {}
+    stats: dict = {}
+    consumed = 0
+
+    def put(path: tuple[str, ...], value: np.ndarray) -> None:
+        nonlocal consumed
+        _set(params, path, value)
+        consumed += 1
+
+    def put_bn(prefix: tuple[str, ...], torch_key: str) -> None:
+        nonlocal consumed
+        _set(params, prefix + ("scale",), _np(state_dict[f"{torch_key}.weight"]))
+        _set(params, prefix + ("bias",), _np(state_dict[f"{torch_key}.bias"]))
+        _set(stats, prefix + ("mean",), _np(state_dict[f"{torch_key}.running_mean"]))
+        _set(stats, prefix + ("var",), _np(state_dict[f"{torch_key}.running_var"]))
+        consumed += 4
+
+    # Per-block kind detection: presence of conv_exp => fused (EdgeResidual);
+    # conv_pw + conv_pwl => InvertedResidual; conv_pw + bn2 only => DS block.
+    block_keys: dict[tuple[int, int], set[str]] = {}
+    for key in state_dict:
+        if key.startswith("blocks."):
+            parts = key.split(".")
+            block_keys.setdefault((int(parts[1]), int(parts[2])), set()).add(parts[3])
+
+    put(("stem_conv", "kernel"), _conv(state_dict["conv_stem.weight"]))
+    put_bn(("stem_bn",), "bn1")
+
+    for (s, b), kinds in sorted(block_keys.items()):
+        prefix = (f"stage{s + 1}_block{b + 1}",)
+        tk = f"blocks.{s}.{b}"
+        if "conv_exp" in kinds:  # fused (EdgeResidual)
+            put(prefix + ("fused_conv", "kernel"), _conv(state_dict[f"{tk}.conv_exp.weight"]))
+            put_bn(prefix + ("fused_bn",), f"{tk}.bn1")
+            put(prefix + ("project_conv", "kernel"), _conv(state_dict[f"{tk}.conv_pwl.weight"]))
+            put_bn(prefix + ("project_bn",), f"{tk}.bn2")
+        elif "conv_pwl" in kinds:  # InvertedResidual
+            put(prefix + ("expand_conv", "kernel"), _conv(state_dict[f"{tk}.conv_pw.weight"]))
+            put_bn(prefix + ("expand_bn",), f"{tk}.bn1")
+            put(prefix + ("dwconv", "kernel"), _dwconv(state_dict[f"{tk}.conv_dw.weight"]))
+            put_bn(prefix + ("dw_bn",), f"{tk}.bn2")
+            put(prefix + ("project_conv", "kernel"), _conv(state_dict[f"{tk}.conv_pwl.weight"]))
+            put_bn(prefix + ("project_bn",), f"{tk}.bn3")
+        else:  # DepthwiseSeparable
+            put(prefix + ("dwconv", "kernel"), _dwconv(state_dict[f"{tk}.conv_dw.weight"]))
+            put_bn(prefix + ("dw_bn",), f"{tk}.bn1")
+            put(prefix + ("project_conv", "kernel"), _conv(state_dict[f"{tk}.conv_pw.weight"]))
+            put_bn(prefix + ("project_bn",), f"{tk}.bn2")
+        for se_key in ("conv_reduce", "conv_expand"):
+            for leaf in ("weight", "bias"):
+                full = f"{tk}.se.{se_key}.{leaf}"
+                if full in state_dict:
+                    _put_se(put, prefix, ["se", se_key, leaf], state_dict[full])
+
+    put(("head_conv", "kernel"), _conv(state_dict["conv_head.weight"]))
+    put_bn(("head_bn",), "bn2")
+    if consumed == 0:
+        raise ValueError("EfficientNet conversion consumed no tensors")
+    return params, stats
+
+
+def convert_mobilenetv3_state_dict(
+    state_dict: Mapping[str, Any],
+) -> tuple[dict, dict]:
+    """timm MobileNetV3 state dict -> (params, batch_stats).
+
+    timm nests blocks per stage (``blocks.{s}.{b}``) with the final
+    ConvBnAct 1x1 (this package's ``head_conv``/``head_bn``) as the last
+    stage; the post-pool ``conv_head`` maps to the ``head_fc`` Dense.
+    Blocks are flattened to this package's ``block{i}_*`` naming.
+    """
+    params: dict = {}
+    stats: dict = {}
+    consumed = 0
+
+    def put(path: tuple[str, ...], value: np.ndarray) -> None:
+        nonlocal consumed
+        _set(params, path, value)
+        consumed += 1
+
+    def put_bn(prefix: tuple[str, ...], torch_key: str) -> None:
+        nonlocal consumed
+        _set(params, prefix + ("scale",), _np(state_dict[f"{torch_key}.weight"]))
+        _set(params, prefix + ("bias",), _np(state_dict[f"{torch_key}.bias"]))
+        _set(stats, prefix + ("mean",), _np(state_dict[f"{torch_key}.running_mean"]))
+        _set(stats, prefix + ("var",), _np(state_dict[f"{torch_key}.running_var"]))
+        consumed += 4
+
+    put(("stem_conv", "kernel"), _conv(state_dict["conv_stem.weight"]))
+    put_bn(("stem_bn",), "bn1")
+
+    block_keys: dict[tuple[int, int], set[str]] = {}
+    for key in state_dict:
+        if key.startswith("blocks."):
+            parts = key.split(".")
+            block_keys.setdefault((int(parts[1]), int(parts[2])), set()).add(parts[3])
+
+    flat = 0
+    for (s, b), kinds in sorted(block_keys.items()):
+        tk = f"blocks.{s}.{b}"
+        if kinds == {"conv", "bn1"}:
+            # Final ConvBnAct stage = this package's head conv + bn.
+            put(("head_conv", "kernel"), _conv(state_dict[f"{tk}.conv.weight"]))
+            put_bn(("head_bn",), f"{tk}.bn1")
+            continue
+        flat += 1
+        name = f"block{flat}"
+        if "conv_pwl" in kinds:  # InvertedResidual with expansion
+            put((f"{name}_expand", "kernel"), _conv(state_dict[f"{tk}.conv_pw.weight"]))
+            put_bn((f"{name}_expand_bn",), f"{tk}.bn1")
+            put((f"{name}_dw", "kernel"), _dwconv(state_dict[f"{tk}.conv_dw.weight"]))
+            put_bn((f"{name}_dw_bn",), f"{tk}.bn2")
+            put((f"{name}_project", "kernel"), _conv(state_dict[f"{tk}.conv_pwl.weight"]))
+            put_bn((f"{name}_project_bn",), f"{tk}.bn3")
+        else:  # DepthwiseSeparable (no expand)
+            put((f"{name}_dw", "kernel"), _dwconv(state_dict[f"{tk}.conv_dw.weight"]))
+            put_bn((f"{name}_dw_bn",), f"{tk}.bn1")
+            put((f"{name}_project", "kernel"), _conv(state_dict[f"{tk}.conv_pw.weight"]))
+            put_bn((f"{name}_project_bn",), f"{tk}.bn2")
+        for se_key in ("conv_reduce", "conv_expand"):
+            for leaf in ("weight", "bias"):
+                full = f"{tk}.se.{se_key}.{leaf}"
+                if full in state_dict:
+                    fc = "fc1" if se_key == "conv_reduce" else "fc2"
+                    value = _np(state_dict[full])
+                    if leaf == "weight":
+                        value = value.reshape(value.shape[0], value.shape[1]).T
+                    put((f"{name}_se", fc, "kernel" if leaf == "weight" else "bias"), value)
+
+    # Post-pool conv_head acts as the head Dense: [F, C, 1, 1] -> [C, F].
+    w = _np(state_dict["conv_head.weight"])
+    put(("head_fc", "kernel"), w.reshape(w.shape[0], w.shape[1]).T)
+    if "conv_head.bias" in state_dict:
+        put(("head_fc", "bias"), _np(state_dict["conv_head.bias"]))
+    if consumed == 0:
+        raise ValueError("MobileNetV3 conversion consumed no tensors")
+    return params, stats
+
+
 def load_torch_backbone(checkpoint_path: Path, arch: str) -> tuple[dict, dict]:
     """Load a torch ``.pth``/``.pt`` state-dict file and convert it for
-    ``arch``: ``(params, batch_stats)``, ``batch_stats`` empty for ConvNeXt.
-    The ResNet and ConvNeXt families; the others raise."""
+    ``arch``: ``(params, batch_stats)``, ``batch_stats`` empty for the
+    BatchNorm-free families (ConvNeXt, ViT/DeiT, Swin). Every family of the
+    backbone registry (``models/backbone.py``)."""
     raw = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]
@@ -481,11 +867,14 @@ def load_torch_backbone(checkpoint_path: Path, arch: str) -> tuple[dict, dict]:
         return convert_resnet_state_dict(raw)
     if arch.startswith("convnext"):
         return convert_convnext_state_dict(raw), {}
-    if arch.startswith(("vit", "deit", "swin", "efficientnet", "mobilenetv3")):
-        raise NotImplementedError(
-            f"converting {arch!r} weights is not ported yet: ROADMAP.md, Queue 1 item 12 "
-            "(the rest of the backbone zoo)"
-        )
+    if arch.startswith(("vit", "deit")):
+        return convert_vit_state_dict(raw, VIT_CONFIGS[arch].num_heads), {}
+    if arch.startswith("swin"):
+        return convert_swin_state_dict(raw), {}
+    if arch.startswith("efficientnet"):
+        return convert_efficientnet_state_dict(raw)
+    if arch.startswith("mobilenetv3"):
+        return convert_mobilenetv3_state_dict(raw)
     raise ValueError(f"No converter for architecture: {arch}")
 
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from spine_vision_torch.ops.batchnorm import BatchNorm
+from spine_vision_torch.ops.draws import rand
 
 # The std of a unit normal truncated to [-2, 2] (Flax's variance_scaling).
 _TRUNCATED_STD = 0.87962566103423978
@@ -128,11 +129,12 @@ class Conv(nn.Module):
 
 class Dense(nn.Module):
     """``x @ W.T + b`` with weight ``[out, in]``, product and bias add in
-    ``dtype`` (as ``flax.linen.Dense(dtype=...)``)."""
+    ``dtype`` (as ``flax.linen.Dense(dtype=...)``); ``bias=False`` drops
+    the bias (``use_bias=False``)."""
 
     def __init__(
         self, in_dim: int, out_dim: int, dtype=torch.float32, device=None,
-        generator: torch.Generator | None = None, param_dtype=None,
+        generator: torch.Generator | None = None, param_dtype=None, bias: bool = True,
     ) -> None:
         super().__init__()
         self.dtype = dtype
@@ -140,12 +142,11 @@ class Dense(nn.Module):
         self.weight = _param(
             _lecun_normal((out_dim, in_dim), in_dim, generator), param_dtype, device
         )
-        self.bias = _param(torch.zeros(out_dim), param_dtype, device)
+        self.bias = _param(torch.zeros(out_dim), param_dtype, device) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t()) + self.bias.to(
-            self.dtype
-        )
+        y = torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -163,65 +164,114 @@ class LayerNorm(nn.Module):
 
 
 class FlaxBatchNorm(BatchNorm):
-    """Flax ``nn.BatchNorm(dtype=float32)`` (flax 0.12 defaults, momentum
-    0.99, epsilon 1e-5), returning f32.
+    """Flax ``nn.BatchNorm(momentum, epsilon, dtype)``; by default flax
+    0.12's defaults (momentum 0.99, epsilon 1e-5) with ``dtype=float32``, as
+    the OCR nets use it. The ResNet's ``norm_impl="flax"`` takes momentum 0.9
+    and the model's dtype, the heads' ``ConvHead`` the head's dtype.
 
-    With the running statistics (``train=False``, the default): ``(x -
-    mean) * (rsqrt(var + eps) * scale) + bias`` in f32, Flax's order. Unlike
-    the folded ``x * A + B`` of ``ops/batchnorm.py`` (the JAX
-    ``TpuBatchNorm``'s form), this rounds as Flax does, which a thresholded
-    output (the text detector's) needs.
+    With the running statistics (``train=False``): ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in f32, Flax's order, cast to
+    ``dtype``. Unlike the folded ``x * A + B`` of ``ops/batchnorm.py`` (the
+    JAX ``TpuBatchNorm``'s form), this rounds as Flax does, which a
+    thresholded output (the text detector's) needs.
 
     Training (``train=True``): the batch statistics over every axis but the
     last, in f32, with Flax's fast variance ``max(0, E[x²] - E[x]²)``;
-    autograd differentiates through them, as JAX does. The input is a bf16
-    convolution's output read in f32: Flax casts it to f32 twice (for the
-    statistics and for the normalisation), so each branch's cotangent is
-    rounded to bf16 and their sum rounded again (:func:`bf16_grad`, read
-    from the optimized HLO of the JAX train step). The running statistics
-    move as ``momentum * old + (1 - momentum) * batch``."""
+    autograd differentiates through them, as JAX does. With
+    ``round_grads`` the input is taken as a bf16 convolution's output read
+    in f32: Flax casts it to f32 twice (for the statistics and for the
+    normalisation), so each branch's cotangent is rounded to bf16 and their
+    sum rounded again (:func:`bf16_grad`, read from the optimized HLO of the
+    JAX train step). With a ``process_group`` (set by the trainer on every
+    BatchNorm) the statistics are the group's: the sums of x and x² and the
+    count are all-reduced in f64 (``ops/batchnorm.py``'s rule), through a
+    differentiable all-reduce whose backward sums the cotangents over the
+    group. The running statistics move as ``momentum * old + (1 - momentum)
+    * batch``.
+
+    ``train=None`` follows ``self.training``. The module starts in eval
+    mode, so that a bare call uses the running statistics."""
 
     MOMENTUM = 0.99  # Flax's default (the ResNet's TpuBatchNorm uses 0.9)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if not train:
-            return (x.float() - self.mean) * (torch.rsqrt(self.var + self.eps) * self.scale) \
+    def __init__(
+        self, features: int, eps: float = 1e-5, scale_init: float = 1.0, device=None, *,
+        momentum: float = MOMENTUM, dtype=torch.float32, round_grads: bool = True,
+    ) -> None:
+        super().__init__(features, eps=eps, scale_init=scale_init, device=device)
+        self.momentum, self.dtype, self.round_grads = momentum, dtype, round_grads
+        self.eval()
+
+    def _moments(self, xs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        dims = tuple(range(xs.ndim - 1))
+        if self.process_group is None:
+            mean = xs.mean(dims)
+            return mean, torch.clamp(xs.square().mean(dims) - mean.square(), min=0.0)
+        from torch.distributed.nn.functional import all_reduce
+
+        c = xs.shape[-1]
+        n = xs.new_full((1,), xs.numel() // c)
+        packed = torch.cat([xs.sum(dims), xs.square().sum(dims), n]).double()
+        packed = all_reduce(packed, group=self.process_group).float()
+        s1, s2, count = packed[:c], packed[c: 2 * c], packed[2 * c]
+        mean = s1 / count
+        return mean, torch.clamp(s2 / count - mean.square(), min=0.0)
+
+    def forward(self, x: torch.Tensor, train: bool | None = None) -> torch.Tensor:
+        if not (self.training if train is None else train):
+            y = (x.float() - self.mean) * (torch.rsqrt(self.var + self.eps) * self.scale) \
                 + self.bias
-        x = bf16_grad(x.float())
-        xs, xn = bf16_grad(x), bf16_grad(x)
-        dims = tuple(range(x.ndim - 1))
-        mean = xs.mean(dims)
-        var = torch.clamp(xs.square().mean(dims) - mean.square(), min=0.0)
+            return y.to(self.dtype)
+        rnd = bf16_grad if self.round_grads else (lambda t: t)
+        x = rnd(x.float())
+        xs, xn = rnd(x), rnd(x)
+        mean, var = self._moments(xs)
+        m = self.momentum
         with torch.no_grad():
-            self.mean.copy_(self.MOMENTUM * self.mean + (1 - self.MOMENTUM) * mean)
-            self.var.copy_(self.MOMENTUM * self.var + (1 - self.MOMENTUM) * var)
-        return (xn - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        y = (xn - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        return y.to(self.dtype)
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """Flax 0.12's ``nn.MultiHeadDotProductAttention(num_heads,
-    dtype=bfloat16)`` self-attention in inference, as XLA runs it, with its
-    variables in Flax's layout: ``query``, ``key``, ``value`` kernels ``[C,
-    heads, d]`` with biases ``[heads, d]``, the ``out`` kernel ``[heads, d,
-    C]`` with bias ``[C]``, stored in bf16 (Flax casts them to bf16).
+    """Flax 0.12's ``nn.MultiHeadDotProductAttention(num_heads, dtype)``
+    self-attention, as XLA runs it, with its variables in Flax's layout:
+    ``query``, ``key``, ``value`` kernels ``[C, heads, d]`` with biases
+    ``[heads, d]``, the ``out`` kernel ``[heads, d, C]`` with bias ``[C]``,
+    stored in ``param_dtype`` (bf16 by default: Flax casts them to bf16).
 
     Plain ops in ``dot_product_attention_weights``'s order: the projections,
     the query divided by ``sqrt(d)``, the logits, the softmax ``exp(l - max)
     / sum`` (``force_fp32_for_softmax=False``), the weighted values and the
-    output projection. Each is computed in f32 and rounded to bf16 where XLA
-    rounds it: every product and sum, except the exponentials that the
-    softmax's sum upcasts (summed unrounded) and the output's bias add, which
-    is returned in f32 for the caller to add to its f32 stream (or to round).
-    ``F.scaled_dot_product_attention`` computes its softmax otherwise, so it
-    is not used. ``param_dtype=torch.float32`` keeps f32 master variables
-    for training (Flax's default), rounded to bf16 where they are used."""
+    output projection. Each is computed in f32; at ``dtype=bfloat16`` (the
+    default) it is rounded to bf16 where XLA rounds it: every product and
+    sum, except the exponentials that the softmax's sum upcasts (summed
+    unrounded) and the output's bias add, which is returned in f32 for the
+    caller to add to its f32 stream (or to round). At ``dtype=float32``
+    nothing rounds. ``F.scaled_dot_product_attention`` computes its softmax
+    otherwise, so it is not used. ``param_dtype=torch.float32`` keeps f32
+    master variables for training (Flax's default), rounded to bf16 where
+    they are used.
+
+    ``dropout_rate`` drops attention weights in training mode (Flax's
+    ``dropout_rate`` with ``deterministic=False``): each is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, its mask
+    drawn from the generator passed to ``forward`` (``ops/draws.py``, this
+    rank's rows of the global batch's mask with ``shard``)."""
 
     def __init__(
         self, dim: int, num_heads: int, device=None,
         generator: torch.Generator | None = None, param_dtype=torch.bfloat16,
+        dtype=torch.bfloat16, dropout_rate: float = 0.0,
     ) -> None:
         super().__init__()
         d = dim // num_heads
+        self.dtype, self.dropout_rate = dtype, dropout_rate
         for name in ("query", "key", "value"):
             setattr(self, f"{name}_kernel", _param(
                 _lecun_normal((dim, num_heads, d), dim, generator), param_dtype, device))
@@ -230,19 +280,31 @@ class MultiHeadDotProductAttention(nn.Module):
             _lecun_normal((num_heads, d, dim), dim, generator), param_dtype, device)
         self.out_bias = _param(torch.zeros(dim), param_dtype, device)
 
-    def _project(self, x: torch.Tensor, name: str) -> torch.Tensor:
-        kernel = bf16_round(getattr(self, f"{name}_kernel"))
-        y = bf16_round(torch.einsum("btc,chd->bthd", x, kernel))
-        return bf16_round(y + bf16_round(getattr(self, f"{name}_bias")))
+    def _round(self):
+        """The rounding to apply at XLA's rounding points (looked up at call
+        time, so that an f32-arithmetic check can swap ``bf16_round``)."""
+        return bf16_round if self.dtype == torch.bfloat16 else _identity
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = bf16_round(x)
+    def _project(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        r = self._round()
+        kernel = r(getattr(self, f"{name}_kernel").float())
+        y = r(torch.einsum("btc,chd->bthd", x, kernel))
+        return r(y + r(getattr(self, f"{name}_bias").float()))
+
+    def forward(
+        self, x: torch.Tensor, generator: torch.Generator | None = None, shard=None,
+    ) -> torch.Tensor:
+        r = self._round()
+        x = r(x.float())
         q, k, v = (self._project(x, name) for name in ("query", "key", "value"))
-        scale = bf16_round(torch.tensor(math.sqrt(q.shape[-1]), device=q.device))
-        q = bf16_round(q / scale)
-        logits = bf16_round(torch.einsum("bqhd,bkhd->bhqk", q, k))
-        e = torch.exp(bf16_round(logits - logits.amax(-1, keepdim=True)))
-        weights = bf16_round(bf16_round(e) / bf16_round(e.sum(-1, keepdim=True)))
-        y = bf16_round(torch.einsum("bhqk,bkhd->bqhd", weights, v))
-        out = bf16_round(torch.einsum("bqhd,hdc->bqc", y, bf16_round(self.out_kernel)))
-        return out + bf16_round(self.out_bias)
+        scale = r(torch.tensor(math.sqrt(q.shape[-1]), device=q.device))
+        q = r(q / scale)
+        logits = r(torch.einsum("bqhd,bkhd->bhqk", q, k))
+        e = torch.exp(r(logits - logits.amax(-1, keepdim=True)))
+        weights = r(r(e) / r(e.sum(-1, keepdim=True)))
+        if self.training and self.dropout_rate > 0.0:
+            keep = rand(weights.shape, generator, weights.device, shard) >= self.dropout_rate
+            weights = torch.where(keep, r(weights / (1.0 - self.dropout_rate)), 0.0)
+        y = r(torch.einsum("bhqk,bkhd->bqhd", weights, v))
+        out = r(torch.einsum("bqhd,hdc->bqc", y, r(self.out_kernel.float())))
+        return out + r(self.out_bias.float())

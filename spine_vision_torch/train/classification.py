@@ -14,9 +14,9 @@ crops and ``annotations.csv``, ``data/datasets.py``'s
 datasets are any indexable of classification samples (uint8 ``image``
 ``[H, W, 3]``, ``targets`` ``{task: label}``, ``level_idx``, ``metadata``)
 with ``sample_label_values(label)`` when weighted sampling is on. The model
-trains in bf16 on f32 master weights (ResNet-18 by default; training
-BatchNorm); a ConvNeXt backbone takes the localization trainer's kernel
-modes. The plots (ROADMAP.md, Queue 1 item 13) are not ported.
+trains in bf16 on f32 master weights, on any backbone of the zoo
+(ResNet-18 by default; training BatchNorm); a ConvNeXt backbone takes the
+localization trainer's kernel modes. The plots (ROADMAP.md, Queue 1 item 13) are not ported.
 """
 
 from __future__ import annotations
@@ -112,9 +112,11 @@ class ClassificationConfig(TrainingConfig):
     use_pallas_dwconv: bool = False
     """ConvNeXt backbones only, as ``LocalizationConfig.use_pallas_dwconv``."""
     norm_impl: str = "tpu"
-    """ResNet BatchNorm: "tpu" (``ops/batchnorm.py``); "flax" is not ported."""
+    """ResNet BatchNorm: "tpu" (``ops/batchnorm.py``) or "flax" (Flax's
+    ``nn.BatchNorm``, ``models/layers.py::FlaxBatchNorm``)."""
     pool_impl: str = "flax"
-    """ResNet stem max pool: "flax" (-inf padding); "tpu" is not ported."""
+    """ResNet stem max pool: "flax" (``F.max_pool2d``, -inf padding) or
+    "tpu" (``ops/pool.py``'s scatter-free pool)."""
 
     use_focal_loss: bool = False
     focal_gamma: float = 2.0

@@ -74,9 +74,11 @@ class LocalizationConfig(TrainingConfig):
     ``use_pallas_mlp=False``: plain ops."""
 
     norm_impl: str = "tpu"
-    """ResNet BatchNorm: "tpu" (``ops/batchnorm.py``); "flax" is not ported."""
+    """ResNet BatchNorm: "tpu" (``ops/batchnorm.py``) or "flax" (Flax's
+    ``nn.BatchNorm``, ``models/layers.py::FlaxBatchNorm``)."""
     pool_impl: str = "flax"
-    """ResNet stem max pool: "flax" (-inf padding); "tpu" is not ported."""
+    """ResNet stem max pool: "flax" (``F.max_pool2d``, -inf padding) or
+    "tpu" (``ops/pool.py``'s scatter-free pool)."""
 
     pck_thresholds: list[float] = field(default_factory=lambda: [0.02, 0.05, 0.10])
     visualize_predictions: bool = False

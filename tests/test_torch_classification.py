@@ -149,13 +149,30 @@ def _png_dir(root, n_patients, hw, seed):
 @pytest.mark.parametrize(
     "overrides,call",
     # Datasets and evaluate() from disk are ported: their cases check that
-    # they read the data directory.
+    # they read the data directory. The backbone zoo is ported: its cases
+    # (Flax BatchNorm, the scatter-free pool, ResNet-50, EfficientNet-B0)
+    # check that the trainer trains it.
     [({"visualize_predictions": True}, None), ({"norm_impl": "flax"}, None),
      ({"pool_impl": "tpu"}, None), ({"backbone": "resnet50"}, None),
      ({"backbone": "efficientnet_b0"}, None), ({}, "no_datasets"),
      ({}, "evaluate_visualize"), ({}, "evaluate_from_disk")],
 )
 def test_unported_classification_options_name_the_roadmap(tmp_path, overrides, call):
+    if call is None and "visualize_predictions" not in overrides:
+        # One f32 epoch of one step; the BatchNorms' running statistics move.
+        trainer = ClassificationTrainer(
+            _config(tmp_path, "zoo", num_epochs=1, mixed_precision=False, **overrides),
+            train_dataset=_Set(4, 32, 0), val_dataset=_Set(2, 32, 1), device="cpu")
+        norms = [m for m in trainer.model.backbone.modules() if hasattr(m, "var")]
+        var0 = [m.var.clone() for m in norms]
+        result = trainer.train()
+        assert np.isfinite(result.history["train_loss"][0])
+        assert norms and all(not torch.equal(m.var, v) for m, v in zip(norms, var0))
+        if "norm_impl" in overrides:
+            from spine_vision_torch.models.layers import FlaxBatchNorm
+
+            assert all(isinstance(m, FlaxBatchNorm) for m in norms)
+        return
     if call in ("no_datasets", "evaluate_from_disk"):
         from spine_vision_torch.data.datasets import ClassificationDataset, PngStore
 

@@ -56,6 +56,9 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.train.ocr, spine_vision_torch.ops.ctc\n"
         "import spine_vision_torch.data.phenikaa.synth, spine_vision_torch.data.phenikaa.raster\n"
         "import spine_vision_torch.data.phenikaa.text\n"
+        "import spine_vision_torch.models, spine_vision_torch.models.inference\n"
+        "import spine_vision_torch.ops.pool, spine_vision_torch.data.pillow_resize\n"
+        "from spine_vision_torch.models import heads, vit, swin, efficientnet\n"
         "from spine_vision_torch.data.phenikaa import synth\n"
         "synth.recognition_batch(__import__('numpy').random.default_rng(0), 2, degrade='hard')\n"
         "import chip_smoke\n"

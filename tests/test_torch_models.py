@@ -113,5 +113,13 @@ def test_load_rejects_wrong_shapes_and_unused_leaves():
 
 
 def test_unported_backbone_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcls.Classifier("efficientnet_b0", device="cpu")
+    """Every backbone the JAX package names is ported: EfficientNet-B0, once
+    refused here, builds and takes a backward pass with finite gradients."""
+    model = tcls.Classifier("efficientnet_b0", dtype=torch.float32, device="cpu")
+    model.train()
+    out = model(torch.from_numpy(_images(7, 2, (32, 32))), torch.Generator().manual_seed(0))
+    sum(v.sum() for v in out.values()).backward()
+    grads = [p.grad for p in model.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    with pytest.raises(ValueError, match="Unknown backbone"):
+        tcls.Classifier("alexnet", device="cpu")

@@ -230,8 +230,24 @@ def test_tiny_run_parity_record_and_heldout_studies(tmp_path, monkeypatch):
 
 
 def test_run_parity_takes_the_ported_resnet_only(tmp_path):
-    with pytest.raises(NotImplementedError, match="norm_impl='flax'"):
-        tparity.run_parity(tmp_path, norm_impl="flax", device="cpu", **TINY)
+    """Since the backbone zoo was ported, the suite runs with Flax's
+    BatchNorm and the scatter-free pool: both models are built with them and
+    the record names them."""
+    built = []
+    real = tparity.LocalizationTrainer.__init__
+
+    def spy(self, *a, **k):
+        real(self, *a, **k)
+        built.append(self.model.backbone)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tparity.LocalizationTrainer, "__init__", spy)
+        record = tparity.run_parity(tmp_path, norm_impl="flax", pool_impl="tpu", device="cpu",
+                                    **TINY)
+    assert (record["norm_impl"], record["pool_impl"]) == ("flax", "tpu")
+    assert np.isfinite(record["loc_med"]) and np.isfinite(record["e2e_loc_med"])
+    (backbone,) = built
+    assert backbone.pool_impl == "tpu" and type(backbone.stem_bn).__name__ == "FlaxBatchNorm"
     with pytest.raises(ValueError, match="n_heldout_studies"):
         tparity.run_parity(tmp_path, device="cpu", **{**TINY, "n_heldout_studies": 0})
 

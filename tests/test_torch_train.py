@@ -353,17 +353,20 @@ def test_resnet18_regressor_trains_with_a_frozen_then_unfrozen_backbone(tmp_path
 @pytest.mark.parametrize(
     "overrides",
     # freeze_backbone_epochs and ResNet-18 train since training BatchNorm
-    # was ported; a bottleneck ResNet and the scatter-free pool still raise.
-    # profile_trace and sample_cache_dir are ported: their cases check that
-    # the option works.
+    # was ported; a bottleneck ResNet and the scatter-free pool train since
+    # the backbone zoo was ported. profile_trace, sample_cache_dir and the
+    # zoo's cases check that the option works.
     [{"backbone": "resnet50"}, {"visualize_predictions": True},
      {"profile_trace": True}, {"sample_cache_dir": "cache"},
      {"backbone": "resnet18", "pool_impl": "tpu"}],
 )
 def test_unported_options_name_the_roadmap(tmp_path, overrides):
-    ported = {"profile_trace", "sample_cache_dir"} & set(overrides)
+    zoo = overrides.get("backbone") == "resnet50" or "pool_impl" in overrides
+    ported = {"profile_trace", "sample_cache_dir"} & set(overrides) or zoo
     # The ported options train a ResNet-18, a few seconds on a busy CPU.
     kw = {"backbone": "resnet18" if ported else "convnext_tiny", **overrides}
+    if zoo:
+        kw["mixed_precision"] = False  # f32: bf16 convolutions are slow on the CPU
     if "sample_cache_dir" in kw:
         kw["sample_cache_dir"] = tmp_path / kw["sample_cache_dir"]
     cfg = LocalizationConfig(output_path=tmp_path / "r", pretrained=False,
@@ -379,6 +382,11 @@ def test_unported_options_name_the_roadmap(tmp_path, overrides):
                                   device="cpu")
     result = trainer.train()
     assert all(np.isfinite(result.history["train_loss"]))
+    if zoo:
+        assert trainer.model.backbone.pool_impl == overrides.get("pool_impl", "flax")
+        assert type(trainer.model.backbone.stage1_block1).__name__ == (
+            "BottleneckBlock" if kw["backbone"] == "resnet50" else "BasicBlock")
+        return
     if "profile_trace" in overrides:
         trace = json.loads((tmp_path / "r" / "logs" / "profile" / "trace.json").read_text())
         names = {e.get("name", "") for e in trace["traceEvents"]}
