@@ -13,6 +13,7 @@
     python3 chip_smoke.py --build-only # the dataset builders alone
     python3 chip_smoke.py --ddp-only   # data parallelism alone
     python3 chip_smoke.py --zoo-only   # the backbone zoo alone
+    python3 chip_smoke.py --f32-only   # the f32 forms of #1 and #5-#10 and their paths
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -202,6 +203,27 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    direct forward. No kernel of this package lies on the zoo's paths: every
    launch count of the phase is 0.
 
+19. The f32 forms (``f32``, after the ``cls_*`` phases, also alone with
+   ``--f32-only``; see ``f32_kernel_phase`` and ``f32_phase``), the JAX
+   package's kernels as it runs them with ``mixed_precision=False``: #1 (both
+   forms), #7, #5, #8/#9, #6 and #10 in f32 at their main-path shapes (the
+   study graph's B16 for #1, the train step's B32 for the rest) against their
+   plain f32 versions within 1e-4 of max |plain| per output, timed beside the
+   plain version, one PyTorch call of the same function (TF32 off) and the
+   bound at the f32 rate; one f32 step card against CPU in each of "hybrid",
+   True, "mlp", "block" and the LayerScale-free "mlp" model, each parameter
+   within 1e-3 of its norm, with each mode's launch counts; ConvNeXt-base
+   localization at 512^2, batch 32, f32 through ``LocalizationTrainer`` for
+   3 fixed batches in all five ``use_pallas`` modes, each step's loss within
+   1e-4 (relative) of PyTorch's own ops (``use_pallas=False``) from the same
+   weights, with the step p50 and peak memory; one f32 step of a ConvNeXt-base
+   ``Classifier`` (hybrid) through ``ClassificationTrainer``; the f32 study
+   graph on the 8 studies against the CPU (coordinates within 1e-4,
+   probabilities within 1e-3, the same grades but at the CPU's near-ties),
+   #1 33 and #2 3 launches a forward. The f32 launches are counted again
+   under each kernel's name + ``_f32``; the ``kernels`` line lists the f32
+   forms so, each on its f32 path.
+
 Each phase prints its wall time.
 
 It prints a ``kernels`` JSON line and the card's name and power limit before
@@ -248,7 +270,13 @@ RUN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_runs"
 KERNEL_COUNTERS = ("convnext_block", "convnext_block_emit_conv", "dw_ln", "ln_mlp", "mlp_fwd",
                    "ln_mlp_bwd", "mlp_bwd", "dw_ln_bwd", "depthwise_conv7x7", "block_train_bwd",
                    "copy_tiled", "copy_staged", "copy_bulk", "read_only", "write_only",
-                   "inc_copy", "gelu_map", "mlp_ablate")
+                   "inc_copy", "gelu_map", "mlp_ablate",
+                   # the f32 forms' launches, also counted under their kernel's name
+                   "convnext_block_f32", "convnext_block_emit_conv_f32", "ln_mlp_f32",
+                   "mlp_fwd_f32", "ln_mlp_bwd_f32", "mlp_bwd_f32", "block_train_bwd_f32")
+# The kernels with an f32 form, each counted again under its name + "_f32".
+F32_TWINS = ("convnext_block", "convnext_block_emit_conv", "ln_mlp", "mlp_fwd", "ln_mlp_bwd",
+             "mlp_bwd", "block_train_bwd")
 # The probe kernels (#11): each replaces the pallas_calls of the scripts named.
 PROBE_SOURCES = {
     "copy_tiled": ("spine_vision_torch/csrc/probe_copy.cu",
@@ -270,6 +298,12 @@ PROBE_SOURCES = {
 
 def _launches(**nonzero: int) -> dict:
     return {name: nonzero.get(name, 0) for name in KERNEL_COUNTERS}
+
+
+def _f32_twins(launches: dict) -> dict:
+    """The same launches in f32: each kernel with an f32 form counted again
+    under its f32 name."""
+    return {**launches, **{f"{k}_f32": launches[k] for k in F32_TWINS}}
 
 
 INFERENCE_LAUNCHES = _launches(convnext_block=33, dw_ln=3)
@@ -1402,21 +1436,29 @@ class _Images:
                 "series_type_idx": 0, "metadata": {"image_path": f"synthetic/{i}.png"}}
 
 
+# Each seeded regressor's loaded weights on the host, by (backbone,
+# layer_scale_init, seed): the tree is drawn and converted once, and every
+# later build of the same weights (another mode, dtype or device) copies them.
+_REGRESSOR_STATES: dict = {}
+
+
 def _regressor(device, seed: int, dropout: float, use_pallas="hybrid",
-               layer_scale_init: float | None = None, backbone: str = "convnext_base"):
-    """ConvNeXt-base (or ``backbone``) CoordinateRegressor for training (bf16
-    on f32 masters, the given kernel mode), weights from a seeded Flax-layout
-    tree. With ``layer_scale_init``, the backbone is ConvNeXt-base's depths
-    and widths with that LayerScale (0: none). The modules are built on the
-    meta device, so the constructor's own initial draws (all replaced by
-    the tree's) cost nothing."""
+               layer_scale_init: float | None = None, backbone: str = "convnext_base",
+               dtype=None):
+    """ConvNeXt-base (or ``backbone``) CoordinateRegressor for training in
+    ``dtype`` (default bf16) on f32 masters, the given kernel mode, weights
+    from a seeded Flax-layout tree. With ``layer_scale_init``, the backbone
+    is ConvNeXt-base's depths and widths with that LayerScale (0: none). The
+    modules are built on the meta device, so the constructor's own initial
+    draws (all replaced by the tree's) cost nothing; the weights of a seed
+    are drawn once (``_REGRESSOR_STATES``)."""
     import torch
 
     from spine_vision_torch.models.classifier import CoordinateRegressor
     from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
     from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS, ConvNeXt, ConvNeXtConfig
 
-    kw = {"dtype": torch.bfloat16, "device": "meta", "use_pallas": use_pallas,
+    kw = {"dtype": dtype or torch.bfloat16, "device": "meta", "use_pallas": use_pallas,
           "param_dtype": torch.float32}
     with torch.device("meta"):
         model = CoordinateRegressor(backbone, dropout=dropout, **kw)
@@ -1425,8 +1467,15 @@ def _regressor(device, seed: int, dropout: float, use_pallas="hybrid",
             model.backbone = ConvNeXt(
                 ConvNeXtConfig(base.depths, base.dims, layer_scale_init=layer_scale_init), **kw)
     model = model.to_empty(device=device)
+    key = (backbone, layer_scale_init, seed)
+    if key in _REGRESSOR_STATES:
+        model.load_state_dict(_REGRESSOR_STATES[key])
+        return model
     params, _ = random_flax_variables(model, seed)
-    return load_flax_variables(model, params)
+    load_flax_variables(model, params)
+    _REGRESSOR_STATES[key] = {k: v.detach().to("cpu", copy=True)
+                              for k, v in model.state_dict().items()}
+    return model
 
 
 def _counters() -> dict:
@@ -1447,7 +1496,13 @@ def _counters() -> dict:
             "mlp_fwd": (fm.mlp_fwd, "launches"), "ln_mlp_bwd": (fm.ln_mlp_bwd, "launches"),
             "mlp_bwd": (fm.mlp_bwd, "launches"), "dw_ln_bwd": (dw.dw_ln_bwd_sums, "launches"),
             "depthwise_conv7x7": (dw.depthwise_conv7x7, "launches"),
-            "block_train_bwd": (bt.block_train_bwd, "launches"), **probes}
+            "block_train_bwd": (bt.block_train_bwd, "launches"), **probes,
+            "convnext_block_f32": (cb.convnext_block, "f32_launches"),
+            "convnext_block_emit_conv_f32": (cb.convnext_block, "emit_f32_launches"),
+            "ln_mlp_f32": (fm.ln_mlp, "f32_launches"), "mlp_fwd_f32": (fm.mlp_fwd, "f32_launches"),
+            "ln_mlp_bwd_f32": (fm.ln_mlp_bwd, "f32_launches"),
+            "mlp_bwd_f32": (fm.mlp_bwd, "f32_launches"),
+            "block_train_bwd_f32": (bt.block_train_bwd, "f32_launches")}
 
 
 def _counts() -> dict:
@@ -1591,9 +1646,12 @@ def profile_train(trainer, dataset, p50_ms: float, path: str) -> None:
           f"x{sum(e.count for e in rest) // 2:<5d} everything else (PyTorch's own kernels)")
 
 
-def _step_grads(dev, use_pallas, layer_scale, batch, seed: int = 3) -> tuple:
-    """One train step of the gradient check's model (weights from ``seed``)
-    on ``dev``: ``(grads by parameter name, loss, seconds, launch counts)``."""
+def _step_grads(dev, use_pallas, layer_scale, batch, seed: int = 3, dtype=None) -> tuple:
+    """One train step of the gradient check's model (weights from ``seed``,
+    in ``dtype``, default bf16) on ``dev``: ``(grads by parameter name, loss,
+    seconds, launch counts)``."""
+    import torch
+
     from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
 
     run = RUN_DIR / f"grad_{dev.type}"
@@ -1602,9 +1660,10 @@ def _step_grads(dev, use_pallas, layer_scale, batch, seed: int = 3) -> tuple:
         backbone="convnext_base", image_size=(128, 128), batch_size=GRAD_BATCH, num_epochs=1,
         augment=False, dropout=0.0, output_path=run, num_workers=1, pretrained=False,
         grad_clip=None, seed=0, use_pallas_dwconv=use_pallas is True,
+        mixed_precision=dtype in (None, torch.bfloat16),
     )
     model = _regressor(dev, seed=seed, dropout=0.0, use_pallas=use_pallas,
-                       layer_scale_init=layer_scale)
+                       layer_scale_init=layer_scale, dtype=dtype)
     trainer = LocalizationTrainer(cfg, model=model, train_dataset=_Images(GRAD_BATCH, 128, 12),
                                   val_dataset=_Images(GRAD_BATCH, 128, 13), device=dev)
     t0 = time.perf_counter()
@@ -1616,50 +1675,56 @@ def _step_grads(dev, use_pallas, layer_scale, batch, seed: int = 3) -> tuple:
     return out
 
 
-def _card_vs_cpu(device, use_pallas, layer_scale, seed: int) -> tuple:
-    """One step on the card and on the CPU from the same weights and batch:
-    ``(per-parameter ||g_card - g_cpu|| / ||g_cpu||, card step, CPU step)``."""
+def _card_vs_cpu(device, use_pallas, layer_scale, seed: int, dtype=None) -> tuple:
+    """One step on the card and on the CPU from the same weights and batch, in
+    ``dtype`` (default bf16): ``(per-parameter ||g_card - g_cpu|| /
+    ||g_cpu||, card step, CPU step)``."""
     import torch
 
     from spine_vision_torch.data.loader import collate_localization
 
     data = _Images(GRAD_BATCH, 128, 9 + seed)
     batch = collate_localization([data[i] for i in range(GRAD_BATCH)])
-    card = _step_grads(device, use_pallas, layer_scale, batch, seed)
-    cpu = _step_grads(torch.device("cpu"), use_pallas, layer_scale, batch, seed)
+    card = _step_grads(device, use_pallas, layer_scale, batch, seed, dtype)
+    cpu = _step_grads(torch.device("cpu"), use_pallas, layer_scale, batch, seed, dtype)
     rel = {n: (torch.linalg.vector_norm(card[0][n] - cpu[0][n]) /
                torch.linalg.vector_norm(cpu[0][n]).clamp_min(1e-30)).item() for n in cpu[0]}
     return rel, card, cpu
 
 
-def grad_check(device, mode) -> dict:
+def grad_check(device, mode, dtype=None) -> dict:
     """One step's gradients, card against CPU: ConvNeXt-base at full width,
     batch 2 at 128^2 (stages 32^2 .. 4^2 reach all four widths), augmentation
     and dropout off, the same weights and batch, the same entry point; the
     hybrid block ("hybrid"), the all-kernel block (True), the LN-fused MLP
     mode ("mlp"), the whole-block training kernel ("block"), or the "mlp" mode
     on ConvNeXt-base without LayerScale, whose blocks run the fused MLP
-    ("mlp_no_layer_scale": every seed of NO_LAYER_SCALE_SEEDS, each beside
-    PyTorch's own ops on the same model). Returns the launch counts of the
-    card's step."""
+    ("mlp_no_layer_scale": in bf16 every seed of NO_LAYER_SCALE_SEEDS, each
+    beside PyTorch's own ops on the same model). In bf16 (the default) each
+    parameter within GRAD_REL_TOL; in f32 (``dtype=torch.float32``, the f32
+    forms) within F32_GRAD_TOL on one seed, the launches counted again as
+    f32's. Returns the launch counts of the card's step."""
     import numpy as np
+    import torch
 
+    f32 = dtype == torch.float32
     no_ls = mode == "mlp_no_layer_scale"
     use_pallas, layer_scale = ("mlp", 0.0) if no_ls else (mode, None)
-    for seed in NO_LAYER_SCALE_SEEDS if no_ls else (3,):
-        rel, card, cpu = _card_vs_cpu(device, use_pallas, layer_scale, seed)
+    want = _f32_twins(GRAD_LAUNCHES[mode]) if f32 else GRAD_LAUNCHES[mode]
+    tag = f"{mode!r} f32" if f32 else repr(mode)
+    for seed in NO_LAYER_SCALE_SEEDS if no_ls and not f32 else (3,):
+        rel, card, cpu = _card_vs_cpu(device, use_pallas, layer_scale, seed, dtype)
         counts = card[3]
-        if counts != GRAD_LAUNCHES[mode]:
-            raise AssertionError(f"grad check {mode!r}: launches {counts}, expected "
-                                 f"{GRAD_LAUNCHES[mode]}")
+        if counts != want:
+            raise AssertionError(f"grad check {tag}: launches {counts}, expected {want}")
         worst = sorted(rel.items(), key=lambda kv: kv[1], reverse=True)[:4]
-        tol, yardstick = GRAD_REL_TOL, ""
-        if no_ls:
+        tol, yardstick = (F32_GRAD_TOL if f32 else GRAD_REL_TOL), ""
+        if no_ls and not f32:
             plain = _card_vs_cpu(device, False, layer_scale, seed)[0]
             tol = max(GRAD_REL_TOL, PLAIN_MARGIN * max(plain.values()))
             yardstick = (f"; PyTorch's own ops on the same model (use_pallas=False): median "
                          f"{np.median(list(plain.values())):.4g}, max {max(plain.values()):.4g}")
-        print(f"[grad] {mode!r} seed {seed}: card vs CPU, one step of {len(rel)} parameters "
+        print(f"[grad] {tag} seed {seed}: card vs CPU, one step of {len(rel)} parameters "
               f"(CPU step {cpu[2]:.1f} s): loss {card[1]:.6f} vs {cpu[1]:.6f}; per-parameter "
               f"||g_card - g_cpu|| / ||g_cpu||: median {np.median(list(rel.values())):.4g}, "
               f"max {worst[0][1]:.4g} ({worst[0][0]}), tol {tol:.4g}{yardstick}; card "
@@ -2098,6 +2163,431 @@ def cls_convnext_check(device) -> dict:
     if not all(math.isfinite(v) for v in result.history["train_loss"]):
         raise AssertionError(f"train_loss {result.history['train_loss']}")
     return step_counts[0]
+
+
+# The f32 forms of #1 and #5-#10: the kernels as the JAX package runs them
+# with mixed_precision=False. Each f32 form against its plain f32 version
+# (TF32 off) within 1e-4 of max |plain| per output, the f32 bound of
+# tests/test_torch_kernels_gpu.py; one f32 step's gradients card against CPU
+# in every mode within 1e-3 of each parameter's norm (f32 arithmetic has no
+# rounding point to flip, so no mode needs a wider bound); the trainer's f32
+# steps at full width in every mode within 1e-4 (relative) of the same steps
+# on PyTorch's own ops (use_pallas=False) from the same weights and batches.
+F32_REL_TOL = 1e-4
+F32_GRAD_TOL = 1e-3
+F32_LOSS_TOL = 1e-4
+F32_TRAIN_HW = 512  # the localization trainer's images
+F32_TRAIN_BATCH = 32  # its batch at 512^2
+F32_TRAIN_STEPS = 3
+F32_MODES = (False, "hybrid", True, "mlp", "block")  # False first: PyTorch's own ops, the yardstick
+F32_TRAIN_PATHS = {"hybrid": "train_step", True: "train_step_dwconv", "mlp": "train_step_mlp",
+                   "block": "train_step_block"}
+F32_GRAD_MODES = ("hybrid", True, "mlp", "block", "mlp_no_layer_scale")
+F32_PROB_TOL = 1e-3
+F32_COORD_TOL = 1e-4
+
+
+def _f32_args(gen, batch: int, hw: int, c: int, device) -> tuple:
+    """(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma), g: f32,
+    LayerScale about 1 so that the MLP shows."""
+    import torch
+
+    f32 = torch.float32
+    x = _rand(gen, (batch, hw, hw, c), 1.0, device, f32)
+    args = (x, _rand(gen, (49, c), 0.1, device, f32), _rand(gen, (c,), 0.1, device, f32),
+            _rand(gen, (c,), 0.1, device, f32, 1.0), _rand(gen, (c,), 0.1, device, f32),
+            _rand(gen, (4 * c, c), c ** -0.5, device, f32), _rand(gen, (4 * c,), 0.1, device, f32),
+            _rand(gen, (c, 4 * c), (4 * c) ** -0.5, device, f32),
+            _rand(gen, (c,), 0.1, device, f32), _rand(gen, (c,), 0.1, device, f32, 1.0))
+    return args, _rand(gen, (batch, hw, hw, c), 1.0, device, f32)
+
+
+def _f32_check(what: str, names, got, want) -> float:
+    """Each output within F32_REL_TOL * max |plain|; the largest error."""
+    import torch
+
+    torch.cuda.synchronize()
+    errs = []
+    for name, a, b in zip(names, got, want):
+        if a.dtype != torch.float32 or a.shape != b.shape:
+            raise AssertionError(f"{what} {name}: {a.dtype} {tuple(a.shape)}, want f32 "
+                                 f"{tuple(b.shape)}")
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        if not err <= F32_REL_TOL * scale:
+            raise AssertionError(f"{what} {name} disagrees with its plain f32 version: "
+                                 f"{err:.4g} > {F32_REL_TOL} * {scale:.4g}")
+        errs.append(err)
+    print(f"[f32] {what}: max_abs_err " + " ".join(f"{n}={e:.3g}" for n, e in zip(names, errs))
+          + f" (tol {F32_REL_TOL}*max|plain| each) ok")
+    return max(errs)
+
+
+def f32_kernel_phase(device, report: dict) -> None:
+    """Each f32 form at its main-path shapes against its plain f32 version,
+    timed beside the plain version, one PyTorch call of the same function
+    (TF32 off) and the bound at the f32 rate: #1 at the study graph's (B16),
+    its emit_conv form, #7, #5, #8/#9, #6 and #10 at the train step's (B32),
+    #5 also at its path's, the LayerScale-free gradient check's (B2). Rows go
+    into ``report`` under each kernel's name + "_f32" (#5's of its path)."""
+    import torch
+    import torch.nn.functional as F
+
+    from spine_vision_torch.ops import block_train as bt
+    from spine_vision_torch.ops import convnext_block as cb
+    from spine_vision_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    saved = _counts()
+    rows = {f"{k}_f32": [] for k in F32_TWINS}
+
+    def leaves(ts):
+        return [t.detach().clone().requires_grad_(True) for t in ts]
+
+    for hw, c, count in BLOCK_SHAPES:
+        args, g = _f32_args(gen, BATCH, hw, c, device)
+        x, k49, dwb, ls, lb, w1t, b1, w2t, b2, gamma = args
+        m, weights = BATCH * hw * hw, (8 * c * c + 49 * c + 10 * c) * 4
+        err = _f32_check(f"convnext_block f32 B={BATCH} {hw}x{hw} C={c}", ("out",),
+                         (cb.convnext_block(*args),), (cb.block_reference(*args),))
+        k_oihw, x_nchw = k49.t().reshape(c, 1, 7, 7).contiguous(), x.permute(0, 3, 1, 2)
+
+        def library():
+            t = F.conv2d(x_nchw, k_oihw, dwb, padding=3, groups=c).permute(0, 2, 3, 1)
+            y = F.layer_norm(t, (c,), ls, lb, 1e-6)
+            return F.linear(F.gelu(F.linear(y, w1t, b1), approximate="tanh"), w2t, b2) * gamma + x
+
+        rows["convnext_block_f32"].append(_timed_row(
+            f"convnext_block f32 C={c}", count, err, lambda: cb.convnext_block(*args),
+            lambda: cb.block_reference(*args), library, 2 * m * c * 4 + weights, 0,
+            16 * m * c * c + 98 * m * c, "per_forward"))
+        del args, g, x
+        torch.cuda.empty_cache()
+
+    for hw, c, count in BLOCK_SHAPES:
+        args, g = _f32_args(gen, TRAIN_BATCH, hw, c, device)
+        x, k49, dwb, ls, lb, w1t, b1, w2t, b2, gamma = args
+        m, weights = TRAIN_BATCH * hw * hw, (8 * c * c + 49 * c + 10 * c) * 4
+        shape = f"B={TRAIN_BATCH} {hw}x{hw} C={c}"
+        k_oihw, x_nchw = k49.t().reshape(c, 1, 7, 7).contiguous(), x.permute(0, 3, 1, 2)
+        xr, gr = x.reshape(-1, c), g.reshape(-1, c)
+        vec = (b1, w2t, b2, gamma)
+
+        # #1's emit_conv form (the hybrid block's forward): out and t.
+        got, want = cb.convnext_block(*args, emit_conv=True), cb.block_reference(*args,
+                                                                                emit_conv=True)
+        err = _f32_check(f"convnext_block emit_conv f32 {shape}", ("out", "t"), got, want)
+        del got, want
+
+        def lib_emit():
+            t = F.conv2d(x_nchw, k_oihw, dwb, padding=3, groups=c).permute(0, 2, 3, 1)
+            y = F.layer_norm(t, (c,), ls, lb, 1e-6)
+            return F.linear(F.gelu(F.linear(y, w1t, b1), approximate="tanh"), w2t, b2) * gamma + x, t
+
+        rows["convnext_block_emit_conv_f32"].append(_timed_row(
+            f"convnext_block emit_conv f32 C={c}", count, err,
+            lambda: cb.convnext_block(*args, emit_conv=True),
+            lambda: cb.block_reference(*args, emit_conv=True), lib_emit,
+            3 * m * c * 4 + weights, 0, 16 * m * c * c + 98 * m * c, "per_train_step"))
+
+        # #7, the LN+MLP rows ("mlp" mode's forward), with x as the residual.
+        largs = (xr, ls, lb, w1t, b1, w2t, b2, gamma, gr)
+        err = _f32_check(f"ln_mlp f32 {shape}", ("out",), (fm.ln_mlp(*largs),),
+                         (fm.ln_mlp_reference(*largs),))
+
+        def lib_ln_mlp():
+            y = F.layer_norm(xr, (c,), ls, lb, 1e-6)
+            return F.linear(F.gelu(F.linear(y, w1t, b1), approximate="tanh"), w2t, b2) * gamma + gr
+
+        rows["ln_mlp_f32"].append(_timed_row(
+            f"ln_mlp f32 C={c}", count, err, lambda: fm.ln_mlp(*largs),
+            lambda: fm.ln_mlp_reference(*largs), lib_ln_mlp, 3 * m * c * 4 + weights, 0,
+            16 * m * c * c + 8 * m * c, "per_train_step"))
+
+        # #5 with its tail (the fused MLP route of blocks without LayerScale
+        # runs it with the residual and gamma of ones): printed here, its
+        # path's rows below.
+        _f32_mlp_fwd_row(xr, w1t, b1, w2t, b2, gamma, gr, shape, count, "blocks_of_this_shape")
+
+        # #8/#9 from t = x, and #6 from y = x.
+        names = ("dt", "dls", "dlb", "dw1t", "db1", "dw2t", "db2", "dgamma")
+        bargs = (x, ls, lb, w1t, b1, w2t, b2, gamma, g)
+        err = _f32_check(f"ln_mlp_bwd f32 {shape}", names, fm.ln_mlp_bwd(*bargs),
+                         fm.ln_mlp_bwd_reference(*bargs))
+        bl = leaves((x, ls, lb, w1t, b1, w2t, b2, gamma))
+
+        def lib_ln_bwd():
+            xx, lsl, lbl, w1l, b1l, w2l, b2l, gml = bl
+            y = F.layer_norm(xx, (c,), lsl, lbl, 1e-6)
+            o = F.linear(F.gelu(F.linear(y, w1l, b1l), approximate="tanh"), w2l, b2l) * gml
+            return torch.autograd.grad(o, bl, g)
+
+        grads = 8 * c * c * 4 + 10 * c * 4
+        rows["ln_mlp_bwd_f32"].append(_timed_row(
+            f"ln_mlp_bwd f32 C={c}", count, err, lambda: fm.ln_mlp_bwd(*bargs),
+            lambda: fm.ln_mlp_bwd_reference(*bargs), lib_ln_bwd,
+            3 * m * c * 4 + weights + grads, 0, 40 * m * c * c + 35 * m * c, "per_train_step"))
+        del bl
+        mbargs = (x, w1t, b1, w2t, b2, gamma, g)
+        err = _f32_check(f"mlp_bwd f32 {shape}", ("dy", "dw1t", "db1", "dw2t", "db2", "dgamma"),
+                         fm.mlp_bwd(*mbargs), fm.mlp_bwd_reference(*mbargs))
+        ml = leaves((x, w1t, b1, w2t, b2, gamma))
+
+        def lib_mlp_bwd():
+            xx, w1l, b1l, w2l, b2l, gml = ml
+            o = F.linear(F.gelu(F.linear(xx, w1l, b1l), approximate="tanh"), w2l, b2l) * gml
+            return torch.autograd.grad(o, ml, g)
+
+        rows["mlp_bwd_f32"].append(_timed_row(
+            f"mlp_bwd f32 C={c}", count, err, lambda: fm.mlp_bwd(*mbargs),
+            lambda: fm.mlp_bwd_reference(*mbargs), lib_mlp_bwd, 3 * m * c * 4 + weights + grads,
+            0, 40 * m * c * c + 15 * m * c, "per_train_step"))
+        del ml
+
+        # #10, the whole-block backward ("block" mode).
+        targs = (*args, g)
+        err = _f32_check(f"block_train_bwd f32 {shape}",
+                         ("g_u", "dk", "ddwb", "dls", "dlb", "dw1t", "db1", "dw2t", "db2",
+                          "dgamma"), bt.block_train_bwd(*targs), bt.block_train_bwd_reference(*targs))
+        tl = leaves((x, k49, dwb, ls, lb, w1t, b1, w2t, b2, gamma))
+
+        def lib_block_bwd():
+            xx, kl, dl, lsl, lbl, w1l, b1l, w2l, b2l, gml = tl
+            t = F.conv2d(xx.permute(0, 3, 1, 2), kl.t().reshape(c, 1, 7, 7), dl, padding=3,
+                         groups=c).permute(0, 2, 3, 1)
+            y = F.layer_norm(t, (c,), lsl, lbl, 1e-6)
+            o = F.linear(F.gelu(F.linear(y, w1l, b1l), approximate="tanh"), w2l, b2l) * gml
+            return torch.autograd.grad(o, tl[1:], g)
+
+        rows["block_train_bwd_f32"].append(_timed_row(
+            f"block_train_bwd f32 C={c}", count, err, lambda: bt.block_train_bwd(*targs),
+            lambda: bt.block_train_bwd_reference(*targs), lib_block_bwd,
+            3 * m * c * 4 + weights + grads + 50 * c * 4, 0,
+            40 * m * c * c + 2 * 98 * m * c + 35 * m * c, "per_train_step"))
+        del tl, args, g, x, xr, gr, targs, bargs, mbargs, largs
+        torch.cuda.empty_cache()
+    for hw, c, count in GRAD_BLOCK_SHAPES:  # #5's path: the gradient check without LayerScale
+        args, g = _f32_args(gen, GRAD_BATCH, hw, c, device)
+        x, _, _, _, _, w1t, b1, w2t, b2, gamma = args
+        rows["mlp_fwd_f32"].append(_f32_mlp_fwd_row(
+            x.reshape(-1, c), w1t, b1, w2t, b2, gamma, g.reshape(-1, c),
+            f"B={GRAD_BATCH} {hw}x{hw} C={c}", count, "per_grad_check_step"))
+    _set_counts(saved)
+    report.update(rows)
+
+
+def _f32_mlp_fwd_row(x, w1t, b1, w2t, b2, gamma, res, shape: str, count: int,
+                     per: str) -> tuple:
+    """#5 in f32 with its tail on the rows ``x`` against its plain version,
+    timed: the report row."""
+    import torch.nn.functional as F
+
+    from spine_vision_torch.ops import fused_mlp as fm
+
+    m, c = x.shape
+    args = (x, w1t, b1, w2t, b2, gamma, res)
+    err = _f32_check(f"mlp_fwd f32 {shape}", ("out",), (fm.mlp_fwd(*args),),
+                     (fm.mlp_reference(*args),))
+
+    def library():
+        return F.linear(F.gelu(F.linear(x, w1t, b1), approximate="tanh"), w2t, b2) * gamma + res
+
+    return _timed_row(f"mlp_fwd f32 {shape}", count, err, lambda: fm.mlp_fwd(*args),
+                      lambda: fm.mlp_reference(*args), library,
+                      3 * m * c * 4 + (8 * c * c + 6 * c) * 4, 0, 16 * m * c * c, per)
+
+
+def f32_train_check(device, card: str) -> dict:
+    """ConvNeXt-base localization at 512^2 through LocalizationTrainer with
+    mixed_precision=False, F32_TRAIN_STEPS steps on fixed batches (no
+    augmentation or dropout) in each of F32_MODES from the same seeded
+    weights: each step's launches, each mode's losses within F32_LOSS_TOL of
+    PyTorch's own ops (use_pallas=False), step p50 and peak memory. Returns
+    one step's launch counts by path ("f32_" + the bf16 path's name)."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch.data.loader import collate_localization
+    from spine_vision_torch.train.localization import LocalizationConfig, LocalizationTrainer
+
+    data = _Images(F32_TRAIN_BATCH * F32_TRAIN_STEPS, F32_TRAIN_HW, 41, shade=True)
+    batches = [collate_localization([data[i] for i in range(k * F32_TRAIN_BATCH,
+                                                             (k + 1) * F32_TRAIN_BATCH)])
+               for k in range(F32_TRAIN_STEPS)]
+    losses, paths = {}, {}
+    for mode in F32_MODES:
+        run = RUN_DIR / "f32_train"
+        shutil.rmtree(run, ignore_errors=True)
+        cfg = LocalizationConfig(
+            backbone="convnext_base", image_size=(F32_TRAIN_HW, F32_TRAIN_HW),
+            batch_size=F32_TRAIN_BATCH, num_epochs=1, augment=False, dropout=0.0,
+            mixed_precision=False, output_path=run,
+            num_workers=1, pretrained=False, seed=0, use_pallas_dwconv=mode is True,
+        )
+        trainer = LocalizationTrainer(
+            cfg, model=_regressor(device, seed=6, dropout=0.0, use_pallas=mode,
+                                  dtype=torch.float32),
+            train_dataset=data, val_dataset=data, device=device)
+        want = _f32_twins(TRAIN_LAUNCHES[F32_TRAIN_PATHS[mode]]) if mode is not False \
+            else _launches()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses[mode] = [], []
+        for k, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            losses[mode].append(float(trainer.train_step_fn(trainer.state, batch)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts = _counts()
+            if counts != want:
+                raise AssertionError(f"f32 train {mode!r} step {k}: launches {counts}, "
+                                     f"expected {want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses[mode], losses[False])]
+        print(f"[f32_train] use_pallas={mode!r}: ConvNeXt-base {F32_TRAIN_HW}^2 b{F32_TRAIN_BATCH} f32, "
+              f"{F32_TRAIN_STEPS} steps: losses {losses[mode]}, relative to use_pallas=False "
+              f"{[f'{r:.3g}' for r in rel]} (tol {F32_LOSS_TOL}); step p50 "
+              f"{float(np.percentile(times[1:], 50)):.3f} ms (steps ms "
+              f"{[round(t, 3) for t in times]}; the first allocates); peak "
+              f"{peak:.2f} GiB; on {card}")
+        if not all(np.isfinite(losses[mode])) or max(rel) > F32_LOSS_TOL:
+            raise AssertionError(f"f32 train {mode!r}: losses {losses[mode]} against "
+                                 f"{losses[False]}")
+        if mode is not False:
+            paths[f"f32_{F32_TRAIN_PATHS[mode]}"] = counts
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(run, ignore_errors=True)
+    return paths
+
+
+def f32_cls_check(device) -> dict:
+    """One f32 step of a ConvNeXt-base Classifier (use_pallas="hybrid", built
+    by the trainer from its seed, mixed_precision=False) through
+    ClassificationTrainer at batch 8, 256^2: #1's emit_conv form and #8/#9 in
+    f32 on each block of C <= 512, a finite loss. Returns its launch
+    counts."""
+    import math
+
+    from spine_vision_torch.data.loader import collate_classification
+    from spine_vision_torch.train.classification import ClassificationTrainer
+
+    cfg = _cls_config("cls_convnext_f32", backbone="convnext_base", batch_size=8, num_epochs=1,
+                      num_workers=1, mixed_precision=False)
+    data = _Grades(8, CLS_HW, 37)
+    trainer = ClassificationTrainer(cfg, train_dataset=data, val_dataset=data, device=device)
+    batch = collate_classification([data[i] for i in range(8)])
+    _zero_counts()
+    loss = float(trainer.train_step_fn(trainer.state, batch))
+    counts = _counts()
+    shutil.rmtree(RUN_DIR / "cls_convnext_f32", ignore_errors=True)
+    want = _f32_twins(CLS_CONVNEXT_LAUNCHES)
+    print(f"[f32_cls] ConvNeXt-base Classifier (hybrid) f32 step: loss {loss:.6f}, launches "
+          f"{counts}")
+    if counts != want or not math.isfinite(loss):
+        raise AssertionError(f"f32 cls step: loss {loss}, launches {counts}, expected {want}")
+    return counts
+
+
+def _f32_study_models(pool) -> tuple:
+    """The f32 study graph's models (ConvNeXt-base localization, ResNet-18
+    grading, seeded trees) on the host, the 8 studies, and their run through
+    the pipeline on the CPU, started on ``pool`` (the card's work goes on
+    meanwhile): ``(loc, cls, studies, config, future of (results,
+    seconds))``."""
+    import torch
+
+    from spine_vision_torch.infer.pipeline import StudyInferencePipeline, StudyPipelineConfig
+    from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+
+    f32 = torch.float32
+    with torch.device("meta"):
+        loc = CoordinateRegressor("convnext_base", dtype=f32, device="meta")
+        cls = Classifier("resnet18", dtype=f32, device="meta")
+    loc, cls = loc.to_empty(device="cpu"), cls.to_empty(device="cpu")
+    for model, seed in ((loc, 0), (cls, 1)):
+        params, stats = random_flax_variables(model, seed)
+        load_flax_variables(model, params, stats)
+    studies, cfg = _studies(8, 0), StudyPipelineConfig(padded_hw=(768, 768))
+    cpu_pipe = StudyInferencePipeline(copy.deepcopy(loc), copy.deepcopy(cls), config=cfg,
+                                      device="cpu")
+
+    def cpu_run():
+        t0 = time.perf_counter()
+        return cpu_pipe.run(studies, fetch_crops=False), time.perf_counter() - t0
+
+    return loc, cls, studies, cfg, pool.submit(cpu_run)
+
+
+def f32_study_check(device, loc, cls, studies, cfg, cpu_future) -> dict:
+    """StudyInferencePipeline on f32 models (``_f32_study_models``) on the 8
+    studies on the card against the same pipeline on the CPU: coordinates
+    within F32_COORD_TOL, probabilities within F32_PROB_TOL, the same grades
+    but where the CPU's two largest probabilities lie within F32_PROB_TOL of
+    each other; #1 (f32) 33 and #2 3 launches a forward. Returns the launch
+    counts of a forward."""
+    import numpy as np
+
+    from spine_vision_torch.core.tasks import get_tasks
+    from spine_vision_torch.infer.pipeline import StudyInferencePipeline
+
+    tasks = get_tasks()
+    pipe = StudyInferencePipeline(loc, cls, config=cfg, device=device)
+    pipe.run(studies, fetch_crops=False)  # warm
+    _zero_counts()
+    got = pipe.run(studies, fetch_crops=False)
+    counts = _counts()
+    expected = _f32_twins(INFERENCE_LAUNCHES)
+    if counts != expected:
+        raise AssertionError(f"f32 study inference: launches {counts}, expected {expected}")
+    _check_results(got, len(studies), tasks)
+    want, cpu_s = cpu_future.result()
+    coord = max(float(np.abs(a.coords - b.coords).max()) for a, b in zip(got, want))
+    prob, flips, ties = 0.0, 0, 0
+    for a, b in zip(got, want):
+        for t in tasks:
+            pa, pb = a.probabilities[t.name], b.probabilities[t.name]
+            prob = max(prob, float(np.abs(pa - pb).max()))
+            if pb.shape[-1] == 1:  # a binary task: the classes' probabilities 1 - p and p
+                pb = np.concatenate([1 - pb, pb], axis=-1)
+            top2 = np.sort(pb, axis=-1)[..., -2:]
+            near = (top2[..., 1] - top2[..., 0]) <= F32_PROB_TOL
+            off = a.predictions[t.name] != b.predictions[t.name]
+            ties += int(np.sum(off & near))
+            flips += int(np.sum(off & ~near))
+    print(f"[f32_study] {len(studies)} studies, f32, card vs CPU ({cpu_s:.1f} s on the CPU): coords "
+          f"max_abs_err={coord:.4g} (tol {F32_COORD_TOL}), probabilities max_abs_err={prob:.4g} "
+          f"(tol {F32_PROB_TOL}), grades apart {flips} (+{ties} at CPU near-ties); launches "
+          f"a forward {counts}")
+    if coord > F32_COORD_TOL or prob > F32_PROB_TOL or flips:
+        raise AssertionError("f32 study inference: the card and the CPU disagree")
+    return counts
+
+
+def f32_phase(device, card: str) -> dict:
+    """The f32 forms on their paths (``--f32-only``, and in the whole run):
+    the gradient check in every mode, full-width training in every mode, a
+    Classifier step and study inference, whose CPU reference runs on a
+    thread beside the rest. Returns the launch counts by path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    paths = {}
+    with ThreadPoolExecutor(1) as pool:
+        study = _f32_study_models(pool)
+        for mode in F32_GRAD_MODES:
+            counts = grad_check(device, mode, torch.float32)
+            if mode == "mlp_no_layer_scale":
+                paths["f32_grad_check_mlp_no_layer_scale"] = counts
+        paths.update(f32_train_check(device, card))
+        paths["f32_cls_convnext_hybrid"] = f32_cls_check(device)
+        paths["f32_study_inference"] = f32_study_check(device, *study)
+    return paths
 
 
 # The quality-parity suite (``spine_vision_torch/utils/parity.py``) at
@@ -4808,6 +5298,9 @@ def main() -> int:
                         help="run only the ddp phase (no kernels line)")
     parser.add_argument("--zoo-only", action="store_true",
                         help="run only the zoo phase (no kernel build, no kernels line)")
+    parser.add_argument("--f32-only", action="store_true",
+                        help="build the kernels and run only the f32 phases (the f32 forms' "
+                             "rows and paths; a kernels line of the f32 forms)")
     parser.add_argument("--ddp-rank", help=argparse.SUPPRESS)  # a rank of the ddp phase
     opts = parser.parse_args()
     if opts.ddp_rank:
@@ -4883,7 +5376,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     cuda_build.build_all()
-    print(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s "
+          f"(in parallel, one nvcc a source)")
     for name, log in cuda_build.build_logs.items():
         regs = [int(w) for line in log.splitlines() if "registers" in line
                 for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
@@ -4892,17 +5386,25 @@ def main() -> int:
         print(f"[build] {name}: {len(regs)} kernels, registers max {max(regs, default=0)}, "
               f"spill stores {spills} bytes")
 
+    f32_paths = {"f32_study_inference": None, "f32_grad_check_mlp_no_layer_scale": None,
+                 **{f"f32_{p}": None for p in TRAIN_PATHS}, "f32_cls_convnext_hybrid": None}
+    if opts.f32_only:
+        report, probe_counts, probe_rows = {}, {}, {}
+        phase("f32 kernels", f32_kernel_phase, device, report)
+        paths = {**f32_paths, **phase("f32", f32_phase, device, card)}
+        return _kernels_line(report, paths, probe_counts, probe_rows) or verdict()
     report = phase("inference kernels", kernel_phase, device)
     phase("hybrid training kernels", train_kernel_phase, device, report)
     phase("all-kernel training kernels", dwconv_train_kernel_phase, device, report)
     phase("mlp-mode kernels", mlp_kernel_phase, device, report)
     phase("whole-block backward kernel", block_train_kernel_phase, device, report)
+    phase("f32 kernels", f32_kernel_phase, device, report)
     probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, "volume_io": None, "serve": None, "builders": None,
              **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
-             "ocr_train": None, "ddp": None, "zoo": None, "probes": probe_counts}
+             "ocr_train": None, "ddp": None, "zoo": None, "probes": probe_counts, **f32_paths}
     if not opts.kernels_only:
         paths["study_inference"] = phase("study_inference", slice_phase, device, card,
                                          opts.profile)["launches"]
@@ -4928,6 +5430,7 @@ def main() -> int:
         phase("cls overfit", cls_overfit_check, device)
         paths["cls_convnext_hybrid"] = phase("cls ConvNeXt-base hybrid", cls_convnext_check,
                                              device)
+        paths.update(phase("f32", f32_phase, device, card))
         paths["parity"] = phase("parity", parity_phase, device, card,
                                 tuple(opts.parity_seeds))
         paths["file_backed"] = phase("file_backed", file_backed_phase, device,
@@ -4936,7 +5439,13 @@ def main() -> int:
         paths["ocr_train"] = phase("ocr_train", ocr_train_phase, device, card, opts.profile)
         paths["ddp"] = phase("ddp", ddp_phase, device, card)
         paths["zoo"] = phase("zoo", zoo_phase, device, card)["launches"]
+    return _kernels_line(report, paths, probe_counts, probe_rows) or verdict()
 
+
+def _kernels_line(report: dict, paths: dict, probe_counts: dict, probe_rows: dict) -> None:
+    """Print the ``kernels`` JSON line: each kernel's rows in ``report`` (its
+    main-path shapes; ``@`` another path's, ``#`` one launch's) summed over
+    its launches on its path, and the probes' worst variants."""
     sources = {
         "convnext_block": ("spine_vision_torch/csrc/convnext_block.cu",
                            "spine_vision_tpu/ops/convnext_block.py:194", "study_inference"),
@@ -4959,6 +5468,17 @@ def main() -> int:
         "block_train_bwd": ("spine_vision_torch/csrc/block_train_bwd.cu",
                             "spine_vision_tpu/ops/block_train.py:313", "train_step_block"),
     }
+    # The f32 forms: the same sources and TPU kernels (the JAX kernels run in
+    # f32 with mixed_precision=False), on the f32 paths.
+    f32_paths = {"convnext_block": "f32_study_inference",
+                 "convnext_block_emit_conv": "f32_train_step", "ln_mlp_bwd": "f32_train_step",
+                 "mlp_bwd": "f32_train_step_dwconv", "ln_mlp": "f32_train_step_mlp",
+                 "mlp_fwd": "f32_grad_check_mlp_no_layer_scale",
+                 "block_train_bwd": "f32_train_step_block"}
+    for name, path in f32_paths.items():
+        source, replaces, _ = sources[name]
+        sources[f"{name}_f32"] = (source, replaces, path)  # its products: csrc/f32_gemm.cuh
+
     def totals(rows: list) -> dict:
         """Per-path totals: each shape's time times its launches on the path."""
         total = lambda i: sum(r[0] * r[i] for r in rows)  # noqa: E731
@@ -5003,8 +5523,10 @@ def main() -> int:
                           "library_ms": r.library_ms, "max_abs_err": e}
                          for r, e, p in checked],
         })
+    for entry in kernels:
+        if entry["path"] in paths and paths[entry["path"]] is not None and not entry["launches"]:
+            raise AssertionError(f"{entry['name']} was not launched on its path {entry['path']}")
     print(json.dumps({"kernels": kernels}))
-    return verdict()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
-// Whole ConvNeXt v1 block backward, NHWC bf16, for Hopper: from x and the
+// Whole ConvNeXt v1 block backward, NHWC bf16 or f32, for Hopper: from x and the
 // gradient g of out = x + gamma * (W2 . gelu_tanh(W1 . y + b1) + b2), with
 // u = dwconv7x7(x) + b_dw and y = LN(u) * ln_scale + ln_bias,
-//   g_u (the conv output's gradient, bf16), dk [49, C], ddwb, dln_scale,
+//   g_u (the conv output's gradient, in x's type), dk [49, C], ddwb, dln_scale,
 //   dln_bias, dW1, db1, dW2, db2, dgamma (f32).
 // The caller adds dx = g + dwconv7x7(g_u, flipped k) (the stencil of
 // dwconv_bwd.cu), as the JAX package adds it in XLA.
@@ -43,6 +43,12 @@
 //      a row. Each CTA writes its own workspace row, and colsum (reduce.cuh)
 //      adds the rows in a fixed order.
 // Every sum has one order, so two runs agree bit for bit.
+//
+// The f32 form (the JAX kernel run in f32) is the same three steps with x,
+// the filter, g and g_u in f32: the recompute dws::dw_stencil<float, float,
+// true>, the MLP backward's f32 stages (ln_mlp_bwd.cuh on f32_gemm.cuh) and
+// tap_sums<float, SW> over an f32 x ring; its bound is the f32 rate (40 * M *
+// C^2 flops at 67 TFLOP/s).
 #include "dw_stage.cuh"
 #include "ln_mlp_bwd.cuh"
 
@@ -59,17 +65,17 @@ constexpr int NTAP = KS * KS + 1;  // a tap_sums workspace row: dk (49 taps), dd
 // columns [w0, w0 + SW) and channels [64 * slab, + 64). blockIdx.x is
 // part * slabs + slab, part = (b * runs + run) * strips + strip: the
 // workspace row the CTA writes.
-template <int SW>
-__global__ void __launch_bounds__(dws::Taps<SW>::NT, 3) tap_sums(
-    const bf16* __restrict__ x, const float* __restrict__ gu, float* __restrict__ part, int H,
+template <typename T, int SW>
+__global__ void __launch_bounds__(dws::Taps<T, SW>::NT, 3) tap_sums(
+    const T* __restrict__ x, const float* __restrict__ gu, float* __restrict__ part, int H,
     int W, int C, int rows_per_run, int runs, int strips, int slabs) {
-  using G = dws::Taps<SW>;
+  using G = dws::Taps<T, SW>;
   using X = typename G::X;
   constexpr int CH = 16;           // tokens a step of the sliding window
   constexpr int NX = CH + KS - 1;  // x values of a filter row for CH tokens
   static_assert(SW % CH == 0, "the strip is whole steps");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw);
   float* sG = reinterpret_cast<float*>(smem_raw + X::RING_BYTES);  // [GSLOTS][SW][CS]
   const int dy = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -92,13 +98,13 @@ __global__ void __launch_bounds__(dws::Taps<SW>::NT, 3) tap_sums(
   // row h0's brings x rows h0 - 3 .. h0 + 3.
 #pragma unroll 1
   for (int j = 0; j < KS; ++j)
-    dws::load_box<bf16, 1, X::RW, G::NT>(ring + j * X::ROW, x, b, h0 - PAD + j, w0 - PAD, c0, H,
-                                         W, C);
+    dws::load_box<T, 1, X::RW, G::NT>(ring + j * X::ROW, x, b, h0 - PAD + j, w0 - PAD, c0, H,
+                                      W, C);
   dws::load_box<float, 1, SW, G::NT>(sG, gu, b, h0, w0, c0, H, W, C);
   dws::commit();
   if (h0 + 1 < h1) {
-    dws::load_box<bf16, 1, X::RW, G::NT>(ring + KS * X::ROW, x, b, h0 + 1 + PAD, w0 - PAD, c0,
-                                         H, W, C);
+    dws::load_box<T, 1, X::RW, G::NT>(ring + KS * X::ROW, x, b, h0 + 1 + PAD, w0 - PAD, c0,
+                                      H, W, C);
     dws::load_box<float, 1, SW, G::NT>(sG + G::GROW, gu, b, h0 + 1, w0, c0, H, W, C);
   }
   dws::commit();
@@ -110,14 +116,14 @@ __global__ void __launch_bounds__(dws::Taps<SW>::NT, 3) tap_sums(
     // Row h + 2's group, into the slots of x row h - 4 and g_u row h - 1,
     // which row h - 1 read last.
     if (h + 2 < h1) {
-      dws::load_box<bf16, 1, X::RW, G::NT>(ring + ((j0 + KS + 1) % X::RING) * X::ROW, x, b,
-                                           h + 2 + PAD, w0 - PAD, c0, H, W, C);
+      dws::load_box<T, 1, X::RW, G::NT>(ring + ((j0 + KS + 1) % X::RING) * X::ROW, x, b,
+                                        h + 2 + PAD, w0 - PAD, c0, H, W, C);
       dws::load_box<float, 1, SW, G::NT>(sG + ((j0 + 2) % G::GSLOTS) * G::GROW, gu, b, h + 2,
                                          w0, c0, H, W, C);
     }
     dws::commit();
     // dk[dy][dx] += x[h + dy - 3][w + dx - 3] * gu[h][w] over the strip.
-    const bf16* xrow = ring + ((j0 + dy) % X::RING) * X::ROW + 2 * lane;
+    const T* xrow = ring + ((j0 + dy) % X::RING) * X::ROW + 2 * lane;
     const float* grow = sG + (j0 % G::GSLOTS) * G::GROW + 2 * lane;
 #pragma unroll
     for (int s0 = 0; s0 < SW; s0 += CH) {
@@ -147,31 +153,61 @@ __global__ void __launch_bounds__(dws::Taps<SW>::NT, 3) tap_sums(
   if (dy == 0) svt::store2(out + (size_t)(KS * KS) * C + c, sb.x, sb.y);
 }
 
-template <int SW>
+template <typename T, int SW>
 int launch_taps(const void* x, const void* gu, void* part, int B, int H, int W, int C,
                 int rows_per_run, cudaStream_t s) {
-  using G = dws::Taps<SW>;
+  using G = dws::Taps<T, SW>;
   int err;
-  if ((err = dws::smem_attr(tap_sums<SW>, G::BYTES))) return err;
+  if ((err = dws::smem_attr(tap_sums<T, SW>, G::BYTES))) return err;
   const int runs = (H + rows_per_run - 1) / rows_per_run;
   const int strips = (W + SW - 1) / SW;
   const int slabs = (C + CS - 1) / CS;
   const long long ctas = (long long)B * runs * strips * slabs;
-  tap_sums<SW><<<(unsigned)ctas, G::NT, G::BYTES, s>>>((const bf16*)x, (const float*)gu,
-                                                       (float*)part, H, W, C, rows_per_run,
-                                                       runs, strips, slabs);
+  tap_sums<T, SW><<<(unsigned)ctas, G::NT, G::BYTES, s>>>((const T*)x, (const float*)gu,
+                                                          (float*)part, H, W, C, rows_per_run,
+                                                          runs, strips, slabs);
+  return (int)cudaGetLastError();
+}
+
+// The three steps in x's type T.
+template <typename T>
+int block_bwd(const void* x, const void* k, const void* bias, const void* ls, const void* lb,
+              const void* w1t, const void* w1, const void* b1, const void* w2t, const void* w2,
+              const void* b2, const void* gamma, const void* g, void* gu, void* small, void* dw1t,
+              void* dw2t, void* dgamma, void* taps, void* u, void* gu32, void* y, void* gg,
+              void* stats, void* h, void* gh, void* gy, void* part, void* ws, void* tpart, int B,
+              int H, int W, int C, int splits, long long ks, int rows_per_run, float eps,
+              cudaStream_t s) {
+  const long long M = (long long)B * H * W;
+  int err = dws::launch_stencil<T, float, true>(x, k, bias, u, B, H, W, C, s);
+  if (err) return err;
+  const MlpBwd<T> a{u, (const T*)g, (const T*)w1t, (const T*)w1, (const T*)w2t, (const T*)w2,
+                    (const float*)ls, (const float*)lb, (const float*)b1, (const float*)b2,
+                    (const float*)gamma, (T*)gu, (float*)gu32, (float*)small, (float*)dw1t,
+                    (float*)dw2t, (float*)dgamma, (T*)y, (T*)gg, (T*)h, (T*)gh, (float*)stats,
+                    (float*)gy, (float*)part, (float*)ws, M, ks, C, splits, eps};
+  err = mlp_bwd<T, true, true>(a, s);
+  if (err) return err;
+  const int sw = dws::strip_width(W);
+  err = sw == 16 ? launch_taps<T, 16>(x, gu32, tpart, B, H, W, C, rows_per_run, s)
+                 : launch_taps<T, 32>(x, gu32, tpart, B, H, W, C, rows_per_run, s);
+  if (err) return err;
+  const long long P = (long long)B * ((H + rows_per_run - 1) / rows_per_run) * ((W + sw - 1) / sw);
+  svt::colsum<<<(unsigned)((NTAP * C + 31) / 32), dim3(32, 32), 0, s>>>(
+      (const float*)tpart, P, NTAP * C, (float*)taps);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x, g, gu [B, H, W, C] and k [49, C] bf16; weights bf16 in both layouts (w1t
-// [4C, C] and w1 [C, 4C], w2t [C, 4C] and w2 [4C, C]); bias, ls, lb, b1, b2,
-// gamma f32. Outputs: gu (bf16); small f32 [8C] = db1 (4C), dln_scale,
+// x, g, gu [B, H, W, C] and k [49, C] of one type (dtype 0: bf16, 1: f32);
+// weights of that type in both layouts (w1t [4C, C] and w1 [C, 4C], w2t [C,
+// 4C] and w2 [4C, C]); bias, ls, lb, b1, b2, gamma f32. Outputs: gu (x's
+// type); small f32 [8C] = db1 (4C), dln_scale,
 // dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C] and taps
 // [50 * C] = dk (49 taps of C), ddwb, f32. Scratch from the caller: u, gu32
-// and gy (f32 [M, C]), y and gg ([M, C] bf16), stats (f32 [M, 2]), h, gh
-// ([M, 4C] bf16), part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C] (ks
+// and gy (f32 [M, C]), y and gg ([M, C] x's type), stats (f32 [M, 2]), h, gh
+// ([M, 4C] x's type), part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C] (ks
 // tokens a split), tpart f32 [B * runs * strips, 50 * C]: the tap sums walk
 // runs of rows_per_run image rows (runs = ceil(H / rows_per_run)) in strips
 // of 16 columns (W <= 16) or 32 (strips = ceil(W / strip)). C is one of 96,
@@ -181,8 +217,8 @@ extern "C" int svt_block_train_bwd(
     const void* w1t, const void* w1, const void* b1, const void* w2t, const void* w2,
     const void* b2, const void* gamma, const void* g, void* gu, void* small, void* dw1t,
     void* dw2t, void* dgamma, void* taps, void* u, void* gu32, void* y, void* gg, void* stats,
-    void* h, void* gh, void* gy, void* part, void* ws, void* tpart, int B, int H, int W, int C,
-    int splits, long long ks, int rows_per_run, float eps, void* stream) {
+    void* h, void* gh, void* gy, void* part, void* ws, void* tpart, int dtype, int B, int H,
+    int W, int C, int splits, long long ks, int rows_per_run, float eps, void* stream) {
   const long long M = (long long)B * H * W;
   if (M == 0 || B < 0 || H < 0 || W < 0 || rows_per_run <= 0) return (int)cudaErrorInvalidValue;
   switch (C) {
@@ -192,22 +228,13 @@ extern "C" int svt_block_train_bwd(
       return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  int err = dws::launch_stencil<bf16, float, true>(x, k, bias, u, B, H, W, C, s);
-  if (err) return err;
-  const MlpBwd a{u, (const bf16*)g, (const bf16*)w1t, (const bf16*)w1, (const bf16*)w2t,
-                 (const bf16*)w2, (const float*)ls, (const float*)lb, (const float*)b1,
-                 (const float*)b2, (const float*)gamma, (bf16*)gu, (float*)gu32, (float*)small,
-                 (float*)dw1t, (float*)dw2t, (float*)dgamma, (bf16*)y, (bf16*)gg, (bf16*)h,
-                 (bf16*)gh, (float*)stats, (float*)gy, (float*)part, (float*)ws, M, ks, C,
-                 splits, eps};
-  err = mlp_bwd<true, true>(a, s);
-  if (err) return err;
-  const int sw = dws::strip_width(W);
-  err = sw == 16 ? launch_taps<16>(x, gu32, tpart, B, H, W, C, rows_per_run, s)
-                 : launch_taps<32>(x, gu32, tpart, B, H, W, C, rows_per_run, s);
-  if (err) return err;
-  const long long P = (long long)B * ((H + rows_per_run - 1) / rows_per_run) * ((W + sw - 1) / sw);
-  svt::colsum<<<(unsigned)((NTAP * C + 31) / 32), dim3(32, 32), 0, s>>>(
-      (const float*)tpart, P, NTAP * C, (float*)taps);
-  return (int)cudaGetLastError();
+  if (dtype == 0)
+    return block_bwd<bf16>(x, k, bias, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, g, gu, small,
+                           dw1t, dw2t, dgamma, taps, u, gu32, y, gg, stats, h, gh, gy, part, ws,
+                           tpart, B, H, W, C, splits, ks, rows_per_run, eps, s);
+  if (dtype == 1)
+    return block_bwd<float>(x, k, bias, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, g, gu, small,
+                            dw1t, dw2t, dgamma, taps, u, gu32, y, gg, stats, h, gh, gy, part, ws,
+                            tpart, B, H, W, C, splits, ks, rows_per_run, eps, s);
+  return (int)cudaErrorInvalidValue;
 }

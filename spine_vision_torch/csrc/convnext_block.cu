@@ -1,4 +1,5 @@
-// The ConvNeXt v1 block forward, NHWC bf16, for Hopper, in three launches:
+// The ConvNeXt v1 block forward, NHWC bf16 or f32, for Hopper, in three
+// launches:
 //   out = x + gamma * (W2 . gelu_tanh(W1 . LN(dwconv7x7(x) + b_dw) + b1) + b2)
 //
 // Replaces spine_vision_tpu/ops/convnext_block.py::_block_pallas
@@ -33,8 +34,20 @@
 // on wgmma. Weights are read in the layout nn.Linear keeps ([out, in]): K
 // contiguous. The caller allocates y and h. No atomics: every output element
 // has one writer, so two runs agree bit for bit.
+//
+// The f32 form (the JAX kernel run in f32, as the JAX package runs it with
+// mixed_precision=False) is P in f32, block_prologue<float, C, EMIT> (an f32
+// halo ring, t and y in f32; t's rounding is the identity, so both forms'
+// LayerNorm reads the f32 t), then F1 and F2 on the f32 product core
+// (f32_gemm.cuh). Its halo doubles P's ring: 134 KB a CTA at C = 512 (a 4 x
+// 8 tile) and 146 KB at C = 192 (8 x 8), one CTA an SM at most widths where
+// bf16 fits two (ops/convnext_block.py, forward_geometry). Its bound is the
+// f32 rate (16 * M * C^2 flops at 67 TFLOP/s).
+#include "f32_gemm.cuh"
 #include "mma_bf16.cuh"
 #include "wg_gemm.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -44,20 +57,20 @@ constexpr int PCC = 64;
 constexpr int P_THREADS = 256;
 static_assert(P_THREADS / 32 == PW, "a warp a tile column");
 
-template <int C>
+template <typename T, int C>
 struct PTile {
   static constexpr int PH = C <= 192 ? 8 : 4;       // (ops/convnext_block.py, _tile_rows)
   static constexpr int TOKS = PH * PW;
   static constexpr int HR = PH + 2 * svt::PAD;      // halo rows
   static constexpr int HW = PW + 2 * svt::PAD;      // halo columns
   static constexpr int NCH = (C + PCC - 1) / PCC;   // channel chunks
-  static constexpr int HALO = HR * HW * PCC;        // bf16 a ring slot
+  static constexpr int HALO = HR * HW * PCC;        // elements a ring slot
   static constexpr size_t T_BYTES = (size_t)TOKS * C * sizeof(float);
-  static constexpr size_t BYTES = T_BYTES + 2 * HALO * sizeof(bf16);
+  static constexpr size_t BYTES = T_BYTES + 2 * HALO * sizeof(T);
 };
 
 // 16 bytes global -> shared, or 16 zeros with `bytes` 0 (src is not read).
-__device__ __forceinline__ void cp_async16_zfill(bf16* dst, const bf16* src, int bytes) {
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    (unsigned)__cvta_generic_to_shared(dst)),
                "l"(src), "r"(bytes)
@@ -66,34 +79,35 @@ __device__ __forceinline__ void cp_async16_zfill(bf16* dst, const bf16* src, int
 
 // Channels [c0, c0 + PCC) of the tile's halo into a ring slot [HR][HW][PCC]:
 // zeros outside the image and past C.
-template <int C>
-__device__ __forceinline__ void load_halo(bf16* slot, const bf16* __restrict__ x, int b, int h0,
+template <typename T, int C>
+__device__ __forceinline__ void load_halo(T* slot, const T* __restrict__ x, int b, int h0,
                                           int w0, int c0, int H, int W) {
-  using P = PTile<C>;
-  constexpr int V = PCC / 8;  // 16-byte vectors a position
+  using P = PTile<T, C>;
+  constexpr int EV = 16 / (int)sizeof(T);  // elements a 16-byte vector
+  constexpr int V = PCC / EV;              // 16-byte vectors a position
   for (int v = threadIdx.x; v < P::HR * P::HW * V; v += P_THREADS) {
-    const int pos = v / V, cv = c0 + (v % V) * 8;
+    const int pos = v / V, cv = c0 + (v % V) * EV;
     const int hh = h0 + pos / P::HW - svt::PAD, ww = w0 + pos % P::HW - svt::PAD;
     const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W && cv < C;
-    const bf16* src = in ? x + (((size_t)b * H + hh) * W + ww) * C + cv : x;
-    cp_async16_zfill(slot + pos * PCC + (v % V) * 8, src, in ? 16 : 0);
+    const T* src = in ? x + (((size_t)b * H + hh) * W + ww) * C + cv : x;
+    cp_async16_zfill(slot + pos * PCC + (v % V) * EV, src, in ? 16 : 0);
   }
 }
 
 // P: t = dwconv7x7(x) + dw_bias over a PH x PW tile, then y = LN(t) (EMIT:
-// t rounded to bf16 first, written to t_out, and the LayerNorm reads the
+// t rounded to T first, written to t_out, and the LayerNorm reads the
 // rounded t). Tokens outside the image are computed on zeros and never stored.
-template <int C, bool EMIT>
+template <typename T, int C, bool EMIT>
 __global__ void __launch_bounds__(P_THREADS, 2) block_prologue(
-    const bf16* __restrict__ x, const bf16* __restrict__ k, const float* __restrict__ dw_bias,
+    const T* __restrict__ x, const T* __restrict__ k, const float* __restrict__ dw_bias,
     const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-    bf16* __restrict__ y_out, bf16* __restrict__ t_out, int H, int W, int tiles_h,
+    T* __restrict__ y_out, T* __restrict__ t_out, int H, int W, int tiles_h,
     int tiles_w, float eps) {
-  using P = PTile<C>;
+  using P = PTile<T, C>;
   constexpr int NP = svt::Lanes<C>::NP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sT = reinterpret_cast<float*>(smem_raw);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + P::T_BYTES);
+  T* ring = reinterpret_cast<T*>(smem_raw + P::T_BYTES);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -103,15 +117,15 @@ __global__ void __launch_bounds__(P_THREADS, 2) block_prologue(
   const int h0 = th * P::PH, w0 = tw * PW;
   const int wcol = w0 + warp;  // this warp's image column in the stencil
 
-  load_halo<C>(ring, x, b, h0, w0, 0, H, W);
+  load_halo<T, C>(ring, x, b, h0, w0, 0, H, W);
   svt::cp_async_commit();
   for (int ch = 0; ch < P::NCH; ++ch) {
-    if (ch + 1 < P::NCH) load_halo<C>(ring + ((ch + 1) & 1) * P::HALO, x, b, h0, w0,
-                                      (ch + 1) * PCC, H, W);
+    if (ch + 1 < P::NCH) load_halo<T, C>(ring + ((ch + 1) & 1) * P::HALO, x, b, h0, w0,
+                                         (ch + 1) * PCC, H, W);
     svt::cp_async_commit();
     svt::cp_async_wait_1();  // this chunk has landed (the next may be in flight)
     __syncthreads();
-    const bf16* slot = ring + (ch & 1) * P::HALO;
+    const T* slot = ring + (ch & 1) * P::HALO;
     const int c = ch * PCC + 2 * lane;  // this lane's channel pair
     if (c < C) {  // C = 96: the second chunk's upper lanes idle
       float2 acc[P::PH];
@@ -138,7 +152,7 @@ __global__ void __launch_bounds__(P_THREADS, 2) block_prologue(
 #pragma unroll
       for (int r = 0; r < P::PH; ++r) {
         float t0 = acc[r].x + bv.x, t1 = acc[r].y + bv.y;
-        if constexpr (EMIT) {
+        if constexpr (EMIT && std::is_same<T, bf16>::value) {
           const __nv_bfloat162 tv = __floats2bfloat162_rn(t0, t1);
           if (h0 + r < H && wcol < W)
             *reinterpret_cast<__nv_bfloat162*>(
@@ -146,6 +160,9 @@ __global__ void __launch_bounds__(P_THREADS, 2) block_prologue(
           const float2 tf = __bfloat1622float2(tv);
           t0 = tf.x;
           t1 = tf.y;
+        } else if constexpr (EMIT) {  // f32: t as it is
+          if (h0 + r < H && wcol < W)
+            svt::store2(t_out + (((size_t)b * H + h0 + r) * W + wcol) * C + c, t0, t1);
         }
         svt::store2(sT + (r * PW + warp) * C + c, t0, t1);
       }
@@ -171,7 +188,7 @@ __global__ void __launch_bounds__(P_THREADS, 2) block_prologue(
     }
     float mu;
     const float rstd = svt::centre_rstd<C>(v, eps, lane, mu);
-    bf16* yrow = y_out + (((size_t)b * H + hh) * W + wcol) * C;
+    T* yrow = y_out + (((size_t)b * H + hh) * W + wcol) * C;
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       const int p = lane + 32 * q;
@@ -183,74 +200,73 @@ __global__ void __launch_bounds__(P_THREADS, 2) block_prologue(
   }
 }
 
-// Everything a forward call reads and writes; y [M, C] and h [M, 4C] are the
-// caller's scratch, t is null in the inference form.
+// Everything a forward call reads and writes, x's type T; y [M, C] and h
+// [M, 4C] are the caller's scratch, t is null in the inference form.
+template <typename T>
 struct BlockFwd {
-  const bf16 *x, *k;
+  const T *x, *k;
   const float *dw_bias, *ln_scale, *ln_bias;
-  const bf16* w1t;
+  const T* w1t;
   const float* b1;
-  const bf16* w2t;
+  const T* w2t;
   const float *b2, *gamma;
-  bf16 *out, *t, *y, *h;
+  T *out, *t, *y, *h;
   int B, H, W;
   float eps;
 };
 
-template <int C, bool EMIT>
-int block_forward_c(const BlockFwd& a, cudaStream_t s) {
-  using P = PTile<C>;
+template <typename T, int C, bool EMIT>
+int block_forward_c(const BlockFwd<T>& a, cudaStream_t s) {
+  using P = PTile<T, C>;
   const long long M = (long long)a.B * a.H * a.W;
   int err;
   {  // P
     const int tiles_h = (a.H + P::PH - 1) / P::PH, tiles_w = (a.W + PW - 1) / PW;
     const long long ctas = (long long)a.B * tiles_h * tiles_w;
-    if ((err = (int)cudaFuncSetAttribute(block_prologue<C, EMIT>,
+    if ((err = (int)cudaFuncSetAttribute(block_prologue<T, C, EMIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)P::BYTES)))
       return err;
-    block_prologue<C, EMIT><<<(unsigned)ctas, P_THREADS, P::BYTES, s>>>(
+    block_prologue<T, C, EMIT><<<(unsigned)ctas, P_THREADS, P::BYTES, s>>>(
         a.x, a.k, a.dw_bias, a.ln_scale, a.ln_bias, a.y, a.t, a.H, a.W, tiles_h, tiles_w,
         a.eps);
     if ((err = (int)cudaGetLastError())) return err;
   }
   // F1 and F2: h = gelu_tanh(y . W1^T + b1), out = (h . W2^T + b2) * gamma + x.
-  Epi e{};
-  e.b2 = a.b2;
-  e.gamma = a.gamma;
-  e.x = a.x;
-  e.out = a.out;
-  return mlp_products<C, EPI_OUT>(a.y, a.w1t, a.b1, a.w2t, a.h, M, e, s);
+  if constexpr (std::is_same<T, float>::value) {
+    f32g::EpiF e{};
+    e.b2 = a.b2;
+    e.gamma = a.gamma;
+    e.x = a.x;
+    e.out = a.out;
+    return f32g::mlp_products<C, EPI_OUT>(a.y, a.w1t, a.b1, a.w2t, a.h, M, e, s);
+  } else {
+    Epi e{};
+    e.b2 = a.b2;
+    e.gamma = a.gamma;
+    e.x = a.x;
+    e.out = a.out;
+    return mlp_products<C, EPI_OUT>(a.y, a.w1t, a.b1, a.w2t, a.h, M, e, s);
+  }
 }
 
-template <int C>
-int block_forward(const BlockFwd& a, cudaStream_t s) {
-  return a.t ? block_forward_c<C, true>(a, s) : block_forward_c<C, false>(a, s);
+template <typename T, int C>
+int block_forward(const BlockFwd<T>& a, cudaStream_t s) {
+  return a.t ? block_forward_c<T, C, true>(a, s) : block_forward_c<T, C, false>(a, s);
 }
 
-}  // namespace
-
-
-// x, k [49, C], w1t [4C, C], w2t [C, 4C], out, t, y and h bf16; the rest f32.
-// t (the rounded conv output, [B, H, W, C]) may be null: the inference form.
-// y [B * H * W, C] and h [B * H * W, 4C] are scratch. Returns the first
-// cudaError_t of the three launches.
-extern "C" int svt_convnext_block_forward(
-    const void* x, const void* k, const void* dw_bias, const void* ln_scale,
-    const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
-    const void* b2, const void* gamma, void* out, void* t, void* y, void* h, int B, int H,
-    int W, int C, float eps, void* stream) {
-  const long long M = (long long)B * H * W;
-  if (M == 0) return 0;
-  if (B < 0 || H < 0 || W < 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const BlockFwd a{(const bf16*)x, (const bf16*)k, (const float*)dw_bias,
-                   (const float*)ln_scale, (const float*)ln_bias, (const bf16*)w1t,
-                   (const float*)b1, (const bf16*)w2t, (const float*)b2, (const float*)gamma,
-                   (bf16*)out, (bf16*)t, (bf16*)y, (bf16*)h, B, H, W, eps};
-  cudaStream_t s = (cudaStream_t)stream;
+template <typename T>
+int block_dispatch(const void* x, const void* k, const void* dw_bias, const void* ln_scale,
+                   const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
+                   const void* b2, const void* gamma, void* out, void* t, void* y, void* h,
+                   int B, int H, int W, int C, float eps, cudaStream_t s) {
+  const BlockFwd<T> a{(const T*)x, (const T*)k, (const float*)dw_bias, (const float*)ln_scale,
+                      (const float*)ln_bias, (const T*)w1t, (const float*)b1, (const T*)w2t,
+                      (const float*)b2, (const float*)gamma, (T*)out, (T*)t, (T*)y, (T*)h,
+                      B, H, W, eps};
 #define SVT_BLOCK_CASE(CC) \
   case CC:                 \
-    return block_forward<CC>(a, s);
+    return block_forward<T, CC>(a, s);
   switch (C) {
     SVT_BLOCK_CASE(96)
     SVT_BLOCK_CASE(128)
@@ -262,4 +278,30 @@ extern "C" int svt_convnext_block_forward(
       return (int)cudaErrorInvalidValue;
   }
 #undef SVT_BLOCK_CASE
+}
+
+}  // namespace
+
+
+// x, k [49, C], w1t [4C, C], w2t [C, 4C], out, t, y and h of one type
+// (dtype 0: bf16, 1: f32); the rest f32. t (the conv output rounded to that
+// type, [B, H, W, C]) may be null: the inference form. y [B * H * W, C] and h
+// [B * H * W, 4C] are scratch. Returns the first cudaError_t of the three
+// launches.
+extern "C" int svt_convnext_block_forward(
+    const void* x, const void* k, const void* dw_bias, const void* ln_scale,
+    const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
+    const void* b2, const void* gamma, void* out, void* t, void* y, void* h, int dtype, int B,
+    int H, int W, int C, float eps, void* stream) {
+  const long long M = (long long)B * H * W;
+  if (M == 0) return 0;
+  if (B < 0 || H < 0 || W < 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return block_dispatch<bf16>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out,
+                                t, y, h, B, H, W, C, eps, s);
+  if (dtype == 1)
+    return block_dispatch<float>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out,
+                                 t, y, h, B, H, W, C, eps, s);
+  return (int)cudaErrorInvalidValue;
 }

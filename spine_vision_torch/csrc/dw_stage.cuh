@@ -115,11 +115,12 @@ struct Tile {
   static constexpr size_t BYTES = RING_BYTES + P_BYTES + (size_t)SW * CS * sizeof(float);
 };
 
-// #10's tap sums: T's x ring (bf16) and a ring of GSLOTS f32 g_u rows [SW][CS]
-// (the row summed, the next one landing, one being fetched); no conv shares.
-template <int SW>
+// #10's tap sums: T's x ring (x's type T) and a ring of GSLOTS f32 g_u rows
+// [SW][CS] (the row summed, the next one landing, one being fetched); no
+// conv shares.
+template <typename T, int SW>
 struct Taps {
-  using X = Tile<__nv_bfloat16, SW>;
+  using X = Tile<T, SW>;
   static constexpr int NT = X::NT;
   static constexpr int GSLOTS = 3;
   static constexpr int GROW = SW * CS;  // elements a g_u row

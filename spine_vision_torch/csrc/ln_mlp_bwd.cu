@@ -1,5 +1,5 @@
-// Backward of the ConvNeXt block's LayerNorm + MLP + LayerScale, NHWC bf16,
-// for Hopper. Given t (the rounded conv output the forward's LayerNorm read)
+// Backward of the ConvNeXt block's LayerNorm + MLP + LayerScale, NHWC bf16 or
+// f32, for Hopper. Given t (the rounded conv output the forward's LayerNorm read)
 // and g (the gradient of the block output), with y = LN(t), h = gelu_tanh(
 // y . W1 + b1) and out = x + gamma * (h . W2 + b2):
 //   dt, dln_scale, dln_bias, dW1, db1, dW2, db2, dgamma.
@@ -51,30 +51,61 @@
 // 40 * M * C^2 flops.
 #include "ln_mlp_bwd.cuh"
 
-// All activations [M, C] or [M, 4C] bf16, token-major. Weights bf16 in both
-// layouts: w1t [4C, C] and w1 [C, 4C], w2t [C, 4C] and w2 [4C, C]; ls, lb,
-// b1, b2, gamma f32. Outputs: dt [M, C] bf16; small f32 [8C] = db1 (4C),
-// dln_scale, dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C]
-// f32. Scratch from the caller: y, gg ([M, C] bf16), stats (f32 [M, 2]), h,
-// gh ([M, 4C] bf16), gy (f32 [M, C]), part f32 [ceil(M / 64), 8C], ws f32
-// [splits, 4C, C]; stage D's token splits hold ks tokens each (a multiple of
-// 64). Returns the first cudaError_t of its launches.
+namespace {
+
+// One call in the activations' type T: the LN form with ls, else the MLP's.
+template <typename T>
+int bwd_call(const void* t, const void* g, const void* ls, const void* lb, const void* w1t,
+             const void* w1, const void* b1, const void* w2t, const void* w2, const void* b2,
+             const void* gamma, void* dt, void* small, void* dw1t, void* dw2t, void* dgamma,
+             void* y, void* gg, void* stats, void* h, void* gh, void* gy, void* part, void* ws,
+             long long M, int C, int splits, long long ks, cudaStream_t s) {
+  const MlpBwd<T> a{t, (const T*)g, (const T*)w1t, (const T*)w1, (const T*)w2t, (const T*)w2,
+                    (const float*)ls, (const float*)lb, (const float*)b1, (const float*)b2,
+                    (const float*)gamma, (T*)dt, nullptr, (float*)small, (float*)dw1t,
+                    (float*)dw2t, (float*)dgamma, (T*)y, (T*)gg, (T*)h, (T*)gh, (float*)stats,
+                    (float*)gy, (float*)part, (float*)ws, M, ks, C, splits, LN_EPS};
+  return ls ? mlp_bwd<T, true>(a, s) : mlp_bwd<T, false>(a, s);
+}
+
+int bwd_typed(int dtype, const void* t, const void* g, const void* ls, const void* lb,
+              const void* w1t, const void* w1, const void* b1, const void* w2t, const void* w2,
+              const void* b2, const void* gamma, void* dt, void* small, void* dw1t, void* dw2t,
+              void* dgamma, void* y, void* gg, void* stats, void* h, void* gh, void* gy,
+              void* part, void* ws, long long M, int C, int splits, long long ks, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return bwd_call<bf16>(t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small, dw1t, dw2t,
+                          dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, s);
+  if (dtype == 1)
+    return bwd_call<float>(t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small, dw1t, dw2t,
+                           dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// All activations [M, C] or [M, 4C] of one type (dtype 0: bf16, 1: f32),
+// token-major. Weights of that type in both layouts: w1t [4C, C] and w1 [C,
+// 4C], w2t [C, 4C] and w2 [4C, C]; ls, lb, b1, b2, gamma f32. Outputs: dt
+// [M, C] (the activations' type); small f32 [8C] = db1 (4C), dln_scale,
+// dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C] f32. Scratch
+// from the caller: y, gg ([M, C]), stats (f32 [M, 2]), h, gh ([M, 4C]), gy
+// (f32 [M, C]), part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C]; stage
+// D's token splits hold ks tokens each (a multiple of 64). Returns the first
+// cudaError_t of its launches.
 extern "C" int svt_ln_mlp_bwd(
     const void* t, const void* g, const void* ls, const void* lb, const void* w1t,
     const void* w1, const void* b1, const void* w2t, const void* w2, const void* b2,
     const void* gamma, void* dt, void* small, void* dw1t, void* dw2t, void* dgamma, void* y,
-    void* gg, void* stats, void* h, void* gh, void* gy, void* part, void* ws, long long M, int C,
-    int splits, long long ks, void* stream) {
-  const MlpBwd a{t, (const bf16*)g, (const bf16*)w1t, (const bf16*)w1, (const bf16*)w2t,
-                 (const bf16*)w2, (const float*)ls, (const float*)lb, (const float*)b1,
-                 (const float*)b2, (const float*)gamma, (bf16*)dt, nullptr, (float*)small,
-                 (float*)dw1t, (float*)dw2t, (float*)dgamma, (bf16*)y, (bf16*)gg, (bf16*)h,
-                 (bf16*)gh, (float*)stats, (float*)gy, (float*)part, (float*)ws, M, ks, C,
-                 splits, LN_EPS};
-  return mlp_bwd<true>(a, (cudaStream_t)stream);
+    void* gg, void* stats, void* h, void* gh, void* gy, void* part, void* ws, int dtype,
+    long long M, int C, int splits, long long ks, void* stream) {
+  if (!ls || !lb) return (int)cudaErrorInvalidValue;
+  return bwd_typed(dtype, t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small, dw1t, dw2t,
+                   dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, stream);
 }
 
-// The MLP + LayerScale backward from its input y [M, C] bf16: dy [M, C] bf16
+// The MLP + LayerScale backward from its input y [M, C]: dy [M, C] (y's type)
 // and, as svt_ln_mlp_bwd, small (db1, zeros, zeros, db2, sum g), dw1t, dw2t,
 // dgamma; the scratch without y, stats and gy. Returns the first cudaError_t
 // of its launches.
@@ -82,11 +113,8 @@ extern "C" int svt_mlp_bwd(
     const void* y, const void* g, const void* w1t, const void* w1, const void* b1,
     const void* w2t, const void* w2, const void* b2, const void* gamma, void* dy, void* small,
     void* dw1t, void* dw2t, void* dgamma, void* gg, void* h, void* gh, void* part, void* ws,
-    long long M, int C, int splits, long long ks, void* stream) {
-  const MlpBwd a{y, (const bf16*)g, (const bf16*)w1t, (const bf16*)w1, (const bf16*)w2t,
-                 (const bf16*)w2, nullptr, nullptr, (const float*)b1, (const float*)b2,
-                 (const float*)gamma, (bf16*)dy, nullptr, (float*)small, (float*)dw1t,
-                 (float*)dw2t, (float*)dgamma, nullptr, (bf16*)gg, (bf16*)h, (bf16*)gh, nullptr,
-                 nullptr, (float*)part, (float*)ws, M, ks, C, splits, LN_EPS};
-  return mlp_bwd<false>(a, (cudaStream_t)stream);
+    int dtype, long long M, int C, int splits, long long ks, void* stream) {
+  return bwd_typed(dtype, y, g, nullptr, nullptr, w1t, w1, b1, w2t, w2, b2, gamma, dy, small,
+                   dw1t, dw2t, dgamma, nullptr, gg, nullptr, h, gh, nullptr, part, ws, M, C,
+                   splits, ks, stream);
 }

@@ -9,8 +9,15 @@
 //   reduce_rows  the fixed-order sum of stage D's token splits;
 // and mlp_bwd, which runs them in order. Each library that includes this gets
 // its own copy.
+//
+// The f32 forms (T = float: the JAX kernels run in f32) run the same stages
+// with every activation in f32 and the products on the f32 core
+// (f32_gemm.cuh, stage B's two products in one unit, stage D's token splits
+// as bf16's): g_hpre, g_y and dt are f32, the weight and bias gradients f32
+// sums in the same fixed orders.
 #pragma once
 
+#include "f32_gemm.cuh"
 #include "reduce.cuh"
 #include "wg_gemm.cuh"
 
@@ -51,14 +58,14 @@ __device__ __forceinline__ void warp_rows_to(float* red, const float (&v)[Lanes<
 
 // Stage A. part rows: [db1 (4C) | dln_scale | dln_bias | db2 | sum g], 8C
 // floats a 64-token tile; this writes db2 and sum g (and, without the
-// LayerNorm, zeros for its two rows). With LN, y = LN(t) goes to y_out (bf16)
+// LayerNorm, zeros for its two rows). With LN, y = LN(t) goes to y_out (T)
 // and each token's mean and rstd to stats; without it, t is y itself. With
 // U32 (the whole-block backward) t is the unrounded f32 conv output.
-template <int C, bool LN, bool U32>
+template <typename T, int C, bool LN, bool U32>
 __global__ void __launch_bounds__(ROW_THREADS) bwd_rows(
-    const typename std::conditional<U32, float, bf16>::type* __restrict__ t,
-    const bf16* __restrict__ gout, const float* __restrict__ ls, const float* __restrict__ lb,
-    const float* __restrict__ gamma, bf16* __restrict__ y_out, bf16* __restrict__ gg,
+    const typename std::conditional<U32, float, T>::type* __restrict__ t,
+    const T* __restrict__ gout, const float* __restrict__ ls, const float* __restrict__ lb,
+    const float* __restrict__ gamma, T* __restrict__ y_out, T* __restrict__ gg,
     float* __restrict__ stats, float* __restrict__ part, long long M, float eps) {
   static_assert(LN || !U32, "the f32 input is the LayerNorm form's");
   constexpr int NP = Lanes<C>::NP;
@@ -127,13 +134,13 @@ __global__ void __launch_bounds__(ROW_THREADS) bwd_rows(
 
 // Stage L: the LayerNorm backward a row per warp step, dt = rstd * (dyh -
 // mean(dyh) - yhat * mean(dyh * yhat)) with dyh = g_y * ln_scale, from the
-// f32 g_y; dt in bf16 (and, with U32, in f32 to gu32); the part rows
+// f32 g_y; dt in T (and, with U32, in f32 to gu32); the part rows
 // dln_scale = sum g_y * yhat and dln_bias = sum g_y.
-template <int C, bool U32>
+template <typename T, int C, bool U32>
 __global__ void __launch_bounds__(ROW_THREADS) ln_rows_bwd(
-    const typename std::conditional<U32, float, bf16>::type* __restrict__ t,
+    const typename std::conditional<U32, float, T>::type* __restrict__ t,
     const float* __restrict__ gy, const float* __restrict__ stats,
-    const float* __restrict__ ls, bf16* __restrict__ dt, float* __restrict__ gu32,
+    const float* __restrict__ ls, T* __restrict__ dt, float* __restrict__ gu32,
     float* __restrict__ part, long long M) {
   constexpr int NP = Lanes<C>::NP;
   __shared__ float red[ROW_WARPS * C];
@@ -186,11 +193,16 @@ __global__ void __launch_bounds__(ROW_THREADS) ln_rows_bwd(
   warp_rows_to<C>(red, clb, warp, lane, mypart + 5 * C);
 }
 
-// out[r][c] = scale[r] * sum over splits (in order) of ws[s][r][c]; with w,
-// also dgamma[r] = sum_c w[r][c] * (that sum) + gsum[r] * b2[r]. A row a CTA.
+__device__ __forceinline__ float w_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float w_f32(float v) { return v; }
+
+// out[r][c] = scale[r] * sum over splits (in order) of ws[s][r][c]; with w
+// (of the weights' type W), also dgamma[r] = sum_c w[r][c] * (that sum) +
+// gsum[r] * b2[r]. A row a CTA.
+template <typename W>
 __global__ void __launch_bounds__(256) reduce_rows(
     const float* __restrict__ ws, int splits, int N1, int N2,
-    const float* __restrict__ scale, const bf16* __restrict__ w,
+    const float* __restrict__ scale, const W* __restrict__ w,
     const float* __restrict__ gsum, const float* __restrict__ b2,
     float* __restrict__ out, float* __restrict__ dgamma) {
   __shared__ float part[8];
@@ -200,7 +212,7 @@ __global__ void __launch_bounds__(256) reduce_rows(
   for (int c = threadIdx.x; c < N2; c += blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < splits; ++k) s += ws[((size_t)k * N1 + r) * N2 + c];
-    if (w) dot += __bfloat162float(w[(size_t)r * N2 + c]) * s;
+    if (w) dot += w_f32(w[(size_t)r * N2 + c]) * s;
     out[(size_t)r * N2 + c] = s * sc;
   }
   if (w == nullptr) return;  // uniform over the CTA
@@ -215,34 +227,84 @@ __global__ void __launch_bounds__(256) reduce_rows(
 }
 
 // Everything a backward call reads, writes and uses as scratch (ops/fused_mlp.py
-// allocates it). t is bf16, or f32 with U32; every other activation is bf16
-// [M, C] or [M, 4C]; y aliases t without the LayerNorm.
+// allocates it). t is T, or f32 with U32; every other activation is T [M, C]
+// or [M, 4C]; y aliases t without the LayerNorm.
+template <typename T>
 struct MlpBwd {
   const void* t;
-  const bf16 *g, *w1t, *w1, *w2t, *w2;
+  const T *g, *w1t, *w1, *w2t, *w2;
   const float *ls, *lb, *b1, *b2, *gamma;
-  bf16* dt;
+  T* dt;
   float *gu32, *small, *dw1t, *dw2t, *dgamma;
-  bf16 *y, *gg, *h, *gh;
+  T *y, *gg, *h, *gh;
   float *stats, *gy, *part, *ws;
   long long M, ks;
   int C, splits;
   float eps;
 };
 
+// Stages B, C and D's products on the f32 core (f32_gemm.cuh), as the wgmma
+// stages below compute them; L between C and D as there.
 template <int C, bool LN, bool U32>
-int mlp_bwd_c(const MlpBwd& a, cudaStream_t s) {
+int mlp_bwd_f32(const MlpBwd<float>& a, const float* y, long long row_tiles, cudaStream_t s) {
+  using namespace f32g;
+  const long long M = a.M;
+  const int H4 = 4 * C;
+  int err;
+  {  // B: h_pre = y . W1, g_h = (g * gamma) . W2^T; their epilogue
+    EpiF e{};
+    e.b1 = a.b1;
+    e.h = a.h;
+    e.gh = a.gh;
+    e.part = a.part;
+    e.C = C;
+    const Gemm g{M, C, C, H4, tiles(M), tiles(H4), 1};
+    if ((err = launch<2, false, EPI_HIDDEN>(Ops{{y, a.gg}, {a.w1t, a.w2}}, g, e, s))) return err;
+  }
+  {  // C: g_y = g_hpre . W1^T: dy, or g_y for stage L
+    EpiF e{};
+    e.dy = a.dt;
+    e.gy = a.gy;
+    e.C = C;
+    const Gemm g{M, H4, H4, C, tiles(M), tiles(C), 1};
+    const Ops op{{a.gh, nullptr}, {a.w1, nullptr}};
+    err = LN ? launch<1, false, EPI_GY>(op, g, e, s) : launch<1, false, EPI_DY>(op, g, e, s);
+    if (err) return err;
+  }
+  if constexpr (LN) {  // L
+    ln_rows_bwd<float, C, U32><<<(unsigned)row_tiles, ROW_THREADS, 0, s>>>(
+        static_cast<const float*>(a.t), a.gy, a.stats, a.ls, a.dt, a.gu32, a.part, M);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  // D: the per-tile rows -> small; dW1^T = g_hpre^T . y and A^T = g^T . h
+  // over token splits (token-major operands), each reduced in split order.
+  svt::colsum<<<(unsigned)((8 * C + 31) / 32), dim3(32, 32), 0, s>>>(a.part, row_tiles, 8 * C,
+                                                                     a.small);
+  if ((err = (int)cudaGetLastError())) return err;
+  EpiF e{};
+  e.ws = a.ws;
+  e.C = C;
+  const Gemm g1{H4, M, a.ks, C, tiles(H4), tiles(C), a.splits};
+  if ((err = launch<1, true, EPI_WS>(Ops{{a.gh, nullptr}, {y, nullptr}}, g1, e, s))) return err;
+  reduce_rows<float><<<H4, 256, 0, s>>>(a.ws, a.splits, H4, C, nullptr, nullptr, nullptr,
+                                        nullptr, a.dw1t, nullptr);
+  if ((err = (int)cudaGetLastError())) return err;
+  const Gemm g2{C, M, a.ks, H4, tiles(C), tiles(H4), a.splits};
+  if ((err = launch<1, true, EPI_WS>(Ops{{a.g, nullptr}, {a.h, nullptr}}, g2, e, s))) return err;
+  // dW2 = gamma * A^T; dgamma = sum_j W2 * A^T + (sum g) * b2.
+  reduce_rows<float><<<C, 256, 0, s>>>(a.ws, a.splits, C, H4, a.gamma, a.w2t, a.small + 7 * C,
+                                       a.b2, a.dw2t, a.dgamma);
+  return (int)cudaGetLastError();
+}
+
+// Stages B, C, L and D of the bf16 form: wgmma products fed by TMA.
+template <int C, bool LN, bool U32>
+int mlp_bwd_wg(const MlpBwd<bf16>& a, const bf16* y, long long row_tiles, cudaStream_t s) {
   using TT = typename std::conditional<U32, float, bf16>::type;
   const long long M = a.M;
-  const long long row_tiles = (M + TOK - 1) / TOK;
-  const bf16* y = LN ? a.y : static_cast<const bf16*>(a.t);
   const int H4 = 4 * C;
   const int tiles_m = (int)((M + BM - 1) / BM);
   int err;
-  bwd_rows<C, LN, U32><<<(unsigned)row_tiles, ROW_THREADS, 0, s>>>(
-      static_cast<const TT*>(a.t), a.g, a.ls, a.lb, a.gamma, a.y, a.gg, a.stats, a.part, M,
-      a.eps);
-  if ((err = (int)cudaGetLastError())) return err;
   {  // B: h_pre = y . W1, g_h = (g * gamma) . W2^T; their epilogue
     CUtensorMap m[4];
     if ((err = hop::make_map(&m[0], y, M, C, C, BM)) ||
@@ -279,7 +341,7 @@ int mlp_bwd_c(const MlpBwd& a, cudaStream_t s) {
     if (err) return err;
   }
   if constexpr (LN) {  // L
-    ln_rows_bwd<C, U32><<<(unsigned)row_tiles, ROW_THREADS, 0, s>>>(
+    ln_rows_bwd<bf16, C, U32><<<(unsigned)row_tiles, ROW_THREADS, 0, s>>>(
         static_cast<const TT*>(a.t), a.gy, a.stats, a.ls, a.dt, a.gu32, a.part, M);
     if ((err = (int)cudaGetLastError())) return err;
   }
@@ -300,8 +362,8 @@ int mlp_bwd_c(const MlpBwd& a, cudaStream_t s) {
     e.C = C;
     const Gemm g1{H4, M, a.ks, C, H4 / BM, (C + BN - 1) / BN, a.splits};
     if ((err = launch_gemm<1, 1, true, EPI_WS>(m, g1, e, s))) return err;
-    reduce_rows<<<H4, 256, 0, s>>>(a.ws, a.splits, H4, C, nullptr, nullptr, nullptr, nullptr,
-                                   a.dw1t, nullptr);
+    reduce_rows<bf16><<<H4, 256, 0, s>>>(a.ws, a.splits, H4, C, nullptr, nullptr, nullptr,
+                                         nullptr, a.dw1t, nullptr);
     if ((err = (int)cudaGetLastError())) return err;
     if ((err = hop::make_map(&m[0], a.g, M, C, C, 64)) ||
         (err = hop::make_map(&m[2], a.h, M, H4, H4, 64)))
@@ -311,23 +373,39 @@ int mlp_bwd_c(const MlpBwd& a, cudaStream_t s) {
     const Gemm g2{C, M, a.ks, H4, (C + BM - 1) / BM, H4 / BN, a.splits};
     if ((err = launch_gemm<1, 1, true, EPI_WS>(m, g2, e, s))) return err;
     // dW2 = gamma * A^T; dgamma = sum_j W2 * A^T + (sum g) * b2.
-    reduce_rows<<<C, 256, 0, s>>>(a.ws, a.splits, C, H4, a.gamma, a.w2t, a.small + 7 * C, a.b2,
-                                  a.dw2t, a.dgamma);
+    reduce_rows<bf16><<<C, 256, 0, s>>>(a.ws, a.splits, C, H4, a.gamma, a.w2t, a.small + 7 * C,
+                                        a.b2, a.dw2t, a.dgamma);
     if ((err = (int)cudaGetLastError())) return err;
   }
   return 0;
 }
 
+template <typename T, int C, bool LN, bool U32>
+int mlp_bwd_c(const MlpBwd<T>& a, cudaStream_t s) {
+  using TT = typename std::conditional<U32, float, T>::type;
+  const long long M = a.M;
+  const long long row_tiles = (M + TOK - 1) / TOK;
+  const T* y = LN ? a.y : static_cast<const T*>(a.t);
+  bwd_rows<T, C, LN, U32><<<(unsigned)row_tiles, ROW_THREADS, 0, s>>>(
+      static_cast<const TT*>(a.t), a.g, a.ls, a.lb, a.gamma, a.y, a.gg, a.stats, a.part, M,
+      a.eps);
+  if (const int err = (int)cudaGetLastError()) return err;
+  if constexpr (std::is_same<T, float>::value)
+    return mlp_bwd_f32<C, LN, U32>(a, y, row_tiles, s);
+  else
+    return mlp_bwd_wg<C, LN, U32>(a, y, row_tiles, s);
+}
+
 // One backward call, its stages in order. Each split of stage D must hold at
 // least one token: ks a multiple of BK, (splits - 1) * ks < M <= splits * ks.
-template <bool LN, bool U32 = false>
-int mlp_bwd(const MlpBwd& a, cudaStream_t s) {
+template <typename T, bool LN, bool U32 = false>
+int mlp_bwd(const MlpBwd<T>& a, cudaStream_t s) {
   if (a.M <= 0 || a.M > 0x7fffffffLL || a.ks <= 0 || a.ks % BK || a.splits <= 0 ||
       (a.splits - 1) * a.ks >= a.M || a.splits * a.ks < a.M)
     return (int)cudaErrorInvalidValue;
 #define SVT_MLP_BWD_CASE(CC) \
   case CC:                   \
-    return mlp_bwd_c<CC, LN, U32>(a, s);
+    return mlp_bwd_c<T, CC, LN, U32>(a, s);
   switch (a.C) {
     SVT_MLP_BWD_CASE(96)
     SVT_MLP_BWD_CASE(128)

@@ -1,4 +1,4 @@
-// The MLP of token rows, NHWC bf16, for Hopper: the forms that replace the
+// The MLP of token rows, NHWC bf16 or f32, for Hopper: the forms that replace the
 // TPU's token-tiled MLP kernels of spine_vision_tpu/ops/fused_mlp.py:
 //   LN (svt_ln_mlp_forward): _ln_mlp_pallas (_ln_mlp_tail_kernel), out =
 //     res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2), three launches;
@@ -23,7 +23,15 @@
 // bf16, bias, GELU and tail in f32, the output rounded once. The caller
 // allocates y and h. No atomics: every output element has one writer, so two
 // runs agree bit for bit.
+//
+// The f32 forms (the JAX kernels run in f32) are L in f32, mlp_ln_rows<float,
+// C> (y in f32), then F1 and F2 on the f32 product core (f32_gemm.cuh), h in
+// f32 [M, 4C] as the TPU kernels store h in the input's dtype; bound by the
+// f32 rate (16 * M * C^2 flops at 67 TFLOP/s).
+#include "f32_gemm.cuh"
 #include "wg_gemm.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -38,12 +46,12 @@ struct LnRows {
 };
 
 // L: y = LN(x) * ln_scale + ln_bias over the rows of x in f32, rounded once
-// to bf16 (ops/fused_mlp.py::ln_rows_reference); a lane owns the channel pairs
+// to T (ops/fused_mlp.py::ln_rows_reference); a lane owns the channel pairs
 // 32 q + lane.
-template <int C>
+template <typename T, int C>
 __global__ void __launch_bounds__(LN_THREADS) mlp_ln_rows(
-    const bf16* __restrict__ x, const float* __restrict__ ln_scale,
-    const float* __restrict__ ln_bias, bf16* __restrict__ y, long long M, float eps) {
+    const T* __restrict__ x, const float* __restrict__ ln_scale,
+    const float* __restrict__ ln_bias, T* __restrict__ y, long long M, float eps) {
   using L = LnRows<C>;
   constexpr int NP = svt::Lanes<C>::NP;
   const int lane = threadIdx.x & 31;
@@ -81,47 +89,59 @@ __global__ void __launch_bounds__(LN_THREADS) mlp_ln_rows(
   }
 }
 
-// Everything a row call reads and writes. ln_scale null: the copy form (no
-// L, y is x); res null: no tail (gamma not read). y (LN only) [M, C] and h
-// [M, 4C] are the caller's scratch.
+// Everything a row call reads and writes, in x's type T. ln_scale null: the
+// copy form (no L, y is x); res null: no tail (gamma not read). y (LN only)
+// [M, C] and h [M, 4C] are the caller's scratch.
+template <typename T>
 struct RowFwd {
-  const bf16 *x, *res;
+  const T *x, *res;
   const float *ln_scale, *ln_bias;
-  const bf16* w1t;
+  const T* w1t;
   const float* b1;
-  const bf16* w2t;
+  const T* w2t;
   const float *b2, *gamma;
-  bf16 *out, *y, *h;
+  T *out, *y, *h;
   long long M;
   float eps;
 };
 
-template <int C>
-int row_forward(const RowFwd& a, cudaStream_t s) {
-  const bf16* y = a.x;
+// F1 and F2 on the type's product core: wgmma for bf16, f32_gemm.cuh for f32.
+template <typename T, int C, int EPI2, typename E>
+int products(const T* y, const RowFwd<T>& a, E e, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value)
+    return f32g::mlp_products<C, EPI2>(y, a.w1t, a.b1, a.w2t, a.h, a.M, e, s);
+  else
+    return mlp_products<C, EPI2>(y, a.w1t, a.b1, a.w2t, a.h, a.M, e, s);
+}
+
+template <typename T, int C>
+int row_forward(const RowFwd<T>& a, cudaStream_t s) {
+  const T* y = a.x;
   if (a.ln_scale) {  // L
     using L = LnRows<C>;
-    mlp_ln_rows<C><<<(unsigned)((a.M + L::TOKS - 1) / L::TOKS), LN_THREADS, 0, s>>>(
+    mlp_ln_rows<T, C><<<(unsigned)((a.M + L::TOKS - 1) / L::TOKS), LN_THREADS, 0, s>>>(
         a.x, a.ln_scale, a.ln_bias, a.y, a.M, a.eps);
     if (const int err = (int)cudaGetLastError()) return err;
     y = a.y;
   }
-  Epi e{};
+  using E = typename std::conditional<std::is_same<T, float>::value, f32g::EpiF, Epi>::type;
+  E e{};
   e.b2 = a.b2;
   e.out = a.out;
-  if (!a.res) return mlp_products<C, EPI_BIAS>(y, a.w1t, a.b1, a.w2t, a.h, a.M, e, s);
+  if (!a.res) return products<T, C, EPI_BIAS>(y, a, e, s);
   e.gamma = a.gamma;
   e.x = a.res;
-  return mlp_products<C, EPI_OUT>(y, a.w1t, a.b1, a.w2t, a.h, a.M, e, s);
+  return products<T, C, EPI_OUT>(y, a, e, s);
 }
 
-int row_dispatch(const RowFwd& a, int C, void* stream) {
+template <typename T>
+int row_dispatch(const RowFwd<T>& a, int C, void* stream) {
   if (a.M == 0) return 0;
   if (a.M < 0 || a.M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;  // TMA's 32-bit rows
   cudaStream_t s = (cudaStream_t)stream;
 #define SVT_ROW_CASE(CC) \
   case CC:               \
-    return row_forward<CC>(a, s);
+    return row_forward<T, CC>(a, s);
   switch (C) {
     SVT_ROW_CASE(96)
     SVT_ROW_CASE(128)
@@ -135,22 +155,44 @@ int row_dispatch(const RowFwd& a, int C, void* stream) {
 #undef SVT_ROW_CASE
 }
 
+template <typename T>
+int row_call(const void* x, const void* res, const void* ln_scale, const void* ln_bias,
+             const void* w1t, const void* b1, const void* w2t, const void* b2,
+             const void* gamma, void* out, void* y, void* h, long long M, int C, float eps,
+             void* stream) {
+  const RowFwd<T> a{(const T*)x, (const T*)res, (const float*)ln_scale, (const float*)ln_bias,
+                    (const T*)w1t, (const float*)b1, (const T*)w2t, (const float*)b2,
+                    (const float*)gamma, (T*)out, (T*)y, (T*)h, M, eps};
+  return row_dispatch(a, C, stream);
+}
+
+int row_typed(int dtype, const void* x, const void* res, const void* ln_scale,
+              const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
+              const void* b2, const void* gamma, void* out, void* y, void* h, long long M, int C,
+              float eps, void* stream) {
+  if (dtype == 0)
+    return row_call<bf16>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, M, C,
+                          eps, stream);
+  if (dtype == 1)
+    return row_call<float>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, M, C,
+                           eps, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // out = res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2) over M token rows
 // of width C: x, res, w1t [4C, C], w2t [C, 4C], out and the scratch y [M, C]
-// and h [M, 4C] bf16, the rest f32. Returns the first cudaError_t of the
-// three launches.
+// and h [M, 4C] of one type (dtype 0: bf16, 1: f32), the rest f32. Returns
+// the first cudaError_t of the three launches.
 extern "C" int svt_ln_mlp_forward(const void* x, const void* res, const void* ln_scale,
                                   const void* ln_bias, const void* w1t, const void* b1,
                                   const void* w2t, const void* b2, const void* gamma,
-                                  void* out, void* y, void* h, long long M, int C, float eps,
-                                  void* stream) {
-  const RowFwd a{(const bf16*)x, (const bf16*)res, (const float*)ln_scale,
-                 (const float*)ln_bias, (const bf16*)w1t, (const float*)b1, (const bf16*)w2t,
-                 (const float*)b2, (const float*)gamma, (bf16*)out, (bf16*)y, (bf16*)h, M, eps};
+                                  void* out, void* y, void* h, int dtype, long long M, int C,
+                                  float eps, void* stream) {
   if (!ln_scale || !ln_bias || !res || !gamma || !y) return (int)cudaErrorInvalidValue;
-  return row_dispatch(a, C, stream);
+  return row_typed(dtype, x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, M, C,
+                   eps, stream);
 }
 
 // out = res + gamma * (W2 . gelu_tanh(W1 . x + b1) + b2), or with res null
@@ -159,11 +201,9 @@ extern "C" int svt_ln_mlp_forward(const void* x, const void* res, const void* ln
 // first cudaError_t of the two launches.
 extern "C" int svt_mlp_forward(const void* x, const void* res, const void* w1t,
                                const void* b1, const void* w2t, const void* b2,
-                               const void* gamma, void* out, void* h, long long M, int C,
-                               void* stream) {
-  const RowFwd a{(const bf16*)x, (const bf16*)res, nullptr, nullptr, (const bf16*)w1t,
-                 (const float*)b1, (const bf16*)w2t, (const float*)b2, (const float*)gamma,
-                 (bf16*)out, nullptr, (bf16*)h, M, 0.f};
+                               const void* gamma, void* out, void* h, int dtype, long long M,
+                               int C, void* stream) {
   if (res && !gamma) return (int)cudaErrorInvalidValue;
-  return row_dispatch(a, C, stream);
+  return row_typed(dtype, x, res, nullptr, nullptr, w1t, b1, w2t, b2, gamma, out, nullptr, h, M,
+                   C, 0.f, stream);
 }

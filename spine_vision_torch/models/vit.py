@@ -125,7 +125,9 @@ class ViT(nn.Module):
         d, p = config.hidden_dim, config.patch_size
         self.patch_embed = Conv(3, d, p, p, dtype=dtype, device=device, generator=generator,
                                 param_dtype=param_dtype)
-        f32 = {"dtype": param_dtype or dtype, "device": device}
+        # f32 whatever the compute dtype (Flax's default param_dtype): the
+        # table is resized in f32 and cast where it is added.
+        f32 = {"dtype": param_dtype or torch.float32, "device": device}
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, **f32))
         pos = torch.randn(1, pos_embed_grid**2 + 1, d, generator=generator) * 0.02
         self.pos_embed = nn.Parameter(pos.to(**f32))

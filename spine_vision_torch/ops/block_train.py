@@ -29,6 +29,10 @@ whole-block kernel forward (NHWC, C <= 512).
   (``ops/dwconv.py::depthwise_conv7x7``) where the JAX package runs an XLA
   grouped conv.
 
+Both take bf16 or f32 (x, the filter and the weights of one type), as the
+JAX kernels run in either; the f32 forms run the MLP products on the f32
+product core (``csrc/f32_gemm.cuh``).
+
 Gradients come back in each argument's dtype; the f32 master weights behind a
 bf16 argument receive theirs through the cast's backward, as in Flax. On CPU
 tensors the kernels' plain versions run, so the CPU path computes the same
@@ -46,6 +50,8 @@ from spine_vision_torch.ops import cuda_build
 from spine_vision_torch.ops import fused_mlp as fm
 from spine_vision_torch.ops.convnext_block import convnext_block
 from spine_vision_torch.ops.dwconv import (
+    _DTYPES,
+    _ITEM,
     KERNEL_SIZE,
     PAD,
     TAPS,
@@ -55,8 +61,8 @@ from spine_vision_torch.ops.dwconv import (
 from spine_vision_torch.ops.fused_mlp import MAX_FUSED_DIM, ln_mlp_bwd
 
 # #10's tap sums (csrc/block_train_bwd.cu, tap_sums; dws::Taps): 64-channel
-# slabs, x rows in a ring of 9 (bf16) and g_u rows in a ring of 3 (f32), in
-# strips of 16 or 32 columns, at three CTAs a multiprocessor.
+# slabs, x rows in a ring of 9 (x's type) and g_u rows in a ring of 3 (f32),
+# in strips of 16 or 32 columns, at three CTAs a multiprocessor (bf16).
 _SLAB = 64
 _TAP_RING, _TAP_GSLOTS = KERNEL_SIZE + 2, 3
 TAP_CTAS_AN_SM = 3
@@ -64,15 +70,15 @@ _TAP_MIN_RUN_ROWS = 16  # the tap sums' runs at least (or the image): a run read
 _TAP_CTAS = 1024  # CTAs a call aims at, runs shortening toward it down to that minimum
 
 
-def tap_geometry(b: int, h: int, w: int, c: int) -> dict:
+def tap_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch geometry of #10's tap sums (``csrc/block_train_bwd.cu``'s
-    ``tap_sums``) for a [b, h, w, c] input: the strip width (16 columns at
-    W <= 16, else 32), strips, slabs, rows a run (at least
+    ``tap_sums``) for a [b, h, w, c] input in ``dtype``: the strip width (16
+    columns at W <= 16, else 32), strips, slabs, rows a run (at least
     ``_TAP_MIN_RUN_ROWS`` or the image, fewer runs where more would start
     over ``_TAP_CTAS`` CTAs), runs an image, CTAs (blockIdx ``part * slabs +
     slab``, part ``(image * runs + run) * strips + strip``), shared memory a
-    CTA and ``parts``, the workspace rows colsum adds. Raises on what the
-    kernel does not take."""
+    CTA (the x ring in ``dtype``) and ``parts``, the workspace rows colsum
+    adds. Raises on what the kernel does not take."""
     if c not in fm.KERNEL_WIDTHS:
         raise ValueError(f"block_train_bwd kernel is built for C in {fm.KERNEL_WIDTHS}, got {c}")
     if not 0 < b * h * w < 2 ** 31:
@@ -83,7 +89,7 @@ def tap_geometry(b: int, h: int, w: int, c: int) -> dict:
     rows = max(min(h, _TAP_MIN_RUN_ROWS), -(-h // wanted))
     runs = -(-h // rows)
     parts = b * runs * strips
-    smem = (_TAP_RING * (strip + 2 * PAD) * _SLAB * 2  # the x ring, bf16
+    smem = (_TAP_RING * (strip + 2 * PAD) * _SLAB * _ITEM[dtype]  # the x ring
             + _TAP_GSLOTS * strip * _SLAB * 4)  # the g_u ring, f32
     return {"strip": strip, "strips": strips, "slabs": slabs, "rows_per_run": rows,
             "runs": runs, "ctas": parts * slabs, "smem": smem, "parts": parts}
@@ -224,6 +230,25 @@ def block_train_bwd_reference(
     return (g_u.to(x.dtype), dk, ddwb, *grads)
 
 
+def _check(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g) -> None:
+    """Raise on what ``csrc/block_train_bwd.cu`` does not take, before any
+    build or launch: NHWC ``x``, the filter, ``g`` and the weights of one
+    type, bf16 or f32 (TypeError otherwise), f32 vectors, C in
+    ``fused_mlp.KERNEL_WIDTHS``, contiguous tensors on x's device."""
+    if x.dim() != 4:
+        raise ValueError(f"block_train_bwd expects NHWC [B, H, W, C], got {tuple(x.shape)}")
+    c = x.shape[-1]
+    fm._check("block_train_bwd", x, g, (("dw_bias", dw_bias, c), ("ln_scale", ln_scale, c),
+                                        ("ln_bias", ln_bias, c), ("b1", b1, 4 * c),
+                                        ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
+    if k49.dtype != x.dtype:
+        raise TypeError(f"block_train_bwd takes x and the filter in one type, got x in "
+                        f"{x.dtype} and k49 in {k49.dtype}")
+    if (tuple(k49.shape) != (TAPS, c) or not k49.is_contiguous()
+            or k49.device != x.device):
+        raise ValueError("block_train_bwd wants the contiguous [49, C] filter on x's device")
+
+
 def bwd_launch(
     x: torch.Tensor,
     k49: torch.Tensor,
@@ -243,21 +268,15 @@ def bwd_launch(
     g_u in bf16), ``u`` and ``gu32`` (f32 ``[M, C]``), the tap sums'
     workspace ``tpart`` ``[parts, 50 * C]`` and ``taps`` (dk, ddwb), which the
     stage tests read. The launch counter is :func:`block_train_bwd`'s; this
-    counts nothing. Raises on what the kernel does not take (bf16 ``x``,
-    ``k49`` and ``g``, C in ``fused_mlp.KERNEL_WIDTHS``)."""
-    if x.dim() != 4:
-        raise ValueError(f"block_train_bwd expects NHWC [B, H, W, C], got {tuple(x.shape)}")
+    counts nothing. Raises on what the kernel does not take (``x``, ``k49``,
+    ``g`` and the weights bf16 or f32, one type; C in
+    ``fused_mlp.KERNEL_WIDTHS``), before any build or launch."""
+    _check(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
     b, h, w, c = x.shape
-    fm._check("block_train_bwd", x, g, (("dw_bias", dw_bias, c), ("ln_scale", ln_scale, c),
-                                        ("ln_bias", ln_bias, c), ("b1", b1, 4 * c),
-                                        ("b2", b2, c), ("gamma", gamma, c)), w1t, w2t)
-    if (tuple(k49.shape) != (TAPS, c) or k49.dtype != torch.bfloat16
-            or not k49.is_contiguous() or k49.device != x.device):
-        raise ValueError("block_train_bwd wants the contiguous bf16 [49, C] filter on x's device")
     m = b * h * w
-    taps = tap_geometry(b, h, w, c)
+    taps = tap_geometry(b, h, w, c, x.dtype)
     dev, f32 = x.device, torch.float32
-    geo = fm.bwd_geometry(m, c)
+    geo = fm.bwd_geometry(m, c, x.dtype)
     o = fm._buffers(x, True, geo)
     o["u"] = torch.empty(m, c, dtype=f32, device=dev)
     o["gu32"] = torch.empty(m, c, dtype=f32, device=dev)
@@ -273,7 +292,8 @@ def bwd_launch(
         p(b2), p(gamma), p(g), p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]),
         p(o["dgamma"]), p(o["taps"]), p(o["u"]), p(o["gu32"]), p(o["y"]), p(o["gg"]),
         p(o["stats"]), p(o["h"]), p(o["gh"]), p(o["gy"]), p(o["part"]), p(o["ws"]),
-        p(o["tpart"]), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
+        p(o["tpart"]), ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h),
+        ctypes.c_int(w), ctypes.c_int(c),
         ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]),
         ctypes.c_int(taps["rows_per_run"]), ctypes.c_float(eps), cuda_build.stream_ptr(dev),
     )
@@ -299,16 +319,18 @@ def block_train_bwd(
     ``(g_u, dk49, ddwb, dls, dlb, dw1t, db1, dw2t, db2, dgamma)`` as
     :func:`block_train_bwd_reference`.
 
-    CUDA tensors launch ``csrc/block_train_bwd.cu`` (:func:`bwd_launch`: bf16
-    ``x``, ``k49`` and ``g``, C in ``fused_mlp.KERNEL_WIDTHS``; anything else
-    raises); CPU tensors take the plain version. ``block_train_bwd.launches``
-    counts calls that launched it.
+    CUDA tensors launch ``csrc/block_train_bwd.cu`` (:func:`bwd_launch`:
+    ``x``, ``k49``, ``g`` and the weights bf16 or f32, one type; C in
+    ``fused_mlp.KERNEL_WIDTHS``; anything else raises); CPU tensors take the
+    plain version. ``block_train_bwd.launches`` counts calls that launched
+    it, ``block_train_bwd.f32_launches`` those in f32.
     """
     args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
     if x.device.type == "cpu":
         return block_train_bwd_reference(*args, eps=eps)
     o = bwd_launch(*args, eps=eps)
     block_train_bwd.launches += 1
+    block_train_bwd.f32_launches += x.dtype == torch.float32
     c = x.shape[-1]
     small, taps = o["small"], o["taps"]
     return (o["dt"], taps[: TAPS * c].view(TAPS, c), taps[TAPS * c:], small[4 * c: 5 * c],
@@ -317,6 +339,7 @@ def block_train_bwd(
 
 
 block_train_bwd.launches = 0
+block_train_bwd.f32_launches = 0
 
 
 class _TrainBlock(torch.autograd.Function):

@@ -8,11 +8,16 @@ kernel ``_block_pallas``; see the source for their design and bound), three
 a call:
 
 - P, the stencil + bias + LayerNorm prologue: ``y = LN(dwconv7x7(x) + b_dw)``
-  in bf16 (:func:`prologue_reference`);
-- F1, the hidden product: ``h = gelu_tanh(y . W1 + b1)`` in bf16
+  in x's dtype (:func:`prologue_reference`);
+- F1, the hidden product: ``h = gelu_tanh(y . W1 + b1)`` in x's dtype
   (:func:`hidden_reference`);
 - F2, the output product: ``out = (h . W2 + b2) * gamma + x``
   (:func:`out_reference`).
+
+x and the weights come in bf16 or f32 (one type), as the JAX kernel runs in
+either: bf16 on wgmma products, f32 on the f32 product core
+(``csrc/f32_gemm.cuh``) after an f32 P, whose halo ring takes twice the
+shared memory (:func:`forward_geometry`).
 
 F1 and F2, and their plain versions, are shared with the row MLP forms
 (``ops/fused_mlp.py``), which launch the same products.
@@ -46,6 +51,10 @@ import torch
 
 from spine_vision_torch.ops import cuda_build
 from spine_vision_torch.ops.dwconv import (
+    _DTYPES,
+    _ITEM,
+    SMEM_A_SM,
+    SMEM_RESERVED,
     depthwise_conv7x7_reference,
     dw_ln,
     dw_ln_bwd,
@@ -121,16 +130,19 @@ _HALO = 3  # the 7x7 stencil's reach
 
 def _tile_rows(c: int) -> int:
     """P's tile rows (PTile::PH): 64 tokens at C <= 192, else 32, so that the
-    f32 t tile and two halo chunks leave room for two CTAs a multiprocessor."""
+    f32 t tile and two bf16 halo chunks leave room for two CTAs a
+    multiprocessor (f32 halo chunks: one at most widths)."""
     return 8 if c <= 192 else 4
 
 
-def forward_geometry(b: int, h: int, w: int, c: int) -> dict:
+def forward_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch geometry of ``csrc/convnext_block.cu`` for a [b, h, w, c]
-    input: P's tile (rows, cols), its tiles a side, CTAs, halo chunks and
-    shared memory; F1's and F2's (row, column) tiles and wgmma tiles a CTA
-    tile (``nb``). Raises on what the kernels do not take, before anything
-    is launched."""
+    input in ``dtype``: P's tile (rows, cols), its tiles a side, CTAs, halo
+    chunks, shared memory a CTA (the f32 t tile and two halo chunks in
+    ``dtype``) and the CTAs that fit on a multiprocessor at once; F1's and
+    F2's (row, column) tiles and wgmma tiles a CTA tile (``nb``,
+    :func:`fused_mlp.product_geometry`). Raises on what the kernels do not
+    take, before anything is launched."""
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"convnext_block kernel is built for C in {KERNEL_WIDTHS}, got {c}")
     m = b * h * w
@@ -139,32 +151,40 @@ def forward_geometry(b: int, h: int, w: int, c: int) -> dict:
                          f"are 32-bit), got {m}")
     rows = _tile_rows(c)
     tiles = (-(-h // rows), -(-w // _TILE_COLS))
-    halo = (rows + 2 * _HALO) * (_TILE_COLS + 2 * _HALO) * _CHUNK * 2
+    halo = (rows + 2 * _HALO) * (_TILE_COLS + 2 * _HALO) * _CHUNK * _ITEM[dtype]
+    smem = rows * _TILE_COLS * c * 4 + 2 * halo
     return {
         "tile": (rows, _TILE_COLS),
         "tiles": tiles,
         "ctas": b * tiles[0] * tiles[1],
         "chunks": -(-c // _CHUNK),
-        "prologue_smem": rows * _TILE_COLS * c * 4 + 2 * halo,
-        **product_geometry(m, c),
+        "prologue_smem": smem,
+        "prologue_ctas_an_sm": min(2, SMEM_A_SM // (smem + SMEM_RESERVED)),  # launch bounds: 2
+        **product_geometry(m, c, dtype),
     }
 
 
 def _check(x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma) -> None:
+    """Raise on what the kernels do not take, before any build or launch: x,
+    the filter and the weights of one type, bf16 or f32 (TypeError
+    otherwise), f32 vectors, C in ``KERNEL_WIDTHS``, contiguous 16-byte
+    aligned tensors on x's device."""
     if x.dim() != 4:
         raise ValueError(f"convnext_block expects NHWC [B, H, W, C], got {tuple(x.shape)}")
     c = x.shape[-1]
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"convnext_block kernel is built for C in {KERNEL_WIDTHS}, got {c}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(
-            f"convnext_block kernel takes bf16 on the card (its products run on "
-            f"bf16 tensor cores), got {x.dtype}"
-        )
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"convnext_block kernel takes bf16 or f32 on the card, got {x.dtype}")
+    typed = {"k49": k49, "w1t": w1t, "w2t": w2t}
+    if any(t.dtype != x.dtype for t in typed.values()):
+        raise TypeError(f"convnext_block kernel takes x, the filter and the weights in one "
+                        f"type, got x in {x.dtype} and " + ", ".join(
+                            f"{n} in {t.dtype}" for n, t in typed.items()))
     shapes = {
-        "k49": (k49, (49, c), torch.bfloat16),
-        "w1t": (w1t, (4 * c, c), torch.bfloat16),
-        "w2t": (w2t, (c, 4 * c), torch.bfloat16),
+        "k49": (k49, (49, c), x.dtype),
+        "w1t": (w1t, (4 * c, c), x.dtype),
+        "w2t": (w2t, (c, 4 * c), x.dtype),
         "dw_bias": (dw_bias, (c,), torch.float32),
         "ln_scale": (ln_scale, (c,), torch.float32),
         "ln_bias": (ln_bias, (c,), torch.float32),
@@ -203,7 +223,7 @@ def fwd_launch(
     args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
     _check(*args)
     b, h, w, c = x.shape
-    forward_geometry(b, h, w, c)
+    forward_geometry(b, h, w, c, x.dtype)
     m = b * h * w
     o = {"out": torch.empty_like(x),
          "y": torch.empty(m, c, dtype=x.dtype, device=x.device),
@@ -215,8 +235,8 @@ def fwd_launch(
     p = cuda_build.ptr
     err = fn(
         *(p(a) for a in args), p(o["out"]), p(o["t"]) if emit_conv else ctypes.c_void_p(None),
-        p(o["y"]), p(o["h"]), ctypes.c_int(b), ctypes.c_int(h), ctypes.c_int(w), ctypes.c_int(c),
-        ctypes.c_float(eps), cuda_build.stream_ptr(x.device),
+        p(o["y"]), p(o["h"]), ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h),
+        ctypes.c_int(w), ctypes.c_int(c), ctypes.c_float(eps), cuda_build.stream_ptr(x.device),
     )
     cuda_build.check(err, "convnext_block")
     return o
@@ -239,25 +259,31 @@ def convnext_block(
     """One fused ConvNeXt v1 block forward on NHWC ``x``; with ``emit_conv``,
     ``(out, t)``.
 
-    CUDA tensors launch ``csrc/convnext_block.cu`` (bf16, C in
-    ``KERNEL_WIDTHS``; anything else raises). CPU tensors take the plain
-    version. ``convnext_block.launches`` counts calls that launched the
-    kernels, of either form, ``convnext_block.emit_launches`` those of the
-    ``emit_conv`` form.
+    CUDA tensors launch ``csrc/convnext_block.cu`` (x, the filter and the
+    weights bf16 or f32, one type; C in ``KERNEL_WIDTHS``; anything else
+    raises). CPU tensors take the plain version. ``convnext_block.launches``
+    counts calls that launched the kernels, of either form and type,
+    ``convnext_block.emit_launches`` those of the ``emit_conv`` form, and
+    ``f32_launches`` and ``emit_f32_launches`` the same in f32.
     """
     args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
     if x.device.type == "cpu":
         return block_reference(*args, eps=eps, emit_conv=emit_conv)
     o = fwd_launch(*args, eps=eps, emit_conv=emit_conv)
+    f32 = x.dtype == torch.float32
     convnext_block.launches += 1
+    convnext_block.f32_launches += f32
     if emit_conv:
         convnext_block.emit_launches += 1
+        convnext_block.emit_f32_launches += f32
         return o["out"], o["t"]
     return o["out"]
 
 
 convnext_block.launches = 0
 convnext_block.emit_launches = 0
+convnext_block.f32_launches = 0
+convnext_block.emit_f32_launches = 0
 
 
 class _FusedBlock(torch.autograd.Function):

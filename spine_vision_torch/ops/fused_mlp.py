@@ -7,7 +7,7 @@ hand-written kernel on a CUDA tensor and runs its plain PyTorch version
 
 - :func:`ln_mlp`, ``res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)``:
   the LN form of ``csrc/row_mlp.cu`` (replaces ``_ln_mlp_pallas``), three
-  launches: L the LayerNorm rows, ``y = LN(x)`` in bf16
+  launches: L the LayerNorm rows, ``y = LN(x)`` in x's dtype
   (:func:`ln_rows_reference`); F1 the hidden product, ``h = gelu_tanh(y .
   W1 + b1)`` (:func:`hidden_reference`); F2 the output product, ``(h . W2 +
   b2) * gamma + res`` (:func:`out_reference`);
@@ -27,6 +27,13 @@ F1 and F2 are the block forward's products (``csrc/wg_gemm.cuh``'s
 ``mlp_products``, ``ops/convnext_block.py``); :func:`row_launch` runs the row
 forms on the card and returns their intermediates, and :func:`row_geometry`
 gives their launch geometry.
+
+Every kernel takes bf16 or f32 (one type for the activations and the
+weights; biases, LayerNorm and ``gamma`` f32), as the JAX kernels run in
+either: bf16 on wgmma products fed by TMA (``csrc/wg_gemm.cuh``), f32 on the
+f32 product core (``csrc/f32_gemm.cuh``, SIMT f32 FFMA), the rest of each
+kernel templated on the type. ``.launches`` counts a wrapper's launches of
+either type, ``.f32_launches`` those in f32.
 
 Both backwards run in stages, one kernel each: the row prologue, the hidden
 products, the g_y product, the LayerNorm backward and the weight-gradient
@@ -51,6 +58,7 @@ import math
 import torch
 
 from spine_vision_torch.ops import cuda_build
+from spine_vision_torch.ops.dwconv import _DTYPES, _ITEM
 
 # Widest block whose MLP runs inside the whole-block kernel; wider blocks run
 # the dwconv+LN kernel followed by a plain MLP.
@@ -354,21 +362,25 @@ def token_splits(m: int, c: int) -> int:
     return min(s for s, v in span.items() if v <= 1.05 * soonest)
 
 
-def bwd_geometry(m: int, c: int) -> dict:
+def bwd_geometry(m: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch geometry of ``csrc/ln_mlp_bwd.cuh`` for ``m`` tokens of
-    width ``c``: the row stages' 64-token tiles (``part``'s rows), each
-    product's (token or output) x column tiles, stage D's ``splits`` of
-    ``ks`` tokens (a multiple of 64, every split non-empty), the workspace
-    shapes, and every TMA map as ``(rows, cols, box_rows, box_cols,
-    pitch_bytes)`` by operand and stage. Raises on what the kernels do not
-    take, before anything is launched."""
+    width ``c`` in ``dtype``: the row stages' 64-token tiles (``part``'s
+    rows), each product's (token or output) x column tiles, stage D's
+    ``splits`` of ``ks`` tokens (a multiple of 64, every split non-empty),
+    the workspace shapes, the scratch buffers' bytes (``buffers``; y, gg, h
+    and gh in ``dtype``, the statistics, g_y and the workspaces f32) and, in
+    bf16, every TMA map as ``(rows, cols, box_rows, box_cols, pitch_bytes)``
+    by operand and stage (the f32 core reads no TMA map). Raises on what the
+    kernels do not take, before anything is launched."""
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"ln_mlp_bwd kernels are built for C in {KERNEL_WIDTHS}, got {c}")
     if not 0 < m < 2 ** 31:
         raise ValueError(f"ln_mlp_bwd kernels take 1 to 2^31 - 1 tokens (TMA coordinates are "
                          f"32-bit), got {m}")
+    item = _ITEM[dtype]
     h4 = 4 * c
-    nb = 2 if c % (2 * _TILE) == 0 else 1  # stage C's wgmma tiles a CTA tile
+    # Stage C's wgmma tiles a CTA tile; the f32 core's tiles are 128 x 128.
+    nb = 2 if c % (2 * _TILE) == 0 and item == 2 else 1
     per = -(-m // token_splits(m, c))
     ks = -(-per // _BK) * _BK
     splits = -(-m // ks)
@@ -390,7 +402,10 @@ def bwd_geometry(m: int, c: int) -> dict:
         "ks": ks,
         "part": (row_tiles, 8 * c),
         "ws": (splits, h4, c),
-        "maps": {
+        "buffers": {"y": m * c * item, "gg": m * c * item, "h": m * h4 * item,
+                    "gh": m * h4 * item, "stats": m * 2 * 4, "gy": m * c * 4,
+                    "part": row_tiles * 8 * c * 4, "ws": splits * h4 * c * 4},
+        "maps": {} if item == 4 else {
             "hidden": {"y": k_major(m, c), "gg": k_major(m, c), "w1t": k_major(h4, c),
                        "w2": k_major(h4, c)},
             "gy": {"gh": k_major(m, h4), "w1": k_major(c, h4)},
@@ -400,28 +415,34 @@ def bwd_geometry(m: int, c: int) -> dict:
     }
 
 
-def product_geometry(m: int, c: int) -> dict:
-    """The launch geometry of ``csrc/wg_gemm.cuh``'s ``mlp_products`` (F1 and
-    F2 of the block forward and of the row forms) for ``m`` tokens of width
-    ``c``: each product's (row, column) tiles of 128 rows by ``nb`` x 128
-    columns, and its persistent CTAs (one a multiprocessor at most)."""
+def product_geometry(m: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The launch geometry of F1 and F2 (the block forward's and the row
+    forms') for ``m`` tokens of width ``c`` in ``dtype``: each product's
+    (row, column) tiles of 128 rows by ``nb`` x 128 columns and its CTAs, and
+    the hidden's bytes (``h_bytes``, [m, 4c] in ``dtype``). bf16 runs
+    ``csrc/wg_gemm.cuh``'s ``mlp_products`` on persistent CTAs (one a
+    multiprocessor at most); f32 ``csrc/f32_gemm.cuh``'s, a CTA a 128 x 128
+    tile (``nb`` 1)."""
+    item = _ITEM[dtype]
     h4 = 4 * c
-    nb1 = 2 if h4 % (2 * _TILE) == 0 else 1
-    nb2 = 2 if c % (2 * _TILE) == 0 else 1
+    nb1 = 2 if h4 % (2 * _TILE) == 0 and item == 2 else 1
+    nb2 = 2 if c % (2 * _TILE) == 0 and item == 2 else 1
     tiles_m = -(-m // _TILE)
     hidden = (tiles_m, h4 // (nb1 * _TILE))
     out = (tiles_m, -(-c // (nb2 * _TILE)))
+    most = _SMS if item == 2 else 2 ** 31 - 1
     return {"hidden_nb": nb1, "hidden_tiles": hidden,
-            "hidden_ctas": min(_SMS, hidden[0] * hidden[1]),
-            "out_nb": nb2, "out_tiles": out, "out_ctas": min(_SMS, out[0] * out[1])}
+            "hidden_ctas": min(most, hidden[0] * hidden[1]),
+            "out_nb": nb2, "out_tiles": out, "out_ctas": min(most, out[0] * out[1]),
+            "h_bytes": m * h4 * item}
 
 
-def row_geometry(m: int, c: int, ln: bool = True) -> dict:
+def row_geometry(m: int, c: int, ln: bool = True, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch geometry of ``csrc/row_mlp.cu`` for ``m`` tokens of width
-    ``c``: L's tokens a warp (``ln_tpw``, consecutive) and a CTA, and its
-    CTAs (0 without the LayerNorm), then F1's and F2's
-    (:func:`product_geometry`). Raises on what the kernels do not take,
-    before anything is launched."""
+    ``c`` in ``dtype``: L's tokens a warp (``ln_tpw``, consecutive) and a
+    CTA, and its CTAs (0 without the LayerNorm), y's bytes (``y_bytes``, 0
+    without it), then F1's and F2's (:func:`product_geometry`). Raises on
+    what the kernels do not take, before anything is launched."""
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"row MLP kernels are built for C in {KERNEL_WIDTHS}, got {c}")
     if not 0 <= m < 2 ** 31:
@@ -430,26 +451,28 @@ def row_geometry(m: int, c: int, ln: bool = True) -> dict:
     tpw = 4 if c <= 256 else 2
     tokens = _LN_THREADS // 32 * tpw
     return {"ln_tpw": tpw, "ln_tokens": tokens, "ln_ctas": -(-m // tokens) if ln else 0,
-            **product_geometry(m, c)}
+            "y_bytes": m * c * _ITEM[dtype] if ln else 0, **product_geometry(m, c, dtype)}
 
 
 def _check(name, t, g, vectors, w1t, w2t, g_name="g") -> None:
-    """Raise on what ``name``'s kernel does not take: bf16 activations ``t``
-    and ``g`` [..., C] (``g`` may be None), bf16 weights, f32 ``vectors``
-    (``(name, tensor, length)`` triples)."""
+    """Raise on what ``name``'s kernel does not take: activations ``t`` and
+    ``g`` [..., C] (``g`` may be None) and the weights of one type, bf16 or
+    f32 (TypeError otherwise), f32 ``vectors`` (``(name, tensor, length)``
+    triples)."""
     c = t.shape[-1]
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"{name} kernel is built for C in {KERNEL_WIDTHS}, got {c}")
-    acts = [t] if g is None else [t, g]
-    if any(a.dtype != torch.bfloat16 for a in acts):
-        raise TypeError(
-            f"{name} kernel takes bf16 activations on the card (its products run on "
-            f"bf16 tensor cores), got {[a.dtype for a in acts]}"
-        )
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{name} kernel takes bf16 or f32 on the card, got {t.dtype}")
+    typed = [(n, v) for n, v in ((g_name, g), ("w1t", w1t), ("w2t", w2t)) if v is not None]
+    if any(v.dtype != t.dtype for _, v in typed):
+        raise TypeError(f"{name} kernel takes its activations and weights in one type, got the "
+                        f"input in {t.dtype} and "
+                        + ", ".join(f"{n} in {v.dtype}" for n, v in typed))
     shapes = {
-        **({} if g is None else {g_name: (g, tuple(t.shape), torch.bfloat16)}),
-        "w1t": (w1t, (4 * c, c), torch.bfloat16),
-        "w2t": (w2t, (c, 4 * c), torch.bfloat16),
+        **({} if g is None else {g_name: (g, tuple(t.shape), t.dtype)}),
+        "w1t": (w1t, (4 * c, c), t.dtype),
+        "w2t": (w2t, (c, 4 * c), t.dtype),
         **{n: (v, (length,), torch.float32) for n, v, length in vectors},
     }
     for vname, (v, shape, dtype) in shapes.items():
@@ -465,24 +488,25 @@ def _check(name, t, g, vectors, w1t, w2t, g_name="g") -> None:
 def _buffers(t: torch.Tensor, ln: bool, geo: dict) -> dict[str, torch.Tensor]:
     """Outputs and scratch of a ``csrc/ln_mlp_bwd.cuh`` call for the [..., C]
     activations ``t`` with the geometry ``geo``: the LN form also writes y,
-    each token's mean and rstd, and the f32 g_y."""
+    each token's mean and rstd, and the f32 g_y. y, gg, h and gh are in t's
+    dtype."""
     c = t.shape[-1]
     m = t.numel() // c
-    dev, bf16, f32 = t.device, torch.bfloat16, torch.float32
+    dev, lp, f32 = t.device, t.dtype, torch.float32
     out = {
         "dt": torch.empty_like(t),
         "small": torch.empty(8 * c, dtype=f32, device=dev),
         "dw1t": torch.empty(4 * c, c, dtype=f32, device=dev),
         "dw2t": torch.empty(c, 4 * c, dtype=f32, device=dev),
         "dgamma": torch.empty(c, dtype=f32, device=dev),
-        "gg": torch.empty(m, c, dtype=bf16, device=dev),
-        "h": torch.empty(m, 4 * c, dtype=bf16, device=dev),
-        "gh": torch.empty(m, 4 * c, dtype=bf16, device=dev),
+        "gg": torch.empty(m, c, dtype=lp, device=dev),
+        "h": torch.empty(m, 4 * c, dtype=lp, device=dev),
+        "gh": torch.empty(m, 4 * c, dtype=lp, device=dev),
         "part": torch.empty(geo["part"], dtype=f32, device=dev),
         "ws": torch.empty(geo["ws"], dtype=f32, device=dev),
     }
     if ln:
-        out["y"] = torch.empty(m, c, dtype=bf16, device=dev)
+        out["y"] = torch.empty(m, c, dtype=lp, device=dev)
         out["stats"] = torch.empty(m, 2, dtype=f32, device=dev)
         out["gy"] = torch.empty(m, c, dtype=f32, device=dev)
     return out
@@ -514,15 +538,16 @@ def bwd_launch(
     name = "ln_mlp_bwd" if ln else "mlp_bwd"
     _check(name, t, g, vectors, w1t, w2t)
     m = t.numel() // c
-    geo = bwd_geometry(m, c)
+    geo = bwd_geometry(m, c, t.dtype)
     o = _buffers(t, ln, geo)
     # The kernels read each weight in both layouts.
     o["w1"] = w1t.t().contiguous()
     o["w2"] = w2t.t().contiguous()
     p = cuda_build.ptr
     lib = cuda_build.load("ln_mlp_bwd")
-    tail = (ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_int(geo["splits"]),
-            ctypes.c_longlong(geo["ks"]), cuda_build.stream_ptr(t.device))
+    tail = (ctypes.c_int(_DTYPES[t.dtype]), ctypes.c_longlong(m), ctypes.c_int(c),
+            ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]),
+            cuda_build.stream_ptr(t.device))
     if ln:
         fn = lib.svt_ln_mlp_bwd
         args = (p(t), p(g), p(ln_scale), p(ln_bias), p(w1t), p(o["w1"]), p(b1), p(w2t),
@@ -554,21 +579,24 @@ def ln_mlp_bwd(
 
     Returns ``(dt, dls, dlb, dw1t, db1, dw2t, db2, dgamma)`` as
     :func:`ln_mlp_bwd_reference`. CUDA tensors launch ``csrc/ln_mlp_bwd.cu``
-    (bf16 ``t`` and ``g``, C in ``KERNEL_WIDTHS``; anything else raises); CPU
-    tensors take the plain version. ``ln_mlp_bwd.launches`` counts calls that
-    launched the kernels.
+    (``t``, ``g`` and the weights bf16 or f32, one type; C in
+    ``KERNEL_WIDTHS``; anything else raises); CPU tensors take the plain
+    version. ``ln_mlp_bwd.launches`` counts calls that launched the kernels,
+    ``ln_mlp_bwd.f32_launches`` those in f32.
     """
     if t.device.type == "cpu":
         return ln_mlp_bwd_reference(t, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, g)
     c = t.shape[-1]
     o = bwd_launch(t, g, w1t, b1, w2t, b2, gamma, ln_scale, ln_bias)
     ln_mlp_bwd.launches += 1
+    ln_mlp_bwd.f32_launches += t.dtype == torch.float32
     small = o["small"]
     return (o["dt"], small[4 * c: 5 * c], small[5 * c: 6 * c], o["dw1t"], small[: 4 * c],
             o["dw2t"], small[6 * c: 7 * c], o["dgamma"])
 
 
 ln_mlp_bwd.launches = 0
+ln_mlp_bwd.f32_launches = 0
 
 
 def mlp_bwd(
@@ -583,20 +611,24 @@ def mlp_bwd(
     """Backward of the block's MLP + LayerScale from its input ``y`` and ``g``.
 
     Returns ``(dy, dw1t, db1, dw2t, db2, dgamma)`` as :func:`mlp_bwd_reference`.
-    CUDA tensors launch the LN-less form of ``csrc/ln_mlp_bwd.cu`` (bf16 ``y``
-    and ``g``, C in ``KERNEL_WIDTHS``; anything else raises); CPU tensors take
-    the plain version. ``mlp_bwd.launches`` counts calls that launched it.
+    CUDA tensors launch the LN-less form of ``csrc/ln_mlp_bwd.cu`` (``y``,
+    ``g`` and the weights bf16 or f32, one type; C in ``KERNEL_WIDTHS``;
+    anything else raises); CPU tensors take the plain version.
+    ``mlp_bwd.launches`` counts calls that launched it, ``.f32_launches``
+    those in f32.
     """
     if y.device.type == "cpu":
         return mlp_bwd_reference(y, w1t, b1, w2t, b2, gamma, g)
     c = y.shape[-1]
     o = bwd_launch(y, g, w1t, b1, w2t, b2, gamma)
     mlp_bwd.launches += 1
+    mlp_bwd.f32_launches += y.dtype == torch.float32
     small = o["small"]
     return (o["dt"], o["dw1t"], small[: 4 * c], o["dw2t"], small[6 * c: 7 * c], o["dgamma"])
 
 
 mlp_bwd.launches = 0
+mlp_bwd.f32_launches = 0
 
 
 def row_launch(
@@ -626,23 +658,24 @@ def row_launch(
         vectors = (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c)) + vectors
     _check(name, x, residual, vectors, w1t, w2t, g_name="residual")
     m = x.numel() // c
-    row_geometry(m, c, ln)
-    dev, bf16 = x.device, torch.bfloat16
-    o = {"out": torch.empty_like(x), "h": torch.empty(m, 4 * c, dtype=bf16, device=dev)}
+    row_geometry(m, c, ln, x.dtype)
+    dev, lp = x.device, x.dtype
+    o = {"out": torch.empty_like(x), "h": torch.empty(m, 4 * c, dtype=lp, device=dev)}
     if ln:
-        o["y"] = torch.empty(m, c, dtype=bf16, device=dev)
+        o["y"] = torch.empty(m, c, dtype=lp, device=dev)
     lib = cuda_build.load("row_mlp")
     p = cuda_build.ptr
     none = ctypes.c_void_p(None)
     weights = (p(w1t), p(b1), p(w2t), p(b2), p(gamma) if tail else none)
     rows = (p(residual) if tail else none,)
+    dtype = ctypes.c_int(_DTYPES[x.dtype])
     if ln:
         fn = lib.svt_ln_mlp_forward
         args = (p(x), *rows, p(ln_scale), p(ln_bias), *weights, p(o["out"]), p(o["y"]),
-                p(o["h"]), ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_float(LN_EPS))
+                p(o["h"]), dtype, ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_float(LN_EPS))
     else:
         fn = lib.svt_mlp_forward
-        args = (p(x), *rows, *weights, p(o["out"]), p(o["h"]), ctypes.c_longlong(m),
+        args = (p(x), *rows, *weights, p(o["out"]), p(o["h"]), dtype, ctypes.c_longlong(m),
                 ctypes.c_int(c))
     fn.restype = ctypes.c_int
     cuda_build.check(fn(*args, cuda_build.stream_ptr(dev)), name)
@@ -663,19 +696,22 @@ def ln_mlp(
     """``residual + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2)`` on
     ``[..., C]`` (NHWC or flat), as :func:`ln_mlp_reference`.
 
-    CUDA tensors launch the LN form of ``csrc/row_mlp.cu`` (L, F1, F2; bf16
-    ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else raises);
-    CPU tensors take the plain version. ``ln_mlp.launches`` counts calls that
-    launched the kernels.
+    CUDA tensors launch the LN form of ``csrc/row_mlp.cu`` (L, F1, F2; ``x``,
+    ``residual`` and the weights bf16 or f32, one type; C in
+    ``KERNEL_WIDTHS``; anything else raises); CPU tensors take the plain
+    version. ``ln_mlp.launches`` counts calls that launched the kernels,
+    ``.f32_launches`` those in f32.
     """
     if x.device.type == "cpu":
         return ln_mlp_reference(x, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, residual)
     out = row_launch(x, w1t, b1, w2t, b2, gamma, residual, ln_scale, ln_bias)["out"]
     ln_mlp.launches += 1
+    ln_mlp.f32_launches += x.dtype == torch.float32
     return out
 
 
 ln_mlp.launches = 0
+ln_mlp.f32_launches = 0
 
 
 def mlp_fwd(
@@ -691,10 +727,11 @@ def mlp_fwd(
     form ``residual + gamma * mlp(x)`` (gamma defaults to ones, the residual
     to zeros), without both ``mlp(x)`` alone; as :func:`mlp_reference`.
 
-    CUDA tensors launch the copy form of ``csrc/row_mlp.cu`` (F1, F2; bf16
-    ``x`` and ``residual``, C in ``KERNEL_WIDTHS``; anything else raises);
-    CPU tensors take the plain version. ``mlp_fwd.launches`` counts calls
-    that launched the kernels.
+    CUDA tensors launch the copy form of ``csrc/row_mlp.cu`` (F1, F2; ``x``,
+    ``residual`` and the weights bf16 or f32, one type; C in
+    ``KERNEL_WIDTHS``; anything else raises); CPU tensors take the plain
+    version. ``mlp_fwd.launches`` counts calls that launched the kernels,
+    ``.f32_launches`` those in f32.
     """
     c = x.shape[-1]
     if gamma is not None or residual is not None:
@@ -706,10 +743,12 @@ def mlp_fwd(
         return mlp_reference(x, w1t, b1, w2t, b2, gamma, residual)
     out = row_launch(x, w1t, b1, w2t, b2, gamma, residual)["out"]
     mlp_fwd.launches += 1
+    mlp_fwd.f32_launches += x.dtype == torch.float32
     return out
 
 
 mlp_fwd.launches = 0
+mlp_fwd.f32_launches = 0
 
 
 def _wider_than_kernels(name: str, x: torch.Tensor) -> bool:

@@ -47,7 +47,13 @@ parent, each build's call split into its kernels (a profile).
 ``DIR`` is a checkout of another commit (``git archive``). The sources are
 compiled by nvcc with the package's flags, and ``cuobjdump`` lists their
 SASS; kernels are matched by name, the default activation of
-``csrc/mlp_body.cuh`` (``GeluTanh``) left out. Where two kernels' SASS
+``csrc/mlp_body.cuh`` (``GeluTanh``) left out, and a kernel that gained its
+element type as a first template argument matched in bf16 to its form
+without it (``block_prologue<__nv_bfloat16, 128, false>`` is
+``block_prologue<128, false>``). A tree whose entry points take the element
+type (``int dtype``) is called with 0, bf16; its f32 kernels (an f32 first
+template argument, ``f32_gemm``) are listed, and do not count as kernels
+that moved. Where two kernels' SASS
 differs, the script says whether the instructions differ only in their
 control bits, only in their operands (registers), or in their opcodes.
 Times: each build's device
@@ -89,6 +95,9 @@ TRAIN_STAGES = ((128, 128), (64, 256), (32, 512))  # the train step: B32 at 512^
 CASES = (("mlp_fwd", 2, STAGES, 200), ("ln_mlp", 32, TRAIN_STAGES, 20),
          ("convnext_block_emit_conv", 32, TRAIN_STAGES, 20))
 _ANON = re.compile(r"\(anonymous namespace\)::")
+# Kernels that gained their element type as a first template argument.
+_RETYPED = re.compile(r"^(block_prologue|mlp_ln_rows|bwd_rows|ln_rows_bwd|tap_sums)"
+                      r"<__nv_bfloat16, ")
 _ENCODING = re.compile(r"/\* (0x[0-9a-f]{16}) \*/")
 
 
@@ -117,7 +126,21 @@ def _demangle(names: list[str]) -> dict[str, str]:
                          check=True).stdout.splitlines()
     plain = [_ANON.sub("", n).removeprefix("void ").split("(")[0].replace(", GeluTanh>", ">")
              for n in out]
+    plain = [_RETYPED.sub(r"\1<", n).replace("reduce_rows<__nv_bfloat16>", "reduce_rows")
+             for n in plain]
     return dict(zip(names, plain, strict=True))
+
+
+def _f32_form(kernel: str) -> bool:
+    """Whether ``kernel`` is an f32 form that a bf16-only tree lacks."""
+    return "f32_gemm<" in kernel or "<float," in kernel or kernel == "reduce_rows<float>"
+
+
+def _typed(csrc: Path, source: str) -> bool:
+    """Whether the tree at ``csrc``'s entry points in ``source`` take the
+    element type (``int dtype``)."""
+    path = csrc / f"{source}.cu"
+    return path.exists() and "int dtype" in path.read_text()
 
 
 def _sass(lib: Path) -> dict[str, list[tuple[str, str]]]:
@@ -217,9 +240,10 @@ def _scratch(csrc: Path) -> dict[str, tuple[str, ...]]:
 
 
 def _launcher(tag: str, kernel: str, lib: ctypes.CDLL, scratch_names: tuple[str, ...], a: dict,
-              outs: tuple[torch.Tensor, ...]):
+              outs: tuple[torch.Tensor, ...], typed: bool = False):
     """One launch of the ``tag`` build's ``kernel`` from ``lib`` on ``a``,
-    into ``outs``, with the scratch its interface takes."""
+    into ``outs``, with the scratch its interface takes (and, ``typed``, the
+    element type, bf16)."""
     p = cuda_build.ptr
     b, h, w, c = a["x"].shape
     m = ctypes.c_longlong(b * h * w)
@@ -228,7 +252,7 @@ def _launcher(tag: str, kernel: str, lib: ctypes.CDLL, scratch_names: tuple[str,
     widths = {"y": c, "h": 4 * c}
     scratch = [torch.empty(b * h * w, widths[n], dtype=torch.bfloat16, device=a["x"].device)
                for n in scratch_names]
-    mid = tuple(p(v) for v in scratch)
+    mid = tuple(p(v) for v in scratch) + ((ctypes.c_int(0),) if typed else ())
     if kernel == "mlp_fwd":
         fn = lib.svt_mlp_forward
         args = (p(a["x"]), p(a["res"]), *mlp, p(outs[0]), *mid, m, ctypes.c_int(c))
@@ -311,11 +335,13 @@ def _tap_rows(b: int, h: int, w: int, c: int, legacy: bool) -> tuple[int, int]:
     return geo["rows_per_run"], geo["parts"]
 
 
-def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict, legacy: bool = False):
+def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict, legacy: bool = False,
+                  typed: bool = True):
     """One call of the ``tag`` build's ``kernel`` (ln_mlp_bwd, mlp_bwd or
     block_train_bwd) on ``a``, into fresh outputs and scratch: ``(launch,
-    outputs)``. Both builds take this tree's C interface; with ``legacy``,
-    #10's tap sums are the first form's (:func:`_tap_rows`)."""
+    outputs)``. Both builds take this tree's C interface, with the element
+    type (bf16) where ``typed``; with ``legacy``, #10's tap sums are the
+    first form's (:func:`_tap_rows`)."""
     from spine_vision_torch.ops import fused_mlp as fm
 
     t, g = a["x"], a["res"]
@@ -337,6 +363,7 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict, legacy: bool
     split = (ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]))
     outs = (p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]))
     tail = (p(k["part"]), p(k["ws"]))
+    dtype = (ctypes.c_int(0),) if typed else ()
     if kernel == "block_train_bwd":
         rows, parts = _tap_rows(b, h, w, c, legacy)
         o["taps"] = torch.empty(50 * c, dtype=f32, device=dev)
@@ -346,15 +373,15 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict, legacy: bool
         fn = lib.svt_block_train_bwd
         args = (p(t), p(a["k49"]), p(a["dw_bias"]), p(a["ln_scale"]), p(a["ln_bias"]), *weights,
                 p(g), *outs, p(o["taps"]), p(k["u"]), p(k["gu32"]), *mid, *tail, p(k["tpart"]),
-                *(ctypes.c_int(v) for v in (b, h, w, c)), *split, ctypes.c_int(rows),
+                *dtype, *(ctypes.c_int(v) for v in (b, h, w, c)), *split, ctypes.c_int(rows),
                 ctypes.c_float(1e-6))
     elif ln:
         fn = lib.svt_ln_mlp_bwd
         args = (p(t), p(g), p(a["ln_scale"]), p(a["ln_bias"]), *weights, *outs, *mid, *tail,
-                ctypes.c_longlong(m), ctypes.c_int(c), *split)
+                *dtype, ctypes.c_longlong(m), ctypes.c_int(c), *split)
     else:
         fn = lib.svt_mlp_bwd
-        args = (p(t), p(g), *weights, *outs, *mid, *tail, ctypes.c_longlong(m),
+        args = (p(t), p(g), *weights, *outs, *mid, *tail, *dtype, ctypes.c_longlong(m),
                 ctypes.c_int(c), *split)
     fn.restype = ctypes.c_int
     keep = (k, w1, w2)
@@ -397,7 +424,8 @@ def _build_pair(parent: Path, sources) -> tuple[dict, dict]:
               f"identical SASS (parent / tree); only in the parent's: {only['parent'] or 'none'}"
               f"; only in the tree's: {only['tree'] or 'none'}" + "".join(
                   f"; {k}: {v}" for k, v in verdicts.items() if k not in same))
-        moved[source] = sorted(set(verdicts) - set(same)) + only["parent"] + only["tree"]
+        moved[source] = (sorted(set(verdicts) - set(same)) + only["parent"]
+                         + [k for k in only["tree"] if not _f32_form(k)])
     return libs, moved
 
 
@@ -413,11 +441,14 @@ def _bwd_case(parent: Path, dev) -> None:
     libs, _ = _build_pair(parent, sorted(set(BWD_SOURCES.values())))
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     legacy = _legacy_taps(parent)
+    typed = {"parent": _typed(parent / "spine_vision_torch" / "csrc", "ln_mlp_bwd"),
+             "tree": _typed(cuda_build.CSRC, "ln_mlp_bwd")}
     for kernel, source in BWD_SOURCES.items():
         for hw, c in TRAIN_STAGES:
             a = _inputs(32, hw, c, dev)
             runs = {tag: _bwd_launcher(tag, loaded[source, tag], kernel, a,
-                                       legacy and tag == "parent") for tag in ("parent", "tree")}
+                                       legacy and tag == "parent", typed[tag])
+                    for tag in ("parent", "tree")}
             rows = [(tag, _device_ms(runs[tag][0], 10)) for tag in
                     ("parent", "tree", "tree", "parent")]
             torch.cuda.synchronize()
@@ -593,10 +624,13 @@ def _fwd_case(parent: Path, dev) -> None:
             raise AssertionError(f"{source}.cu's kernels moved: {moved[source]}")
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     legacy = _legacy_taps(parent)
+    typed = {"parent": _typed(parent / "spine_vision_torch" / "csrc", "block_train_bwd"),
+             "tree": _typed(cuda_build.CSRC, "block_train_bwd")}
     for hw, c in TRAIN_STAGES:
         a = _inputs(32, hw, c, dev)
         runs = {tag: _bwd_launcher(tag, loaded["block_train_bwd", tag], "block_train_bwd", a,
-                                   legacy and tag == "parent") for tag in ("parent", "tree")}
+                                   legacy and tag == "parent", typed[tag])
+                for tag in ("parent", "tree")}
         _compare_runs("block_train_bwd", f"B=32 {hw}x{hw} C={c}", runs, 2e-2)
         del a, runs
         torch.cuda.empty_cache()
@@ -650,6 +684,9 @@ def main(argv: list[str] | None = None) -> int:
         res[tag].update(_resources(lib))
     for tag, other in (("parent", "tree"), ("tree", "parent")):
         only = sorted(set(sass[tag]) - set(sass[other]))
+        if tag == "tree":
+            print(f"[build_diff] of those only in the tree's build, f32 forms: "
+                  f"{sum(_f32_form(k) for k in only)}")
         print(f"[build_diff] {len(only)} kernels only in the {tag}'s build" +
               "".join(f"; {k} (registers {res[tag][k][0]}, stack {res[tag][k][1]} bytes)"
                       for k in only))
@@ -665,13 +702,15 @@ def main(argv: list[str] | None = None) -> int:
 
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     scratch = {tag: _scratch(csrc) for tag, csrc in trees.items()}
+    typed = {tag: _typed(csrc, "convnext_block") for tag, csrc in trees.items()}
     for kernel, batch, stages, launches in CASES:
         for hw, c in stages:
             a = _inputs(batch, hw, c, dev)
             n_out = 2 if kernel == "convnext_block_emit_conv" else 1
             outs = {tag: tuple(torch.empty_like(a["x"]) for _ in range(n_out)) for tag in trees}
             launch = {tag: _launcher(tag, kernel, _holding(loaded, tag, ENTRY[kernel]),
-                                     scratch[tag][kernel], a, outs[tag]) for tag in trees}
+                                     scratch[tag][kernel], a, outs[tag], typed[tag])
+                      for tag in trees}
             rows = []
             for tag in ("parent", "tree", "tree", "parent"):
                 rows.append((tag, _device_ms(launch[tag], launches),

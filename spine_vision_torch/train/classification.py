@@ -36,7 +36,6 @@ from spine_vision_torch.data.loader import (
 )
 from spine_vision_torch.metrics import ClassifierMetrics
 from spine_vision_torch.models.classifier import Classifier, make_multitask_loss_fn
-from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS
 from spine_vision_torch.ops.augment import AugmentConfig, augment_batch
 from spine_vision_torch.ops.image import imagenet_normalize
 from spine_vision_torch.train.localization import resolve_use_pallas
@@ -146,12 +145,6 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
     ) -> None:
         if config.visualize_predictions:
             raise _not_ported("visualize_predictions (viz/*)", "Queue 1 item 13")
-        if (not config.mixed_precision and torch.device(device).type == "cuda"
-                and config.backbone in CONVNEXT_CONFIGS):
-            raise _not_ported(
-                "mixed_precision=False on the card (f32 forms of the ConvNeXt kernels)",
-                "Queue 1 item 15"
-            )
         if train_dataset is None:
             train_dataset = self._split_from_disk(config, "train")
         if val_dataset is None:

@@ -33,7 +33,6 @@ from spine_vision_torch.data.levels import IDX_TO_LEVEL, NUM_LEVELS
 from spine_vision_torch.data.loader import collate_localization
 from spine_vision_torch.metrics import LocalizationMetrics
 from spine_vision_torch.models.classifier import CoordinateRegressor
-from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS
 from spine_vision_torch.ops.augment import AugmentConfig, augment_batch
 from spine_vision_torch.ops.image import imagenet_normalize
 from spine_vision_torch.ops.losses import masked_coordinate_loss
@@ -111,13 +110,6 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
     ) -> None:
         if config.visualize_predictions:
             raise _not_ported("visualize_predictions (viz/*)", "Queue 1 item 13")
-        dev = torch.device(device)
-        if (not config.mixed_precision and dev.type == "cuda"
-                and config.backbone in CONVNEXT_CONFIGS):
-            raise _not_ported(
-                "mixed_precision=False on the card (f32 forms of the ConvNeXt kernels)",
-                "Queue 1 item 15"
-            )
         if config.pretrained and config.pretrained_path is None:
             logger.warning(
                 "pretrained=True has no effect without pretrained_path: training "

@@ -27,10 +27,13 @@ What Pillow does with a string, measured here and kept per face and size:
   glyphs' ascender-relative tops and bottoms.
 
 Each glyph's outline box is read from Pillow: ``getbbox`` in top-to-bottom
-layout gives its width; the glyph's ink, the horizontal ``getbbox`` and the
-unhinted outline's box in the font file (fontTools) place it. The atlas
-gives Pillow's ``textbbox`` for all but a few strings in a thousand, a
-pixel off at the right edge.
+layout gives its width; the glyph's ink and the horizontal ``getbbox`` place
+it (an edge that passes the pen line is pinned, and the box lies within the
+pen line otherwise); where the box may end exactly at the rounded advance,
+which shows only where the pen's fraction rounds the glyph's end past the
+string's, the glyph drawn after a run of spaces with such a fraction tells;
+what is left open takes the unhinted outline's box in the font file
+(fontTools), and cannot move a ``textbbox``.
 
 :func:`build` makes the arrays for any subset of faces, sizes and
 characters (``tests/test_torch_synth.py`` holds the committed atlas to it on
@@ -100,29 +103,61 @@ def _mulfix(a: int, b: int) -> int:
     return sign * ((abs(a) * abs(b) + 0x8000) >> 16)
 
 
+def _right_probe(font, ch: str, adv: int) -> tuple[int, int] | None:
+    """Where the pen fraction lets ``ch``'s box pass the end of the pen line:
+    ``(box right - rounded pen, the end - rounded pen)`` of ``ch`` drawn
+    after a run of spaces whose end pen has a fraction f with PIXEL(f) +
+    PIXEL(adv) > PIXEL(f + adv), read from that string's ``getbbox``. Only
+    an advance whose fraction is at least one half has such an f (and only
+    there can a box that ends at the rounded advance pass the pen line);
+    None otherwise, or where no run of up to 32 spaces gives one."""
+    a = adv & 63
+    if a < 32:
+        return None
+    for n in range(1, 33):
+        text = " " * n + ch
+        total = round(font.getlength(text) * 64)
+        pen = total - adv
+        if 32 <= (pen & 63) <= 95 - a:
+            px = (pen + 32) >> 6
+            return font.getbbox(text)[2] - px, ((total + 32) >> 6) - px
+    return None
+
+
 def _outline_box(font, ch: str, ink: tuple[int, int] | None, estimate: tuple[int, int]
                  ) -> tuple[int, int]:
     """The glyph's outline box in whole pixels about its rounded pen.
 
     Its width is the top-to-bottom layout's ``getbbox`` width; it covers the
     ink; the horizontal ``getbbox`` pins an edge that passes the pen line
-    (0 on the left, the rounded advance on the right); otherwise it is
-    placed nearest ``estimate``, the box of the unhinted outline in the
-    font file."""
+    (0 on the left, the rounded advance on the right) and bounds the box
+    within it otherwise; where the box may end at the rounded advance,
+    :func:`_right_probe` tells whether it does. What is left open places it
+    nearest ``estimate``, the box of the unhinted outline in the font file."""
     if ink is None:
         return 0, 0
     ttb = font.getbbox(ch, direction="ttb")
     width = ttb[2] - ttb[0]
     h0, _, h1, _ = font.getbbox(ch)
-    adv_px = (round(font.getlength(ch) * 64) + 32) >> 6
+    adv = round(font.getlength(ch) * 64)
+    adv_px = (adv + 32) >> 6
     il, ir = ink
     if h0 < 0:
         return h0, h0 + width
     if h1 > adv_px:
         return h1 - width, h1
-    lo, hi = ir - width, il  # every left edge that keeps the ink inside
+    # Every left edge that keeps the ink inside the box and the box inside
+    # the horizontal getbbox (which spans the box and the pen line).
+    lo, hi = max(ir - width, h0), min(il, h1 - width)
     if lo > hi:
         return il, ir
+    probe = _right_probe(font, ch, adv) if lo < hi else None
+    if probe is not None:
+        right, end = probe
+        if right > end:  # the box passes the pen line: its right edge, exactly
+            lo = hi = min(max(right - width, lo), hi)
+        else:  # it ends before the rounded advance
+            hi = max(lo, min(hi, end - width))
     x0 = min(max(estimate[0], lo), hi)
     return x0, x0 + width
 

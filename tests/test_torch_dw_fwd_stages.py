@@ -223,9 +223,9 @@ def test_shapes_without_a_kernel_raise_before_any_launch():
     args = _block_args(3, 1, 4, 4, 640, torch.bfloat16)
     with pytest.raises(ValueError):
         bt.bwd_launch(*args)
-    args = _block_args(3, 1, 4, 4, 128, torch.float32)
-    with pytest.raises(TypeError):  # the kernel takes bf16 activations only
-        bt.bwd_launch(*args)
+    args = _block_args(3, 1, 4, 4, 128, torch.bfloat16)
+    with pytest.raises(TypeError):  # the kernel takes x, g and the weights in one type
+        bt.bwd_launch(args[0].float(), *args[1:])
     x = torch.zeros(1, 4, 4, 640)
     with pytest.raises(ValueError):
         dw._check(x, torch.zeros(49, 640), *[torch.zeros(640)] * 3)

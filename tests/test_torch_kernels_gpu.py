@@ -7,6 +7,8 @@ PyTorch is installed:
     python -m pytest --noconftest -q -m gpu tests/test_torch_kernels_gpu.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,18 @@ def _t(rng, shape, scale, dtype, device, shift=0.0):
     return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype).contiguous()
 
 
+# The kernels of #1 and #5-#10 in both types they are built for. bf16 bounds
+# are a few rounding steps, as each test says; f32 has no rounding point, and
+# its sums run in another order than the plain version's: 1e-4 of max |plain|,
+# the f32 bound of test_dw_ln_kernel_matches_plain.
+DTYPES = [torch.bfloat16, torch.float32]
+F32_TOL = 1e-4
+
+
+def _tol(dtype, bf16_tol):
+    return F32_TOL if dtype == torch.float32 else bf16_tol
+
+
 @pytest.mark.parametrize("c", dw.KERNEL_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_dw_ln_kernel_matches_plain(cuda, c, dtype):
@@ -50,73 +64,68 @@ def test_dw_ln_kernel_matches_plain(cuda, c, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
 
 
+def _block_args(rng, b, h, w, c, device, dtype=torch.bfloat16):
+    f32, lp = torch.float32, dtype
+    return (
+        _t(rng, (b, h, w, c), 1.0, lp, device),
+        _t(rng, (49, c), 0.1, lp, device),
+        _t(rng, (c,), 0.1, f32, device),
+        _t(rng, (c,), 0.1, f32, device, 1.0),
+        _t(rng, (c,), 0.1, f32, device),
+        _t(rng, (4 * c, c), c ** -0.5, lp, device),
+        _t(rng, (4 * c,), 0.1, f32, device),
+        _t(rng, (c, 4 * c), (4 * c) ** -0.5, lp, device),
+        _t(rng, (c,), 0.1, f32, device),
+        _t(rng, (c,), 0.1, f32, device, 1.0),
+    )
+
+
 @pytest.mark.parametrize("c", cb.KERNEL_WIDTHS)
 @pytest.mark.parametrize("b,h,w", [(2, 8, 8), (3, 9, 11)])
-def test_block_kernel_matches_plain(cuda, c, b, h, w):
-    rng = np.random.default_rng(c + h)
-    f32, bf16 = torch.float32, torch.bfloat16
-    args = (
-        _t(rng, (b, h, w, c), 1.0, bf16, cuda),
-        _t(rng, (49, c), 0.1, bf16, cuda),
-        _t(rng, (c,), 0.1, f32, cuda),
-        _t(rng, (c,), 0.1, f32, cuda, 1.0),
-        _t(rng, (c,), 0.1, f32, cuda),
-        _t(rng, (4 * c, c), c ** -0.5, bf16, cuda),
-        _t(rng, (4 * c,), 0.1, f32, cuda),
-        _t(rng, (c, 4 * c), (4 * c) ** -0.5, bf16, cuda),
-        _t(rng, (c,), 0.1, f32, cuda),
-        _t(rng, (c,), 0.1, f32, cuda, 1.0),
-    )
-    before = cb.convnext_block.launches
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_block_kernel_matches_plain(cuda, c, b, h, w, dtype):
+    args = _block_args(np.random.default_rng(c + h), b, h, w, c, cuda, dtype)
+    before = cb.convnext_block.launches, cb.convnext_block.f32_launches
     got = cb.convnext_block(*args)
     want = cb.block_reference(*args)
     torch.cuda.synchronize()
-    assert cb.convnext_block.launches == before + 1
-    # y and the hidden round to bf16 in both; a flipped rounding moves the
-    # output by about one bf16 step of its magnitude: 1e-2 * max |plain|.
+    f32 = dtype == torch.float32
+    assert (cb.convnext_block.launches, cb.convnext_block.f32_launches) == (
+        before[0] + 1, before[1] + f32)
+    assert got.dtype == dtype
+    # bf16: y and the hidden round to bf16 in both; a flipped rounding moves
+    # the output by about one bf16 step of its magnitude: 1e-2 * max |plain|.
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 1e-2 * want.float().abs().max().item()
-
-
-def _block_args(rng, b, h, w, c, device):
-    f32, bf16 = torch.float32, torch.bfloat16
-    return (
-        _t(rng, (b, h, w, c), 1.0, bf16, device),
-        _t(rng, (49, c), 0.1, bf16, device),
-        _t(rng, (c,), 0.1, f32, device),
-        _t(rng, (c,), 0.1, f32, device, 1.0),
-        _t(rng, (c,), 0.1, f32, device),
-        _t(rng, (4 * c, c), c ** -0.5, bf16, device),
-        _t(rng, (4 * c,), 0.1, f32, device),
-        _t(rng, (c, 4 * c), (4 * c) ** -0.5, bf16, device),
-        _t(rng, (c,), 0.1, f32, device),
-        _t(rng, (c,), 0.1, f32, device, 1.0),
-    )
+    assert err <= _tol(dtype, 1e-2) * want.float().abs().max().item()
 
 
 @pytest.mark.parametrize("c", cb.KERNEL_WIDTHS)
 @pytest.mark.parametrize("b,h,w", [(2, 8, 8), (3, 9, 11)])
-def test_block_kernel_emit_conv_matches_plain(cuda, c, b, h, w):
-    args = _block_args(np.random.default_rng(c + 7 * h), b, h, w, c, cuda)
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_block_kernel_emit_conv_matches_plain(cuda, c, b, h, w, dtype):
+    args = _block_args(np.random.default_rng(c + 7 * h), b, h, w, c, cuda, dtype)
     before, before_emit = cb.convnext_block.launches, cb.convnext_block.emit_launches
+    before_f32 = cb.convnext_block.emit_f32_launches
     out, t = cb.convnext_block(*args, emit_conv=True)
     want_out, want_t = cb.block_reference(*args, emit_conv=True)
     torch.cuda.synchronize()
     assert cb.convnext_block.launches == before + 1
     assert cb.convnext_block.emit_launches == before_emit + 1
-    assert t.dtype == torch.bfloat16 and t.shape == args[0].shape
+    assert cb.convnext_block.emit_f32_launches == before_f32 + (dtype == torch.float32)
+    assert t.dtype == dtype and t.shape == args[0].shape
     # t: the same f32 conv sum in another order, rounded once: one bf16 step.
+    tol = _tol(dtype, 1e-2)
     t_err = (t.float() - want_t.float()).abs().max().item()
-    assert t_err <= 1e-2 * want_t.float().abs().max().item()
+    assert t_err <= tol * want_t.float().abs().max().item()
     err = (out.float() - want_out.float()).abs().max().item()
-    assert err <= 1e-2 * want_out.float().abs().max().item()
+    assert err <= tol * want_out.float().abs().max().item()
     # The inference form is unchanged beside it.
     torch.testing.assert_close(cb.convnext_block(*args), cb.block_reference(*args),
-                               rtol=0, atol=1e-2 * want_out.float().abs().max().item())
+                               rtol=0, atol=tol * want_out.float().abs().max().item())
 
 
-def _bwd_args(rng, b, h, w, c, device):
-    f32, bf16 = torch.float32, torch.bfloat16
+def _bwd_args(rng, b, h, w, c, device, dtype=torch.bfloat16):
+    f32, bf16 = torch.float32, dtype
     return (
         _t(rng, (b, h, w, c), 1.0, bf16, device),            # t
         _t(rng, (c,), 0.1, f32, device, 1.0),                # ln_scale
@@ -137,14 +146,16 @@ MLP_BWD_SHAPES = [(2, 8, 8), (3, 13, 13), (3, 9, 11), (1, 1, 5)]
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
 @pytest.mark.parametrize("b,h,w", MLP_BWD_SHAPES)
-def test_ln_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w):
-    args = _bwd_args(np.random.default_rng(c + h), b, h, w, c, cuda)
-    before = fm.ln_mlp_bwd.launches
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_ln_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w, dtype):
+    args = _bwd_args(np.random.default_rng(c + h), b, h, w, c, cuda, dtype)
+    before = fm.ln_mlp_bwd.launches, fm.ln_mlp_bwd.f32_launches
     got = fm.ln_mlp_bwd(*args)
     again = fm.ln_mlp_bwd(*args)
     want = fm.ln_mlp_bwd_reference(*args)
     torch.cuda.synchronize()
-    assert fm.ln_mlp_bwd.launches == before + 2
+    assert (fm.ln_mlp_bwd.launches, fm.ln_mlp_bwd.f32_launches) == (
+        before[0] + 2, before[1] + 2 * (dtype == torch.float32))
     names = ["dt", "dls", "dlb", "dw1t", "db1", "dw2t", "db2", "dgamma"]
     for name, a, b_, ref in zip(names, got, again, want):
         assert a.dtype == ref.dtype and a.shape == ref.shape, name
@@ -154,7 +165,7 @@ def test_ln_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w):
         # boundary can round apart, and the f32 sums run in another order:
         # 2e-2 of max |plain| (about three bf16 steps).
         err = (a.float() - ref.float()).abs().max().item()
-        assert err <= 2e-2 * max(ref.float().abs().max().item(), 1e-6), (name, err)
+        assert err <= _tol(dtype, 2e-2) * max(ref.float().abs().max().item(), 1e-6), (name, err)
 
 
 @pytest.mark.parametrize("c", [128, 512])
@@ -327,14 +338,15 @@ BLOCK_END_SHAPES = [(b, h, w, c) for (b, h, w), c in zip(DW_FWD_RAGGED, (128, 96
 
 @pytest.mark.parametrize("stage", ["conv", "taps"])
 @pytest.mark.parametrize("b,h,w,c", BLOCK_END_SHAPES)
-def test_block_train_bwd_end_kernels_match_plain_stages(cuda, stage, b, h, w, c):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_block_train_bwd_end_kernels_match_plain_stages(cuda, stage, b, h, w, c, dtype):
     """#10's two ends against their plain stages (ops/block_train.py), each
     fed the kernel's own input: the conv recompute u, and the tap sums of the
     kernel's f32 g_u through the workspace and colsum; a second call agrees
-    bit for bit."""
+    bit for bit. Both bounds are f32's in either type (the ends sum in f32)."""
     rng = np.random.default_rng(c + 7 * h + w)
-    args = _block_args(rng, b, h, w, c, cuda)
-    g = _t(rng, (b, h, w, c), 1.0, torch.bfloat16, cuda)
+    args = _block_args(rng, b, h, w, c, cuda, dtype)
+    g = _t(rng, (b, h, w, c), 1.0, dtype, cuda)
     o = bt.bwd_launch(*args, g)
     again = bt.bwd_launch(*args, g)
     torch.cuda.synchronize()
@@ -346,7 +358,7 @@ def test_block_train_bwd_end_kernels_match_plain_stages(cuda, stage, b, h, w, c)
         u = bt.conv_bias_reference(x, args[1], args[2])
         _close("u", o["u"].view(x.shape), u, 1e-5)
         return
-    geo = bt.tap_geometry(b, h, w, c)
+    geo = bt.tap_geometry(b, h, w, c, dtype)
     assert o["tpart"].shape == (geo["parts"], 50 * c)
     dk, ddwb = bt.tap_sums_reference(x, o["gu32"])
     # f32 sums over every token in another order: 1e-4 of max |plain|.
@@ -356,8 +368,8 @@ def test_block_train_bwd_end_kernels_match_plain_stages(cuda, stage, b, h, w, c)
     _close("colsum", o["taps"], o["tpart"].double().sum(0), 1e-5)
 
 
-def _mlp_args(rng, b, h, w, c, device):
-    f32, bf16 = torch.float32, torch.bfloat16
+def _mlp_args(rng, b, h, w, c, device, dtype=torch.bfloat16):
+    f32, bf16 = torch.float32, dtype
     return (
         _t(rng, (b, h, w, c), 1.0, bf16, device),            # y
         _t(rng, (4 * c, c), c ** -0.5, bf16, device),        # w1t
@@ -371,20 +383,22 @@ def _mlp_args(rng, b, h, w, c, device):
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
 @pytest.mark.parametrize("b,h,w", MLP_BWD_SHAPES)
-def test_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w):
-    args = _mlp_args(np.random.default_rng(c + 3 * h), b, h, w, c, cuda)
-    before = fm.mlp_bwd.launches, fm.ln_mlp_bwd.launches
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_mlp_bwd_kernel_matches_plain(cuda, c, b, h, w, dtype):
+    args = _mlp_args(np.random.default_rng(c + 3 * h), b, h, w, c, cuda, dtype)
+    before = fm.mlp_bwd.launches, fm.ln_mlp_bwd.launches, fm.mlp_bwd.f32_launches
     got = fm.mlp_bwd(*args)
     again = fm.mlp_bwd(*args)
     want = fm.mlp_bwd_reference(*args)
     torch.cuda.synchronize()
-    assert (fm.mlp_bwd.launches, fm.ln_mlp_bwd.launches) == (before[0] + 2, before[1])
+    assert (fm.mlp_bwd.launches, fm.ln_mlp_bwd.launches, fm.mlp_bwd.f32_launches) == (
+        before[0] + 2, before[1], before[2] + 2 * (dtype == torch.float32))
     for name, a, b_, ref in zip(["dy", "dw1t", "db1", "dw2t", "db2", "dgamma"], got, again, want):
         assert a.dtype == ref.dtype and a.shape == ref.shape, name
         assert torch.equal(a, b_), name
         # As the LN+MLP backward: 2e-2 of max |plain| (about three bf16 steps).
         err = (a.float() - ref.float()).abs().max().item()
-        assert err <= 2e-2 * max(ref.float().abs().max().item(), 1e-6), (name, err)
+        assert err <= _tol(dtype, 2e-2) * max(ref.float().abs().max().item(), 1e-6), (name, err)
 
 
 def test_all_kernel_convnext_gives_block_gradients_on_the_card(cuda):
@@ -418,20 +432,22 @@ ROW_SHAPES = [(2, 8, 8), (3, 9, 11), (1, 1, 5), (1, 1, 127), (1, 1, 129), (1, 1,
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
 @pytest.mark.parametrize("b,h,w", ROW_SHAPES)
-def test_ln_mlp_kernel_matches_plain(cuda, c, b, h, w):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_ln_mlp_kernel_matches_plain(cuda, c, b, h, w, dtype):
     x, ls, lb, w1t, b1, w2t, b2, gamma, res = _bwd_args(np.random.default_rng(c + 5 * h), b, h,
-                                                         w, c, cuda)
+                                                         w, c, cuda, dtype)
     args = (x, ls, lb, w1t, b1, w2t, b2, gamma, res)
-    before = fm.ln_mlp.launches
+    before = fm.ln_mlp.launches, fm.ln_mlp.f32_launches
     got = fm.ln_mlp(*args)
     want = fm.ln_mlp_reference(*args)
     torch.cuda.synchronize()
-    assert fm.ln_mlp.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == x.shape
-    # y and the hidden round to bf16 in both; a flipped rounding moves the
-    # output by about one bf16 step of its magnitude: 1e-2 * max |plain|.
+    assert (fm.ln_mlp.launches, fm.ln_mlp.f32_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float32))
+    assert got.dtype == dtype and got.shape == x.shape
+    # bf16: y and the hidden round to bf16 in both; a flipped rounding moves
+    # the output by about one bf16 step of its magnitude: 1e-2 * max |plain|.
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 1e-2 * want.float().abs().max().item()
+    assert err <= _tol(dtype, 1e-2) * want.float().abs().max().item()
     # Flat [M, C] rows are the same rows.
     flat = fm.ln_mlp(x.reshape(-1, c), ls, lb, w1t, b1, w2t, b2, gamma, res.reshape(-1, c))
     assert torch.equal(flat.reshape(x.shape), got)
@@ -440,19 +456,21 @@ def test_ln_mlp_kernel_matches_plain(cuda, c, b, h, w):
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
 @pytest.mark.parametrize("b,h,w", ROW_SHAPES)
 @pytest.mark.parametrize("tail", [True, False])
-def test_mlp_fwd_kernel_matches_plain(cuda, c, b, h, w, tail):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_mlp_fwd_kernel_matches_plain(cuda, c, b, h, w, tail, dtype):
     y, w1t, b1, w2t, b2, gamma, res = _mlp_args(np.random.default_rng(c + 11 * h), b, h, w, c,
-                                                cuda)
+                                                cuda, dtype)
     kw = {"gamma": gamma, "residual": res} if tail else {}
-    before = fm.mlp_fwd.launches
+    before = fm.mlp_fwd.launches, fm.mlp_fwd.f32_launches
     got = fm.mlp_fwd(y, w1t, b1, w2t, b2, **kw)
     want = fm.mlp_reference(y, w1t, b1, w2t, b2, **kw)
     torch.cuda.synchronize()
-    assert fm.mlp_fwd.launches == before + 1
-    assert got.dtype == torch.bfloat16 and got.shape == y.shape
-    # As the LN form: 1e-2 * max |plain|.
+    assert (fm.mlp_fwd.launches, fm.mlp_fwd.f32_launches) == (
+        before[0] + 1, before[1] + (dtype == torch.float32))
+    assert got.dtype == dtype and got.shape == y.shape
+    # As the LN form: 1e-2 * max |plain| in bf16.
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= 1e-2 * want.float().abs().max().item()
+    assert err <= _tol(dtype, 1e-2) * want.float().abs().max().item()
 
 
 def test_row_mlp_library_holds_only_the_hopper_launches(cuda):
@@ -466,21 +484,25 @@ def test_row_mlp_library_holds_only_the_hopper_launches(cuda):
     names = build_diff.kernel_names(cuda_build.library_path("row_mlp"))
     assert not [n for n in names if n.startswith("row_mlp_kernel")], names
     assert {f"mlp_ln_rows<{c}>" for c in fm.KERNEL_WIDTHS} <= names
+    assert {f"mlp_ln_rows<float, {c}>" for c in fm.KERNEL_WIDTHS} <= names
     for epi in (4, 5, 6):  # F1 (EPI_GELU), F2 with the tail (EPI_OUT) and without (EPI_BIAS)
         assert {f"wg_gemm<1, {nb}, false, {epi}>" for nb in (1, 2)} <= names, epi
+        assert f"f32g::f32_gemm<1, false, {epi}>" in names, epi  # the f32 forms' products
 
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
 @pytest.mark.parametrize("b,h,w", MLP_BWD_SHAPES)
-def test_block_train_bwd_kernel_matches_plain(cuda, c, b, h, w):
-    args = _block_args(np.random.default_rng(c + 13 * h), b, h, w, c, cuda)
-    g = _t(np.random.default_rng(c), (b, h, w, c), 1.0, torch.bfloat16, cuda)
-    before = bt.block_train_bwd.launches
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_block_train_bwd_kernel_matches_plain(cuda, c, b, h, w, dtype):
+    args = _block_args(np.random.default_rng(c + 13 * h), b, h, w, c, cuda, dtype)
+    g = _t(np.random.default_rng(c), (b, h, w, c), 1.0, dtype, cuda)
+    before = bt.block_train_bwd.launches, bt.block_train_bwd.f32_launches
     got = bt.block_train_bwd(*args, g)
     again = bt.block_train_bwd(*args, g)
     want = bt.block_train_bwd_reference(*args, g)
     torch.cuda.synchronize()
-    assert bt.block_train_bwd.launches == before + 2
+    assert (bt.block_train_bwd.launches, bt.block_train_bwd.f32_launches) == (
+        before[0] + 2, before[1] + 2 * (dtype == torch.float32))
     names = ["g_u", "dk", "ddwb", "dls", "dlb", "dw1t", "db1", "dw2t", "db2", "dgamma"]
     for name, a, b_, ref in zip(names, got, again, want):
         assert a.dtype == ref.dtype and a.shape == ref.shape, name
@@ -488,7 +510,7 @@ def test_block_train_bwd_kernel_matches_plain(cuda, c, b, h, w):
         assert torch.equal(a, b_), name
         # As the LN+MLP backward: 2e-2 of max |plain| (about three bf16 steps).
         err = (a.float() - ref.float()).abs().max().item()
-        assert err <= 2e-2 * max(ref.float().abs().max().item(), 1e-6), (name, err)
+        assert err <= _tol(dtype, 2e-2) * max(ref.float().abs().max().item(), 1e-6), (name, err)
 
 
 @pytest.mark.parametrize("mode,layer_scale,launches", [
@@ -544,49 +566,51 @@ def _close(name, got, want, tol=2e-2):
                                       for ln in (True, False)
                                       if s != "ln" or ln])  # L is the LN form's stage only
 @pytest.mark.parametrize("b,hw,c", TRAIN_SHAPES)
-def test_mlp_bwd_stage_kernels_match_plain_stages(cuda, stage, ln, b, hw, c):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_mlp_bwd_stage_kernels_match_plain_stages(cuda, stage, ln, b, hw, c, dtype):
     """Each stage kernel of csrc/ln_mlp_bwd.cuh against its plain stage
     (ops/fused_mlp.py::bwd_*_reference) fed the kernel's own inputs to that
     stage, at the train step's shapes, with and without the LayerNorm."""
     rng = np.random.default_rng(c + 17 * ln)
     if ln:
-        t, ls, lb, w1t, b1, w2t, b2, gamma, g = _bwd_args(rng, b, hw, hw, c, cuda)
+        t, ls, lb, w1t, b1, w2t, b2, gamma, g = _bwd_args(rng, b, hw, hw, c, cuda, dtype)
     else:
-        t, w1t, b1, w2t, b2, gamma, g = _mlp_args(rng, b, hw, hw, c, cuda)
+        t, w1t, b1, w2t, b2, gamma, g = _mlp_args(rng, b, hw, hw, c, cuda, dtype)
         ls = lb = None
     o = fm.bwd_launch(t, g, w1t, b1, w2t, b2, gamma, ls, lb)
     torch.cuda.synchronize()
-    lp = torch.bfloat16
+    lp = dtype
+    close = functools.partial(_close, tol=_tol(dtype, 2e-2))
     gf = g.reshape(-1, c).float()
     small = o["small"]
     rows = fm.bwd_rows_reference(t.reshape(-1, c).float(), gamma, gf, lp, ls, lb)
     y = (o["y"] if ln else t.reshape(-1, c)).float()
     if stage == "rows":
         if ln:
-            _close("y", o["y"], rows["y"])
-            _close("rstd", o["stats"][:, 1], rows["rstd"][:, 0])
-        _close("gg", o["gg"], rows["gg"])
-        _close("db2", small[6 * c: 7 * c], rows["db2"])
-        _close("gsum", small[7 * c:], rows["gsum"])
+            close("y", o["y"], rows["y"])
+            close("rstd", o["stats"][:, 1], rows["rstd"][:, 0])
+        close("gg", o["gg"], rows["gg"])
+        close("db2", small[6 * c: 7 * c], rows["db2"])
+        close("gsum", small[7 * c:], rows["gsum"])
     elif stage == "hidden":
         hid = fm.bwd_hidden_reference(y, o["gg"].float(), w1t, b1, w2t, lp)
-        _close("h", o["h"], hid["h"])
-        _close("gh", o["gh"], hid["gh"])
-        _close("db1", small[: 4 * c], hid["db1"])
+        close("h", o["h"], hid["h"])
+        close("gh", o["gh"], hid["gh"])
+        close("db1", small[: 4 * c], hid["db1"])
     elif stage == "gy":
         g_y = fm.bwd_gy_reference(o["gh"].float(), w1t)
-        _close("g_y", o["gy"] if ln else o["dt"].reshape(-1, c), g_y)
+        close("g_y", o["gy"] if ln else o["dt"].reshape(-1, c), g_y)
     elif stage == "ln":
         dt, dls, dlb = fm.bwd_ln_reference(o["gy"], rows["yhat"], rows["rstd"], ls)
-        _close("dt", o["dt"].reshape(-1, c), dt)
-        _close("dls", small[4 * c: 5 * c], dls)
-        _close("dlb", small[5 * c: 6 * c], dlb)
+        close("dt", o["dt"].reshape(-1, c), dt)
+        close("dls", small[4 * c: 5 * c], dls)
+        close("dlb", small[5 * c: 6 * c], dlb)
     else:
         dw1t, dw2t, dgamma = fm.bwd_grads_reference(y, o["gh"].float(), gf, o["h"].float(), w2t,
                                                     b2, gamma, small[7 * c:], lp)
-        _close("dw1t", o["dw1t"], dw1t)
-        _close("dw2t", o["dw2t"], dw2t)
-        _close("dgamma", o["dgamma"], dgamma)
+        close("dw1t", o["dw1t"], dw1t)
+        close("dw2t", o["dw2t"], dw2t)
+        close("dgamma", o["dgamma"], dgamma)
 
 
 # The block forward's stages: every built width at 507 tokens (ragged P tiles
@@ -599,11 +623,13 @@ BLOCK_STAGE_SHAPES = [(3, 13, 13, c) for c in cb.KERNEL_WIDTHS] + [
 @pytest.mark.parametrize("stage", ["prologue", "hidden", "out"])
 @pytest.mark.parametrize("emit_conv", [False, True])
 @pytest.mark.parametrize("b,h,w,c", BLOCK_STAGE_SHAPES)
-def test_block_stage_kernels_match_plain_stages(cuda, stage, emit_conv, b, h, w, c):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_block_stage_kernels_match_plain_stages(cuda, stage, emit_conv, b, h, w, c, dtype):
     """Each launch of csrc/convnext_block.cu (P, F1, F2) against its plain
     stage (ops/convnext_block.py) fed the kernel's own input to that stage, in
     both forms; a second call agrees bit for bit."""
-    args = _block_args(np.random.default_rng(c + 3 * h + emit_conv), b, h, w, c, cuda)
+    args = _block_args(np.random.default_rng(c + 3 * h + emit_conv), b, h, w, c, cuda, dtype)
+    tol = _tol(dtype, 1e-2)
     o = cb.fwd_launch(*args, emit_conv=emit_conv)
     again = cb.fwd_launch(*args, emit_conv=emit_conv)
     torch.cuda.synchronize()
@@ -611,15 +637,15 @@ def test_block_stage_kernels_match_plain_stages(cuda, stage, emit_conv, b, h, w,
         assert torch.equal(o[name], again[name]), name
     if stage == "prologue":
         y, t = cb.prologue_reference(*args[:5], emit_conv=emit_conv)
-        _close("y", o["y"], y.reshape(-1, c), 1e-2)
+        _close("y", o["y"], y.reshape(-1, c), tol)
         if emit_conv:
-            _close("t", o["t"], t, 1e-2)
+            _close("t", o["t"], t, tol)
         else:
             assert "t" not in o
     elif stage == "hidden":
-        _close("h", o["h"], cb.hidden_reference(o["y"], args[5], args[6]), 1e-2)
+        _close("h", o["h"], cb.hidden_reference(o["y"], args[5], args[6]), tol)
     else:
-        _close("out", o["out"], cb.out_reference(o["h"], args[7], args[8], args[9], args[0]), 1e-2)
+        _close("out", o["out"], cb.out_reference(o["h"], args[7], args[8], args[9], args[0]), tol)
 
 
 # The row forms' launches: every built width at 127, 129 and 507 tokens
@@ -633,13 +659,15 @@ ROW_STAGE_SHAPES = [(m, c) for c in fm.KERNEL_WIDTHS for m in (127, 129, 507)] +
                                         for f in ("ln", "tail", "no_tail")
                                         if s != "ln" or f == "ln"])  # L is the LN form's only
 @pytest.mark.parametrize("m,c", ROW_STAGE_SHAPES)
-def test_row_stage_kernels_match_plain_stages(cuda, stage, form, m, c):
+@pytest.mark.parametrize("dtype", DTYPES, ids=["bf16", "f32"])
+def test_row_stage_kernels_match_plain_stages(cuda, stage, form, m, c, dtype):
     """Each launch of csrc/row_mlp.cu (L, F1, F2) against its plain stage
     (ops/fused_mlp.py) fed the kernel's own input to that stage, in the LN
     form (#7) and the copy form with and without the tail (#5); a second
     call agrees bit for bit."""
     x, ls, lb, w1t, b1, w2t, b2, gamma, res = _bwd_args(
-        np.random.default_rng(c + m + len(form)), 1, 1, m, c, cuda)
+        np.random.default_rng(c + m + len(form)), 1, 1, m, c, cuda, dtype)
+    tol = _tol(dtype, 1e-2)
     x, res = x.reshape(m, c), res.reshape(m, c)
     kw = {"ln": dict(gamma=gamma, residual=res, ln_scale=ls, ln_bias=lb),
           "tail": dict(gamma=gamma, residual=res), "no_tail": {}}[form]
@@ -650,13 +678,13 @@ def test_row_stage_kernels_match_plain_stages(cuda, stage, form, m, c):
     for name in o:
         assert torch.equal(o[name], again[name]), name
     if stage == "ln":
-        _close("y", o["y"], fm.ln_rows_reference(x, ls, lb), 1e-2)
+        _close("y", o["y"], fm.ln_rows_reference(x, ls, lb), tol)
     elif stage == "hidden":
-        _close("h", o["h"], fm.hidden_reference(o["y"] if form == "ln" else x, w1t, b1), 1e-2)
+        _close("h", o["h"], fm.hidden_reference(o["y"] if form == "ln" else x, w1t, b1), tol)
     elif form == "no_tail":
-        _close("out", o["out"], fm.bias_out_reference(o["h"], w2t, b2), 1e-2)
+        _close("out", o["out"], fm.bias_out_reference(o["h"], w2t, b2), tol)
     else:
-        _close("out", o["out"], fm.out_reference(o["h"], w2t, b2, gamma, res), 1e-2)
+        _close("out", o["out"], fm.out_reference(o["h"], w2t, b2, gamma, res), tol)
 
 
 def test_kernels_reject_cpu_layouts_on_the_card(cuda):
@@ -692,7 +720,7 @@ def test_kernels_reject_cpu_layouts_on_the_card(cuda):
                    torch.zeros(2560, device=cuda),
                    torch.zeros(640, 2560, dtype=torch.bfloat16, device=cuda), v)
     targs = _block_args(np.random.default_rng(4), 1, 4, 4, 128, cuda)
-    with pytest.raises(ValueError):  # an f32 filter
+    with pytest.raises(TypeError):  # an f32 filter with bf16 x
         bt.block_train_bwd(targs[0], targs[1].float(), *targs[2:], targs[0])
     w1t = torch.zeros(2560, 640, dtype=torch.bfloat16, device=cuda)
     w2t = torch.zeros(640, 2560, dtype=torch.bfloat16, device=cuda)

@@ -169,8 +169,7 @@ def test_matplotlib_lines_match_jax():
 
 def test_textbbox_gap_is_bounded():
     """Over 2400 strings in all twelve faces at six sizes: the atlas draws
-    every one as Pillow does, and its textbbox differs from Pillow's in at
-    most 1% of them, by one pixel of the right edge."""
+    every one as Pillow does, and its textbbox is Pillow's on every one."""
     rng = np.random.default_rng(11)
     faces = list(zip(js.FONT_PATHS + js.HOLDOUT_FONT_PATHS,
                      ps.FONT_PATHS + ps.HOLDOUT_FONT_PATHS))
@@ -191,7 +190,7 @@ def test_textbbox_gap_is_bounded():
                 mine = np.full((40, 700), 250, np.uint8)
                 atlas.draw(mine, (4, 3), t, 9)
                 np.testing.assert_array_equal(mine, np.asarray(img))
-    assert off <= 0.01 * total, (off, total)
+    assert off == 0, (off, total)
 
 
 def test_atlas_equals_the_generator_on_a_subset():
