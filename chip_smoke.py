@@ -210,7 +210,10 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    study graph's B16 for #1, the train step's B32 for the rest) against their
    plain f32 versions within 1e-4 of max |plain| per output, timed beside the
    plain version, one PyTorch call of the same function (TF32 off) and the
-   bound at the f32 rate; one f32 step card against CPU in each of "hybrid",
+   bound: the products as 3xTF32 work (three TF32 products each, at 495
+   TFLOP/s: the f32 forms' core, ``csrc/wg_gemm.cuh``), with the bound at the
+   67 TFLOP/s f32 rate beside it (``simt_bound_ms``, the bound of the SIMT
+   core that came before it); one f32 step card against CPU in each of "hybrid",
    True, "mlp", "block" and the LayerScale-free "mlp" model, each parameter
    within 1e-3 of its norm, with each mode's launch counts; ConvNeXt-base
    localization at 512^2, batch 32, f32 through ``LocalizationTrainer`` for
@@ -249,6 +252,7 @@ from pathlib import Path
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16 peak
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12  # dense tensor-core TF32 peak: the f32 forms' products, three a product
 H100_BYTES_S = 3.35e12  # HBM3
 
 BLOCK_SHAPES = ((128, 128, 3), (64, 256, 3), (32, 512, 27))  # (H=W, C, blocks)
@@ -373,26 +377,37 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, tensor_flops: float, f32_flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, tensor_flops: float, f32_flops: float,
+              tf32_flops: float = 0) -> tuple[float, str]:
+    """The least time (ms) and what bounds it: the larger of the bytes at
+    3.35 TB/s and the operations, bf16 tensor flops at 989 TFLOP/s, f32 ones
+    at 67 and f32 product flops (``tf32_flops``) as 3xTF32 work, three TF32
+    products each at 495."""
     t_bytes = nbytes / H100_BYTES_S * 1e3
-    t_ops = max(tensor_flops / H100_BF16_FLOPS, f32_flops / H100_F32_FLOPS) * 1e3
+    t_ops = max(tensor_flops / H100_BF16_FLOPS, f32_flops / H100_F32_FLOPS,
+                3 * tf32_flops / H100_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _timed_row(what: str, count: int, err: float, kernel, plain, library, nbytes: float,
                tensor_flops: float, f32_flops: float, per: str, plain_iters: int = 3,
-               plain_warmup: int = 1) -> tuple:
+               plain_warmup: int = 1, tf32_flops: float = 0) -> tuple:
     """Time the kernel, its plain version and the PyTorch yardstick with CUDA
     events, print them beside the bound, and return the report row ``(count,
-    err, ms, plain_ms, bound_ms, bound_by, library_ms)``. The caller restores
-    the kernel's launch count: these launches are not the main path's."""
+    err, ms, plain_ms, bound_ms, bound_by, library_ms)``; with f32 product
+    flops (``tf32_flops``, bound as 3xTF32 work) also ``simt_bound_ms``, the
+    bound with them at the f32 rate. The caller restores the kernel's launch
+    count: these launches are not the main path's."""
     ms = _time_ms(kernel)
     plain_ms = _time_ms(plain, iters=plain_iters, warmup=plain_warmup)
     library_ms = _time_ms(library)
-    bound, by = _bound_ms(nbytes, tensor_flops, f32_flops)
+    bound, by = _bound_ms(nbytes, tensor_flops, f32_flops, tf32_flops)
+    simt = _bound_ms(nbytes, tensor_flops, f32_flops + tf32_flops)[0] if tf32_flops else None
     print(f"[kernel] {what}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-          f"bound_ms={bound:.4f} ({by}) roofline_share={bound / ms:.3f} {per}={count}")
-    return count, err, ms, plain_ms, bound, by, library_ms
+          f"bound_ms={bound:.4f} ({by}) roofline_share={bound / ms:.3f}"
+          + (f" simt_bound_ms={simt:.4f}" if simt is not None else "") + f" {per}={count}")
+    row = (count, err, ms, plain_ms, bound, by, library_ms)
+    return row if simt is None else (*row, simt)
 
 
 def _rand(gen, shape, scale, device, dtype, shift=0.0):
@@ -558,10 +573,12 @@ def _check_outputs(what: str, names, got, want, tol: float, again=None) -> list[
 
 
 # The products of csrc/wg_gemm.cuh by epilogue, as the profiler names them
-# without spaces: wg_gemm<NA,NB,MN,EPI> with EPI the number of its EPI_* (the
-# MLP backward's 0-3, the block forward's 4 and 5).
+# without spaces: wg_gemm<T,NA,NB,MN,EPI> with EPI the number of its EPI_*
+# (the MLP backward's 0-3, the block forward's 4 and 5), in bf16 and f32
+# (whose K splits add split_reduce).
 def _gemm(na_nb: tuple, mn: str, epi: int) -> tuple:
-    return tuple(f"wg_gemm<{na},{nb},{mn},{epi}>" for na, nb in na_nb)
+    return tuple(f"wg_gemm<{t},{na},{nb},{mn},{epi}>" for t in ("__nv_bfloat16", "float")
+                 for na, nb in na_nb)
 
 
 # The MLP backward's stages (csrc/ln_mlp_bwd.cuh) by kernel name; #10 adds
@@ -2226,7 +2243,8 @@ def _f32_check(what: str, names, got, want) -> float:
 def f32_kernel_phase(device, report: dict) -> None:
     """Each f32 form at its main-path shapes against its plain f32 version,
     timed beside the plain version, one PyTorch call of the same function
-    (TF32 off) and the bound at the f32 rate: #1 at the study graph's (B16),
+    (TF32 off) and the bound (the products as 3xTF32 work, ``simt_bound_ms``
+    at the f32 rate beside it): #1 at the study graph's (B16),
     its emit_conv form, #7, #5, #8/#9, #6 and #10 at the train step's (B32),
     #5 also at its path's, the LayerScale-free gradient check's (B2). Rows go
     into ``report`` under each kernel's name + "_f32" (#5's of its path)."""
@@ -2260,7 +2278,7 @@ def f32_kernel_phase(device, report: dict) -> None:
         rows["convnext_block_f32"].append(_timed_row(
             f"convnext_block f32 C={c}", count, err, lambda: cb.convnext_block(*args),
             lambda: cb.block_reference(*args), library, 2 * m * c * 4 + weights, 0,
-            16 * m * c * c + 98 * m * c, "per_forward"))
+            98 * m * c, "per_forward", tf32_flops=16 * m * c * c))
         del args, g, x
         torch.cuda.empty_cache()
 
@@ -2288,7 +2306,7 @@ def f32_kernel_phase(device, report: dict) -> None:
             f"convnext_block emit_conv f32 C={c}", count, err,
             lambda: cb.convnext_block(*args, emit_conv=True),
             lambda: cb.block_reference(*args, emit_conv=True), lib_emit,
-            3 * m * c * 4 + weights, 0, 16 * m * c * c + 98 * m * c, "per_train_step"))
+            3 * m * c * 4 + weights, 0, 98 * m * c, "per_train_step", tf32_flops=16 * m * c * c))
 
         # #7, the LN+MLP rows ("mlp" mode's forward), with x as the residual.
         largs = (xr, ls, lb, w1t, b1, w2t, b2, gamma, gr)
@@ -2302,7 +2320,7 @@ def f32_kernel_phase(device, report: dict) -> None:
         rows["ln_mlp_f32"].append(_timed_row(
             f"ln_mlp f32 C={c}", count, err, lambda: fm.ln_mlp(*largs),
             lambda: fm.ln_mlp_reference(*largs), lib_ln_mlp, 3 * m * c * 4 + weights, 0,
-            16 * m * c * c + 8 * m * c, "per_train_step"))
+            8 * m * c, "per_train_step", tf32_flops=16 * m * c * c))
 
         # #5 with its tail (the fused MLP route of blocks without LayerScale
         # runs it with the residual and gamma of ones): printed here, its
@@ -2326,7 +2344,8 @@ def f32_kernel_phase(device, report: dict) -> None:
         rows["ln_mlp_bwd_f32"].append(_timed_row(
             f"ln_mlp_bwd f32 C={c}", count, err, lambda: fm.ln_mlp_bwd(*bargs),
             lambda: fm.ln_mlp_bwd_reference(*bargs), lib_ln_bwd,
-            3 * m * c * 4 + weights + grads, 0, 40 * m * c * c + 35 * m * c, "per_train_step"))
+            3 * m * c * 4 + weights + grads, 0, 35 * m * c, "per_train_step",
+            tf32_flops=40 * m * c * c))
         del bl
         mbargs = (x, w1t, b1, w2t, b2, gamma, g)
         err = _f32_check(f"mlp_bwd f32 {shape}", ("dy", "dw1t", "db1", "dw2t", "db2", "dgamma"),
@@ -2341,7 +2360,7 @@ def f32_kernel_phase(device, report: dict) -> None:
         rows["mlp_bwd_f32"].append(_timed_row(
             f"mlp_bwd f32 C={c}", count, err, lambda: fm.mlp_bwd(*mbargs),
             lambda: fm.mlp_bwd_reference(*mbargs), lib_mlp_bwd, 3 * m * c * 4 + weights + grads,
-            0, 40 * m * c * c + 15 * m * c, "per_train_step"))
+            0, 15 * m * c, "per_train_step", tf32_flops=40 * m * c * c))
         del ml
 
         # #10, the whole-block backward ("block" mode).
@@ -2363,7 +2382,7 @@ def f32_kernel_phase(device, report: dict) -> None:
             f"block_train_bwd f32 C={c}", count, err, lambda: bt.block_train_bwd(*targs),
             lambda: bt.block_train_bwd_reference(*targs), lib_block_bwd,
             3 * m * c * 4 + weights + grads + 50 * c * 4, 0,
-            40 * m * c * c + 2 * 98 * m * c + 35 * m * c, "per_train_step"))
+            2 * 98 * m * c + 35 * m * c, "per_train_step", tf32_flops=40 * m * c * c))
         del tl, args, g, x, xr, gr, targs, bargs, mbargs, largs
         torch.cuda.empty_cache()
     for hw, c, count in GRAD_BLOCK_SHAPES:  # #5's path: the gradient check without LayerScale
@@ -2394,7 +2413,8 @@ def _f32_mlp_fwd_row(x, w1t, b1, w2t, b2, gamma, res, shape: str, count: int,
 
     return _timed_row(f"mlp_fwd f32 {shape}", count, err, lambda: fm.mlp_fwd(*args),
                       lambda: fm.mlp_reference(*args), library,
-                      3 * m * c * 4 + (8 * c * c + 6 * c) * 4, 0, 16 * m * c * c, per)
+                      3 * m * c * 4 + (8 * c * c + 6 * c) * 4, 0, 0, per,
+                      tf32_flops=16 * m * c * c)
 
 
 def f32_train_check(device, card: str) -> dict:
@@ -5477,14 +5497,15 @@ def _kernels_line(report: dict, paths: dict, probe_counts: dict, probe_rows: dic
                  "block_train_bwd": "f32_train_step_block"}
     for name, path in f32_paths.items():
         source, replaces, _ = sources[name]
-        sources[f"{name}_f32"] = (source, replaces, path)  # its products: csrc/f32_gemm.cuh
+        sources[f"{name}_f32"] = (source, replaces, path)  # its products: csrc/wg_gemm.cuh
 
     def totals(rows: list) -> dict:
         """Per-path totals: each shape's time times its launches on the path."""
         total = lambda i: sum(r[0] * r[i] for r in rows)  # noqa: E731
+        simt = {"simt_bound_ms": total(7)} if all(len(r) > 7 for r in rows) else {}
         return {"max_abs_err": max(r[1] for r in rows), "ms": total(2), "plain_ms": total(3),
                 "bound_ms": total(4), "bound_by": max(rows, key=lambda r: r[0] * r[4])[5],
-                "library_ms": total(6)}
+                "library_ms": total(6), **simt}
 
     kernels = []
     for name, rows in report.items():

@@ -46,9 +46,9 @@
 //
 // The f32 form (the JAX kernel run in f32) is the same three steps with x,
 // the filter, g and g_u in f32: the recompute dws::dw_stencil<float, float,
-// true>, the MLP backward's f32 stages (ln_mlp_bwd.cuh on f32_gemm.cuh) and
-// tap_sums<float, SW> over an f32 x ring; its bound is the f32 rate (40 * M *
-// C^2 flops at 67 TFLOP/s).
+// true>, the MLP backward's f32 stages (ln_mlp_bwd.cuh on wg_gemm.cuh's
+// 3xTF32 path) and tap_sums<float, SW> over an f32 x ring; its bound is the
+// TF32 rate (3 * 40 * M * C^2 flops at 495 TFLOP/s).
 #include "dw_stage.cuh"
 #include "ln_mlp_bwd.cuh"
 
@@ -176,8 +176,8 @@ int block_bwd(const void* x, const void* k, const void* bias, const void* ls, co
               const void* b2, const void* gamma, const void* g, void* gu, void* small, void* dw1t,
               void* dw2t, void* dgamma, void* taps, void* u, void* gu32, void* y, void* gg,
               void* stats, void* h, void* gh, void* gy, void* part, void* ws, void* tpart, int B,
-              int H, int W, int C, int splits, long long ks, int rows_per_run, float eps,
-              cudaStream_t s) {
+              int H, int W, int C, int splits, long long ks, const long long* plan,
+              int rows_per_run, float eps, cudaStream_t s) {
   const long long M = (long long)B * H * W;
   int err = dws::launch_stencil<T, float, true>(x, k, bias, u, B, H, W, C, s);
   if (err) return err;
@@ -185,7 +185,7 @@ int block_bwd(const void* x, const void* k, const void* bias, const void* ls, co
                     (const float*)ls, (const float*)lb, (const float*)b1, (const float*)b2,
                     (const float*)gamma, (T*)gu, (float*)gu32, (float*)small, (float*)dw1t,
                     (float*)dw2t, (float*)dgamma, (T*)y, (T*)gg, (T*)h, (T*)gh, (float*)stats,
-                    (float*)gy, (float*)part, (float*)ws, M, ks, C, splits, eps};
+                    (float*)gy, (float*)part, (float*)ws, M, ks, C, splits, eps, kplan(plan)};
   err = mlp_bwd<T, true, true>(a, s);
   if (err) return err;
   const int sw = dws::strip_width(W);
@@ -211,14 +211,17 @@ int block_bwd(const void* x, const void* k, const void* bias, const void* ls, co
 // tokens a split), tpart f32 [B * runs * strips, 50 * C]: the tap sums walk
 // runs of rows_per_run image rows (runs = ceil(H / rows_per_run)) in strips
 // of 16 columns (W <= 16) or 32 (strips = ceil(W / strip)). C is one of 96,
-// 128, 192, 256, 384, 512. Returns the first cudaError_t of its launches.
+// 128, 192, 256, 384, 512. f32 also takes plan, the K splits of the MLP
+// backward's stages B and C (as svt_ln_mlp_bwd's; null in bf16). Returns the
+// first cudaError_t of its launches.
 extern "C" int svt_block_train_bwd(
     const void* x, const void* k, const void* bias, const void* ls, const void* lb,
     const void* w1t, const void* w1, const void* b1, const void* w2t, const void* w2,
     const void* b2, const void* gamma, const void* g, void* gu, void* small, void* dw1t,
     void* dw2t, void* dgamma, void* taps, void* u, void* gu32, void* y, void* gg, void* stats,
     void* h, void* gh, void* gy, void* part, void* ws, void* tpart, int dtype, int B, int H,
-    int W, int C, int splits, long long ks, int rows_per_run, float eps, void* stream) {
+    int W, int C, int splits, long long ks, const long long* plan, int rows_per_run, float eps,
+    void* stream) {
   const long long M = (long long)B * H * W;
   if (M == 0 || B < 0 || H < 0 || W < 0 || rows_per_run <= 0) return (int)cudaErrorInvalidValue;
   switch (C) {
@@ -231,10 +234,10 @@ extern "C" int svt_block_train_bwd(
   if (dtype == 0)
     return block_bwd<bf16>(x, k, bias, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, g, gu, small,
                            dw1t, dw2t, dgamma, taps, u, gu32, y, gg, stats, h, gh, gy, part, ws,
-                           tpart, B, H, W, C, splits, ks, rows_per_run, eps, s);
+                           tpart, B, H, W, C, splits, ks, nullptr, rows_per_run, eps, s);
   if (dtype == 1)
     return block_bwd<float>(x, k, bias, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, g, gu, small,
                             dw1t, dw2t, dgamma, taps, u, gu32, y, gg, stats, h, gh, gy, part, ws,
-                            tpart, B, H, W, C, splits, ks, rows_per_run, eps, s);
+                            tpart, B, H, W, C, splits, ks, plan, rows_per_run, eps, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -38,12 +38,11 @@
 // The f32 form (the JAX kernel run in f32, as the JAX package runs it with
 // mixed_precision=False) is P in f32, block_prologue<float, C, EMIT> (an f32
 // halo ring, t and y in f32; t's rounding is the identity, so both forms'
-// LayerNorm reads the f32 t), then F1 and F2 on the f32 product core
-// (f32_gemm.cuh). Its halo doubles P's ring: 134 KB a CTA at C = 512 (a 4 x
-// 8 tile) and 146 KB at C = 192 (8 x 8), one CTA an SM at most widths where
-// bf16 fits two (ops/convnext_block.py, forward_geometry). Its bound is the
-// f32 rate (16 * M * C^2 flops at 67 TFLOP/s).
-#include "f32_gemm.cuh"
+// LayerNorm reads the f32 t), then F1 and F2 on wg_gemm.cuh's 3xTF32 path
+// (mlp_products_f32). Its halo doubles P's ring: 134 KB a CTA at C = 512 (a
+// 4 x 8 tile) and 146 KB at C = 192 (8 x 8), one CTA an SM at most widths
+// where bf16 fits two (ops/convnext_block.py, forward_geometry). Its bound is
+// the TF32 rate (3 * 16 * M * C^2 flops at 495 TFLOP/s).
 #include "mma_bf16.cuh"
 #include "wg_gemm.cuh"
 
@@ -211,6 +210,8 @@ struct BlockFwd {
   const T* w2t;
   const float *b2, *gamma;
   T *out, *t, *y, *h;
+  float* ws;  // f32: the K splits' partials (null where none is split)
+  KPlan kp;
   int B, H, W;
   float eps;
 };
@@ -234,12 +235,12 @@ int block_forward_c(const BlockFwd<T>& a, cudaStream_t s) {
   }
   // F1 and F2: h = gelu_tanh(y . W1^T + b1), out = (h . W2^T + b2) * gamma + x.
   if constexpr (std::is_same<T, float>::value) {
-    f32g::EpiF e{};
+    EpiT<float> e{};
     e.b2 = a.b2;
     e.gamma = a.gamma;
     e.x = a.x;
     e.out = a.out;
-    return f32g::mlp_products<C, EPI_OUT>(a.y, a.w1t, a.b1, a.w2t, a.h, M, e, s);
+    return mlp_products_f32<C, EPI_OUT>(a.y, a.w1t, a.b1, a.w2t, a.h, M, e, a.ws, a.kp, s);
   } else {
     Epi e{};
     e.b2 = a.b2;
@@ -259,11 +260,12 @@ template <typename T>
 int block_dispatch(const void* x, const void* k, const void* dw_bias, const void* ln_scale,
                    const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
                    const void* b2, const void* gamma, void* out, void* t, void* y, void* h,
-                   int B, int H, int W, int C, float eps, cudaStream_t s) {
+                   void* ws, const long long* plan, int B, int H, int W, int C, float eps,
+                   cudaStream_t s) {
   const BlockFwd<T> a{(const T*)x, (const T*)k, (const float*)dw_bias, (const float*)ln_scale,
                       (const float*)ln_bias, (const T*)w1t, (const float*)b1, (const T*)w2t,
                       (const float*)b2, (const float*)gamma, (T*)out, (T*)t, (T*)y, (T*)h,
-                      B, H, W, eps};
+                      (float*)ws, kplan(plan), B, H, W, eps};
 #define SVT_BLOCK_CASE(CC) \
   case CC:                 \
     return block_forward<T, CC>(a, s);
@@ -286,22 +288,23 @@ int block_dispatch(const void* x, const void* k, const void* dw_bias, const void
 // x, k [49, C], w1t [4C, C], w2t [C, 4C], out, t, y and h of one type
 // (dtype 0: bf16, 1: f32); the rest f32. t (the conv output rounded to that
 // type, [B, H, W, C]) may be null: the inference form. y [B * H * W, C] and h
-// [B * H * W, 4C] are scratch. Returns the first cudaError_t of the three
-// launches.
+// [B * H * W, 4C] are scratch. f32 also takes plan and ws as row_mlp.cu's
+// svt_ln_mlp_forward (F1's and F2's K splits and their partials); bf16
+// ignores both. Returns the first cudaError_t of its launches.
 extern "C" int svt_convnext_block_forward(
     const void* x, const void* k, const void* dw_bias, const void* ln_scale,
     const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
-    const void* b2, const void* gamma, void* out, void* t, void* y, void* h, int dtype, int B,
-    int H, int W, int C, float eps, void* stream) {
+    const void* b2, const void* gamma, void* out, void* t, void* y, void* h, void* ws,
+    const long long* plan, int dtype, int B, int H, int W, int C, float eps, void* stream) {
   const long long M = (long long)B * H * W;
   if (M == 0) return 0;
   if (B < 0 || H < 0 || W < 0 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return block_dispatch<bf16>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out,
-                                t, y, h, B, H, W, C, eps, s);
+                                t, y, h, nullptr, nullptr, B, H, W, C, eps, s);
   if (dtype == 1)
     return block_dispatch<float>(x, k, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out,
-                                 t, y, h, B, H, W, C, eps, s);
+                                 t, y, h, ws, plan, B, H, W, C, eps, s);
   return (int)cudaErrorInvalidValue;
 }

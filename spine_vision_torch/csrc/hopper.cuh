@@ -1,8 +1,11 @@
 // Hopper building blocks, written as PTX: TMA tensor maps and 2-D tile loads,
 // the mbarrier full/empty ring, wgmma shared-memory descriptors,
 // wgmma.mma_async m64n128k16 bf16 -> f32 with its fence, commit and wait, and
-// setmaxnreg. Used by the MLP backward's products (ln_mlp_bwd.cuh); meant for
-// the Hopper forms of the other MLP kernels too.
+// setmaxnreg; for the f32 forms' 3xTF32 products (wg_gemm.cuh) f32 maps,
+// the TF32 split (cvt.rna.tf32.f32) and wgmma.mma_async m64n128k8 tf32 ->
+// f32 with A in registers (TF32 takes no transposed operand, so B is
+// K-major in shared memory). Used by every product of the ConvNeXt kernels
+// (wg_gemm.cuh).
 //
 // Operands are bf16 tiles of 64 columns (128 bytes, the span of the 128-byte
 // swizzle) loaded by TMA with CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte
@@ -68,6 +71,30 @@ inline int make_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t 
                         strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The map of a row-major f32 [rows, cols] array with a pitch of `pitch`
+// elements, in boxes of box_rows x box_cols: K-major tiles take 32 columns
+// (128 bytes, one row of the 128-byte swizzle) with the swizzle, token-major
+// (MN) tiles 128 columns of one K row each without it. A box that reaches
+// past an edge is filled with zeros there. Returns a cudaError_t.
+inline int make_map_f32(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                        uint64_t pitch, uint32_t box_rows, uint32_t box_cols, bool swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16 || (pitch * 4) % 16 || box_rows == 0 ||
+      box_rows > 256 || box_cols == 0 || box_cols > (swizzle ? 32u : 256u) ||
+      (box_cols * 4) % 16 || rows == 0 || cols == 0 || cols > pitch)
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {pitch * 4};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -191,6 +218,52 @@ __device__ __forceinline__ void wgmma128(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// ---- device: 3xTF32 ----
+
+// An f32 value rounded to TF32 (cvt.rna: to nearest, ties away from zero),
+// its low 13 mantissa bits cleared here rather than left to the tensor core.
+__device__ __forceinline__ uint32_t tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+// x = hi + lo + (a residue of about 2^-22 |x|): hi = tf32(x), lo = tf32(x -
+// hi), as CUTLASS's OpMultiplyAddFastF32 splits its operands. A product of
+// two split values less its lo . lo term is within about 2^-21 of the f32
+// product.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_hi(x);
+  lo = tf32_hi(x - __uint_as_float(hi));
+}
+// A generic-proxy store to shared memory made visible to the async proxy
+// (wgmma's operand reads): after the stores, before the barrier the reader
+// waits on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= A . B^T in TF32 for a 64 x 8 A in registers and a 128 x 8 B (N x K,
+// K-major: TF32 has no transposed operand) in shared memory behind a 128-byte
+// swizzle descriptor. A's fragment is mma.m16n8k8's a warp: thread (warp w,
+// lane l) holds a[0] = A[16 w + l / 4][l % 4], a[1] the row 8 below, a[2]
+// and a[3] the same rows at column l % 4 + 4. d as wgmma128's.
+__device__ __forceinline__ void wgmma128_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 }  // namespace

@@ -59,12 +59,14 @@ int bwd_call(const void* t, const void* g, const void* ls, const void* lb, const
              const void* w1, const void* b1, const void* w2t, const void* w2, const void* b2,
              const void* gamma, void* dt, void* small, void* dw1t, void* dw2t, void* dgamma,
              void* y, void* gg, void* stats, void* h, void* gh, void* gy, void* part, void* ws,
-             long long M, int C, int splits, long long ks, cudaStream_t s) {
+             long long M, int C, int splits, long long ks, const long long* plan,
+             cudaStream_t s) {
   const MlpBwd<T> a{t, (const T*)g, (const T*)w1t, (const T*)w1, (const T*)w2t, (const T*)w2,
                     (const float*)ls, (const float*)lb, (const float*)b1, (const float*)b2,
                     (const float*)gamma, (T*)dt, nullptr, (float*)small, (float*)dw1t,
                     (float*)dw2t, (float*)dgamma, (T*)y, (T*)gg, (T*)h, (T*)gh, (float*)stats,
-                    (float*)gy, (float*)part, (float*)ws, M, ks, C, splits, LN_EPS};
+                    (float*)gy, (float*)part, (float*)ws, M, ks, C, splits, LN_EPS,
+                    kplan(plan)};
   return ls ? mlp_bwd<T, true>(a, s) : mlp_bwd<T, false>(a, s);
 }
 
@@ -72,14 +74,16 @@ int bwd_typed(int dtype, const void* t, const void* g, const void* ls, const voi
               const void* w1t, const void* w1, const void* b1, const void* w2t, const void* w2,
               const void* b2, const void* gamma, void* dt, void* small, void* dw1t, void* dw2t,
               void* dgamma, void* y, void* gg, void* stats, void* h, void* gh, void* gy,
-              void* part, void* ws, long long M, int C, int splits, long long ks, void* stream) {
+              void* part, void* ws, long long M, int C, int splits, long long ks,
+              const long long* plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return bwd_call<bf16>(t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small, dw1t, dw2t,
-                          dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, s);
+                          dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, nullptr,
+                          s);
   if (dtype == 1)
     return bwd_call<float>(t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small, dw1t, dw2t,
-                           dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, s);
+                           dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, plan, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -92,17 +96,20 @@ int bwd_typed(int dtype, const void* t, const void* g, const void* ls, const voi
 // dln_bias, db2, sum g; dw1t [4C, C], dw2t [C, 4C], dgamma [C] f32. Scratch
 // from the caller: y, gg ([M, C]), stats (f32 [M, 2]), h, gh ([M, 4C]), gy
 // (f32 [M, C]), part f32 [ceil(M / 64), 8C], ws f32 [splits, 4C, C]; stage
-// D's token splits hold ks tokens each (a multiple of 64). Returns the first
+// D's token splits hold ks tokens each (a multiple of 64). f32 also takes
+// plan = {splits, ks} of stage B's K (C) then of stage C's (4C), from
+// ops/fused_mlp.py::bwd_geometry, whose partials share ws (which then holds
+// the largest of the three); bf16 ignores it (null). Returns the first
 // cudaError_t of its launches.
 extern "C" int svt_ln_mlp_bwd(
     const void* t, const void* g, const void* ls, const void* lb, const void* w1t,
     const void* w1, const void* b1, const void* w2t, const void* w2, const void* b2,
     const void* gamma, void* dt, void* small, void* dw1t, void* dw2t, void* dgamma, void* y,
     void* gg, void* stats, void* h, void* gh, void* gy, void* part, void* ws, int dtype,
-    long long M, int C, int splits, long long ks, void* stream) {
+    long long M, int C, int splits, long long ks, const long long* plan, void* stream) {
   if (!ls || !lb) return (int)cudaErrorInvalidValue;
   return bwd_typed(dtype, t, g, ls, lb, w1t, w1, b1, w2t, w2, b2, gamma, dt, small, dw1t, dw2t,
-                   dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, stream);
+                   dgamma, y, gg, stats, h, gh, gy, part, ws, M, C, splits, ks, plan, stream);
 }
 
 // The MLP + LayerScale backward from its input y [M, C]: dy [M, C] (y's type)
@@ -113,8 +120,9 @@ extern "C" int svt_mlp_bwd(
     const void* y, const void* g, const void* w1t, const void* w1, const void* b1,
     const void* w2t, const void* w2, const void* b2, const void* gamma, void* dy, void* small,
     void* dw1t, void* dw2t, void* dgamma, void* gg, void* h, void* gh, void* part, void* ws,
-    int dtype, long long M, int C, int splits, long long ks, void* stream) {
+    int dtype, long long M, int C, int splits, long long ks, const long long* plan,
+    void* stream) {
   return bwd_typed(dtype, y, g, nullptr, nullptr, w1t, w1, b1, w2t, w2, b2, gamma, dy, small,
                    dw1t, dw2t, dgamma, nullptr, gg, nullptr, h, gh, nullptr, part, ws, M, C,
-                   splits, ks, stream);
+                   splits, ks, plan, stream);
 }

@@ -11,13 +11,13 @@
 // its own copy.
 //
 // The f32 forms (T = float: the JAX kernels run in f32) run the same stages
-// with every activation in f32 and the products on the f32 core
-// (f32_gemm.cuh, stage B's two products in one unit, stage D's token splits
-// as bf16's): g_hpre, g_y and dt are f32, the weight and bias gradients f32
-// sums in the same fixed orders.
+// with every activation in f32 and the products on wg_gemm.cuh's 3xTF32
+// path (stage B's two products in one unit, stage D's token splits as
+// bf16's, stages B and C split over K where their tiles would leave SMs
+// idle): g_hpre, g_y and dt are f32, the weight and bias gradients f32 sums
+// in the same fixed orders.
 #pragma once
 
-#include "f32_gemm.cuh"
 #include "reduce.cuh"
 #include "wg_gemm.cuh"
 
@@ -241,34 +241,39 @@ struct MlpBwd {
   long long M, ks;
   int C, splits;
   float eps;
+  KPlan kp;  // f32: stages B and C's K splits (their partials in ws)
 };
 
-// Stages B, C and D's products on the f32 core (f32_gemm.cuh), as the wgmma
-// stages below compute them; L between C and D as there.
+// Stages B, C and D's products on the 3xTF32 path (wg_gemm.cuh's
+// product_f32), as the wgmma stages below compute them, B and C over a.kp's
+// K splits; L between C and D as there.
 template <int C, bool LN, bool U32>
 int mlp_bwd_f32(const MlpBwd<float>& a, const float* y, long long row_tiles, cudaStream_t s) {
-  using namespace f32g;
   const long long M = a.M;
   const int H4 = 4 * C;
   int err;
   {  // B: h_pre = y . W1, g_h = (g * gamma) . W2^T; their epilogue
-    EpiF e{};
+    EpiT<float> e{};
     e.b1 = a.b1;
     e.h = a.h;
     e.gh = a.gh;
     e.part = a.part;
+    e.ws = a.ws;
     e.C = C;
-    const Gemm g{M, C, C, H4, tiles(M), tiles(H4), 1};
-    if ((err = launch<2, false, EPI_HIDDEN>(Ops{{y, a.gg}, {a.w1t, a.w2}}, g, e, s))) return err;
+    if ((err = product_f32<2, false, EPI_HIDDEN>(y, a.gg, a.w1t, a.w2, M, C, H4, a.kp.s1,
+                                                 a.kp.k1, e, s)))
+      return err;
   }
   {  // C: g_y = g_hpre . W1^T: dy, or g_y for stage L
-    EpiF e{};
+    EpiT<float> e{};
     e.dy = a.dt;
     e.gy = a.gy;
+    e.ws = a.ws;
     e.C = C;
-    const Gemm g{M, H4, H4, C, tiles(M), tiles(C), 1};
-    const Ops op{{a.gh, nullptr}, {a.w1, nullptr}};
-    err = LN ? launch<1, false, EPI_GY>(op, g, e, s) : launch<1, false, EPI_DY>(op, g, e, s);
+    err = LN ? product_f32<1, false, EPI_GY>(a.gh, nullptr, a.w1, nullptr, M, H4, C, a.kp.s2,
+                                             a.kp.k2, e, s)
+             : product_f32<1, false, EPI_DY>(a.gh, nullptr, a.w1, nullptr, M, H4, C, a.kp.s2,
+                                             a.kp.k2, e, s);
     if (err) return err;
   }
   if constexpr (LN) {  // L
@@ -281,16 +286,18 @@ int mlp_bwd_f32(const MlpBwd<float>& a, const float* y, long long row_tiles, cud
   svt::colsum<<<(unsigned)((8 * C + 31) / 32), dim3(32, 32), 0, s>>>(a.part, row_tiles, 8 * C,
                                                                      a.small);
   if ((err = (int)cudaGetLastError())) return err;
-  EpiF e{};
+  EpiT<float> e{};
   e.ws = a.ws;
   e.C = C;
-  const Gemm g1{H4, M, a.ks, C, tiles(H4), tiles(C), a.splits};
-  if ((err = launch<1, true, EPI_WS>(Ops{{a.gh, nullptr}, {y, nullptr}}, g1, e, s))) return err;
+  if ((err = product_f32<1, true, EPI_WS>(a.gh, nullptr, y, nullptr, H4, M, C, a.splits, a.ks, e,
+                                          s)))
+    return err;
   reduce_rows<float><<<H4, 256, 0, s>>>(a.ws, a.splits, H4, C, nullptr, nullptr, nullptr,
                                         nullptr, a.dw1t, nullptr);
   if ((err = (int)cudaGetLastError())) return err;
-  const Gemm g2{C, M, a.ks, H4, tiles(C), tiles(H4), a.splits};
-  if ((err = launch<1, true, EPI_WS>(Ops{{a.g, nullptr}, {a.h, nullptr}}, g2, e, s))) return err;
+  if ((err = product_f32<1, true, EPI_WS>(a.g, nullptr, a.h, nullptr, C, M, H4, a.splits, a.ks, e,
+                                          s)))
+    return err;
   // dW2 = gamma * A^T; dgamma = sum_j W2 * A^T + (sum g) * b2.
   reduce_rows<float><<<C, 256, 0, s>>>(a.ws, a.splits, C, H4, a.gamma, a.w2t, a.small + 7 * C,
                                        a.b2, a.dw2t, a.dgamma);
@@ -319,7 +326,7 @@ int mlp_bwd_wg(const MlpBwd<bf16>& a, const bf16* y, long long row_tiles, cudaSt
     e.gh = a.gh;
     e.part = a.part;
     e.C = C;
-    if ((err = launch_gemm<2, 2, false, EPI_HIDDEN>(m, g, e, s))) return err;
+    if ((err = launch_gemm<bf16, 2, 2, false, EPI_HIDDEN>(m, g, e, s))) return err;
   }
   {  // C: g_y = g_hpre . W1^T: dy (bf16), or the f32 g_y for stage L
     constexpr int NB = C % 256 == 0 ? 2 : 1;
@@ -335,9 +342,9 @@ int mlp_bwd_wg(const MlpBwd<bf16>& a, const bf16* y, long long row_tiles, cudaSt
     e.gy = a.gy;
     e.C = C;
     if constexpr (LN)
-      err = launch_gemm<1, NB, false, EPI_GY>(m, g, e, s);
+      err = launch_gemm<bf16, 1, NB, false, EPI_GY>(m, g, e, s);
     else
-      err = launch_gemm<1, NB, false, EPI_DY>(m, g, e, s);
+      err = launch_gemm<bf16, 1, NB, false, EPI_DY>(m, g, e, s);
     if (err) return err;
   }
   if constexpr (LN) {  // L
@@ -361,7 +368,7 @@ int mlp_bwd_wg(const MlpBwd<bf16>& a, const bf16* y, long long row_tiles, cudaSt
     e.ws = a.ws;
     e.C = C;
     const Gemm g1{H4, M, a.ks, C, H4 / BM, (C + BN - 1) / BN, a.splits};
-    if ((err = launch_gemm<1, 1, true, EPI_WS>(m, g1, e, s))) return err;
+    if ((err = launch_gemm<bf16, 1, 1, true, EPI_WS>(m, g1, e, s))) return err;
     reduce_rows<bf16><<<H4, 256, 0, s>>>(a.ws, a.splits, H4, C, nullptr, nullptr, nullptr,
                                          nullptr, a.dw1t, nullptr);
     if ((err = (int)cudaGetLastError())) return err;
@@ -371,7 +378,7 @@ int mlp_bwd_wg(const MlpBwd<bf16>& a, const bf16* y, long long row_tiles, cudaSt
     m[1] = m[0];
     m[3] = m[2];
     const Gemm g2{C, M, a.ks, H4, (C + BM - 1) / BM, H4 / BN, a.splits};
-    if ((err = launch_gemm<1, 1, true, EPI_WS>(m, g2, e, s))) return err;
+    if ((err = launch_gemm<bf16, 1, 1, true, EPI_WS>(m, g2, e, s))) return err;
     // dW2 = gamma * A^T; dgamma = sum_j W2 * A^T + (sum g) * b2.
     reduce_rows<bf16><<<C, 256, 0, s>>>(a.ws, a.splits, C, H4, a.gamma, a.w2t, a.small + 7 * C,
                                         a.b2, a.dw2t, a.dgamma);

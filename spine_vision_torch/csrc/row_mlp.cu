@@ -25,10 +25,12 @@
 // runs agree bit for bit.
 //
 // The f32 forms (the JAX kernels run in f32) are L in f32, mlp_ln_rows<float,
-// C> (y in f32), then F1 and F2 on the f32 product core (f32_gemm.cuh), h in
-// f32 [M, 4C] as the TPU kernels store h in the input's dtype; bound by the
-// f32 rate (16 * M * C^2 flops at 67 TFLOP/s).
-#include "f32_gemm.cuh"
+// C> (y in f32), then F1 and F2 on wg_gemm.cuh's 3xTF32 path
+// (mlp_products_f32), h in f32 [M, 4C] as the TPU kernels store h in the
+// input's dtype; bound by the TF32 rate (3 * 16 * M * C^2 flops at 495
+// TFLOP/s). At #5's two-image shapes (M = 128 at C = 512: F2's 4 tiles of
+// 128 x 128) each product is split over K (the caller's plan) so that its
+// units fill the card, the partials summed in split order by split_reduce.
 #include "wg_gemm.cuh"
 
 #include <type_traits>
@@ -91,7 +93,8 @@ __global__ void __launch_bounds__(LN_THREADS) mlp_ln_rows(
 
 // Everything a row call reads and writes, in x's type T. ln_scale null: the
 // copy form (no L, y is x); res null: no tail (gamma not read). y (LN only)
-// [M, C] and h [M, 4C] are the caller's scratch.
+// [M, C] and h [M, 4C] are the caller's scratch; f32 also the K splits' plan
+// and their f32 partials' workspace ws (null where nothing is split).
 template <typename T>
 struct RowFwd {
   const T *x, *res;
@@ -101,15 +104,17 @@ struct RowFwd {
   const T* w2t;
   const float *b2, *gamma;
   T *out, *y, *h;
+  float* ws;
+  KPlan kp;
   long long M;
   float eps;
 };
 
-// F1 and F2 on the type's product core: wgmma for bf16, f32_gemm.cuh for f32.
-template <typename T, int C, int EPI2, typename E>
-int products(const T* y, const RowFwd<T>& a, E e, cudaStream_t s) {
+// F1 and F2 on the type's path of wg_gemm.cuh: bf16 wgmma, or 3xTF32.
+template <typename T, int C, int EPI2>
+int products(const T* y, const RowFwd<T>& a, EpiT<T> e, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value)
-    return f32g::mlp_products<C, EPI2>(y, a.w1t, a.b1, a.w2t, a.h, a.M, e, s);
+    return mlp_products_f32<C, EPI2>(y, a.w1t, a.b1, a.w2t, a.h, a.M, e, a.ws, a.kp, s);
   else
     return mlp_products<C, EPI2>(y, a.w1t, a.b1, a.w2t, a.h, a.M, e, s);
 }
@@ -124,8 +129,7 @@ int row_forward(const RowFwd<T>& a, cudaStream_t s) {
     if (const int err = (int)cudaGetLastError()) return err;
     y = a.y;
   }
-  using E = typename std::conditional<std::is_same<T, float>::value, f32g::EpiF, Epi>::type;
-  E e{};
+  EpiT<T> e{};
   e.b2 = a.b2;
   e.out = a.out;
   if (!a.res) return products<T, C, EPI_BIAS>(y, a, e, s);
@@ -158,24 +162,25 @@ int row_dispatch(const RowFwd<T>& a, int C, void* stream) {
 template <typename T>
 int row_call(const void* x, const void* res, const void* ln_scale, const void* ln_bias,
              const void* w1t, const void* b1, const void* w2t, const void* b2,
-             const void* gamma, void* out, void* y, void* h, long long M, int C, float eps,
-             void* stream) {
+             const void* gamma, void* out, void* y, void* h, void* ws, const long long* plan,
+             long long M, int C, float eps, void* stream) {
   const RowFwd<T> a{(const T*)x, (const T*)res, (const float*)ln_scale, (const float*)ln_bias,
                     (const T*)w1t, (const float*)b1, (const T*)w2t, (const float*)b2,
-                    (const float*)gamma, (T*)out, (T*)y, (T*)h, M, eps};
+                    (const float*)gamma, (T*)out, (T*)y, (T*)h, (float*)ws, kplan(plan), M,
+                    eps};
   return row_dispatch(a, C, stream);
 }
 
 int row_typed(int dtype, const void* x, const void* res, const void* ln_scale,
               const void* ln_bias, const void* w1t, const void* b1, const void* w2t,
-              const void* b2, const void* gamma, void* out, void* y, void* h, long long M, int C,
-              float eps, void* stream) {
+              const void* b2, const void* gamma, void* out, void* y, void* h, void* ws,
+              const long long* plan, long long M, int C, float eps, void* stream) {
   if (dtype == 0)
-    return row_call<bf16>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, M, C,
-                          eps, stream);
+    return row_call<bf16>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, nullptr,
+                          nullptr, M, C, eps, stream);
   if (dtype == 1)
-    return row_call<float>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, M, C,
-                           eps, stream);
+    return row_call<float>(x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, ws,
+                           plan, M, C, eps, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -183,27 +188,31 @@ int row_typed(int dtype, const void* x, const void* res, const void* ln_scale,
 
 // out = res + gamma * (W2 . gelu_tanh(W1 . LN(x) + b1) + b2) over M token rows
 // of width C: x, res, w1t [4C, C], w2t [C, 4C], out and the scratch y [M, C]
-// and h [M, 4C] of one type (dtype 0: bf16, 1: f32), the rest f32. Returns
-// the first cudaError_t of the three launches.
+// and h [M, 4C] of one type (dtype 0: bf16, 1: f32), the rest f32. f32 also
+// takes plan = {splits, ks} of F1's K (C) then of F2's (4C), from
+// ops/fused_mlp.py::product_geometry, and ws, the f32 workspace of the split
+// products' partials (null where neither is split); bf16 ignores both.
+// Returns the first cudaError_t of its launches.
 extern "C" int svt_ln_mlp_forward(const void* x, const void* res, const void* ln_scale,
                                   const void* ln_bias, const void* w1t, const void* b1,
                                   const void* w2t, const void* b2, const void* gamma,
-                                  void* out, void* y, void* h, int dtype, long long M, int C,
-                                  float eps, void* stream) {
+                                  void* out, void* y, void* h, void* ws, const long long* plan,
+                                  int dtype, long long M, int C, float eps, void* stream) {
   if (!ln_scale || !ln_bias || !res || !gamma || !y) return (int)cudaErrorInvalidValue;
-  return row_typed(dtype, x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, M, C,
-                   eps, stream);
+  return row_typed(dtype, x, res, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma, out, y, h, ws,
+                   plan, M, C, eps, stream);
 }
 
 // out = res + gamma * (W2 . gelu_tanh(W1 . x + b1) + b2), or with res null
 // W2 . gelu_tanh(W1 . x + b1) + b2 (gamma not read), over M token rows of
-// width C; dtypes as svt_ln_mlp_forward, h [M, 4C] the scratch. Returns the
-// first cudaError_t of the two launches.
+// width C; dtypes, ws and plan as svt_ln_mlp_forward's, h [M, 4C] the
+// scratch. Returns the first cudaError_t of its launches.
 extern "C" int svt_mlp_forward(const void* x, const void* res, const void* w1t,
                                const void* b1, const void* w2t, const void* b2,
-                               const void* gamma, void* out, void* h, int dtype, long long M,
-                               int C, void* stream) {
+                               const void* gamma, void* out, void* h, void* ws,
+                               const long long* plan, int dtype, long long M, int C,
+                               void* stream) {
   if (res && !gamma) return (int)cudaErrorInvalidValue;
-  return row_typed(dtype, x, res, nullptr, nullptr, w1t, b1, w2t, b2, gamma, out, nullptr, h, M,
-                   C, 0.f, stream);
+  return row_typed(dtype, x, res, nullptr, nullptr, w1t, b1, w2t, b2, gamma, out, nullptr, h, ws,
+                   plan, M, C, 0.f, stream);
 }

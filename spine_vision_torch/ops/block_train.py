@@ -30,8 +30,8 @@ whole-block kernel forward (NHWC, C <= 512).
   grouped conv.
 
 Both take bf16 or f32 (x, the filter and the weights of one type), as the
-JAX kernels run in either; the f32 forms run the MLP products on the f32
-product core (``csrc/f32_gemm.cuh``).
+JAX kernels run in either; the f32 forms run the MLP products on the 3xTF32
+path of ``csrc/wg_gemm.cuh``.
 
 Gradients come back in each argument's dtype; the f32 master weights behind a
 bf16 argument receive theirs through the cast's backward, as in Flax. On CPU
@@ -294,7 +294,7 @@ def bwd_launch(
         p(o["stats"]), p(o["h"]), p(o["gh"]), p(o["gy"]), p(o["part"]), p(o["ws"]),
         p(o["tpart"]), ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h),
         ctypes.c_int(w), ctypes.c_int(c),
-        ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]),
+        ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]), fm._plan_arg(geo),
         ctypes.c_int(taps["rows_per_run"]), ctypes.c_float(eps), cuda_build.stream_ptr(dev),
     )
     cuda_build.check(err, "block_train_bwd")

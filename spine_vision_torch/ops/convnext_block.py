@@ -15,9 +15,10 @@ a call:
   (:func:`out_reference`).
 
 x and the weights come in bf16 or f32 (one type), as the JAX kernel runs in
-either: bf16 on wgmma products, f32 on the f32 product core
-(``csrc/f32_gemm.cuh``) after an f32 P, whose halo ring takes twice the
-shared memory (:func:`forward_geometry`).
+either: bf16 on wgmma products, f32 on the same core's 3xTF32 path
+(``csrc/wg_gemm.cuh``, split over K where the tiles would leave SMs idle)
+after an f32 P, whose halo ring takes twice the shared memory
+(:func:`forward_geometry`).
 
 F1 and F2, and their plain versions, are shared with the row MLP forms
 (``ops/fused_mlp.py``), which launch the same products.
@@ -61,6 +62,7 @@ from spine_vision_torch.ops.dwconv import (
     layer_norm_f32,
 )
 from spine_vision_torch.ops.fused_mlp import (  # noqa: F401  (F1's and F2's plain versions)
+    _plan_arg,
     hidden_reference,
     mlp_bwd,
     out_reference,
@@ -140,8 +142,8 @@ def forward_geometry(b: int, h: int, w: int, c: int, dtype: torch.dtype = torch.
     input in ``dtype``: P's tile (rows, cols), its tiles a side, CTAs, halo
     chunks, shared memory a CTA (the f32 t tile and two halo chunks in
     ``dtype``) and the CTAs that fit on a multiprocessor at once; F1's and
-    F2's (row, column) tiles and wgmma tiles a CTA tile (``nb``,
-    :func:`fused_mlp.product_geometry`). Raises on what the kernels do not
+    F2's (row, column) tiles, wgmma tiles a CTA tile (``nb``) and K plans
+    (:func:`fused_mlp.product_geometry`). Raises on what the kernels do not
     take, before anything is launched."""
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"convnext_block kernel is built for C in {KERNEL_WIDTHS}, got {c}")
@@ -223,19 +225,24 @@ def fwd_launch(
     args = (x, k49, dw_bias, ln_scale, ln_bias, w1t, b1, w2t, b2, gamma)
     _check(*args)
     b, h, w, c = x.shape
-    forward_geometry(b, h, w, c, x.dtype)
+    geo = forward_geometry(b, h, w, c, x.dtype)
     m = b * h * w
     o = {"out": torch.empty_like(x),
          "y": torch.empty(m, c, dtype=x.dtype, device=x.device),
          "h": torch.empty(m, 4 * c, dtype=x.dtype, device=x.device)}
     if emit_conv:
         o["t"] = torch.empty_like(x)
+    # The f32 K splits' partials (as fused_mlp.row_launch's).
+    ws = torch.empty(geo["ws_elems"], dtype=torch.float32, device=x.device) \
+        if geo["ws_elems"] else None
     fn = cuda_build.load("convnext_block").svt_convnext_block_forward
     fn.restype = ctypes.c_int
     p = cuda_build.ptr
+    none = ctypes.c_void_p(None)
     err = fn(
-        *(p(a) for a in args), p(o["out"]), p(o["t"]) if emit_conv else ctypes.c_void_p(None),
-        p(o["y"]), p(o["h"]), ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h),
+        *(p(a) for a in args), p(o["out"]), p(o["t"]) if emit_conv else none,
+        p(o["y"]), p(o["h"]), none if ws is None else p(ws), _plan_arg(geo),
+        ctypes.c_int(_DTYPES[x.dtype]), ctypes.c_int(b), ctypes.c_int(h),
         ctypes.c_int(w), ctypes.c_int(c), ctypes.c_float(eps), cuda_build.stream_ptr(x.device),
     )
     cuda_build.check(err, "convnext_block")

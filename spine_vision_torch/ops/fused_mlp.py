@@ -30,10 +30,12 @@ gives their launch geometry.
 
 Every kernel takes bf16 or f32 (one type for the activations and the
 weights; biases, LayerNorm and ``gamma`` f32), as the JAX kernels run in
-either: bf16 on wgmma products fed by TMA (``csrc/wg_gemm.cuh``), f32 on the
-f32 product core (``csrc/f32_gemm.cuh``, SIMT f32 FFMA), the rest of each
-kernel templated on the type. ``.launches`` counts a wrapper's launches of
-either type, ``.f32_launches`` those in f32.
+either: bf16 on wgmma products fed by TMA (``csrc/wg_gemm.cuh``), f32 on
+the same core's 3xTF32 path (each operand split into two TF32 parts, three
+TF32 wgmma products a K step; products whose tiles would leave SMs idle
+split over K by :func:`k_splits`), the rest of each kernel templated on the
+type. ``.launches`` counts a wrapper's launches of either type,
+``.f32_launches`` those in f32.
 
 Both backwards run in stages, one kernel each: the row prologue, the hidden
 products, the g_y product, the LayerNorm backward and the weight-gradient
@@ -53,6 +55,7 @@ tensor, which has no kernel there.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -72,6 +75,7 @@ _TOKENS_PER_CTA = 64  # csrc/ln_mlp_bwd.cuh, TOK: a per-tile sums row a 64 token
 _TILE = 128  # csrc/ln_mlp_bwd.cuh, BM and BN: a product tile's rows, a wgmma's columns
 _BK = 64  # csrc/ln_mlp_bwd.cuh, BK: a ring stage's K, and a box's columns
 _SMS = 132  # streaming multiprocessors of an H100, one persistent product CTA each
+_KSTEP = 64  # csrc/wg_gemm.cuh, BK: an f32 K split holds a multiple of 64 (two f32 ring stages)
 _LN_THREADS = 256  # csrc/row_mlp.cu, LN_THREADS: L's CTA, a token row a warp at a time
 
 
@@ -362,16 +366,57 @@ def token_splits(m: int, c: int) -> int:
     return min(s for s, v in span.items() if v <= 1.05 * soonest)
 
 
+def k_splits(tiles: int, k: int) -> tuple[int, int]:
+    """The K plan of an f32 product (``csrc/wg_gemm.cuh``'s ``product_f32``)
+    with ``tiles`` output tiles of 128 x 128 over depth ``k``: ``(splits,
+    ks)``, ``splits`` ranges of ``ks`` (a multiple of 64), each non-empty,
+    covering K once. A product of at least a wave of tiles (one a
+    multiprocessor) is not split; a smaller one takes ranges of floor(g x
+    tiles / 132) (at least one) of the g = ceil(k / 64) ranges of 64, which
+    gives it at least min(132, tiles x g) units (tile, range): it fills the
+    card where its work allows."""
+    granules = -(-k // _KSTEP)
+    if tiles >= _SMS:
+        return 1, granules * _KSTEP
+    per = max(1, granules * tiles // _SMS)
+    return -(-granules // per), per * _KSTEP
+
+
+@functools.lru_cache(maxsize=256)
+def _f32_products(m: int, c: int) -> tuple:
+    """The f32 plans of the MLP's two K-major products over ``m`` tokens of
+    width ``c``: the hidden one (K = C, 4C columns: F1, stage B) and the
+    narrow one (K = 4C, C columns: F2, stage C), each ``(tiles, splits,
+    ks)`` over 128 x 128 tiles and :func:`k_splits`. Cached: the wrappers
+    ask for it on every call."""
+    tiles_m = -(-m // _TILE)
+    hidden, narrow = (tiles_m, 4 * c // _TILE), (tiles_m, -(-c // _TILE))
+    return ((hidden, *k_splits(hidden[0] * hidden[1], c)),
+            (narrow, *k_splits(narrow[0] * narrow[1], 4 * c)))
+
+
+def _plan_arg(geo: dict):
+    """The ``plan`` argument of a C entry point: {splits, ks} of the hidden
+    product, then of the narrow one (f32; None in bf16)."""
+    plan = geo.get("plan")
+    return None if plan is None else (ctypes.c_longlong * 4)(*plan)
+
+
 def bwd_geometry(m: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch geometry of ``csrc/ln_mlp_bwd.cuh`` for ``m`` tokens of
     width ``c`` in ``dtype``: the row stages' 64-token tiles (``part``'s
     rows), each product's (token or output) x column tiles, stage D's
     ``splits`` of ``ks`` tokens (a multiple of 64, every split non-empty),
     the workspace shapes, the scratch buffers' bytes (``buffers``; y, gg, h
-    and gh in ``dtype``, the statistics, g_y and the workspaces f32) and, in
-    bf16, every TMA map as ``(rows, cols, box_rows, box_cols, pitch_bytes)``
-    by operand and stage (the f32 core reads no TMA map). Raises on what the
-    kernels do not take, before anything is launched."""
+    and gh in ``dtype``, the statistics, g_y and the workspaces f32) and
+    every TMA map as ``(rows, cols, box_rows, box_cols, pitch_bytes)`` by
+    operand and stage. In f32 the products are 3xTF32 (``csrc/wg_gemm.cuh``,
+    128 x 128 tiles, f32 boxes): stages B and C also take a K
+    plan (``hidden_splits``/``hidden_ks``, ``gy_splits``/``gy_ks``,
+    :func:`k_splits`; ``plan``, the C interface's), and the workspace ``ws``
+    then holds the largest of stage D's ``[splits, 4C, C]``, B's partials
+    ``[2, splits, m, 4C]`` and C's ``[splits, m, C]`` (``ws_elems``). Raises
+    on what the kernels do not take, before anything is launched."""
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"ln_mlp_bwd kernels are built for C in {KERNEL_WIDTHS}, got {c}")
     if not 0 < m < 2 ** 31:
@@ -379,19 +424,28 @@ def bwd_geometry(m: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
                          f"32-bit), got {m}")
     item = _ITEM[dtype]
     h4 = 4 * c
-    # Stage C's wgmma tiles a CTA tile; the f32 core's tiles are 128 x 128.
+    # Stage C's wgmma tiles a CTA tile; the f32 tiles are 128 x 128.
     nb = 2 if c % (2 * _TILE) == 0 and item == 2 else 1
     per = -(-m // token_splits(m, c))
     ks = -(-per // _BK) * _BK
     splits = -(-m // ks)
     tiles_m = -(-m // _TILE)
     row_tiles = -(-m // _TOKENS_PER_CTA)
+    ws_elems = splits * h4 * c
+    plans = {}
+    if item == 4:
+        (_, hs, hks), (_, gs, gks) = _f32_products(m, c)
+        plans = {"hidden_splits": hs, "hidden_ks": hks, "gy_splits": gs, "gy_ks": gks,
+                 "plan": (hs, hks, gs, gks)}
+        ws_elems = max(ws_elems, 2 * hs * m * h4 if hs > 1 else 0, gs * m * c if gs > 1 else 0)
 
+    # A TMA box: K-major, 128 rows by one 128-byte swizzle row of K (64 bf16,
+    # 32 f32); token-major, 64 x 64 in bf16, 32 K rows by 128 in f32.
     def k_major(rows, cols):
-        return (rows, cols, _TILE, _BK, 2 * cols)
+        return (rows, cols, _TILE, 128 // item, item * cols)
 
     def mn_major(rows, cols):
-        return (rows, cols, _BK, _BK, 2 * cols)
+        return (rows, cols, _BK, _BK, 2 * cols) if item == 2 else (rows, cols, 32, _TILE, 4 * cols)
 
     return {
         "row_tiles": row_tiles,
@@ -400,12 +454,14 @@ def bwd_geometry(m: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
         "grad_tiles": (h4 // _TILE, -(-c // _TILE)),
         "splits": splits,
         "ks": ks,
+        **plans,
         "part": (row_tiles, 8 * c),
         "ws": (splits, h4, c),
+        "ws_elems": ws_elems,
         "buffers": {"y": m * c * item, "gg": m * c * item, "h": m * h4 * item,
                     "gh": m * h4 * item, "stats": m * 2 * 4, "gy": m * c * 4,
-                    "part": row_tiles * 8 * c * 4, "ws": splits * h4 * c * 4},
-        "maps": {} if item == 4 else {
+                    "part": row_tiles * 8 * c * 4, "ws": ws_elems * 4},
+        "maps": {
             "hidden": {"y": k_major(m, c), "gg": k_major(m, c), "w1t": k_major(h4, c),
                        "w2": k_major(h4, c)},
             "gy": {"gh": k_major(m, h4), "w1": k_major(c, h4)},
@@ -418,23 +474,33 @@ def bwd_geometry(m: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
 def product_geometry(m: int, c: int, dtype: torch.dtype = torch.bfloat16) -> dict:
     """The launch geometry of F1 and F2 (the block forward's and the row
     forms') for ``m`` tokens of width ``c`` in ``dtype``: each product's
-    (row, column) tiles of 128 rows by ``nb`` x 128 columns and its CTAs, and
-    the hidden's bytes (``h_bytes``, [m, 4c] in ``dtype``). bf16 runs
-    ``csrc/wg_gemm.cuh``'s ``mlp_products`` on persistent CTAs (one a
-    multiprocessor at most); f32 ``csrc/f32_gemm.cuh``'s, a CTA a 128 x 128
-    tile (``nb`` 1)."""
+    (row, column) tiles of 128 rows by ``nb`` x 128 columns, its K plan
+    (``*_splits`` ranges of ``*_ks``) and its CTAs (persistent, one a
+    multiprocessor at most, walking the (tile, range) units), the hidden's
+    bytes (``h_bytes``, [m, 4c] in ``dtype``) and the f32 K splits'
+    workspace (``ws_elems``, f32 elements; 0 where nothing is split). bf16
+    runs ``csrc/wg_gemm.cuh``'s ``mlp_products``, never split; f32 its
+    3xTF32 ``mlp_products_f32``, 128 x 128 tiles (``nb`` 1) over
+    :func:`k_splits` (``plan``, the C interface's)."""
     item = _ITEM[dtype]
     h4 = 4 * c
-    nb1 = 2 if h4 % (2 * _TILE) == 0 and item == 2 else 1
-    nb2 = 2 if c % (2 * _TILE) == 0 and item == 2 else 1
     tiles_m = -(-m // _TILE)
-    hidden = (tiles_m, h4 // (nb1 * _TILE))
-    out = (tiles_m, -(-c // (nb2 * _TILE)))
-    most = _SMS if item == 2 else 2 ** 31 - 1
-    return {"hidden_nb": nb1, "hidden_tiles": hidden,
-            "hidden_ctas": min(most, hidden[0] * hidden[1]),
-            "out_nb": nb2, "out_tiles": out, "out_ctas": min(most, out[0] * out[1]),
-            "h_bytes": m * h4 * item}
+    if item == 4:
+        (hidden, s1, k1), (out, s2, k2) = _f32_products(m, c)
+        nb1 = nb2 = 1
+        ws = max(s1 * m * h4 if s1 > 1 else 0, s2 * m * c if s2 > 1 else 0)
+        plan = {"plan": (s1, k1, s2, k2)}
+    else:
+        nb1 = 2 if h4 % (2 * _TILE) == 0 else 1
+        nb2 = 2 if c % (2 * _TILE) == 0 else 1
+        hidden = (tiles_m, h4 // (nb1 * _TILE))
+        out = (tiles_m, -(-c // (nb2 * _TILE)))
+        s1, k1, s2, k2, ws, plan = 1, c, 1, h4, 0, {}
+    units1, units2 = hidden[0] * hidden[1] * s1, out[0] * out[1] * s2
+    return {"hidden_nb": nb1, "hidden_tiles": hidden, "hidden_splits": s1, "hidden_ks": k1,
+            "hidden_ctas": min(_SMS, units1),
+            "out_nb": nb2, "out_tiles": out, "out_splits": s2, "out_ks": k2,
+            "out_ctas": min(_SMS, units2), "h_bytes": m * h4 * item, "ws_elems": ws, **plan}
 
 
 def row_geometry(m: int, c: int, ln: bool = True, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -489,7 +555,7 @@ def _buffers(t: torch.Tensor, ln: bool, geo: dict) -> dict[str, torch.Tensor]:
     """Outputs and scratch of a ``csrc/ln_mlp_bwd.cuh`` call for the [..., C]
     activations ``t`` with the geometry ``geo``: the LN form also writes y,
     each token's mean and rstd, and the f32 g_y. y, gg, h and gh are in t's
-    dtype."""
+    dtype; ``ws`` is flat, ``geo["ws_elems"]`` f32 values."""
     c = t.shape[-1]
     m = t.numel() // c
     dev, lp, f32 = t.device, t.dtype, torch.float32
@@ -503,7 +569,7 @@ def _buffers(t: torch.Tensor, ln: bool, geo: dict) -> dict[str, torch.Tensor]:
         "h": torch.empty(m, 4 * c, dtype=lp, device=dev),
         "gh": torch.empty(m, 4 * c, dtype=lp, device=dev),
         "part": torch.empty(geo["part"], dtype=f32, device=dev),
-        "ws": torch.empty(geo["ws"], dtype=f32, device=dev),
+        "ws": torch.empty(geo["ws_elems"], dtype=f32, device=dev),
     }
     if ln:
         out["y"] = torch.empty(m, c, dtype=lp, device=dev)
@@ -546,7 +612,7 @@ def bwd_launch(
     p = cuda_build.ptr
     lib = cuda_build.load("ln_mlp_bwd")
     tail = (ctypes.c_int(_DTYPES[t.dtype]), ctypes.c_longlong(m), ctypes.c_int(c),
-            ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]),
+            ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]), _plan_arg(geo),
             cuda_build.stream_ptr(t.device))
     if ln:
         fn = lib.svt_ln_mlp_bwd
@@ -658,24 +724,28 @@ def row_launch(
         vectors = (("ln_scale", ln_scale, c), ("ln_bias", ln_bias, c)) + vectors
     _check(name, x, residual, vectors, w1t, w2t, g_name="residual")
     m = x.numel() // c
-    row_geometry(m, c, ln, x.dtype)
+    geo = row_geometry(m, c, ln, x.dtype)
     dev, lp = x.device, x.dtype
     o = {"out": torch.empty_like(x), "h": torch.empty(m, 4 * c, dtype=lp, device=dev)}
     if ln:
         o["y"] = torch.empty(m, c, dtype=lp, device=dev)
+    # The f32 K splits' partials: freed on return, reused only by later work
+    # on this stream (PyTorch's caching allocator), so after the kernels.
+    ws = torch.empty(geo["ws_elems"], dtype=torch.float32, device=dev) \
+        if geo["ws_elems"] else None
     lib = cuda_build.load("row_mlp")
     p = cuda_build.ptr
     none = ctypes.c_void_p(None)
     weights = (p(w1t), p(b1), p(w2t), p(b2), p(gamma) if tail else none)
     rows = (p(residual) if tail else none,)
-    dtype = ctypes.c_int(_DTYPES[x.dtype])
+    split = (none if ws is None else p(ws), _plan_arg(geo), ctypes.c_int(_DTYPES[x.dtype]))
     if ln:
         fn = lib.svt_ln_mlp_forward
         args = (p(x), *rows, p(ln_scale), p(ln_bias), *weights, p(o["out"]), p(o["y"]),
-                p(o["h"]), dtype, ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_float(LN_EPS))
+                p(o["h"]), *split, ctypes.c_longlong(m), ctypes.c_int(c), ctypes.c_float(LN_EPS))
     else:
         fn = lib.svt_mlp_forward
-        args = (p(x), *rows, *weights, p(o["out"]), p(o["h"]), dtype, ctypes.c_longlong(m),
+        args = (p(x), *rows, *weights, p(o["out"]), p(o["h"]), *split, ctypes.c_longlong(m),
                 ctypes.c_int(c))
     fn.restype = ctypes.c_int
     cuda_build.check(fn(*args, cuda_build.stream_ptr(dev)), name)

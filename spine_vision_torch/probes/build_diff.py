@@ -50,10 +50,13 @@ SASS; kernels are matched by name, the default activation of
 ``csrc/mlp_body.cuh`` (``GeluTanh``) left out, and a kernel that gained its
 element type as a first template argument matched in bf16 to its form
 without it (``block_prologue<__nv_bfloat16, 128, false>`` is
-``block_prologue<128, false>``). A tree whose entry points take the element
-type (``int dtype``) is called with 0, bf16; its f32 kernels (an f32 first
-template argument, ``f32_gemm``) are listed, and do not count as kernels
-that moved. Where two kernels' SASS
+``block_prologue<128, false>``, ``wg_gemm<__nv_bfloat16, 1, 2, false, 4>``
+``wg_gemm<1, 2, false, 4>``). A tree whose entry points take the element
+type (``int dtype``) is called with 0, bf16, and one whose entry points take
+the f32 K plan (``plan``, and the forwards' ``ws``) with nulls; f32 kernels
+(an f32 first template argument, the SIMT core's ``f32_gemm``, the K
+splits' ``split_reduce``) in either build are listed, and do not count as
+kernels that moved. Where two kernels' SASS
 differs, the script says whether the instructions differ only in their
 control bits, only in their operands (registers), or in their opcodes.
 Times: each build's device
@@ -96,7 +99,7 @@ CASES = (("mlp_fwd", 2, STAGES, 200), ("ln_mlp", 32, TRAIN_STAGES, 20),
          ("convnext_block_emit_conv", 32, TRAIN_STAGES, 20))
 _ANON = re.compile(r"\(anonymous namespace\)::")
 # Kernels that gained their element type as a first template argument.
-_RETYPED = re.compile(r"^(block_prologue|mlp_ln_rows|bwd_rows|ln_rows_bwd|tap_sums)"
+_RETYPED = re.compile(r"^(block_prologue|mlp_ln_rows|bwd_rows|ln_rows_bwd|tap_sums|wg_gemm)"
                       r"<__nv_bfloat16, ")
 _ENCODING = re.compile(r"/\* (0x[0-9a-f]{16}) \*/")
 
@@ -132,8 +135,10 @@ def _demangle(names: list[str]) -> dict[str, str]:
 
 
 def _f32_form(kernel: str) -> bool:
-    """Whether ``kernel`` is an f32 form that a bf16-only tree lacks."""
-    return "f32_gemm<" in kernel or "<float," in kernel or kernel == "reduce_rows<float>"
+    """Whether ``kernel`` is an f32 form, which a bf16-only tree lacks and
+    whose core the trees may differ in."""
+    return ("f32_gemm<" in kernel or "split_reduce<" in kernel or "<float," in kernel
+            or kernel == "reduce_rows<float>")
 
 
 def _typed(csrc: Path, source: str) -> bool:
@@ -141,6 +146,13 @@ def _typed(csrc: Path, source: str) -> bool:
     element type (``int dtype``)."""
     path = csrc / f"{source}.cu"
     return path.exists() and "int dtype" in path.read_text()
+
+
+def _planned(csrc: Path, source: str) -> bool:
+    """Whether the tree at ``csrc``'s entry points in ``source`` take the f32
+    K plan (``const long long* plan``)."""
+    path = csrc / f"{source}.cu"
+    return path.exists() and "const long long* plan" in path.read_text()
 
 
 def _sass(lib: Path) -> dict[str, list[tuple[str, str]]]:
@@ -182,8 +194,10 @@ def _compare(a: list[tuple[str, str]], b: list[tuple[str, str]]) -> str:
     ops = sum(_opcode(x[0]) != _opcode(y[0]) for x, y in zip(a, b))
     operands = sum(x[0] != y[0] for x, y in zip(a, b))
     control = sum(x != y for x, y in zip(a, b))
+    first = [f"{x[0]} / {y[0]}" for x, y in zip(a, b) if x[0] != y[0]][:3]
     return (f"SASS differs: {len(a)} instructions each, {control} with other encodings, "
-            f"{operands} with other text, {ops} with other opcodes")
+            f"{operands} with other text, {ops} with other opcodes"
+            + (f" (first: {' | '.join(first)})" if first else ""))
 
 
 def _resources(lib: Path) -> dict[str, tuple[int, int]]:
@@ -240,10 +254,10 @@ def _scratch(csrc: Path) -> dict[str, tuple[str, ...]]:
 
 
 def _launcher(tag: str, kernel: str, lib: ctypes.CDLL, scratch_names: tuple[str, ...], a: dict,
-              outs: tuple[torch.Tensor, ...], typed: bool = False):
+              outs: tuple[torch.Tensor, ...], typed: bool = False, planned: bool = False):
     """One launch of the ``tag`` build's ``kernel`` from ``lib`` on ``a``,
     into ``outs``, with the scratch its interface takes (and, ``typed``, the
-    element type, bf16)."""
+    element type, bf16; ``planned``, null f32 workspace and plan)."""
     p = cuda_build.ptr
     b, h, w, c = a["x"].shape
     m = ctypes.c_longlong(b * h * w)
@@ -252,7 +266,9 @@ def _launcher(tag: str, kernel: str, lib: ctypes.CDLL, scratch_names: tuple[str,
     widths = {"y": c, "h": 4 * c}
     scratch = [torch.empty(b * h * w, widths[n], dtype=torch.bfloat16, device=a["x"].device)
                for n in scratch_names]
-    mid = tuple(p(v) for v in scratch) + ((ctypes.c_int(0),) if typed else ())
+    none = ctypes.c_void_p(None)
+    mid = (tuple(p(v) for v in scratch) + ((none, none) if planned else ())
+           + ((ctypes.c_int(0),) if typed else ()))
     if kernel == "mlp_fwd":
         fn = lib.svt_mlp_forward
         args = (p(a["x"]), p(a["res"]), *mlp, p(outs[0]), *mid, m, ctypes.c_int(c))
@@ -336,12 +352,12 @@ def _tap_rows(b: int, h: int, w: int, c: int, legacy: bool) -> tuple[int, int]:
 
 
 def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict, legacy: bool = False,
-                  typed: bool = True):
+                  typed: bool = True, planned: bool = False):
     """One call of the ``tag`` build's ``kernel`` (ln_mlp_bwd, mlp_bwd or
     block_train_bwd) on ``a``, into fresh outputs and scratch: ``(launch,
     outputs)``. Both builds take this tree's C interface, with the element
-    type (bf16) where ``typed``; with ``legacy``, #10's tap sums are the
-    first form's (:func:`_tap_rows`)."""
+    type (bf16) where ``typed`` and a null f32 K plan where ``planned``; with
+    ``legacy``, #10's tap sums are the first form's (:func:`_tap_rows`)."""
     from spine_vision_torch.ops import fused_mlp as fm
 
     t, g = a["x"], a["res"]
@@ -360,7 +376,8 @@ def _bwd_launcher(tag: str, lib: ctypes.CDLL, kernel: str, a: dict, legacy: bool
     k = fm._buffers(t, ln, geo)
     mid = ((p(k["y"]),) if ln else ()) + (p(k["gg"]),) + ((p(k["stats"]),) if ln else ()) + (
         p(k["h"]), p(k["gh"])) + ((p(k["gy"]),) if ln else ())
-    split = (ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"]))
+    split = (ctypes.c_int(geo["splits"]), ctypes.c_longlong(geo["ks"])) + (
+        (ctypes.c_void_p(None),) if planned else ())
     outs = (p(o["dt"]), p(o["small"]), p(o["dw1t"]), p(o["dw2t"]), p(o["dgamma"]))
     tail = (p(k["part"]), p(k["ws"]))
     dtype = (ctypes.c_int(0),) if typed else ()
@@ -424,8 +441,8 @@ def _build_pair(parent: Path, sources) -> tuple[dict, dict]:
               f"identical SASS (parent / tree); only in the parent's: {only['parent'] or 'none'}"
               f"; only in the tree's: {only['tree'] or 'none'}" + "".join(
                   f"; {k}: {v}" for k, v in verdicts.items() if k not in same))
-        moved[source] = (sorted(set(verdicts) - set(same)) + only["parent"]
-                         + [k for k in only["tree"] if not _f32_form(k)])
+        moved[source] = (sorted(set(verdicts) - set(same))
+                         + [k for k in only["parent"] + only["tree"] if not _f32_form(k)])
     return libs, moved
 
 
@@ -441,14 +458,14 @@ def _bwd_case(parent: Path, dev) -> None:
     libs, _ = _build_pair(parent, sorted(set(BWD_SOURCES.values())))
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     legacy = _legacy_taps(parent)
-    typed = {"parent": _typed(parent / "spine_vision_torch" / "csrc", "ln_mlp_bwd"),
-             "tree": _typed(cuda_build.CSRC, "ln_mlp_bwd")}
+    trees = {"parent": parent / "spine_vision_torch" / "csrc", "tree": cuda_build.CSRC}
     for kernel, source in BWD_SOURCES.items():
         for hw, c in TRAIN_STAGES:
             a = _inputs(32, hw, c, dev)
             runs = {tag: _bwd_launcher(tag, loaded[source, tag], kernel, a,
-                                       legacy and tag == "parent", typed[tag])
-                    for tag in ("parent", "tree")}
+                                       legacy and tag == "parent", _typed(csrc, source),
+                                       _planned(csrc, source))
+                    for tag, csrc in trees.items()}
             rows = [(tag, _device_ms(runs[tag][0], 10)) for tag in
                     ("parent", "tree", "tree", "parent")]
             torch.cuda.synchronize()
@@ -624,13 +641,13 @@ def _fwd_case(parent: Path, dev) -> None:
             raise AssertionError(f"{source}.cu's kernels moved: {moved[source]}")
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     legacy = _legacy_taps(parent)
-    typed = {"parent": _typed(parent / "spine_vision_torch" / "csrc", "block_train_bwd"),
-             "tree": _typed(cuda_build.CSRC, "block_train_bwd")}
+    trees = {"parent": parent / "spine_vision_torch" / "csrc", "tree": cuda_build.CSRC}
     for hw, c in TRAIN_STAGES:
         a = _inputs(32, hw, c, dev)
         runs = {tag: _bwd_launcher(tag, loaded["block_train_bwd", tag], "block_train_bwd", a,
-                                   legacy and tag == "parent", typed[tag])
-                for tag in ("parent", "tree")}
+                                   legacy and tag == "parent", _typed(csrc, "block_train_bwd"),
+                                   _planned(csrc, "block_train_bwd"))
+                for tag, csrc in trees.items()}
         _compare_runs("block_train_bwd", f"B=32 {hw}x{hw} C={c}", runs, 2e-2)
         del a, runs
         torch.cuda.empty_cache()
@@ -703,13 +720,15 @@ def main(argv: list[str] | None = None) -> int:
     loaded = {key: ctypes.CDLL(str(lib)) for key, lib in libs.items()}
     scratch = {tag: _scratch(csrc) for tag, csrc in trees.items()}
     typed = {tag: _typed(csrc, "convnext_block") for tag, csrc in trees.items()}
+    planned = {tag: _planned(csrc, "convnext_block") for tag, csrc in trees.items()}
     for kernel, batch, stages, launches in CASES:
         for hw, c in stages:
             a = _inputs(batch, hw, c, dev)
             n_out = 2 if kernel == "convnext_block_emit_conv" else 1
             outs = {tag: tuple(torch.empty_like(a["x"]) for _ in range(n_out)) for tag in trees}
             launch = {tag: _launcher(tag, kernel, _holding(loaded, tag, ENTRY[kernel]),
-                                     scratch[tag][kernel], a, outs[tag], typed[tag])
+                                     scratch[tag][kernel], a, outs[tag], typed[tag],
+                                     planned[tag])
                       for tag in trees}
             rows = []
             for tag in ("parent", "tree", "tree", "parent"):

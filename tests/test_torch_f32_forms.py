@@ -109,19 +109,34 @@ def test_f32_geometry_reports_the_f32_buffers():
         assert row["y_bytes"] == m * c * item and row["h_bytes"] == m * 4 * c * item
         assert fm.row_geometry(m, c, False, dtype)["y_bytes"] == 0
         bwd = fm.bwd_geometry(m, c, dtype)
+        # ws: stage D's [splits, 4C, C]; in f32 also stage B's two planes of K
+        # split partials [2, 3, m, 4C] (24 tiles over 3 ranges of 64) and
+        # stage C's [12, m, C] (8 tiles over 12), the largest of the three.
+        ws = bwd["splits"] * 4 * c * c if item == 2 else max(
+            bwd["splits"] * 4 * c * c, 2 * 3 * m * 4 * c, 12 * m * c)
+        assert bwd["ws_elems"] == ws
         assert bwd["buffers"] == {
             "y": m * c * item, "gg": m * c * item, "h": m * 4 * c * item,
             "gh": m * 4 * c * item, "stats": m * 8, "gy": m * c * 4,
-            "part": bwd["part"][0] * 8 * c * 4, "ws": bwd["splits"] * 4 * c * c * 4}
-    # The f32 core: 128 x 128 tiles (nb 1), a CTA a tile, no TMA maps.
+            "part": bwd["part"][0] * 8 * c * 4, "ws": ws * 4}
+    # The f32 core (3xTF32 wgmma): 128 x 128 tiles (nb 1), split over K where
+    # the tiles leave multiprocessors idle (32 and 8 tiles here: 4 and 16
+    # ranges of 64, 128 units each), f32 TMA maps.
     prod = fm.product_geometry(m, 256, F32)
     assert (prod["hidden_nb"], prod["out_nb"]) == (1, 1)
-    assert prod["hidden_tiles"] == (4, 8) and prod["hidden_ctas"] == 32
-    assert prod["out_tiles"] == (4, 2) and prod["out_ctas"] == 8
-    assert fm.product_geometry(m, 256)["out_nb"] == 2  # bf16 as it was
+    assert prod["hidden_tiles"] == (4, 8) and prod["hidden_ctas"] == 128
+    assert (prod["hidden_splits"], prod["hidden_ks"]) == (4, 64)
+    assert prod["out_tiles"] == (4, 2) and prod["out_ctas"] == 128
+    assert (prod["out_splits"], prod["out_ks"]) == (16, 64)
+    assert prod["ws_elems"] == max(4 * m * 4 * 256, 16 * m * 256)
+    assert fm.product_geometry(m, 256)["out_nb"] == 2  # bf16 as it was, never split
+    assert fm.product_geometry(m, 256)["out_splits"] == 1
     f32 = fm.bwd_geometry(m, 256, F32)
-    assert f32["maps"] == {} and f32["gy_tiles"] == (4, 2)
+    assert f32["gy_tiles"] == (4, 2) and f32["plan"] == (4, 64, 16, 64)
+    assert f32["maps"]["hidden"]["y"] == (m, 256, 128, 32, 4 * 256)  # K-major f32 boxes
+    assert f32["maps"]["grads"]["h"] == (m, 1024, 32, 128, 4 * 1024)  # token-major ones
     assert fm.bwd_geometry(m, 256)["gy_tiles"] == (4, 1) and fm.bwd_geometry(m, 256)["maps"]
+    assert "plan" not in fm.bwd_geometry(m, 256)  # bf16 takes no K plan
     # #10's tap sums: the x ring in f32.
     bf16, f32 = (bt.tap_geometry(2, 16, 40, c, d) for d in (BF16, F32))
     assert f32["smem"] - bf16["smem"] == 9 * (bf16["strip"] + 6) * 64 * 2

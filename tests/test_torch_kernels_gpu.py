@@ -487,7 +487,7 @@ def test_row_mlp_library_holds_only_the_hopper_launches(cuda):
     assert {f"mlp_ln_rows<float, {c}>" for c in fm.KERNEL_WIDTHS} <= names
     for epi in (4, 5, 6):  # F1 (EPI_GELU), F2 with the tail (EPI_OUT) and without (EPI_BIAS)
         assert {f"wg_gemm<1, {nb}, false, {epi}>" for nb in (1, 2)} <= names, epi
-        assert f"f32g::f32_gemm<1, false, {epi}>" in names, epi  # the f32 forms' products
+        assert f"wg_gemm<float, 1, 1, false, {epi}>" in names, epi  # the f32 forms' products
 
 
 @pytest.mark.parametrize("c", fm.KERNEL_WIDTHS)
