@@ -14,6 +14,7 @@
     python3 chip_smoke.py --ddp-only   # data parallelism alone
     python3 chip_smoke.py --zoo-only   # the backbone zoo alone
     python3 chip_smoke.py --f32-only   # the f32 forms of #1 and #5-#10 and their paths
+    python3 chip_smoke.py --cli-only   # the port's command line (and the JPEG decoder) alone
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -226,6 +227,23 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    #1 33 and #2 3 launches a forward. The f32 launches are counted again
    under each kernel's name + ``_f32``; the ``kernels`` line lists the f32
    forms so, each on its f32 path.
+
+20. The command line (``cli``, after phase 15 on phase 13's files, also
+   alone with ``--cli-only``; see ``cli_phase``): the committed JPEG
+   fixtures against Pillow's record (decode ms a frame and a series), then
+   ``spine_vision_torch.cli.cli(argv)`` with ``--device cuda`` through
+   ``dataset localization``, ``train localization`` (ConvNeXt-base 512²,
+   b32, hybrid, bf16, 3 steps, from a timm ``.pth``, the tracker on),
+   ``evaluate`` (the train command's metrics),
+   ``dataset classification`` (cropped by that checkpoint), ``train
+   classification`` (ResNet-18 256²) and ``evaluate``, ``infer`` and
+   ``serve --once`` (volume_io's studies and one with baseline-JPEG DICOM
+   frames; bit for bit ``StudyInferencePipeline.run`` and each other),
+   ``test`` on JPEG and PNG files, ``dataset phenikaa`` with a JPEG report
+   page, ``bench`` raising, and ``python -m spine_vision_torch.cli convert``
+   of a torchvision ``.pth`` in a subprocess (its ``.npz`` the ResNet's
+   ``--pretrained-path``); the launches of #1, #2 and #8/#9 counted as the path
+   ``cli``.
 
 Each phase prints its wall time.
 
@@ -3688,12 +3706,15 @@ def _classification_tree(root: Path, images: list, paths: list, rng) -> list:
     return order
 
 
-def _localization_tree(root: Path, rng) -> tuple[list, list, list]:
+def _localization_tree(root: Path, rng, instances: int = RSNA_INSTANCES,
+                       baseline_jpgs: bool = False) -> tuple[list, list, list]:
     """The lumbar-coords pretrain sources (2 JPGs, 2 ``.npy`` listed as
     ``.jpg``) and an RSNA tree: 4 studies x (Sagittal T1, Sagittal T2/STIR)
-    x 3 instances of 512^2 int16 DICOM at volume_io's geometry, with a
-    subarticular (axial) row the builder drops. Returns the JPG sources, the
-    ``.npy`` sources and the DICOM instances."""
+    x ``instances`` instances of 512^2 int16 DICOM at volume_io's geometry,
+    with a subarticular (axial) row the builder drops. The JPGs are seeded
+    noise as 8-bit JPEG Lossless, or with ``baseline_jpgs`` the committed
+    baseline JPEG slices (what a trainer's image store reads, as cv2 does).
+    Returns the JPG sources, the ``.npy`` sources and the DICOM instances."""
     import numpy as np
 
     from spine_vision_torch import io as tio
@@ -3709,7 +3730,8 @@ def _localization_tree(root: Path, rng) -> tuple[list, list, list]:
             path = data / "processed_spider_jpgs" / f"p{i}.jpg"
             path.parent.mkdir(parents=True, exist_ok=True)
             pixels = rng.integers(0, 256, (512, 512)).astype(np.uint16)
-            path.write_bytes(encode_jpeg_lossless(pixels, precision=8))
+            path.write_bytes((JPEG_FIXTURES / "series" / f"slice_{i:02d}.jpg").read_bytes()
+                             if baseline_jpgs else encode_jpeg_lossless(pixels, precision=8))
             jpgs.append(path)
             rows.append({"filename": path.name, "source": "spider", "level": level,
                          "relative_x": 0.5, "relative_y": 0.2 + 0.1 * i})
@@ -3731,18 +3753,18 @@ def _localization_tree(root: Path, rng) -> tuple[list, list, list]:
                 (10 * s + 2, "Sagittal T2/STIR", "Spinal Canal Stenosis")):
             descriptions.append(
                 {"study_id": study, "series_id": series, "series_description": desc})
-            vol = rng.normal(700, 150, (RSNA_INSTANCES, 512, 512)).clip(0, 4000).astype(np.int16)
+            vol = rng.normal(700, 150, (instances, 512, 512)).clip(0, 4000).astype(np.int16)
             staging = rsna / "staging"
             write_dicom_series(tio.MedicalImage(array=vol, spacing=IO_SPACING, origin=IO_ORIGIN,
                                                 direction=_io_direction(False)), staging)
-            for k in range(1, RSNA_INSTANCES + 1):
+            for k in range(1, instances + 1):
                 target = rsna / "train_images" / str(study) / str(series) / f"{k}.dcm"
                 target.parent.mkdir(parents=True, exist_ok=True)
                 (staging / f"slice_{k:04d}.dcm").rename(target)
                 dicoms.append(target)
                 coords.append({"study_id": study, "series_id": series, "instance_number": k,
-                               "condition": condition, "level": LEVELS[k], "relative_x": 0.5,
-                               "relative_y": 0.3 + 0.1 * k})
+                               "condition": condition, "level": LEVELS[k % len(LEVELS)],
+                               "relative_x": 0.5, "relative_y": 0.3 + 0.1 * (k % len(LEVELS))})
             coords.append({"study_id": study, "series_id": series, "instance_number": 1,
                            "condition": "Right Subarticular Stenosis", "level": "L4/L5",
                            "relative_x": 0.5, "relative_y": 0.6})
@@ -3955,6 +3977,440 @@ def builders_phase(device, card: str, io: dict | None = None) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     return {"launches": per_forward, "classification_s": cls_s, "localization_s": loc_s,
             "phenikaa_s": ocr_s, "series_s": len(order) / cls_s, "crops_s": n_crops / cls_s}
+
+
+# The cli phase: the port's command line (``spine_vision_torch.cli``) through
+# every subcommand that reaches the card, on trees made by the builders'
+# helpers and volume_io's files; the baseline JPEG decoder on the committed
+# fixtures (``tests/fixtures/torch_jpeg``, Pillow's decodes in record.json).
+JPEG_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_jpeg"
+CLI_RSNA_INSTANCES = 16  # 128 DICOM + 4 pretrain images: 100 train, 3 steps of TRAIN_BATCH
+CLI_CLS_BATCH = 16
+CLI_DECODE_REPS = 5
+CLI_LOC = {"backbone": "convnext_base", "hw": 512}  # the trained regressor
+CLI_TRAIN_ARGS: list = []  # more options of both train commands
+
+
+def _jpeg_check(tag: str) -> dict:
+    """Each committed JPEG decodes to the sha256 of Pillow's decode in the
+    fixtures' record; ms a 512^2 gray frame and the 17-slice series (median
+    of ``CLI_DECODE_REPS``), each with the C++ entropy decode's ms."""
+    import hashlib
+
+    import numpy as np
+
+    from spine_vision_torch.io import jpeg
+
+    record = json.loads((JPEG_FIXTURES / "record.json").read_text())
+    t0 = time.perf_counter()
+    for name, entry in record["files"].items():
+        got = jpeg.decode_jpeg((JPEG_FIXTURES / name).read_bytes())
+        if (list(got.shape) != entry["shape"]
+                or hashlib.sha256(got.tobytes()).hexdigest() != entry["sha256"]):
+            raise AssertionError(f"{tag} {name} does not decode to Pillow's record")
+    first_s = time.perf_counter() - t0
+    series = [(JPEG_FIXTURES / "series" / f"slice_{k:02d}.jpg").read_bytes()
+              for k in range(IO_SHAPE[0])]
+    entropy: list = []
+    inner = jpeg._decode_entropy
+
+    def timed(*args, **kw):
+        start = time.perf_counter()
+        out = inner(*args, **kw)
+        entropy.append(time.perf_counter() - start)
+        return out
+
+    runs: dict = {"frame": [], "frame_entropy": [], "series": [], "series_entropy": []}
+    jpeg._decode_entropy = timed
+    try:
+        for _ in range(CLI_DECODE_REPS):
+            for key, frames in (("frame", series[:1]), ("series", series)):
+                entropy.clear()
+                start = time.perf_counter()
+                for data in frames:
+                    jpeg.decode_jpeg(data)
+                runs[key].append(time.perf_counter() - start)
+                runs[f"{key}_entropy"].append(sum(entropy))
+    finally:
+        jpeg._decode_entropy = inner
+    ms = {k: float(np.median(v)) * 1e3 for k, v in runs.items()}
+    print(f"{tag} JPEG: {len(record['files'])} committed files decode to Pillow "
+          f"{record['pillow']}'s sha256 (first pass {first_s:.3f} s, the C++ build included); "
+          f"512^2 gray frame {ms['frame']:.3f} ms (entropy decode {ms['frame_entropy']:.3f} ms), "
+          f"17-slice series {ms['series']:.3f} ms (entropy decode {ms['series_entropy']:.3f} "
+          f"ms), median of {CLI_DECODE_REPS}, one host thread")
+    return ms
+
+
+def _jpeg_dicom_series(out: Path) -> Path:
+    """The committed 17-slice JPEG series wrapped as a baseline-JPEG DICOM
+    series (transfer syntax .50, 8-bit) at volume_io's geometry."""
+    import struct
+
+    import numpy as np
+
+    from spine_vision_torch.io import dicom_write as dw
+
+    direction = _io_direction(False)
+    row_dir, col_dir, normal = direction[:, 0], direction[:, 1], direction[:, 2]
+    sx, sy, sz = IO_SPACING
+    study_uid, series_uid = dw._new_uid(), dw._new_uid()
+    out.mkdir(parents=True)
+    for k in range(IO_SHAPE[0]):
+        frame = dw._even((JPEG_FIXTURES / "series" / f"slice_{k:02d}.jpg").read_bytes(), b"\x00")
+        items = (struct.pack("<HHI", 0xFFFE, 0xE000, 0) + struct.pack("<HHI", 0xFFFE, 0xE000,
+                                                                       len(frame))
+                 + frame + struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
+        sop = dw._new_uid()
+        body = (
+            dw._ui(0x0008, 0x0016, dw.SOP_CLASS_MR) + dw._ui(0x0008, 0x0018, sop)
+            + dw._str(0x0008, 0x0060, b"CS", "MR") + dw._str(0x0018, 0x0050, b"DS", f"{sz:.10g}")
+            + dw._ui(0x0020, 0x000D, study_uid) + dw._ui(0x0020, 0x000E, series_uid)
+            + dw._str(0x0020, 0x0013, b"IS", str(k + 1))
+            + dw._ds(0x0020, 0x0032, np.asarray(IO_ORIGIN) + k * sz * normal)
+            + dw._ds(0x0020, 0x0037, np.concatenate([row_dir, col_dir]))
+            + dw._us(0x0028, 0x0002, 1) + dw._str(0x0028, 0x0004, b"CS", "MONOCHROME2")
+            + dw._us(0x0028, 0x0010, IO_SHAPE[1]) + dw._us(0x0028, 0x0011, IO_SHAPE[2])
+            + dw._ds(0x0028, 0x0030, (sy, sx)) + dw._us(0x0028, 0x0100, 8)
+            + dw._us(0x0028, 0x0101, 8) + dw._us(0x0028, 0x0102, 7) + dw._us(0x0028, 0x0103, 0)
+            + struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF) + items)
+        (out / f"slice_{k + 1:04d}.dcm").write_bytes(
+            dw._file_meta(sop, "1.2.840.10008.1.2.4.50") + body)
+    return out
+
+
+@contextlib.contextmanager
+def _recorded(cls, name: str, calls: list):
+    """Record ``(instance, result)`` of each call of ``cls.name``."""
+    inner, own = getattr(cls, name), name in vars(cls)
+
+    def wrapper(self, *args, **kw):
+        out = inner(self, *args, **kw)
+        calls.append((self, out))
+        return out
+
+    setattr(cls, name, wrapper)
+    try:
+        yield calls
+    finally:
+        if own:
+            setattr(cls, name, inner)
+        else:
+            delattr(cls, name)
+
+
+def _same_metrics(tag: str, got: dict, want: dict) -> float:
+    """The largest gap of two metric dicts (NaN == NaN); raises above 1e-6."""
+    import math
+
+    if sorted(got) != sorted(want) or not want:
+        raise AssertionError(f"{tag} metrics {sorted(got)} against {sorted(want)}")
+    gap = max(0.0 if (math.isnan(got[k]) and math.isnan(want[k])) else abs(got[k] - want[k])
+              for k in want)
+    if not gap <= 1e-6:
+        raise AssertionError(f"{tag} metrics differ by {gap}: {got} against {want}")
+    return gap
+
+
+def cli_phase(device, card: str, io: dict | None = None) -> dict:
+    """The port's CLI on the card (``--cli-only`` runs it alone), in process
+    through ``spine_vision_torch.cli.cli(argv)`` with ``--device`` the card:
+
+    the JPEG fixtures against Pillow's record, with the decode times; the
+    CLI's own cost; ``convert`` (as ``python -m spine_vision_torch.cli``, one
+    subprocess) of a seeded torchvision ResNet-18 ``.pth``; ``dataset
+    localization`` over an RSNA-like tree (4 studies x 2 series x 16 512^2
+    DICOM instances) and 4 pretrain sources (2 committed baseline JPEGs);
+    ``train localization`` (ConvNeXt-base 512^2, b32, hybrid, bf16 on f32
+    masters, one epoch of 3 steps, ``--pretrained-path`` a seeded timm
+    ``.pth``, ``--use-tracker``, ``--profile-steps``) and ``evaluate`` of its
+    checkpoint, the same metrics as the trainer's ``evaluate()``;
+    ``dataset classification`` over the builders' SPIDER and Phenikaa trees
+    of volume_io's series, cropped by that checkpoint; ``train
+    classification`` (ResNet-18 256^2, b16, ``--pretrained-path`` the
+    ResNet ``.npz``) and ``evaluate``; ``infer`` on volume_io's 8 studies and
+    a ninth whose T2 is the JPEG series as baseline-JPEG DICOM, bit for bit
+    ``StudyInferencePipeline.run`` at the same padded size; ``serve --once``
+    on the same 9 requests, equal to ``infer``; ``test`` with the ConvNeXt-base
+    regressor at 512^2 and the ResNet-18 classifier at 256^2 on committed
+    JPEG and PNG files; ``dataset phenikaa`` on the builders' report pages,
+    one of them a committed JPEG; ``bench`` raising item 6. The tracker
+    loads no matplotlib; ``visualize_predictions`` stays off. Returns the
+    launches of every command, summed, and the times."""
+    import math
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from spine_vision_torch import cli
+    from spine_vision_torch.cli import train as cli_train
+    from spine_vision_torch.data import builders
+    from spine_vision_torch.data.phenikaa import PreprocessConfig
+    from spine_vision_torch.infer.pipeline import (
+        StudyInferencePipeline,
+        StudyPipelineConfig,
+        study_input_from_paths,
+    )
+    from spine_vision_torch.io import read_medical_image
+    from spine_vision_torch.io.jpeg import read_jpeg
+    from spine_vision_torch.models.convnext import CONVNEXT_CONFIGS
+    from spine_vision_torch.train.classification import ClassificationTrainer
+    from spine_vision_torch.train.localization import LocalizationTrainer
+
+    tag = "[cli]"
+    on_card = torch.device(device).type == "cuda"  # the CPU runs the plain versions
+    backbone, hw = CLI_LOC["backbone"], CLI_LOC["hw"]
+    had_matplotlib = "matplotlib" in sys.modules
+    jpeg_ms = _jpeg_check(tag)
+    images, paths = _io_files(tag) if io is None else (io["images"], io["paths"])
+    root = RUN_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(11)
+    total = dict.fromkeys(KERNEL_COUNTERS, 0)
+    seconds: dict = {}
+
+    def run(*argv, name: str | None = None) -> dict:
+        """One command in process; its launches, added to the total."""
+        _zero_counts()
+        start = time.perf_counter()
+        rc = cli.cli(["--device", torch.device(device).type, *map(str, argv)])
+        if on_card:
+            torch.cuda.synchronize()
+        seconds[name or " ".join(map(str, argv[:2]))] = time.perf_counter() - start
+        counts = _counts()
+        for name, n in counts.items():
+            total[name] += n
+        if rc != 0:
+            raise AssertionError(f"{tag} {argv[:2]} returned {rc}")
+        return {k: v for k, v in counts.items() if v}
+
+    # The CLI's own cost: the parser and a train command's config.
+    from spine_vision_torch.cli.config_args import config_from_args
+    from spine_vision_torch.train.localization import LocalizationConfig
+
+    own = []
+    for _ in range(CLI_DECODE_REPS):
+        start = time.perf_counter()
+        args = cli._build_parser().parse_args(["train", "localization", "--batch-size", "32"])
+        config_from_args(LocalizationConfig, args)
+        own.append(time.perf_counter() - start)
+    print(f"{tag} the CLI's own cost: parser and a train config {np.median(own) * 1e3:.3f} ms "
+          f"(median of {CLI_DECODE_REPS}; the first, imports included, "
+          f"{own[0] * 1e3:.3f} ms)")
+
+    # convert, through the module entry: the ResNet-18 .pth. The ConvNeXt
+    # .pth goes to --pretrained-path as it is (converted on the fly, without
+    # the .npz's compression of 350 MB, about 20 s on the card's host).
+    cn = CONVNEXT_CONFIGS[backbone]
+    t0 = time.perf_counter()
+    torch.save(_timm_convnext_state_dict(21, cn.depths, cn.dims), root / f"{backbone}.pth")
+    torch.save(_torchvision_resnet18_state_dict(23), root / "resnet18.pth")
+    saved_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spine_vision_torch.cli", "--device", "cpu", "convert",
+         "--checkpoint", str(root / "resnet18.pth"), "--arch", "resnet18", "--output",
+         str(root / "resnet18.npz")],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300)
+    module_s = time.perf_counter() - t0
+    if proc.returncode != 0 or not (root / "resnet18.npz").exists():
+        raise AssertionError(f"{tag} python -m spine_vision_torch.cli convert: {proc.stderr}")
+    print(f"{tag} convert: seeded .pth files saved in {saved_s:.2f} s; ResNet-18 converted by "
+          f"python -m spine_vision_torch.cli in {module_s:.2f} s (interpreter start included)")
+
+    # dataset localization -> train localization -> evaluate localization.
+    t0 = time.perf_counter()
+    jpgs, npys, dicoms = _localization_tree(root, rng, instances=CLI_RSNA_INSTANCES,
+                                            baseline_jpgs=True)
+    tree_s = time.perf_counter() - t0
+    run("dataset", "localization", "--base-path", root)
+    loc_data = builders.LocalizationDatasetConfig(base_path=root).output_path
+    rows = _read_csv(loc_data / "annotations.csv")
+    n_images = len(jpgs) + len(npys) + len(dicoms)
+    if len(rows) != n_images or len(list((loc_data / "images").iterdir())) != n_images:
+        raise AssertionError(f"{tag} dataset localization: {len(rows)} rows")
+    print(f"{tag} dataset localization: {n_images} images ({len(dicoms)} 512^2 DICOM "
+          f"instances, tree written in {tree_s:.2f} s) in {seconds['dataset localization']:.2f} s")
+    loc_args = ["--data-path", loc_data, "--backbone", backbone, "--image-size", hw, hw,
+                "--batch-size", TRAIN_BATCH, "--num-epochs", 1, "--num-workers", 8, "--seed", 0,
+                "--no-pretrained", *CLI_TRAIN_ARGS]
+    with _recorded(LocalizationTrainer, "train", []) as trained, \
+            _recorded(LocalizationTrainer, "evaluate", []) as evaluated, _LogRecords() as log:
+        counts = run("train", "localization", *loc_args, "--output-path", root / "loc_run",
+                     "--pretrained-path", root / f"{backbone}.pth", "--use-tracker",
+                     "--profile-steps")
+        run("evaluate", "localization", *loc_args, "--output-path", root / "loc_eval",
+            "--checkpoint-path", root / "loc_run" / "best_model")
+    trainer, result = trained[0]
+    steps = len(trainer.step_times)
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES["train_step"].items() if v}
+    if (steps != 3 or on_card and any(counts.get(k, 0) < v for k, v in want.items())
+            or not all(math.isfinite(v) for v in result.history["train_loss"])):
+        raise AssertionError(f"{tag} train localization: {steps} steps, launches {counts}, "
+                             f"history {result.history}")
+    if not any(m.startswith("Loaded pretrained backbone weights") for m in log.messages):
+        raise AssertionError(f"{tag} --pretrained-path was not loaded")
+    if trainer.visualizer is not None or "matplotlib" in sys.modules and not had_matplotlib:
+        raise AssertionError(f"{tag} the plots ran or loaded matplotlib on the card")
+    records = [json.loads(line) for line in
+               (root / "loc_run" / "logs" / "metrics.jsonl").read_text().splitlines()]
+    logged = {"step", "time", "train/loss", "train/lr", "val/loss", "val/med"}
+    if not (logged <= set(records[0]) and any("test/med" in r for r in records)
+            and any(r.get("_finished") == 1.0 for r in records)):
+        raise AssertionError(f"{tag} metrics.jsonl: {records}")
+    p50 = float(np.percentile(trainer.step_times[1:], 50)) * 1e3  # the first allocates
+    print(f"{tag} train localization: {steps} steps of {backbone} {hw}^2 b{TRAIN_BATCH} "
+          f"(hybrid, {'f32' if CLI_TRAIN_ARGS else 'bf16 on f32 masters'}) in {seconds['train localization']:.2f} s, train_loss "
+          f"{result.history['train_loss']}, step p50 {p50:.3f} ms after the first (steps ms "
+          f"{[round(t * 1e3, 3) for t in trainer.step_times]}); launches "
+          f"{counts} ({steps} steps of {want and {k: v // steps for k, v in want.items()}} and the "
+          f"validation and test forwards); metrics.jsonl keys {sorted(records[0])} on {card}")
+    # evaluated: the train command's evaluate(), then the evaluate command's.
+    gap = _same_metrics(f"{tag} evaluate localization", evaluated[1][1], evaluated[0][1])
+    print(f"{tag} evaluate localization: med {evaluated[1][1]['med']:.6f}, the train command's "
+          f"evaluate() within {gap:g}, in {seconds['evaluate localization']:.2f} s")
+    del trainer, trained, evaluated
+    gc.collect()
+
+    # dataset classification -> train classification -> evaluate classification.
+    cls_root = root / "cls_tree"
+    order = _classification_tree(cls_root, images, paths, rng)
+    counts = run("dataset", "classification", "--base-path", cls_root,
+                 "--localization-model-path", root / "loc_run" / "best_model",
+                 "--localization-backbone", backbone, "--device-batch-size", BUILD_BATCH)
+    cls_data = builders.ClassificationDatasetConfig(base_path=cls_root).output_path
+    if len(_read_csv(cls_data / "annotations.csv")) != 5 * len(order) or on_card and not counts:
+        raise AssertionError(f"{tag} dataset classification: launches {counts}")
+    print(f"{tag} dataset classification: {len(order)} series, {5 * len(order)} crops with the "
+          f"CLI-trained {backbone} in {seconds['dataset classification']:.2f} s; launches "
+          f"{counts}")
+    cls_args = ["--data-path", cls_data, "--backbone", "resnet18", "--output-size", 256, 256,
+                "--batch-size", CLI_CLS_BATCH, "--num-epochs", 1, "--num-workers", 8,
+                "--seed", 0, "--no-pretrained", *CLI_TRAIN_ARGS]
+    with _recorded(ClassificationTrainer, "train", []) as trained, \
+            _recorded(ClassificationTrainer, "evaluate", []) as evaluated, _LogRecords() as log:
+        run("train", "classification", *cls_args, "--output-path", root / "cls_run",
+            "--pretrained-path", root / "resnet18.npz")
+        run("evaluate", "classification", *cls_args, "--output-path", root / "cls_eval",
+            "--checkpoint-path", root / "cls_run" / "best_model")
+    result = trained[0][1]
+    if (not any(m.startswith("Loaded pretrained backbone weights") for m in log.messages)
+            or not all(math.isfinite(v) for v in result.history["train_loss"])):
+        raise AssertionError(f"{tag} train classification: {result.history}")
+    gap = _same_metrics(f"{tag} evaluate classification", evaluated[1][1], evaluated[0][1])
+    print(f"{tag} train classification: ResNet-18 256^2 b{CLI_CLS_BATCH} from the converted "
+          f".npz, {len(trained[0][0].train_dataset)} train records, train_loss "
+          f"{result.history['train_loss']} in {seconds['train classification']:.2f} s; "
+          f"evaluate: macro_f1 {evaluated[1][1]['macro_f1']:.6f}, the train command's "
+          f"within {gap:g}, in {seconds['evaluate classification']:.2f} s")
+    del trained, evaluated
+    gc.collect()
+
+    # infer and serve --once: volume_io's 8 studies and a JPEG-baseline T2.
+    jpeg_t2 = _jpeg_dicom_series(root / "jpeg_t2")
+    volume = read_medical_image(jpeg_t2).array
+    decoded = np.stack([read_jpeg(JPEG_FIXTURES / "series" / f"slice_{k:02d}.jpg")
+                        for k in range(IO_SHAPE[0])])
+    if not np.array_equal(np.asarray(volume).reshape(decoded.shape), decoded):
+        raise AssertionError(f"{tag} the JPEG-baseline DICOM series reads back otherwise")
+    pairs = [(p["t1"], p["t2"]) for p in paths] + [(paths[0]["t1"], jpeg_t2)]
+    ckpts = ["--loc-checkpoint", root / "loc_run" / "best_model",
+             "--cls-checkpoint", root / "cls_run" / "best_model", "--loc-backbone", backbone]
+    counts = run("infer", *ckpts, "--t1", *[a for a, _ in pairs], "--t2", *[b for _, b in pairs],
+                 "--output-json", root / "infer.json", name="infer")
+    payload = json.loads((root / "infer.json").read_text())
+    studies = [study_input_from_paths(a, b, study_id=f"study{i}", device=device)
+               for i, (a, b) in enumerate(pairs)]
+    pipe = StudyInferencePipeline.from_checkpoints(
+        root / "loc_run" / "best_model", root / "cls_run" / "best_model", loc_backbone=backbone,
+        config=StudyPipelineConfig(padded_hw=(1024, 1024)), device=device)
+    want = [{"study_id": r.study_id, "coords": r.coords.tolist(),
+             "predictions": {k: v.tolist() for k, v in r.predictions.items()},
+             "probabilities": {k: v.tolist() for k, v in r.probabilities.items()}}
+            for r in pipe.run(studies, fetch_crops=False)]
+    forwards = counts.get("convnext_block", 0) // max(INFERENCE_LAUNCHES["convnext_block"], 1)
+    if payload != want or on_card and (not forwards or counts != {
+            k: v * forwards for k, v in INFERENCE_LAUNCHES.items() if v}):
+        raise AssertionError(f"{tag} infer: launches {counts}; equal to run: {payload == want}")
+    del pipe, studies
+    watch = root / "watch"
+    watch.mkdir()
+    for i, (a, b) in enumerate(pairs):
+        (watch / f"study{i}.json").write_text(json.dumps(
+            {"study_id": f"study{i}", "t1": str(a), "t2": str(b)}))
+    serve_counts = run("serve", *ckpts, "--watch-dir", watch, "--output-dir", root / "served",
+                       "--once", "--padded-hw", 1024, 1024, name="serve")
+    served = [json.loads((root / "served" / f"study{i}.json").read_text())
+              for i in range(len(pairs))]
+    if served != payload or serve_counts != counts:
+        raise AssertionError(f"{tag} serve --once differs from infer (launches {serve_counts})")
+    print(f"{tag} infer: {len(pairs)} studies (the ninth's T2 the committed JPEG series as "
+          f"baseline-JPEG DICOM) auto-bucketed to 1024^2, bit for bit StudyInferencePipeline.run,"
+          f" in {seconds['infer']:.2f} s; serve --once the same results in "
+          f"{seconds['serve']:.2f} s; launches {counts} each")
+
+    # test: the regressor at 512^2 and the classifier at 256^2 on image files.
+    files = [JPEG_FIXTURES / "color_420.jpg", JPEG_FIXTURES / "series" / "slice_00.jpg",
+             JPEG_FIXTURES / "report_clean.jpg", next((loc_data / "images").glob("*.png"))]
+    results: list = []
+    inner_test = cli_train.test_inference_command
+    cli_train.test_inference_command = lambda **kw: results.append(inner_test(**kw)) or results[-1]
+    try:
+        test_counts = run("test", "--checkpoint-path", root / "loc_run" / "best_model",
+                          "--images", *files, "--model-kind", "localization",
+                          "--backbone", backbone, "--image-size", hw, hw,
+                          name="test localization")
+        run("test", "--checkpoint-path", root / "cls_run" / "best_model", "--images", *files,
+            "--model-kind", "classification", "--backbone", "resnet18",
+            "--image-size", 256, 256, name="test classification")
+    finally:
+        cli_train.test_inference_command = inner_test
+    loc_out, cls_out = results
+    if (loc_out["pixel_coordinates"].shape != (len(files), 5, 2)
+            or not np.all(np.isfinite(loc_out["pixel_coordinates"]))
+            or not all(np.all(np.isfinite(v)) for v in cls_out["probabilities"].values())
+            or on_card and not test_counts):
+        raise AssertionError(f"{tag} test: {loc_out['pixel_coordinates']}, launches {test_counts}")
+    print(f"{tag} test: {backbone} regressor (f32) at {hw}^2 on {len(files)} files (3 JPEG, 1 PNG) in "
+          f"{loc_out['inference_time_ms']:.3f} ms, launches {test_counts}; ResNet-18 classifier "
+          f"in {cls_out['inference_time_ms']:.3f} ms")
+
+    # dataset phenikaa: the report pages, one of them a committed JPEG.
+    matching, fields = _phenikaa_raw_tree(root / "phenikaa")
+    manifest = json.loads((OCR_FIXTURES / "manifest.json").read_text())
+    if [p["file"] for p in manifest["pages"] if p["file"].startswith("report_")][0] != (
+            "report_clean.png"):
+        raise AssertionError(f"{tag} the first report page is not report_clean.png")
+    day, month, year = fields[0]["birthday"].split("/")
+    jpeg_page = (root / "phenikaa" / "labels" / "reports"
+                 / ("_".join(fields[0]["name"].split()) + f"_{day}{month}{year}.png"))
+    shutil.copy(JPEG_FIXTURES / "report_clean.jpg", jpeg_page.with_suffix(".jpg"))
+    jpeg_page.unlink()
+    pre = PreprocessConfig(data_path=root / "phenikaa", output_path=root / "phenikaa_out")
+    run("dataset", "phenikaa", "--data-path", pre.data_path, "--output-path", pre.output_path)
+    copied = sorted(p.name for p in pre.output_image_path.iterdir())
+    if copied != sorted(matching):
+        raise AssertionError(f"{tag} dataset phenikaa: copied {copied}, want {sorted(matching)}")
+    print(f"{tag} dataset phenikaa: {len(fields)} reports ({jpeg_page.stem}.jpg the committed "
+          f"JPEG page) matched to {copied} in {seconds['dataset phenikaa']:.2f} s")
+
+    try:
+        cli.cli(["bench"])
+    except NotImplementedError as exc:
+        if "Queue 1 item 6" not in str(exc):
+            raise
+    else:
+        raise AssertionError(f"{tag} bench did not raise")
+    if "matplotlib" in sys.modules and not had_matplotlib:
+        raise AssertionError(f"{tag} the phase loaded matplotlib")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"{tag} commands' seconds {{{', '.join(f'{k!r}: {v:.2f}' for k, v in seconds.items())}}}"
+          f"; launches of the phase {({k: v for k, v in total.items() if v})}; bench raised "
+          f"item 6; no matplotlib loaded")
+    return {"launches": total, "seconds": seconds, "step_p50_ms": p50, "jpeg_ms": jpeg_ms,
+            "cli_own_ms": float(np.median(own)) * 1e3}
 
 
 # The ocr phase: report OCR with the shipped weights on the card, held to the
@@ -5321,6 +5777,8 @@ def main() -> int:
     parser.add_argument("--f32-only", action="store_true",
                         help="build the kernels and run only the f32 phases (the f32 forms' "
                              "rows and paths; a kernels line of the f32 forms)")
+    parser.add_argument("--cli-only", action="store_true",
+                        help="build the kernels and run only the cli phase (no kernels line)")
     parser.add_argument("--ddp-rank", help=argparse.SUPPRESS)  # a rank of the ddp phase
     opts = parser.parse_args()
     if opts.ddp_rank:
@@ -5393,6 +5851,13 @@ def main() -> int:
     if opts.zoo_only:
         phase("zoo", zoo_phase, device, card)
         return verdict()
+    if opts.cli_only:
+        t0 = time.perf_counter()
+        cuda_build.build_all()
+        print(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s")
+        phase("cli", cli_phase, device, card)
+        shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
+        return verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -5421,6 +5886,7 @@ def main() -> int:
     phase("f32 kernels", f32_kernel_phase, device, report)
     probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, "volume_io": None, "serve": None, "builders": None,
+             "cli": None,
              **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
@@ -5433,6 +5899,7 @@ def main() -> int:
         # serve and builders: the launches a ConvNeXt-base forward.
         paths["serve"] = phase("serve", serve_phase, device, card, opts.profile, io)["launches"]
         paths["builders"] = phase("builders", builders_phase, device, card, io)["launches"]
+        paths["cli"] = phase("cli", cli_phase, device, card, io)["launches"]
         del io
         shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
         for path, grad_mode in (("train_step", "hybrid"), ("train_step_dwconv", True),

@@ -261,3 +261,27 @@ def compute_probabilities_for_tasks(
         t.name: get_strategy(t).compute_probabilities(outputs[t.name])
         for t in tasks if t.name in outputs
     }
+
+
+def get_task_display_name(name: str) -> str:
+    """Display name for a task (name itself if unregistered)."""
+    if name in TASK_REGISTRY:
+        return TASK_REGISTRY[name].display_name
+    return name
+
+
+def get_task_color(name: str) -> str:
+    """Color for a task (default gray if unregistered)."""
+    if name in TASK_REGISTRY:
+        return TASK_REGISTRY[name].color
+    return "#333333"
+
+
+def get_task_display_names() -> dict[str, str]:
+    """Display names for all registered tasks."""
+    return {name: task.display_name for name, task in TASK_REGISTRY.items()}
+
+
+def get_task_colors() -> dict[str, str]:
+    """Colors for all registered tasks."""
+    return {name: task.color for name, task in TASK_REGISTRY.items()}

@@ -4,9 +4,9 @@ Counterpart of ``spine_vision_tpu/data/datasets.py``. The annotations come
 from ``annotations.csv`` (the standard ``csv`` module); the images come from
 an *image store*: a mapping from the CSV's ``image_path`` to the decoded
 uint8 array (RGB ``[H, W, 3]`` for localization, a gray ``[H, W]`` plane for
-classification). The default store, :class:`PngStore`, decodes the PNGs of
-the data directory on each access (``data/png.py``, the reads of
-``cv2.imread``); an in-memory mapping stands in for it where a caller holds
+classification). The default store, :class:`PngStore`, decodes the PNG and
+baseline JPEG images of the data directory on each access (``data/png.py``,
+``io/jpeg.py``: the reads of ``cv2.imread``); an in-memory mapping stands in for it where a caller holds
 the arrays already. Everything after the read is the JAX code's: the host
 bilinear resize, the grouping and T1/T2 pairing, the ``[T2, T1, T2]``
 channels, the targets and the splits:
@@ -30,7 +30,7 @@ from typing import Any, Iterator, Literal, Mapping
 import numpy as np
 
 from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES
-from spine_vision_torch.data.png import read_png
+from spine_vision_torch.data.png import decode_png
 from spine_vision_torch.data.levels import (
     IDX_TO_LEVEL,
     LEVEL_TO_IDX,
@@ -38,6 +38,7 @@ from spine_vision_torch.data.levels import (
     SERIES_TYPE_TO_IDX,
 )
 from spine_vision_torch.data.stratification import _LABEL_TO_RECORD_KEY, split_patients
+from spine_vision_torch.io import jpeg
 from spine_vision_torch.native import resize_bilinear_u8
 
 logger = logging.getLogger("spine_vision_torch")
@@ -47,12 +48,32 @@ ImageStore = Mapping[str, np.ndarray]
 LABEL_TO_RECORD_KEY = _LABEL_TO_RECORD_KEY
 
 
+def read_image(path: Path, mode: Literal["color", "gray"]) -> np.ndarray:
+    """``cv2.imread(path, IMREAD_COLOR)`` as RGB (``mode="color"``) or
+    ``cv2.imread(path, IMREAD_GRAYSCALE)`` of a PNG or baseline JPEG file,
+    told apart by content as cv2 does: PNG by ``data/png.py``, JPEG by
+    ``io/jpeg.py`` (libjpeg's RGB, or its grayscale output: the Y plane).
+    cv2's EXIF rotation is not applied. Other JPEG processes raise
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 13, other formats
+    ``ValueError``."""
+    path = Path(path)
+    try:
+        data = path.read_bytes()
+    except (FileNotFoundError, IsADirectoryError):
+        raise FileNotFoundError(f"Could not read image: {path}") from None
+    if not jpeg.is_jpeg(data):
+        return decode_png(data, mode, name=str(path))
+    if mode == "gray":
+        return jpeg.decode_jpeg(data, luma=True)
+    return jpeg.to_mode(jpeg.decode_jpeg(data), "RGB")
+
+
 class PngStore(Mapping[str, np.ndarray]):
     """The images of a data directory: ``annotations.csv``'s ``image_path``
-    -> the PNG at ``data_path / image_path``, decoded on each access as
-    ``cv2.imread`` reads it in ``mode`` ``"color"`` (RGB ``[H, W, 3]``) or
-    ``"gray"`` (``[H, W]``). A file that is missing or cannot be decoded
-    raises."""
+    -> the image at ``data_path / image_path`` (PNG or JPEG,
+    :func:`read_image`), decoded on each access as ``cv2.imread`` reads it
+    in ``mode`` ``"color"`` (RGB ``[H, W, 3]``) or ``"gray"`` (``[H, W]``).
+    A file that is missing or cannot be decoded raises."""
 
     def __init__(self, data_path: Path, mode: Literal["color", "gray"]) -> None:
         self.data_path = Path(data_path)
@@ -63,7 +84,7 @@ class PngStore(Mapping[str, np.ndarray]):
     def __getitem__(self, key: str) -> np.ndarray:
         if key not in self._keys:
             raise KeyError(key)
-        return read_png(self.data_path / key, self.mode)
+        return read_image(self.data_path / key, self.mode)
 
     def __iter__(self) -> Iterator[str]:
         return iter(self._keys)

@@ -13,14 +13,15 @@ tree ``{"params": ..., "batch_stats": ...}``) override them, and missing
 weights raise. Every class takes ``device="cuda"`` and raises without a card
 unless asked for the CPU.
 
-Files: PNG pages (``data/png.py``, cv2's ``IMREAD_COLOR`` read). A PDF
+Files: PNG pages (``data/png.py``, cv2's ``IMREAD_COLOR`` read) and
+baseline JPEG pages (``io/jpeg.py``, Pillow's ``convert("RGB")`` read). A PDF
 goes through ``io/pdf.py``, which raises ``ImportError`` (the port does not
 import PyMuPDF): ``extract_from_pdf*`` raise it, and ``extract`` or
 ``extract_lines`` of a ``.pdf`` warn and return ``[]``, as the JAX package
-does without PyMuPDF. JPEG and other raster formats raise
+does without PyMuPDF. Other raster formats (TIFF, ...) raise
 ``NotImplementedError`` naming ROADMAP Queue 1 item 13, before any decode,
-so a missing decoder never reads as an empty page; a corrupt PNG gives a
-warning and ``[]``, as in the JAX package.
+so a missing decoder never reads as an empty page; a corrupt PNG or JPEG
+gives a warning and ``[]``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from spine_vision_torch.data.png import read_png
 from spine_vision_torch.device import resolve_device
+from spine_vision_torch.io.jpeg import read_jpeg
 from spine_vision_torch.io.pdf import pdf_first_page_to_array
 from spine_vision_torch.models.convert import load_flax_variables, load_variables_npz
 from spine_vision_torch.models.textdet import TextDetectionNet, extract_boxes_from_probmap
@@ -281,7 +283,7 @@ class DocumentExtractor:
         return out
 
     def extract(self, path: Path) -> list[str]:
-        """OCR a report file (a PDF's first page, or a PNG). A corrupt or
+        """OCR a report file (a PDF's first page, a PNG or a JPEG). A corrupt or
         unreadable file returns [] with a warning: one bad file must not
         abort a long preprocessing run."""
         return [text for text, _ in self.extract_lines(path)]
@@ -291,16 +293,18 @@ class DocumentExtractor:
         :meth:`extract`)."""
         path = Path(path)
         suffix = path.suffix.lower()
-        if suffix not in (".pdf", ".png"):
+        if suffix not in (".pdf", ".png", ".jpg", ".jpeg"):
             raise NotImplementedError(
-                f"{path.name}: the port decodes PNG report pages only; JPEG and other "
-                "raster formats wait for a decoder (ROADMAP Queue 1 item 13)"
+                f"{path.name}: the port decodes PNG and baseline JPEG report pages only; "
+                "other raster formats wait for a decoder (ROADMAP Queue 1 item 13)"
             )
         try:
             if suffix == ".pdf":
                 page = self._render_first_page(path, self.pdf_dpi)
                 return [] if page is None else self.extract_lines_from_image(page)
-            return self.extract_lines_from_image(read_png(path, mode="color"))
+            if suffix == ".png":
+                return self.extract_lines_from_image(read_png(path, mode="color"))
+            return self.extract_lines_from_image(read_jpeg(path, mode="RGB"))
         except Exception as exc:  # noqa: BLE001 — isolate bad files
             logger.warning("OCR failed for %s: %s", path, exc)
             return []

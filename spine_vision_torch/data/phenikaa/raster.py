@@ -20,8 +20,9 @@ arithmetic so that a rendered line or page comes out as Pillow makes it:
   baseline JPEG at quality ``q`` and reading it back with libjpeg(-turbo):
   edge replication to whole 8x8 blocks, the integer ("islow") forward DCT,
   quantization with the IJG luminance table scaled for ``q`` (libjpeg-turbo's
-  reciprocal division), dequantization and the islow inverse DCT. Huffman
-  coding is lossless and is left out.
+  reciprocal division), dequantization and the islow inverse DCT (shared
+  with the baseline decoder, ``io/jpeg.py``). Huffman coding is lossless and
+  is left out.
 
 Every function takes and returns ``uint8`` ``[H, W]`` arrays.
 """
@@ -33,6 +34,24 @@ from functools import lru_cache
 import numpy as np
 
 from spine_vision_torch.data.pillow_resize import resize_bilinear  # noqa: F401
+from spine_vision_torch.io.jpeg import (  # the islow DCT's constants, shared with the decoder
+    _CONST_BITS,
+    _FIX_0_298631336,
+    _FIX_0_390180644,
+    _FIX_0_541196100,
+    _FIX_0_765366865,
+    _FIX_0_899976223,
+    _FIX_1_175875602,
+    _FIX_1_501321110,
+    _FIX_1_847759065,
+    _FIX_1_961570560,
+    _FIX_2_053119869,
+    _FIX_2_562915447,
+    _FIX_3_072711026,
+    _PASS1_BITS,
+    _descale,
+    idct_islow,
+)
 
 # ---------------------------------------------------------------------------
 # Geometric transforms (Geometry.c: ImagingGenericTransform, bilinear_filter8)
@@ -149,23 +168,12 @@ _STD_LUMINANCE = np.array(
     dtype=np.int64,
 ).reshape(8, 8)
 
-_CONST_BITS, _PASS1_BITS = 13, 2
-_FIX_0_298631336, _FIX_0_390180644, _FIX_0_541196100 = 2446, 3196, 4433
-_FIX_0_765366865, _FIX_0_899976223, _FIX_1_175875602 = 6270, 7373, 9633
-_FIX_1_501321110, _FIX_1_847759065, _FIX_1_961570560 = 12299, 15137, 16069
-_FIX_2_053119869, _FIX_2_562915447, _FIX_3_072711026 = 16819, 20995, 25172
-
-
 @lru_cache(maxsize=128)
 def jpeg_quant_table(quality: int) -> np.ndarray:
     """``jpeg_set_quality(quality, force_baseline=TRUE)``'s luminance table."""
     quality = min(max(int(quality), 1), 100)
     scale = 5000 // quality if quality < 50 else 200 - quality * 2
     return np.clip((_STD_LUMINANCE * scale + 50) // 100, 1, 255)
-
-
-def _descale(x: np.ndarray, n: int) -> np.ndarray:
-    return (x + (1 << (n - 1))) >> n
 
 
 def _fdct_1d(d: list, final: bool) -> list:
@@ -198,33 +206,6 @@ def _fdct_1d(d: list, final: bool) -> list:
     out[3] = _descale(tmp6 + z2 + z3, shift)
     out[1] = _descale(tmp7 + z1 + z4, shift)
     return out
-
-
-def _idct_1d(d: list, shift: int, first: bool) -> list:
-    """One pass of jpeg_idct_islow over the 8 entries ``d[0..7]``."""
-    z2, z3 = d[2], d[6]
-    z1 = (z2 + z3) * _FIX_0_541196100
-    tmp2 = z1 - z3 * _FIX_1_847759065
-    tmp3 = z1 + z2 * _FIX_0_765366865
-    tmp0 = (d[0] + d[4]) << _CONST_BITS
-    tmp1 = (d[0] - d[4]) << _CONST_BITS
-    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
-    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-    tmp0, tmp1, tmp2, tmp3 = d[7], d[5], d[3], d[1]
-    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
-    z5 = (z3 + z4) * _FIX_1_175875602
-    tmp0, tmp1 = tmp0 * _FIX_0_298631336, tmp1 * _FIX_2_053119869
-    tmp2, tmp3 = tmp2 * _FIX_3_072711026, tmp3 * _FIX_1_501321110
-    z1, z2 = z1 * -_FIX_0_899976223, z2 * -_FIX_2_562915447
-    z3, z4 = z3 * -_FIX_1_961570560 + z5, z4 * -_FIX_0_390180644 + z5
-    tmp0, tmp1 = tmp0 + z1 + z3, tmp1 + z2 + z4
-    tmp2, tmp3 = tmp2 + z2 + z3, tmp3 + z1 + z4
-    return [
-        _descale(tmp10 + tmp3, shift), _descale(tmp11 + tmp2, shift),
-        _descale(tmp12 + tmp1, shift), _descale(tmp13 + tmp0, shift),
-        _descale(tmp13 - tmp0, shift), _descale(tmp12 - tmp1, shift),
-        _descale(tmp11 - tmp2, shift), _descale(tmp10 - tmp3, shift),
-    ]
 
 
 @lru_cache(maxsize=128)
@@ -266,12 +247,5 @@ def jpeg_roundtrip(img: np.ndarray, quality: int) -> np.ndarray:
     cols = _fdct_1d([data[..., i, :] for i in range(8)], final=True)
     coef = np.stack(cols, -2)
     deq = _quantize(coef, quality) * jpeg_quant_table(quality)
-    cols = _idct_1d([deq[..., i, :] for i in range(8)], _CONST_BITS - _PASS1_BITS, True)
-    ws = np.stack(cols, -2)
-    rows = _idct_1d([ws[..., i] for i in range(8)], _CONST_BITS + _PASS1_BITS + 3, False)
-    x = np.stack(rows, -1) & 1023
-    # libjpeg's post-IDCT range limit, indexed by the low 10 bits.
-    limit = np.concatenate([np.arange(128, 256), np.full(384, 255), np.zeros(384),
-                            np.arange(0, 128)]).astype(np.uint8)
-    out = limit[x].transpose(0, 2, 1, 3).reshape(hp, wp)
+    out = idct_islow(deq).transpose(0, 2, 1, 3).reshape(hp, wp)
     return np.ascontiguousarray(out[:h, :w])

@@ -3,17 +3,18 @@
 Counterpart of ``spine_vision_tpu/io/dicom.py``: Part-10 files (with
 preamble) and raw datasets; explicit and implicit VR little endian, explicit
 VR big endian, deflated explicit VR, undefined-length sequences; native
-pixel data, RLE lossless (PackBits) and JPEG Lossless Process 14 / SV1
-(transfer syntaxes .57/.70, ``io/jpeg_lossless.py``). MONOCHROME1/2, 8/16/32
+pixel data, RLE lossless (PackBits), JPEG Lossless Process 14 / SV1
+(transfer syntaxes .57/.70, ``io/jpeg_lossless.py``) and JPEG baseline and
+extended (.50/.51, ``io/jpeg.py``: the frame as Pillow decodes it, then
+``convert("L")`` as the JAX package does). MONOCHROME1/2, 8/16/32
 bits, signed or unsigned, rescale slope and intercept, multiframe with and
 without a Basic Offset Table. ``read_dicom_series`` groups files by
 SeriesInstanceUID (never the empty UID's group when a real one exists) and
 sorts slices along the slice normal.
 
-The JAX package decodes baseline and extended JPEG and JPEG 2000 frames
-through PIL, which the port does not import: ``pixel_array`` raises
-``NotImplementedError`` for those transfer syntaxes before it reads a pixel
-(ROADMAP Queue 1 item 13).
+The JAX package decodes JPEG 2000 frames through PIL, which the port does
+not import: ``pixel_array`` raises ``NotImplementedError`` for .90/.91 before
+it reads a pixel (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from typing import Any
 import numpy as np
 
 from spine_vision_torch.core.logging import logger
+from spine_vision_torch.io.jpeg import decode_jpeg, to_mode
 from spine_vision_torch.io.jpeg_lossless import decode_jpeg_lossless
 from spine_vision_torch.io.types import MedicalImage
 
@@ -77,8 +79,6 @@ _ENCAPSULATED = {
 
 # Decoded through PIL in the JAX package; no decoder in the port yet.
 _NOT_PORTED = {
-    TS_JPEG_BASELINE: "JPEG baseline",
-    TS_JPEG_EXTENDED: "JPEG extended",
     TS_JPEG2000_LOSSLESS: "JPEG 2000 lossless",
     TS_JPEG2000: "JPEG 2000",
 }
@@ -590,6 +590,11 @@ class DicomFile:
                     arr = arr.astype(np.uint8)
                 slices.append(arr)
             return np.stack(slices)
+
+        if ts in (TS_JPEG_BASELINE, TS_JPEG_EXTENDED):
+            # Pillow's mode of a baseline frame is L or RGB, and the JAX
+            # package converts both to L.
+            return np.stack([to_mode(decode_jpeg(frag), "L") for frag in streams])
 
         raise DicomError(f"Unsupported transfer syntax: {ts}")
 

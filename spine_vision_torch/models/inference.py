@@ -5,11 +5,14 @@ weights, so the functions take the model alone (the JAX ones take the module
 and its variables). Each input is made an RGB uint8 image as the JAX
 package's PIL calls make it, without PIL:
 
-- a PNG path is decoded by ``data/png.py`` in colour (alpha dropped);
+- a file is told apart by its content, as Pillow does: a PNG is decoded
+  by ``data/png.py`` in colour (alpha dropped), a JPEG by
+  ``io/jpeg.py`` as Pillow's ``convert("RGB")``; a stream it cannot read
+  raises ``io.jpeg.JpegError`` (an ``OSError``, as Pillow's);
 - a uint8 array is taken as it is: ``[H, W]`` gray is repeated to RGB,
   ``[H, W, 4]`` loses its alpha;
-- a JPEG (or any other) path raises ``NotImplementedError``: the port has no
-  JPEG decoder yet (ROADMAP Queue 1 item 13).
+- any other file (TIFF, ...) raises ``NotImplementedError``: the port has
+  no decoder for it yet (ROADMAP Queue 1 item 13).
 
 Each image is resized to ``image_size`` by Pillow's default filter for RGB,
 bicubic (``data/pillow_resize.py``, Pillow's fixed-point arithmetic), scaled
@@ -33,7 +36,9 @@ from spine_vision_torch.core.tasks import (
     get_tasks,
 )
 from spine_vision_torch.data.pillow_resize import resize
-from spine_vision_torch.data.png import read_png
+from spine_vision_torch.data.png import SIGNATURE as PNG_SIGNATURE
+from spine_vision_torch.data.png import decode_png
+from spine_vision_torch.io.jpeg import decode_jpeg, is_jpeg, to_mode
 from spine_vision_torch.ops.image import imagenet_normalize
 
 ImageInput = Any  # str | Path | np.ndarray
@@ -42,12 +47,16 @@ ImageInput = Any  # str | Path | np.ndarray
 def _to_uint8_rgb(img: ImageInput, image_size: tuple[int, int]) -> np.ndarray:
     if isinstance(img, (str, Path)):
         path = Path(img)
-        if path.suffix.lower() != ".png":
+        data = path.read_bytes()
+        if is_jpeg(data):
+            rgb = to_mode(decode_jpeg(data), "RGB")
+        elif data[:8] == PNG_SIGNATURE:
+            rgb = decode_png(data, "color", name=str(path))
+        else:
             raise NotImplementedError(
-                f"{path.name}: the port decodes PNG images only; JPEG and other formats "
-                "wait for a decoder (ROADMAP Queue 1 item 13)"
+                f"{path.name}: the port decodes PNG and baseline JPEG images only; other "
+                "formats wait for a decoder (ROADMAP Queue 1 item 13)"
             )
-        rgb = read_png(path, mode="color")
     elif isinstance(img, np.ndarray):
         if img.dtype != np.uint8:
             raise TypeError(f"expected a uint8 image array, got {img.dtype}")

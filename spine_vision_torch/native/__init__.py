@@ -1,16 +1,18 @@
-"""Host ops of the input path: the JPEG-Lossless entropy decoder in C++,
-and the image helpers in numpy.
+"""Host ops of the input path: the JPEG-Lossless and baseline JPEG entropy
+decoders in C++, and the image helpers in numpy.
 
 Counterpart of ``spine_vision_tpu/native/__init__.py``:
 
 - ``jpegls_unstuff_split`` and ``jpegls_decode_diffs`` call the C++ of
   ``src/host_ops.cpp`` (a copy of the JAX package's JPEG functions) through
-  ctypes. It compiles with ``g++ -O3 -fopenmp -shared -fPIC`` at first use
-  into ``build/spine_vision_torch/libhost_ops-<hash>.so`` at the repository
-  root (the hash covers the source and the flags, so an edited source
-  rebuilds). A failed build raises, naming the compiler and its output:
-  there is no quiet Python fallback (``io/jpeg_lossless.py`` keeps the
-  Python decoder as the tests' plain version).
+  ctypes, and ``jpeg_decode_scan`` its baseline Huffman decoder (the port's
+  own; the JAX package hands baseline JPEG to Pillow). It compiles with
+  ``g++ -O3 -fopenmp -shared -fPIC`` at first use into
+  ``build/spine_vision_torch/libhost_ops-<hash>.so`` at the repository root
+  (the hash covers the source and the flags, so an edited source rebuilds).
+  A failed build raises, naming the compiler and its output: there is no
+  quiet Python fallback (``io/jpeg_lossless.py`` and ``io/jpeg.py`` keep
+  the Python decoders as the tests' plain versions).
 - ``normalize_minmax_u8``, ``assemble_t2t1t2`` and ``resize_bilinear_u8``
   are numpy with the C++ library's f32 arithmetic, so their bits equal the
   JAX package's whenever its library is built.
@@ -82,6 +84,11 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int32),
             ]
             lib.jpegls_decode_diffs.restype = i64
+            lib.jpeg_decode_scan.argtypes = [
+                u8, i64p, i64, ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_int32),
+                i64, i64, i64, ctypes.POINTER(ctypes.c_int16),
+            ]
+            lib.jpeg_decode_scan.restype = i64
             _lib = lib
         return _lib
 
@@ -136,6 +143,43 @@ def jpegls_decode_diffs(
         raise ValueError("Invalid Huffman code")
     if got < total:
         raise ValueError(f"Truncated scan: {got}/{total} samples")
+    return out
+
+
+def jpeg_decode_scan(
+    data: np.ndarray,
+    offsets: np.ndarray,
+    luts: np.ndarray,
+    block_comp: np.ndarray,
+    restart_interval: int,
+    n_mcus: int,
+) -> np.ndarray:
+    """Entropy-decode one baseline (Huffman) scan: int16 ``[n_mcus *
+    blocks_per_mcu, 64]``, each block's quantized coefficients in natural
+    order, from ``jpegls_unstuff_split``'s chunks. ``luts`` holds the DC then
+    the AC 16-bit peek table of each scan component (``[2 * ns, 65536]``,
+    entry ``(code_length << 8) | symbol``), ``block_comp`` the scan component
+    of each block of an MCU; ``restart_interval`` is in MCUs (0: none).
+    Raises ``ValueError`` as ``io/jpeg.py::_decode_scan`` does: an invalid
+    Huffman code, a run past the last coefficient, a truncated scan."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    luts = np.ascontiguousarray(luts, dtype=np.uint16)
+    block_comp = np.ascontiguousarray(block_comp, dtype=np.int32)
+    if luts.ndim != 2 or luts.shape[1] != 1 << 16 or luts.shape[0] < 2 * (block_comp.max() + 1):
+        raise ValueError(f"expected [2 * ns, 65536] tables, got {luts.shape}")
+    out = np.empty((n_mcus * len(block_comp), 64), dtype=np.int16)
+    got = load().jpeg_decode_scan(
+        _ptr(data, ctypes.c_uint8), _ptr(offsets, ctypes.c_int64), len(offsets) - 1,
+        _ptr(luts, ctypes.c_uint16), _ptr(block_comp, ctypes.c_int32), len(block_comp),
+        restart_interval, n_mcus, _ptr(out, ctypes.c_int16),
+    )
+    if got == -1:
+        raise ValueError("Invalid Huffman code")
+    if got == -2:
+        raise ValueError("Coefficient run past the end of a block")
+    if got == -3 or got < n_mcus:
+        raise ValueError(f"Truncated scan: {max(got, 0)}/{n_mcus} MCUs")
     return out
 
 

@@ -1,13 +1,16 @@
-// Host-side JPEG-Lossless (SOF3) entropy decode for io/jpeg_lossless.py.
+// Host-side JPEG entropy decoders: JPEG-Lossless (SOF3) for
+// io/jpeg_lossless.py and baseline Huffman (SOF0/SOF1) for io/jpeg.py.
 //
-// A copy of the JPEG functions of spine_vision_tpu/native/src/host_ops.cpp.
-// Python decodes one Huffman symbol per interpreter step (about a second for
-// a 512x512 16-bit slice); this does the same work in milliseconds. Bound
-// with ctypes by spine_vision_torch/native/__init__.py, which builds it with
+// The JPEG-Lossless functions are a copy of those of
+// spine_vision_tpu/native/src/host_ops.cpp. Python decodes one Huffman symbol
+// per interpreter step (about a second for a 512x512 slice); this does the
+// same work in milliseconds. Bound with ctypes by
+// spine_vision_torch/native/__init__.py, which builds it with
 // g++ -O3 -fopenmp -shared -fPIC at first use.
 
 #include <algorithm>
 #include <cstdint>
+#include <cstring>
 
 extern "C" {
 
@@ -117,6 +120,95 @@ int64_t jpegls_decode_diffs(const uint8_t* data, const int64_t* offsets,
       if (pos > nbits || nbits - pos >= 8) return -2;
       for (int64_t b = pos; b < nbits; ++b) {
         if (((p[b >> 3] >> (7 - (b & 7))) & 1) == 0) return -2;
+      }
+    }
+  }
+  return mcu;
+}
+
+// ---------------------------------------------------------------------------
+// Baseline JPEG (SOF0/SOF1, Huffman) entropy decode of one scan — the hot
+// loop of io/jpeg.py, whose _decode_scan is its plain Python version.
+// ---------------------------------------------------------------------------
+
+// Zigzag index -> natural (row-major) index of an 8x8 block (T.81 Figure 5).
+static const int kJpegNatural[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+static inline int32_t jpeg_extend(uint32_t v, int s) {
+  return v < (1u << (s - 1)) ? static_cast<int32_t>(v) - (1 << s) + 1
+                             : static_cast<int32_t>(v);
+}
+
+// data, offsets, n_chunks: jpegls_unstuff_split's restart-interval chunks.
+// luts: uint16 [2 * ns, 65536], the DC then the AC peek table of each of the
+//   scan's ns components; entry = (code_length << 8) | symbol.
+// block_comp: int32 [blocks_per_mcu], the scan component of each block of an
+//   MCU, in the MCU's block order.
+// restart_interval: MCUs a chunk (0: one chunk); the DC predictions reset to
+//   0 at each chunk.
+// out: int16 [n_mcus * blocks_per_mcu, 64], each block's quantized
+//   coefficients in natural order.
+// Returns the number of MCUs decoded (== n_mcus on success); -1 on an
+// invalid Huffman code, -2 on a run past the 63rd coefficient, -3 when a
+// chunk's codes run past its last byte (a truncated scan).
+int64_t jpeg_decode_scan(const uint8_t* data, const int64_t* offsets,
+                         int64_t n_chunks, const uint16_t* luts,
+                         const int32_t* block_comp, int64_t blocks_per_mcu,
+                         int64_t restart_interval, int64_t n_mcus,
+                         int16_t* out) {
+  int64_t mcu = 0;
+  for (int64_t ch = 0; ch < n_chunks && mcu < n_mcus; ++ch) {
+    const uint8_t* p = data + offsets[ch];
+    const int64_t nbytes = offsets[ch + 1] - offsets[ch];
+    const int64_t nbits = nbytes * 8;
+    int64_t pos = 0;
+    int32_t pred[4] = {0, 0, 0, 0};
+    const int64_t limit = restart_interval == 0
+                              ? n_mcus
+                              : std::min(n_mcus, mcu + restart_interval);
+    for (; mcu < limit; ++mcu) {
+      for (int64_t b = 0; b < blocks_per_mcu; ++b) {
+        const int comp = block_comp[b];
+        const uint16_t* dc = luts + (2 * comp) * 65536;
+        const uint16_t* ac = dc + 65536;
+        int16_t* blk = out + (mcu * blocks_per_mcu + b) * 64;
+        std::memset(blk, 0, 64 * sizeof(int16_t));
+        uint16_t entry = dc[jpegls_peek_bits(p, nbytes, pos, 16)];
+        int len = entry >> 8;
+        if (len == 0) return -1;
+        pos += len;
+        int s = entry & 0xFF;
+        if (s > 16) return -1;
+        if (s) {
+          pred[comp] += jpeg_extend(jpegls_peek_bits(p, nbytes, pos, s), s);
+          pos += s;
+        }
+        blk[0] = static_cast<int16_t>(pred[comp]);
+        for (int k = 1; k < 64;) {
+          entry = ac[jpegls_peek_bits(p, nbytes, pos, 16)];
+          len = entry >> 8;
+          if (len == 0) return -1;
+          pos += len;
+          const int r = (entry >> 4) & 15;
+          s = entry & 15;
+          if (s) {
+            k += r;
+            if (k > 63) return -2;
+            blk[kJpegNatural[k]] =
+                static_cast<int16_t>(jpeg_extend(jpegls_peek_bits(p, nbytes, pos, s), s));
+            pos += s;
+            ++k;
+          } else if (r == 15) {
+            k += 16;
+          } else {
+            break;  // EOB
+          }
+        }
+        if (pos > nbits) return -3;
       }
     }
   }

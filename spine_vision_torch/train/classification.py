@@ -16,7 +16,10 @@ datasets are any indexable of classification samples (uint8 ``image``
 with ``sample_label_values(label)`` when weighted sampling is on. The model
 trains in bf16 on f32 master weights, on any backbone of the zoo
 (ResNet-18 by default; training BatchNorm); a ConvNeXt backbone takes the
-localization trainer's kernel modes. The plots (ROADMAP.md, Queue 1 item 13) are not ported.
+localization trainer's kernel modes. With ``visualize_predictions`` it draws
+the JAX trainer's figures: the label distribution of the splits when
+training starts, the training curves when it ends, and with
+``evaluate(visualize=True)`` the test metrics and confusion matrices.
 """
 
 from __future__ import annotations
@@ -25,10 +28,16 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from spine_vision_torch.core.registry import register_trainer
-from spine_vision_torch.core.tasks import AVAILABLE_TASK_NAMES, TaskConfig, get_task
+from spine_vision_torch.core.tasks import (
+    AVAILABLE_TASK_NAMES,
+    TaskConfig,
+    compute_probabilities_for_tasks,
+    get_task,
+)
 from spine_vision_torch.data.datasets import ClassificationDataset
 from spine_vision_torch.data.loader import (
     collate_classification,
@@ -44,8 +53,8 @@ from spine_vision_torch.train.trainer import (
     BaseTrainer,
     TrainingConfig,
     TrainingResult,
-    _not_ported,
     logger,
+    training_visualizer,
 )
 
 
@@ -122,8 +131,9 @@ class ClassificationConfig(TrainingConfig):
     focal_alpha: float | None = None
 
     visualize_predictions: bool = False
-    """The JAX package plots label distributions and confusion matrices
-    (default on there); the port has no viz module yet, so True raises."""
+    """Draw the JAX trainer's figures into ``logs/`` (matplotlib). Off by
+    default, where the JAX package's default is on: the card's host may have
+    no matplotlib. Off, the trainer draws no figure."""
     num_visualization_samples: int = 16
     max_samples_per_cell: int = 4
 
@@ -143,8 +153,7 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         val_dataset: Any | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        if config.visualize_predictions:
-            raise _not_ported("visualize_predictions (viz/*)", "Queue 1 item 13")
+        visualizer = training_visualizer(config) if config.visualize_predictions else None
         if train_dataset is None:
             train_dataset = self._split_from_disk(config, "train")
         if val_dataset is None:
@@ -181,6 +190,8 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
             device=device, sample_weights=sample_weights,
         )
         self.metrics = ClassifierMetrics(target_labels=target_labels)
+        self.visualizer = None if visualizer is None else visualizer(
+            output_path=config.logs_path, output_mode="image", tracker=self.tracker)
 
     def _build_model(self, device: torch.device) -> Classifier:
         config = self.config
@@ -245,12 +256,38 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
         stats = getattr(self.train_dataset, "get_stats", None)
         if stats is not None:
             logger.info("Train dataset stats: %s", stats())
-        logger.info("Label-distribution plot skipped: the viz module is not ported "
-                    "(ROADMAP.md, Queue 1 item 13)")
+        if self.visualizer is not None and self.mesh_ctx.is_main:
+            self._visualize_label_distribution()
 
     def on_train_end(self, result: TrainingResult) -> None:
-        logger.info("Training-curve plot skipped: the viz module is not ported "
-                    "(ROADMAP.md, Queue 1 item 13)")
+        # Curves only: the test evaluation is the caller's step, as in the JAX
+        # package (its CLI runs evaluate(visualize=...) after train()).
+        if self.visualizer is not None and self.mesh_ctx.is_main:
+            try:
+                self.visualizer.plot_training_curves(self.history, filename="training_curves")
+            except Exception as exc:
+                logger.warning("Final visualization failed: %s", exc)
+            logger.info("Visualizations saved to: %s", self.config.logs_path)
+
+    def _visualize_label_distribution(self) -> None:
+        try:
+            test_dataset = self._split_from_disk(self.config, "test")
+            distributions = {
+                "train": self.train_dataset.get_label_distribution(),
+                "test": test_dataset.get_label_distribution(),
+            }
+            val_size = 0
+            if self.val_dataset is not None:
+                distributions["val"] = self.val_dataset.get_label_distribution()
+                val_size = len(self.val_dataset)
+            logger.info("Split sizes - Train: %d, Val: %d, Test: %d", len(self.train_dataset),
+                        val_size, len(test_dataset))
+            self.visualizer.plot_label_distribution(
+                distributions=distributions, target_labels=self._target_labels,
+                filename="label_distribution",
+            )
+        except Exception as exc:
+            logger.warning("Label-distribution visualization failed: %s", exc)
 
     def get_metric_for_checkpoint(self, val_loss: float | None, metrics: dict[str, float]) -> float:
         if "f1" in metrics:
@@ -259,14 +296,60 @@ class ClassificationTrainer(BaseTrainer[ClassificationConfig]):
             return -metrics["macro_f1"]
         return super().get_metric_for_checkpoint(val_loss, metrics)
 
-    def evaluate(self, test_dataset: Any | None = None, visualize: bool = False) -> dict[str, float]:
+    def evaluate(self, test_dataset: Any | None = None, visualize: bool = False,
+                 max_samples_per_cell: int | None = None) -> dict[str, float]:
         """``ClassifierMetrics`` of the model on ``test_dataset``, by default
-        the test split of ``config.data_path`` ({} when it is empty).
-        Single-process only, as in the JAX package."""
+        the test split of ``config.data_path`` ({} when it is empty), with
+        ``visualize`` the test metrics' bars, each task's confusion matrix
+        with samples and the confusion summary (the trainer's visualizer, or
+        one made for the call). Single-process only, as in the JAX package."""
         if self.mesh_ctx.world_size > 1:
             raise NotImplementedError(EVALUATE_SINGLE_CONTROLLER)
-        if visualize:
-            raise _not_ported("evaluate(visualize=True) (viz/*)", "Queue 1 item 13")
+        if visualize and self.visualizer is None:
+            self.visualizer = training_visualizer(self.config)(
+                output_path=self.config.logs_path, output_mode="image", tracker=self.tracker)
         if test_dataset is None:
             test_dataset = self._split_from_disk(self.config, "test")
-        return self._test_metrics(test_dataset)
+        seen: list = []
+        metrics = self._test_metrics(
+            test_dataset, on_outputs=lambda outs, batches: seen.extend(zip(outs, batches)))
+        if visualize and seen:
+            self._visualize_test(metrics, seen, max_samples_per_cell)
+        return metrics
+
+    def _visualize_test(self, metrics: dict[str, float], seen: list,
+                        max_samples_per_cell: int | None) -> None:
+        probs: dict[str, list] = {label: [] for label in self._target_labels}
+        targets: dict[str, list] = {label: [] for label in self._target_labels}
+        images: list = []
+        metadata: list = []
+        for outputs, batch in seen:
+            batch_probs = compute_probabilities_for_tasks(outputs, self._tasks)
+            for label in self._target_labels:
+                if label in batch_probs:
+                    probs[label].append(batch_probs[label])
+                if label in batch["targets"]:
+                    targets[label].append(np.asarray(batch["targets"][label]))
+            images.extend(np.asarray(batch["image"]))
+            metadata.extend(batch.get("metadata", []))
+        if not metadata:
+            return
+        try:
+            pred_arrays = {k: np.concatenate(v, axis=0) for k, v in probs.items() if v}
+            target_arrays = {k: np.concatenate(v, axis=0) for k, v in targets.items() if v}
+            self.visualizer.plot_classification_metrics(
+                metrics=metrics, target_labels=self._target_labels, filename="test_metrics")
+            self.visualizer.plot_confusion_matrices_with_samples(
+                images=images, predictions=pred_arrays, targets=target_arrays,
+                target_labels=self._target_labels, metadata=metadata,
+                max_samples_per_cell=(max_samples_per_cell if max_samples_per_cell is not None
+                                      else self.config.max_samples_per_cell),
+                filename_prefix="confusion_matrix_samples",
+            )
+            self.visualizer.plot_confusion_summary(
+                predictions=pred_arrays, targets=target_arrays,
+                target_labels=self._target_labels, filename="confusion_summary",
+            )
+            logger.info("Test visualizations saved to: %s", self.config.logs_path)
+        except Exception as exc:
+            logger.warning("Test visualization failed: %s", exc)

@@ -2,7 +2,10 @@
 
 Counterpart of ``spine_vision_tpu/train/localization.py``: masked smooth-L1
 (or mse, Huber) loss, MED/PCK metrics, MED-based best-model gating,
-coordinate-aware augmentation on the device, and ``evaluate`` on a test set.
+coordinate-aware augmentation on the device, ``evaluate`` on a test set, and
+with ``visualize_predictions`` the JAX trainer's figures (each validated
+epoch's predictions; the training curves, the error distribution and the
+per-level MED when training ends).
 Without injected datasets the trainer reads ``config.data_path`` (PNGs and
 ``annotations.csv``, ``data/datasets.py``'s ``LocalizationDataset``), and
 ``evaluate()`` its test split; injected datasets are any indexable of such
@@ -22,7 +25,7 @@ the same function runs through the kernels' plain versions.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any, Callable, Literal
 
 import numpy as np
 import torch
@@ -30,7 +33,7 @@ import torch
 from spine_vision_torch.core.registry import register_trainer
 from spine_vision_torch.data.datasets import LocalizationDataset
 from spine_vision_torch.data.levels import IDX_TO_LEVEL, NUM_LEVELS
-from spine_vision_torch.data.loader import collate_localization
+from spine_vision_torch.data.loader import DataLoader, collate_localization
 from spine_vision_torch.metrics import LocalizationMetrics
 from spine_vision_torch.models.classifier import CoordinateRegressor
 from spine_vision_torch.ops.augment import AugmentConfig, augment_batch
@@ -40,8 +43,10 @@ from spine_vision_torch.train.trainer import (
     EVALUATE_SINGLE_CONTROLLER,
     BaseTrainer,
     TrainingConfig,
-    _not_ported,
+    TrainingResult,
     logger,
+    to_host,
+    training_visualizer,
 )
 
 
@@ -54,7 +59,7 @@ class LocalizationConfig(TrainingConfig):
     backbone: str = "convnext_base"
     pretrained: bool = True
     dropout: float = 0.2
-    loss_type: str = "smooth_l1"  # mse | smooth_l1 | huber
+    loss_type: Literal["mse", "smooth_l1", "huber"] = "smooth_l1"
     num_levels: int = NUM_LEVELS
 
     series_types: list[str] | None = None
@@ -81,8 +86,9 @@ class LocalizationConfig(TrainingConfig):
 
     pck_thresholds: list[float] = field(default_factory=lambda: [0.02, 0.05, 0.10])
     visualize_predictions: bool = False
-    """The JAX package draws predictions each epoch (default on there); the
-    port has no viz module yet, so True raises."""
+    """Draw the JAX trainer's figures into ``logs/`` (matplotlib). Off by
+    default, where the JAX package's default is on: the card's host may have
+    no matplotlib. Off, the trainer draws no figure."""
     num_visualization_samples: int = 16
 
 
@@ -108,8 +114,7 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
         val_dataset: Any | None = None,
         device: str | torch.device = "cuda",
     ) -> None:
-        if config.visualize_predictions:
-            raise _not_ported("visualize_predictions (viz/*)", "Queue 1 item 13")
+        visualizer = training_visualizer(config) if config.visualize_predictions else None
         if config.pretrained and config.pretrained_path is None:
             logger.warning(
                 "pretrained=True has no effect without pretrained_path: training "
@@ -127,6 +132,8 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
         self.metrics = LocalizationMetrics(
             pck_thresholds=config.pck_thresholds, level_names=list(IDX_TO_LEVEL.values())
         )
+        self.visualizer = None if visualizer is None else visualizer(
+            output_path=config.logs_path, output_mode="image", tracker=self.tracker)
 
     def _build_model(self, device: torch.device) -> CoordinateRegressor:
         config = self.config
@@ -193,10 +200,85 @@ class LocalizationTrainer(BaseTrainer[LocalizationConfig]):
         masks = np.concatenate([np.asarray(b["mask"]) for b in batches], axis=0)
         return self.metrics.compute(*self._flatten_with_mask(preds, targets, masks))
 
+    def _on_validation_outputs(self, outputs_list: list[Any], batches: list[Any]) -> None:
+        if self.visualizer is not None and self.mesh_ctx.is_main and outputs_list:
+            self._visualize_epoch_predictions(
+                np.concatenate(outputs_list, axis=0),
+                np.concatenate([np.asarray(b["coords"]) for b in batches], axis=0), batches)
+
+    def _visualize_epoch_predictions(
+        self, preds: np.ndarray, targets: np.ndarray, batches: list[Any]
+    ) -> None:
+        n_vis = min(self.config.num_visualization_samples, len(preds))
+        # Only the leading batches shown are concatenated.
+        image_batches: list[np.ndarray] = []
+        collected = 0
+        for b in batches:
+            image_batches.append(np.asarray(b["image"]))
+            collected += len(image_batches[-1])
+            if collected >= n_vis:
+                break
+        images = np.concatenate(image_batches, axis=0)[:n_vis]
+        metadata = [m for b in batches for m in b.get("metadata", [])][:n_vis]
+        try:
+            self.visualizer.plot_localization_predictions(
+                [img for img in images for _ in range(NUM_LEVELS)],
+                preds[:n_vis].reshape(-1, 2),
+                targets[:n_vis].reshape(-1, 2),
+                [
+                    {**meta, "level": level_name}
+                    for meta in metadata
+                    for level_name in IDX_TO_LEVEL.values()
+                ],
+                filename=f"predictions_epoch_{self.current_epoch}",
+            )
+        except Exception as exc:  # viz must never kill training
+            logger.warning("Prediction visualization failed: %s", exc)
+
     def on_train_begin(self) -> None:
         stats = getattr(self.train_dataset, "get_stats", None)
         if stats is not None:
             logger.info("Train dataset stats: %s", stats())
+
+    def on_train_end(self, result: TrainingResult) -> None:
+        # Single-process only: the figures need every output on one host.
+        if self.visualizer is not None and self.mesh_ctx.world_size == 1:
+            self._generate_final_visualizations()
+
+    def _collect_split(self, dataset: Any) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The eval forward over a dataset: (preds, targets, masks)."""
+        loader = DataLoader(
+            dataset, batch_size=self.config.batch_size, shuffle=False, drop_last=False,
+            seed=self.config.seed, collate_fn=collate_localization,
+            num_workers=self.config.num_workers,
+        )
+        preds_list, targets_list, masks_list = [], [], []
+        for batch in loader:
+            outputs, _ = self.eval_step_fn(self.state, batch)
+            preds_list.append(to_host(outputs))
+            targets_list.append(np.asarray(batch["coords"]))
+            masks_list.append(np.asarray(batch["mask"]))
+        return (np.concatenate(preds_list, axis=0), np.concatenate(targets_list, axis=0),
+                np.concatenate(masks_list, axis=0))
+
+    def _generate_final_visualizations(self) -> None:
+        try:
+            self.visualizer.plot_training_curves(self.history, filename="training_curves")
+            if self.val_dataset is not None and len(self.val_dataset) > 0:
+                flat_p, flat_t, flat_l = self._flatten_with_mask(
+                    *self._collect_split(self.val_dataset))
+                self.visualizer.plot_error_distribution(
+                    flat_p, flat_t, flat_l, level_names=list(IDX_TO_LEVEL.values()),
+                    filename="error_distribution",
+                )
+                final_metrics = self.metrics.compute(flat_p, flat_t, flat_l)
+                self.visualizer.plot_per_level_metrics(
+                    final_metrics, level_names=list(IDX_TO_LEVEL.values()),
+                    metric_prefix="med_", filename="per_level_med",
+                )
+        except Exception as exc:
+            logger.warning("Final visualization failed: %s", exc)
+        logger.info("Visualizations saved to: %s", self.config.logs_path)
 
     def get_metric_for_checkpoint(self, val_loss: float | None, metrics: dict[str, float]) -> float:
         if "med" in metrics:

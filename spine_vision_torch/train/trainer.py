@@ -32,10 +32,14 @@ Counterpart of ``spine_vision_tpu/train/trainer.py`` on one card:
   losses are the group's, so every rank takes the same plateau, early-stop
   and best-model decisions. Validation weights each batch by its global
   count and computes metrics only at world size 1; rank 0 writes the
-  checkpoints and configs, every rank loads them.
+  checkpoints and configs, every rank loads them;
+- ``use_tracker``: the experiment tracker (``viz/tracker.py``) on rank 0,
+  its config snapshot, each epoch's metrics, the test metrics and the
+  figures the visualizer saves, under ``logs/``.
 
-Options whose modules are not ported yet raise ``NotImplementedError``
-naming their ROADMAP item.
+``TrainingVisualizer`` (``viz/visualizer.py``, matplotlib) is loaded by the
+trainers only when ``visualize_predictions`` is set
+(:func:`training_visualizer`).
 """
 
 from __future__ import annotations
@@ -47,13 +51,14 @@ import uuid
 from dataclasses import asdict, dataclass, field
 from datetime import datetime
 from pathlib import Path
-from typing import Any, Callable, Generic, TypeVar
+from typing import Any, Callable, Generic, Literal, TypeVar
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from spine_vision_torch.core.config import BaseConfig
 from spine_vision_torch.data.cache import packed_view
 from spine_vision_torch.data.loader import DataLoader
 from spine_vision_torch.device import resolve_device
@@ -83,8 +88,19 @@ def to_host(outputs: torch.Tensor | dict[str, torch.Tensor]) -> Any:
     return outputs.float().cpu().numpy()
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet: ROADMAP.md, {item}")
+def training_visualizer(config: "TrainingConfig"):
+    """The ``TrainingVisualizer`` class for a trainer built with
+    ``visualize_predictions``; an ``ImportError`` naming matplotlib and the
+    option when matplotlib is not installed (the JAX trainers import it at
+    construction too)."""
+    try:
+        from spine_vision_torch.viz.visualizer import TrainingVisualizer
+    except ImportError as exc:
+        raise ImportError(
+            f"visualize_predictions=True draws its figures with matplotlib, which cannot be "
+            f"imported here ({exc}); install matplotlib or set visualize_predictions=False"
+        ) from exc
+    return TrainingVisualizer
 
 
 def trainer_mesh(config: "TrainingConfig", device: str | torch.device) -> MeshContext:
@@ -114,8 +130,9 @@ EVALUATE_SINGLE_CONTROLLER = (
 
 
 @dataclass
-class TrainingConfig:
-    """Configuration for training (the JAX package's ``TrainingConfig``).
+class TrainingConfig(BaseConfig):
+    """Configuration for training (the JAX package's ``TrainingConfig``,
+    with ``BaseConfig``'s ``verbose``, ``enable_file_log`` and ``log_path``).
 
     Output structure: ``weights/<task>/<run_id>/`` with ``best_model/``,
     ``checkpoint_epoch_N/``, ``config.yaml`` and ``logs/``; an explicit
@@ -136,7 +153,7 @@ class TrainingConfig:
     weight_decay: float = 1e-5
     grad_clip: float | None = 1.0
 
-    scheduler_type: str = "cosine"  # cosine | step | plateau | none
+    scheduler_type: Literal["cosine", "step", "plateau", "none"] = "cosine"
     scheduler_patience: int = 10
     scheduler_step_size: int = 30
     scheduler_gamma: float = 0.1
@@ -265,8 +282,6 @@ class BaseTrainer(Generic[TConfig]):
         device: str | torch.device = "cuda",
         sample_weights: np.ndarray | None = None,
     ) -> None:
-        if config.use_tracker:
-            raise _not_ported("use_tracker (viz/tracker.py)", "Queue 1 item 13")
         self.config = config
         self.mesh_ctx = mesh = trainer_mesh(config, device)
         self.device = mesh.device
@@ -346,6 +361,16 @@ class BaseTrainer(Generic[TConfig]):
         self.config.logs_path.mkdir(parents=True, exist_ok=True)
         if mesh.is_main:
             self.config.save_config()
+        self.tracker = None
+        if config.use_tracker and mesh.is_main:
+            from spine_vision_torch.viz.tracker import ExperimentTracker
+
+            self.tracker = ExperimentTracker(
+                project=config.tracker_project,
+                run_name=config.tracker_run_name or config.run_id,
+                output_path=config.logs_path,
+            )
+            self.tracker.log_config(asdict(config))
         mesh.barrier()
 
     def _replicate(self, model: torch.nn.Module) -> None:
@@ -492,6 +517,12 @@ class BaseTrainer(Generic[TConfig]):
             if cfg.scheduler_type == "plateau" and val_loss is not None:
                 self._plateau_step(val_loss)
             self._log_epoch(epoch, train_loss, val_loss, metrics, lr, epoch_time)
+            if self.tracker is not None:
+                tracked = {"train/loss": train_loss, "train/lr": lr}
+                if val_loss is not None:
+                    tracked["val/loss"] = val_loss
+                tracked.update({f"val/{k}": v for k, v in metrics.items()})
+                self.tracker.log_metrics(tracked, step=epoch)
             self.on_epoch_end(epoch, {"train_loss": train_loss, "val_loss": val_loss, **metrics})
 
             # Gating and early stopping on validated epochs only.
@@ -524,6 +555,8 @@ class BaseTrainer(Generic[TConfig]):
             checkpoint_path=best,
         )
         self.on_train_end(result)
+        if self.tracker is not None:
+            self.tracker.finish()
         return result
 
     def _train_epoch(self) -> float:
@@ -554,11 +587,17 @@ class BaseTrainer(Generic[TConfig]):
         return float(self._group_mean(loss_sum)) / max(count, 1)
 
     def _validate_epoch(self) -> tuple[float, dict[str, float]]:
-        return self._eval_loop(self.val_loader)
+        return self._eval_loop(self.val_loader, self._on_validation_outputs)
 
-    def _test_metrics(self, test_dataset: Any) -> dict[str, float]:
+    def _on_validation_outputs(self, outputs_list: list[Any], batches: list[Any]) -> None:
+        """Called with a validation pass's host outputs and batches (world
+        size 1): the per-epoch figures."""
+
+    def _test_metrics(self, test_dataset: Any, on_outputs: Callable | None = None
+                      ) -> dict[str, float]:
         """The metrics of the model on ``test_dataset`` ({} when it is empty),
-        logged."""
+        logged, and to the tracker under ``test/``. ``on_outputs(outputs_list,
+        batches)`` gets the pass's host outputs and batches."""
         if len(test_dataset) == 0:
             logger.warning("Empty test dataset (too small for the split ratios): no "
                            "evaluation metrics")
@@ -567,13 +606,16 @@ class BaseTrainer(Generic[TConfig]):
             test_dataset, batch_size=self.config.batch_size, shuffle=False, drop_last=False,
             seed=self.config.seed, collate_fn=self._collate_fn,
             num_workers=self.config.num_workers,
-        ))
+        ), on_outputs)
         logger.info("Test Results:")
         for key, value in sorted(metrics.items()):
             logger.info("  %s: %.4f", key, value)
+        if self.tracker is not None:
+            self.tracker.log_metrics({f"test/{k}": v for k, v in metrics.items()})
         return metrics
 
-    def _eval_loop(self, loader: DataLoader) -> tuple[float, dict[str, float]]:
+    def _eval_loop(self, loader: DataLoader, on_outputs: Callable | None = None
+                   ) -> tuple[float, dict[str, float]]:
         """The mean loss and the metrics of one pass over ``loader``.
 
         Each batch's loss is the group's weighted by its global count, the
@@ -600,6 +642,8 @@ class BaseTrainer(Generic[TConfig]):
                 outputs_list.append(to_host(outputs))
                 batches.append(batch)
         metrics = self._compute_metrics(outputs_list, batches) if world == 1 else {}
+        if on_outputs is not None and world == 1:
+            on_outputs(outputs_list, batches)
         return total / max(count, 1), metrics
 
     def _plateau_step(self, val_loss: float) -> None:

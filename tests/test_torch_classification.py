@@ -197,9 +197,19 @@ def test_unported_classification_options_name_the_roadmap(tmp_path, overrides, c
         assert "macro_f1" in got
         np.testing.assert_equal(got, trainer.evaluate(test_dataset=test))  # NaN == NaN
         return
-    cfg = _config(tmp_path, "r", **overrides)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer = ClassificationTrainer(cfg, train_dataset=_Set(4, 32, 0),
-                                        val_dataset=_Set(2, 32, 1), device="cpu")
-        if call == "evaluate_visualize":
-            trainer.evaluate(test_dataset=_Set(2, 32, 2), visualize=True)
+    # The plots are ported: visualize_predictions draws the training curves
+    # (the label distribution needs the test split on disk: it warns), and
+    # evaluate(visualize=True) the test figures, with or without the option.
+    cfg = _config(tmp_path, "r", num_epochs=1, mixed_precision=False, **overrides)
+    trainer = ClassificationTrainer(cfg, train_dataset=_Set(4, 32, 0),
+                                    val_dataset=_Set(2, 32, 1), device="cpu")
+    logs = tmp_path / "r" / "logs"
+    if call == "evaluate_visualize":
+        metrics = trainer.evaluate(test_dataset=_Set(2, 32, 2), visualize=True)
+        assert "macro_f1" in metrics
+        want = {"test_metrics.png", "confusion_summary.png",
+                *(f"confusion_matrix_samples_{t}.png" for t in AVAILABLE_TASK_NAMES)}
+    else:
+        assert np.isfinite(trainer.train().history["train_loss"][0])
+        want = {"training_curves.png"}
+    assert {p.name for p in logs.glob("*.png")} == want

@@ -52,7 +52,9 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.ops.resample, spine_vision_torch.core.registry\n"
         "import spine_vision_torch.infer.serve, spine_vision_torch.data.builders\n"
         "import spine_vision_torch.data.rsna, spine_vision_torch.data.phenikaa\n"
-        "import spine_vision_torch.parallel\n"
+        "import spine_vision_torch.parallel, spine_vision_torch.io.jpeg\n"
+        "import spine_vision_torch.cli, spine_vision_torch.cli.train\n"
+        "import spine_vision_torch.viz, spine_vision_torch.viz.tracker\n"
         "import spine_vision_torch.train.ocr, spine_vision_torch.ops.ctc\n"
         "import spine_vision_torch.data.phenikaa.synth, spine_vision_torch.data.phenikaa.raster\n"
         "import spine_vision_torch.data.phenikaa.text\n"
@@ -87,6 +89,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path
             entry()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ocr.train_ocr_stack(tmp_path)
+    # The CLI: every subcommand that builds a model, a pipeline or a builder
+    # (--device cpu asks for the CPU).
+    from spine_vision_torch import cli
+    from spine_vision_torch.viz import ExperimentTracker
+
+    for argv in (["train", "localization"], ["evaluate", "classification"],
+                 ["dataset", "phenikaa"], ["serve", "--loc-checkpoint", "a",
+                                           "--cls-checkpoint", "b", "--watch-dir", "w",
+                                           "--output-dir", "o"]):
+        with pytest.raises(RuntimeError, match="device='cpu'.*--device cpu"):
+            cli.cli(argv)
+    ExperimentTracker("p", "r", tmp_path / "tracker").log_metrics({"x": 1.0})
     for entry, size in ((ocr.evaluate_recognizer, {"n": 1}),
                         (ocr.evaluate_recognizer_mpl, {"n": 1}),
                         (ocr.evaluate_detector, {"n_pages": 1}),

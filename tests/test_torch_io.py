@@ -615,16 +615,43 @@ def test_dicom_datasets_match_jax(tmp_path, case):
 @pytest.mark.parametrize("ts", ["1.2.840.10008.1.2.4.50", "1.2.840.10008.1.2.4.51",
                                 "1.2.840.10008.1.2.4.90", "1.2.840.10008.1.2.4.91"])
 def test_pil_transfer_syntaxes_raise_before_decoding(tmp_path, ts):
-    """Frames the JAX package hands to PIL raise NotImplementedError naming
-    the syntax and the ROADMAP item, in a single file and in a series."""
-    frag = b"\xff\xd8\xff\xd9"  # never parsed
-    path = tmp_path / "s" / "a.dcm"
-    path.parent.mkdir()
-    path.write_bytes(_part10(ts, _image_module(4, 4) + _encapsulated([frag])))
-    with pytest.raises(NotImplementedError, match=f"{ts}.*item 13"):
-        tdcm.DicomFile(path).pixel_array()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tio.read_medical_image(path.parent)
+    """Frames the JAX package hands to PIL: baseline and extended JPEG (.50,
+    .51) decode to the JAX package's arrays, a gray frame and an RGB one
+    (converted to L), in a single file and in a series; JPEG 2000 (.90, .91)
+    raises NotImplementedError naming the syntax and the ROADMAP item before
+    any pixel is read."""
+    import io as _io
+
+    from PIL import Image
+
+    if ts.endswith((".90", ".91")):
+        frag = b"\xff\xd8\xff\xd9"  # never parsed
+        path = tmp_path / "s" / "a.dcm"
+        path.parent.mkdir()
+        path.write_bytes(_part10(ts, _image_module(4, 4) + _encapsulated([frag])))
+        with pytest.raises(NotImplementedError, match=f"{ts}.*item 13"):
+            tdcm.DicomFile(path).pixel_array()
+        with pytest.raises(NotImplementedError, match="item 13"):
+            tio.read_medical_image(path.parent)
+        return
+    rng = np.random.default_rng(int(ts[-2:]))
+    rows, cols = 21, 19
+    for k, shape in enumerate(((rows, cols), (rows, cols, 3))):
+        series = tmp_path / f"s{k}"
+        series.mkdir()
+        for i in range(3):
+            buf = _io.BytesIO()
+            Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
+                buf, "JPEG", quality=80)
+            module = _image_module(rows, cols, bits=8).replace(
+                b"1\\2\\3 ", f"1\\2\\{i + 3} ".encode())
+            path = series / f"{i}.dcm"
+            path.write_bytes(_part10(ts, module + _encapsulated([buf.getvalue()])))
+            got = tdcm.DicomFile(path).pixel_array()
+            want = jdcm.DicomFile(path).pixel_array()
+            assert got.dtype == want.dtype == np.uint8 and got.shape == (rows, cols)
+            np.testing.assert_array_equal(got, want)
+        _assert_same_image(tio.read_medical_image(series), jio.read_medical_image(series))
 
 
 def test_pdf_raises_the_reference_import_error(tmp_path):

@@ -66,8 +66,23 @@ def test_report_files(extractor, tmp_path, caplog):
     lines = extractor.extract_lines(path)
     assert extractor.extract(path) == [t for t, _ in lines]
     assert all(q.shape == (4, 2) for _, q in lines)
+    # A JPEG page reads as the JAX package's Image.open(...).convert("RGB");
+    # a truncated one warns and gives no lines, as there.
+    from PIL import Image
+
+    for name, kw in (("scan.jpg", {"quality": 92}), ("scan.jpeg", {"subsampling": 0})):
+        Image.open(path).convert("RGB").save(tmp_path / name, "JPEG", **kw)
+        page = np.asarray(Image.open(tmp_path / name).convert("RGB"))
+        got = extractor.extract_lines(tmp_path / name)
+        want = extractor.extract_lines_from_image(page)
+        assert [t for t, _ in got] == [t for t, _ in want] and len(got) > 4
+        assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
+    (tmp_path / "cut.jpg").write_bytes(b"\xff\xd8\xff")
+    with caplog.at_level(logging.WARNING, logger="spine_vision_torch"):
+        assert extractor.extract(tmp_path / "cut.jpg") == []
+    assert "OCR failed" in caplog.text
     # A missing raster decoder raises before any read: never an empty page.
-    for name in ("scan.jpg", "scan.jpeg", "scan.tif"):
+    for name in ("scan.tif", "scan.tiff"):
         with pytest.raises(NotImplementedError, match="item 13"):
             extractor.extract(tmp_path / name)
         with pytest.raises(NotImplementedError, match="item 13"):

@@ -355,16 +355,16 @@ def test_resnet18_regressor_trains_with_a_frozen_then_unfrozen_backbone(tmp_path
     # freeze_backbone_epochs and ResNet-18 train since training BatchNorm
     # was ported; a bottleneck ResNet and the scatter-free pool train since
     # the backbone zoo was ported. profile_trace, sample_cache_dir and the
-    # zoo's cases check that the option works.
+    # zoo's cases and the plots (visualize_predictions) check that the option
+    # works.
     [{"backbone": "resnet50"}, {"visualize_predictions": True},
      {"profile_trace": True}, {"sample_cache_dir": "cache"},
      {"backbone": "resnet18", "pool_impl": "tpu"}],
 )
 def test_unported_options_name_the_roadmap(tmp_path, overrides):
     zoo = overrides.get("backbone") == "resnet50" or "pool_impl" in overrides
-    ported = {"profile_trace", "sample_cache_dir"} & set(overrides) or zoo
-    # The ported options train a ResNet-18, a few seconds on a busy CPU.
-    kw = {"backbone": "resnet18" if ported else "convnext_tiny", **overrides}
+    # The options train a ResNet-18, a few seconds on a busy CPU.
+    kw = {"backbone": "resnet18", **overrides}
     if zoo:
         kw["mixed_precision"] = False  # f32: bf16 convolutions are slow on the CPU
     if "sample_cache_dir" in kw:
@@ -372,11 +372,6 @@ def test_unported_options_name_the_roadmap(tmp_path, overrides):
     cfg = LocalizationConfig(output_path=tmp_path / "r", pretrained=False,
                              image_size=(32, 32), batch_size=2, num_epochs=1, num_workers=2,
                              seed=0, **kw)
-    if not ported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LocalizationTrainer(cfg, train_dataset=_Set(4, 32, 0), val_dataset=_Set(2, 32, 1),
-                                device="cpu")
-        return
     train_set, val_set = _Set(4, 32, 0), _Set(2, 32, 1)
     trainer = LocalizationTrainer(cfg, train_dataset=train_set, val_dataset=val_set,
                                   device="cpu")
@@ -386,6 +381,11 @@ def test_unported_options_name_the_roadmap(tmp_path, overrides):
         assert trainer.model.backbone.pool_impl == overrides.get("pool_impl", "flax")
         assert type(trainer.model.backbone.stage1_block1).__name__ == (
             "BottleneckBlock" if kw["backbone"] == "resnet50" else "BasicBlock")
+        return
+    if "visualize_predictions" in overrides:
+        figures = {p.name for p in (tmp_path / "r" / "logs").glob("*.png")}
+        assert figures == {"predictions_epoch_0.png", "training_curves.png",
+                           "error_distribution.png", "per_level_med.png"}
         return
     if "profile_trace" in overrides:
         trace = json.loads((tmp_path / "r" / "logs" / "profile" / "trace.json").read_text())

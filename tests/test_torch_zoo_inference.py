@@ -92,10 +92,30 @@ def test_regressor_test_inference_matches_jax(tmp_path):
 
 
 def test_unsupported_inputs_raise(tmp_path):
-    port = tcls.CoordinateRegressor("resnet18", dtype=torch.float32, device="cpu")
+    """JPEG files (named by content, as Pillow tells them apart) give the JAX
+    package's images and outputs; a truncated JPEG raises an OSError in both
+    packages; a TIFF, which the JAX package reads, still raises item 13."""
+    port, ref, variables = _pair("regressor")
+    rng = np.random.default_rng(4)
+    jpegs = []
+    for name, shape, kw in (("g.jpg", (45, 61), {}), ("c.jpeg", (38, 52, 3), {"quality": 90}),
+                            ("c420.bin", (29, 33, 3), {"subsampling": 2})):
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
+            tmp_path / name, "JPEG", **kw)
+        jpegs.append(tmp_path / name)
+    got = tinf.regressor_test_inference(port, jpegs, image_size=(32, 32))
+    want = jinf.regressor_test_inference(ref, variables, jpegs, image_size=(32, 32))
+    np.testing.assert_array_equal(got["images"], want["images"])
+    np.testing.assert_allclose(got["coordinates"], want["coordinates"], atol=1e-5)
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff")
+    for fn, model in ((tinf.regressor_test_inference, port),
+                      (lambda m, x, **kw: jinf.regressor_test_inference(m, variables, x, **kw),
+                       ref)):
+        with pytest.raises(OSError):
+            fn(model, [tmp_path / "x.jpg"], image_size=(32, 32))
+    Image.fromarray(rng.integers(0, 256, (8, 8), dtype=np.uint8)).save(tmp_path / "t.tif")
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tinf.regressor_test_inference(port, [tmp_path / "x.jpg"], image_size=(32, 32))
+        tinf.regressor_test_inference(port, [tmp_path / "t.tif"], image_size=(32, 32))
     with pytest.raises(TypeError, match="uint8"):
         tinf.regressor_test_inference(port, [np.zeros((8, 8), np.float32)], image_size=(32, 32))
     with pytest.raises(TypeError, match="Unsupported"):
