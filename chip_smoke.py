@@ -15,6 +15,7 @@
     python3 chip_smoke.py --zoo-only   # the backbone zoo alone
     python3 chip_smoke.py --f32-only   # the f32 forms of #1 and #5-#10 and their paths
     python3 chip_smoke.py --cli-only   # the port's command line (and the JPEG decoder) alone
+    python3 chip_smoke.py --codecs-only  # JPEG 2000 DICOM and progressive JPEG inputs alone
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -244,6 +245,16 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    of a torchvision ``.pth`` in a subprocess (its ``.npz`` the ResNet's
    ``--pretrained-path``); the launches of #1, #2 and #8/#9 counted as the path
    ``cli``.
+21. The codecs (``codecs``, after phase 20, also alone with
+   ``--codecs-only``; see ``codecs_phase``): the committed JPEG 2000 and
+   progressive JPEG fixtures against Pillow's record (decode ms a frame and
+   a series, tier-1 or entropy decode apart); the lossless 12-bit series and
+   the lossy 16-bit one wrapped as .90 and .91 DICOM series at volume_io's
+   geometry; ``StudyInferencePipeline.run`` on two studies of them from
+   files, both crop modes, bit for bit the run on uncompressed DICOM series
+   of the same decoded arrays; the ``test`` command's path on JPEG 2000 and
+   progressive files with the f32 regressor; the launches of #1 and #2 (and
+   #1's f32 form) counted as the path ``codecs``.
 
 Each phase prints its wall time.
 
@@ -4045,19 +4056,32 @@ def _jpeg_check(tag: str) -> dict:
 def _jpeg_dicom_series(out: Path) -> Path:
     """The committed 17-slice JPEG series wrapped as a baseline-JPEG DICOM
     series (transfer syntax .50, 8-bit) at volume_io's geometry."""
+    frames = [(JPEG_FIXTURES / "series" / f"slice_{k:02d}.jpg").read_bytes()
+              for k in range(IO_SHAPE[0])]
+    return _encapsulated_series(out, frames, "1.2.840.10008.1.2.4.50", IO_SHAPE[1:], 8, 8)
+
+
+def _encapsulated_series(out: Path, frames: list, ts: str, shape: tuple, allocated: int,
+                         stored: int) -> Path:
+    """One DICOM file a frame (each one fragment after an empty Basic Offset
+    Table) of transfer syntax ``ts``: unsigned MONOCHROME2 ``shape`` (rows,
+    cols) slices at volume_io's geometry, the pixel spacing scaled so that
+    the field of view is volume_io's."""
     import struct
 
     import numpy as np
 
     from spine_vision_torch.io import dicom_write as dw
 
+    rows, cols = shape
     direction = _io_direction(False)
     row_dir, col_dir, normal = direction[:, 0], direction[:, 1], direction[:, 2]
-    sx, sy, sz = IO_SPACING
+    sx, sy = IO_SPACING[0] * IO_SHAPE[2] / cols, IO_SPACING[1] * IO_SHAPE[1] / rows
+    sz = IO_SPACING[2]
     study_uid, series_uid = dw._new_uid(), dw._new_uid()
     out.mkdir(parents=True)
-    for k in range(IO_SHAPE[0]):
-        frame = dw._even((JPEG_FIXTURES / "series" / f"slice_{k:02d}.jpg").read_bytes(), b"\x00")
+    for k, data in enumerate(frames):
+        frame = dw._even(data, b"\x00")
         items = (struct.pack("<HHI", 0xFFFE, 0xE000, 0) + struct.pack("<HHI", 0xFFFE, 0xE000,
                                                                        len(frame))
                  + frame + struct.pack("<HHI", 0xFFFE, 0xE0DD, 0))
@@ -4070,12 +4094,12 @@ def _jpeg_dicom_series(out: Path) -> Path:
             + dw._ds(0x0020, 0x0032, np.asarray(IO_ORIGIN) + k * sz * normal)
             + dw._ds(0x0020, 0x0037, np.concatenate([row_dir, col_dir]))
             + dw._us(0x0028, 0x0002, 1) + dw._str(0x0028, 0x0004, b"CS", "MONOCHROME2")
-            + dw._us(0x0028, 0x0010, IO_SHAPE[1]) + dw._us(0x0028, 0x0011, IO_SHAPE[2])
-            + dw._ds(0x0028, 0x0030, (sy, sx)) + dw._us(0x0028, 0x0100, 8)
-            + dw._us(0x0028, 0x0101, 8) + dw._us(0x0028, 0x0102, 7) + dw._us(0x0028, 0x0103, 0)
+            + dw._us(0x0028, 0x0010, rows) + dw._us(0x0028, 0x0011, cols)
+            + dw._ds(0x0028, 0x0030, (sy, sx)) + dw._us(0x0028, 0x0100, allocated)
+            + dw._us(0x0028, 0x0101, stored) + dw._us(0x0028, 0x0102, stored - 1)
+            + dw._us(0x0028, 0x0103, 0)
             + struct.pack("<HH2sHI", 0x7FE0, 0x0010, b"OB", 0, 0xFFFFFFFF) + items)
-        (out / f"slice_{k + 1:04d}.dcm").write_bytes(
-            dw._file_meta(sop, "1.2.840.10008.1.2.4.50") + body)
+        (out / f"slice_{k + 1:04d}.dcm").write_bytes(dw._file_meta(sop, ts) + body)
     return out
 
 
@@ -4411,6 +4435,224 @@ def cli_phase(device, card: str, io: dict | None = None) -> dict:
           f"item 6; no matplotlib loaded")
     return {"launches": total, "seconds": seconds, "step_p50_ms": p50, "jpeg_ms": jpeg_ms,
             "cli_own_ms": float(np.median(own)) * 1e3}
+
+
+# The codecs phase: JPEG 2000 DICOM frames and progressive JPEG, decoded on
+# the host as Pillow decodes them, into the study graph's kernels.
+J2K_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_jpeg2000"
+CODEC_REPS = 5
+CODEC_SERIES = {"series90": "1.2.840.10008.1.2.4.90", "series91": "1.2.840.10008.1.2.4.91"}
+
+
+def _codec_decode(data: bytes):
+    from spine_vision_torch.io import jpeg, jpeg2000
+
+    return jpeg2000.decode_jpeg2000(data) if jpeg2000.is_jpeg2000(data) else jpeg.decode_jpeg(data)
+
+
+def _codec_check(tag: str, card: str) -> dict:
+    """(a) Each committed JPEG 2000 and progressive JPEG fixture decodes to
+    the sha256 of Pillow's decode in the record; ms a frame and a series of
+    each kind (median of ``CODEC_REPS``), with the C++ tier-1 (JPEG 2000) or
+    entropy decode (JPEG) apart from the rest."""
+    import hashlib
+
+    import numpy as np
+
+    from spine_vision_torch.io import jpeg, jpeg2000
+
+    record = json.loads((J2K_FIXTURES / "record.json").read_text())
+    t0 = time.perf_counter()
+    for name, entry in record["files"].items():
+        got = _codec_decode((J2K_FIXTURES / name).read_bytes())
+        if ([list(got.shape), str(got.dtype)] != [entry["shape"], entry["dtype"]]
+                or hashlib.sha256(got.tobytes()).hexdigest() != entry["sha256"]):
+            raise AssertionError(f"{tag} {name} does not decode to Pillow's record")
+    first_s = time.perf_counter() - t0
+    inner_t1, inner_entropy = jpeg2000._t1_decode, jpeg._decode_entropy
+    spent: list = []
+
+    def timed(inner):
+        def wrapper(*args, **kw):
+            start = time.perf_counter()
+            out = inner(*args, **kw)
+            spent.append(time.perf_counter() - start)
+            return out
+        return wrapper
+
+    kinds = {kind: [(J2K_FIXTURES / name).read_bytes() for name in sorted(record["files"])
+                    if name.startswith(kind + "/")] for kind in CODEC_SERIES}
+    kinds["progressive"] = [(J2K_FIXTURES / "progressive" / "gray_512.jpg").read_bytes()]
+    ms: dict = {}
+    jpeg2000._t1_decode, jpeg._decode_entropy = timed(inner_t1), timed(inner_entropy)
+    try:
+        for kind, frames in kinds.items():
+            for key, batch in (("frame", frames[:1]), ("series", frames)):
+                if key == "series" and len(frames) == 1:
+                    continue
+                runs, inner_runs = [], []
+                for _ in range(CODEC_REPS):
+                    spent.clear()
+                    start = time.perf_counter()
+                    for data in batch:
+                        _codec_decode(data)
+                    runs.append(time.perf_counter() - start)
+                    inner_runs.append(sum(spent))
+                ms[f"{kind}_{key}"] = float(np.median(runs)) * 1e3
+                ms[f"{kind}_{key}_entropy"] = float(np.median(inner_runs)) * 1e3
+    finally:
+        jpeg2000._t1_decode, jpeg._decode_entropy = inner_t1, inner_entropy
+    shapes = {k: record["files"][n]["shape"] for k, n in (
+        ("series90", "series90/slice_00.j2k"), ("series91", "series91/slice_00.j2k"),
+        ("progressive", "progressive/gray_512.jpg"))}
+    print(f"{tag} (a) {len(record['files'])} committed files decode to Pillow "
+          f"{record['pillow']} (OpenJPEG {record['openjpeg']})'s sha256 (first pass "
+          f"{first_s:.3f} s, the C++ build included)")
+    for kind, what in (("series90", "lossless 12-bit JPEG 2000 (.90)"),
+                       ("series91", "lossy 16-bit JPEG 2000 (.91, 9/7)"),
+                       ("progressive", "progressive JPEG, gray")):
+        side = "x".join(map(str, shapes[kind]))
+        line = (f"{tag} decode {what} {side}: frame {ms[kind + '_frame']:.3f} ms "
+                f"({'tier-1' if kind != 'progressive' else 'entropy decode'} "
+                f"{ms[kind + '_frame_entropy']:.3f} ms)")
+        if kind + "_series" in ms:
+            line += (f", 17-slice series {ms[kind + '_series']:.3f} ms (tier-1 "
+                     f"{ms[kind + '_series_entropy']:.3f} ms)")
+        print(line + f", median of {CODEC_REPS}, on the host of {card}")
+    return ms
+
+
+def _codec_dicom_series(out: Path, kind: str) -> Path:
+    """The committed JPEG 2000 series ``kind`` wrapped as a DICOM series of
+    its transfer syntax (.90 12-bit, .91 16-bit) at volume_io's geometry."""
+    record = json.loads((J2K_FIXTURES / "record.json").read_text())
+    frames = [(J2K_FIXTURES / kind / f"slice_{k:02d}.j2k").read_bytes()
+              for k in range(IO_SHAPE[0])]
+    return _encapsulated_series(out, frames, CODEC_SERIES[kind],
+                                tuple(record["files"][f"{kind}/slice_00.j2k"]["shape"]), 16,
+                                12 if kind == "series90" else 16)
+
+
+def codecs_phase(device, card: str, io: dict | None = None) -> dict:
+    """JPEG 2000 DICOM frames and progressive JPEG on the card
+    (``--codecs-only`` runs it alone).
+
+    (a) the committed fixtures (``tests/fixtures/torch_jpeg2000``) against
+    the record of Pillow's decodes, with the decode times; (b) the lossless
+    12-bit series (256^2) and the lossy 16-bit one (512^2) wrapped as .90
+    and .91 DICOM series at volume_io's geometry, and the same decoded
+    arrays written as uncompressed DICOM series; (c)
+    ``StudyInferencePipeline.run`` (ConvNeXt-base 512^2 and ResNet-18
+    256^2, bf16, seeded Flax trees; volume_io's models when given) on two
+    studies of them from files (T1 .90 with T2 .91, and T1 .91 with T2 .90)
+    in both crop modes: #1 33 and #2 3 launches, results bit for bit the
+    uncompressed series' run, files-to-results ms a study; (d) the ``test``
+    command's path (``models.inference.regressor_test_inference``) with the
+    f32 ConvNeXt-base regressor at 512^2 on a .90 slice, a .91 slice and two
+    progressive JPEGs. Returns the launches of (c) and (d), summed."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch import io as tio
+    from spine_vision_torch.core.tasks import get_tasks
+    from spine_vision_torch.infer.pipeline import (
+        StudyInferencePipeline,
+        StudyPipelineConfig,
+        study_input_from_paths,
+    )
+    from spine_vision_torch.io.dicom_write import write_dicom_series
+    from spine_vision_torch.models.classifier import CoordinateRegressor
+    from spine_vision_torch.models.convert import load_flax_variables, random_flax_variables
+    from spine_vision_torch.models.inference import regressor_test_inference
+
+    tag = "[codecs]"
+    on_card = torch.device(device).type == "cuda"
+    ms = _codec_check(tag, card)
+    root = RUN_DIR / "codecs"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    # (b) The series as JPEG 2000 DICOM, and their decoded arrays uncompressed.
+    compressed, plain = {}, {}
+    for kind in CODEC_SERIES:
+        compressed[kind] = _codec_dicom_series(root / f"{kind}_dicom", kind)
+        image = tio.read_medical_image(compressed[kind])
+        write_dicom_series(image, root / f"{kind}_plain")
+        plain[kind] = root / f"{kind}_plain"
+        again = tio.read_medical_image(plain[kind])
+        if image.array.dtype != np.uint16 or not np.array_equal(again.array, image.array):
+            raise AssertionError(f"{tag} {kind}: the uncompressed series differs")
+        for name in ("spacing", "origin", "direction"):
+            if not np.array_equal(np.asarray(getattr(again, name)),
+                                  np.asarray(getattr(image, name))):
+                raise AssertionError(f"{tag} {kind}: {name} {getattr(again, name)} against "
+                                     f"{getattr(image, name)}")
+        print(f"{tag} (b) {kind}: {image.array.shape} {image.array.dtype} (max "
+              f"{int(image.array.max())}) as {CODEC_SERIES[kind]} DICOM and uncompressed, the "
+              f"same arrays and geometry")
+    series_ms = {kind: _host_ms(lambda k=kind: tio.read_medical_image(compressed[k]),
+                                CODEC_REPS)[0] for kind in CODEC_SERIES}
+    print(f"{tag} read_medical_image ms a series: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in series_ms.items()) + f" on the host of {card}")
+
+    # (c) The study graph on the studies from files, both crop modes.
+    loc, cls = io["models"] if io is not None else _study_models(device)
+    tasks = get_tasks()
+    pairs = [(compressed["series90"], compressed["series91"]),
+             (compressed["series91"], compressed["series90"])]
+    plain_pairs = [(plain["series90"], plain["series91"]),
+                   (plain["series91"], plain["series90"])]
+    total = dict.fromkeys(KERNEL_COUNTERS, 0)
+    e2e = {}
+    for mode in ("horizontal", "rotated"):
+        pipe = StudyInferencePipeline(loc, cls, config=StudyPipelineConfig(crop_mode=mode),
+                                      device=device)
+        want = pipe.run([study_input_from_paths(a, b, device=device) for a, b in plain_pairs])
+        _zero_counts()
+        got = pipe.run([study_input_from_paths(a, b, device=device) for a, b in pairs])
+        counts = _counts()
+        if on_card and counts != INFERENCE_LAUNCHES:
+            raise AssertionError(f"{tag} {mode}: expected {INFERENCE_LAUNCHES} launches, got "
+                                 f"{counts}")
+        _check_results(got, len(pairs), tasks)
+        if not _same_results(got, want):
+            raise AssertionError(f"{tag} {mode}: results from JPEG 2000 DICOM differ from the "
+                                 "uncompressed series'")
+        total = {k: total[k] + counts[k] for k in total}
+        e2e[mode] = _host_ms(lambda: pipe.run(
+            [study_input_from_paths(a, b, device=device) for a, b in pairs]),
+            CODEC_REPS)[0] / len(pairs)
+        print(f"{tag} (c) {mode}: launches {({k: v for k, v in counts.items() if v})}; 2 "
+              f"studies from .90/.91 DICOM equal bit for bit to the uncompressed series' run; "
+              f"files to results {e2e[mode]:.3f} ms a study (median of {CODEC_REPS}, host "
+              f"decode included) on {card}")
+
+    # (d) The test command's path on JPEG 2000 and progressive files, f32.
+    regressor = CoordinateRegressor("convnext_base", dtype=torch.float32, device=device)
+    load_flax_variables(regressor, *random_flax_variables(regressor, 2))
+    files = [J2K_FIXTURES / "series90" / "slice_08.j2k", J2K_FIXTURES / "series91" / "slice_08.j2k",
+             J2K_FIXTURES / "progressive" / "gray_512.jpg",
+             J2K_FIXTURES / "progressive" / "color_420_rst.jpg"]
+    _zero_counts()
+    out = regressor_test_inference(regressor, files, image_size=(512, 512))
+    counts = _counts()
+    forwards = counts["convnext_block"] // max(INFERENCE_LAUNCHES["convnext_block"], 1)
+    if on_card and (forwards < 1 or counts != {
+            k: v * forwards for k, v in _f32_twins(INFERENCE_LAUNCHES).items()}):
+        raise AssertionError(f"{tag} test path: launches {counts}")
+    if (out["pixel_coordinates"].shape != (len(files), 5, 2)
+            or not np.all(np.isfinite(out["pixel_coordinates"]))
+            or out["images"].shape != (len(files), 512, 512, 3)):
+        raise AssertionError(f"{tag} test path: {out['pixel_coordinates']}")
+    total = {k: total[k] + counts[k] for k in total}
+    print(f"{tag} (d) test path: f32 ConvNeXt-base regressor at 512^2 on {len(files)} files "
+          f"(.90 and .91 slices, two progressive JPEGs) in {out['inference_time_ms']:.3f} ms, "
+          f"launches {({k: v for k, v in counts.items() if v})}")
+    del regressor
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"{tag} launches of the phase {({k: v for k, v in total.items() if v})} on {card}")
+    return {"launches": total, "decode_ms": ms, "series_ms": series_ms,
+            "files_to_results_ms": e2e}
 
 
 # The ocr phase: report OCR with the shipped weights on the card, held to the
@@ -5779,6 +6021,8 @@ def main() -> int:
                              "rows and paths; a kernels line of the f32 forms)")
     parser.add_argument("--cli-only", action="store_true",
                         help="build the kernels and run only the cli phase (no kernels line)")
+    parser.add_argument("--codecs-only", action="store_true",
+                        help="build the kernels and run only the codecs phase (no kernels line)")
     parser.add_argument("--ddp-rank", help=argparse.SUPPRESS)  # a rank of the ddp phase
     opts = parser.parse_args()
     if opts.ddp_rank:
@@ -5858,6 +6102,12 @@ def main() -> int:
         phase("cli", cli_phase, device, card)
         shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
         return verdict()
+    if opts.codecs_only:
+        t0 = time.perf_counter()
+        cuda_build.build_all()
+        print(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s")
+        phase("codecs", codecs_phase, device, card)
+        return verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -5886,7 +6136,7 @@ def main() -> int:
     phase("f32 kernels", f32_kernel_phase, device, report)
     probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, "volume_io": None, "serve": None, "builders": None,
-             "cli": None,
+             "cli": None, "codecs": None,
              **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
@@ -5900,6 +6150,7 @@ def main() -> int:
         paths["serve"] = phase("serve", serve_phase, device, card, opts.profile, io)["launches"]
         paths["builders"] = phase("builders", builders_phase, device, card, io)["launches"]
         paths["cli"] = phase("cli", cli_phase, device, card, io)["launches"]
+        paths["codecs"] = phase("codecs", codecs_phase, device, card, io)["launches"]
         del io
         shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
         for path, grad_mode in (("train_step", "hybrid"), ("train_step_dwconv", True),

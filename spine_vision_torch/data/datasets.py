@@ -5,9 +5,9 @@ from ``annotations.csv`` (the standard ``csv`` module); the images come from
 an *image store*: a mapping from the CSV's ``image_path`` to the decoded
 uint8 array (RGB ``[H, W, 3]`` for localization, a gray ``[H, W]`` plane for
 classification). The default store, :class:`PngStore`, decodes the PNG and
-baseline JPEG images of the data directory on each access (``data/png.py``,
-``io/jpeg.py``: the reads of ``cv2.imread``); an in-memory mapping stands in for it where a caller holds
-the arrays already. Everything after the read is the JAX code's: the host
+JPEG images (baseline or progressive) of the data directory on each access
+(``data/png.py``, ``io/jpeg.py``: the reads of ``cv2.imread``); an in-memory
+mapping stands in for it where a caller holds the arrays already. Everything after the read is the JAX code's: the host
 bilinear resize, the grouping and T1/T2 pairing, the ``[T2, T1, T2]``
 channels, the targets and the splits:
 

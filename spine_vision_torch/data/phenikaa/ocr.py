@@ -13,9 +13,9 @@ tree ``{"params": ..., "batch_stats": ...}``) override them, and missing
 weights raise. Every class takes ``device="cuda"`` and raises without a card
 unless asked for the CPU.
 
-Files: PNG pages (``data/png.py``, cv2's ``IMREAD_COLOR`` read) and
-baseline JPEG pages (``io/jpeg.py``, Pillow's ``convert("RGB")`` read). A PDF
-goes through ``io/pdf.py``, which raises ``ImportError`` (the port does not
+Files: PNG pages (``data/png.py``, cv2's ``IMREAD_COLOR`` read) and JPEG
+pages, baseline or progressive (``io/jpeg.py``, Pillow's ``convert("RGB")``
+read). A PDF goes through ``io/pdf.py``, which raises ``ImportError`` (the port does not
 import PyMuPDF): ``extract_from_pdf*`` raise it, and ``extract`` or
 ``extract_lines`` of a ``.pdf`` warn and return ``[]``, as the JAX package
 does without PyMuPDF. Other raster formats (TIFF, ...) raise
@@ -295,7 +295,7 @@ class DocumentExtractor:
         suffix = path.suffix.lower()
         if suffix not in (".pdf", ".png", ".jpg", ".jpeg"):
             raise NotImplementedError(
-                f"{path.name}: the port decodes PNG and baseline JPEG report pages only; "
+                f"{path.name}: the port decodes PNG and JPEG report pages only; "
                 "other raster formats wait for a decoder (ROADMAP Queue 1 item 13)"
             )
         try:

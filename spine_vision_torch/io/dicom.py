@@ -4,17 +4,16 @@ Counterpart of ``spine_vision_tpu/io/dicom.py``: Part-10 files (with
 preamble) and raw datasets; explicit and implicit VR little endian, explicit
 VR big endian, deflated explicit VR, undefined-length sequences; native
 pixel data, RLE lossless (PackBits), JPEG Lossless Process 14 / SV1
-(transfer syntaxes .57/.70, ``io/jpeg_lossless.py``) and JPEG baseline and
+(transfer syntaxes .57/.70, ``io/jpeg_lossless.py``), JPEG baseline and
 extended (.50/.51, ``io/jpeg.py``: the frame as Pillow decodes it, then
-``convert("L")`` as the JAX package does). MONOCHROME1/2, 8/16/32
+``convert("L")`` as the JAX package does) and JPEG 2000 (.90/.91,
+``io/jpeg2000.py``: the frame as Pillow decodes it, kept in Pillow's mode as
+the JAX package keeps it, so a 12-bit frame comes back as ``x << 4`` and a
+signed one with ``2**(prec-1)`` added). MONOCHROME1/2, 8/16/32
 bits, signed or unsigned, rescale slope and intercept, multiframe with and
 without a Basic Offset Table. ``read_dicom_series`` groups files by
 SeriesInstanceUID (never the empty UID's group when a real one exists) and
 sorts slices along the slice normal.
-
-The JAX package decodes JPEG 2000 frames through PIL, which the port does
-not import: ``pixel_array`` raises ``NotImplementedError`` for .90/.91 before
-it reads a pixel (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -27,7 +26,8 @@ from typing import Any
 import numpy as np
 
 from spine_vision_torch.core.logging import logger
-from spine_vision_torch.io.jpeg import decode_jpeg, to_mode
+from spine_vision_torch.io.jpeg import decode_jpeg, is_jpeg, to_mode
+from spine_vision_torch.io.jpeg2000 import Jpeg2000Error, decode_jpeg2000, is_jpeg2000
 from spine_vision_torch.io.jpeg_lossless import decode_jpeg_lossless
 from spine_vision_torch.io.types import MedicalImage
 
@@ -75,12 +75,6 @@ _ENCAPSULATED = {
     TS_JPEG2000_LOSSLESS,
     TS_JPEG2000,
     TS_RLE,
-}
-
-# Decoded through PIL in the JAX package; no decoder in the port yet.
-_NOT_PORTED = {
-    TS_JPEG2000_LOSSLESS: "JPEG 2000 lossless",
-    TS_JPEG2000: "JPEG 2000",
 }
 
 # VRs with 4-byte length (explicit VR) preceded by 2 reserved bytes.
@@ -429,12 +423,6 @@ class DicomFile:
         payload = self.elements.get(TAG_PIXEL_DATA)
         if payload is None:
             raise DicomError(f"No pixel data: {self.path}")
-        if self.transfer_syntax in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{self.path}: {_NOT_PORTED[self.transfer_syntax]} frames (transfer syntax "
-                f"{self.transfer_syntax}) need a decoder the port does not have yet "
-                "(ROADMAP Queue 1 item 13)"
-            )
 
         rows, cols = self.rows, self.cols
         frames = self.num_frames
@@ -596,7 +584,21 @@ class DicomFile:
             # package converts both to L.
             return np.stack([to_mode(decode_jpeg(frag), "L") for frag in streams])
 
+        if ts in (TS_JPEG2000, TS_JPEG2000_LOSSLESS):
+            # Pillow opens each frame by its content and the JAX package keeps
+            # its mode: I;16 above 8 bits, L, LA, RGB or RGBA.
+            return np.stack([_decode_pil_frame(frag) for frag in streams])
+
         raise DicomError(f"Unsupported transfer syntax: {ts}")
+
+
+def _decode_pil_frame(frag: bytes) -> np.ndarray:
+    """``np.asarray(Image.open(frag))`` of a JPEG 2000 or JPEG frame."""
+    if is_jpeg2000(frag):
+        return decode_jpeg2000(frag)
+    if is_jpeg(frag):
+        return decode_jpeg(frag)
+    raise Jpeg2000Error("cannot identify the image in a JPEG 2000 frame")
 
 
 def _decode_rle_frame(

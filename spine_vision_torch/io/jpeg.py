@@ -1,4 +1,4 @@
-"""Baseline JPEG decoder (ITU-T T.81 sequential DCT, Huffman coded).
+"""JPEG decoder (ITU-T T.81 sequential and progressive DCT, Huffman coded).
 
 The port's counterpart of what the JAX package gets from Pillow (12.1.0, on
 libjpeg-turbo): :func:`decode_jpeg` is ``np.asarray(Image.open(f))`` and
@@ -10,9 +10,18 @@ libjpeg-turbo): :func:`decode_jpeg` is ``np.asarray(Image.open(f))`` and
   RSTn; APPn and COM segments skipped, Adobe APP14's transform flag and the
   JFIF APP0 marker read to choose the colour space as libjpeg's
   ``default_decompress_parms`` does.
+- Progressive frames (SOF2): DC first and refinement scans (interleaved or
+  not), AC first and refinement scans with their EOB runs and correction
+  bits, restart intervals inside progressive scans. The scans decode into
+  the coefficient buffers a sequential frame fills; the same inverse DCT,
+  upsampling and colour conversion follow. libjpeg-turbo smooths blocks
+  (``jdcoefct.c``, ``smoothing_ok``) only while some of the first AC
+  coefficients' bits are missing; a complete file has them all, so nothing
+  is smoothed, and a file cut short raises as Pillow's load does.
 - The entropy decode runs in C++ (``native/src/host_ops.cpp``, built with
-  g++ at first use; a failed build raises). :func:`_decode_scan` is its
-  plain Python version, which the tests hold it to bit for bit.
+  g++ at first use; a failed build raises). :func:`_decode_scan` and
+  :func:`_decode_progressive` are its plain Python versions, which the
+  tests hold it to bit for bit.
 - libjpeg-turbo's arithmetic after it, vectorised in numpy: the islow
   inverse DCT with its range limit (``jidctint.c``), fancy (triangle)
   upsampling of h2v1, h1v2 and h2v2 components (``jdsample.c``; pixel
@@ -22,9 +31,9 @@ libjpeg-turbo): :func:`decode_jpeg` is ``np.asarray(Image.open(f))`` and
   ``L24``: ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``) and
   ``convert("RGB")`` of gray (replication).
 
-Progressive (SOF2), lossless (SOF3: ``io/jpeg_lossless.py``), hierarchical
-and arithmetic-coded frames, 12-bit precision and components other than 1
-or 3 (CMYK) raise ``NotImplementedError`` naming ROADMAP Queue 1 item 13
+Lossless (SOF3: ``io/jpeg_lossless.py``), hierarchical and
+arithmetic-coded frames, 12-bit precision and components other than 1 or 3
+(CMYK) raise ``NotImplementedError`` naming ROADMAP Queue 1 item 13
 before any pixel is decoded. A malformed or truncated stream raises
 :class:`JpegError`, an ``OSError`` as Pillow's is.
 """
@@ -43,8 +52,8 @@ from spine_vision_torch.io.jpeg_lossless import _build_decode_lut, _split_restar
 UNSUPPORTED = "ROADMAP.md, Queue 1 item 13"
 
 _SOF_BASELINE = (0xC0, 0xC1)
+_SOF_PROGRESSIVE = 0xC2
 _SOF_OTHER = {
-    0xC2: "progressive JPEG (SOF2)",
     0xC3: "lossless JPEG (SOF3; io/jpeg_lossless.py decodes it)",
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
     0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
@@ -205,6 +214,128 @@ def _decode_scan(
     return out
 
 
+def _wrap16(v: int) -> int:
+    """``(JCOEF) v``: the low 16 bits, signed."""
+    return ((v + 32768) & 0xFFFF) - 32768
+
+
+def _decode_progressive(
+    chunks: list[bytes], luts: np.ndarray, block_comp: np.ndarray,
+    restart_interval: int, n_mcus: int, ss: int, se: int, ah: int, al: int,
+    blocks: np.ndarray,
+) -> np.ndarray:
+    """Entropy-decode one progressive scan into ``blocks`` (int16 ``[n_mcus *
+    blocks_per_mcu, 64]``, natural order, the coefficients so far) as
+    ``native.jpeg_decode_progressive`` does, following libjpeg's
+    ``jdphuff.c``: DC first (``Ss = 0, Ah = 0``) and refinement, AC first
+    and refinement with their EOB runs. The DC predictions and the EOB run
+    reset at each restart interval. Bits past a chunk's end read as 1s; a
+    chunk's codes may not run past it."""
+    bpm = len(block_comp)
+    weights = 1 << np.arange(15, -1, -1)
+    p1, m1 = 1 << al, -(1 << al)
+    mcu = 0
+    for chunk in chunks:
+        if mcu >= n_mcus:
+            break
+        bits = np.unpackbits(np.frombuffer(chunk, dtype=np.uint8))
+        nbits = len(bits)
+        bits = np.concatenate([bits, np.ones(64 * 32 + 16, np.uint8)])
+
+        def peek(p: int, n: int) -> int:
+            return int(bits[p:p + n] @ weights[16 - n:]) if n else 0
+
+        def symbol(p: int, table: np.ndarray) -> tuple[int, int]:
+            entry = int(table[peek(p, 16)])
+            if entry >> 8 == 0:
+                raise ValueError("Invalid Huffman code")
+            return p + (entry >> 8), entry & 0xFF
+
+        pred = [0] * 4
+        eobrun = 0
+        limit = n_mcus if restart_interval == 0 else min(n_mcus, mcu + restart_interval)
+        p = 0
+        while mcu < limit:
+            for b, comp in enumerate(block_comp):
+                blk = blocks[mcu * bpm + b]
+                if ss == 0 and ah == 0:  # DC first
+                    p, s = symbol(p, luts[2 * comp])
+                    if s > 16:
+                        raise ValueError("Invalid Huffman code")
+                    if s:
+                        pred[comp] += _extend(peek(p, s), s)
+                        p += s
+                    blk[0] = _wrap16(pred[comp] << al)
+                elif ss == 0:  # DC refinement
+                    if peek(p, 1):
+                        blk[0] |= p1
+                    p += 1
+                elif ah == 0:  # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    k = ss
+                    while k <= se:
+                        p, rs = symbol(p, luts[2 * comp + 1])
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            k += r
+                            if k > 63:
+                                raise ValueError("Coefficient run past the end of a block")
+                            blk[_NATURAL[k]] = _wrap16(_extend(peek(p, s), s) << al)
+                            p += s
+                        elif r == 15:
+                            k += 15
+                        else:
+                            eobrun = (1 << r) + peek(p, r) - 1
+                            p += r
+                            break
+                        k += 1
+                else:  # AC refinement
+                    k = ss
+                    if eobrun == 0:
+                        while k <= se:
+                            p, rs = symbol(p, luts[2 * comp + 1])
+                            r, s = rs >> 4, rs & 15
+                            if s:
+                                s = p1 if peek(p, 1) else m1
+                                p += 1
+                            elif r != 15:
+                                eobrun = (1 << r) + peek(p, r)
+                                p += r
+                                break
+                            while k <= se:
+                                z = _NATURAL[k]
+                                if blk[z]:
+                                    if peek(p, 1) and not blk[z] & p1:
+                                        blk[z] += p1 if blk[z] >= 0 else m1
+                                    p += 1
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
+                                k += 1
+                            if s:
+                                if k > 63:
+                                    raise ValueError("Coefficient run past the end of a block")
+                                blk[_NATURAL[k]] = s
+                            k += 1
+                    if eobrun > 0:
+                        for k in range(k, se + 1):
+                            z = _NATURAL[k]
+                            if blk[z]:
+                                if peek(p, 1) and not blk[z] & p1:
+                                    blk[z] += p1 if blk[z] >= 0 else m1
+                                p += 1
+                        eobrun -= 1
+                if p > nbits:
+                    raise ValueError(f"Truncated scan: {mcu}/{n_mcus} MCUs")
+            mcu += 1
+    if mcu < n_mcus:
+        raise ValueError(f"Truncated scan: {mcu}/{n_mcus} MCUs")
+    return blocks
+
+
 # ---------------------------------------------------------------------------
 # Markers
 # ---------------------------------------------------------------------------
@@ -224,6 +355,7 @@ class _Frame:
     height: int
     width: int
     comps: list[_Component]
+    progressive: bool = False
 
     @property
     def hmax(self) -> int:
@@ -238,7 +370,7 @@ class _Frame:
         return -(-self.height * c.v // self.vmax), -(-self.width * c.h // self.hmax)
 
 
-def _parse_frame(seg: bytes) -> _Frame:
+def _parse_frame(seg: bytes, progressive: bool) -> _Frame:
     if len(seg) < 6:
         raise JpegError("Truncated SOF segment")
     precision, height, width, ncomp = seg[0], *struct.unpack_from(">HH", seg, 1), seg[5]
@@ -257,7 +389,7 @@ def _parse_frame(seg: bytes) -> _Frame:
         if not (1 <= h <= 2 and 1 <= v <= 2):
             raise _unsupported(f"JPEG sampling factors {h}x{v}")
         comps.append(_Component(cid, h, v, tq))
-    frame = _Frame(height, width, comps)
+    frame = _Frame(height, width, comps, progressive)
     mcuy = -(-height // (8 * frame.vmax))
     mcux = -(-width // (8 * frame.hmax))
     for c in comps:
@@ -277,14 +409,24 @@ def _scan_end(arr: np.ndarray, start: int) -> int:
 
 
 def _decode_entropy(entropy: bytes, luts: np.ndarray, block_comp: np.ndarray,
-                    restart_interval: int, n_mcus: int, plain: bool) -> np.ndarray:
+                    restart_interval: int, n_mcus: int, plain: bool,
+                    progression: tuple | None = None,
+                    blocks: np.ndarray | None = None) -> np.ndarray:
+    """One scan's blocks: a sequential scan's, or with ``progression``
+    (Ss, Se, Ah, Al) a progressive scan's decoded into ``blocks``."""
     try:
         if plain:
-            return _decode_scan(_split_restart_intervals(entropy), luts, block_comp,
-                                restart_interval, n_mcus)
+            chunks = _split_restart_intervals(entropy)
+            if progression is None:
+                return _decode_scan(chunks, luts, block_comp, restart_interval, n_mcus)
+            return _decode_progressive(chunks, luts, block_comp, restart_interval, n_mcus,
+                                       *progression, blocks)
         data, offsets = native.jpegls_unstuff_split(entropy)
-        return native.jpeg_decode_scan(data, offsets, luts, block_comp, restart_interval,
-                                       n_mcus)
+        if progression is None:
+            return native.jpeg_decode_scan(data, offsets, luts, block_comp, restart_interval,
+                                           n_mcus)
+        return native.jpeg_decode_progressive(data, offsets, luts, block_comp,
+                                              restart_interval, n_mcus, progression, blocks)
     except ValueError as exc:
         raise JpegError(f"Corrupt JPEG data: {exc}") from exc
 
@@ -292,33 +434,58 @@ def _decode_entropy(entropy: bytes, luts: np.ndarray, block_comp: np.ndarray,
 def _read_scan(frame: _Frame, seg: bytes, entropy: bytes, dc: dict, ac: dict,
                restart_interval: int, plain: bool) -> None:
     """Decode one scan's coefficients into its components' ``coef``."""
-    ns = seg[0]
+    ns = seg[0] if seg else 0
     if not 1 <= ns <= len(frame.comps) or len(seg) < 4 + 2 * ns:
         raise JpegError("Malformed SOS segment")
+    ss, se, ahal = seg[1 + 2 * ns: 4 + 2 * ns]
+    ah, al = ahal >> 4, ahal & 15
+    if frame.progressive:
+        # libjpeg's start_pass_phuff_decoder checks; a DC refinement scan
+        # reads no table, an AC scan only its AC table.
+        dc_band = ss == 0
+        if (se != 0 if dc_band else (ss > se or se > 63 or ns != 1)) \
+                or (ah and al != ah - 1) or al > 13:
+            raise JpegError(f"Invalid progressive parameters Ss={ss} Se={se} Ah={ah} Al={al}")
+        uses_dc, uses_ac = dc_band and ah == 0, not dc_band
+        progression = (ss, se, ah, al)
+    else:
+        if (ss, se, ahal) != (0, 63, 0):
+            raise JpegError(f"Not a sequential scan: Ss={ss} Se={se} AhAl={ahal:#x}")
+        uses_dc = uses_ac = True
+        progression = None
     by_id = {c.cid: c for c in frame.comps}
     comps, luts = [], []
+    empty = np.zeros(1 << 16, np.uint16)
     for i in range(ns):
         cs, tables = seg[1 + 2 * i], seg[2 + 2 * i]
-        if cs not in by_id or (tables >> 4) not in dc or (tables & 15) not in ac:
+        if cs not in by_id or (uses_dc and (tables >> 4) not in dc) \
+                or (uses_ac and (tables & 15) not in ac):
             raise JpegError(f"Scan component {cs}: unknown component or Huffman table")
         comps.append(by_id[cs])
-        luts += [dc[tables >> 4], ac[tables & 15]]
-    ss, se, ahal = seg[1 + 2 * ns: 4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise JpegError(f"Not a sequential scan: Ss={ss} Se={se} AhAl={ahal:#x}")
+        luts += [dc[tables >> 4] if uses_dc else empty, ac[tables & 15] if uses_ac else empty]
     luts = np.stack(luts)
     if ns == 1:  # one block an MCU, over the component's own block grid
         c = comps[0]
         dh, dw = frame.size(c)
         bh, bw = -(-dh // 8), -(-dw // 8)
+        current = (np.ascontiguousarray(c.coef[:bh, :bw]).reshape(bh * bw, 64)
+                   if progression else None)
+        more = {"progression": progression, "blocks": current} if progression else {}
         blocks = _decode_entropy(entropy, luts, np.zeros(1, np.int32), restart_interval,
-                                 bh * bw, plain)
+                                 bh * bw, plain, **more)
         c.coef[:bh, :bw] = blocks.reshape(bh, bw, 64)
         return
     c0 = comps[0]
     mcuy, mcux = c0.coef.shape[0] // c0.v, c0.coef.shape[1] // c0.h
     block_comp = np.concatenate([np.full(c.h * c.v, i, np.int32) for i, c in enumerate(comps)])
-    blocks = _decode_entropy(entropy, luts, block_comp, restart_interval, mcuy * mcux, plain)
+    more = {}
+    if progression:  # the MCUs' blocks as they stand, in MCU order
+        current = np.concatenate([
+            c.coef.reshape(mcuy, c.v, mcux, c.h, 64).transpose(0, 2, 1, 3, 4).reshape(
+                mcuy, mcux, c.h * c.v, 64) for c in comps], axis=2).reshape(-1, 64)
+        more = {"progression": progression, "blocks": np.ascontiguousarray(current)}
+    blocks = _decode_entropy(entropy, luts, block_comp, restart_interval, mcuy * mcux, plain,
+                             **more)
     blocks = blocks.reshape(mcuy, mcux, len(block_comp), 64)
     first = 0
     for c in comps:
@@ -393,7 +560,7 @@ def _ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes, plain: bool = False, luma: bool = False) -> np.ndarray:
-    """Decode a baseline JPEG stream as Pillow does: uint8 ``[H, W]`` (one
+    """Decode a baseline or progressive JPEG stream as Pillow does: uint8 ``[H, W]`` (one
     component) or ``[H, W, 3]`` (RGB). ``plain`` entropy-decodes with the
     Python version instead of the C++ one (the tests' reference). ``luma``
     returns libjpeg's grayscale output instead, as cv2's
@@ -434,8 +601,8 @@ def decode_jpeg(data: bytes, plain: bool = False, luma: bool = False) -> np.ndar
         seg = data[pos + 2:pos + length]
         if marker in _SOF_OTHER:
             raise _unsupported(_SOF_OTHER[marker])
-        if marker in _SOF_BASELINE:
-            frame = _parse_frame(seg)
+        if marker in _SOF_BASELINE or marker == _SOF_PROGRESSIVE:
+            frame = _parse_frame(seg, marker == _SOF_PROGRESSIVE)
         elif marker == _DHT:
             off = 0
             while off + 17 <= len(seg):
@@ -520,7 +687,7 @@ def to_mode(image: np.ndarray, mode: str) -> np.ndarray:
 
 
 def read_jpeg(path: str | Path, mode: str | None = None) -> np.ndarray:
-    """``np.asarray(Image.open(path))`` of a baseline JPEG file, converted to
+    """``np.asarray(Image.open(path))`` of a baseline or progressive JPEG file, converted to
     ``mode`` ("L" or "RGB") when given."""
     image = decode_jpeg(Path(path).read_bytes())
     return image if mode is None else to_mode(image, mode)

@@ -6,9 +6,12 @@ and its variables). Each input is made an RGB uint8 image as the JAX
 package's PIL calls make it, without PIL:
 
 - a file is told apart by its content, as Pillow does: a PNG is decoded
-  by ``data/png.py`` in colour (alpha dropped), a JPEG by
-  ``io/jpeg.py`` as Pillow's ``convert("RGB")``; a stream it cannot read
-  raises ``io.jpeg.JpegError`` (an ``OSError``, as Pillow's);
+  by ``data/png.py`` in colour (alpha dropped), a JPEG (baseline or
+  progressive) by ``io/jpeg.py`` as Pillow's ``convert("RGB")``, a JPEG 2000
+  codestream or JP2 file by ``io/jpeg2000.py`` with Pillow's ``convert("RGB")``
+  of its mode (``I;16`` clipped to 255, ``LA``/``RGBA`` without alpha); a
+  stream it cannot read raises ``io.jpeg.JpegError`` or
+  ``io.jpeg2000.Jpeg2000Error`` (``OSError``s, as Pillow's);
 - a uint8 array is taken as it is: ``[H, W]`` gray is repeated to RGB,
   ``[H, W, 4]`` loses its alpha;
 - any other file (TIFF, ...) raises ``NotImplementedError``: the port has
@@ -39,6 +42,7 @@ from spine_vision_torch.data.pillow_resize import resize
 from spine_vision_torch.data.png import SIGNATURE as PNG_SIGNATURE
 from spine_vision_torch.data.png import decode_png
 from spine_vision_torch.io.jpeg import decode_jpeg, is_jpeg, to_mode
+from spine_vision_torch.io.jpeg2000 import decode_jpeg2000, is_jpeg2000, to_rgb
 from spine_vision_torch.ops.image import imagenet_normalize
 
 ImageInput = Any  # str | Path | np.ndarray
@@ -48,13 +52,16 @@ def _to_uint8_rgb(img: ImageInput, image_size: tuple[int, int]) -> np.ndarray:
     if isinstance(img, (str, Path)):
         path = Path(img)
         data = path.read_bytes()
+        # Told apart by content, as Image.open does; then convert("RGB").
         if is_jpeg(data):
             rgb = to_mode(decode_jpeg(data), "RGB")
         elif data[:8] == PNG_SIGNATURE:
             rgb = decode_png(data, "color", name=str(path))
+        elif is_jpeg2000(data):
+            rgb = to_rgb(decode_jpeg2000(data))
         else:
             raise NotImplementedError(
-                f"{path.name}: the port decodes PNG and baseline JPEG images only; other "
+                f"{path.name}: the port decodes PNG, JPEG and JPEG 2000 images only; other "
                 "formats wait for a decoder (ROADMAP Queue 1 item 13)"
             )
     elif isinstance(img, np.ndarray):

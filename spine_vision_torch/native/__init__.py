@@ -1,12 +1,15 @@
-"""Host ops of the input path: the JPEG-Lossless and baseline JPEG entropy
+"""Host ops of the input path: the JPEG-Lossless, JPEG and JPEG 2000 entropy
 decoders in C++, and the image helpers in numpy.
 
 Counterpart of ``spine_vision_tpu/native/__init__.py``:
 
 - ``jpegls_unstuff_split`` and ``jpegls_decode_diffs`` call the C++ of
   ``src/host_ops.cpp`` (a copy of the JAX package's JPEG functions) through
-  ctypes, and ``jpeg_decode_scan`` its baseline Huffman decoder (the port's
-  own; the JAX package hands baseline JPEG to Pillow). It compiles with
+  ctypes, ``jpeg_decode_scan`` and ``jpeg_decode_progressive`` its
+  sequential and progressive Huffman decoders (the port's own; the JAX
+  package hands these JPEGs to Pillow), ``j2k_t1_decode``
+  its JPEG 2000 tier-1 (the MQ decoder and the coding passes, OpenMP over
+  code-blocks; the JAX package hands JPEG 2000 to Pillow). It compiles with
   ``g++ -O3 -fopenmp -shared -fPIC`` at first use into
   ``build/spine_vision_torch/libhost_ops-<hash>.so`` at the repository root
   (the hash covers the source and the flags, so an edited source rebuilds).
@@ -89,6 +92,13 @@ def load() -> ctypes.CDLL:
                 i64, i64, i64, ctypes.POINTER(ctypes.c_int16),
             ]
             lib.jpeg_decode_scan.restype = i64
+            lib.jpeg_decode_progressive.argtypes = [
+                u8, i64p, i64, ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_int32),
+                i64, i64, i64, i64, i64, i64, i64, ctypes.POINTER(ctypes.c_int16),
+            ]
+            lib.jpeg_decode_progressive.restype = i64
+            lib.j2k_t1_decode.argtypes = [u8, i64p, i64, ctypes.POINTER(ctypes.c_int32)]
+            lib.j2k_t1_decode.restype = i64
             _lib = lib
         return _lib
 
@@ -183,6 +193,64 @@ def jpeg_decode_scan(
     return out
 
 
+def jpeg_decode_progressive(
+    data: np.ndarray,
+    offsets: np.ndarray,
+    luts: np.ndarray,
+    block_comp: np.ndarray,
+    restart_interval: int,
+    n_mcus: int,
+    progression: tuple,
+    blocks: np.ndarray,
+) -> np.ndarray:
+    """Entropy-decode one progressive (SOF2, Huffman) scan into ``blocks``
+    (int16 ``[n_mcus * blocks_per_mcu, 64]``, natural order, the coefficients
+    decoded so far; updated and returned). ``progression`` is the scan's (Ss,
+    Se, Ah, Al); the other arguments are ``jpeg_decode_scan``'s. Raises
+    ``ValueError`` as ``io/jpeg.py::_decode_progressive`` does."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    luts = np.ascontiguousarray(luts, dtype=np.uint16)
+    block_comp = np.ascontiguousarray(block_comp, dtype=np.int32)
+    if luts.ndim != 2 or luts.shape[1] != 1 << 16 or luts.shape[0] < 2 * (block_comp.max() + 1):
+        raise ValueError(f"expected [2 * ns, 65536] tables, got {luts.shape}")
+    if blocks.dtype != np.int16 or not blocks.flags.c_contiguous \
+            or blocks.shape != (n_mcus * len(block_comp), 64):
+        raise ValueError(f"expected contiguous int16 blocks [{n_mcus * len(block_comp)}, 64]")
+    ss, se, ah, al = (int(v) for v in progression)
+    got = load().jpeg_decode_progressive(
+        _ptr(data, ctypes.c_uint8), _ptr(offsets, ctypes.c_int64), len(offsets) - 1,
+        _ptr(luts, ctypes.c_uint16), _ptr(block_comp, ctypes.c_int32), len(block_comp),
+        restart_interval, n_mcus, ss, se, ah, al, _ptr(blocks, ctypes.c_int16),
+    )
+    if got == -1:
+        raise ValueError("Invalid Huffman code")
+    if got == -2:
+        raise ValueError("Coefficient run past the end of a block")
+    if got == -3 or got < n_mcus:
+        raise ValueError(f"Truncated scan: {max(got, 0)}/{n_mcus} MCUs")
+    return blocks
+
+
+def j2k_t1_decode(data: np.ndarray, blocks: np.ndarray, total: int) -> np.ndarray:
+    """JPEG 2000 tier-1 of every code-block of a tile (code-block style 0),
+    OpenMP over the blocks: int32 ``[total]``, each block's ``[height,
+    width]`` values in the decoder's doubled magnitudes at its output
+    offset. ``blocks`` rows: data offset, length, width, height, orientation
+    (0 LL, 1 HL, 2 LH, 3 HH), bit-planes (0: not included), coding passes,
+    output offset. ``io/jpeg2000.py::_t1_decode_block`` is the plain
+    version."""
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    blocks = np.ascontiguousarray(blocks, dtype=np.int64).reshape(-1, 8)
+    if blocks.size and (int((blocks[:, 0] + blocks[:, 1]).max()) > data.size
+                        or int((blocks[:, 7] + blocks[:, 2] * blocks[:, 3]).max()) > total):
+        raise ValueError("a code-block outside the data or the output")
+    out = np.zeros(max(total, 1), dtype=np.int32)
+    load().j2k_t1_decode(_ptr(data, ctypes.c_uint8), _ptr(blocks, ctypes.c_int64),
+                         len(blocks), _ptr(out, ctypes.c_int32))
+    return out[:total]
+
+
 def normalize_minmax_u8(array: np.ndarray) -> np.ndarray:
     """Min-max normalise any array to uint8 in the C++ library's f32 steps:
     ``inv = 255 / (hi - lo)`` in f32, then ``(x - lo) * inv`` truncated; a
@@ -245,6 +313,8 @@ def resize_bilinear_u8(images: np.ndarray, out_h: int, out_w: int) -> np.ndarray
 __all__ = [
     "assemble_t2t1t2",
     "build",
+    "j2k_t1_decode",
+    "jpeg_decode_progressive",
     "jpegls_decode_diffs",
     "jpegls_unstuff_split",
     "load",

@@ -1,5 +1,6 @@
-// Host-side JPEG entropy decoders: JPEG-Lossless (SOF3) for
-// io/jpeg_lossless.py and baseline Huffman (SOF0/SOF1) for io/jpeg.py.
+// Host-side entropy decoders: JPEG-Lossless (SOF3) for io/jpeg_lossless.py,
+// baseline and progressive Huffman JPEG for io/jpeg.py and JPEG 2000 tier-1
+// (the MQ decoder and the coding passes) for io/jpeg2000.py.
 //
 // The JPEG-Lossless functions are a copy of those of
 // spine_vision_tpu/native/src/host_ops.cpp. Python decodes one Huffman symbol
@@ -11,6 +12,7 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 extern "C" {
 
@@ -213,6 +215,409 @@ int64_t jpeg_decode_scan(const uint8_t* data, const int64_t* offsets,
     }
   }
   return mcu;
+}
+
+
+// Progressive JPEG (SOF2, Huffman) entropy decode of one scan into the
+// coefficients decoded so far, following libjpeg's jdphuff.c: DC first and
+// refinement, AC first and refinement (EOB runs, correction bits). The plain
+// Python version is io/jpeg.py's _decode_progressive.
+// data, offsets, n_chunks: jpegls_unstuff_split's restart-interval chunks.
+// luts: uint16 [2 * ns, 65536] as jpeg_decode_scan's (a table the scan does
+//   not use may be all zeros).
+// block_comp, blocks_per_mcu, restart_interval, n_mcus: as jpeg_decode_scan's;
+//   the DC predictions and the EOB run reset at each chunk.
+// ss, se, ah, al: the scan's spectral selection and successive approximation.
+// blocks: int16 [n_mcus * blocks_per_mcu, 64], natural order, updated in place.
+// Returns the number of MCUs decoded (== n_mcus on success); -1 on an invalid
+// Huffman code, -2 on a run past the 63rd coefficient, -3 when a chunk's codes
+// run past its last byte.
+int64_t jpeg_decode_progressive(const uint8_t* data, const int64_t* offsets,
+                                int64_t n_chunks, const uint16_t* luts,
+                                const int32_t* block_comp, int64_t blocks_per_mcu,
+                                int64_t restart_interval, int64_t n_mcus, int64_t ss,
+                                int64_t se, int64_t ah, int64_t al, int16_t* blocks) {
+  const int32_t p1 = 1 << al, m1 = -(1 << al);
+  int64_t mcu = 0;
+  for (int64_t ch = 0; ch < n_chunks && mcu < n_mcus; ++ch) {
+    const uint8_t* p = data + offsets[ch];
+    const int64_t nbytes = offsets[ch + 1] - offsets[ch];
+    const int64_t nbits = nbytes * 8;
+    int64_t pos = 0;
+    int32_t pred[4] = {0, 0, 0, 0};
+    int64_t eobrun = 0;
+    auto bits = [&](int n) -> int32_t {
+      if (n == 0) return 0;
+      const int32_t v = static_cast<int32_t>(jpegls_peek_bits(p, nbytes, pos, n));
+      pos += n;
+      return v;
+    };
+    auto symbol = [&](const uint16_t* table) -> int {
+      const uint16_t entry = table[jpegls_peek_bits(p, nbytes, pos, 16)];
+      if ((entry >> 8) == 0) return -1;
+      pos += entry >> 8;
+      return entry & 0xFF;
+    };
+    auto correct = [&](int16_t& c) {
+      if (bits(1) && (c & p1) == 0) c = static_cast<int16_t>(c + (c >= 0 ? p1 : m1));
+    };
+    const int64_t limit = restart_interval == 0
+                              ? n_mcus
+                              : std::min(n_mcus, mcu + restart_interval);
+    for (; mcu < limit; ++mcu) {
+      for (int64_t b = 0; b < blocks_per_mcu; ++b) {
+        const int comp = block_comp[b];
+        const uint16_t* dc = luts + (2 * comp) * 65536;
+        const uint16_t* ac = dc + 65536;
+        int16_t* blk = blocks + (mcu * blocks_per_mcu + b) * 64;
+        if (ss == 0 && ah == 0) {  // DC first
+          const int s = symbol(dc);
+          if (s < 0 || s > 16) return -1;
+          if (s) pred[comp] += jpeg_extend(static_cast<uint32_t>(bits(s)), s);
+          blk[0] = static_cast<int16_t>(static_cast<uint32_t>(pred[comp]) << al);
+        } else if (ss == 0) {  // DC refinement
+          if (bits(1)) blk[0] = static_cast<int16_t>(blk[0] | p1);
+        } else if (ah == 0) {  // AC first
+          if (eobrun) {
+            --eobrun;
+            continue;
+          }
+          for (int64_t k = ss; k <= se; ++k) {
+            const int rs = symbol(ac);
+            if (rs < 0) return -1;
+            const int r = rs >> 4, s = rs & 15;
+            if (s) {
+              k += r;
+              if (k > 63) return -2;
+              const int32_t v = jpeg_extend(static_cast<uint32_t>(bits(s)), s);
+              blk[kJpegNatural[k]] = static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+            } else if (r == 15) {
+              k += 15;
+            } else {
+              eobrun = (int64_t{1} << r) + bits(r) - 1;
+              break;
+            }
+          }
+        } else {  // AC refinement
+          int64_t k = ss;
+          if (eobrun == 0) {
+            for (; k <= se; ++k) {
+              const int rs = symbol(ac);
+              if (rs < 0) return -1;
+              int r = rs >> 4;
+              int32_t s = rs & 15;
+              if (s) {
+                s = bits(1) ? p1 : m1;
+              } else if (r != 15) {
+                eobrun = (int64_t{1} << r) + bits(r);
+                break;
+              }
+              do {
+                int16_t& c = blk[kJpegNatural[k]];
+                if (c != 0) {
+                  correct(c);
+                } else if (--r < 0) {
+                  break;
+                }
+                ++k;
+              } while (k <= se);
+              if (s) {
+                if (k > 63) return -2;
+                blk[kJpegNatural[k]] = static_cast<int16_t>(s);
+              }
+            }
+          }
+          if (eobrun > 0) {
+            for (; k <= se; ++k) {
+              int16_t& c = blk[kJpegNatural[k]];
+              if (c != 0) correct(c);
+            }
+            --eobrun;
+          }
+        }
+        if (pos > nbits) return -3;
+      }
+    }
+  }
+  return mcu;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// JPEG 2000 tier-1 (T.800 Annex C and D, code-block style 0): the MQ decoder
+// and the significance, refinement and cleanup passes of one code-block, as
+// OpenJPEG's opj_t1_decode_cblk decodes them. io/jpeg2000.py's
+// _t1_decode_block is its plain Python version.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+const uint16_t kMqQe[47] = {
+    0x5601, 0x3401, 0x1801, 0x0AC1, 0x0521, 0x0221, 0x5601, 0x5401, 0x4801, 0x3801,
+    0x3001, 0x2401, 0x1C01, 0x1601, 0x5601, 0x5401, 0x5101, 0x4801, 0x3801, 0x3401,
+    0x3001, 0x2801, 0x2401, 0x2201, 0x1C01, 0x1801, 0x1601, 0x1401, 0x1201, 0x1101,
+    0x0AC1, 0x09C1, 0x08A1, 0x0521, 0x0441, 0x02A1, 0x0221, 0x0141, 0x0111, 0x0085,
+    0x0049, 0x0025, 0x0015, 0x0009, 0x0005, 0x0001, 0x5601};
+const uint8_t kMqNmps[47] = {1,  2,  3,  4,  5,  38, 7,  8,  9,  10, 11, 12, 13, 29, 15, 16,
+                             17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32,
+                             33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 45, 46};
+const uint8_t kMqNlps[47] = {1,  6,  9,  12, 29, 33, 6,  14, 14, 14, 17, 18, 20, 21, 14, 14,
+                             15, 16, 17, 18, 19, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29,
+                             30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 46};
+const uint8_t kMqSwitch[47] = {1, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 1};
+
+enum { kCtxSc = 9, kCtxMag = 14, kCtxRl = 17, kCtxUni = 18 };
+
+// Zero-coding context by orientation (0 LL, 1 HL, 2 LH, 3 HH) and the
+// significant neighbours: [orient][h][v][d] (T.800 Table D.1).
+struct ZcTable {
+  uint8_t ctx[4][3][3][5];
+  ZcTable() {
+    for (int o = 0; o < 4; ++o)
+      for (int h = 0; h < 3; ++h)
+        for (int v = 0; v < 3; ++v)
+          for (int d = 0; d < 5; ++d) {
+            const int hh = o == 1 ? v : h, vv = o == 1 ? h : v;
+            int c;
+            if (o == 3) {
+              const int hv = hh + vv;
+              if (d >= 3) c = 8;
+              else if (d == 2) c = hv >= 1 ? 7 : 6;
+              else if (d == 1) c = hv >= 2 ? 5 : hv == 1 ? 4 : 3;
+              else c = hv >= 2 ? 2 : hv;
+            } else if (hh == 2) {
+              c = 8;
+            } else if (hh == 1) {
+              c = vv >= 1 ? 7 : d >= 1 ? 6 : 5;
+            } else if (vv == 2) {
+              c = 4;
+            } else if (vv == 1) {
+              c = 3;
+            } else {
+              c = d >= 2 ? 2 : d;
+            }
+            ctx[o][h][v][d] = static_cast<uint8_t>(c);
+          }
+  }
+};
+const ZcTable kZc;
+
+// Sign coding (Table D.3) by (hc + 1) * 3 + (vc + 1): context and XOR bit.
+const uint8_t kScCtx[9] = {13, 12, 11, 10, 9, 10, 11, 12, 13};
+const uint8_t kScXor[9] = {1, 1, 1, 1, 0, 0, 0, 0, 0};
+
+// The MQ decoder (T.800 C.3) over a buffer that ends in 0xFF 0xFF.
+struct MqDecoder {
+  const uint8_t* buf;
+  int64_t bp = 0;
+  uint32_t c = 0, a = 0x8000;
+  int ct = 0;
+  uint8_t state[19] = {0};
+  uint8_t mps[19] = {0};
+
+  MqDecoder(const uint8_t* b, int64_t len) : buf(b) {
+    c = len ? static_cast<uint32_t>(buf[0]) << 16 : 0xFFu << 16;
+    bytein();
+    c <<= 7;
+    ct -= 7;
+    state[0] = 4;
+    state[kCtxRl] = 3;
+    state[kCtxUni] = 46;
+  }
+
+  void bytein() {
+    if (buf[bp] == 0xFF) {
+      if (buf[bp + 1] > 0x8F) {
+        c += 0xFF00;
+        ct = 8;
+      } else {
+        ++bp;
+        c += static_cast<uint32_t>(buf[bp]) << 9;
+        ct = 7;
+      }
+    } else {
+      ++bp;
+      c += static_cast<uint32_t>(buf[bp]) << 8;
+      ct = 8;
+    }
+  }
+
+  int decode(int cx) {
+    const int s = state[cx];
+    const uint32_t qe = kMqQe[s];
+    int d;
+    a -= qe;
+    if ((c >> 16) < qe) {
+      if (a < qe) {
+        d = mps[cx];
+        state[cx] = kMqNmps[s];
+      } else {
+        d = 1 - mps[cx];
+        if (kMqSwitch[s]) mps[cx] = static_cast<uint8_t>(d);
+        state[cx] = kMqNlps[s];
+      }
+      a = qe;
+    } else {
+      c -= qe << 16;
+      if (a & 0x8000) return mps[cx];
+      if (a < qe) {
+        d = 1 - mps[cx];
+        if (kMqSwitch[s]) mps[cx] = static_cast<uint8_t>(d);
+        state[cx] = kMqNlps[s];
+      } else {
+        d = mps[cx];
+        state[cx] = kMqNmps[s];
+      }
+    }
+    do {
+      if (ct == 0) bytein();
+      a <<= 1;
+      c <<= 1;
+      --ct;
+    } while ((a & 0x8000) == 0);
+    return d;
+  }
+};
+
+// Each coefficient's state, one word: the significance of its 8 neighbours
+// (bits 0-7), the sign of its 4 direct neighbours where significant (8-11),
+// its own significance, sign, visit in this bit-plane's significance pass
+// and first refinement (12-15). A coefficient that becomes significant sets
+// its bits in its neighbours' words, so a context is a table lookup.
+enum : uint16_t {
+  kN = 1, kS = 2, kW = 4, kE = 8, kNW = 16, kNE = 32, kSW = 64, kSE = 128,
+  kNegN = 256, kNegS = 512, kNegW = 1024, kNegE = 2048,
+  kSig = 4096, kNeg = 8192, kPi = 16384, kMu = 32768,
+};
+
+struct ContextTables {
+  uint8_t zc[4][256];   // zero coding by orientation and neighbour significance
+  uint8_t sc[4096];     // sign coding context by the low 12 bits
+  uint8_t sx[4096];     // its XOR bit
+  ContextTables() {
+    for (int o = 0; o < 4; ++o)
+      for (int f = 0; f < 256; ++f) {
+        const int h = !!(f & kW) + !!(f & kE), v = !!(f & kN) + !!(f & kS);
+        const int d = !!(f & kNW) + !!(f & kNE) + !!(f & kSW) + !!(f & kSE);
+        zc[o][f] = kZc.ctx[o][h][v][d];
+      }
+    for (int f = 0; f < 4096; ++f) {
+      auto contribution = [&](uint16_t sig, uint16_t neg) {
+        return (f & sig) ? ((f & neg) ? -1 : 1) : 0;
+      };
+      int hc = contribution(kW, kNegW) + contribution(kE, kNegE);
+      int vc = contribution(kN, kNegN) + contribution(kS, kNegS);
+      hc = hc < -1 ? -1 : hc > 1 ? 1 : hc;
+      vc = vc < -1 ? -1 : vc > 1 ? 1 : vc;
+      const int k = (hc + 1) * 3 + vc + 1;
+      sc[f] = kScCtx[k];
+      sx[f] = kScXor[k];
+    }
+  }
+};
+const ContextTables kCtx;
+
+void j2k_decode_block(const uint8_t* data, int64_t len, int w, int h, int orient, int nbps,
+                      int passes, int32_t* out) {
+  std::memset(out, 0, sizeof(int32_t) * w * h);
+  if (nbps <= 0 || passes <= 0 || w == 0 || h == 0) return;
+  std::vector<uint8_t> buf(len + 2, 0xFF);
+  if (len) std::memcpy(buf.data(), data, len);
+  MqDecoder mq(buf.data(), len);
+  const int W = w + 2;  // one guard column each side, one guard row above and below
+  std::vector<uint16_t> flags(W * (h + 2), 0);
+  std::vector<int32_t> val(W * (h + 2), 0);
+  uint16_t* f = flags.data();
+  const uint8_t* zc = kCtx.zc[orient & 3];
+
+  auto significant = [&](int i, int32_t value) {
+    const int low = f[i] & 0xFFF;
+    const int s = mq.decode(kCtx.sc[low]) ^ kCtx.sx[low];
+    val[i] = s ? -value : value;
+    f[i] |= kSig | (s ? kNeg : 0);
+    f[i - W - 1] |= kSE;
+    f[i - W + 1] |= kSW;
+    f[i + W - 1] |= kNE;
+    f[i + W + 1] |= kNW;
+    f[i - W] |= kS | (s ? kNegS : 0);
+    f[i + W] |= kN | (s ? kNegN : 0);
+    f[i - 1] |= kE | (s ? kNegE : 0);
+    f[i + 1] |= kW | (s ? kNegW : 0);
+  };
+
+  int bpno = nbps;
+  int pass_type = 2;  // cleanup first
+  for (int p = 0; p < passes && bpno >= 1; ++p) {
+    const int32_t one = static_cast<int32_t>(1u << bpno);
+    const int32_t half = one >> 1;
+    const int32_t oneplushalf = one | half;
+    for (int k = 0; k < h; k += 4) {
+      const int kend = k + 4 < h ? k + 4 : h;
+      for (int x = 0; x < w; ++x) {
+        const int i0 = (k + 1) * W + x + 1;
+        int y = k;
+        if (pass_type == 2 && k + 4 <= h &&
+            !((f[i0] | f[i0 + W] | f[i0 + 2 * W] | f[i0 + 3 * W]) & (0xFF | kSig | kPi))) {
+          if (!mq.decode(kCtxRl)) continue;  // no PI flag to clear in a quiet column
+          int run = mq.decode(kCtxUni) << 1;
+          run |= mq.decode(kCtxUni);
+          significant(i0 + run * W, oneplushalf);
+          y = k + run + 1;
+        }
+        for (int yy = y; yy < kend; ++yy) {
+          const int i = i0 + (yy - k) * W;
+          const uint16_t fi = f[i];
+          if (pass_type == 0) {
+            if (!(fi & (kSig | kPi)) && (fi & 0xFF)) {
+              if (mq.decode(zc[fi & 0xFF])) significant(i, oneplushalf);
+              f[i] |= kPi;
+            }
+          } else if (pass_type == 1) {
+            if ((fi & (kSig | kPi)) == kSig) {
+              const int ctx = (fi & kMu) ? kCtxMag + 2 : kCtxMag + ((fi & 0xFF) ? 1 : 0);
+              const int v = mq.decode(ctx);
+              val[i] += (v ^ (val[i] < 0)) ? half : -half;
+              f[i] |= kMu;
+            }
+          } else if (!(fi & (kSig | kPi))) {
+            if (mq.decode(zc[fi & 0xFF])) significant(i, oneplushalf);
+          }
+        }
+        if (pass_type == 2)
+          for (int yy = k; yy < kend; ++yy) f[i0 + (yy - k) * W] &= ~kPi;
+      }
+    }
+    if (++pass_type == 3) {
+      pass_type = 0;
+      --bpno;
+    }
+  }
+  for (int yy = 0; yy < h; ++yy)
+    std::memcpy(out + yy * w, val.data() + (yy + 1) * W + 1, sizeof(int32_t) * w);
+}
+
+}  // namespace
+
+extern "C" {
+
+// data: every code-block's bytes, concatenated.
+// blocks: int64 [n_blocks, 8]: data offset, length, width, height,
+//   orientation (0 LL, 1 HL, 2 LH, 3 HH), bit-planes (Mb less the zero
+//   bit-planes; 0: not included), coding passes, output offset.
+// out: int32, each block's [height, width] decoded values (the decoder's
+//   doubled magnitudes, signed) at its output offset.
+// Returns 0. Code-blocks are independent: OpenMP runs them in parallel.
+int64_t j2k_t1_decode(const uint8_t* data, const int64_t* blocks, int64_t n_blocks,
+                      int32_t* out) {
+#pragma omp parallel for schedule(dynamic, 1)
+  for (int64_t b = 0; b < n_blocks; ++b) {
+    const int64_t* r = blocks + 8 * b;
+    j2k_decode_block(data + r[0], r[1], static_cast<int>(r[2]), static_cast<int>(r[3]),
+                     static_cast<int>(r[4]), static_cast<int>(r[5]), static_cast<int>(r[6]),
+                     out + r[7]);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -53,6 +53,7 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.infer.serve, spine_vision_torch.data.builders\n"
         "import spine_vision_torch.data.rsna, spine_vision_torch.data.phenikaa\n"
         "import spine_vision_torch.parallel, spine_vision_torch.io.jpeg\n"
+        "import spine_vision_torch.io.jpeg2000\n"
         "import spine_vision_torch.cli, spine_vision_torch.cli.train\n"
         "import spine_vision_torch.viz, spine_vision_torch.viz.tracker\n"
         "import spine_vision_torch.train.ocr, spine_vision_torch.ops.ctc\n"

@@ -612,46 +612,82 @@ def test_dicom_datasets_match_jax(tmp_path, case):
     _assert_same_image(tdcm.read_dicom_file(path), jdcm.read_dicom_file(path))
 
 
+def _outcome(fn):
+    """``fn()``'s value, or the type of what it raised."""
+    try:
+        return fn()
+    except Exception as exc:  # noqa: BLE001 - the error is the outcome
+        return type(exc)
+
+
+def _j2k_frame(ts: str, shape: tuple, rng) -> bytes:
+    """A JPEG 2000 frame as a .90 (5/3) or .91 (9/7) DICOM file carries it:
+    a 12-bit gray frame (decoded by Pillow as ``x << 4``) or an RGB one."""
+    import io as _io
+
+    from fixtures.torch_jpeg2000.generate import encode_12_bit
+    from PIL import Image
+
+    lossy = ts.endswith(".91")
+    kw = {"irreversible": True, "quality_layers": [20]} if lossy else {}
+    if len(shape) == 2:
+        return encode_12_bit(rng.integers(0, 4096, shape).astype(np.uint16), **kw)
+    buf = _io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
+        buf, "JPEG2000", no_jp2=True, **kw)
+    return buf.getvalue()
+
+
 @pytest.mark.parametrize("ts", ["1.2.840.10008.1.2.4.50", "1.2.840.10008.1.2.4.51",
                                 "1.2.840.10008.1.2.4.90", "1.2.840.10008.1.2.4.91"])
 def test_pil_transfer_syntaxes_raise_before_decoding(tmp_path, ts):
-    """Frames the JAX package hands to PIL: baseline and extended JPEG (.50,
-    .51) decode to the JAX package's arrays, a gray frame and an RGB one
-    (converted to L), in a single file and in a series; JPEG 2000 (.90, .91)
-    raises NotImplementedError naming the syntax and the ROADMAP item before
-    any pixel is read."""
+    """Frames the JAX package hands to PIL decode to the JAX package's
+    arrays (none raises any more; the name is kept so the test's history
+    stays one), a gray frame and an RGB one, in a single file and in a series:
+    baseline and extended JPEG (.50, .51) converted to L; JPEG 2000 (.90,
+    .91) in Pillow's own mode (a 12-bit gray frame as ``x << 4`` uint16, an
+    RGB frame as uint8 [1, rows, cols, 3]), with the same outcome for the series
+    (the RGB series raises where the JAX package raises)."""
     import io as _io
 
     from PIL import Image
 
-    if ts.endswith((".90", ".91")):
-        frag = b"\xff\xd8\xff\xd9"  # never parsed
-        path = tmp_path / "s" / "a.dcm"
-        path.parent.mkdir()
-        path.write_bytes(_part10(ts, _image_module(4, 4) + _encapsulated([frag])))
-        with pytest.raises(NotImplementedError, match=f"{ts}.*item 13"):
-            tdcm.DicomFile(path).pixel_array()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tio.read_medical_image(path.parent)
-        return
+    j2k = ts.endswith((".90", ".91"))
     rng = np.random.default_rng(int(ts[-2:]))
     rows, cols = 21, 19
     for k, shape in enumerate(((rows, cols), (rows, cols, 3))):
         series = tmp_path / f"s{k}"
         series.mkdir()
         for i in range(3):
-            buf = _io.BytesIO()
-            Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
-                buf, "JPEG", quality=80)
-            module = _image_module(rows, cols, bits=8).replace(
+            if j2k:
+                frame = _j2k_frame(ts, shape, rng)
+                frame += b"\x00" * (len(frame) % 2)
+            else:
+                buf = _io.BytesIO()
+                Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(
+                    buf, "JPEG", quality=80)
+                frame = buf.getvalue()
+            module = _image_module(rows, cols, bits=16 if j2k else 8).replace(
                 b"1\\2\\3 ", f"1\\2\\{i + 3} ".encode())
             path = series / f"{i}.dcm"
-            path.write_bytes(_part10(ts, module + _encapsulated([buf.getvalue()])))
+            path.write_bytes(_part10(ts, module + _encapsulated([frame])))
             got = tdcm.DicomFile(path).pixel_array()
             want = jdcm.DicomFile(path).pixel_array()
-            assert got.dtype == want.dtype == np.uint8 and got.shape == (rows, cols)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            if j2k:
+                # The JAX package squeezes a single frame of [1, rows, cols]
+                # only: an RGB frame stays [1, rows, cols, 3].
+                assert got.dtype == (np.uint16 if len(shape) == 2 else np.uint8)
+                assert got.shape == (shape if len(shape) == 2 else (1, *shape))
+            else:
+                assert got.dtype == np.uint8 and got.shape == (rows, cols)
             np.testing.assert_array_equal(got, want)
-        _assert_same_image(tio.read_medical_image(series), jio.read_medical_image(series))
+        got = _outcome(lambda: tio.read_medical_image(series))
+        want = _outcome(lambda: jio.read_medical_image(series))
+        if isinstance(want, type):
+            assert got is want or issubclass(got, want), (got, want)
+        else:
+            _assert_same_image(got, want)
 
 
 def test_pdf_raises_the_reference_import_error(tmp_path):

@@ -1,6 +1,6 @@
 """``spine_vision_torch/io/jpeg.py`` against Pillow, bit for bit.
 
-The port decodes baseline JPEG where the JAX package calls
+The port decodes baseline and progressive JPEG where the JAX package calls
 ``np.asarray(Image.open(f))`` and ``.convert("L")`` or ``.convert("RGB")``.
 Every case encodes a seeded image with Pillow and holds the port's decode
 (the C++ entropy decoder and its plain Python version) and its ``to_mode``
@@ -168,6 +168,57 @@ def test_committed_fixtures_decode_to_the_record(name):
     np.testing.assert_array_equal(got, _pillow(data))
 
 
+@pytest.mark.parametrize("restart", [{}, {"restart_marker_blocks": 1},
+                                     {"restart_marker_rows": 1}])
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("quality", [5, 75, 100])
+@pytest.mark.parametrize("sampling", list(SAMPLINGS))
+def test_progressive_matches_pillow(sampling, quality, optimize, restart):
+    """Progressive JPEG (libjpeg's scan script: spectral selection and
+    successive approximation): gray and each chroma sampling, at odd sizes;
+    a complete file is never block-smoothed, so it is Pillow's bit for bit.
+    The plain Python decoder runs on the two smallest sizes."""
+    for size in ((1, 1), (17, 9), (37, 53)):
+        shape = size if sampling == "gray" else (*size, 3)
+        kw = {} if sampling == "gray" else {"subsampling": SAMPLINGS[sampling]}
+        data = _encode(_image(shape, quality + size[1]), quality=quality, progressive=True,
+                       optimize=optimize, **restart, **kw)
+        assert b"\xff\xc2" in data
+        if size == (37, 53):
+            np.testing.assert_array_equal(tj.decode_jpeg(data), _pillow(data))
+            for mode in ("L", "RGB"):
+                np.testing.assert_array_equal(tj.to_mode(tj.decode_jpeg(data), mode),
+                                              _pillow(data, mode))
+        else:
+            _assert_matches_pillow(data)
+
+
+def test_progressive_native_matches_plain_on_corrupt_scans():
+    """The C++ progressive decoder and the Python version on scans with
+    flipped bytes: the same coefficients, or the same error."""
+    rng = np.random.default_rng(21)
+    data = _encode(_image((24, 40, 3), 22), quality=90, progressive=True)
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    outcomes = set()
+    for trial in range(12):
+        bad = bytearray(data)
+        start = sos[trial % len(sos)] + 14
+        for at in rng.integers(start, min(start + 30, len(data) - 2), 3):
+            bad[at] = rng.integers(0, 255) if bad[at - 1] != 0xFF else bad[at]
+        results = []
+        for plain in (False, True):
+            try:
+                results.append(tj.decode_jpeg(bytes(bad), plain=plain))
+            except tj.JpegError as exc:
+                results.append(str(exc))
+        if isinstance(results[0], str):  # the same error (the C++ one counts no MCUs)
+            assert results[0].split(":")[:2] == results[1].split(":")[:2]
+        else:
+            np.testing.assert_array_equal(results[0], results[1])
+        outcomes.add(isinstance(results[0], str))
+    assert outcomes == {False, True}
+
+
 def test_fixture_generator_record():
     from fixtures.torch_jpeg import generate
 
@@ -185,11 +236,14 @@ def _patched(data: bytes, old: bytes, new: bytes) -> bytes:
 @pytest.mark.parametrize("case", ["progressive", "arithmetic", "12_bit", "cmyk", "lossless",
                                   "sampling_4"])
 def test_unsupported_frames_raise_item_13(case):
+    """Frames the port has no decoder for raise item 13; progressive frames,
+    which it now decodes, decode to Pillow's array instead."""
     img = _image((24, 24, 3), 11)
     data = _encode(img, quality=80)
     if case == "progressive":
-        data = _encode(img, quality=80, progressive=True)
-    elif case == "arithmetic":
+        _assert_matches_pillow(_encode(img, quality=80, progressive=True))
+        return
+    if case == "arithmetic":
         data = _patched(data, b"\xff\xc0", b"\xff\xc9")
     elif case == "12_bit":
         data = _patched(data, b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c")
@@ -218,10 +272,10 @@ def test_malformed_streams_raise_an_oserror():
 
 @pytest.mark.parametrize("mode", ["color", "gray"])
 def test_dataset_image_store_reads_jpeg_as_cv2(tmp_path, mode):
-    """The datasets' image store reads a baseline JPEG as the JAX datasets'
-    ``cv2.imread`` does: libjpeg's RGB, or its grayscale output (the Y
-    plane, not Pillow's ``convert("L")``); 8-bit JPEG Lossless, which cv2
-    does not read, raises."""
+    """The datasets' image store reads a baseline or progressive JPEG as the
+    JAX datasets' ``cv2.imread`` does: libjpeg's RGB, or its grayscale output
+    (the Y plane, not Pillow's ``convert("L")``); 8-bit JPEG Lossless, which
+    cv2 does not read, raises."""
     import cv2
 
     from spine_vision_torch.data.datasets import read_image
@@ -230,7 +284,11 @@ def test_dataset_image_store_reads_jpeg_as_cv2(tmp_path, mode):
     flag = cv2.IMREAD_COLOR if mode == "color" else cv2.IMREAD_GRAYSCALE
     for i, (shape, kw) in enumerate([((40, 52), {}), ((40, 52, 3), {"subsampling": 2}),
                                      ((33, 47, 3), {"subsampling": 0}),
-                                     ((33, 47, 3), {"subsampling": 1}), ((9, 8, 3), {})]):
+                                     ((33, 47, 3), {"subsampling": 1}), ((9, 8, 3), {}),
+                                     ((40, 52), {"progressive": True}),
+                                     ((33, 47, 3), {"progressive": True, "subsampling": 2}),
+                                     ((21, 30, 3), {"progressive": True, "subsampling": 0,
+                                                    "restart_marker_blocks": 2})]):
         path = tmp_path / f"{i}.jpg"
         path.write_bytes(_encode(_image(shape, 20 + i), quality=80, **kw))
         want = cv2.imread(str(path), flag)

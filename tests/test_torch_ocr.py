@@ -66,11 +66,13 @@ def test_report_files(extractor, tmp_path, caplog):
     lines = extractor.extract_lines(path)
     assert extractor.extract(path) == [t for t, _ in lines]
     assert all(q.shape == (4, 2) for _, q in lines)
-    # A JPEG page reads as the JAX package's Image.open(...).convert("RGB");
+    # A JPEG page (baseline or progressive) reads as the JAX package's
+    # Image.open(...).convert("RGB");
     # a truncated one warns and gives no lines, as there.
     from PIL import Image
 
-    for name, kw in (("scan.jpg", {"quality": 92}), ("scan.jpeg", {"subsampling": 0})):
+    for name, kw in (("scan.jpg", {"quality": 92}), ("scan.jpeg", {"subsampling": 0}),
+                     ("scan_p.jpg", {"progressive": True, "quality": 90})):
         Image.open(path).convert("RGB").save(tmp_path / name, "JPEG", **kw)
         page = np.asarray(Image.open(tmp_path / name).convert("RGB"))
         got = extractor.extract_lines(tmp_path / name)

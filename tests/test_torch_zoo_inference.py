@@ -91,6 +91,36 @@ def test_regressor_test_inference_matches_jax(tmp_path):
     np.testing.assert_allclose(got["coordinates"], np.asarray(direct), atol=1e-5)
 
 
+def test_jpeg2000_and_progressive_inputs_match_jax(tmp_path):
+    """JPEG 2000 files (a 12-bit raw codestream, Pillow's I;16, an RGB JP2,
+    an LA codestream) and a progressive JPEG give the JAX package's images
+    (``Image.open(f).convert("RGB")``) and outputs."""
+    import io as _io
+
+    from fixtures.torch_jpeg2000.generate import encode_12_bit
+
+    port, ref, variables = _pair("regressor")
+    rng = np.random.default_rng(5)
+    files = []
+    (tmp_path / "a.j2k").write_bytes(
+        encode_12_bit(rng.integers(0, 4096, (40, 36)).astype(np.uint16)))
+    files.append(tmp_path / "a.j2k")
+    for name, shape, mode, kw in (("b.jp2", (33, 47, 3), None, {"irreversible": True}),
+                                  ("c.bin", (29, 31, 2), "LA", {"no_jp2": True})):
+        buf = _io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8), mode).save(
+            buf, "JPEG2000", **kw)
+        (tmp_path / name).write_bytes(buf.getvalue())
+        files.append(tmp_path / name)
+    Image.fromarray(rng.integers(0, 256, (45, 38, 3), dtype=np.uint8)).save(
+        tmp_path / "p.jpg", "JPEG", progressive=True, quality=85)
+    files.append(tmp_path / "p.jpg")
+    got = tinf.regressor_test_inference(port, files, image_size=(32, 32))
+    want = jinf.regressor_test_inference(ref, variables, files, image_size=(32, 32))
+    np.testing.assert_array_equal(got["images"], want["images"])
+    np.testing.assert_allclose(got["coordinates"], want["coordinates"], atol=1e-5)
+
+
 def test_unsupported_inputs_raise(tmp_path):
     """JPEG files (named by content, as Pillow tells them apart) give the JAX
     package's images and outputs; a truncated JPEG raises an OSError in both
