@@ -16,6 +16,7 @@
     python3 chip_smoke.py --f32-only   # the f32 forms of #1 and #5-#10 and their paths
     python3 chip_smoke.py --cli-only   # the port's command line (and the JPEG decoder) alone
     python3 chip_smoke.py --codecs-only  # JPEG 2000 DICOM and progressive JPEG inputs alone
+    python3 chip_smoke.py --pdf-only   # PDF reports: render, OCR, dataset phenikaa -> builder
 
 Phases, each of which raises (and so exits non-zero) on any fault:
 
@@ -255,6 +256,18 @@ Phases, each of which raises (and so exits non-zero) on any fault:
    of the same decoded arrays; the ``test`` command's path on JPEG 2000 and
    progressive files with the f32 regressor; the launches of #1 and #2 (and
    #1's f32 form) counted as the path ``codecs``.
+22. PDF reports (``pdf``, after phase 21, also alone with ``--pdf-only``,
+   which checks #1 and #2 first for its ``kernels`` line; see
+   ``pdf_phase``): the committed fixtures (``tests/fixtures/torch_pdf``)
+   rendered at 200 dpi by the port (no PyMuPDF) against their record, the
+   C++ scan converter, resamplers and G4 decoder against their plain
+   versions bit for bit, ms a page (parse, interpretation, image decode,
+   rasterisation) for a vector and a scanned A4 report; the shipped OCR on
+   the card reading each report (the ID through
+   ``DEFAULT_PDF_ID_CROP_REGION``'s crop, the three fields on the page);
+   ``dataset phenikaa`` over four patient-named PDF reports, every patient
+   matched through the crop path, then ``dataset classification`` over them
+   (#1 and #2 counted as the path ``pdf``).
 
 Each phase prints its wall time.
 
@@ -4655,6 +4668,235 @@ def codecs_phase(device, card: str, io: dict | None = None) -> dict:
             "files_to_results_ms": e2e}
 
 
+# The pdf phase: PDF report pages rendered by the port (io/pdf.py, no
+# PyMuPDF) on the card's host, read by the OCR on the card, and driven
+# through ``dataset phenikaa`` into the classification builder's forwards.
+PDF_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_pdf"
+PDF_REPS = 3
+PDF_TIMED = {"vector A4 report": "report_type42.pdf", "scanned A4 page": "scan_a4_200.pdf"}
+
+
+def _pdf_render_check(tag: str, card: str) -> dict:
+    """(a) Every committed fixture at the record's dpi: each page's shape and
+    sha256 those of ``tests/fixtures/torch_pdf/record.json`` and the C++ raster
+    steps' pages equal to the plain numpy versions'; the C++ G4 decoder equal
+    to the plain one on the bilevel page; each unsupported file raising
+    ROADMAP Queue 1 item 13; a page tree with no pages giving None. Then ms a
+    page (median of ``PDF_REPS``) of parsing, interpretation, image decode
+    and rasterisation for a vector A4 report and a scanned A4 page."""
+    import hashlib
+
+    import numpy as np
+
+    from spine_vision_torch import native
+    from spine_vision_torch.io import pdf as tpdf
+    from spine_vision_torch.io import pdf_parse, pdf_render
+
+    record = json.loads((PDF_FIXTURES / "record.json").read_text())
+    dpi = record["dpi"]
+    t0 = time.perf_counter()
+    n_pages = 0
+    for name, want in record["pages"].items():
+        got = tpdf.pdf_to_arrays(PDF_FIXTURES / name, dpi)
+        plain = tpdf.pdf_to_arrays(PDF_FIXTURES / name, dpi, plain=True)
+        if len(got) != len(want) or len(plain) != len(want):
+            raise AssertionError(f"{tag} {name}: {len(got)} pages, the record {len(want)}")
+        for page, page_plain, entry in zip(got, plain, want):
+            if [list(page.shape), hashlib.sha256(page.tobytes()).hexdigest()] != [
+                    entry["shape"], entry["sha256"]]:
+                raise AssertionError(f"{tag} {name}: {page.shape} not the record's render")
+            if not np.array_equal(page, page_plain):
+                raise AssertionError(f"{tag} {name}: the C++ raster differs from the plain one")
+            n_pages += 1
+    for name, words in record["unsupported"].items():
+        try:
+            tpdf.pdf_to_arrays(PDF_FIXTURES / name, dpi)
+        except NotImplementedError as exc:
+            if "item 13" not in str(exc) or words.lower() not in str(exc).lower():
+                raise AssertionError(f"{tag} {name}: {exc}") from exc
+        else:
+            raise AssertionError(f"{tag} {name} rendered; it must raise item 13")
+    for name in record["no_pages"]:
+        if tpdf.pdf_first_page_to_array(PDF_FIXTURES / name, dpi) is not None:
+            raise AssertionError(f"{tag} {name}: a page from an empty page tree")
+    doc = tpdf.open_pdf(PDF_FIXTURES / "raster_bilevel_200.pdf")
+    image = doc.resolve(doc.resolve(doc.pages()[0]["Resources"])["XObject"]["image"])
+    parm = pdf_parse.stream_filters(image)[1][0]
+    fast = native.pdf_g4_decode(image.raw, int(parm["Columns"]), int(parm["Rows"]))
+    if not np.array_equal(fast, pdf_parse.g4_decode_plain(image.raw, int(parm["Columns"]),
+                                                          int(parm["Rows"]))):
+        raise AssertionError(f"{tag} the C++ G4 decoder differs from the plain one")
+    check_s = time.perf_counter() - t0
+    print(f"{tag} (1) {n_pages} pages of {len(record['pages'])} fixtures at {dpi} dpi: the "
+          f"record's shapes and sha256, C++ equal to plain (raster steps and G4) bit for bit; "
+          f"{len(record['unsupported'])} unsupported files raise item 13 ({check_s:.2f} s, "
+          "both renders of each)")
+    ms: dict = {}
+    for kind, name in PDF_TIMED.items():
+        runs: dict = {"parse": [], "interpret": [], "decode": [], "raster": [], "page": []}
+        for _ in range(PDF_REPS):
+            start = time.perf_counter()
+            doc = tpdf.open_pdf(PDF_FIXTURES / name)
+            pages = doc.pages()
+            parse = time.perf_counter() - start
+            stats: dict = {}
+            pdf_render.render_page(doc, pages[0], dpi, stats=stats)
+            runs["parse"].append(parse)
+            runs["decode"].append(stats["decode_s"])
+            runs["raster"].append(stats["raster_s"])
+            runs["interpret"].append(stats["render_s"] - stats["raster_s"] - stats["decode_s"])
+            runs["page"].append(parse + stats["render_s"])
+        ms[kind] = {k: float(np.median(v)) * 1e3 for k, v in runs.items()}
+        print(f"{tag} {kind} ({name}, {dpi} dpi): page {ms[kind]['page']:.3f} ms = parse "
+              f"{ms[kind]['parse']:.3f} + interpretation {ms[kind]['interpret']:.3f} + image "
+              f"decode {ms[kind]['decode']:.3f} + rasterisation {ms[kind]['raster']:.3f} ms "
+              f"(median of {PDF_REPS}) on the host of {card}")
+    return ms
+
+
+def pdf_phase(device, card: str, io: dict | None = None) -> dict:
+    """PDF reports on the card (``--pdf-only`` runs it alone).
+
+    (1) ``_pdf_render_check``: the committed fixtures rendered on the card's
+    host against the record, C++ against plain, and the times a page. (2)
+    ``DocumentExtractor`` on the card with the shipped weights: each report's
+    ID through ``extract_from_pdf_crop`` with ``DEFAULT_PDF_ID_CROP_REGION``
+    and its three fields through ``extract_from_pdf``, the record's; the
+    OCR's ms of a crop and of a page. (3) ``spine-vision-torch --device cuda
+    dataset phenikaa`` in process over the four patient-named PDF reports
+    (three vector, one scanned) beside their study folders (volume_io's
+    DICOM series 0-3) and decoys: every patient matched through the crop
+    path's ID; then ``dataset classification`` over the matched patients
+    with a seeded ConvNeXt-base checkpoint (the builders'), #1 33 and #2 3
+    launches a forward, a crop for each level of each series. Returns the
+    phase's launches and times."""
+    import numpy as np
+    import torch
+
+    from spine_vision_torch import cli
+    from spine_vision_torch.data import builders
+    from spine_vision_torch.data.phenikaa import (
+        DEFAULT_PDF_ID_CROP_REGION,
+        PatientNamedReportProcessor,
+        PreprocessConfig,
+    )
+    from spine_vision_torch.data.phenikaa.matching import ascii_fold
+    from spine_vision_torch.data.phenikaa.ocr import DocumentExtractor
+    from spine_vision_torch.io import pdf as tpdf
+
+    tag = "[pdf]"
+    on_card = torch.device(device).type == "cuda"
+    record = json.loads((PDF_FIXTURES / "record.json").read_text())
+    ms = _pdf_render_check(tag, card)
+
+    # (2) The OCR on the card.
+    extractor = DocumentExtractor(device=device)
+    for name, f in record["reports"].items():
+        crop = extractor.extract_from_pdf_crop(PDF_FIXTURES / name, DEFAULT_PDF_ID_CROP_REGION)
+        text = " ".join(extractor.extract_from_pdf(PDF_FIXTURES / name))
+        if crop != [f"Số phiếu: {f['id']}"] or any(f[k] not in text
+                                                   for k in ("id", "name", "birthday")):
+            raise AssertionError(f"{tag} {name}: crop {crop}, page {text!r}; want {f}")
+    page = tpdf.pdf_first_page_to_array(PDF_FIXTURES / "report_type42.pdf", record["dpi"])
+    x1, y1, x2, y2 = DEFAULT_PDF_ID_CROP_REGION
+    ocr_ms = {"crop": _host_ms(lambda: extractor.extract_from_image(page[y1:y2, x1:x2]),
+                               PDF_REPS)[0],
+              "page": _host_ms(lambda: extractor.extract_from_image(page), PDF_REPS)[0]}
+    print(f"{tag} (2) the shipped OCR read the {len(record['reports'])} reports: "
+          f"each ID through the {x2 - x1}x{y2 - y1} crop, name, birthday and ID on the page; "
+          f"OCR {ocr_ms['crop']:.3f} ms a crop, {ocr_ms['page']:.3f} ms an A4 page (median of "
+          f"{PDF_REPS}) on {card}")
+    del extractor
+
+    # (3) dataset phenikaa from PDF reports, then dataset classification.
+    paths = _io_files(tag)[1] if io is None else io["paths"]
+    root = RUN_DIR / "pdf"
+    shutil.rmtree(root, ignore_errors=True)
+    raw, base = root / "raw", root / "base"
+    reports = raw / "labels" / "reports"
+    reports.mkdir(parents=True)
+    rng = np.random.default_rng(25)
+    rows, want_ids = [], {}
+    for k, (name, f) in enumerate(sorted(record["reports"].items())):
+        day, month, year = f["birthday"].split("/")
+        folder = "_".join(ascii_fold(f["name"]).upper().split())
+        stem = f"{folder}_{day}{month}{year}"
+        shutil.copy(PDF_FIXTURES / name, reports / f"{stem}.pdf")
+        want_ids[stem] = int(f["id"])
+        study = raw / "images" / f"{folder}_{year}_2024010{k + 1}"
+        for series in ("t1", "t2"):
+            (study / f"SAG {series.upper()}").parent.mkdir(parents=True, exist_ok=True)
+            (study / f"SAG {series.upper()}").symlink_to(Path(paths[k][series]).resolve(),
+                                                         target_is_directory=True)
+        for decoy in (f"{folder}_{int(year) + 10}_2024020{k + 1}",
+                      f"PHAM_VAN_BINH_{year}_2024030{k + 1}"):
+            (raw / "images" / decoy).mkdir(parents=True, exist_ok=True)
+        rows += [{"Patient ID": f["id"], "IVD label": level, **_grades(rng),
+                  "Modic": int(rng.integers(0, 4))} for level in range(1, 6)]
+    rows.append({"Patient ID": "250000001", "IVD label": 1, **_grades(rng), "Modic": 0})
+    _write_csv(raw / "labels" / "tables" / "labels.csv", rows)
+    crop_ids: dict = {}
+    inner = PatientNamedReportProcessor._extract_id_from_pdf_crop
+
+    def recorded(self, report_path, extractor):
+        crop_ids[Path(report_path).stem] = inner(self, report_path, extractor)
+        return crop_ids[Path(report_path).stem]
+
+    total = dict.fromkeys(KERNEL_COUNTERS, 0)
+    seconds = {}
+
+    def run(*argv) -> dict:
+        _zero_counts()
+        start = time.perf_counter()
+        rc = cli.cli(["--device", torch.device(device).type, *map(str, argv)])
+        if on_card:
+            torch.cuda.synchronize()
+        seconds[" ".join(map(str, argv[:2]))] = time.perf_counter() - start
+        counts = _counts()
+        for key, n in counts.items():
+            total[key] += n
+        if rc != 0:
+            raise AssertionError(f"{tag} {argv[:2]} returned {rc}")
+        return counts
+
+    pre = PreprocessConfig(data_path=raw, output_path=base / "interim" / "Phenikaa")
+    PatientNamedReportProcessor._extract_id_from_pdf_crop = recorded
+    try:
+        run("dataset", "phenikaa", "--data-path", pre.data_path, "--output-path",
+            pre.output_path)
+    finally:
+        PatientNamedReportProcessor._extract_id_from_pdf_crop = inner
+    copied = sorted(p.name for p in pre.output_image_path.iterdir())
+    if crop_ids != want_ids or copied != sorted(str(v) for v in want_ids.values()):
+        raise AssertionError(f"{tag} dataset phenikaa: crop-path IDs {crop_ids}, want "
+                             f"{want_ids}; copied {copied}")
+    print(f"{tag} (3) dataset phenikaa: {len(want_ids)} patient-named PDF reports, every ID "
+          f"read through the crop path ({sorted(crop_ids.values())}), each patient's study "
+          f"folder copied among decoys, in {seconds['dataset phenikaa']:.2f} s on {card}")
+    ckpt = root / "loc_run" / "best_model"
+    _loc_checkpoint(device, ckpt)
+    counts = run("dataset", "classification", "--base-path", base,
+                 "--localization-model-path", ckpt, "--localization-backbone", "convnext_base",
+                 "--device-batch-size", BUILD_BATCH, "--no-include-spider")
+    n_series = 2 * len(want_ids)
+    forwards = -(-n_series // BUILD_BATCH)
+    out = builders.ClassificationDatasetConfig(base_path=base).output_path
+    crops = _read_csv(out / "annotations.csv")
+    if len(crops) != 5 * n_series or {r["patient_id"] for r in crops} != {
+            str(v) for v in want_ids.values()}:
+        raise AssertionError(f"{tag} dataset classification: {len(crops)} crops")
+    if on_card and counts != {k: v * forwards for k, v in INFERENCE_LAUNCHES.items()}:
+        raise AssertionError(f"{tag} dataset classification: launches {counts}, expected "
+                             f"{INFERENCE_LAUNCHES} a forward over {forwards}")
+    print(f"{tag} dataset classification: {n_series} series of the matched patients, "
+          f"{len(crops)} crops in {seconds['dataset classification']:.2f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} } over {forwards} forward(s) on {card}")
+    print(f"{tag} kernels " + json.dumps({"path": "pdf",
+                                          "launches": {k: v for k, v in total.items() if v}}))
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": total, "page_ms": ms, "ocr_ms": ocr_ms, "seconds": seconds}
+
+
 # The ocr phase: report OCR with the shipped weights on the card, held to the
 # JAX package's record of the fixture pages (tests/fixtures/torch_ocr).
 OCR_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_ocr"
@@ -6023,6 +6265,9 @@ def main() -> int:
                         help="build the kernels and run only the cli phase (no kernels line)")
     parser.add_argument("--codecs-only", action="store_true",
                         help="build the kernels and run only the codecs phase (no kernels line)")
+    parser.add_argument("--pdf-only", action="store_true",
+                        help="build the kernels, check #1 and #2 and run only the pdf phase "
+                             "(a kernels line of #1 and #2 with the phase's launches)")
     parser.add_argument("--ddp-rank", help=argparse.SUPPRESS)  # a rank of the ddp phase
     opts = parser.parse_args()
     if opts.ddp_rank:
@@ -6108,6 +6353,18 @@ def main() -> int:
         print(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s")
         phase("codecs", codecs_phase, device, card)
         return verdict()
+    if opts.pdf_only:
+        t0 = time.perf_counter()
+        cuda_build.build_all()
+        print(f"[build] {len(cuda_build.SOURCES)} sources built in {time.perf_counter() - t0:.1f} s")
+        report = phase("inference kernels", kernel_phase, device)
+        launches = phase("pdf", pdf_phase, device, card)["launches"]
+        shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
+        # The rows of #1 and #2 on the other paths' shapes keep their paths,
+        # not run here.
+        paths = {key.partition("@")[2]: None for key in report if "@" in key}
+        paths.update({"study_inference": None, "pdf": launches})
+        return _kernels_line(report, paths, {}, {}) or verdict()
 
     t0 = time.perf_counter()
     cuda_build.build_all()
@@ -6136,7 +6393,7 @@ def main() -> int:
     phase("f32 kernels", f32_kernel_phase, device, report)
     probe_counts, probe_rows = phase("probes", probe_phase, device)
     paths = {"study_inference": None, "volume_io": None, "serve": None, "builders": None,
-             "cli": None, "codecs": None,
+             "cli": None, "codecs": None, "pdf": None,
              **{p: None for p in TRAIN_PATHS},
              "grad_check_mlp_no_layer_scale": None, "cls_train": None,
              "cls_convnext_hybrid": None, "parity": None, "file_backed": None, "ocr": None,
@@ -6151,6 +6408,7 @@ def main() -> int:
         paths["builders"] = phase("builders", builders_phase, device, card, io)["launches"]
         paths["cli"] = phase("cli", cli_phase, device, card, io)["launches"]
         paths["codecs"] = phase("codecs", codecs_phase, device, card, io)["launches"]
+        paths["pdf"] = phase("pdf", pdf_phase, device, card, io)["launches"]
         del io
         shutil.rmtree(RUN_DIR / "volume_io", ignore_errors=True)
         for path, grad_mode in (("train_step", "hybrid"), ("train_step_dwconv", True),

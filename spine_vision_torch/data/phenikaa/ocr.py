@@ -15,13 +15,14 @@ unless asked for the CPU.
 
 Files: PNG pages (``data/png.py``, cv2's ``IMREAD_COLOR`` read) and JPEG
 pages, baseline or progressive (``io/jpeg.py``, Pillow's ``convert("RGB")``
-read). A PDF goes through ``io/pdf.py``, which raises ``ImportError`` (the port does not
-import PyMuPDF): ``extract_from_pdf*`` raise it, and ``extract`` or
-``extract_lines`` of a ``.pdf`` warn and return ``[]``, as the JAX package
-does without PyMuPDF. Other raster formats (TIFF, ...) raise
-``NotImplementedError`` naming ROADMAP Queue 1 item 13, before any decode,
-so a missing decoder never reads as an empty page; a corrupt PNG or JPEG
-gives a warning and ``[]``, as in the JAX package.
+read). A PDF's first page is rendered by ``io/pdf.py`` (the port's own
+renderer, where the JAX package calls PyMuPDF) at ``pdf_dpi``, RGB as
+PyMuPDF's pixmap; a page tree with no pages gives ``[]``. Other raster
+formats (TIFF, ...) raise ``NotImplementedError`` naming ROADMAP Queue 1
+item 13, before any decode, and so does a PDF feature the renderer lacks,
+through ``extract`` too, so a missing decoder never reads as an empty page;
+a corrupt PDF, PNG or JPEG gives a warning and ``[]``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -295,7 +296,7 @@ class DocumentExtractor:
         suffix = path.suffix.lower()
         if suffix not in (".pdf", ".png", ".jpg", ".jpeg"):
             raise NotImplementedError(
-                f"{path.name}: the port decodes PNG and JPEG report pages only; "
+                f"{path.name}: the port reads PDF, PNG and JPEG report pages only; "
                 "other raster formats wait for a decoder (ROADMAP Queue 1 item 13)"
             )
         try:
@@ -305,6 +306,8 @@ class DocumentExtractor:
             if suffix == ".png":
                 return self.extract_lines_from_image(read_png(path, mode="color"))
             return self.extract_lines_from_image(read_jpeg(path, mode="RGB"))
+        except NotImplementedError:
+            raise  # a feature the port's decoders lack: never an empty page
         except Exception as exc:  # noqa: BLE001 — isolate bad files
             logger.warning("OCR failed for %s: %s", path, exc)
             return []

@@ -5,7 +5,8 @@ DICOM (single files, series assembly, RLE and JPEG Lossless frames), NIfTI-1,
 MetaImage (.mha/.mhd) and NRRD, each returning a :class:`MedicalImage` with
 ITK-convention geometry; the isotropic middle sagittal slice of a series
 (``io/series.py``, its products on the card); CSV label tables without pandas
-(``io/tabular.py``). PDF rendering raises ``ImportError`` (``io/pdf.py``).
+(``io/tabular.py``). PDF pages are rendered without PyMuPDF (``io/pdf.py``
+over ``io/pdf_parse.py``, ``io/pdf_fonts.py`` and ``io/pdf_render.py``).
 """
 
 from spine_vision_torch.io.dicom import read_dicom_file, read_dicom_series

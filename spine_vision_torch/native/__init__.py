@@ -9,7 +9,11 @@ Counterpart of ``spine_vision_tpu/native/__init__.py``:
   sequential and progressive Huffman decoders (the port's own; the JAX
   package hands these JPEGs to Pillow), ``j2k_t1_decode``
   its JPEG 2000 tier-1 (the MQ decoder and the coding passes, OpenMP over
-  code-blocks; the JAX package hands JPEG 2000 to Pillow). It compiles with
+  code-blocks; the JAX package hands JPEG 2000 to Pillow), ``pdf_coverage``,
+  ``pdf_composite``, ``pdf_resample_axes``, ``pdf_resample_affine`` and
+  ``pdf_g4_decode`` the PDF rasteriser's scan converter, compositor, image
+  resamplers and CCITT Group 4 decoder (the JAX package hands PDF to
+  PyMuPDF). It compiles with
   ``g++ -O3 -fopenmp -shared -fPIC`` at first use into
   ``build/spine_vision_torch/libhost_ops-<hash>.so`` at the repository root
   (the hash covers the source and the flags, so an edited source rebuilds).
@@ -99,6 +103,21 @@ def load() -> ctypes.CDLL:
             lib.jpeg_decode_progressive.restype = i64
             lib.j2k_t1_decode.argtypes = [u8, i64p, i64, ctypes.POINTER(ctypes.c_int32)]
             lib.j2k_t1_decode.restype = i64
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.pdf_coverage.argtypes = [i32p, i64, ctypes.c_int32, i64, i64, i64, i64, u8]
+            lib.pdf_coverage.restype = i64
+            lib.pdf_composite.argtypes = [u8, i64, i64, i64, i64, i64, i64, u8, u8, u8,
+                                          ctypes.c_int32, u8, i64, i64, i64, i64]
+            lib.pdf_composite.restype = i64
+            lib.pdf_resample_axes.argtypes = [u8, i64, i64, i64, i32p, i32p, i64, i64, i32p,
+                                              i32p, i64, i64, u8]
+            lib.pdf_resample_axes.restype = i64
+            lib.pdf_resample_affine.argtypes = [u8, i64, i64, i64, i64p, i64, i64, i64, i64,
+                                                u8, u8]
+            lib.pdf_resample_affine.restype = i64
+            lib.pdf_g4_decode.argtypes = [u8, i64, i64, i64, ctypes.c_int32, i32p, i32p, i32p,
+                                          u8, i64, i64p]
+            lib.pdf_g4_decode.restype = i64
             _lib = lib
         return _lib
 
@@ -251,6 +270,109 @@ def j2k_t1_decode(data: np.ndarray, blocks: np.ndarray, total: int) -> np.ndarra
     return out[:total]
 
 
+def _c(arr: np.ndarray, dtype) -> np.ndarray:
+    return np.ascontiguousarray(arr, dtype=dtype)
+
+
+def _opt(arr: np.ndarray | None, ctype):
+    return None if arr is None else _ptr(arr, ctype)
+
+
+def pdf_coverage(edges: np.ndarray, even_odd: bool, box: tuple) -> np.ndarray:
+    """Antialiased coverage, uint8 ``[bh, bw]``, of the pixels of ``box``
+    (bx, by, bw, bh) by the polygons of ``edges`` (int32 ``[n, 5]``: x0, y0,
+    x1, y1 in 1/256 pixel with y0 < y1, and the winding), 16 x 16 samples a
+    pixel, nonzero or even-odd. ``io/pdf_render.py::coverage_plain`` is the
+    plain version."""
+    edges = _c(edges, np.int32).reshape(-1, 5)
+    bx, by, bw, bh = (int(v) for v in box)
+    cov = np.zeros((bh, bw), np.uint8)
+    if bw > 0 and bh > 0:
+        load().pdf_coverage(_ptr(edges, ctypes.c_int32), len(edges), int(even_odd), bx, by, bw,
+                            bh, _ptr(cov, ctypes.c_uint8))
+    return cov
+
+
+def pdf_composite(page: np.ndarray, box: tuple, cov: np.ndarray, src: np.ndarray | None,
+                  rgb: tuple, alpha: int, clip: tuple | None) -> None:
+    """Composite ``src`` (uint8 ``[bh, bw, 3]``) or the colour ``rgb`` with
+    coverage ``cov`` onto ``page`` (uint8 ``[H, W, 3]``, in place) at
+    ``box``, under ``clip`` ((cx, cy, mask) or None) and ``alpha`` (0-255).
+    ``io/pdf_render.py::composite_plain`` is the plain version."""
+    if not page.flags.c_contiguous or page.dtype != np.uint8:
+        raise ValueError("the page must be contiguous uint8")
+    bx, by, bw, bh = (int(v) for v in box)
+    cov = _c(cov, np.uint8)
+    src = None if src is None else _c(src, np.uint8)
+    colour = np.asarray((0, 0, 0) if rgb is None else rgb, np.uint8)
+    cx = cy = cw = ch = 0
+    mask = None
+    if clip is not None:
+        cx, cy, mask = clip
+        mask = _c(mask, np.uint8)
+        ch, cw = mask.shape
+    load().pdf_composite(_ptr(page, ctypes.c_uint8), page.shape[1], page.shape[0], bx, by, bw,
+                         bh, _ptr(cov, ctypes.c_uint8), _opt(src, ctypes.c_uint8),
+                         _ptr(colour, ctypes.c_uint8), int(alpha), _opt(mask, ctypes.c_uint8),
+                         int(cx), int(cy), cw, ch)
+
+
+def pdf_resample_axes(src: np.ndarray, xtab: tuple, ytab: tuple) -> np.ndarray:
+    """Separable resampling of ``src`` (uint8 ``[sh, sw, nc]``) by weight
+    tables (indices and 14-bit weights, int32 ``[n, taps]``, a row summing
+    to 1 << 14): uint8 ``[bh, bw, nc]``. ``io/pdf_render.py::resample_axes_plain``
+    is the plain version."""
+    src = _c(src, np.uint8)
+    sh, sw, nc = src.shape
+    xi, xw = (_c(t, np.int32) for t in xtab)
+    yi, yw = (_c(t, np.int32) for t in ytab)
+    out = np.empty((yi.shape[0], xi.shape[0], nc), np.uint8)
+    load().pdf_resample_axes(_ptr(src, ctypes.c_uint8), sh, sw, nc, _ptr(xi, ctypes.c_int32),
+                             _ptr(xw, ctypes.c_int32), xi.shape[0], xi.shape[1],
+                             _ptr(yi, ctypes.c_int32), _ptr(yw, ctypes.c_int32), yi.shape[0],
+                             yi.shape[1], _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def pdf_resample_affine(src: np.ndarray, m: np.ndarray, box: tuple) -> tuple:
+    """Bilinear resampling of ``src`` (uint8 ``[sh, sw, nc]``) through the
+    fixed-point map ``m`` (int64 [6]: a page pixel's centre in 1/65536
+    source pixels) over ``box``: (uint8 ``[bh, bw, nc]``, mask ``[bh, bw]``).
+    ``io/pdf_render.py::resample_affine_plain`` is the plain version."""
+    src = _c(src, np.uint8)
+    sh, sw, nc = src.shape
+    m = _c(m, np.int64)
+    bx, by, bw, bh = (int(v) for v in box)
+    out = np.empty((bh, bw, nc), np.uint8)
+    mask = np.empty((bh, bw), np.uint8)
+    load().pdf_resample_affine(_ptr(src, ctypes.c_uint8), sh, sw, nc, _ptr(m, ctypes.c_int64),
+                               bx, by, bw, bh, _ptr(out, ctypes.c_uint8),
+                               _ptr(mask, ctypes.c_uint8))
+    return out, mask
+
+
+def pdf_g4_decode(data: bytes, columns: int, rows: int, byte_align: bool = False) -> np.ndarray:
+    """CCITT Group 4 decode: uint8 ``[rows, columns]``, 1 where a pixel is
+    black (``rows`` 0: to the end of the data). Raises as
+    ``io/pdf_parse.py::g4_decode_plain``, its plain version, does."""
+    from spine_vision_torch.io.pdf_parse import PdfError, g4_tables, unsupported
+
+    white, black, modes = g4_tables()
+    raw = np.frombuffer(bytes(data), np.uint8)
+    max_rows = rows if rows > 0 else max(1, raw.size * 8)
+    out = np.zeros((max_rows, columns), np.uint8)
+    bad = np.zeros(1, np.int64)
+    got = load().pdf_g4_decode(_ptr(_c(raw, np.uint8), ctypes.c_uint8), raw.size, columns, rows,
+                               int(byte_align), _ptr(white, ctypes.c_int32),
+                               _ptr(black, ctypes.c_int32), _ptr(modes, ctypes.c_int32),
+                               _ptr(out, ctypes.c_uint8), max_rows, _ptr(bad, ctypes.c_int64))
+    if got == -2:
+        raise unsupported("a CCITT extension code")
+    if got < 0:
+        raise PdfError(f"corrupt CCITT G4 data at row {int(bad[0])}")
+    return out if rows > 0 else out[:got]
+
+
 def normalize_minmax_u8(array: np.ndarray) -> np.ndarray:
     """Min-max normalise any array to uint8 in the C++ library's f32 steps:
     ``inv = 255 / (hi - lo)`` in f32, then ``(x - lo) * inv`` truncated; a
@@ -319,5 +441,10 @@ __all__ = [
     "jpegls_unstuff_split",
     "load",
     "normalize_minmax_u8",
+    "pdf_composite",
+    "pdf_coverage",
+    "pdf_g4_decode",
+    "pdf_resample_affine",
+    "pdf_resample_axes",
     "resize_bilinear_u8",
 ]

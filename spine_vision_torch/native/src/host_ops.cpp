@@ -621,3 +621,301 @@ int64_t j2k_t1_decode(const uint8_t* data, const int64_t* blocks, int64_t n_bloc
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// PDF page rasterisation for io/pdf_render.py: the scan converter (coverage
+// of an edge list), the compositor, the image resamplers and the CCITT
+// Group 4 decoder of io/pdf_parse.py. Integers only, in an order that does
+// not matter to the result, so the plain numpy versions in io/pdf_render.py
+// and io/pdf_parse.py give the same bytes on any host.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+inline int64_t floordiv(int64_t a, int64_t b) {  // b > 0
+  int64_t q = a / b;
+  if ((a % b) != 0 && (a < 0)) --q;
+  return q;
+}
+
+struct PdfEdge {
+  int64_t s0, s1, x0, y0, x1, y1, w;
+};
+
+}  // namespace
+
+extern "C" {
+
+// Coverage of the pixels [bx, bx + bw) x [by, by + bh) by the polygons of
+// `edges` (n rows of x0, y0, x1, y1, winding in 1/256 pixel, y0 < y1):
+// 16 x 16 samples a pixel at the sample centres ((16 k + 8) / 256), nonzero
+// (rule 0) or even-odd (rule 1); cov = (samples * 255 + 128) >> 8.
+int64_t pdf_coverage(const int32_t* edges, int64_t n, int32_t rule, int64_t bx,
+                     int64_t by, int64_t bw, int64_t bh, uint8_t* cov) {
+  const int64_t s_lo = by * 16, s_hi = (by + bh) * 16, k_hi = bw * 16;
+  std::vector<PdfEdge> es;
+  es.reserve(n);
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t* e = edges + 5 * i;
+    int64_t s0 = floordiv(int64_t(e[1]) + 7, 16), s1 = floordiv(int64_t(e[3]) + 7, 16);
+    s0 = std::max(s0, s_lo);
+    s1 = std::min(s1, s_hi);
+    if (s0 >= s1) continue;
+    es.push_back({s0, s1, e[0], e[1], e[2], e[3], e[4]});
+  }
+  std::sort(es.begin(), es.end(),
+            [](const PdfEdge& a, const PdfEdge& b) { return a.s0 < b.s0; });
+  std::vector<int32_t> diff(bw + 1), extra(bw + 1);
+  std::vector<std::pair<int64_t, int64_t>> xs;
+  std::vector<const PdfEdge*> active;
+  size_t next = 0;
+  for (int64_t py = by; py < by + bh; ++py) {
+    std::fill(diff.begin(), diff.end(), 0);
+    std::fill(extra.begin(), extra.end(), 0);
+    for (int64_t s = py * 16; s < py * 16 + 16; ++s) {
+      while (next < es.size() && es[next].s0 <= s) active.push_back(&es[next++]);
+      size_t keep = 0;
+      for (size_t i = 0; i < active.size(); ++i)
+        if (active[i]->s1 > s) active[keep++] = active[i];
+      active.resize(keep);
+      if (active.empty()) continue;
+      const int64_t ys = s * 16 + 8;
+      xs.clear();
+      for (const PdfEdge* e : active) {
+        const int64_t x = e->x0 + floordiv((ys - e->y0) * (e->x1 - e->x0), e->y1 - e->y0);
+        int64_t k = floordiv(x + 7, 16) - bx * 16;
+        k = std::min(std::max(k, int64_t(0)), k_hi);
+        xs.push_back({k, e->w});
+      }
+      std::sort(xs.begin(), xs.end());
+      int64_t wsum = 0;
+      for (size_t i = 0; i + 1 < xs.size(); ++i) {
+        wsum += xs[i].second;
+        const bool inside = rule ? (wsum & 1) != 0 : wsum != 0;
+        if (!inside) continue;
+        const int64_t ka = xs[i].first, kb = xs[i + 1].first;
+        if (ka == kb) continue;
+        diff[kb >> 4] -= 16;
+        extra[kb >> 4] += int32_t(kb & 15);
+        diff[ka >> 4] += 16;
+        extra[ka >> 4] -= int32_t(ka & 15);
+      }
+    }
+    int32_t run = 0;
+    uint8_t* row = cov + (py - by) * bw;
+    for (int64_t p = 0; p < bw; ++p) {
+      run += diff[p];
+      const int32_t count = run + extra[p];
+      row[p] = uint8_t((count * 255 + 128) >> 8);
+    }
+  }
+  return 0;
+}
+
+// Composite onto the RGB page (H x W x 3) over [bx, bx + bw) x [by, by + bh):
+// a = cov, times the clip mask (ch x cw at cx, cy; 0 outside it; none when
+// clip is null) / 255, times alpha / 255, each rounded; the colour is src
+// (bh x bw x 3) or rgb; d = (d (255 - a) + s a + 127) / 255.
+int64_t pdf_composite(uint8_t* page, int64_t W, int64_t H, int64_t bx, int64_t by,
+                      int64_t bw, int64_t bh, const uint8_t* cov, const uint8_t* src,
+                      const uint8_t* rgb, int32_t alpha, const uint8_t* clip, int64_t cx,
+                      int64_t cy, int64_t cw, int64_t ch) {
+  for (int64_t y = 0; y < bh; ++y) {
+    const int64_t py = by + y;
+    if (py < 0 || py >= H) continue;
+    for (int64_t x = 0; x < bw; ++x) {
+      const int64_t px = bx + x;
+      if (px < 0 || px >= W) continue;
+      int32_t a = cov[y * bw + x];
+      if (clip) {
+        const int64_t mx = px - cx, my = py - cy;
+        const int32_t m = (mx >= 0 && mx < cw && my >= 0 && my < ch) ? clip[my * cw + mx] : 0;
+        a = (a * m + 127) / 255;
+      }
+      a = (a * alpha + 127) / 255;
+      if (a == 0) continue;
+      uint8_t* d = page + (py * W + px) * 3;
+      const uint8_t* s = src ? src + (y * bw + x) * 3 : rgb;
+      for (int c = 0; c < 3; ++c) d[c] = uint8_t((d[c] * (255 - a) + s[c] * a + 127) / 255);
+    }
+  }
+  return 0;
+}
+
+// Separable resampling by weight tables (14-bit weights summing to 1 << 14
+// a row of a table): out[i, j, c] = (sum_t yw[i, t] sum_u xw[j, u]
+// src[yi[i, t], xi[j, u], c] + (1 << 27)) >> 28.
+int64_t pdf_resample_axes(const uint8_t* src, int64_t sh, int64_t sw, int64_t nc,
+                          const int32_t* xi, const int32_t* xw, int64_t bw, int64_t kx,
+                          const int32_t* yi, const int32_t* yw, int64_t bh, int64_t ky,
+                          uint8_t* out) {
+  int64_t r_lo = sh, r_hi = -1;
+  for (int64_t i = 0; i < bh * ky; ++i) {
+    if (yw[i] == 0) continue;
+    r_lo = std::min<int64_t>(r_lo, yi[i]);
+    r_hi = std::max<int64_t>(r_hi, yi[i]);
+  }
+  if (r_hi < r_lo) {
+    std::memset(out, 0, size_t(bh * bw * nc));
+    return 0;
+  }
+  const int64_t rows = r_hi - r_lo + 1;
+  std::vector<int32_t> tmp(size_t(rows * bw * nc));
+#pragma omp parallel for schedule(static)
+  for (int64_t r = 0; r < rows; ++r) {
+    const uint8_t* s = src + (r_lo + r) * sw * nc;
+    int32_t* t = tmp.data() + r * bw * nc;
+    for (int64_t j = 0; j < bw; ++j)
+      for (int64_t c = 0; c < nc; ++c) {
+        int32_t acc = 0;
+        for (int64_t u = 0; u < kx; ++u) acc += xw[j * kx + u] * s[xi[j * kx + u] * nc + c];
+        t[j * nc + c] = acc;
+      }
+  }
+#pragma omp parallel for schedule(static)
+  for (int64_t i = 0; i < bh; ++i)
+    for (int64_t j = 0; j < bw; ++j)
+      for (int64_t c = 0; c < nc; ++c) {
+        int64_t acc = 0;
+        for (int64_t t = 0; t < ky; ++t) {
+          const int32_t w = yw[i * ky + t];
+          if (w) acc += int64_t(w) * tmp[((yi[i * ky + t] - r_lo) * bw + j) * nc + c];
+        }
+        out[(i * bw + j) * nc + c] = uint8_t((acc + (int64_t(1) << 27)) >> 28);
+      }
+  return 0;
+}
+
+// Bilinear resampling through an affine map in 1/65536 source pixels: the
+// centre of page pixel (X, Y) is at u = m0 X + m1 Y + m2, v = m3 X + m4 Y +
+// m5; mask 255 where 0 <= u < sw and 0 <= v < sh, else 0 (out 0 there).
+int64_t pdf_resample_affine(const uint8_t* src, int64_t sh, int64_t sw, int64_t nc,
+                            const int64_t* m, int64_t bx, int64_t by, int64_t bw,
+                            int64_t bh, uint8_t* out, uint8_t* mask) {
+  const int64_t one = 65536;
+#pragma omp parallel for schedule(static)
+  for (int64_t y = 0; y < bh; ++y)
+    for (int64_t x = 0; x < bw; ++x) {
+      const int64_t X = bx + x, Y = by + y;
+      const int64_t u = m[0] * X + m[1] * Y + m[2], v = m[3] * X + m[4] * Y + m[5];
+      uint8_t* o = out + (y * bw + x) * nc;
+      if (u < 0 || v < 0 || u >= sw * one || v >= sh * one) {
+        mask[y * bw + x] = 0;
+        for (int64_t c = 0; c < nc; ++c) o[c] = 0;
+        continue;
+      }
+      mask[y * bw + x] = 255;
+      const int64_t uu = u - one / 2, vv = v - one / 2;
+      int64_t i0 = floordiv(uu, one), j0 = floordiv(vv, one);
+      const int64_t fu = uu - i0 * one, fv = vv - j0 * one;
+      int64_t i1 = std::min(i0 + 1, sw - 1), j1 = std::min(j0 + 1, sh - 1);
+      i0 = std::max<int64_t>(i0, 0);
+      j0 = std::max<int64_t>(j0, 0);
+      i1 = std::max<int64_t>(i1, 0);
+      j1 = std::max<int64_t>(j1, 0);
+      for (int64_t c = 0; c < nc; ++c) {
+        const int64_t s00 = src[(j0 * sw + i0) * nc + c], s01 = src[(j0 * sw + i1) * nc + c];
+        const int64_t s10 = src[(j1 * sw + i0) * nc + c], s11 = src[(j1 * sw + i1) * nc + c];
+        const int64_t top = s00 * (one - fu) + s01 * fu, bot = s10 * (one - fu) + s11 * fu;
+        o[c] = uint8_t((top * (one - fv) + bot * fv + (int64_t(1) << 31)) >> 32);
+      }
+    }
+  return 0;
+}
+
+// CCITT Group 4 (T.6) decode, the algorithm of io/pdf_parse.py's
+// g4_decode_plain: out (max_rows x columns, zeroed) gets 1 where a pixel is
+// black. Returns the rows decoded, -1 on a corrupt code (with the row in
+// *bad_row), -2 on an extension code.
+int64_t pdf_g4_decode(const uint8_t* data, int64_t n, int64_t columns, int64_t rows,
+                      int32_t byte_align, const int32_t* white, const int32_t* black,
+                      const int32_t* modes, uint8_t* out, int64_t max_rows,
+                      int64_t* bad_row) {
+  const int64_t end = n * 8;
+  int64_t pos = 0;
+  auto peek = [&](int count) -> uint32_t {
+    uint32_t v = 0;
+    for (int i = 0; i < count; ++i) {
+      const int64_t p = pos + i;
+      const uint32_t bit = p < end ? (data[p >> 3] >> (7 - (p & 7))) & 1 : 0;
+      v = (v << 1) | bit;
+    }
+    return v;
+  };
+  std::vector<int64_t> ref = {columns, columns, columns}, cur, clean;
+  int64_t done = 0;
+  while (rows <= 0 || done < rows) {
+    if (done >= max_rows) break;
+    if (byte_align && (pos & 7)) pos += 8 - (pos & 7);
+    if (pos >= end) break;
+    if (peek(12) == 1) break;  // EOFB
+    cur.clear();
+    int64_t a0 = -1;
+    int color = 0;
+    size_t i = 0;
+    bool bad = false;
+    while (a0 < columns) {
+      while (i > 0 && ref[i - 1] > a0) --i;
+      while (ref[i] <= a0 || int64_t(i & 1) != color) ++i;
+      const int64_t b1 = ref[i], b2 = ref[i + 1];
+      const int32_t entry = modes[peek(13)];
+      if (entry == 0) { bad = true; break; }
+      pos += entry >> 16;
+      const int mode = entry & 0xFFFF;
+      if (mode == 8) {  // pass
+        a0 = b2;
+      } else if (mode == 9) {  // horizontal
+        const int64_t start = std::max<int64_t>(a0, 0);
+        int64_t run[2] = {0, 0};
+        for (int h = 0; h < 2 && !bad; ++h) {
+          const int32_t* table = ((h == 0 ? color : 1 - color) == 0) ? white : black;
+          for (;;) {
+            const int32_t e = table[peek(13)];
+            if (e == 0) { bad = true; break; }
+            pos += e >> 16;
+            run[h] += e & 0xFFFF;
+            if ((e & 0xFFFF) < 64) break;
+          }
+        }
+        if (bad) break;
+        const int64_t a1 = std::min(start + run[0], columns);
+        const int64_t a2 = std::min(a1 + run[1], columns);
+        cur.push_back(a1);
+        cur.push_back(a2);
+        a0 = a2;
+      } else if (mode == 10) {
+        return -2;
+      } else {
+        const int64_t a1 = b1 + mode - 3;
+        if (a1 < 0 || a1 > columns || (!cur.empty() && a1 < cur.back())) { bad = true; break; }
+        cur.push_back(a1);
+        a0 = a1;
+        color = 1 - color;
+      }
+      if (pos > end + 24) { bad = true; break; }
+    }
+    if (bad) {
+      *bad_row = done;
+      return -1;
+    }
+    uint8_t* row = out + done * columns;
+    for (size_t k = 0; k + 1 < cur.size(); k += 2)
+      for (int64_t x = cur[k]; x < cur[k + 1]; ++x) row[x] = 1;
+    if (cur.size() % 2)
+      for (int64_t x = cur.back(); x < columns; ++x) row[x] = 1;
+    ++done;
+    clean.clear();
+    for (int64_t c : cur) {
+      if (c >= columns) break;
+      if (!clean.empty() && clean.back() == c) clean.pop_back();
+      else clean.push_back(c);
+    }
+    ref = clean;
+    ref.push_back(columns);
+    ref.push_back(columns);
+    ref.push_back(columns);
+  }
+  return done;
+}
+
+}  // extern "C"

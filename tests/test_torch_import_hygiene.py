@@ -2,8 +2,9 @@
 
 - No module of ``spine_vision_torch`` (nor ``chip_smoke.py``) imports JAX,
   Flax, optax or the JAX package; the port imports and runs without them.
-  Nor cv2, PIL, rapidfuzz, PyMuPDF, pandas, pydantic, tqdm or openpyxl: the
-  port runs where none is installed.
+  Nor cv2, PIL, rapidfuzz, PyMuPDF, fontTools, pandas, pydantic, tqdm or
+  openpyxl: the port runs where none is installed (it renders PDF pages
+  itself, with their fonts).
 - Entry points run on the card by default and raise when there is none,
   instead of carrying on quietly on the CPU.
 """
@@ -21,7 +22,8 @@ from spine_vision_torch.models.classifier import Classifier, CoordinateRegressor
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "spine_vision_tpu", "cv2", "PIL",
-             "rapidfuzz", "fitz", "pymupdf", "pandas", "pydantic", "tqdm", "openpyxl")
+             "rapidfuzz", "fitz", "pymupdf", "pandas", "pydantic", "tqdm", "openpyxl",
+             "fontTools")
 SOURCES = sorted((ROOT / "spine_vision_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -54,6 +56,11 @@ def test_port_imports_with_jax_blocked():
         "import spine_vision_torch.data.rsna, spine_vision_torch.data.phenikaa\n"
         "import spine_vision_torch.parallel, spine_vision_torch.io.jpeg\n"
         "import spine_vision_torch.io.jpeg2000\n"
+        "import spine_vision_torch.io.pdf, spine_vision_torch.io.pdf_parse\n"
+        "import spine_vision_torch.io.pdf_fonts, spine_vision_torch.io.pdf_render\n"
+        "from spine_vision_torch.io.pdf import pdf_first_page_to_array\n"
+        "assert pdf_first_page_to_array('tests/fixtures/torch_pdf/report_type42.pdf', 72)"
+        ".shape == (842, 596, 3)\n"
         "import spine_vision_torch.cli, spine_vision_torch.cli.train\n"
         "import spine_vision_torch.viz, spine_vision_torch.viz.tracker\n"
         "import spine_vision_torch.train.ocr, spine_vision_torch.ops.ctc\n"

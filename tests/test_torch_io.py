@@ -692,16 +692,23 @@ def test_pil_transfer_syntaxes_raise_before_decoding(tmp_path, ts):
 
 def test_pdf_raises_the_reference_import_error(tmp_path):
     """Without PyMuPDF the JAX package raises ImportError at every PDF entry
-    point; the port raises it always, without importing PyMuPDF."""
-    pdf = tmp_path / "r.pdf"
-    pdf.write_bytes(b"%PDF-1.4\n")
+    point; the port renders the same file without it (its own renderer,
+    ``io/pdf_render.py``): RGB uint8 at the page box times dpi / 72."""
+    from pathlib import Path
+
+    pdf = Path(__file__).resolve().parent / "fixtures" / "torch_pdf" / "rotate90.pdf"
     for name in ("pdf_to_arrays", "pdf_first_page_to_array"):
         with pytest.raises(ImportError, match="PyMuPDF"):
             getattr(jpdf, name)(pdf)
-        with pytest.raises(ImportError, match="PyMuPDF"):
-            getattr(tpdf, name)(pdf)
     with pytest.raises(ImportError, match="PyMuPDF"):
-        tpdf.pdf_to_images(pdf, tmp_path / "out")
+        jpdf.pdf_to_images(pdf, tmp_path / "jax")
+    pages = tpdf.pdf_to_arrays(pdf, dpi=144)
+    first = tpdf.pdf_first_page_to_array(pdf, dpi=144)
+    # CropBox 320 x 240 pt turned by /Rotate 90, at 2 pixels a point.
+    assert [p.shape for p in pages] == [(640, 480, 3)] and pages[0].dtype == np.uint8
+    np.testing.assert_array_equal(first, pages[0])
+    assert [p.name for p in tpdf.pdf_to_images(pdf, tmp_path / "out", dpi=144)] == [
+        "rotate90_page1.png"]
 
 
 def test_io_exports_the_jax_names():

@@ -8,6 +8,7 @@ then the file contract, the loaders and the helpers against the JAX
 package's.
 """
 
+import json
 import logging
 from pathlib import Path
 
@@ -89,17 +90,31 @@ def test_report_files(extractor, tmp_path, caplog):
             extractor.extract(tmp_path / name)
         with pytest.raises(NotImplementedError, match="item 13"):
             extractor.extract_lines(tmp_path / name)
-    # A PDF without PyMuPDF warns and gives no lines, as in the JAX package;
-    # its explicit entry points raise the ImportError.
+    # A PDF's first page renders through the port's renderer (io/pdf.py,
+    # where the JAX package calls PyMuPDF): the clean report that Pillow
+    # saved at 200 dpi reads its three fields; a corrupt one warns and gives
+    # no lines, as in the JAX package.
+    import shutil
+
+    from spine_vision_torch.io.pdf import pdf_first_page_to_array
+
+    fixture = FIXTURES.parent / "torch_pdf" / "raster_gray_200.pdf"
+    truth = ocr_parity.load_record(FIXTURES, ["report_clean.png"])[0]
     for name in ("report.pdf", "report.PDF"):
-        with caplog.at_level(logging.WARNING, logger="spine_vision_torch"):
-            assert extractor.extract(tmp_path / name) == []
-            assert extractor.extract_lines(tmp_path / name) == []
-        assert "PyMuPDF" in caplog.text
-    with pytest.raises(ImportError, match="PyMuPDF"):
-        extractor.extract_from_pdf(tmp_path / "report.pdf")
-    with pytest.raises(ImportError, match="PyMuPDF"):
-        extractor.extract_from_pdf_crop(tmp_path / "report.pdf", (0, 0, 10, 10))
+        shutil.copy(fixture, tmp_path / name)
+        got = extractor.extract_lines(tmp_path / name)
+        want = extractor.extract_lines_from_image(pdf_first_page_to_array(fixture))
+        assert [t for t, _ in got] == [t for t, _ in want] == extractor.extract(tmp_path / name)
+        assert all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
+    text = " ".join(extractor.extract_from_pdf(tmp_path / "report.pdf"))
+    fields = json.loads((FIXTURES / "manifest.json").read_text())["pages"]
+    fields = next(p for p in fields if p["file"] == truth.file)["truth"]["fields"]
+    assert all(fields[k] in text for k in ("id", "name", "birthday")), text
+    assert extractor.extract_from_pdf_crop(tmp_path / "report.pdf", (0, 0, 10, 10)) == []
+    (tmp_path / "cut.pdf").write_bytes(fixture.read_bytes()[:200])
+    with caplog.at_level(logging.WARNING, logger="spine_vision_torch"):
+        assert extractor.extract(tmp_path / "cut.pdf") == []
+    assert "OCR failed" in caplog.text
     bad = tmp_path / "corrupt.png"
     bad.write_bytes(b"\x89PNG\r\n\x1a\n" + b"\x00" * 40)
     with caplog.at_level(logging.WARNING, logger="spine_vision_torch"):

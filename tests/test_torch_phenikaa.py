@@ -253,6 +253,103 @@ def test_shipped_ocr_reads_a_patient_named_report(tmp_path):
         f"Patient ID,IVD label,Modic_0,Modic_1\n{record['id']},1,1,0\n{record['id']},2,0,1\n")
 
 
+PDF_FIXTURES = Path(__file__).resolve().parent / "fixtures" / "torch_pdf"
+
+
+def test_shipped_ocr_matches_patient_named_pdf_reports(tmp_path):
+    """``preprocess_phenikaa`` with the shipped OCR weights (on the CPU) over
+    two vector PDF reports (``pdf.fonttype`` 42 and 3) named after their
+    patients: each ID read through the PDF crop path (no mock of
+    ``extract_from_pdf_crop``), each patient's folder copied, the table kept
+    to their IDs."""
+    import json
+
+    from spine_vision_torch.data.phenikaa.matching import ascii_fold
+
+    record = json.loads((PDF_FIXTURES / "record.json").read_text())["reports"]
+    data = tmp_path / "raw"
+    reports, tables = data / "labels" / "reports", data / "labels" / "tables"
+    reports.mkdir(parents=True)
+    tables.mkdir(parents=True)
+    rows = ["Patient ID,IVD label,Modic"]
+    crops = []
+    for name in ("report_type42.pdf", "report_type3.pdf"):
+        f = record[name]
+        day, month, year = f["birthday"].split("/")
+        shutil.copy(PDF_FIXTURES / name,
+                    reports / ("_".join(ascii_fold(f["name"]).upper().split()) + f"_{day}{month}{year}.pdf"))
+        _make_tree(data / "images", ["_".join(ascii_fold(f["name"]).upper().split())
+                                     + f"_{year}_20240101/SAG T1"])
+        rows += [f"{f['id']},1,0", f"{f['id']},2,1"]
+    rows.append("250000001,1,0")
+    (tables / "labels.csv").write_text("\n".join(rows) + "\n")
+    extractor = DocumentExtractor(device="cpu")
+    crop = extractor.extract_from_pdf_crop
+
+    def spy(path, region, dpi=None):
+        out = crop(path, region, dpi)
+        crops.append((Path(path).suffix, tuple(region), out))
+        return out
+
+    extractor.extract_from_pdf_crop = spy
+    config = tp.PreprocessConfig(data_path=data, output_path=tmp_path / "interim")
+    result = tp.preprocess_phenikaa(config, extractor=extractor)
+    ids = sorted(record[n]["id"] for n in ("report_type42.pdf", "report_type3.pdf"))
+    assert result.num_samples == 2 and sorted(p.name for p in
+                                              config.output_image_path.iterdir()) == ids
+    assert sorted(out[0] for _, _, out in crops) == [f"Số phiếu: {i}" for i in ids]
+    assert all(region == tp.DEFAULT_PDF_ID_CROP_REGION for _, region, _ in crops)
+    table = config.output_table_path.read_text().splitlines()
+    assert sorted({line.split(",")[0] for line in table[1:]}) == ids
+
+
+def test_pdf_dpi_rescales_the_crop_as_jax_does(monkeypatch, tmp_path):
+    """``spine-vision-torch dataset phenikaa --pdf-dpi 150``: the crop is the
+    200-dpi region scaled by 150 / 200, the pixels the JAX method cuts from
+    the same page (its own ``extract_from_pdf_crop`` and
+    ``_render_first_page`` on a stub ``fitz`` that serves the port's
+    render)."""
+    import sys
+    import types
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_fitz_stub import fitz_stub
+
+    from spine_vision_torch import cli
+
+    monkeypatch.setitem(sys.modules, "fitz", fitz_stub())
+    data = tmp_path / "raw"
+    (data / "labels" / "reports").mkdir(parents=True)
+    (data / "labels" / "tables").mkdir(parents=True)
+    (data / "images" / "NGUYEN_VAN_AN_1980_20240101").mkdir(parents=True)
+    (data / "labels" / "tables" / "labels.csv").write_text("Patient ID,IVD label,Modic\n1,1,0\n")
+    report = data / "labels" / "reports" / "NGUYEN_VAN_AN_15051980.pdf"
+    shutil.copy(PDF_FIXTURES / "report_type42.pdf", report)
+    seen = []
+    monkeypatch.setattr(DocumentExtractor, "extract_from_image",
+                        lambda self, image: seen.append(np.array(image)) or [])
+    monkeypatch.setattr(DocumentExtractor, "extract_lines", lambda self, path: [])
+    import logging
+
+    # The CLI's setup_logger stops records at the package logger: restore it,
+    # so that later tests in this worker still capture records.
+    package = logging.getLogger("spine_vision_torch")
+    saved = (package.handlers[:], package.level, package.propagate)
+    try:
+        assert cli.cli(["--device", "cpu", "dataset", "phenikaa", "--data-path", str(data),
+                        "--output-path", str(tmp_path / "out"), "--pdf-dpi", "150"]) == 0
+    finally:
+        package.handlers[:], package.propagate = saved[0], saved[2]
+        package.setLevel(saved[1])
+    fake = types.SimpleNamespace(pdf_dpi=150, _page_cache=None, regions=[])
+    fake._render_first_page = lambda path, dpi: JaxDocumentExtractor._render_first_page(
+        fake, path, dpi)
+    fake.extract_from_image = lambda image: fake.regions.append(np.array(image)) or []
+    JaxDocumentExtractor.extract_from_pdf_crop(fake, report, tp.DEFAULT_PDF_ID_CROP_REGION)
+    assert len(seen) == 1 and seen[0].shape == (150, 300, 3)  # (825, 150, 1125, 300)
+    np.testing.assert_array_equal(seen[0], fake.regions[0])
+
+
 def test_orbax_checkpoint_raises_naming_item_10(tmp_path):
     """An Orbax directory raises, naming its ROADMAP Queue 1 entry (it named
     item 10 until the port's OCR trainers, which write .npz, landed)."""
